@@ -1,0 +1,13 @@
+"""NeurST on PyTorch and CUDA for NVIDIA Hopper: the port of
+``neurst_tpu`` (the JAX/TPU package, kept beside it as the reference).
+
+Module paths mirror ``neurst_tpu``'s.  The package imports torch and
+nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
+models and search layers; kernels are built on first use.
+"""
+
+from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
+from neurst_tpu_torch.layers.search.sequence_search import \
+    build_search_layer  # noqa: F401
+from neurst_tpu_torch.models import speech_transformer  # noqa: F401
+from neurst_tpu_torch.models.model import build_model  # noqa: F401

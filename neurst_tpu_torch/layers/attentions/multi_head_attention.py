@@ -1,0 +1,142 @@
+"""Multi-head attention with a static-shape decode cache (counterpart of
+``neurst_tpu/layers/attentions/multi_head_attention.py``).
+
+Fused projections: ``qkv_transform`` (self) and ``q_transform`` /
+``kv_transform`` (cross) are single ``nn.Linear``s whose outputs split
+as [..., n_proj, heads, head_dim], matching the flax kernels
+[D, n_proj, N, H].  Logits and softmax run in float32 whatever the
+compute dtype.
+
+The decode cache is a dict {"keys", "values"} of [B * beam, max_len,
+N, H] buffers.  Unlike the functional JAX update, ``decode_step``
+writes the step's key/value into those buffers in place, so a decode
+step allocates no new cache.  Under beam search the rows never move:
+``_attend_indirect`` reads position j of row q from beam row
+``beam_anc[b, q, j]``, selected with a gather (the JAX module selects
+the same dot products with a one-hot).
+"""
+
+import torch
+from torch import nn
+
+from neurst_tpu_torch.layers.common_layers import linear
+from neurst_tpu_torch.ops.flash_attention import flash_attention
+
+__all__ = ["MultiHeadAttention", "MultiHeadSelfAttention"]
+
+
+class MultiHeadAttention(nn.Module):
+    """Cross-attention (q from the query; k/v from memory or a cache)."""
+
+    def __init__(self, num_heads: int, num_units: int, dtype=torch.float32):
+        super().__init__()
+        if num_units % num_heads:
+            raise ValueError(f"num_units {num_units} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = num_units // num_heads
+        self.dtype = dtype
+        self._build_projections(num_units)
+        self.output_transform = nn.Linear(num_units, num_units)
+
+    def _build_projections(self, num_units):
+        self.q_transform = nn.Linear(num_units, num_units)
+        self.kv_transform = nn.Linear(num_units, 2 * num_units)
+
+    def _proj(self, layer, x, n_proj):
+        """-> [B, L, n_proj, N, H] in the compute dtype."""
+        y = linear(layer, x, self.dtype)
+        return y.view(*y.shape[:-1], n_proj, self.num_heads, self.head_dim)
+
+    def _output(self, out):
+        """[B, F, N, H] -> output_transform -> [B, F, D]."""
+        return linear(self.output_transform, out.reshape(*out.shape[:2], -1),
+                      self.dtype)
+
+    def _attend(self, q, k, v, bias):
+        """q [B, F, N, H], k/v [B, T, N, H], bias broadcastable to
+        [B, N, F, T]."""
+        q = q * (self.head_dim ** -0.5)
+        logits = torch.einsum("btnh,bfnh->bnft", k.float(), q.float())
+        if bias is not None:
+            logits = logits + bias.float()
+        weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = torch.einsum("bnft,btnh->bfnh", weights, v.to(self.dtype))
+        return self._output(out)
+
+    def compute_kv(self, memory):
+        """Projects memory to (k, v), each [B, T, N, H]."""
+        kv = self._proj(self.kv_transform, memory, 2)
+        return kv[:, :, 0], kv[:, :, 1]
+
+    def forward(self, query, memory=None, bias=None, cache=None,
+                flash_lengths=None):
+        """-> [B, F, D].  With ``flash_lengths`` (valid key counts, no
+        cache) the flash kernel computes the attention."""
+        q = self._proj(self.q_transform, query, 1)[:, :, 0]
+        if cache is not None:
+            k, v = cache["keys"], cache["values"]
+        else:
+            k, v = self.compute_kv(memory)
+        if cache is None and flash_lengths is not None:
+            return self._output(flash_attention(q, k, v, flash_lengths))
+        if cache is not None and q.shape[0] != k.shape[0]:
+            # beam-shared k/v: the [B * beam] query rows join the query
+            # axis of their sentence's [B] memory, then split again
+            b = k.shape[0]
+            beam, f = q.shape[0] // b, q.shape[1]
+            qg = q.reshape(b, beam * f, *q.shape[2:])
+            out = self._attend(qg, k, v, bias)
+            return out.reshape(b * beam, f, out.shape[-1])
+        return self._attend(q, k, v, bias)
+
+
+class MultiHeadSelfAttention(MultiHeadAttention):
+    """Self-attention with a fused qkv projection and the static cache."""
+
+    def _build_projections(self, num_units):
+        self.qkv_transform = nn.Linear(num_units, 3 * num_units)
+
+    def _attend_indirect(self, q, k, v, bias, beam_anc):
+        """Decode-step attention reading the cache through the beam
+        ancestor matrix: position j of row (b, q) lives at beam row
+        ``beam_anc[b, q, j]`` of its sentence.
+
+        q [BB, 1, N, H]; k/v [BB, T, N, H]; beam_anc int64 [B, beam, T]
+        with BB = B * beam."""
+        batch, beam, t_len = beam_anc.shape
+        idx = beam_anc[:, :, :, None, None].expand(
+            batch, beam, t_len, self.num_heads, self.head_dim)
+
+        def select(x):
+            xg = x.reshape(batch, beam, t_len, self.num_heads, self.head_dim)
+            return torch.gather(xg, 1, idx).reshape(x.shape)
+
+        return self._attend(q, select(k), select(v), bias)
+
+    def forward(self, query, bias=None, cache=None, decode_step=None,
+                flash_lengths=None, flash_causal=False, beam_anc=None):
+        """Self-attention over ``query`` [B, F, D] -> [B, F, D].
+
+        With ``flash_lengths`` (no cache) the flash kernel computes it
+        (key-length mask, optional causal).  Incremental mode
+        (``decode_step`` an int): the step's key/value are written into
+        ``cache`` at ``decode_step`` in place; the caller's ``bias`` masks
+        positions after it."""
+        qkv = self._proj(self.qkv_transform, query, 3)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is None and flash_lengths is not None:
+            return self._output(flash_attention(q, k, v, flash_lengths,
+                                                causal=flash_causal))
+        if cache is not None and decode_step is not None:
+            if not isinstance(decode_step, int):
+                raise NotImplementedError(
+                    "per-row decode steps (speculative decode) are not "
+                    "ported; pass the step as an int")
+            f = q.shape[1]
+            cache["keys"][:, decode_step:decode_step + f] = k
+            cache["values"][:, decode_step:decode_step + f] = v
+            k, v = cache["keys"], cache["values"]
+            if beam_anc is not None and f == 1:
+                return self._attend_indirect(q, k, v, bias, beam_anc)
+        return self._attend(q, k, v, bias)

@@ -1,0 +1,110 @@
+"""Transformer decoder stack with an explicit decoding cache
+(counterpart of ``neurst_tpu/layers/decoders/transformer_decoder.py``,
+the per-layer layout).
+
+The cache is a dict
+    {"layer_0": {"self": {keys, values}, "memory": {keys, values}}, ...}
+with self keys/values [B, max_decode_len, N, H] (static shape, written
+in place at each step) and memory keys/values [B, src_len, N, H]
+(precomputed once).
+"""
+
+import torch
+from torch import nn
+
+from neurst_tpu_torch.layers import layer_utils
+from neurst_tpu_torch.layers.common_layers import LayerNorm
+from neurst_tpu_torch.layers.transformer_layers import TransformerDecoderLayer
+
+__all__ = ["TransformerDecoder"]
+
+
+class TransformerDecoder(nn.Module):
+
+    def __init__(self, num_layers: int, hidden_size: int,
+                 num_attention_heads: int, filter_size: int,
+                 ffn_activation: str = "relu", post_normalize: bool = False,
+                 layer_postprocess_epsilon: float = 1e-6,
+                 enable_flash_attention: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.num_layers = num_layers
+        self.num_heads = num_attention_heads
+        self.head_dim = hidden_size // num_attention_heads
+        self.post_normalize = post_normalize
+        self.enable_flash_attention = bool(enable_flash_attention)
+        self.dtype = dtype
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerDecoderLayer(
+                hidden_size, num_attention_heads, filter_size,
+                ffn_activation, post_normalize, layer_postprocess_epsilon,
+                dtype))
+        if not post_normalize:
+            self.output_ln = LayerNorm(hidden_size,
+                                       layer_postprocess_epsilon, dtype)
+
+    def _layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def create_decoding_internal_cache(self, encoder_outputs,
+                                       decode_padded_length: int):
+        """Zeroed self-attention buffers + precomputed cross k/v."""
+        batch = encoder_outputs.shape[0]
+        cache = {}
+        for i, layer in enumerate(self._layers()):
+            def zeros():
+                return torch.zeros(
+                    (batch, decode_padded_length, self.num_heads,
+                     self.head_dim), dtype=self.dtype,
+                    device=encoder_outputs.device)
+            layer_cache = {"self": {"keys": zeros(), "values": zeros()}}
+            layer_cache.update(layer.memorize_memory(encoder_outputs))
+            cache[f"layer_{i}"] = layer_cache
+        return cache
+
+    def forward(self, inputs, memory=None, memory_padding=None, cache=None,
+                decode_step=None, decode_lagging=None, beam_anc=None):
+        """Teacher forcing: ``inputs`` [B, T, D] under a causal mask.
+        Stepwise decode: ``inputs`` [B, 1, D] at int ``decode_step`` with
+        a cache from ``create_decoding_internal_cache`` (updated in
+        place).  ``beam_anc`` [B, beam, max_len]: the beam ancestor
+        matrix the self-attention reads the cache through.
+
+        Returns (outputs, cache)."""
+        if decode_lagging is not None:
+            raise NotImplementedError("decode_lagging (wait-k) is not "
+                                      "ported yet")
+        use_flash = (self.enable_flash_attention and decode_step is None
+                     and cache is None)
+        self_bias = memory_bias = cross_flash_lengths = None
+        if decode_step is None:
+            if not use_flash:
+                self_bias = layer_utils.causal_self_attention_bias(
+                    inputs.shape[1], device=inputs.device)
+        else:
+            if not isinstance(decode_step, int):
+                raise NotImplementedError(
+                    "per-row decode steps (speculative decode) are not "
+                    "ported; pass the step as an int")
+            max_len = cache["layer_0"]["self"]["keys"].shape[1]
+            positions = torch.arange(max_len, device=inputs.device)
+            self_bias = torch.where(
+                positions <= decode_step, 0.0,
+                layer_utils.NEG_INF)[None, None, None, :]
+        if memory_padding is not None:
+            if use_flash:
+                cross_flash_lengths = (1.0 - memory_padding).sum(
+                    dim=1).to(torch.int32)
+            else:
+                memory_bias = layer_utils.input_padding_to_bias(
+                    memory_padding)
+        x = inputs
+        for i, layer in enumerate(self._layers()):
+            x = layer(x, self_attention_bias=self_bias, memory=memory,
+                      memory_bias=memory_bias,
+                      cache=None if cache is None else cache[f"layer_{i}"],
+                      decode_step=decode_step, self_flash_causal=use_flash,
+                      cross_flash_lengths=cross_flash_lengths,
+                      beam_anc=beam_anc)
+        if not self.post_normalize:
+            x = self.output_ln(x)
+        return x, cache

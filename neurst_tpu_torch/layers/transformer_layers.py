@@ -1,0 +1,95 @@
+"""Transformer encoder/decoder blocks (counterpart of
+``neurst_tpu/layers/transformer_layers.py``): pre-norm (LN -> sublayer
+-> residual) or post-norm (sublayer -> residual -> LN)."""
+
+import torch
+from torch import nn
+
+from neurst_tpu_torch.layers.attentions.multi_head_attention import (
+    MultiHeadAttention, MultiHeadSelfAttention)
+from neurst_tpu_torch.layers.common_layers import LayerNorm, TransformerFFN
+
+__all__ = ["TransformerEncoderLayer", "TransformerDecoderLayer"]
+
+
+class _LayerCommon(nn.Module):
+    """Self-attention and FFN sublayers with their LayerNorms."""
+
+    def __init__(self, hidden_size: int, num_attention_heads: int,
+                 filter_size: int, ffn_activation: str = "relu",
+                 post_normalize: bool = False,
+                 layer_postprocess_epsilon: float = 1e-6,
+                 dtype=torch.float32):
+        super().__init__()
+        self.post_normalize = post_normalize
+        self.self_attention = MultiHeadSelfAttention(
+            num_attention_heads, hidden_size, dtype=dtype)
+        self.self_attention_ln = LayerNorm(
+            hidden_size, layer_postprocess_epsilon, dtype)
+        self.ffn = TransformerFFN(hidden_size, filter_size, hidden_size,
+                                  activation=ffn_activation, dtype=dtype)
+        self.ffn_ln = LayerNorm(hidden_size, layer_postprocess_epsilon, dtype)
+
+    def _prepost(self, ln, x, sublayer):
+        y = x + sublayer(x if self.post_normalize else ln(x))
+        return ln(y) if self.post_normalize else y
+
+
+class TransformerEncoderLayer(_LayerCommon):
+
+    def forward(self, x, attention_bias=None, flash_lengths=None,
+                flash_causal=False):
+        x = self._prepost(
+            self.self_attention_ln, x,
+            lambda y: self.self_attention(y, bias=attention_bias,
+                                          flash_lengths=flash_lengths,
+                                          flash_causal=flash_causal))
+        return self._prepost(self.ffn_ln, x, self.ffn)
+
+
+class TransformerDecoderLayer(_LayerCommon):
+
+    def __init__(self, hidden_size: int, num_attention_heads: int,
+                 filter_size: int, ffn_activation: str = "relu",
+                 post_normalize: bool = False,
+                 layer_postprocess_epsilon: float = 1e-6,
+                 dtype=torch.float32):
+        super().__init__(hidden_size, num_attention_heads, filter_size,
+                         ffn_activation, post_normalize,
+                         layer_postprocess_epsilon, dtype)
+        self.cross_attention = MultiHeadAttention(
+            num_attention_heads, hidden_size, dtype=dtype)
+        self.cross_attention_ln = LayerNorm(
+            hidden_size, layer_postprocess_epsilon, dtype)
+
+    def memorize_memory(self, memory):
+        """Precomputed cross-attention k/v for decoding."""
+        k, v = self.cross_attention.compute_kv(memory)
+        return {"memory": {"keys": k, "values": v}}
+
+    def forward(self, x, self_attention_bias=None, memory=None,
+                memory_bias=None, cache=None, decode_step=None,
+                self_flash_causal=False, cross_flash_lengths=None,
+                beam_anc=None):
+        """-> [B, F, D].  ``cache`` (stepwise decode) holds "self" (written
+        in place) and "memory" (the precomputed cross k/v).
+        ``self_flash_causal`` / ``cross_flash_lengths`` (teacher forcing
+        only) run both attentions through the flash kernel."""
+        flash_lengths = None
+        if self_flash_causal and cache is None:
+            flash_lengths = torch.full((x.shape[0],), x.shape[1],
+                                       dtype=torch.int32, device=x.device)
+        x = self._prepost(
+            self.self_attention_ln, x,
+            lambda y: self.self_attention(
+                y, bias=self_attention_bias,
+                cache=None if cache is None else cache["self"],
+                decode_step=decode_step, flash_lengths=flash_lengths,
+                flash_causal=self_flash_causal, beam_anc=beam_anc))
+        x = self._prepost(
+            self.cross_attention_ln, x,
+            lambda y: self.cross_attention(
+                y, memory=memory, bias=memory_bias,
+                cache=None if cache is None else cache["memory"],
+                flash_lengths=cross_flash_lengths))
+        return self._prepost(self.ffn_ln, x, self.ffn)

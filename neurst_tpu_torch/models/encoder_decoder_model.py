@@ -1,0 +1,167 @@
+"""Encoder-decoder sequence model (counterpart of
+``neurst_tpu/models/encoder_decoder_model.py``: ``Seq2SeqModule`` and
+``EncoderDecoderModel`` in one ``nn.Module``).
+
+Subclasses supply the source side through ``embed_source``; this class
+holds the target modality with the tied softmax, the encoder and the
+decoder, and the generation interface beam search drives:
+``prepare_generation`` -> (``decode_step``, generation initializer).
+The port runs inference: dropout and training come with the training
+slice.
+"""
+
+import inspect
+from typing import Any, Dict
+
+import torch
+
+from neurst_tpu_torch.layers.common_layers import WordEmbedding
+from neurst_tpu_torch.layers.decoders.transformer_decoder import \
+    TransformerDecoder
+from neurst_tpu_torch.layers.encoders.transformer_encoder import \
+    TransformerEncoder
+from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
+
+__all__ = ["EncoderDecoderModel"]
+
+# config keys that only matter to training or to the JAX layouts: the
+# port runs inference on the per-layer stack (param_bridge unstacks
+# scanned checkpoints); options whose switch is off need no support
+_INFERENCE_IGNORED = {
+    "attention_dropout_rate", "ffn_dropout_rate",
+    "layer_postprocess_dropout_rate", "scan_layers", "pipeline_stages",
+    "pipeline_microbatches", "ring_attention_axis", "moe_layer_frequency",
+    "moe_top_k", "moe_capacity_factor", "moe_aux_loss_coef",
+    "moe_router_jitter"}
+
+
+def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:
+    accepted = set(inspect.signature(stack_cls.__init__).parameters)
+    out = {}
+    for key, value in args.items():
+        if not key.startswith(prefix) or value is None:
+            continue
+        sub = key[len(prefix):]
+        if sub == "attention_type":
+            if value != "dot_product":
+                raise NotImplementedError(f"{key}={value} is not ported")
+        elif sub in accepted:
+            out[sub] = value
+        elif sub in _INFERENCE_IGNORED or not value:
+            continue
+        else:
+            raise NotImplementedError(f"{key}={value} is not ported")
+    return out
+
+
+class EncoderDecoderModel(BaseModel):
+
+    def __init__(self, args, src_meta, trg_meta):
+        super().__init__(args)
+        self.src_meta = dict(src_meta or {})
+        self.trg_meta = dict(trg_meta or {})
+        self.dtype = dtype_by_name(args.get("dtype"))
+        if not args.get("modality.share_embedding_and_softmax_weights"):
+            raise NotImplementedError(
+                "the port has the tied embedding/softmax "
+                "(modality.share_embedding_and_softmax_weights: true)")
+        trg_dim = args.get("modality.target.dim") or args["modality.dim"]
+        self.target_symbol_modality = WordEmbedding(
+            self.trg_meta["vocab_size"], trg_dim,
+            share_softmax_weights=True,
+            timing=(args.get("modality.target.timing")
+                    or args.get("modality.timing")),
+            dtype=self.dtype)
+        self.encoder = TransformerEncoder(
+            **_stack_kwargs(TransformerEncoder, args, "encoder."),
+            dtype=self.dtype)
+        decoder_args = {k: v for k, v in args.items()
+                        if k != "decoder.attention_monotonic"}
+        self.decoder = TransformerDecoder(
+            **_stack_kwargs(TransformerDecoder, decoder_args, "decoder."),
+            dtype=self.dtype)
+        self._has_dropout = any(
+            float(args.get(f"{side}.{rate}") or 0.0) > 0.0
+            for side in ("encoder", "decoder")
+            for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                         "layer_postprocess_dropout_rate"))
+
+    def _check_inference(self):
+        if self.training and self._has_dropout:
+            raise NotImplementedError(
+                "training with dropout is the training slice; call "
+                ".eval() to run inference")
+
+    def _as_tensors(self, inputs):
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in inputs.items()}
+
+    def embed_source(self, inputs):
+        """-> (source embeddings [B, S, D], source padding [B, S])."""
+        raise NotImplementedError
+
+    def encode(self, inputs):
+        """Returns (encoder_outputs [B, S, D], memory_padding [B, S])."""
+        self._check_inference()
+        emb, src_padding = self.embed_source(self._as_tensors(inputs))
+        return self.encoder(emb, src_padding), src_padding
+
+    def forward(self, inputs):
+        """Teacher forcing -> float32 logits [B, T, trg_vocab]."""
+        enc, src_padding = self.encode(inputs)
+        trg = torch.as_tensor(inputs["trg_input"], device=self.device)
+        dec_out, _ = self.decoder(self.target_symbol_modality(trg),
+                                  memory=enc, memory_padding=src_padding)
+        return self.target_symbol_modality.attend(dec_out)
+
+    def init_cache(self, encoder_outputs, memory_padding,
+                   decode_padded_length: int):
+        """Static-shape decoding cache, memory padding included."""
+        return {"layers": self.decoder.create_decoding_internal_cache(
+                    encoder_outputs, decode_padded_length),
+                "memory_padding": memory_padding}
+
+    def beam_cache_indirection_ok(self) -> bool:
+        """The transformer decoder reads its self cache through a
+        ``beam_anc`` ancestor matrix."""
+        return True
+
+    def decode_step(self, ids, cache, step: int):
+        """One decode step: ids [N] at position ``step`` -> (float32
+        logits [N, V], cache).  A ``beam_anc`` entry in the cache is
+        passed to the decoder's self-attention."""
+        emb = self.target_symbol_modality(ids, time=step)
+        dec_out, layers = self.decoder(
+            emb[:, None, :], memory=None,
+            memory_padding=cache["memory_padding"], cache=cache["layers"],
+            decode_step=step, beam_anc=cache.get("beam_anc"))
+        new_cache = dict(cache)
+        new_cache["layers"] = layers
+        return self.target_symbol_modality.attend(dec_out[:, 0, :]), \
+            new_cache
+
+    @property
+    def bos_id(self) -> int:
+        return self.trg_meta.get("bos_id", self.trg_meta["eos_id"])
+
+    def prepare_generation(self, inputs, decode_padded_length: int):
+        """Encodes the source and builds the decode closure.
+
+        Returns (symbols_to_logits_fn, generation_initializer) with
+        symbols_to_logits_fn(ids [N], cache, t) -> (logits [N, V], cache)
+        and the initializer keys decoder_input, decoder_internal_cache,
+        encoder_inputs_maxlen, eos_id, unk_id, beam_cache_indirection_ok.
+        """
+        enc, src_padding = self.encode(inputs)
+        cache = self.init_cache(enc, src_padding, decode_padded_length)
+        batch = enc.shape[0]
+        src_len = (1.0 - src_padding).sum(dim=1)
+        return self.decode_step, {
+            "decoder_input": torch.full((batch,), self.bos_id,
+                                        dtype=torch.long, device=enc.device),
+            "decoder_internal_cache": cache,
+            "encoder_inputs_maxlen": int(src_len.max().item()),
+            "eos_id": self.trg_meta["eos_id"],
+            "unk_id": self.trg_meta.get("unk_id"),
+            "beam_cache_indirection_ok": self.beam_cache_indirection_ok(),
+        }

@@ -1,0 +1,99 @@
+"""Builds the port's CUDA kernels and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on
+its own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
+shared library under ``build/torch_kernels/`` at the repository root
+(listed in ``.gitignore``).  The library's file name carries a hash of
+its source, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  Nothing here runs at import: the first call that
+launches a kernel builds it, and ``build()`` builds every kernel at
+once, one ``nvcc`` per source, all started together.
+
+A build that fails raises ``RuntimeError`` with the compiler's output.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "library_path"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# kernel name -> source file under csrc/
+KERNEL_SOURCES = {
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME \
+        else []
+    candidates.append(shutil.which("nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    source = CSRC_DIR / KERNEL_SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compiles the named kernels (all by default) that are not built
+    yet, all in parallel.  Returns {name: seconds} of the compiles run;
+    the ptxas report of each lands in ``<library>.log``."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / KERNEL_SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, lib, time.perf_counter())
+    seconds, failures = {}, []
+    for name, (proc, tmp, lib, start) in jobs.items():
+        output, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - start
+        lib.with_suffix(".log").write_text(output)
+        if proc.returncode != 0:
+            failures.append(f"{name} (exit {proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("kernel build failed: " + "\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib

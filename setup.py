@@ -7,7 +7,10 @@ setup(
     version="0.1.0",
     description=("TPU-native (JAX/XLA/Pallas) toolkit for speech "
                  "translation, ASR and NMT"),
-    packages=find_packages(include=["neurst_tpu", "neurst_tpu.*"]),
+    packages=find_packages(include=["neurst_tpu", "neurst_tpu.*",
+                                    "neurst_tpu_torch", "neurst_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources
+    package_data={"neurst_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml",

@@ -1,0 +1,94 @@
+"""The port stands alone: importing ``neurst_tpu_torch`` (every module of
+it) loads no JAX and nothing of ``neurst_tpu``; its sources and
+``chip_smoke.py`` import neither; an entry point without ``device=`` on
+a host without CUDA raises; and ``chip_smoke.py`` fails without a card.
+Each check runs in a fresh interpreter so this process's own JAX
+imports cannot hide a leak.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "neurst_tpu_torch")
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|neurst_tpu)\b",
+                       re.MULTILINE)
+
+
+def _run(code, env_extra=None, cwd=REPO, timeout=120):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", **(env_extra or {}))
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_importing_every_module_loads_no_jax_or_neurst_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import neurst_tpu_torch\n"
+        "for m in pkgutil.walk_packages(neurst_tpu_torch.__path__,\n"
+        "                               'neurst_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(root, f) for root, _, files in os.walk(PACKAGE)
+     for f in files if f.endswith(".py")]
+    + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "tools", "profile_torch_decode.py")]),
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_jax_or_neurst_tpu(path):
+    with open(path) as f:
+        found = FORBIDDEN.findall(f.read())
+    assert not found, f"{path} imports {found}"
+
+
+def test_build_model_without_device_raises_on_a_cuda_less_host():
+    code = (
+        "import neurst_tpu_torch, torch\n"
+        "from neurst_tpu_torch.models.speech_transformer import "
+        "SpeechTransformer\n"
+        "assert not torch.cuda.is_available()\n"
+        "cfg = SpeechTransformer.build_model_args_by_name("
+        "'speech_transformer_toy')\n"
+        "try:\n"
+        "    neurst_tpu_torch.build_model(cfg, trg_meta={'vocab_size': 8,"
+        " 'eos_id': 1})\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n"
+        "else:\n"
+        "    raise SystemExit('built a model on the CPU unasked')\n")
+    proc = _run(code)
+    assert proc.returncode == 0 and "RAISED" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Without the rest of the repository the script cannot pass: here
+    it stops at the device check, on a card at the package import."""
+    import shutil
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run("import runpy; runpy.run_path('chip_smoke.py', "
+                "run_name='__main__')", cwd=str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
