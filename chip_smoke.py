@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving path on one NVIDIA GPU and holds
-every kernel on that path against its plain PyTorch version.
+"""Drives the PyTorch port's serving and training paths on one NVIDIA GPU
+and holds every kernel on those paths against its plain PyTorch version.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -11,11 +11,16 @@ exits non-zero):
 
 1. device   -- requires CUDA; the card's name and power limit.
 2. build    -- compiles every kernel from ``neurst_tpu_torch/csrc``.
-3. kernel   -- each kernel against its plain version on the card, at the
-               main path's shape and at a ragged causal shape, in f32 and
-               bf16; times of the kernel, the plain version, one PyTorch
-               library call of the same function, and the card's bound;
-               a head dim the kernel is not built for is refused.
+3. kernel   -- each kernel against its plain version on the card, in f32
+               and bf16, at its path's shape and at a ragged shape; times
+               of the kernel, the plain version, one PyTorch library call
+               of the same function where there is one, and the card's
+               bound.  Flash forward (decode shape and ragged causal; a
+               head dim it is not built for is refused), flash dq and
+               dk/dv (training shape [40, 750, 4, 64] with lengths {750,
+               375, 1, 0, drawn}, and ragged causal), fused linear xent
+               forward and backward ([6000, 256] x 8192 with bias, and
+               R = 37, V = 650).
 4. slice    -- ``speech_transformer_s`` (encoder flash attention on,
                bf16, vocab 8192) with seeded random weights in the JAX
                package's flat layout, loaded through ``param_bridge``,
@@ -25,6 +30,18 @@ exits non-zero):
 6. reference check -- the same weights in float32, a small request, on
                the card and on the CPU (plain versions): encoder outputs,
                hypotheses and scores agree.
+7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
+               largest bucket (40 x 3000 frames, target 150), bf16 with
+               bf16 stored params and an f32 master, encoder flash
+               attention, dropout 0, label smoothing 0.1, Adam and the
+               noam schedule: 2 warm-up and 5 timed steps on fresh seeded
+               batches, then the forward / backward / optimizer split;
+               launches per step of every kernel; finite loss and grad
+               norm, and moved parameters.
+8. train reference check -- the same weights in float32, 2 x 256 frames
+               and target 16: one step on the card and one on the CPU
+               (plain versions) give the same loss, gradients, grad norm
+               and updated parameters.
 Then the kernel summary line, and last the device line.
 
 The script imports nothing of JAX and nothing of ``neurst_tpu``.
@@ -55,9 +72,36 @@ ENCODER_TOL = (0.25, 0.02)
 # output max abs; beam score max abs); hypotheses must be equal
 REFERENCE_TOL = (1e-4, 1e-4)
 
+# flash backward, kernel vs plain: max abs error of dq, dk and dv, each
+# relative to its largest |value|.  float32: both sides sum in float32;
+# bf16: the outputs are stored in bf16 (2^-8 relative) and ds and p are
+# rounded before the products, where a value one rounding step away
+# flips one bf16 ulp of a summand
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# fused linear xent, kernel vs plain: xent and lse max abs (float32 sums
+# of 256 products and of V exponentials in other orders); dx, dW and db
+# relative to their largest |value| (bf16: dx and dW stored in bf16, and
+# dz rounded before both products)
+XENT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-2)}
+# float32 card vs CPU, one training step of the whole model: loss and
+# grad norm relative; each gradient by its relative L2 error (sums in
+# other orders through 18 layers, and a FFN ReLU whose pre-activation
+# sits at zero may flip between the two, which moves a few summands of
+# that layer's dense1 gradient: measured 1e-3 at worst, median 3e-6 of
+# the largest |value|); updated parameters within 2 lr + 1e-6 (Adam's
+# first update is ~lr * sign(g), so a near-zero gradient whose sign
+# differs moves a weight by up to 2 lr)
+TRAIN_REF_TOL = (1e-4, 5e-3)
+
 SLICE = dict(model="speech_transformer_s", batch=16, frames=1024,
              feature_dim=80, vocab=8192, beam=4, max_decode=64,
              requests=3, min_src=600)
+# the MuST-C ST recipe's largest bucket (batch_size 120000 frames,
+# max_src_len 3000, max_trg_len 150): 40 utterances x 3000 frames, with
+# the configuration bench.py's flash training cell uses (dropout 0)
+TRAIN = dict(model="speech_transformer_s", batch=40, frames=3000,
+             min_src=2400, trg_len=150, min_trg=100, feature_dim=80,
+             vocab=8192, label_smoothing=0.1, warmup=2, steps=5, split=2)
 
 
 def emit(obj):
@@ -111,14 +155,18 @@ def time_ms(fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, lengths, causal):
-    """Least time for one flash forward on these inputs: q read and o
-    and lse written over all rows, k and v read over the keys some query
-    may attend (the first ``length`` of each row), lengths read once,
-    over the memory rate; the products over the valid (query, key) pairs
-    over the dtype's peak rate."""
-    b, t, n, h = q.shape
-    elem = q.element_size()
+def bound_ms(nbytes, flops, dtype):
+    """(least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over the dtype's peak
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _valid_keys_and_pairs(lengths, t, causal):
+    """Keys some query may attend (the first ``length`` of each row) and
+    valid (query, key) pairs of one head, over the batch."""
     keys = pairs = 0
     for length in lengths.tolist():
         length = max(0, min(int(length), t))
@@ -127,16 +175,56 @@ def attention_bound_ms(q, lengths, causal):
             pairs += sum(min(r + 1, length) for r in range(t))
         else:
             pairs += t * length
-    nbytes = ((2 * b * t + 2 * keys) * n * h * elem + b * n * t * 4
-              + b * 4)
-    flops = 4.0 * h * n * pairs
-    dtype = str(q.dtype).replace("torch.", "")
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return keys, pairs
 
 
-def kernel_phase(seed):
+def attention_bound_ms(q, lengths, causal, kernel="fwd"):
+    """Least time for one flash kernel on these inputs.  Bytes: every
+    q-side row of q, o (or dO, dq) and the [B, N, T] float32 statistics
+    once, k and v (and dk, dv read side) over the keys some query may
+    attend, dk and dv written over all keys, lengths once.  Operations:
+    2 H per product per valid (query, key) pair: 2 products forward
+    (q k^T, p v), 3 in dq (q k^T, dO v^T, ds k), 4 in dk/dv (and ds^T q,
+    p^T dO)."""
+    b, t, n, h = q.shape
+    elem = q.element_size()
+    keys, pairs = _valid_keys_and_pairs(lengths, t, causal)
+    row = b * t * n * h * elem
+    stats = b * n * t * 4
+    nbytes, products = {
+        "fwd": (2 * row + 2 * keys * n * h * elem + stats, 2),
+        "dq": (3 * row + 2 * keys * n * h * elem + 2 * stats, 3),
+        "dkv": (4 * row + 2 * keys * n * h * elem + 2 * stats, 4),
+    }[kernel]
+    return bound_ms(nbytes + b * 4, 2.0 * h * n * pairs * products, q.dtype)
+
+
+def xent_bound_ms(x, w, kernel):
+    """Least time for the fused linear xent forward (x, W, bias, labels
+    read; xent and lse written; 2 R V D operations) or backward (x, W,
+    bias, labels, lse, g read; dx, dW, db written; 6 R V D: the logits
+    again and the two gradient products)."""
+    rows, dim = x.shape
+    vocab = w.shape[0]
+    elem = x.element_size()
+    operands = (rows + vocab) * dim * elem
+    if kernel == "fwd":
+        return bound_ms(operands + vocab * 4 + rows * 12,
+                        2.0 * rows * vocab * dim, x.dtype)
+    return bound_ms(2 * operands + 2 * vocab * 4 + rows * 12,
+                    6.0 * rows * vocab * dim, x.dtype)
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _abs_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def flash_fwd_kernel_phase(seed):
     """flash_attention_fwd against flash_attention_reference."""
     import torch
     from torch.nn import functional as F
@@ -203,6 +291,174 @@ def kernel_phase(seed):
         raise AssertionError("flash_attention_fwd took head_dim 32")
     if flash_attention_fwd.launches != before:
         raise AssertionError("a refused call counted a launch")
+    return results
+
+
+def _key_mask(lens, t, causal):
+    """The boolean [B, 1, T, T] mask ``scaled_dot_product_attention``
+    takes for the kernels' key-length (and causal) mask."""
+    import torch
+    col = torch.arange(t, device="cuda")
+    mask = (col[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (col[None, :] <= col[:, None])[None, None]
+    return mask
+
+
+def flash_bwd_kernel_phase(seed):
+    """flash_attention_dq and flash_attention_dkv against the plain
+    backward on the same (q, k, v, dO, lse, delta), at the training
+    slice's encoder shape and at a ragged causal shape.  The library
+    time is the backward of ``scaled_dot_product_attention`` with a
+    boolean key mask (forward + backward, minus forward), which computes
+    dq, dk and dv together; so does the plain version."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 10)
+    b, n, h = TRAIN["batch"], 4, 64
+    t_main = TRAIN["frames"] // 4
+    main_lengths = [t_main, t_main // 2, 1, 0] + list(
+        rng.randint(1, t_main + 1, size=b - 4))
+    cases = [("main", t_main, main_lengths, False),
+             ("ragged_causal", 200, list(rng.randint(0, 201, size=4)), True)]
+    results = {}
+    for case, t, lengths, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            bb = len(lengths)
+            qkv = torch.from_numpy(rng.randn(bb, t, 3, n, h).astype(
+                np.float32)).to("cuda", dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.from_numpy(rng.randn(bb, t, n, h).astype(
+                np.float32)).to("cuda", dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            o, lse = fa.flash_attention_fwd(q, k, v, lens, causal)
+            delta = fa._delta(o, do)
+            args = (q, k, v, do, lse, delta, lens, causal)
+            got = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(
+                *args)
+            want = fa._bwd_plain(*args)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            rel = {g: _rel_err(x, y) for g, x, y in zip(
+                ("dq", "dk", "dv"), got, want)}
+            err = {g: _abs_err(x, y) for g, x, y in zip(
+                ("dq", "dk", "dv"), got, want)}
+            if max(rel.values()) > BWD_TOL[name]:
+                raise AssertionError(f"flash backward {case} {name}: "
+                                     f"relative errors {rel} (tol "
+                                     f"{BWD_TOL[name]})")
+            plain_ms = time_ms(lambda: fa._bwd_plain(*args), iters=5)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            mask = _key_mask(lens, t, causal)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), do.transpose(1, 2))) - time_ms(sdpa)
+            for kernel, fn, outs in (
+                    ("dq", fa.flash_attention_dq, ("dq",)),
+                    ("dkv", fa.flash_attention_dkv, ("dk", "dv"))):
+                bound, bound_by = attention_bound_ms(q, lens, causal, kernel)
+                row = {"phase": "kernel",
+                       "kernel": f"flash_attention_{kernel}", "case": case,
+                       "dtype": name, "shape": [bb, t, n, h],
+                       "causal": causal,
+                       "max_abs_err": max(err[g] for g in outs),
+                       "rel_err": {g: rel[g] for g in outs},
+                       "tol": BWD_TOL[name],
+                       "kernel_ms": time_ms(lambda: fn(*args)),
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound, "bound_by": bound_by}
+                emit(row)
+                results[(kernel, case, name)] = row
+    return results
+
+
+def xent_kernel_phase(seed):
+    """fused_linear_xent_fwd and _bwd against their plain versions on the
+    same inputs, at the training slice's shape (6000 target rows, d 256,
+    the 8192-word tied softmax with its bias) and at a ragged one.  No
+    single PyTorch call computes this function: ``label_smoothing`` of
+    ``cross_entropy`` spreads eps over all V classes where NeurST spreads
+    it over V - 1, so ``library_ms`` is null and the time of
+    ``F.cross_entropy(F.linear(...))`` is printed beside it as a
+    composite."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import fused_ce as fc
+
+    rng = np.random.RandomState(seed + 20)
+    smoothing = TRAIN["label_smoothing"]
+    cases = [("main", TRAIN["batch"] * TRAIN["trg_len"], TRAIN["vocab"],
+              256), ("ragged", 37, 650, 256)]
+    results = {}
+    for case, rows, vocab, dim in cases:
+        c, low = 1.0 - smoothing, smoothing / (vocab - 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            def draw(*shape, scale=1.0):
+                return torch.from_numpy(
+                    (scale * rng.randn(*shape)).astype(np.float32)).cuda()
+            x = draw(rows, dim).to(dtype)
+            w = draw(vocab, dim, scale=dim ** -0.5).to(dtype)
+            bias = draw(vocab, scale=0.1)
+            labels = torch.from_numpy(rng.randint(0, vocab, size=rows).astype(
+                np.int32)).cuda()
+            g = torch.from_numpy(rng.rand(rows).astype(np.float32)).cuda()
+            fwd_args = (x, w, bias, labels, c, low)
+            xent, lse = fc.fused_linear_xent_fwd(*fwd_args)
+            bwd_args = (x, w, bias, labels, lse, g, c, low)
+            grads = fc.fused_linear_xent_bwd(*bwd_args)
+            ref_xent, ref_lse = fc._fwd_plain(*fwd_args)
+            ref_grads = fc._bwd_plain(*bwd_args)
+            torch.cuda.synchronize()
+            name = str(dtype).replace("torch.", "")
+            val_tol, grad_tol = XENT_TOL[name]
+            fwd_err = max(_abs_err(xent, ref_xent), _abs_err(lse, ref_lse))
+            rel = {k: _rel_err(a, b_) for k, a, b_ in zip(
+                ("dx", "dw", "db"), grads, ref_grads)}
+            if fwd_err > val_tol or max(rel.values()) > grad_tol:
+                raise AssertionError(
+                    f"fused_linear_xent {case} {name}: xent/lse err "
+                    f"{fwd_err} (tol {val_tol}), gradients {rel} (tol "
+                    f"{grad_tol})")
+            leaves = [t.detach().requires_grad_() for t in (x, w)]
+
+            def composite():
+                return F.cross_entropy(
+                    F.linear(leaves[0], leaves[1], bias.to(dtype)),
+                    labels.long(), label_smoothing=smoothing)
+
+            composite_fwd = time_ms(composite)
+            composite_bwd = time_ms(lambda: torch.autograd.grad(
+                composite(), leaves)) - composite_fwd
+            for kernel, fn, args, plain, err, composite_ms in (
+                    ("fwd", fc.fused_linear_xent_fwd, fwd_args,
+                     fc._fwd_plain, fwd_err, composite_fwd),
+                    ("bwd", fc.fused_linear_xent_bwd, bwd_args,
+                     fc._bwd_plain, max(_abs_err(a, b_) for a, b_ in zip(
+                         grads, ref_grads)), composite_bwd)):
+                bound, bound_by = xent_bound_ms(x, w, kernel)
+                row = {"phase": "kernel",
+                       "kernel": f"fused_linear_xent_{kernel}",
+                       "case": case, "dtype": name,
+                       "shape": [rows, dim, vocab], "max_abs_err": err,
+                       "tol": val_tol if kernel == "fwd" else grad_tol,
+                       "kernel_ms": time_ms(lambda: fn(*args), iters=10),
+                       "plain_ms": time_ms(lambda: plain(*args), iters=5),
+                       "library_ms": None,
+                       "composite_cross_entropy_linear_ms": composite_ms,
+                       "bound_ms": bound, "bound_by": bound_by}
+                if kernel == "bwd":
+                    row["rel_err"] = rel
+                emit(row)
+                results[(kernel, case, name)] = row
     return results
 
 
@@ -355,7 +611,8 @@ def slice_phase(seed):
             raise AssertionError(f"flash_attention_fwd ran {launches} "
                                  f"times in a request, expected "
                                  f"{num_layers}")
-    counts = launch_counts()
+    # decode runs the flash forward only: no backward, no fused xent
+    counts = {"flash_attention_fwd": launch_counts()["flash_attention_fwd"]}
     peak_bytes = torch.cuda.max_memory_allocated()
     if any(v == 0 for v in counts.values()):
         raise AssertionError(f"a kernel of the path never ran: {counts}")
@@ -436,6 +693,225 @@ def reference_check_phase(seed):
                              "CPU path")
 
 
+def build_train(seed, device="cuda", dtype="bfloat16"):
+    """The training slice through the entry points the JAX trainer uses:
+    ``build_model`` with weights from ``seed`` in the JAX flat layout
+    (through ``param_bridge``), the recipe's noam schedule and Adam,
+    and, for a bf16 model, bf16 stored params with an f32 master (the
+    trainer's default for a bf16 model); the label-smoothed criterion,
+    ``TrainState.create`` and ``make_train_step``."""
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
+    from neurst_tpu_torch.optimizers.master_weights import (
+        cast_params_bf16, with_bf16_params)
+    from neurst_tpu_torch.optimizers.optimizers import create_optax_chain
+    from neurst_tpu_torch.parallel import TrainState, make_train_step
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    cfg = SpeechTransformer.build_model_args_by_name(TRAIN["model"])
+    params = dict(cfg["model.params"], dtype=dtype)
+    params["encoder.enable_flash_attention"] = True
+    for side in ("encoder", "decoder"):
+        for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                     "layer_postprocess_dropout_rate"):
+            params[f"{side}.{rate}"] = 0.0
+    model = neurst_tpu_torch.build_model(
+        dict(cfg, **{"model.params": params}),
+        src_meta={"audio_feature_dim": TRAIN["feature_dim"],
+                  "audio_feature_channels": 1},
+        trg_meta={"vocab_size": TRAIN["vocab"], "eos_id": 1, "bos_id": 2,
+                  "unk_id": 3}, device=device)
+    load_flat_params(model, speech_transformer_flat_params(
+        cfg, TRAIN["vocab"], TRAIN["feature_dim"], seed))
+    lr = neurst_tpu_torch.build_lr_schedule(cfg)
+    tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr)
+    if dtype == "bfloat16":
+        cast_params_bf16(model)
+        tx = with_bf16_params(tx)
+    criterion = neurst_tpu_torch.build_criterion({
+        "criterion.class": "label_smoothed_cross_entropy",
+        "criterion.params": {"label_smoothing": TRAIN["label_smoothing"]}})
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    return model, criterion, tx, state, step
+
+
+def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
+    """A bucketed batch of seeded fbank frames and token ids: source
+    lengths in [min_src, frames], target lengths in [min_trg, trg_len]
+    with ``trg_padding`` marking the rest."""
+    import torch
+    trg_lengths = rng.randint(min_trg, trg_len + 1, size=batch)
+    arrays = {
+        "src": rng.randn(batch, frames, TRAIN["feature_dim"], 1).astype(
+            np.float32),
+        "src_length": rng.randint(min_src, frames + 1, size=batch).astype(
+            np.int32),
+        "trg_input": rng.randint(4, TRAIN["vocab"], size=(batch, trg_len)),
+        "trg": rng.randint(4, TRAIN["vocab"], size=(batch, trg_len)),
+        "trg_padding": (np.arange(trg_len)[None] >= trg_lengths[:, None]
+                        ).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def train_phase(seed):
+    """Warm-up steps, then timed steps on fresh batches (launches per
+    step of every kernel checked), then the step's three parts timed
+    apart."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.optimizers.optimizers import apply_updates
+
+    model, criterion, tx, state, step = build_train(seed)
+    rng = np.random.RandomState(seed + 3)
+    batches = [train_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
+                           TRAIN["min_src"], TRAIN["trg_len"],
+                           TRAIN["min_trg"])
+               for _ in range(TRAIN["warmup"] + TRAIN["steps"]
+                              + TRAIN["split"])]
+    timed = batches[TRAIN["warmup"]:TRAIN["warmup"] + TRAIN["steps"]]
+    master0 = {n: m.clone() for n, m in state.opt_state["master"].items()}
+    live0 = {n: p.detach().clone() for n, p in state.params.items()}
+    for batch in batches[:TRAIN["warmup"]]:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    layers = model.encoder.num_layers
+    expected = {"flash_attention_fwd": layers, "flash_attention_dq": layers,
+                "flash_attention_dkv": layers, "fused_linear_xent_fwd": 1,
+                "fused_linear_xent_bwd": 2}
+    step_ms, per_step, metrics = [], [], []
+    totals = dict.fromkeys(expected, 0)
+    for batch in timed:
+        reset_launch_counts()
+        start = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        counts = launch_counts()
+        per_step.append(counts)
+        for name in totals:
+            totals[name] += counts[name]
+        metrics.append({k: float(v) for k, v in m.items()})
+        if counts != expected:
+            raise AssertionError(f"launches in a train step {counts}, "
+                                 f"expected {expected}")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
+               for m in metrics):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    master = state.opt_state["master"]
+    unmoved = [n for n in master if torch.equal(master[n], master0[n])]
+    if unmoved:
+        raise AssertionError(f"parameters that did not move: {unmoved}")
+    live_moved = sum(int((p.detach() != live0[n]).sum())
+                     for n, p in state.params.items())
+
+    # the step's parts timed apart: forward (with the criterion),
+    # backward, optimizer update
+    params = state.params
+    split = []
+    for batch in batches[-TRAIN["split"]:]:
+        marks = [time.perf_counter()]
+        out, aux = model.call_train(batch, model.supports_fused_softmax_ce())
+        loss = criterion.reduce_loss(batch, out) + aux
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        updates, state.opt_state = tx.update(dict(zip(params, grads)),
+                                             state.opt_state, params)
+        apply_updates(params, updates)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        split.append([(b_ - a) * 1e3 for a, b_ in zip(marks, marks[1:])])
+    median_ms = float(np.median(step_ms))
+    tokens = float(np.mean([float((1.0 - b["trg_padding"]).sum())
+                            for b in timed]))
+    frames = float(np.mean([float(b["src_length"].sum()) for b in timed]))
+    emit({"phase": "train", "model": TRAIN["model"], "dtype": "bfloat16",
+          "bf16_params": True, "batch": TRAIN["batch"],
+          "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
+          "steps": len(timed), "step_ms": step_ms,
+          "step_ms_median": median_ms,
+          "target_tokens_per_s": tokens / (median_ms / 1e3),
+          "frames_per_s": frames / (median_ms / 1e3),
+          "split_ms": {k: float(np.median([s_[i] for s_ in split]))
+                       for i, k in enumerate(("forward", "backward",
+                                              "optimizer"))},
+          "split_runs_ms": split, "max_memory_allocated": peak_bytes,
+          "launches_per_step": per_step, "loss": [m["loss"] for m in metrics],
+          "grad_norm": [m["grad_norm"] for m in metrics],
+          "lr": [m["lr"] for m in metrics],
+          "live_bf16_values_moved": live_moved,
+          "master_tensors_moved": len(master)})
+    return totals
+
+
+def train_reference_check_phase(seed):
+    """One float32 training step of the full-width model on a small
+    batch, on the card (kernels) and on the CPU (plain versions, which
+    the CPU tests hold against the JAX package's step)."""
+    import torch
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model, _, _, state, step = build_train(seed, device, "float32")
+        batch = train_batch(np.random.RandomState(seed + 4), device, 2, 256,
+                            200, 16, 10)
+        loss, _, grads = step.compute_grads(state.params, batch)
+        state, metrics = step(state, batch)
+        outs[device] = (float(loss), {n: g.cpu() for n, g in grads.items()},
+                        {k: float(v) for k, v in metrics.items()},
+                        {n: p.detach().cpu() for n, p in state.params.items()})
+    (loss, grads, metrics, params), (ref_loss, ref_grads, ref_metrics,
+                                     ref_params) = outs["cuda"], outs["cpu"]
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    norm_err = abs(metrics["grad_norm"] - ref_metrics["grad_norm"]) \
+        / ref_metrics["grad_norm"]
+    grad_err, worst = max(
+        (float((grads[n] - ref_grads[n]).norm()
+               / ref_grads[n].norm().clamp_min(1e-30)), n)
+        for n in ref_grads)
+    param_err = max(_abs_err(params[n], ref_params[n]) for n in ref_params)
+    param_tol = 2 * ref_metrics["lr"] + 1e-6
+    emit({"phase": "train_reference_check", "dtype": "float32",
+          "batch": 2, "frames": 256, "trg_len": 16, "loss_rel_err": loss_err,
+          "grad_norm_rel_err": norm_err, "max_grad_rel_l2_err": grad_err,
+          "worst_grad": worst,
+          "max_param_abs_err": param_err,
+          "tol": [TRAIN_REF_TOL[0], TRAIN_REF_TOL[1], param_tol],
+          "loss": loss, "grad_norm": metrics["grad_norm"]})
+    if not (loss_err <= TRAIN_REF_TOL[0] and norm_err <= TRAIN_REF_TOL[0]
+            and grad_err <= TRAIN_REF_TOL[1] and param_err <= param_tol):
+        raise AssertionError("the card's float32 train step disagrees with "
+                             "the CPU step")
+
+
+def _summary_row(name, row, launches, by_path):
+    return {"name": name, "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
+SOURCES = {
+    "flash_attention_fwd": "neurst_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_attention_dq": "neurst_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_dkv": "neurst_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fused_linear_xent_fwd": "neurst_tpu_torch/csrc/fused_linear_xent.cu",
+    "fused_linear_xent_bwd": "neurst_tpu_torch/csrc/fused_linear_xent.cu"}
+REPLACES = {
+    "flash_attention_fwd": "neurst_tpu/ops/flash_attention.py:96",
+    "flash_attention_dq": "neurst_tpu/ops/flash_attention.py:176",
+    "flash_attention_dkv": "neurst_tpu/ops/flash_attention.py:244",
+    "fused_linear_xent_fwd": "neurst_tpu/ops/fused_ce.py:252",
+    "fused_linear_xent_bwd": "neurst_tpu/ops/fused_ce.py:299"}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -445,21 +921,28 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
-    kernel_rows = kernel_phase(args.seed)
-    model, inputs, counts = slice_phase(args.seed)
+    fwd_rows = flash_fwd_kernel_phase(args.seed)
+    bwd_rows = flash_bwd_kernel_phase(args.seed)
+    xent_rows = xent_kernel_phase(args.seed)
+    model, inputs, decode_counts = slice_phase(args.seed)
     encoder_cross_check_phase(model, inputs)
     del model
     reference_check_phase(args.seed)
-    main_row = kernel_rows[("main", "bfloat16")]
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "neurst_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "neurst_tpu/ops/flash_attention.py:96",
-        "launches": counts["flash_attention_fwd"],
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+    train_counts = train_phase(args.seed)
+    train_reference_check_phase(args.seed)
+    rows = {"flash_attention_fwd": fwd_rows[("main", "bfloat16")],
+            "flash_attention_dq": bwd_rows[("dq", "main", "bfloat16")],
+            "flash_attention_dkv": bwd_rows[("dkv", "main", "bfloat16")],
+            "fused_linear_xent_fwd": xent_rows[("fwd", "main", "bfloat16")],
+            "fused_linear_xent_bwd": xent_rows[("bwd", "main", "bfloat16")]}
+    summary = []
+    for name, row in rows.items():
+        by_path = {"train": train_counts[name]}
+        if name in decode_counts:
+            by_path["decode"] = decode_counts[name]
+        summary.append(_summary_row(name, row, sum(by_path.values()),
+                                    by_path))
+    emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,11 +3,17 @@
 
 Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
-models and search layers; kernels are built on first use.
+models, search layers, criterions, optimizers and learning-rate
+schedules; kernels are built on first use.
 """
 
+from neurst_tpu_torch.criterions import build_criterion  # noqa: F401
 from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
 from neurst_tpu_torch.layers.search.sequence_search import \
     build_search_layer  # noqa: F401
 from neurst_tpu_torch.models import speech_transformer  # noqa: F401
 from neurst_tpu_torch.models.model import build_model  # noqa: F401
+from neurst_tpu_torch.optimizers.optimizers import \
+    build_optimizer  # noqa: F401
+from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
+    build_lr_schedule  # noqa: F401

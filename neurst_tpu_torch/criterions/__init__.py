@@ -1,0 +1,5 @@
+from neurst_tpu_torch.criterions.criterion import (Criterion,  # noqa: F401
+                                                   build_criterion,
+                                                   register_criterion)
+from neurst_tpu_torch.criterions.label_smoothed_cross_entropy import \
+    LabelSmoothedCrossEntropy  # noqa: F401

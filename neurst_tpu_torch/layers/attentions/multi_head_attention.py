@@ -5,7 +5,8 @@ Fused projections: ``qkv_transform`` (self) and ``q_transform`` /
 ``kv_transform`` (cross) are single ``nn.Linear``s whose outputs split
 as [..., n_proj, heads, head_dim], matching the flax kernels
 [D, n_proj, N, H].  Logits and softmax run in float32 whatever the
-compute dtype.
+compute dtype; training in bf16 keeps only the bf16 probabilities for
+the backward (``_SoftmaxBf16Residual``), as the JAX module does.
 
 The decode cache is a dict {"keys", "values"} of [B * beam, max_len,
 N, H] buffers.  Unlike the functional JAX update, ``decode_step``
@@ -19,22 +20,42 @@ the same dot products with a one-hot).
 import torch
 from torch import nn
 
-from neurst_tpu_torch.layers.common_layers import linear
+from neurst_tpu_torch.layers.common_layers import apply_dropout, linear
 from neurst_tpu_torch.ops.flash_attention import flash_attention
 
 __all__ = ["MultiHeadAttention", "MultiHeadSelfAttention"]
 
 
+class _SoftmaxBf16Residual(torch.autograd.Function):
+    """softmax(z float32) stored, and saved for the backward, as bf16:
+    dz = p (dp - sum(dp p)) from the rounded p, so the float32 [B, N, F, T]
+    probabilities are not kept alive between forward and backward."""
+
+    @staticmethod
+    def forward(ctx, z):
+        p = torch.softmax(z, dim=-1).to(torch.bfloat16)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, dp):
+        p32 = ctx.saved_tensors[0].float()
+        dp32 = dp.float()
+        return p32 * (dp32 - (dp32 * p32).sum(dim=-1, keepdim=True))
+
+
 class MultiHeadAttention(nn.Module):
     """Cross-attention (q from the query; k/v from memory or a cache)."""
 
-    def __init__(self, num_heads: int, num_units: int, dtype=torch.float32):
+    def __init__(self, num_heads: int, num_units: int,
+                 attention_dropout_rate: float = 0.0, dtype=torch.float32):
         super().__init__()
         if num_units % num_heads:
             raise ValueError(f"num_units {num_units} is not a multiple of "
                              f"num_heads {num_heads}")
         self.num_heads = num_heads
         self.head_dim = num_units // num_heads
+        self.attention_dropout_rate = attention_dropout_rate
         self.dtype = dtype
         self._build_projections(num_units)
         self.output_transform = nn.Linear(num_units, num_units)
@@ -53,16 +74,28 @@ class MultiHeadAttention(nn.Module):
         return linear(self.output_transform, out.reshape(*out.shape[:2], -1),
                       self.dtype)
 
-    def _attend(self, q, k, v, bias):
+    def _attend(self, q, k, v, bias, is_training=False):
         """q [B, F, N, H], k/v [B, T, N, H], bias broadcastable to
         [B, N, F, T]."""
         q = q * (self.head_dim ** -0.5)
         logits = torch.einsum("btnh,bfnh->bnft", k.float(), q.float())
         if bias is not None:
             logits = logits + bias.float()
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        if is_training and self.dtype == torch.bfloat16:
+            weights = _SoftmaxBf16Residual.apply(logits)
+        else:
+            weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        weights = apply_dropout(weights, self.attention_dropout_rate,
+                                is_training)
         out = torch.einsum("bnft,btnh->bfnh", weights, v.to(self.dtype))
         return self._output(out)
+
+    def _flash(self, q, k, v, lengths, causal, is_training):
+        """The flash kernels (differentiable); attention dropout runs
+        inside them, so a training rate > 0 is refused there."""
+        rate = self.attention_dropout_rate if is_training else 0.0
+        return self._output(flash_attention(q, k, v, lengths, causal=causal,
+                                            dropout_rate=rate))
 
     def compute_kv(self, memory):
         """Projects memory to (k, v), each [B, T, N, H]."""
@@ -70,16 +103,16 @@ class MultiHeadAttention(nn.Module):
         return kv[:, :, 0], kv[:, :, 1]
 
     def forward(self, query, memory=None, bias=None, cache=None,
-                flash_lengths=None):
+                flash_lengths=None, is_training=False):
         """-> [B, F, D].  With ``flash_lengths`` (valid key counts, no
-        cache) the flash kernel computes the attention."""
+        cache) the flash kernels compute the attention."""
         q = self._proj(self.q_transform, query, 1)[:, :, 0]
         if cache is not None:
             k, v = cache["keys"], cache["values"]
         else:
             k, v = self.compute_kv(memory)
         if cache is None and flash_lengths is not None:
-            return self._output(flash_attention(q, k, v, flash_lengths))
+            return self._flash(q, k, v, flash_lengths, False, is_training)
         if cache is not None and q.shape[0] != k.shape[0]:
             # beam-shared k/v: the [B * beam] query rows join the query
             # axis of their sentence's [B] memory, then split again
@@ -88,7 +121,7 @@ class MultiHeadAttention(nn.Module):
             qg = q.reshape(b, beam * f, *q.shape[2:])
             out = self._attend(qg, k, v, bias)
             return out.reshape(b * beam, f, out.shape[-1])
-        return self._attend(q, k, v, bias)
+        return self._attend(q, k, v, bias, is_training)
 
 
 class MultiHeadSelfAttention(MultiHeadAttention):
@@ -115,10 +148,11 @@ class MultiHeadSelfAttention(MultiHeadAttention):
         return self._attend(q, select(k), select(v), bias)
 
     def forward(self, query, bias=None, cache=None, decode_step=None,
-                flash_lengths=None, flash_causal=False, beam_anc=None):
+                flash_lengths=None, flash_causal=False, beam_anc=None,
+                is_training=False):
         """Self-attention over ``query`` [B, F, D] -> [B, F, D].
 
-        With ``flash_lengths`` (no cache) the flash kernel computes it
+        With ``flash_lengths`` (no cache) the flash kernels compute it
         (key-length mask, optional causal).  Incremental mode
         (``decode_step`` an int): the step's key/value are written into
         ``cache`` at ``decode_step`` in place; the caller's ``bias`` masks
@@ -126,8 +160,8 @@ class MultiHeadSelfAttention(MultiHeadAttention):
         qkv = self._proj(self.qkv_transform, query, 3)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None and flash_lengths is not None:
-            return self._output(flash_attention(q, k, v, flash_lengths,
-                                                causal=flash_causal))
+            return self._flash(q, k, v, flash_lengths, flash_causal,
+                               is_training)
         if cache is not None and decode_step is not None:
             if not isinstance(decode_step, int):
                 raise NotImplementedError(
@@ -139,4 +173,4 @@ class MultiHeadSelfAttention(MultiHeadAttention):
             k, v = cache["keys"], cache["values"]
             if beam_anc is not None and f == 1:
                 return self._attend_indirect(q, k, v, bias, beam_anc)
-        return self._attend(q, k, v, bias)
+        return self._attend(q, k, v, bias, is_training)

@@ -2,13 +2,16 @@
 ``neurst_tpu/layers/common_layers.py``).
 
 Parameters are stored in float32 (or bf16 after
-``utils/param_policy.cast_params_for_inference``) and cast to the
-compute ``dtype`` where they are used, as the flax modules do.  Dense
+``utils/param_policy.cast_params_for_inference`` or, for training,
+``optimizers/master_weights.cast_params_bf16``) and cast to the compute
+``dtype`` where they are used, as the flax modules do.  Dense
 weights use ``torch.nn.Linear``'s ``[out, in]`` layout;
 ``utils/param_bridge`` transposes the flax ``[in, out]`` kernels.
-Dropout belongs to the training slice: these modules run inference.
-Modules are built without drawing random numbers; their weights are
-loaded through ``utils/param_bridge``.
+Training threads ``is_training`` through every module as the flax
+modules do; dropout itself is not ported, so ``apply_dropout`` is the
+identity at rate 0 or outside training and raises on a rate > 0 in
+training.  Modules are built without drawing random numbers; their
+weights come from ``utils/param_bridge`` or the model's ``init_params``.
 """
 
 import math
@@ -18,7 +21,17 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
-           "sinusoidal_position_signal", "linear"]
+           "sinusoidal_position_signal", "linear", "apply_dropout"]
+
+
+def apply_dropout(x, rate: float, is_training: bool):
+    """Inverted dropout: the identity outside training or at rate 0; a
+    rate > 0 in training is not ported yet and raises."""
+    if not is_training or not rate:
+        return x
+    raise NotImplementedError(
+        f"dropout (rate {rate}) in training is not ported yet; set the "
+        f"dropout rates to 0 to train with the port")
 
 
 def linear(layer: nn.Linear, x, dtype):
@@ -46,20 +59,24 @@ class LayerNorm(nn.Module):
 
 
 class TransformerFFN(nn.Module):
-    """dense1 -> relu -> dense2 (the JAX module's plain path)."""
+    """dense1 -> relu -> dropout -> dense2 (the JAX module's plain path,
+    which runs wherever its fused FFN kernel is off)."""
 
     def __init__(self, input_size: int, filter_size: int, output_size: int,
-                 activation: str = "relu", dtype=torch.float32):
+                 activation: str = "relu", dropout_rate: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         if activation != "relu":
             raise NotImplementedError(
                 f"ffn activation {activation!r}: the port has relu")
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.dense1 = nn.Linear(input_size, filter_size)
         self.dense2 = nn.Linear(filter_size, output_size)
 
-    def forward(self, x):
+    def forward(self, x, is_training: bool = False):
         h = torch.relu(linear(self.dense1, x, self.dtype))
+        h = apply_dropout(h, self.dropout_rate, is_training)
         return linear(self.dense2, h, self.dtype)
 
 

@@ -25,7 +25,11 @@ class TransformerDecoder(nn.Module):
                  num_attention_heads: int, filter_size: int,
                  ffn_activation: str = "relu", post_normalize: bool = False,
                  layer_postprocess_epsilon: float = 1e-6,
-                 enable_flash_attention: bool = False, dtype=torch.float32):
+                 enable_flash_attention: bool = False,
+                 attention_dropout_rate: float = 0.0,
+                 ffn_dropout_rate: float = 0.0,
+                 layer_postprocess_dropout_rate: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.num_heads = num_attention_heads
@@ -37,7 +41,8 @@ class TransformerDecoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerDecoderLayer(
                 hidden_size, num_attention_heads, filter_size,
                 ffn_activation, post_normalize, layer_postprocess_epsilon,
-                dtype))
+                attention_dropout_rate, ffn_dropout_rate,
+                layer_postprocess_dropout_rate, dtype))
         if not post_normalize:
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)
@@ -62,7 +67,8 @@ class TransformerDecoder(nn.Module):
         return cache
 
     def forward(self, inputs, memory=None, memory_padding=None, cache=None,
-                decode_step=None, decode_lagging=None, beam_anc=None):
+                decode_step=None, decode_lagging=None, beam_anc=None,
+                is_training=False):
         """Teacher forcing: ``inputs`` [B, T, D] under a causal mask.
         Stepwise decode: ``inputs`` [B, 1, D] at int ``decode_step`` with
         a cache from ``create_decoding_internal_cache`` (updated in
@@ -104,7 +110,7 @@ class TransformerDecoder(nn.Module):
                       cache=None if cache is None else cache[f"layer_{i}"],
                       decode_step=decode_step, self_flash_causal=use_flash,
                       cross_flash_lengths=cross_flash_lengths,
-                      beam_anc=beam_anc)
+                      beam_anc=beam_anc, is_training=is_training)
         if not self.post_normalize:
             x = self.output_ln(x)
         return x, cache

@@ -21,7 +21,11 @@ class TransformerEncoder(nn.Module):
                  ffn_activation: str = "relu", post_normalize: bool = False,
                  layer_postprocess_epsilon: float = 1e-6,
                  attention_monotonic: bool = False,
-                 enable_flash_attention: bool = False, dtype=torch.float32):
+                 enable_flash_attention: bool = False,
+                 attention_dropout_rate: float = 0.0,
+                 ffn_dropout_rate: float = 0.0,
+                 layer_postprocess_dropout_rate: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.post_normalize = post_normalize
@@ -31,12 +35,13 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 hidden_size, num_attention_heads, filter_size,
                 ffn_activation, post_normalize, layer_postprocess_epsilon,
-                dtype))
+                attention_dropout_rate, ffn_dropout_rate,
+                layer_postprocess_dropout_rate, dtype))
         if not post_normalize:
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)
 
-    def forward(self, inputs, inputs_padding):
+    def forward(self, inputs, inputs_padding, is_training=False):
         """inputs [B, T, D]; inputs_padding [B, T] float (1 = pad).
         Padding is contiguous on the right, so with flash attention a
         per-row valid length encodes it for the kernel."""
@@ -52,7 +57,8 @@ class TransformerEncoder(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(
                 x, bias, flash_lengths=flash_lengths,
-                flash_causal=self.attention_monotonic)
+                flash_causal=self.attention_monotonic,
+                is_training=is_training)
         if not self.post_normalize:
             x = self.output_ln(x)
         return x

@@ -1,13 +1,15 @@
 """Transformer encoder/decoder blocks (counterpart of
 ``neurst_tpu/layers/transformer_layers.py``): pre-norm (LN -> sublayer
--> residual) or post-norm (sublayer -> residual -> LN)."""
+-> dropout -> residual) or post-norm (sublayer -> dropout -> residual
+-> LN)."""
 
 import torch
 from torch import nn
 
 from neurst_tpu_torch.layers.attentions.multi_head_attention import (
     MultiHeadAttention, MultiHeadSelfAttention)
-from neurst_tpu_torch.layers.common_layers import LayerNorm, TransformerFFN
+from neurst_tpu_torch.layers.common_layers import (LayerNorm, TransformerFFN,
+                                                   apply_dropout)
 
 __all__ = ["TransformerEncoderLayer", "TransformerDecoderLayer"]
 
@@ -19,32 +21,43 @@ class _LayerCommon(nn.Module):
                  filter_size: int, ffn_activation: str = "relu",
                  post_normalize: bool = False,
                  layer_postprocess_epsilon: float = 1e-6,
+                 attention_dropout_rate: float = 0.0,
+                 ffn_dropout_rate: float = 0.0,
+                 layer_postprocess_dropout_rate: float = 0.0,
                  dtype=torch.float32):
         super().__init__()
         self.post_normalize = post_normalize
+        self.layer_postprocess_dropout_rate = layer_postprocess_dropout_rate
         self.self_attention = MultiHeadSelfAttention(
-            num_attention_heads, hidden_size, dtype=dtype)
+            num_attention_heads, hidden_size, attention_dropout_rate,
+            dtype=dtype)
         self.self_attention_ln = LayerNorm(
             hidden_size, layer_postprocess_epsilon, dtype)
         self.ffn = TransformerFFN(hidden_size, filter_size, hidden_size,
-                                  activation=ffn_activation, dtype=dtype)
+                                  activation=ffn_activation,
+                                  dropout_rate=ffn_dropout_rate, dtype=dtype)
         self.ffn_ln = LayerNorm(hidden_size, layer_postprocess_epsilon, dtype)
 
-    def _prepost(self, ln, x, sublayer):
-        y = x + sublayer(x if self.post_normalize else ln(x))
+    def _prepost(self, ln, x, sublayer, is_training=False):
+        y = sublayer(x if self.post_normalize else ln(x))
+        y = x + apply_dropout(y, self.layer_postprocess_dropout_rate,
+                              is_training)
         return ln(y) if self.post_normalize else y
 
 
 class TransformerEncoderLayer(_LayerCommon):
 
     def forward(self, x, attention_bias=None, flash_lengths=None,
-                flash_causal=False):
+                flash_causal=False, is_training=False):
         x = self._prepost(
             self.self_attention_ln, x,
             lambda y: self.self_attention(y, bias=attention_bias,
                                           flash_lengths=flash_lengths,
-                                          flash_causal=flash_causal))
-        return self._prepost(self.ffn_ln, x, self.ffn)
+                                          flash_causal=flash_causal,
+                                          is_training=is_training),
+            is_training)
+        return self._prepost(self.ffn_ln, x,
+                             lambda y: self.ffn(y, is_training), is_training)
 
 
 class TransformerDecoderLayer(_LayerCommon):
@@ -53,12 +66,18 @@ class TransformerDecoderLayer(_LayerCommon):
                  filter_size: int, ffn_activation: str = "relu",
                  post_normalize: bool = False,
                  layer_postprocess_epsilon: float = 1e-6,
+                 attention_dropout_rate: float = 0.0,
+                 ffn_dropout_rate: float = 0.0,
+                 layer_postprocess_dropout_rate: float = 0.0,
                  dtype=torch.float32):
         super().__init__(hidden_size, num_attention_heads, filter_size,
                          ffn_activation, post_normalize,
-                         layer_postprocess_epsilon, dtype)
+                         layer_postprocess_epsilon, attention_dropout_rate,
+                         ffn_dropout_rate, layer_postprocess_dropout_rate,
+                         dtype)
         self.cross_attention = MultiHeadAttention(
-            num_attention_heads, hidden_size, dtype=dtype)
+            num_attention_heads, hidden_size, attention_dropout_rate,
+            dtype=dtype)
         self.cross_attention_ln = LayerNorm(
             hidden_size, layer_postprocess_epsilon, dtype)
 
@@ -70,7 +89,7 @@ class TransformerDecoderLayer(_LayerCommon):
     def forward(self, x, self_attention_bias=None, memory=None,
                 memory_bias=None, cache=None, decode_step=None,
                 self_flash_causal=False, cross_flash_lengths=None,
-                beam_anc=None):
+                beam_anc=None, is_training=False):
         """-> [B, F, D].  ``cache`` (stepwise decode) holds "self" (written
         in place) and "memory" (the precomputed cross k/v).
         ``self_flash_causal`` / ``cross_flash_lengths`` (teacher forcing
@@ -85,11 +104,15 @@ class TransformerDecoderLayer(_LayerCommon):
                 y, bias=self_attention_bias,
                 cache=None if cache is None else cache["self"],
                 decode_step=decode_step, flash_lengths=flash_lengths,
-                flash_causal=self_flash_causal, beam_anc=beam_anc))
+                flash_causal=self_flash_causal, beam_anc=beam_anc,
+                is_training=is_training),
+            is_training)
         x = self._prepost(
             self.cross_attention_ln, x,
             lambda y: self.cross_attention(
                 y, memory=memory, bias=memory_bias,
                 cache=None if cache is None else cache["memory"],
-                flash_lengths=cross_flash_lengths))
-        return self._prepost(self.ffn_ln, x, self.ffn)
+                flash_lengths=cross_flash_lengths, is_training=is_training),
+            is_training)
+        return self._prepost(self.ffn_ln, x,
+                             lambda y: self.ffn(y, is_training), is_training)

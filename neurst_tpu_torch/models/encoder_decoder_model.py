@@ -4,10 +4,11 @@
 
 Subclasses supply the source side through ``embed_source``; this class
 holds the target modality with the tied softmax, the encoder and the
-decoder, and the generation interface beam search drives:
-``prepare_generation`` -> (``decode_step``, generation initializer).
-The port runs inference: dropout and training come with the training
-slice.
+decoder, the generation interface beam search drives
+(``prepare_generation`` -> (``decode_step``, generation initializer)),
+and the training interface the train step drives (``call_train``,
+``supports_fused_softmax_ce``).  Training with dropout > 0 is not ported
+yet and raises.
 """
 
 import inspect
@@ -21,18 +22,17 @@ from neurst_tpu_torch.layers.decoders.transformer_decoder import \
 from neurst_tpu_torch.layers.encoders.transformer_encoder import \
     TransformerEncoder
 from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
+from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
 
 __all__ = ["EncoderDecoderModel"]
 
-# config keys that only matter to training or to the JAX layouts: the
-# port runs inference on the per-layer stack (param_bridge unstacks
-# scanned checkpoints); options whose switch is off need no support
-_INFERENCE_IGNORED = {
-    "attention_dropout_rate", "ffn_dropout_rate",
-    "layer_postprocess_dropout_rate", "scan_layers", "pipeline_stages",
-    "pipeline_microbatches", "ring_attention_axis", "moe_layer_frequency",
-    "moe_top_k", "moe_capacity_factor", "moe_aux_loss_coef",
-    "moe_router_jitter"}
+# config keys that only matter to the JAX layouts: the port runs the
+# per-layer stack (param_bridge unstacks scanned checkpoints); options
+# whose switch is off need no support
+_LAYOUT_IGNORED = {
+    "scan_layers", "pipeline_stages", "pipeline_microbatches",
+    "ring_attention_axis", "moe_layer_frequency", "moe_top_k",
+    "moe_capacity_factor", "moe_aux_loss_coef", "moe_router_jitter"}
 
 
 def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:
@@ -47,7 +47,7 @@ def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:
                 raise NotImplementedError(f"{key}={value} is not ported")
         elif sub in accepted:
             out[sub] = value
-        elif sub in _INFERENCE_IGNORED or not value:
+        elif sub in _LAYOUT_IGNORED or not value:
             continue
         else:
             raise NotImplementedError(f"{key}={value} is not ported")
@@ -86,11 +86,11 @@ class EncoderDecoderModel(BaseModel):
             for rate in ("attention_dropout_rate", "ffn_dropout_rate",
                          "layer_postprocess_dropout_rate"))
 
-    def _check_inference(self):
-        if self.training and self._has_dropout:
+    def _check_training(self, is_training):
+        if is_training and self._has_dropout:
             raise NotImplementedError(
-                "training with dropout is the training slice; call "
-                ".eval() to run inference")
+                "training with dropout > 0 is not ported yet; set the "
+                "dropout rates to 0 to train with the port")
 
     def _as_tensors(self, inputs):
         return {k: torch.as_tensor(v, device=self.device)
@@ -100,19 +100,47 @@ class EncoderDecoderModel(BaseModel):
         """-> (source embeddings [B, S, D], source padding [B, S])."""
         raise NotImplementedError
 
-    def encode(self, inputs):
+    def encode(self, inputs, is_training=False):
         """Returns (encoder_outputs [B, S, D], memory_padding [B, S])."""
-        self._check_inference()
+        self._check_training(is_training)
         emb, src_padding = self.embed_source(self._as_tensors(inputs))
-        return self.encoder(emb, src_padding), src_padding
+        return self.encoder(emb, src_padding, is_training), src_padding
 
-    def forward(self, inputs):
-        """Teacher forcing -> float32 logits [B, T, trg_vocab]."""
-        enc, src_padding = self.encode(inputs)
+    def forward(self, inputs, is_training=False, return_prelogits=False):
+        """Teacher forcing -> float32 logits [B, T, trg_vocab].
+
+        With ``return_prelogits`` (the fused projection + cross-entropy
+        training path) it returns {"prelogits": decoder output [B, T, D],
+        "softmax_w": [V, D], "softmax_bias": [V]} instead, and the
+        [B, T, V] logits are never formed."""
+        enc, src_padding = self.encode(inputs, is_training)
         trg = torch.as_tensor(inputs["trg_input"], device=self.device)
         dec_out, _ = self.decoder(self.target_symbol_modality(trg),
-                                  memory=enc, memory_padding=src_padding)
-        return self.target_symbol_modality.attend(dec_out)
+                                  memory=enc, memory_padding=src_padding,
+                                  is_training=is_training)
+        modality = self.target_symbol_modality
+        if return_prelogits:
+            return {"prelogits": dec_out, "softmax_w": modality.weights,
+                    "softmax_bias": modality.bias}
+        return modality.attend(dec_out)
+
+    def call_train(self, inputs, want_prelogits=False):
+        """Training forward -> (model_out, aux_loss).  The auxiliary loss
+        (model-internal losses such as MoE load balancing) is a float32
+        zero here: the ported models sow none."""
+        out = self(inputs, is_training=True, return_prelogits=want_prelogits)
+        return out, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def supports_fused_softmax_ce(self) -> bool:
+        """Whether the train step may ask for prelogits and fuse the
+        vocabulary projection into the cross-entropy kernels: the JAX
+        package's conditions (tied softmax, V and D multiples of 128, a
+        [V, D] float32 accumulator of at most 80 MiB), so both packages
+        take the same path, and a dim the CUDA kernels are built for."""
+        v = self.trg_meta["vocab_size"]
+        d = self.target_symbol_modality.embedding_dim
+        return (v % 128 == 0 and d % 128 == 0 and v * d * 4 <= 80 * 2 ** 20
+                and fused_linear_ce_available(v, d))
 
     def init_cache(self, encoder_outputs, memory_padding,
                    decode_padded_length: int):

@@ -4,16 +4,20 @@ In the JAX package a model is a spec object around a pure flax module
 and parameters travel separately.  Here a model is an ``nn.Module`` that
 owns its parameters.  ``build_model`` constructs it without allocating
 (on the meta device) and then allocates it, uninitialised, on the
-requested device: its weights are loaded through
+requested device: its weights are either loaded through
 ``utils/param_bridge.load_flat_params``, which fails unless every
-parameter is filled.
+parameter is filled, or drawn by ``init_params``.
 """
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
+from neurst_tpu_torch.layers.attentions.multi_head_attention import \
+    MultiHeadAttention
+from neurst_tpu_torch.layers.common_layers import LayerNorm, WordEmbedding
 from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["BaseModel", "build_model", "register_model", "dtype_by_name",
@@ -39,6 +43,26 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _lecun_normal(shape, generator):
+    """flax's ``lecun_normal``: a normal truncated at 2 std with variance
+    1 / fan_in.  Torch layouts put the output axis first ([out, in] and
+    [out, in, kh, kw]), so the fan-in is the size of the rest."""
+    fan_in = math.prod(shape[1:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    draw = torch.empty(shape)
+    return nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def _glorot_uniform(shape, generator):
+    """flax's ``glorot_uniform`` on an [out, in] weight: uniform with
+    variance 2 / (fan_in + fan_out).  The fused attention kernels
+    [D, n, N, H] and [N, H, D] are initialised flattened to [in, out], so
+    the port's [out, in] Linear weights see the same fans."""
+    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+
+
 class BaseModel(nn.Module):
     """Holds the config ``args``; subclasses build the layers."""
 
@@ -58,6 +82,45 @@ class BaseModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Draws every parameter in place with the JAX package's
+        initializers: ``glorot_uniform`` for the attention projections,
+        ``lecun_normal`` for the other dense and conv kernels,
+        ``normal(D^-0.5)`` for embedding tables, ones and zeros for
+        LayerNorm, zeros for biases.  Values are drawn on the CPU from
+        ``generator`` (a framework cannot match another's random bits;
+        the distributions match).  Returns ``dict(named_parameters())``;
+        raises if a parameter was left undrawn."""
+        glorot = {id(m) for attention in self.modules()
+                  if isinstance(attention, MultiHeadAttention)
+                  for m in attention.children()}
+        filled = set()
+        with torch.no_grad():
+            for module in self.modules():
+                own = dict(module.named_parameters(recurse=False))
+                if isinstance(module, (nn.Linear, nn.Conv2d)):
+                    draw = (_glorot_uniform if id(module) in glorot
+                            else _lecun_normal)
+                    module.weight.copy_(draw(module.weight.shape, generator))
+                elif isinstance(module, LayerNorm):
+                    module.scale.fill_(1.0)
+                elif isinstance(module, WordEmbedding):
+                    module.weights.copy_(torch.randn(
+                        module.weights.shape, generator=generator)
+                        * module.embedding_dim ** -0.5)
+                else:
+                    continue
+                for name, p in own.items():
+                    if name == "bias":
+                        p.zero_()
+                    filled.add(id(p))
+        missing = [n for n, p in self.named_parameters()
+                   if id(p) not in filled]
+        if missing:
+            raise KeyError(f"init_params has no initializer for {missing}")
+        return dict(self.named_parameters())
 
 
 def _create_model(cls, args, src_meta=None, trg_meta=None, device=None):

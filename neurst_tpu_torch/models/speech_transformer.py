@@ -88,4 +88,18 @@ class SpeechTransformer(EncoderDecoderModel):
                 f"{side}.ffn_dropout_rate": dropout,
                 f"{side}.layer_postprocess_dropout_rate": dropout,
             })
-        return {"model.class": cls.__name__, "model.params": params}
+        return {
+            "model.class": cls.__name__, "model.params": params,
+            "optimizer.class": "adam",
+            "optimizer.params": {
+                "epsilon": 1.e-9, "beta_1": 0.9, "beta_2": 0.98},
+            "lr_schedule.class": "noam",
+            "lr_schedule.params": {
+                "initial_factor": 5.0 if dmodel > 256 else 3.5,
+                "end_factor": 2.0 if dmodel > 256 else 1.5,
+                "dmodel": dmodel,
+                "warmup_steps": 25000,
+                "start_decay_at": 50000,
+                "decay_steps": 50000,
+            },
+        }

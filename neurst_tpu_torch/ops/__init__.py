@@ -3,9 +3,14 @@
 ``KERNELS`` lists every kernel wrapper; each carries ``kernel_name``
 and ``launches``, the count of its kernel launches."""
 
-from neurst_tpu_torch.ops.flash_attention import flash_attention_fwd
+from neurst_tpu_torch.ops.flash_attention import (flash_attention_dkv,
+                                                  flash_attention_dq,
+                                                  flash_attention_fwd)
+from neurst_tpu_torch.ops.fused_ce import (fused_linear_xent_bwd,
+                                           fused_linear_xent_fwd)
 
-KERNELS = (flash_attention_fwd,)
+KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+           fused_linear_xent_fwd, fused_linear_xent_bwd)
 
 
 def reset_launch_counts():

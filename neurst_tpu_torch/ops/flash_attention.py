@@ -1,18 +1,21 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Counterpart of ``neurst_tpu/ops/flash_attention.py``.  The TPU kernel
-(``_fwd_kernel`` behind ``_fwd_impl``) becomes
-``csrc/flash_attention_fwd.cu``, built for sm_90a and called through
-ctypes (see ``ops/_build.py``).  Only the forward is ported, with
-attention-probability dropout 0, which is what inference runs; the
-backward kernels and in-kernel dropout come with the training slice.
+Counterpart of ``neurst_tpu/ops/flash_attention.py``.  The TPU kernels
+become ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``) and
+``csrc/flash_attention_bwd.cu`` (``_dq_kernel`` and ``_dkv_kernel``),
+built for sm_90a and called through ctypes (see ``ops/_build.py``).
+Attention-probability dropout is not ported: ``flash_attention`` raises
+on a rate > 0.
 
-``flash_attention_fwd`` launches the kernel for CUDA tensors and raises
-on anything it does not take; for CPU tensors it computes
-``flash_attention_reference``, the same math in plain PyTorch, which the
-CPU tests hold against the JAX function.  There is no fallback from a
-CUDA tensor to the plain version.
+``flash_attention`` is differentiable: a ``torch.autograd.Function``
+keeps (q, k, v, lengths, o, lse) from the forward and recomputes the
+probabilities in the backward.  Each kernel wrapper
+(``flash_attention_fwd``, ``flash_attention_dq``, ``flash_attention_dkv``)
+launches its kernel for CUDA tensors and raises on anything it does not
+take; for CPU tensors it computes the plain version, the same math in
+PyTorch, which the CPU tests hold against the JAX functions.  There is
+no fallback from a CUDA tensor to the plain version.
 """
 
 import ctypes
@@ -22,11 +25,13 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_reference", "NEG_INF", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
+           "flash_attention_dkv", "flash_attention_bwd",
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "NEG_INF", "HEAD_DIMS"]
 
 NEG_INF = -1.0e30
-# head dims the CUDA kernel is compiled for
+# head dims the CUDA kernels are compiled for
 HEAD_DIMS = (64,)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +44,20 @@ def _full_lengths(q, k, lengths):
     return lengths
 
 
+def _scores(q, k, lengths, causal):
+    """(s [B, N, Tq, Tk] float32, scaled and NEG_INF where masked, and
+    the mask: key < length, and key <= query when causal)."""
+    t_q, t_k, h = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(h))
+    col = torch.arange(t_k, device=q.device)
+    mask = (col[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        row = torch.arange(t_q, device=q.device)
+        mask = mask & (col[None, :] <= row[:, None])[None, None]
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
 def flash_attention_reference(q, k, v, lengths=None, causal: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same masking, float32
@@ -48,15 +67,7 @@ def flash_attention_reference(q, k, v, lengths=None, causal: bool = False
     q [B, Tq, N, H], k/v [B, Tk, N, H], lengths [B] valid key counts.
     Returns (o [B, Tq, N, H] in q's dtype, lse [B, N, Tq] float32)."""
     lengths = _full_lengths(q, k, lengths)
-    t_q, t_k, h = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(h))
-    col = torch.arange(t_k, device=q.device)
-    mask = (col[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
-    if causal:
-        row = torch.arange(t_q, device=q.device)
-        mask = mask & (col[None, :] <= row[:, None])[None, None]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s, mask = _scores(q, k, lengths, causal)
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l_sum = p.sum(dim=-1)
@@ -67,30 +78,68 @@ def flash_attention_reference(q, k, v, lengths=None, causal: bool = False
     return o.to(q.dtype), lse
 
 
-def _check_cuda_inputs(q, k, v, lengths):
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _delta(o, do):
+    """rowsum(dO * o) in float32, [B, N, Tq] like lse."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, do, lse, delta, lengths, causal):
+    """(dq, dk, dv) by recomputing p = exp(s - lse) under the forward's
+    mask (zeroed after the exp, so a row without keys gives p = 0),
+    dp = dO v^T and ds = p (dp - delta) in float32; ds and p are rounded
+    to the operand dtype before each product, where the TPU kernels round
+    them."""
+    lengths = _full_lengths(q, k, lengths)
+    s, mask = _scores(q, k, lengths, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.where(mask, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqnh,bknh->bnqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bnqk,bknh->bqnh", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("bnqk,bqnh->bknh", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dv = torch.einsum("bnqk,bqnh->bknh", p.to(do.dtype).float(), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, lengths, o, lse, do,
+                                  causal: bool = False):
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv) of
+    the attention whose forward gave (o, lse), for the output gradient
+    dO [B, Tq, N, H]."""
+    return _bwd_plain(q, k, v, do, lse, _delta(o, do), lengths, causal)
+
+
+def _check_cuda_inputs(q, k, v, lengths, do=None):
+    named = [("q", q), ("k", k), ("v", v)]
+    if do is not None:
+        named.append(("dO", do))
+    for name, x in named:
         if x.dtype not in _DTYPE_CODES or x.dtype != q.dtype:
-            raise TypeError(f"flash_attention_fwd: {name} has dtype "
-                            f"{x.dtype}; q, k and v must share float32 "
-                            f"or bfloat16")
+            raise TypeError(f"flash_attention: {name} has dtype "
+                            f"{x.dtype}; q, k, v (and dO) must share "
+                            f"float32 or bfloat16")
         if x.dim() != 4 or x.stride(-1) != 1:
-            raise ValueError(f"flash_attention_fwd: {name} must be "
+            raise ValueError(f"flash_attention: {name} must be "
                              f"[B, T, N, H] with a contiguous head dim")
     b, t_q, n, h = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (n, h):
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}"
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (n, h) \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}"
                          f", k {tuple(k.shape)}, v {tuple(v.shape)}")
     if h not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {h} not in "
-                         f"{HEAD_DIMS}, the dims the kernel is built for")
+        raise ValueError(f"flash_attention: head_dim {h} not in "
+                         f"{HEAD_DIMS}, the dims the kernels are built for")
     if b * n > 65535 or t_q == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention_fwd: empty sequence or more "
+        raise ValueError("flash_attention: empty sequence or more "
                          "than 65535 (batch * head) slices")
     if lengths.shape != (b,):
-        raise ValueError("flash_attention_fwd: lengths must be [B]")
-    for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+        raise ValueError("flash_attention: lengths must be [B]")
+    for name, x in named + [("lengths", lengths)]:
         if x.device.type != "cuda" or x.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} must lie on "
+            raise ValueError(f"flash_attention: {name} must lie on "
                              f"q's CUDA device, got {x.device}")
 
 
@@ -145,14 +194,130 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.kernel_name = "flash_attention_fwd"
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel(name):
+    """The C entry point ``neurst_flash_attention_<name>`` (dq or dkv),
+    built and typed once."""
+    from neurst_tpu_torch.ops._build import load
+    fn = getattr(load("flash_attention_bwd"), f"neurst_flash_attention_{name}")
+    n_out = 1 if name == "dq" else 2
+    fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(name, outs, q, k, v, do, lse, delta, lengths, causal):
+    b, t_q, n, h = q.shape
+    strides = (ctypes.c_longlong * 12)(*(
+        x.stride(i) for x in (q, k, v, do) for i in range(3)))
+    lengths = lengths.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_kernel(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+        *(x.data_ptr() for x in outs), b, n, t_q, k.shape[1], h, strides,
+        int(causal), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_{name} launch failed: CUDA "
+                           f"error {err}")
+
+
+def _check_stats(q, lse, delta):
+    b, t_q, n, _ = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or x.shape != (b, n, t_q) \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"float32 [B, N, Tq] tensor on q's device")
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, lengths=None,
+                       causal: bool = False) -> torch.Tensor:
+    """dq [B, Tq, N, H] from the forward's lse and delta = rowsum(dO o),
+    both [B, N, Tq] float32.  CUDA tensors run the dq kernel (or raise);
+    CPU tensors run the plain version."""
+    lengths = _full_lengths(q, k, lengths)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)[0]
+    _check_cuda_inputs(q, k, v, lengths, do)
+    _check_stats(q, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, lengths, causal)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+flash_attention_dq.kernel_name = "flash_attention_dq"
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, lengths=None,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each [B, Tk, N, H], as ``flash_attention_dq`` takes
+    them.  CUDA tensors run the dk/dv kernel (or raise); CPU tensors run
+    the plain version."""
+    lengths = _full_lengths(q, k, lengths)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)[1:]
+    _check_cuda_inputs(q, k, v, lengths, do)
+    _check_stats(q, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, lengths, causal)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+flash_attention_dkv.kernel_name = "flash_attention_dkv"
+
+
+def flash_attention_bwd(q, k, v, lengths, o, lse, do, causal: bool = False):
+    """(dq, dk, dv) of the attention whose forward gave (o, lse).  On the
+    card delta is computed here and the dq and dk/dv kernels run; on the
+    CPU the plain version runs once for all three."""
+    delta = _delta(o, do)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dq =flash_attention_dq(q, k, v, do, lse, delta, lengths, causal)
+    return (dq,) + flash_attention_dkv(q, k, v, do, lse, delta, lengths,
+                                       causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, backward kernels; keeps (q, k, v, lengths, o,
+    lse) in between."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        o, lse = flash_attention_fwd(q, k, v, lengths, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, lengths, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lengths, o, lse, do,
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, lengths: Optional[torch.Tensor] = None,
                     causal: bool = False, dropout_rate: float = 0.0):
-    """Memory-light attention -> [B, Tq, N, H] in q's dtype.
+    """Memory-light, differentiable attention -> [B, Tq, N, H] in q's
+    dtype.
 
     q [B, Tq, N, H], k/v [B, Tk, N, H], lengths [B] valid KEY counts
     (padded query rows produce values the caller drops)."""
     if dropout_rate:
         raise NotImplementedError(
-            "flash attention dropout is part of the training slice; "
-            "the port runs the forward with dropout 0")
-    return flash_attention_fwd(q, k, v, lengths, causal)[0]
+            "flash attention dropout is not ported yet; the port runs "
+            "flash attention with dropout 0")
+    return _FlashAttention.apply(q, k, v, _full_lengths(q, k, lengths),
+                                 causal)

@@ -1,0 +1,218 @@
+"""Optimizers (counterpart of ``neurst_tpu/optimizers/optimizers.py``).
+
+The JAX package builds optax chains; here the same chain is a small set
+of gradient transformations with optax's interface and arithmetic:
+``init(params) -> state`` and ``update(updates, state, params) ->
+(updates, state)`` over dicts of tensors (name -> tensor, in
+``named_parameters`` order), with the step count kept in the state.
+``torch.optim`` is not used: it takes neither the step count nor the
+master-weight policy the way optax does.  Updates are new tensors; the
+optimizer state (moments, counts) is updated in place, and
+``apply_updates`` adds the updates to the parameters in place.
+
+Flag names keep the Keras spelling (beta_1 / beta_2 / epsilon), as the
+JAX package does, so its recipes parse unchanged.
+"""
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from neurst_tpu_torch.utils.registry import setup_registry
+
+__all__ = ["GradientTransformation", "Optimizer", "build_optimizer",
+           "register_optimizer", "create_optax_chain", "chain", "clip",
+           "clip_by_global_norm", "scale_by_adam", "add_decayed_weights",
+           "scale_by_learning_rate", "apply_updates", "global_norm"]
+
+Tree = Dict[str, torch.Tensor]
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Tree], Any]
+    update: Callable[..., Any]
+
+
+def _rebuild(tree: Tree, values) -> Tree:
+    return dict(zip(tree, values))
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32."""
+    norms = torch._foreach_norm(list(tree.values()), 2, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    """params += updates, in place, each in its parameter's dtype."""
+    with torch.no_grad():
+        for name, p in params.items():
+            p.add_(updates[name])
+    return params
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(updates, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
+def _stateless(fn) -> GradientTransformation:
+    return GradientTransformation(
+        lambda params: (), lambda updates, state, params=None: (
+            fn(updates, params), state))
+
+
+def clip(max_delta: float) -> GradientTransformation:
+    """Clamps every update to [-max_delta, max_delta]."""
+    def fn(updates, params):
+        values = torch._foreach_clamp_min(list(updates.values()), -max_delta)
+        return _rebuild(updates, torch._foreach_clamp_max(values, max_delta))
+    return _stateless(fn)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Scales the updates by max_norm / ||updates|| when the global norm
+    reaches max_norm (without a host sync)."""
+    def fn(updates, params):
+        g_norm = global_norm(updates)
+        factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
+                             max_norm / g_norm)
+        return _rebuild(updates, torch._foreach_mul(list(updates.values()),
+                                                    factor))
+    return _stateless(fn)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+    """updates + weight_decay * params (decoupled weight decay)."""
+    def fn(updates, params):
+        return _rebuild(updates, torch._foreach_add(
+            list(updates.values()), [params[n] for n in updates],
+            alpha=weight_decay))
+    return _stateless(fn)
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay^count in float32, as optax computes it: with
+    beta_2 = 0.999 the float32 rounding of the decay alone moves the
+    first step's correction by 1e-5 relative."""
+    return float(np.float32(1.0) - np.float32(decay) ** int(count))
+
+
+def scale_by_adam(b1: float, b2: float, eps: float,
+                  amsgrad: bool = False) -> GradientTransformation:
+    """optax's ``scale_by_adam`` (``scale_by_amsgrad`` with ``amsgrad``):
+    mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2, and
+    mu_hat / (sqrt(nu_hat) + eps) with the bias corrections of the count
+    after this step (nu_hat the running maximum under AMSGrad)."""
+
+    def init(params):
+        state = {"count": 0,
+                 "mu": [torch.zeros_like(p) for p in params.values()],
+                 "nu": [torch.zeros_like(p) for p in params.values()]}
+        if amsgrad:
+            state["nu_max"] = [torch.zeros_like(p) for p in params.values()]
+        return state
+
+    def update(updates, state, params=None):
+        g = list(updates.values())
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+        state["count"] += 1
+        count = state["count"]
+        mu_hat = torch._foreach_div(mu, _bias_correction(b1, count))
+        nu_hat = torch._foreach_div(nu, _bias_correction(b2, count))
+        if amsgrad:
+            torch._foreach_maximum_(state["nu_max"], nu_hat)
+            nu_hat = state["nu_max"]
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, eps)
+        return _rebuild(updates, torch._foreach_div(mu_hat, denom)), state
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(learning_rate: Union[float, Callable]
+                           ) -> GradientTransformation:
+    """updates * -lr, with a schedule evaluated at this transformation's
+    step count before it is incremented (optax's ``scale_by_schedule``)."""
+
+    def update(updates, state, params=None):
+        lr = learning_rate(state["count"]) if callable(learning_rate) \
+            else learning_rate
+        state["count"] += 1
+        return _rebuild(updates, torch._foreach_mul(list(updates.values()),
+                                                    -lr)), state
+
+    return GradientTransformation(lambda params: {"count": 0}, update)
+
+
+class Optimizer(object):
+    """A named factory: args -> GradientTransformation(lr)."""
+
+    def __init__(self, args=None):
+        self._args = dict(args or {})
+
+    @staticmethod
+    def default_params():
+        return {}
+
+    def make(self, learning_rate) -> GradientTransformation:
+        raise NotImplementedError
+
+
+build_optimizer, register_optimizer = setup_registry(
+    "optimizer", base_class=Optimizer,
+    create_fn=lambda cls, args: cls(args))
+
+
+@register_optimizer("adam")
+class Adam(Optimizer):
+    """optax's ``adam``; ``weight_decay`` makes it ``adamw`` and
+    ``amsgrad`` ``amsgrad``."""
+
+    @staticmethod
+    def default_params():
+        return {"learning_rate": None, "beta_1": 0.9, "beta_2": 0.999,
+                "epsilon": 1e-7, "amsgrad": False, "weight_decay": None}
+
+    def make(self, learning_rate):
+        a = self._args
+        adam = scale_by_adam(a.get("beta_1", 0.9), a.get("beta_2", 0.999),
+                             a.get("epsilon", 1e-7),
+                             amsgrad=bool(a.get("amsgrad"))
+                             and not a.get("weight_decay"))
+        parts = [adam]
+        if a.get("weight_decay"):
+            parts.append(add_decayed_weights(a["weight_decay"]))
+        parts.append(scale_by_learning_rate(learning_rate))
+        return chain(*parts)
+
+
+def create_optax_chain(optimizer: Optimizer,
+                       lr: Union[float, Callable],
+                       clip_value: Optional[float] = None,
+                       clip_norm: Optional[float] = None
+                       ) -> GradientTransformation:
+    """clip by value -> clip by global norm -> optimizer(lr), as the JAX
+    package's chain of the same name."""
+    parts = []
+    if clip_value:
+        parts.append(clip(clip_value))
+    if clip_norm:
+        parts.append(clip_by_global_norm(clip_norm))
+    parts.append(optimizer.make(lr))
+    return chain(*parts) if len(parts) > 1 else parts[0]

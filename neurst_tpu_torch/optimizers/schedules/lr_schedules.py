@@ -1,0 +1,69 @@
+"""Learning-rate schedules (counterpart of
+``neurst_tpu/optimizers/schedules/lr_schedules.py``).  A schedule is a
+callable ``count -> lr`` evaluated at the optimizer's step count, as
+optax evaluates its schedules."""
+
+from neurst_tpu_torch.utils.registry import setup_registry
+
+__all__ = ["LRSchedule", "build_lr_schedule", "register_lr_schedule",
+           "NoamSchedule"]
+
+
+class LRSchedule(object):
+
+    def __init__(self, args=None):
+        self._args = dict(args or {})
+
+    @staticmethod
+    def default_params():
+        return {}
+
+    def __call__(self, global_step) -> float:
+        raise NotImplementedError
+
+
+build_lr_schedule, register_lr_schedule = setup_registry(
+    "lr_schedule", base_class=LRSchedule,
+    create_fn=lambda cls, args, **kwargs: cls(args, **kwargs))
+
+
+@register_lr_schedule("noam")
+class NoamSchedule(LRSchedule):
+    """lr = factor * dmodel^-0.5 * min(1, step / warmup)
+    / sqrt(max(step, warmup)), with step counted from ``initial_step``
+    (the step a resumed run starts at) plus one, and the factor decaying
+    linearly from ``initial_factor`` to ``end_factor`` over
+    ``decay_steps`` from ``start_decay_at`` when all three are given."""
+
+    def __init__(self, args=None, initial_step: int = 0):
+        super().__init__(args)
+        a = self._args
+        self._dmodel = a["dmodel"]
+        self._warmup_steps = float(a.get("warmup_steps") or 4000)
+        self._initial_step = float(initial_step)
+        self._initial_factor = float(a.get("initial_factor") or 1.0)
+        end_factor = a.get("end_factor")
+        if (end_factor is not None and a.get("start_decay_at") is not None
+                and a.get("decay_steps") is not None):
+            self._end_factor = float(end_factor)
+            self._start_decay_at = float(a["start_decay_at"])
+            self._decay_steps = float(a["decay_steps"])
+        else:
+            self._end_factor = self._initial_factor
+            self._start_decay_at = 0.0
+            self._decay_steps = 1.0
+
+    @staticmethod
+    def default_params():
+        return {"dmodel": None, "warmup_steps": 4000, "initial_factor": 1.0,
+                "end_factor": None, "start_decay_at": 0, "decay_steps": None}
+
+    def __call__(self, global_step) -> float:
+        step = float(global_step) + self._initial_step + 1.0
+        step_factor = max(min(step - self._start_decay_at,
+                              self._decay_steps), 0.0)
+        lr = self._end_factor + (self._initial_factor - self._end_factor) \
+            * (1.0 - step_factor / self._decay_steps)
+        lr = lr * (self._dmodel ** -0.5)
+        lr = lr * min(1.0, step / self._warmup_steps)
+        return lr / max(step, self._warmup_steps) ** 0.5

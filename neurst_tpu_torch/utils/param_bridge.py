@@ -18,7 +18,8 @@ layouts change as follows:
 * bfloat16 arrays (also raw ``|V2`` bytes) become float32, exactly.
 
 It raises on any name it does not consume and on any port parameter it
-did not fill.
+did not fill.  Gradients share their parameters' names and shapes, so a
+JAX gradient tree maps onto the port's names the same way.
 """
 
 import re

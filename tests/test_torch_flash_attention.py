@@ -1,11 +1,15 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
-On the CPU ``flash_attention_fwd`` computes its plain PyTorch version
-(``flash_attention_reference``); it is held against the Pallas kernel in
-interpret mode (``neurst_tpu.ops.flash_attention``) on the same
-numpy-seeded inputs: o and the row log-sum-exp of ``_fwd_impl``.  The
-CUDA kernel itself is held against the same plain version on the card by
-``chip_smoke.py``; here only the wrapper's input checks run.
+On the CPU each kernel wrapper computes its plain PyTorch version; the
+forward (``flash_attention_reference``) is held against the Pallas
+kernel in interpret mode (``neurst_tpu.ops.flash_attention``) on the
+same numpy-seeded inputs (o and the row log-sum-exp of ``_fwd_impl``),
+and the backward (``flash_attention_bwd_reference``, the dq and dk/dv
+wrappers, and autograd through ``flash_attention``) against ``jax.vjp``
+of the Pallas custom VJP in interpret mode.  The CUDA kernels themselves
+are held against the same plain versions on the card by
+``chip_smoke.py``; here only the wrappers' input checks run.
 """
 
 import numpy as np
@@ -31,6 +35,12 @@ CASES = [
     ("causal_head64", 2, 72, 72, 2, 64, [72, 37], True),
 ]
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# backward, max abs error relative to the largest |gradient| (measured
+# at most 2e-6 in float32 and 7e-4 in bf16 over CASES): float32 sums in
+# other orders; bf16 also rounds ds and p before each product, where a
+# value one rounding step away from the other side's flips one bf16 ulp
+# (2^-8 relative) of a summand
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 
 
 def _inputs(seed, b, t_q, t_k, n, h, dtype):
@@ -131,3 +141,68 @@ def test_dropout_is_refused():
     q = torch.zeros(1, 4, 1, 64)
     with pytest.raises(NotImplementedError):
         port.flash_attention(q, q, q, dropout_rate=0.1)
+
+
+def _rel_err(ours, ref):
+    ours = ours.detach().float().numpy()
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-6))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_matches_pallas_interpret(case, dtype):
+    """dq, dk, dv of the plain backward, of the dq / dk-dv wrappers and of
+    autograd through ``flash_attention`` against ``jax.vjp`` of the
+    Pallas kernels (``_dq_kernel``, ``_dkv_kernel``) in interpret mode,
+    for the same output gradient."""
+    _, b, t_q, t_k, n, h, lengths, causal = case
+    q, k, v = _inputs(len(lengths) + t_k, b, t_q, t_k, n, h, dtype)
+    do = _inputs(t_q, b, t_q, t_q, n, h, dtype)[0]
+    lens = np.asarray(lengths, np.int32)
+
+    _, vjp = jax.vjp(lambda *a: jax_flash_attention(
+        *a, lengths=jnp.asarray(lens), causal=causal, interpret=True),
+        _jax(q, dtype), _jax(k, dtype), _jax(v, dtype))
+    ref = vjp(_jax(do, dtype))
+
+    tq, tk, tv, tdo = (_torch(x, dtype) for x in (q, k, v, do))
+    tlens = torch.from_numpy(lens)
+    o, lse = port.flash_attention_fwd(tq, tk, tv, tlens, causal)
+    plain = port.flash_attention_bwd_reference(tq, tk, tv, tlens, o, lse,
+                                               tdo, causal)
+    delta = port._delta(o, tdo)
+    wrappers = (port.flash_attention_dq(tq, tk, tv, tdo, lse, delta, tlens,
+                                        causal),
+                *port.flash_attention_dkv(tq, tk, tv, tdo, lse, delta,
+                                          tlens, causal))
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = port.flash_attention(*leaves, tlens, causal)
+    autograd = torch.autograd.grad(out, leaves, tdo)
+    for ours in (plain, wrappers, autograd):
+        for got, want in zip(ours, ref):
+            assert got.dtype == getattr(torch, dtype)
+            assert _rel_err(got, want) <= BWD_TOL[dtype]
+
+
+def test_backward_of_a_row_without_keys_is_zero():
+    """Length 0: lse is NEG_INF and exp(NEG_INF - NEG_INF) = 1, so p must
+    be masked after the exp; the slice's dq, dk and dv are zero."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in
+               _inputs(4, 2, 8, 8, 1, 16, "float32"))
+    out = port.flash_attention(q, k, v,
+                               torch.tensor([0, 8], dtype=torch.int32))
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    for g in grads:
+        assert torch.all(g[0] == 0) and torch.isfinite(g).all()
+        assert g[1].abs().sum() > 0
+
+
+def test_backward_wrappers_refuse_a_mismatched_output_gradient():
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs(6, 2, 16, 16, 2, 64, "float32"))
+    lens = torch.tensor([16, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        port._check_cuda_inputs(q, k, v, lens, q[:, :8])
+    with pytest.raises(TypeError, match="dtype"):
+        port._check_cuda_inputs(q, k, v, lens, q.bfloat16())

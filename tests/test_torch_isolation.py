@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax_or_neurst_tpu():
     [os.path.join(root, f) for root, _, files in os.walk(PACKAGE)
      for f in files if f.endswith(".py")]
     + [os.path.join(REPO, "chip_smoke.py"),
-       os.path.join(REPO, "tools", "profile_torch_decode.py")]),
+       os.path.join(REPO, "tools", "profile_torch_decode.py"),
+       os.path.join(REPO, "tools", "profile_torch_train.py")]),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_or_neurst_tpu(path):
     with open(path) as f:

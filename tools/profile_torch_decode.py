@@ -27,7 +27,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def _profile(fn):
+def _profile(fn, top=10, own=()):
+    """(fn's result, {wall_ms, device_kernel_ms, device_busy_share,
+    kernels, top_kernels_ms}); with ``own`` (kernel-name substrings) also
+    the device ms of the kernels whose names hold each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -44,11 +47,15 @@ def _profile(fn):
             by_name[event.name] += event.time_range.elapsed_us() / 1e3
             count += 1
     device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return out, {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
-                 "device_busy_share": device_ms / wall_ms if wall_ms else 0,
-                 "kernels": count,
-                 "top_kernels_ms": {k[:80]: v for k, v in top}}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    row = {"wall_ms": wall_ms, "device_kernel_ms": device_ms,
+           "device_busy_share": device_ms / wall_ms if wall_ms else 0,
+           "kernels": count,
+           "top_kernels_ms": {k[:80]: v for k, v in ranked}}
+    if own:
+        row["own_kernels_ms"] = {o: sum(v for k, v in by_name.items()
+                                        if o in k) for o in own}
+    return out, row
 
 
 def main(argv=None):
