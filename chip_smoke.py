@@ -30,18 +30,29 @@ exits non-zero):
 6. reference check -- the same weights in float32, a small request, on
                the card and on the CPU (plain versions): encoder outputs,
                hypotheses and scores agree.
+               With attention dropout 0.1: the flash kernels against the
+               plain versions with the same mask (and the mask read
+               bitwise); the dropout mask kernel ([30000, 256] quantized
+               rate, [37, 200] exact rate; bitwise, keep rate within 5
+               sigma, mean(y) / mean(x)); the fused FFN forward and
+               backward (R = 30000, 6000 and 37, D 256, F 2048, rate 0
+               and 0.1; its mask bitwise).
 7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
                largest bucket (40 x 3000 frames, target 150), bf16 with
                bf16 stored params and an f32 master, encoder flash
                attention, dropout 0, label smoothing 0.1, Adam and the
                noam schedule: 2 warm-up and 5 timed steps on fresh seeded
                batches, then the forward / backward / optimizer split;
-               launches per step of every kernel; finite loss and grad
-               norm, and moved parameters.
-8. train reference check -- the same weights in float32, 2 x 256 frames
-               and target 16: one step on the card and one on the CPU
-               (plain versions) give the same loss, gradients, grad norm
-               and updated parameters.
+               launches per step of every kernel against the
+               configuration; finite loss and grad norm, and moved
+               parameters.
+8. train_dropout -- the same with the recipe's dropout 0.1 at every
+               site and a dropout key: also the same (key, step) gives a
+               bitwise equal loss and the next step another.
+9. train reference check -- the same weights in float32, 2 x 256 frames
+               and target 16, dropout 0 and then 0.1: one step on the
+               card and one on the CPU (plain versions) give the same
+               loss, gradients, grad norm and updated parameters.
 Then the kernel summary line, and last the device line.
 
 The script imports nothing of JAX and nothing of ``neurst_tpu``.
@@ -92,13 +103,27 @@ XENT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-2)}
 # first update is ~lr * sign(g), so a near-zero gradient whose sign
 # differs moves a weight by up to 2 lr)
 TRAIN_REF_TOL = (1e-4, 5e-3)
+# fused FFN, kernel vs plain on the same inputs (y and hd; the gradients
+# from the same hd and dy), each relative to its largest |value|.
+# float32: sums of D or F products in other orders (the kernel's FMA
+# loops against cuBLAS).  bf16: both sides multiply the same bf16 values
+# and accumulate in float32, in other orders, and round hd, dh, y and the
+# gradients to bf16, where a sum one rounding step away flips one bf16
+# ulp (2^-8 relative) of a summand or an output
+FFN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# dropout kernel vs plain: bitwise (the same Philox words, one float32
+# multiply, one rounding); the masks of the dropout, FFN and flash
+# kernels are compared bitwise too
+DROPOUT_RATE = 0.1
 
 SLICE = dict(model="speech_transformer_s", batch=16, frames=1024,
              feature_dim=80, vocab=8192, beam=4, max_decode=64,
              requests=3, min_src=600)
 # the MuST-C ST recipe's largest bucket (batch_size 120000 frames,
-# max_src_len 3000, max_trg_len 150): 40 utterances x 3000 frames, with
-# the configuration bench.py's flash training cell uses (dropout 0)
+# max_src_len 3000, max_trg_len 150): 40 utterances x 3000 frames; the
+# train phase runs it in the configuration bench.py's flash training cell
+# uses (dropout 0), the train_dropout phase with the recipe's dropout 0.1
+# at every site
 TRAIN = dict(model="speech_transformer_s", batch=40, frames=3000,
              min_src=2400, trg_len=150, min_trg=100, feature_dim=80,
              vocab=8192, label_smoothing=0.1, warmup=2, steps=5, split=2)
@@ -462,6 +487,324 @@ def xent_kernel_phase(seed):
     return results
 
 
+def _site_key(rng, stream):
+    from neurst_tpu_torch.utils.rng import DropoutKey
+    return DropoutKey(int(rng.randint(2 ** 31)), int(rng.randint(2 ** 31)),
+                      stream=stream)
+
+
+def _keep_rate_ok(kept, keep_p, n):
+    """Whether a kept share lies within 5 sigma of its binomial
+    expectation."""
+    return abs(kept - keep_p) <= 5 * math.sqrt(keep_p * (1 - keep_p) / n)
+
+
+def dropout_kernel_phase(seed):
+    """fused_dropout_apply (the mask kernel) against its plain version:
+    the encoder's postprocess site [30000, 256] (rate quantized to 1/256)
+    and a ragged [37, 200] (exact rate).  Outputs and masks bitwise
+    equal; the kept share within 5 sigma of its expectation; mean(y) /
+    mean(x) within 5 sigma (plus half a bf16 ulp) of 1.  The library call
+    is ``F.dropout`` (its own generator)."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import fused_dropout as fd
+
+    rng = np.random.RandomState(seed + 30)
+    key = _site_key(rng, 1 << 16 | 1)
+    rows = TRAIN["batch"] * TRAIN["frames"] // 4
+    results = {}
+    for case, shape in (("main", (rows, 256)), ("ragged", (37, 200))):
+        threshold, scale = fd.threshold_and_scale(
+            DROPOUT_RATE, fd.quantized_site(shape))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x = torch.from_numpy((rng.rand(*shape) + 0.5).astype(
+                np.float32)).to("cuda", dtype)
+            y = fd.fused_dropout_apply(x, key, threshold, scale)
+            want = fd.dropout_reference(x, key, threshold, scale)
+            torch.cuda.synchronize()
+            n = x.numel()
+            keep_p = 1.0 - threshold / 2.0 ** 32
+            kept = float((y != 0).float().mean())
+            xf = x.float()
+            se = scale * math.sqrt(keep_p * (1 - keep_p)
+                                   * float((xf * xf).sum())) / float(xf.sum())
+            ratio = float(y.float().mean() / xf.mean())
+            err = _abs_err(y, want)
+            same_mask = bool(torch.equal(y != 0, want != 0))
+            ulp = 2.0 ** -9 if dtype == torch.bfloat16 else 0.0
+            if not (same_mask and err == 0.0
+                    and _keep_rate_ok(kept, keep_p, n)
+                    and abs(ratio - 1.0) <= 5 * se + ulp):
+                raise AssertionError(
+                    f"fused_dropout {case} {name}: masks equal {same_mask}, "
+                    f"max abs err {err}, kept {kept} (expected {keep_p}), "
+                    f"mean ratio {ratio}")
+            bound, bound_by = bound_ms(2 * n * x.element_size(), 0, dtype)
+            row = {"phase": "kernel", "kernel": "fused_dropout",
+                   "case": case, "dtype": name, "shape": list(shape),
+                   "quantized": fd.quantized_site(shape),
+                   "threshold": threshold, "scale": scale,
+                   "masks_equal": same_mask, "max_abs_err": err, "tol": 0.0,
+                   "kept": kept, "keep_expected": keep_p,
+                   "mean_y_over_mean_x": ratio,
+                   "kernel_ms": time_ms(lambda: fd.fused_dropout_apply(
+                       x, key, threshold, scale)),
+                   "plain_ms": time_ms(lambda: fd.dropout_reference(
+                       x, key, threshold, scale), iters=5),
+                   "library_ms": time_ms(lambda: F.dropout(
+                       x, DROPOUT_RATE, True)),
+                   "bound_ms": bound, "bound_by": bound_by}
+            emit(row)
+            results[(case, name)] = row
+    return results
+
+
+def ffn_bound_ms(x, filter_size, kernel):
+    """Least time for the fused FFN forward (x, W1, W2, biases read; y
+    and, in training, hd written; 4 R D F operations) or backward (x,
+    W1, W2, hd, dy read; dx, dW1, dW2, db1, db2 written; 8 R D F)."""
+    rows, dim = x.shape
+    dtype, elem = x.dtype, x.element_size()
+    weights = 2 * dim * filter_size * elem
+    if kernel == "fwd":
+        nbytes = (2 * rows * dim + rows * filter_size) * elem + weights \
+            + 4 * (dim + filter_size)
+        return bound_ms(nbytes, 4.0 * rows * dim * filter_size, dtype)
+    nbytes = (3 * rows * dim + rows * filter_size) * elem + 2 * weights \
+        + 4 * (dim + filter_size)
+    return bound_ms(nbytes, 8.0 * rows * dim * filter_size, dtype)
+
+
+def ffn_kernel_phase(seed):
+    """fused_ffn_fwd and _bwd against their plain versions on the same
+    inputs (the backward fed the plain forward's hd), at the slice's
+    encoder rows (30,000), decoder rows (6,000) and a ragged 37, D 256,
+    F 2048, rate 0 and 0.1.  The dropout mask is compared bitwise with b1
+    = 100 (every pre-activation positive, so hd is 0 exactly where
+    dropped) and its kept share checked.  No single PyTorch call computes
+    the function: ``library_ms`` is null and ``linear -> relu -> dropout
+    -> linear`` is timed beside it as a composite."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import fused_ffn as ff
+
+    rng = np.random.RandomState(seed + 40)
+    dim, filter_size = 256, 2048
+    key = _site_key(rng, 1 << 16 | 4)
+    cases = [("main", TRAIN["batch"] * TRAIN["frames"] // 4),
+             ("decoder", TRAIN["batch"] * TRAIN["trg_len"]), ("ragged", 37)]
+    results = {}
+    for case, rows in cases:
+        for rate in (0.0, DROPOUT_RATE):
+            k = key if rate else None
+            drop = ff._drop(rate, k)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).replace("torch.", "")
+
+                def draw(*shape, scale=1.0, dt=dtype):
+                    return torch.from_numpy((scale * rng.randn(*shape)).astype(
+                        np.float32)).to("cuda", dt)
+                x, dy = draw(rows, dim), draw(rows, dim)
+                w1 = draw(filter_size, dim, scale=dim ** -0.5)
+                w2 = draw(dim, filter_size, scale=filter_size ** -0.5)
+                b1 = draw(filter_size, scale=0.1, dt=torch.float32)
+                b2 = draw(dim, scale=0.1, dt=torch.float32)
+                fwd_args = (x, w1, b1, w2, b2, rate, k, True)
+                y, hd = ff.fused_ffn_fwd(*fwd_args)
+                y_ref, hd_ref = ff._fwd_plain(x, w1, b1, w2, b2, drop, True)
+                bwd_args = (x, w1, w2, hd_ref, dy, drop[1])
+                grads = ff.fused_ffn_bwd(*bwd_args)
+                ref_grads = ff._bwd_plain(*bwd_args)
+                mask = {}
+                if rate:
+                    big = torch.full_like(b1, 100.0)
+                    _, hd_m = ff.fused_ffn_fwd(x, w1, big, w2, b2, rate, k,
+                                               True)
+                    _, hd_mr = ff._fwd_plain(x, w1, big, w2, b2, drop, True)
+                    keep_p = 1.0 - drop[0] / 2.0 ** 32
+                    kept = float((hd_m != 0).float().mean())
+                    mask = {"masks_equal": bool(torch.equal(hd_m == 0,
+                                                            hd_mr == 0)),
+                            "kept": kept, "keep_expected": keep_p}
+                    if not (mask["masks_equal"]
+                            and _keep_rate_ok(kept, keep_p, hd_m.numel())):
+                        raise AssertionError(f"fused_ffn {case} {name}: "
+                                             f"dropout mask {mask}")
+                torch.cuda.synchronize()
+                fwd_rel = {"y": _rel_err(y, y_ref), "hd": _rel_err(hd, hd_ref)}
+                bwd_rel = {g: _rel_err(a, b_) for g, a, b_ in zip(
+                    ("dx", "dw1", "dw2", "db1", "db2"), grads, ref_grads)}
+                fwd_tol, bwd_tol = FFN_TOL[name]
+                if max(fwd_rel.values()) > fwd_tol \
+                        or max(bwd_rel.values()) > bwd_tol:
+                    raise AssertionError(
+                        f"fused_ffn {case} rate {rate} {name}: forward "
+                        f"{fwd_rel} (tol {fwd_tol}), backward {bwd_rel} "
+                        f"(tol {bwd_tol})")
+                leaves = [t.detach().requires_grad_()
+                          for t in (x, w1, b1, w2, b2)]
+
+                def composite():
+                    h = F.relu(F.linear(leaves[0], leaves[1],
+                                        leaves[2].to(dtype)))
+                    h = F.dropout(h, rate, True)
+                    return F.linear(h, leaves[3], leaves[4].to(dtype))
+
+                composite_fwd = time_ms(composite, iters=10)
+                composite_bwd = time_ms(lambda: torch.autograd.grad(
+                    composite(), leaves, dy), iters=10) - composite_fwd
+                for kernel, fn, args, plain, pargs, rel, comp in (
+                        ("fwd", ff.fused_ffn_fwd, fwd_args, ff._fwd_plain,
+                         (x, w1, b1, w2, b2, drop, True), fwd_rel,
+                         composite_fwd),
+                        ("bwd", ff.fused_ffn_bwd, bwd_args, ff._bwd_plain,
+                         bwd_args, bwd_rel, composite_bwd)):
+                    bound, bound_by = ffn_bound_ms(x, filter_size, kernel)
+                    outs = (y, hd) if kernel == "fwd" else grads
+                    refs = (y_ref, hd_ref) if kernel == "fwd" else ref_grads
+                    row = dict({
+                        "phase": "kernel", "kernel": f"fused_ffn_{kernel}",
+                        "case": case, "dtype": name, "rate": rate,
+                        "shape": [rows, dim, filter_size],
+                        "max_abs_err": max(_abs_err(a, b_) for a, b_ in
+                                           zip(outs, refs)),
+                        "rel_err": rel,
+                        "tol": fwd_tol if kernel == "fwd" else bwd_tol,
+                        "kernel_ms": time_ms(lambda: fn(*args), iters=10),
+                        "plain_ms": time_ms(lambda: plain(*pargs), iters=3),
+                        "library_ms": None,
+                        "composite_linear_relu_dropout_linear_ms": comp,
+                        "bound_ms": bound, "bound_by": bound_by}, **mask)
+                    emit(row)
+                    results[(kernel, case, rate, name)] = row
+    return results
+
+
+def _identity_mask_check(fa, key):
+    """The flash forward's and dk/dv kernel's dropout masks, read
+    directly: with q = 0 every valid probability is 1/T, and with k, v
+    and dO the identity, o[b, q, n, j] = pm[b, n, q, j] and
+    dv[b, j, n, q] = pm[b, n, q, j]; both must be nonzero exactly where
+    the generator keeps (b, n, q, j), in float32."""
+    import torch
+
+    from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
+                                                    threshold_and_scale)
+    b, t, n, h = 2, 64, 4, 64
+    eye = torch.eye(t, device="cuda")[None, :, None, :].expand(
+        b, t, n, h).contiguous()
+    q = torch.zeros_like(eye)
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    o, lse = fa.flash_attention_fwd(q, eye, eye, lens, False, DROPOUT_RATE,
+                                    key)
+    _, dv = fa.flash_attention_dkv(q, eye, eye, eye, lse, fa._delta(o, eye),
+                                   lens, False, DROPOUT_RATE, key)
+    keep = dropout_keep_mask((b, n, t, t), key,
+                             threshold_and_scale(DROPOUT_RATE, False)[0],
+                             "cuda")
+    fwd_ok = bool(torch.equal(o.permute(0, 2, 1, 3) != 0, keep))
+    dkv_ok = bool(torch.equal(dv.permute(0, 2, 3, 1) != 0, keep))
+    if not (fwd_ok and dkv_ok):
+        raise AssertionError(f"flash dropout masks: forward {fwd_ok}, "
+                             f"dk/dv {dkv_ok}")
+    return {"forward": fwd_ok, "dkv": dkv_ok}
+
+
+def flash_dropout_kernel_phase(seed):
+    """The flash kernels with attention dropout 0.1 against the plain
+    versions with the same mask, at the training slice's encoder shape
+    ([40, 750, 4, 64], lengths {750, 375, 1, 0, drawn}) and ragged causal
+    [4, 200]; the masks read bitwise (``_identity_mask_check``).  The
+    library times are ``scaled_dot_product_attention`` with
+    ``dropout_p=0.1`` (its own generator), forward and backward."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 50)
+    key = _site_key(rng, 1 << 16)
+    masks = _identity_mask_check(fa, key)
+    b, n, h = TRAIN["batch"], 4, 64
+    t_main = TRAIN["frames"] // 4
+    main_lengths = [t_main, t_main // 2, 1, 0] + list(
+        rng.randint(1, t_main + 1, size=b - 4))
+    cases = [("main", t_main, main_lengths, False),
+             ("ragged_causal", 200, list(rng.randint(0, 201, size=4)), True)]
+    results = {}
+    for case, t, lengths, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            bb = len(lengths)
+            qkv = torch.from_numpy(rng.randn(bb, t, 3, n, h).astype(
+                np.float32)).to("cuda", dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.from_numpy(rng.randn(bb, t, n, h).astype(
+                np.float32)).to("cuda", dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            fwd_args = (q, k, v, lens, causal, DROPOUT_RATE, key)
+            o, lse = fa.flash_attention_fwd(*fwd_args)
+            o_ref, lse_ref = fa.flash_attention_reference(*fwd_args)
+            delta = fa._delta(o, do)
+            args = (q, k, v, do, lse, delta, lens, causal, DROPOUT_RATE, key)
+            got = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(
+                *args)
+            want = fa._bwd_plain(*args[:8], fa._drop_consts(DROPOUT_RATE,
+                                                            key))
+            torch.cuda.synchronize()
+            tol, lse_tol = KERNEL_TOL[name]
+            fwd_err = _abs_err(o, o_ref)
+            lse_err = _abs_err(lse, lse_ref)
+            rel = {g: _rel_err(x, y) for g, x, y in zip(
+                ("dq", "dk", "dv"), got, want)}
+            if fwd_err > tol or lse_err > lse_tol \
+                    or max(rel.values()) > BWD_TOL[name]:
+                raise AssertionError(
+                    f"flash dropout {case} {name}: o err {fwd_err} (tol "
+                    f"{tol}), lse {lse_err}, gradients {rel} (tol "
+                    f"{BWD_TOL[name]})")
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            mask = _key_mask(lens, t, causal)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, dropout_p=DROPOUT_RATE)
+
+            library_fwd = time_ms(sdpa)
+            library_bwd = time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), do.transpose(1, 2))) - library_fwd
+            plain_bwd = time_ms(lambda: fa._bwd_plain(
+                *args[:8], fa._drop_consts(DROPOUT_RATE, key)), iters=3)
+            for kernel, fn, fargs, err, plain_ms, library_ms in (
+                    ("fwd", fa.flash_attention_fwd, fwd_args, fwd_err,
+                     time_ms(lambda: fa.flash_attention_reference(*fwd_args),
+                             iters=3), library_fwd),
+                    ("dq", fa.flash_attention_dq, args, rel["dq"], plain_bwd,
+                     library_bwd),
+                    ("dkv", fa.flash_attention_dkv, args,
+                     max(rel["dk"], rel["dv"]), plain_bwd, library_bwd)):
+                bound, bound_by = attention_bound_ms(q, lens, causal, kernel)
+                row = {"phase": "kernel",
+                       "kernel": f"flash_attention_{kernel}", "case": case,
+                       "dtype": name, "shape": [bb, t, n, h],
+                       "causal": causal, "dropout": DROPOUT_RATE,
+                       "masks_equal": masks,
+                       "max_abs_err": err,
+                       "rel_err": rel if kernel != "fwd" else None,
+                       "tol": tol if kernel == "fwd" else BWD_TOL[name],
+                       "kernel_ms": time_ms(lambda: fn(*fargs)),
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound, "bound_by": bound_by}
+                emit(row)
+                results[(kernel, case, name)] = row
+    return results
+
+
 def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
     """Seeded random weights for a SpeechTransformer in the JAX package's
     flat-name layout (flax shapes: dense kernels [in, out], fused
@@ -693,13 +1036,14 @@ def reference_check_phase(seed):
                              "CPU path")
 
 
-def build_train(seed, device="cuda", dtype="bfloat16"):
+def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0):
     """The training slice through the entry points the JAX trainer uses:
     ``build_model`` with weights from ``seed`` in the JAX flat layout
     (through ``param_bridge``), the recipe's noam schedule and Adam,
     and, for a bf16 model, bf16 stored params with an f32 master (the
     trainer's default for a bf16 model); the label-smoothed criterion,
-    ``TrainState.create`` and ``make_train_step``."""
+    ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
+    rate of all six dropout sites (the recipe's is 0.1)."""
     import neurst_tpu_torch
     from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
     from neurst_tpu_torch.optimizers.master_weights import (
@@ -714,7 +1058,7 @@ def build_train(seed, device="cuda", dtype="bfloat16"):
     for side in ("encoder", "decoder"):
         for rate in ("attention_dropout_rate", "ffn_dropout_rate",
                      "layer_postprocess_dropout_rate"):
-            params[f"{side}.{rate}"] = 0.0
+            params[f"{side}.{rate}"] = dropout
     model = neurst_tpu_torch.build_model(
         dict(cfg, **{"model.params": params}),
         src_meta={"audio_feature_dim": TRAIN["feature_dim"],
@@ -754,16 +1098,53 @@ def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def train_phase(seed):
+def expected_launches(model, enc_rows, dec_rows, dropout):
+    """Kernel launches of one training step, from the configuration:
+    the encoder's flash kernels once a layer; the fused xent forward once
+    and its backward twice; the fused FFN where its gate says so, with
+    three backward launches; with dropout, the mask kernel at every site
+    the kernels above do not cover (two postprocess sites an encoder
+    layer, three a decoder layer, the decoder's two attention-weight
+    sites, the FFN hidden where it is not fused), once forward and once
+    backward."""
+    from neurst_tpu_torch.ops.fused_ffn import fused_ffn_available
+    enc, dec = model.encoder, model.decoder
+    dense1 = enc.layer_0.ffn.dense1
+    rate = DROPOUT_RATE if dropout else 0.0
+
+    def fused(rows):
+        return fused_ffn_available(dense1.in_features, dense1.out_features,
+                                   "relu", rows, True, rate)
+
+    flash = enc.num_layers if enc.enable_flash_attention else 0
+    ffn = enc.num_layers * fused(enc_rows) + dec.num_layers * fused(dec_rows)
+    sites = 0
+    if dropout:
+        sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
+                                  + (not fused(enc_rows)))
+        sites += dec.num_layers * (5 + (not fused(dec_rows)))
+    return {"flash_attention_fwd": flash, "flash_attention_dq": flash,
+            "flash_attention_dkv": flash, "fused_linear_xent_fwd": 1,
+            "fused_linear_xent_bwd": 2, "fused_dropout": 2 * sites,
+            "fused_ffn_fwd": ffn, "fused_ffn_bwd": 3 * ffn}
+
+
+def train_phase(seed, dropout=False):
     """Warm-up steps, then timed steps on fresh batches (launches per
-    step of every kernel checked), then the step's three parts timed
-    apart."""
+    step of every kernel checked against the configuration), then the
+    step's three parts timed apart.  With ``dropout`` (the recipe's 0.1
+    at every site) the step takes a dropout key, and the same (key, step)
+    must give a bitwise equal loss while the next step's masks give
+    another."""
     import torch
 
     from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
     from neurst_tpu_torch.optimizers.optimizers import apply_updates
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
 
-    model, criterion, tx, state, step = build_train(seed)
+    model, criterion, tx, state, step = build_train(
+        seed, dropout=DROPOUT_RATE if dropout else 0.0)
+    key = make_key(seed + 7) if dropout else None
     rng = np.random.RandomState(seed + 3)
     batches = [train_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
                            TRAIN["min_src"], TRAIN["trg_len"],
@@ -774,19 +1155,18 @@ def train_phase(seed):
     master0 = {n: m.clone() for n, m in state.opt_state["master"].items()}
     live0 = {n: p.detach().clone() for n, p in state.params.items()}
     for batch in batches[:TRAIN["warmup"]]:
-        state, _ = step(state, batch)
+        state, _ = step(state, batch, key)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    layers = model.encoder.num_layers
-    expected = {"flash_attention_fwd": layers, "flash_attention_dq": layers,
-                "flash_attention_dkv": layers, "fused_linear_xent_fwd": 1,
-                "fused_linear_xent_bwd": 2}
+    expected = expected_launches(
+        model, TRAIN["batch"] * TRAIN["frames"] // 4,
+        TRAIN["batch"] * TRAIN["trg_len"], dropout)
     step_ms, per_step, metrics = [], [], []
     totals = dict.fromkeys(expected, 0)
     for batch in timed:
         reset_launch_counts()
         start = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = step(state, batch, key)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - start) * 1e3)
         counts = launch_counts()
@@ -807,6 +1187,15 @@ def train_phase(seed):
         raise AssertionError(f"parameters that did not move: {unmoved}")
     live_moved = sum(int((p.detach() != live0[n]).sum())
                      for n, p in state.params.items())
+    determinism = None
+    if dropout:
+        losses = [float(step.compute_grads(state.params, timed[0],
+                                           fold_in(key, s))[0])
+                  for s in (state.step, state.step, state.step + 1)]
+        determinism = {"same_step": losses[:2], "next_step": losses[2]}
+        if losses[0] != losses[1] or losses[0] == losses[2]:
+            raise AssertionError(f"dropout losses of (step, step, step + 1): "
+                                 f"{losses}")
 
     # the step's parts timed apart: forward (with the criterion),
     # backward, optimizer update
@@ -814,7 +1203,9 @@ def train_phase(seed):
     split = []
     for batch in batches[-TRAIN["split"]:]:
         marks = [time.perf_counter()]
-        out, aux = model.call_train(batch, model.supports_fused_softmax_ce())
+        out, aux = model.call_train(
+            batch, model.supports_fused_softmax_ce(),
+            None if key is None else fold_in(key, state.step))
         loss = criterion.reduce_loss(batch, out) + aux
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
@@ -831,7 +1222,9 @@ def train_phase(seed):
     tokens = float(np.mean([float((1.0 - b["trg_padding"]).sum())
                             for b in timed]))
     frames = float(np.mean([float(b["src_length"].sum()) for b in timed]))
-    emit({"phase": "train", "model": TRAIN["model"], "dtype": "bfloat16",
+    emit({"phase": "train_dropout" if dropout else "train",
+          "model": TRAIN["model"], "dtype": "bfloat16",
+          "dropout": DROPOUT_RATE if dropout else 0.0,
           "bf16_params": True, "batch": TRAIN["batch"],
           "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
           "steps": len(timed), "step_ms": step_ms,
@@ -846,22 +1239,31 @@ def train_phase(seed):
           "grad_norm": [m["grad_norm"] for m in metrics],
           "lr": [m["lr"] for m in metrics],
           "live_bf16_values_moved": live_moved,
-          "master_tensors_moved": len(master)})
+          "master_tensors_moved": len(master),
+          "expected_launches_per_step": expected,
+          "dropout_determinism": determinism})
     return totals
 
 
-def train_reference_check_phase(seed):
+def train_reference_check_phase(seed, dropout=False):
     """One float32 training step of the full-width model on a small
     batch, on the card (kernels) and on the CPU (plain versions, which
-    the CPU tests hold against the JAX package's step)."""
+    the CPU tests hold against the JAX package's step); with
+    ``dropout`` at the recipe's 0.1, whose masks the kernels and the
+    plain versions draw bit for bit alike."""
     import torch
+
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+    key = make_key(seed + 8) if dropout else None
     outs = {}
     for device in ("cuda", "cpu"):
-        model, _, _, state, step = build_train(seed, device, "float32")
+        model, _, _, state, step = build_train(
+            seed, device, "float32", DROPOUT_RATE if dropout else 0.0)
         batch = train_batch(np.random.RandomState(seed + 4), device, 2, 256,
                             200, 16, 10)
-        loss, _, grads = step.compute_grads(state.params, batch)
-        state, metrics = step(state, batch)
+        loss, _, grads = step.compute_grads(
+            state.params, batch, None if key is None else fold_in(key, 0))
+        state, metrics = step(state, batch, key)
         outs[device] = (float(loss), {n: g.cpu() for n, g in grads.items()},
                         {k: float(v) for k, v in metrics.items()},
                         {n: p.detach().cpu() for n, p in state.params.items()})
@@ -877,7 +1279,8 @@ def train_reference_check_phase(seed):
     param_err = max(_abs_err(params[n], ref_params[n]) for n in ref_params)
     param_tol = 2 * ref_metrics["lr"] + 1e-6
     emit({"phase": "train_reference_check", "dtype": "float32",
-          "batch": 2, "frames": 256, "trg_len": 16, "loss_rel_err": loss_err,
+          "dropout": DROPOUT_RATE if dropout else 0.0, "batch": 2,
+          "frames": 256, "trg_len": 16, "loss_rel_err": loss_err,
           "grad_norm_rel_err": norm_err, "max_grad_rel_l2_err": grad_err,
           "worst_grad": worst,
           "max_param_abs_err": param_err,
@@ -889,13 +1292,19 @@ def train_reference_check_phase(seed):
                              "the CPU step")
 
 
-def _summary_row(name, row, launches, by_path):
-    return {"name": name, "route": "cuda",
-            "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches, "launches_by_path": by_path,
-            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+def _summary_row(name, row, launches, by_path, dropout_row=None):
+    out = {"name": name, "route": "cuda",
+           "source": SOURCES[name], "replaces": REPLACES[name],
+           "launches": launches, "launches_by_path": by_path,
+           "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+           "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    if dropout_row is not None:
+        out["with_dropout"] = {k: dropout_row[v] for k, v in (
+            ("max_abs_err", "max_abs_err"), ("ms", "kernel_ms"),
+            ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+            ("bound_by", "bound_by"), ("library_ms", "library_ms"))}
+    return out
 
 
 SOURCES = {
@@ -903,13 +1312,19 @@ SOURCES = {
     "flash_attention_dq": "neurst_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_dkv": "neurst_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_linear_xent_fwd": "neurst_tpu_torch/csrc/fused_linear_xent.cu",
-    "fused_linear_xent_bwd": "neurst_tpu_torch/csrc/fused_linear_xent.cu"}
+    "fused_linear_xent_bwd": "neurst_tpu_torch/csrc/fused_linear_xent.cu",
+    "fused_dropout": "neurst_tpu_torch/csrc/fused_dropout.cu",
+    "fused_ffn_fwd": "neurst_tpu_torch/csrc/fused_ffn.cu",
+    "fused_ffn_bwd": "neurst_tpu_torch/csrc/fused_ffn.cu"}
 REPLACES = {
     "flash_attention_fwd": "neurst_tpu/ops/flash_attention.py:96",
     "flash_attention_dq": "neurst_tpu/ops/flash_attention.py:176",
     "flash_attention_dkv": "neurst_tpu/ops/flash_attention.py:244",
     "fused_linear_xent_fwd": "neurst_tpu/ops/fused_ce.py:252",
-    "fused_linear_xent_bwd": "neurst_tpu/ops/fused_ce.py:299"}
+    "fused_linear_xent_bwd": "neurst_tpu/ops/fused_ce.py:299",
+    "fused_dropout": "neurst_tpu/ops/fused_dropout.py:67",
+    "fused_ffn_fwd": "neurst_tpu/ops/fused_ffn.py:121",
+    "fused_ffn_bwd": "neurst_tpu/ops/fused_ffn.py:149"}
 
 
 def main(argv=None):
@@ -923,25 +1338,41 @@ def main(argv=None):
     build_phase()
     fwd_rows = flash_fwd_kernel_phase(args.seed)
     bwd_rows = flash_bwd_kernel_phase(args.seed)
+    flash_drop_rows = flash_dropout_kernel_phase(args.seed)
     xent_rows = xent_kernel_phase(args.seed)
+    dropout_rows = dropout_kernel_phase(args.seed)
+    ffn_rows = ffn_kernel_phase(args.seed)
     model, inputs, decode_counts = slice_phase(args.seed)
     encoder_cross_check_phase(model, inputs)
     del model
     reference_check_phase(args.seed)
-    train_counts = train_phase(args.seed)
+    by_path = {"train": train_phase(args.seed),
+               "train_dropout": train_phase(args.seed, dropout=True),
+               "decode": decode_counts}
     train_reference_check_phase(args.seed)
-    rows = {"flash_attention_fwd": fwd_rows[("main", "bfloat16")],
-            "flash_attention_dq": bwd_rows[("dq", "main", "bfloat16")],
-            "flash_attention_dkv": bwd_rows[("dkv", "main", "bfloat16")],
-            "fused_linear_xent_fwd": xent_rows[("fwd", "main", "bfloat16")],
-            "fused_linear_xent_bwd": xent_rows[("bwd", "main", "bfloat16")]}
+    train_reference_check_phase(args.seed, dropout=True)
+    main_bf16 = ("main", "bfloat16")
+    rows = {
+        "flash_attention_fwd": (fwd_rows[main_bf16],
+                                flash_drop_rows[("fwd",) + main_bf16]),
+        "flash_attention_dq": (bwd_rows[("dq",) + main_bf16],
+                               flash_drop_rows[("dq",) + main_bf16]),
+        "flash_attention_dkv": (bwd_rows[("dkv",) + main_bf16],
+                                flash_drop_rows[("dkv",) + main_bf16]),
+        "fused_linear_xent_fwd": (xent_rows[("fwd",) + main_bf16], None),
+        "fused_linear_xent_bwd": (xent_rows[("bwd",) + main_bf16], None),
+        "fused_dropout": (dropout_rows[main_bf16], None),
+        "fused_ffn_fwd": (ffn_rows[("fwd", "main", DROPOUT_RATE,
+                                    "bfloat16")], None),
+        "fused_ffn_bwd": (ffn_rows[("bwd", "main", DROPOUT_RATE,
+                                    "bfloat16")], None)}
     summary = []
-    for name, row in rows.items():
-        by_path = {"train": train_counts[name]}
-        if name in decode_counts:
-            by_path["decode"] = decode_counts[name]
-        summary.append(_summary_row(name, row, sum(by_path.values()),
-                                    by_path))
+    for name, (row, dropout_row) in rows.items():
+        counts = {path: c[name] for path, c in by_path.items() if name in c}
+        if not any(counts.values()):
+            raise AssertionError(f"{name} never ran on the main paths")
+        summary.append(_summary_row(name, row, sum(counts.values()), counts,
+                                    dropout_row))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 // kernels, dq and dk/dv, no atomics.
 //
 // Replaces: neurst_tpu/ops/flash_attention.py:_dq_kernel (the Pallas
-// call at :435) and :_dkv_kernel (the call at :474), with attention
-// dropout 0.  Both recompute p = exp(s - lse) from the forward's row
+// call at :435) and :_dkv_kernel (the call at :474).  Both recompute
+// p = exp(s - lse) from the forward's row
 // log-sum-exp under the forward's mask (key >= length[b] masked, and key >
 // query when causal), with s = q k^T * H^-1/2 accumulated in float32.
 // p is zeroed AFTER the exp, so a row without keys (lse = NEG_INF) gives
@@ -14,6 +14,11 @@
 // the TPU kernels round them:
 //   dq = round(ds) k * H^-1/2                      (:231-238)
 //   dk = round(ds)^T q * H^-1/2, dv = round(p)^T dO (:295-316)
+// With attention dropout (training) the kernels regenerate the forward's
+// mask (csrc/philox.cuh, at the absolute index (bn Tq + q) Tk + k, which
+// does not depend on the tiling) and, as the TPU kernels do
+// (:218-230, :286-309), form pm = keep ? p / (1 - rate) : 0,
+// ds = pm dp - p delta and dv = round(pm)^T dO.
 //
 // What bounds it on an H100: at the training slice's shape
 // ([40, 750, 4, 64] bf16, ~680 valid keys a row) the function reads and
@@ -43,6 +48,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -129,7 +136,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ delta,
                 const int* __restrict__ lengths, T* __restrict__ dq,
                 int n_heads, int t_q, int t_k, Strides qs_, Strides ks_,
-                Strides vs_, Strides ds_, float scale) {
+                Strides vs_, Strides ds_, float scale, unsigned threshold,
+                float inv_keep, neurst::DropoutSite site) {
   extern __shared__ float smem[];
   Row* qt = reinterpret_cast<Row*>(smem);  // [H][rows]
   Row* dot = qt + kHeadDim;                // [H][rows]
@@ -185,8 +193,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = k0 + tx + 16 * j;
         const bool ok = col < valid && (!kCausal || col <= row);
         const float p = ok ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        ds_tile[ty + 16 * i][tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - row_delta[i]));
+        float ds = p * (dp[i][j] - row_delta[i]);
+        if (threshold != 0u) {
+          const bool keep =
+              ok && neurst::dropout_keep(
+                        (static_cast<unsigned long long>(bn) * t_q + row) *
+                                t_k + col,
+                        site, threshold);
+          ds = (keep ? p * inv_keep : 0.f) * dp[i][j] - p * row_delta[i];
+        }
+        ds_tile[ty + 16 * i][tx + 16 * j] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -228,7 +244,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ lengths, T* __restrict__ dk,
                  T* __restrict__ dv, int n_heads, int t_q, int t_k,
                  Strides qs_, Strides ks_, Strides vs_, Strides ds_,
-                 float scale) {
+                 float scale, unsigned threshold, float inv_keep,
+                 neurst::DropoutSite site) {
   extern __shared__ float smem[];
   Row* kt = reinterpret_cast<Row*>(smem);  // [H][keys]
   Row* vt = kt + kHeadDim;                 // [H][keys]
@@ -300,8 +317,19 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok =
             row < t_q && col < valid && (!kCausal || col <= row);
         const float p = ok ? expf(s[i][j] * scale - lse_tile[r]) : 0.f;
-        p_tile[r][tx + 16 * j] = round_to<T>(p);
-        ds_tile[r][tx + 16 * j] = round_to<T>(p * (dp[i][j] - delta_tile[r]));
+        float pm = p;
+        float ds = p * (dp[i][j] - delta_tile[r]);
+        if (threshold != 0u) {
+          const bool keep =
+              ok && neurst::dropout_keep(
+                        (static_cast<unsigned long long>(bn) * t_q + row) *
+                                t_k + col,
+                        site, threshold);
+          pm = keep ? p * inv_keep : 0.f;
+          ds = pm * dp[i][j] - p * delta_tile[r];
+        }
+        p_tile[r][tx + 16 * j] = round_to<T>(pm);
+        ds_tile[r][tx + 16 * j] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -353,6 +381,9 @@ struct Args {
   int batch, n_heads, t_q, t_k;
   Strides qs, ks, vs, ds;
   bool causal;
+  unsigned threshold;
+  float inv_keep;
+  neurst::DropoutSite site;
   cudaStream_t stream;
 };
 
@@ -373,7 +404,8 @@ cudaError_t launch_dq(const Args& a, void* dq) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.lengths, static_cast<T*>(dq), a.n_heads, a.t_q, a.t_k,
-      a.qs, a.ks, a.vs, a.ds, 1.0f / sqrtf(static_cast<float>(kHeadDim)));
+      a.qs, a.ks, a.vs, a.ds, 1.0f / sqrtf(static_cast<float>(kHeadDim)),
+      a.threshold, a.inv_keep, a.site);
   return cudaGetLastError();
 }
 
@@ -388,7 +420,8 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.lengths, static_cast<T*>(dk), static_cast<T*>(dv),
       a.n_heads, a.t_q, a.t_k, a.qs, a.ks, a.vs, a.ds,
-      1.0f / sqrtf(static_cast<float>(kHeadDim)));
+      1.0f / sqrtf(static_cast<float>(kHeadDim)), a.threshold, a.inv_keep,
+      a.site);
   return cudaGetLastError();
 }
 
@@ -402,7 +435,7 @@ Args make_args(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* lengths, int batch, int n_heads, int t_q,
                int t_k, const long long* strides, int causal,
-               void* stream) {
+               const unsigned* dropout, float inv_keep, void* stream) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta),
               static_cast<const int*>(lengths), batch, n_heads, t_q, t_k,
@@ -410,6 +443,9 @@ Args make_args(const void* q, const void* k, const void* v,
               Strides{strides[3], strides[4], strides[5]},
               Strides{strides[6], strides[7], strides[8]},
               Strides{strides[9], strides[10], strides[11]}, causal != 0,
+              dropout[0], inv_keep,
+              neurst::DropoutSite{dropout[1], dropout[2], dropout[3],
+                                  dropout[4]},
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -417,17 +453,21 @@ Args make_args(const void* q, const void* k, const void* v,
 
 // Both entry points return the cudaError_t of the launch (0 on success).
 // `strides` holds 12 element strides: (b, t, n) of q, k, v and dO, in
-// that order.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the
+// that order.  `dropout` holds 5 words: the threshold (0 = no dropout)
+// and the site (k0, k1, stream, micro); inv_keep = 1 / (1 - rate).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the
 // outputs share it).
 extern "C" int neurst_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* lengths, void* dq,
     int batch, int n_heads, int t_q, int t_k, int head_dim,
-    const long long* strides, int causal, int dtype, void* stream) {
+    const long long* strides, int causal, int dtype,
+    const unsigned* dropout, float inv_keep, void* stream) {
   if (bad_args(batch, n_heads, t_q, t_k, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, k, v, dout, lse, delta, lengths, batch,
-                           n_heads, t_q, t_k, strides, causal, stream);
+                           n_heads, t_q, t_k, strides, causal, dropout,
+                           inv_keep, stream);
   cudaError_t err;
   if (dtype == 0)
     err = a.causal ? launch_dq<float, true>(a, dq)
@@ -442,11 +482,13 @@ extern "C" int neurst_flash_attention_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* lengths, void* dk,
     void* dv, int batch, int n_heads, int t_q, int t_k, int head_dim,
-    const long long* strides, int causal, int dtype, void* stream) {
+    const long long* strides, int causal, int dtype,
+    const unsigned* dropout, float inv_keep, void* stream) {
   if (bad_args(batch, n_heads, t_q, t_k, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, k, v, dout, lse, delta, lengths, batch,
-                           n_heads, t_q, t_k, strides, causal, stream);
+                           n_heads, t_q, t_k, strides, causal, dropout,
+                           inv_keep, stream);
   cudaError_t err;
   if (dtype == 0)
     err = a.causal ? launch_dkv<float, true>(a, dk, dv)

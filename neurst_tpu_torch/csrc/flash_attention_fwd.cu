@@ -1,14 +1,20 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: neurst_tpu/ops/flash_attention.py:_fwd_kernel (the Pallas
-// FlashAttention-2 forward behind `_fwd_impl`).  Same function with
-// attention-probability dropout 0 (inference): for every (batch, head)
-// slice, o = softmax(q k^T * H^-1/2 + mask) v and the row log-sum-exp,
-// where key positions >= length[b] (and, when causal, key > query) are
-// masked.  All statistics and both products accumulate in float32; P is
-// rounded to the value dtype before P.V, as the TPU kernel does
-// (flash_attention.py:156-159).  A row with no valid key gives o = 0 and
-// lse = NEG_INF (:166-170).
+// FlashAttention-2 forward behind `_fwd_impl`).  Same function: for every
+// (batch, head) slice, o = dropout(softmax(q k^T * H^-1/2 + mask)) v and
+// the row log-sum-exp, where key positions >= length[b] (and, when
+// causal, key > query) are masked.  All statistics and both products
+// accumulate in float32; P is rounded to the value dtype before P.V, as
+// the TPU kernel does (flash_attention.py:156-159).  A row with no valid
+// key gives o = 0 and lse = NEG_INF (:166-170).
+//
+// Attention dropout (training) runs in the kernel, as on the TPU
+// (:147-155): the normaliser l sums the UN-dropped p, and P.V takes
+// pd = keep ? p / (1 - rate) : 0.  The mask of element (bn, q, k) is
+// csrc/philox.cuh's mask at the absolute index (bn Tq + q) Tk + k, so the
+// dq and dk/dv kernels, which tile differently, and the plain version
+// regenerate it bit for bit.  threshold 0 (inference) skips it.
 //
 // What bounds it on an H100: at the main path's shape (64 slices of
 // 256 x 64, bf16) with every key valid one call moves 8.4 MB (q, k, v, o)
@@ -33,6 +39,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -68,7 +76,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lengths,
                  T* __restrict__ o, float* __restrict__ lse, int n_heads,
                  int t_q, int t_k, Strides qs_, Strides ks_, Strides vs_,
-                 float scale) {
+                 float scale, unsigned threshold, float inv_keep,
+                 neurst::DropoutSite site) {
   __shared__ float q_tile[kBlockM][kHeadDim + 1];
   __shared__ float k_tile[kBlockN][kHeadDim + 1];
   __shared__ float v_tile[kBlockN][kHeadDim];
@@ -145,8 +154,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = col < valid && (!kCausal || col <= q_row);
       const float p = ok ? expf(s[j] - m_new) : 0.f;
       p_sum += p;
-      // the normaliser takes the unrounded p; P.V the value-dtype p
-      p_tile[row][sub + 4 * j] = to_float(from_float<T>(p));
+      // the normaliser takes the unrounded, un-dropped p; P.V the
+      // dropped p in the value dtype
+      float pd = p;
+      if (threshold != 0u && ok)
+        pd = neurst::dropout_keep(
+                 (static_cast<unsigned long long>(bn) * t_q + q_row) * t_k +
+                     col,
+                 site, threshold)
+                 ? p * inv_keep
+                 : 0.f;
+      p_tile[row][sub + 4 * j] = to_float(from_float<T>(pd));
     }
     p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
     p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 2);
@@ -183,7 +201,8 @@ template <typename T>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
             void* o, float* lse, int batch, int n_heads, int t_q, int t_k,
             Strides qs_, Strides ks_, Strides vs_, bool causal,
-            cudaStream_t stream) {
+            unsigned threshold, float inv_keep,
+            const neurst::DropoutSite& site, cudaStream_t stream) {
   const dim3 grid((t_q + kBlockM - 1) / kBlockM, batch * n_heads);
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
   const T* qp = static_cast<const T*>(q);
@@ -193,23 +212,27 @@ void launch(const void* q, const void* k, const void* v, const int* lengths,
   if (causal)
     flash_fwd_kernel<T, true><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, lengths, op, lse, n_heads, t_q, t_k, qs_, ks_, vs_,
-        scale);
+        scale, threshold, inv_keep, site);
   else
     flash_fwd_kernel<T, false><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, lengths, op, lse, n_heads, t_q, t_k, qs_, ks_, vs_,
-        scale);
+        scale, threshold, inv_keep, site);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  Strides are in
-// elements.  dtype: 0 = float32, 1 = bfloat16.
+// elements.  dtype: 0 = float32, 1 = bfloat16.  threshold 0 = no
+// dropout; else the dropout site (k0, k1, stream_id, micro) and the
+// scale inv_keep = 1 / (1 - rate).
 extern "C" int neurst_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths,
     void* o, void* lse, int batch, int n_heads, int t_q, int t_k,
     int head_dim, long long q_sb, long long q_st, long long q_sn,
     long long k_sb, long long k_st, long long k_sn, long long v_sb,
-    long long v_st, long long v_sn, int causal, int dtype, void* stream) {
+    long long v_st, long long v_sn, int causal, int dtype,
+    unsigned threshold, float inv_keep, unsigned k0, unsigned k1,
+    unsigned stream_id, unsigned micro, void* stream) {
   if (head_dim != kHeadDim || batch <= 0 || n_heads <= 0 || t_q <= 0 ||
       t_k <= 0 || batch * n_heads > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -218,11 +241,13 @@ extern "C" int neurst_flash_attention_fwd(
   const int* len = static_cast<const int*>(lengths);
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const neurst::DropoutSite site{k0, k1, stream_id, micro};
   if (dtype == 0)
     launch<float>(q, k, v, len, o, lse_f, batch, n_heads, t_q, t_k, qs_,
-                  ks_, vs_, causal != 0, s);
+                  ks_, vs_, causal != 0, threshold, inv_keep, site, s);
   else
     launch<__nv_bfloat16>(q, k, v, len, o, lse_f, batch, n_heads, t_q, t_k,
-                          qs_, ks_, vs_, causal != 0, s);
+                          qs_, ks_, vs_, causal != 0, threshold, inv_keep,
+                          site, s);
   return static_cast<int>(cudaGetLastError());
 }

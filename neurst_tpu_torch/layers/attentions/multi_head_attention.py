@@ -7,6 +7,9 @@ as [..., n_proj, heads, head_dim], matching the flax kernels
 [D, n_proj, N, H].  Logits and softmax run in float32 whatever the
 compute dtype; training in bf16 keeps only the bf16 probabilities for
 the backward (``_SoftmaxBf16Residual``), as the JAX module does.
+Attention dropout takes the site's key (``dropout_key``): the dense path
+drops the weights through ``apply_dropout``, the flash path inside the
+kernels, as the JAX module's ``_flash_dropout`` does.
 
 The decode cache is a dict {"keys", "values"} of [B * beam, max_len,
 N, H] buffers.  Unlike the functional JAX update, ``decode_step``
@@ -74,7 +77,7 @@ class MultiHeadAttention(nn.Module):
         return linear(self.output_transform, out.reshape(*out.shape[:2], -1),
                       self.dtype)
 
-    def _attend(self, q, k, v, bias, is_training=False):
+    def _attend(self, q, k, v, bias, is_training=False, dropout_key=None):
         """q [B, F, N, H], k/v [B, T, N, H], bias broadcastable to
         [B, N, F, T]."""
         q = q * (self.head_dim ** -0.5)
@@ -86,16 +89,17 @@ class MultiHeadAttention(nn.Module):
         else:
             weights = torch.softmax(logits, dim=-1).to(self.dtype)
         weights = apply_dropout(weights, self.attention_dropout_rate,
-                                is_training)
+                                is_training, dropout_key)
         out = torch.einsum("bnft,btnh->bfnh", weights, v.to(self.dtype))
         return self._output(out)
 
-    def _flash(self, q, k, v, lengths, causal, is_training):
-        """The flash kernels (differentiable); attention dropout runs
-        inside them, so a training rate > 0 is refused there."""
+    def _flash(self, q, k, v, lengths, causal, is_training, dropout_key):
+        """The flash kernels (differentiable), with the attention dropout
+        inside them in training."""
         rate = self.attention_dropout_rate if is_training else 0.0
-        return self._output(flash_attention(q, k, v, lengths, causal=causal,
-                                            dropout_rate=rate))
+        return self._output(flash_attention(
+            q, k, v, lengths, causal=causal, dropout_rate=rate,
+            dropout_key=dropout_key if rate else None))
 
     def compute_kv(self, memory):
         """Projects memory to (k, v), each [B, T, N, H]."""
@@ -103,7 +107,7 @@ class MultiHeadAttention(nn.Module):
         return kv[:, :, 0], kv[:, :, 1]
 
     def forward(self, query, memory=None, bias=None, cache=None,
-                flash_lengths=None, is_training=False):
+                flash_lengths=None, is_training=False, dropout_key=None):
         """-> [B, F, D].  With ``flash_lengths`` (valid key counts, no
         cache) the flash kernels compute the attention."""
         q = self._proj(self.q_transform, query, 1)[:, :, 0]
@@ -112,7 +116,8 @@ class MultiHeadAttention(nn.Module):
         else:
             k, v = self.compute_kv(memory)
         if cache is None and flash_lengths is not None:
-            return self._flash(q, k, v, flash_lengths, False, is_training)
+            return self._flash(q, k, v, flash_lengths, False, is_training,
+                               dropout_key)
         if cache is not None and q.shape[0] != k.shape[0]:
             # beam-shared k/v: the [B * beam] query rows join the query
             # axis of their sentence's [B] memory, then split again
@@ -121,7 +126,7 @@ class MultiHeadAttention(nn.Module):
             qg = q.reshape(b, beam * f, *q.shape[2:])
             out = self._attend(qg, k, v, bias)
             return out.reshape(b * beam, f, out.shape[-1])
-        return self._attend(q, k, v, bias, is_training)
+        return self._attend(q, k, v, bias, is_training, dropout_key)
 
 
 class MultiHeadSelfAttention(MultiHeadAttention):
@@ -149,7 +154,7 @@ class MultiHeadSelfAttention(MultiHeadAttention):
 
     def forward(self, query, bias=None, cache=None, decode_step=None,
                 flash_lengths=None, flash_causal=False, beam_anc=None,
-                is_training=False):
+                is_training=False, dropout_key=None):
         """Self-attention over ``query`` [B, F, D] -> [B, F, D].
 
         With ``flash_lengths`` (no cache) the flash kernels compute it
@@ -161,7 +166,7 @@ class MultiHeadSelfAttention(MultiHeadAttention):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None and flash_lengths is not None:
             return self._flash(q, k, v, flash_lengths, flash_causal,
-                               is_training)
+                               is_training, dropout_key)
         if cache is not None and decode_step is not None:
             if not isinstance(decode_step, int):
                 raise NotImplementedError(
@@ -173,4 +178,4 @@ class MultiHeadSelfAttention(MultiHeadAttention):
             k, v = cache["keys"], cache["values"]
             if beam_anc is not None and f == 1:
                 return self._attend_indirect(q, k, v, bias, beam_anc)
-        return self._attend(q, k, v, bias, is_training)
+        return self._attend(q, k, v, bias, is_training, dropout_key)

@@ -7,10 +7,11 @@ Parameters are stored in float32 (or bf16 after
 ``dtype`` where they are used, as the flax modules do.  Dense
 weights use ``torch.nn.Linear``'s ``[out, in]`` layout;
 ``utils/param_bridge`` transposes the flax ``[in, out]`` kernels.
-Training threads ``is_training`` through every module as the flax
-modules do; dropout itself is not ported, so ``apply_dropout`` is the
-identity at rate 0 or outside training and raises on a rate > 0 in
-training.  Modules are built without drawing random numbers; their
+Training threads ``is_training`` and a dropout key
+(``utils/rng.DropoutKey``, one stream per site) through every module, as
+the flax modules thread their 'dropout' rng; ``apply_dropout`` is the
+port of ``neurst_tpu``'s, on the mask kernel of ``ops/fused_dropout.py``.
+Modules are built without drawing random numbers; their
 weights come from ``utils/param_bridge`` or the model's ``init_params``.
 """
 
@@ -20,18 +21,25 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from neurst_tpu_torch.ops.fused_dropout import dropout, quantized_site
+from neurst_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_available
+
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
            "sinusoidal_position_signal", "linear", "apply_dropout"]
 
 
-def apply_dropout(x, rate: float, is_training: bool):
-    """Inverted dropout: the identity outside training or at rate 0; a
-    rate > 0 in training is not ported yet and raises."""
+def apply_dropout(x, rate: float, is_training: bool, key=None):
+    """Inverted dropout with the site's ``key``: the identity outside
+    training or at rate 0.  At a site the TPU path sends through its
+    mask kernel (>= 65536 elements, last dim % 128 == 0) the rate is
+    quantized to 1/256, elsewhere exact, as in ``neurst_tpu``'s
+    ``apply_dropout``.  A training rate > 0 without a key raises."""
     if not is_training or not rate:
         return x
-    raise NotImplementedError(
-        f"dropout (rate {rate}) in training is not ported yet; set the "
-        f"dropout rates to 0 to train with the port")
+    if key is None:
+        raise ValueError(f"dropout rate {rate} in training needs a dropout "
+                         f"key (utils.rng.DropoutKey)")
+    return dropout(x, rate, key, quantized_site(x.shape))
 
 
 def linear(layer: nn.Linear, x, dtype):
@@ -59,8 +67,10 @@ class LayerNorm(nn.Module):
 
 
 class TransformerFFN(nn.Module):
-    """dense1 -> relu -> dropout -> dense2 (the JAX module's plain path,
-    which runs wherever its fused FFN kernel is off)."""
+    """dense1 -> relu -> dropout -> dense2.  Where the JAX package's gate
+    says so (``ops/fused_ffn.fused_ffn_available``: training at enough
+    rows) the fused FFN kernels run it, else the plain composite; both
+    take the same parameters and the same dropout site."""
 
     def __init__(self, input_size: int, filter_size: int, output_size: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -74,9 +84,17 @@ class TransformerFFN(nn.Module):
         self.dense1 = nn.Linear(input_size, filter_size)
         self.dense2 = nn.Linear(filter_size, output_size)
 
-    def forward(self, x, is_training: bool = False):
+    def forward(self, x, is_training: bool = False, dropout_key=None):
+        rate = self.dropout_rate if is_training else 0.0
+        rows = x.numel() // x.shape[-1]
+        if fused_ffn_available(x.shape[-1], self.dense1.out_features,
+                               "relu", rows, is_training, rate):
+            return fused_ffn(x.to(self.dtype), self.dense1.weight,
+                             self.dense1.bias, self.dense2.weight,
+                             self.dense2.bias, rate,
+                             dropout_key if rate else None)
         h = torch.relu(linear(self.dense1, x, self.dtype))
-        h = apply_dropout(h, self.dropout_rate, is_training)
+        h = apply_dropout(h, self.dropout_rate, is_training, dropout_key)
         return linear(self.dense2, h, self.dtype)
 
 

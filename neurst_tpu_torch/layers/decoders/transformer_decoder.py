@@ -15,6 +15,7 @@ from torch import nn
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.common_layers import LayerNorm
 from neurst_tpu_torch.layers.transformer_layers import TransformerDecoderLayer
+from neurst_tpu_torch.utils.rng import SIDE_DECODER, at_site
 
 __all__ = ["TransformerDecoder"]
 
@@ -68,12 +69,14 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, inputs, memory=None, memory_padding=None, cache=None,
                 decode_step=None, decode_lagging=None, beam_anc=None,
-                is_training=False):
+                is_training=False, dropout_key=None):
         """Teacher forcing: ``inputs`` [B, T, D] under a causal mask.
         Stepwise decode: ``inputs`` [B, 1, D] at int ``decode_step`` with
         a cache from ``create_decoding_internal_cache`` (updated in
         place).  ``beam_anc`` [B, beam, max_len]: the beam ancestor
-        matrix the self-attention reads the cache through.
+        matrix the self-attention reads the cache through.  Layer i draws
+        its dropout masks from stream ``SIDE_DECODER << 16 | i << 4`` of
+        ``dropout_key``.
 
         Returns (outputs, cache)."""
         if decode_lagging is not None:
@@ -110,7 +113,9 @@ class TransformerDecoder(nn.Module):
                       cache=None if cache is None else cache[f"layer_{i}"],
                       decode_step=decode_step, self_flash_causal=use_flash,
                       cross_flash_lengths=cross_flash_lengths,
-                      beam_anc=beam_anc, is_training=is_training)
+                      beam_anc=beam_anc, is_training=is_training,
+                      dropout_key=at_site(dropout_key,
+                                          SIDE_DECODER << 16 | i << 4))
         if not self.post_normalize:
             x = self.output_ln(x)
         return x, cache

@@ -10,6 +10,7 @@ from torch import nn
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.common_layers import LayerNorm
 from neurst_tpu_torch.layers.transformer_layers import TransformerEncoderLayer
+from neurst_tpu_torch.utils.rng import SIDE_ENCODER, at_site
 
 __all__ = ["TransformerEncoder"]
 
@@ -41,10 +42,13 @@ class TransformerEncoder(nn.Module):
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)
 
-    def forward(self, inputs, inputs_padding, is_training=False):
+    def forward(self, inputs, inputs_padding, is_training=False,
+                dropout_key=None):
         """inputs [B, T, D]; inputs_padding [B, T] float (1 = pad).
         Padding is contiguous on the right, so with flash attention a
-        per-row valid length encodes it for the kernel."""
+        per-row valid length encodes it for the kernel.  Layer i draws
+        its dropout masks from stream ``SIDE_ENCODER << 16 | i << 4`` of
+        ``dropout_key``."""
         flash_lengths = bias = None
         if self.enable_flash_attention:
             flash_lengths = (1.0 - inputs_padding).sum(dim=1).to(torch.int32)
@@ -58,7 +62,8 @@ class TransformerEncoder(nn.Module):
             x = getattr(self, f"layer_{i}")(
                 x, bias, flash_lengths=flash_lengths,
                 flash_causal=self.attention_monotonic,
-                is_training=is_training)
+                is_training=is_training,
+                dropout_key=at_site(dropout_key, SIDE_ENCODER << 16 | i << 4))
         if not self.post_normalize:
             x = self.output_ln(x)
         return x

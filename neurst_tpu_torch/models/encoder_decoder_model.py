@@ -7,8 +7,9 @@ holds the target modality with the tied softmax, the encoder and the
 decoder, the generation interface beam search drives
 (``prepare_generation`` -> (``decode_step``, generation initializer)),
 and the training interface the train step drives (``call_train``,
-``supports_fused_softmax_ce``).  Training with dropout > 0 is not ported
-yet and raises.
+``supports_fused_softmax_ce``).  Training with dropout > 0 takes a
+dropout key (``utils/rng.DropoutKey``), as the JAX model takes its
+'dropout' rng, and raises without one.
 """
 
 import inspect
@@ -86,11 +87,11 @@ class EncoderDecoderModel(BaseModel):
             for rate in ("attention_dropout_rate", "ffn_dropout_rate",
                          "layer_postprocess_dropout_rate"))
 
-    def _check_training(self, is_training):
-        if is_training and self._has_dropout:
-            raise NotImplementedError(
-                "training with dropout > 0 is not ported yet; set the "
-                "dropout rates to 0 to train with the port")
+    def _check_training(self, is_training, dropout_key):
+        if is_training and self._has_dropout and dropout_key is None:
+            raise ValueError(
+                "training with dropout > 0 needs a dropout key "
+                "(utils.rng.DropoutKey; the train step's rng)")
 
     def _as_tensors(self, inputs):
         return {k: torch.as_tensor(v, device=self.device)
@@ -100,35 +101,41 @@ class EncoderDecoderModel(BaseModel):
         """-> (source embeddings [B, S, D], source padding [B, S])."""
         raise NotImplementedError
 
-    def encode(self, inputs, is_training=False):
+    def encode(self, inputs, is_training=False, dropout_key=None):
         """Returns (encoder_outputs [B, S, D], memory_padding [B, S])."""
-        self._check_training(is_training)
+        self._check_training(is_training, dropout_key)
         emb, src_padding = self.embed_source(self._as_tensors(inputs))
-        return self.encoder(emb, src_padding, is_training), src_padding
+        return self.encoder(emb, src_padding, is_training,
+                            dropout_key), src_padding
 
-    def forward(self, inputs, is_training=False, return_prelogits=False):
+    def forward(self, inputs, is_training=False, return_prelogits=False,
+                dropout_key=None):
         """Teacher forcing -> float32 logits [B, T, trg_vocab].
 
         With ``return_prelogits`` (the fused projection + cross-entropy
         training path) it returns {"prelogits": decoder output [B, T, D],
         "softmax_w": [V, D], "softmax_bias": [V]} instead, and the
         [B, T, V] logits are never formed."""
-        enc, src_padding = self.encode(inputs, is_training)
+        enc, src_padding = self.encode(inputs, is_training, dropout_key)
         trg = torch.as_tensor(inputs["trg_input"], device=self.device)
         dec_out, _ = self.decoder(self.target_symbol_modality(trg),
                                   memory=enc, memory_padding=src_padding,
-                                  is_training=is_training)
+                                  is_training=is_training,
+                                  dropout_key=dropout_key)
         modality = self.target_symbol_modality
         if return_prelogits:
             return {"prelogits": dec_out, "softmax_w": modality.weights,
                     "softmax_bias": modality.bias}
         return modality.attend(dec_out)
 
-    def call_train(self, inputs, want_prelogits=False):
+    def call_train(self, inputs, want_prelogits=False, dropout_key=None):
         """Training forward -> (model_out, aux_loss).  The auxiliary loss
         (model-internal losses such as MoE load balancing) is a float32
-        zero here: the ported models sow none."""
-        out = self(inputs, is_training=True, return_prelogits=want_prelogits)
+        zero here: the ported models sow none.  ``dropout_key`` seeds
+        every dropout site; a model with dropout > 0 raises without
+        one."""
+        out = self(inputs, is_training=True, return_prelogits=want_prelogits,
+                   dropout_key=dropout_key)
         return out, torch.zeros((), dtype=torch.float32, device=self.device)
 
     def supports_fused_softmax_ce(self) -> bool:

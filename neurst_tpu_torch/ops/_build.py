@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on
 its own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root
 (listed in ``.gitignore``).  The library's file name carries a hash of
-its source, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs at import: the first call that
+its source and of every ``csrc/*.cuh`` header the source includes
+(``#include "..."``, followed transitively), so an edited source or
+shared header is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import: the first call that
 launches a kernel builds it, and ``build()`` builds every kernel at
 once, one ``nvcc`` per source, all started together.
 
@@ -15,6 +17,7 @@ A build that fails raises ``RuntimeError`` with the compiler's output.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +34,10 @@ KERNEL_SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_linear_xent": "fused_linear_xent.cu",
+    "fused_dropout": "fused_dropout.cu",
+    "fused_ffn": "fused_ffn.cu",
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,10 +57,25 @@ def _nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
+def _sources(path: Path, seen=None):
+    """``path`` and the local headers it includes, in include order."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for header in _INCLUDE.findall(path.read_text()):
+        local = path.parent / header
+        if local.exists():
+            _sources(local, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / KERNEL_SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256()
+    for path in _sources(CSRC_DIR / KERNEL_SOURCES[name]):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -5,8 +5,12 @@ Counterpart of ``neurst_tpu/ops/flash_attention.py``.  The TPU kernels
 become ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``) and
 ``csrc/flash_attention_bwd.cu`` (``_dq_kernel`` and ``_dkv_kernel``),
 built for sm_90a and called through ctypes (see ``ops/_build.py``).
-Attention-probability dropout is not ported: ``flash_attention`` raises
-on a rate > 0.
+Attention-probability dropout runs inside the kernels, as on the TPU:
+the normalizer sums the un-dropped probabilities, P.V takes
+``keep ? p / (1 - rate) : 0`` and the backward kernels regenerate the
+mask from the dropout key (``utils/rng.py``) at the absolute index
+``((b N + n) Tq + q) Tk + k`` (``ops/fused_dropout.py``), with the exact
+32-bit threshold ``round(rate * 2^32)``.
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function``
 keeps (q, k, v, lengths, o, lse) from the forward and recomputes the
@@ -25,6 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
+                                                threshold_and_scale)
+from neurst_tpu_torch.utils.rng import site_words
+
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_bwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
@@ -35,6 +43,32 @@ NEG_INF = -1.0e30
 HEAD_DIMS = (64,)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _drop_consts(dropout_rate, dropout_key):
+    """(threshold, inv_keep, key) of the in-kernel dropout; threshold 0
+    without dropout."""
+    threshold, inv_keep = threshold_and_scale(dropout_rate or 0.0, False)
+    if threshold and dropout_key is None:
+        raise ValueError("flash attention dropout_rate > 0 needs a "
+                         "dropout_key")
+    return threshold, inv_keep, dropout_key
+
+
+def _keep(q, k, drop):
+    """The [B, N, Tq, Tk] keep mask of the site, or None."""
+    threshold, _, key = drop
+    if not threshold:
+        return None
+    b, t_q, n, _ = q.shape
+    return dropout_keep_mask((b, n, t_q, k.shape[1]), key, threshold,
+                             q.device)
+
+
+def _scaled(p, keep, inv_keep):
+    """keep ? p * inv_keep : 0 in float32."""
+    pd = p * torch.tensor(inv_keep, dtype=torch.float32, device=p.device)
+    return torch.where(keep, pd, torch.zeros_like(pd))
 
 
 def _full_lengths(q, k, lengths):
@@ -58,19 +92,24 @@ def _scores(q, k, lengths, causal):
     return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
 
 
-def flash_attention_reference(q, k, v, lengths=None, causal: bool = False
+def flash_attention_reference(q, k, v, lengths=None, causal: bool = False,
+                              dropout_rate: float = 0.0, dropout_key=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same masking, float32
-    accumulation, P rounded to the value dtype before P.V, o = 0 and
-    lse = NEG_INF for a row without valid keys.
+    accumulation, P (after dropout) rounded to the value dtype before
+    P.V, o = 0 and lse = NEG_INF for a row without valid keys.
 
     q [B, Tq, N, H], k/v [B, Tk, N, H], lengths [B] valid key counts.
     Returns (o [B, Tq, N, H] in q's dtype, lse [B, N, Tq] float32)."""
     lengths = _full_lengths(q, k, lengths)
+    drop = _drop_consts(dropout_rate, dropout_key)
     s, mask = _scores(q, k, lengths, causal)
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l_sum = p.sum(dim=-1)
+    keep = _keep(q, k, drop)
+    if keep is not None:
+        p = _scaled(p, keep, drop[1])
     o = torch.einsum("bnqk,bknh->bqnh", p.to(v.dtype).float(), v.float())
     o = o / l_sum.clamp_min(1e-20).transpose(1, 2)[..., None]
     lse = torch.where(l_sum > 0.0, m + torch.log(l_sum.clamp_min(1e-37)),
@@ -83,11 +122,14 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, do, lse, delta, lengths, causal):
+def _bwd_plain(q, k, v, do, lse, delta, lengths, causal,
+               drop=(0, 1.0, None)):
     """(dq, dk, dv) by recomputing p = exp(s - lse) under the forward's
     mask (zeroed after the exp, so a row without keys gives p = 0),
-    dp = dO v^T and ds = p (dp - delta) in float32; ds and p are rounded
-    to the operand dtype before each product, where the TPU kernels round
+    dp = dO v^T and ds = p (dp - delta) in float32; with dropout
+    (``drop`` = (threshold, inv_keep, key)) pm = keep ? p inv_keep : 0,
+    ds = pm dp - p delta and dv takes pm.  ds and p are rounded to the
+    operand dtype before each product, where the TPU kernels round
     them."""
     lengths = _full_lengths(q, k, lengths)
     s, mask = _scores(q, k, lengths, causal)
@@ -95,7 +137,13 @@ def _bwd_plain(q, k, v, do, lse, delta, lengths, causal):
     p = torch.where(mask, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))
     dp = torch.einsum("bqnh,bknh->bnqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None])
+    keep = _keep(q, k, drop)
+    if keep is None:
+        ds = p * (dp - delta[..., None])
+    else:
+        pm = _scaled(p, keep, drop[1])
+        ds = pm * dp - p * delta[..., None]
+        p = pm
     dq = torch.einsum("bnqk,bknh->bqnh", ds.to(k.dtype).float(),
                       k.float()) * scale
     dk = torch.einsum("bnqk,bqnh->bknh", ds.to(q.dtype).float(),
@@ -105,11 +153,14 @@ def _bwd_plain(q, k, v, do, lse, delta, lengths, causal):
 
 
 def flash_attention_bwd_reference(q, k, v, lengths, o, lse, do,
-                                  causal: bool = False):
+                                  causal: bool = False,
+                                  dropout_rate: float = 0.0,
+                                  dropout_key=None):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv) of
     the attention whose forward gave (o, lse), for the output gradient
     dO [B, Tq, N, H]."""
-    return _bwd_plain(q, k, v, do, lse, _delta(o, do), lengths, causal)
+    return _bwd_plain(q, k, v, do, lse, _delta(o, do), lengths, causal,
+                      _drop_consts(dropout_rate, dropout_key))
 
 
 def _check_cuda_inputs(q, k, v, lengths, do=None):
@@ -150,12 +201,14 @@ def _kernel():
     fn = load("flash_attention_fwd").neurst_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                      ctypes.c_float] + [ctypes.c_uint32] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, lengths, causal):
+def _launch(q, k, v, lengths, causal, drop):
     fn = _kernel()
     b, t_q, n, h = q.shape
     t_k = k.shape[1]
@@ -168,7 +221,8 @@ def _launch(q, k, v, lengths, causal):
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
-             int(causal), _DTYPE_CODES[q.dtype], stream)
+             int(causal), _DTYPE_CODES[q.dtype], drop[0], drop[1],
+             *site_words(drop[2]), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
                            f"error {err}")
@@ -176,7 +230,8 @@ def _launch(q, k, v, lengths, causal):
     return o, lse
 
 
-def flash_attention_fwd(q, k, v, lengths=None, causal: bool = False
+def flash_attention_fwd(q, k, v, lengths=None, causal: bool = False,
+                        dropout_rate: float = 0.0, dropout_key=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B, Tq, N, H], lse [B, N, Tq] float32).
 
@@ -185,9 +240,11 @@ def flash_attention_fwd(q, k, v, lengths=None, causal: bool = False
     callers must not pre-scale q."""
     lengths = _full_lengths(q, k, lengths)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, lengths, causal)
+        return flash_attention_reference(q, k, v, lengths, causal,
+                                         dropout_rate, dropout_key)
+    drop = _drop_consts(dropout_rate, dropout_key)
     _check_cuda_inputs(q, k, v, lengths)
-    return _launch(q, k, v, lengths, causal)
+    return _launch(q, k, v, lengths, causal, drop)
 
 
 flash_attention_fwd.launches = 0
@@ -203,22 +260,24 @@ def _bwd_kernel(name):
     n_out = 1 if name == "dq" else 2
     fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_bwd(name, outs, q, k, v, do, lse, delta, lengths, causal):
+def _launch_bwd(name, outs, q, k, v, do, lse, delta, lengths, causal,
+                drop):
     b, t_q, n, h = q.shape
     strides = (ctypes.c_longlong * 12)(*(
         x.stride(i) for x in (q, k, v, do) for i in range(3)))
+    dropout = (ctypes.c_uint32 * 5)(drop[0], *site_words(drop[2]))
     lengths = lengths.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
         *(x.data_ptr() for x in outs), b, n, t_q, k.shape[1], h, strides,
-        int(causal), _DTYPE_CODES[q.dtype], stream)
+        int(causal), _DTYPE_CODES[q.dtype], dropout, drop[1], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_{name} launch failed: CUDA "
                            f"error {err}")
@@ -234,17 +293,20 @@ def _check_stats(q, lse, delta):
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, lengths=None,
-                       causal: bool = False) -> torch.Tensor:
+                       causal: bool = False, dropout_rate: float = 0.0,
+                       dropout_key=None) -> torch.Tensor:
     """dq [B, Tq, N, H] from the forward's lse and delta = rowsum(dO o),
     both [B, N, Tq] float32.  CUDA tensors run the dq kernel (or raise);
     CPU tensors run the plain version."""
     lengths = _full_lengths(q, k, lengths)
+    drop = _drop_consts(dropout_rate, dropout_key)
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)[0]
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal, drop)[0]
     _check_cuda_inputs(q, k, v, lengths, do)
     _check_stats(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, lengths, causal)
+    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, lengths, causal,
+                drop)
     flash_attention_dq.launches += 1
     return dq
 
@@ -254,19 +316,23 @@ flash_attention_dq.kernel_name = "flash_attention_dq"
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, lengths=None,
-                        causal: bool = False
+                        causal: bool = False, dropout_rate: float = 0.0,
+                        dropout_key=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each [B, Tk, N, H], as ``flash_attention_dq`` takes
     them.  CUDA tensors run the dk/dv kernel (or raise); CPU tensors run
     the plain version."""
     lengths = _full_lengths(q, k, lengths)
+    drop = _drop_consts(dropout_rate, dropout_key)
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)[1:]
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal,
+                          drop)[1:]
     _check_cuda_inputs(q, k, v, lengths, do)
     _check_stats(q, lse, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, lengths, causal)
+    _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, lengths, causal,
+                drop)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -275,28 +341,32 @@ flash_attention_dkv.launches = 0
 flash_attention_dkv.kernel_name = "flash_attention_dkv"
 
 
-def flash_attention_bwd(q, k, v, lengths, o, lse, do, causal: bool = False):
+def flash_attention_bwd(q, k, v, lengths, o, lse, do, causal: bool = False,
+                        dropout_rate: float = 0.0, dropout_key=None):
     """(dq, dk, dv) of the attention whose forward gave (o, lse).  On the
     card delta is computed here and the dq and dk/dv kernels run; on the
     CPU the plain version runs once for all three."""
     delta = _delta(o, do)
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal)
+        return _bwd_plain(q, k, v, do, lse, delta, lengths, causal,
+                          _drop_consts(dropout_rate, dropout_key))
     if do.stride(-1) != 1:
         do = do.contiguous()
-    dq =flash_attention_dq(q, k, v, do, lse, delta, lengths, causal)
+    drop = (dropout_rate, dropout_key)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, lengths, causal, *drop)
     return (dq,) + flash_attention_dkv(q, k, v, do, lse, delta, lengths,
-                                       causal)
+                                       causal, *drop)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, backward kernels; keeps (q, k, v, lengths, o,
-    lse) in between."""
+    lse) and the dropout site in between."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, causal):
-        o, lse = flash_attention_fwd(q, k, v, lengths, causal)
-        ctx.causal = causal
+    def forward(ctx, q, k, v, lengths, causal, dropout_rate, dropout_key):
+        o, lse = flash_attention_fwd(q, k, v, lengths, causal, dropout_rate,
+                                     dropout_key)
+        ctx.args = (causal, dropout_rate, dropout_key)
         ctx.save_for_backward(q, k, v, lengths, o, lse)
         return o
 
@@ -304,20 +374,22 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, lengths, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, lengths, o, lse, do,
-                                         ctx.causal)
-        return dq, dk, dv, None, None
+                                         *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, lengths: Optional[torch.Tensor] = None,
-                    causal: bool = False, dropout_rate: float = 0.0):
+                    causal: bool = False, dropout_rate: float = 0.0,
+                    dropout_key=None):
     """Memory-light, differentiable attention -> [B, Tq, N, H] in q's
     dtype.
 
     q [B, Tq, N, H], k/v [B, Tk, N, H], lengths [B] valid KEY counts
-    (padded query rows produce values the caller drops)."""
-    if dropout_rate:
-        raise NotImplementedError(
-            "flash attention dropout is not ported yet; the port runs "
-            "flash attention with dropout 0")
+    (padded query rows produce values the caller drops).  A
+    ``dropout_rate`` > 0 drops attention probabilities inside the
+    kernels and needs the site's ``dropout_key``
+    (``utils.rng.DropoutKey``); without one it raises."""
+    _drop_consts(dropout_rate, dropout_key)
     return _FlashAttention.apply(q, k, v, _full_lengths(q, k, lengths),
-                                 causal)
+                                 causal, float(dropout_rate or 0.0),
+                                 dropout_key)

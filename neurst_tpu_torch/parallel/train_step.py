@@ -9,6 +9,13 @@ leading [update_cycle] axis; the micro-batches' raw loss sums and their
 gradients accumulate in float32 and are normalized once by the total
 token count, as the JAX step does, so ragged micro-batches match one big
 batch.  Clipping happens inside the optimizer chain.
+
+Dropout: ``train_step(state, batch, rng)`` takes a
+``utils.rng.DropoutKey``, folds it with ``state.step`` and, with
+``update_cycle > 1``, splits it per micro-batch, as the JAX step folds and
+splits its ``jax.random`` key.  The same (rng, step) gives the same masks.
+``rng=None`` is accepted only by a model without dropout (the model
+raises otherwise).
 """
 
 import dataclasses
@@ -20,6 +27,7 @@ import torch
 from neurst_tpu_torch.optimizers.optimizers import (GradientTransformation,
                                                      apply_updates,
                                                      global_norm)
+from neurst_tpu_torch.utils.rng import fold_in, split
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step"]
 
@@ -38,11 +46,12 @@ class TrainState:
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
                     lr_schedule: Optional[Callable] = None):
-    """Builds ``train_step(state, batch) -> (state, metrics)`` with the
-    metrics loss, aux_loss, grad_norm (of the gradients before clipping)
-    and, with a schedule, lr (at the step's count).  The returned
-    function carries ``compute_grads(params, batch) -> (loss, aux,
-    grads)``, the step's forward and backward without the update."""
+    """Builds ``train_step(state, batch, rng=None) -> (state, metrics)``
+    with the metrics loss, aux_loss, grad_norm (of the gradients before
+    clipping) and, with a schedule, lr (at the step's count).  The
+    returned function carries ``compute_grads(params, batch, rng=None) ->
+    (loss, aux, grads)``, the step's forward and backward without the
+    update, with ``rng`` as the step's (already folded) dropout key."""
 
     # the fused projection + cross-entropy path: the model hands back
     # prelogits and the [B, T, V] logits are never formed
@@ -52,11 +61,11 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         and getattr(criterion, "supports_prelogits", False)
         and model.supports_fused_softmax_ce())
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, rng=None):
         names = list(params)
         leaves = [params[n] for n in names]
         if update_cycle == 1:
-            out, aux = model.call_train(batch, want_prelogits)
+            out, aux = model.call_train(batch, want_prelogits, rng)
             loss = criterion.reduce_loss(batch, out) + aux
             grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), aux.detach(), dict(zip(names, grads))
@@ -66,9 +75,11 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         # away before the f32 master sees them
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss_sum = denom = aux_sum = 0.0
+        keys = [None] * update_cycle if rng is None else split(rng,
+                                                                update_cycle)
         for i in range(update_cycle):
             micro = {k: v[i] for k, v in batch.items()}
-            out, aux = model.call_train(micro, want_prelogits)
+            out, aux = model.call_train(micro, want_prelogits, keys[i])
             micro_loss, micro_denom = criterion.reduce_loss_terms(micro, out)
             # the auxiliary loss weighs by the micro-batch's token count
             micro_aux = aux * micro_denom.detach()
@@ -81,8 +92,10 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         return (loss_sum * inv, aux_sum * inv,
                 dict(zip(names, torch._foreach_mul(acc, inv))))
 
-    def train_step(state: TrainState, batch):
-        loss, aux, grads = compute_grads(state.params, batch)
+    def train_step(state: TrainState, batch, rng=None):
+        if rng is not None:
+            rng = fold_in(rng, state.step)
+        loss, aux, grads = compute_grads(state.params, batch, rng)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
         metrics = {"loss": loss, "aux_loss": aux,

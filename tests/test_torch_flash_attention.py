@@ -23,6 +23,7 @@ from neurst_tpu.ops.flash_attention import _fwd_impl  # noqa: E402
 from neurst_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention  # noqa: E402
 from neurst_tpu_torch.ops import flash_attention as port  # noqa: E402
+from neurst_tpu_torch.utils.rng import DropoutKey  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -138,8 +139,10 @@ def test_kernel_input_checks_refuse(what, match):
 
 
 def test_dropout_is_refused():
+    """Attention dropout without the site's key is refused (the kernels
+    draw the mask from it)."""
     q = torch.zeros(1, 4, 1, 64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_key"):
         port.flash_attention(q, q, q, dropout_rate=0.1)
 
 
@@ -206,3 +209,80 @@ def test_backward_wrappers_refuse_a_mismatched_output_gradient():
         port._check_cuda_inputs(q, k, v, lens, q[:, :8])
     with pytest.raises(TypeError, match="dtype"):
         port._check_cuda_inputs(q, k, v, lens, q.bfloat16())
+
+
+def _dense_dropout_attention(q, k, v, lengths, causal, rate, key):
+    """softmax over the valid keys, then the site's mask times 1 / (1 -
+    rate), then P.V: the dense composite the kernels fuse (float32)."""
+    from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
+                                                    threshold_and_scale)
+    b, t_q, n, h = q.shape
+    t_k = k.shape[1]
+    s = torch.einsum("bqnh,bknh->bnqk", q, k) / np.sqrt(h)
+    col = torch.arange(t_k)
+    mask = (col[None, :] < lengths[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (col[None, :] <= torch.arange(t_q)[:, None])[None,
+                                                                  None]
+    p = torch.softmax(s.masked_fill(~mask, port.NEG_INF), dim=-1)
+    p = torch.where(mask, p, torch.zeros_like(p))
+    threshold, inv_keep = threshold_and_scale(rate, False)
+    keep = dropout_keep_mask((b, n, t_q, t_k), key, threshold)
+    pd = torch.where(keep, p * inv_keep, torch.zeros_like(p))
+    return torch.einsum("bnqk,bknh->bqnh", pd, v)
+
+
+DROPOUT_KEY = DropoutKey(99, 5, stream=7, micro=1)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_dropout_forward_matches_the_dense_composite(case, rate):
+    """With attention dropout the plain version (what the kernel
+    computes) equals the dense composite with the same mask; the row
+    log-sum-exp is the un-dropped one."""
+    _, b, t_q, t_k, n, h, lengths, causal = case
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs(len(lengths) + 3, b, t_q, t_k, n, h, "float32"))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    o, lse = port.flash_attention_fwd(q, k, v, lens, causal, rate,
+                                      DROPOUT_KEY)
+    _, lse0 = port.flash_attention_fwd(q, k, v, lens, causal)
+    want = _dense_dropout_attention(q, k, v, lens, causal, rate,
+                                    DROPOUT_KEY)
+    assert float((o - want).abs().max()) <= 1e-5 * float(
+        want.abs().max().clamp_min(1.0))
+    assert torch.equal(lse, lse0)
+    o_other, _ = port.flash_attention_fwd(q, k, v, lens, causal, rate,
+                                          DROPOUT_KEY._replace(micro=2))
+    assert not torch.equal(o, o_other)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_dropout_backward_matches_autograd_of_the_composite(case):
+    """dq, dk, dv with dropout 0.1 (ds = pm dp - p delta, dv from pm):
+    the dq / dk-dv wrappers and autograd through ``flash_attention``
+    against autograd of the dense composite, within 1e-5 of each
+    gradient's largest value (float32 sums in other orders)."""
+    _, b, t_q, t_k, n, h, lengths, causal = case
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs(len(lengths) + 5, b, t_q, t_k, n, h, "float32"))
+    do = torch.from_numpy(_inputs(t_q + 1, b, t_q, t_q, n, h,
+                                  "float32")[0])
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(_dense_dropout_attention(
+        *leaves, lens, causal, 0.1, DROPOUT_KEY), leaves, do)
+    o, lse = port.flash_attention_fwd(q, k, v, lens, causal, 0.1,
+                                      DROPOUT_KEY)
+    delta = port._delta(o, do)
+    args = (q, k, v, do, lse, delta, lens, causal, 0.1, DROPOUT_KEY)
+    wrappers = (port.flash_attention_dq(*args),
+                *port.flash_attention_dkv(*args))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = port.flash_attention(*leaves, lens, causal, dropout_rate=0.1,
+                               dropout_key=DROPOUT_KEY)
+    autograd = torch.autograd.grad(out, leaves, do)
+    for ours in (wrappers, autograd):
+        for got, ref in zip(ours, want):
+            assert _rel_err(got, ref.numpy()) <= 1e-5

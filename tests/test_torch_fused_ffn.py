@@ -1,0 +1,201 @@
+"""The port's fused FFN (``neurst_tpu_torch/ops/fused_ffn.py``) against
+the JAX package's Pallas kernels in interpret mode, against plain
+autograd of the port's own composite, and its gate against the JAX
+package's.
+
+On the CPU the kernel wrappers compute the plain versions.  The forward
+is held against ``neurst_tpu.ops.fused_ffn.fused_ffn(..., interpret=True)``
+at rate 0 (the TPU hardware generator has no interpret mode).  The
+backward is held against ``_ffn_bwd_impl(..., interpret=True)`` called
+directly and fed the port's post-dropout hidden ``hd``, at rate 0 and at
+rate 0.1: that kernel reads its masks from ``hd > 0``, and calling it
+directly sidesteps the reference's broken ``custom_vjp`` (ROADMAP R1)
+without editing the JAX package.  The CUDA kernels are held against the
+same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from neurst_tpu.ops.fused_ffn import _ffn_bwd_impl  # noqa: E402
+from neurst_tpu.ops.fused_ffn import \
+    _threshold_and_scale as jax_threshold_and_scale  # noqa: E402
+from neurst_tpu.ops.fused_ffn import \
+    fused_ffn as jax_fused_ffn  # noqa: E402
+from neurst_tpu.ops.kernel_gates import \
+    gate_min_rows as jax_gate_min_rows  # noqa: E402
+from neurst_tpu_torch.ops import fused_dropout as fd  # noqa: E402
+from neurst_tpu_torch.ops import fused_ffn as port  # noqa: E402
+from neurst_tpu_torch.ops import kernel_gates  # noqa: E402
+from neurst_tpu_torch.utils.rng import DropoutKey  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+D, F = 128, 256
+KEY = DropoutKey(2024, 7, stream=4, micro=0)
+# float32 through two products of D and F terms, summed in other orders
+FWD_ATOL = 1e-5
+BWD_REL = 2e-5
+
+
+def _inputs(rows, seed=0):
+    r = np.random.RandomState(seed + rows)
+    return {"x": r.randn(rows, D).astype(np.float32),
+            # JAX layout: w1 [D, F], w2 [F, D]
+            "w1": (r.randn(D, F) / np.sqrt(D)).astype(np.float32),
+            "b1": (0.1 * r.randn(F)).astype(np.float32),
+            "w2": (r.randn(F, D) / np.sqrt(F)).astype(np.float32),
+            "b2": (0.1 * r.randn(D)).astype(np.float32),
+            "dy": r.randn(rows, D).astype(np.float32)}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _rel(ours, ref):
+    ours = ours.detach().float().numpy()
+    if isinstance(ref, torch.Tensor):
+        ref = ref.detach().float().numpy()
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("rows", [9, 12, 2000])
+def test_forward_matches_pallas_interpret(rows):
+    a = _inputs(rows)
+    ref = jax_fused_ffn(*(jnp.asarray(a[k]) for k in
+                          ("x", "w1", "b1", "w2", "b2")), interpret=True)
+    y, hd = port.fused_ffn_fwd(_t(a["x"]), _t(a["w1"].T), _t(a["b1"]),
+                               _t(a["w2"].T), _t(a["b2"]),
+                               save_hidden=True)
+    assert y.shape == (rows, D) and hd.shape == (rows, F)
+    assert np.abs(y.numpy() - np.asarray(ref)).max() <= FWD_ATOL
+    public = port.fused_ffn(_t(a["x"])[None], _t(a["w1"].T), _t(a["b1"]),
+                            _t(a["w2"].T), _t(a["b2"]))
+    assert torch.equal(public[0], y)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", [9, 12, 2000])
+def test_backward_matches_pallas_interpret(rows, rate):
+    """dx, dW1, dW2, db1, db2 from the port's hd against the Pallas
+    backward on the same hd (rel 2e-5 of each gradient's largest
+    value)."""
+    a = _inputs(rows, seed=1)
+    key = KEY if rate else None
+    _, hd = port.fused_ffn_fwd(_t(a["x"]), _t(a["w1"].T), _t(a["b1"]),
+                               _t(a["w2"].T), _t(a["b2"]), rate, key,
+                               save_hidden=True)
+    t8, inv_keep = jax_threshold_and_scale(rate)
+    _, scale = fd.threshold_and_scale(rate, True)
+    assert scale == inv_keep
+    if rate:
+        dropped = float((hd == 0).float().mean())
+        assert 0.05 < dropped < 0.8  # relu zeros plus the dropped share
+    ref = _ffn_bwd_impl(jnp.asarray(a["x"]), jnp.asarray(a["w1"]),
+                        jnp.asarray(a["w2"]), jnp.asarray(hd.numpy()),
+                        jnp.asarray(a["dy"]), t8, inv_keep, True)
+    dx, dw1, dw2, db1, db2 = port.fused_ffn_bwd(
+        _t(a["x"]), _t(a["w1"].T), _t(a["w2"].T), hd, _t(a["dy"]), scale)
+    want = (ref[0], np.asarray(ref[1]).T, np.asarray(ref[2]).T,
+            np.asarray(ref[3])[0], np.asarray(ref[4])[0])
+    for name, got, w in zip(("dx", "dw1", "dw2", "db1", "db2"),
+                            (dx, dw1, dw2, db1, db2), want):
+        assert got.shape == np.asarray(w).shape, name
+        assert _rel(got, w) <= BWD_REL, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matches_autograd_of_the_composite(rate, dtype):
+    """``fused_ffn`` (forward and its backward) against plain autograd of
+    linear -> relu -> the FFN site's dropout (quantized rate, same mask)
+    -> linear on the same parameters.  float32 within 1e-5; bf16 within
+    the rounding of hd and dh to bf16 (2^-8 relative of a summand)."""
+    a = _inputs(40, seed=2)
+    leaves = [_t(a[k]).to(dtype).requires_grad_() for k in ("x",)] + [
+        _t(a["w1"].T.copy()).requires_grad_(), _t(a["b1"]).requires_grad_(),
+        _t(a["w2"].T.copy()).requires_grad_(), _t(a["b2"]).requires_grad_()]
+    key = KEY if rate else None
+    y = port.fused_ffn(*leaves, rate, key)
+    dy = _t(a["dy"]).to(dtype)
+    grads = torch.autograd.grad(y, leaves, dy)
+
+    x, w1, b1, w2, b2 = leaves
+    h = torch.relu(x.float() @ w1.to(dtype).float().t() + b1)
+    threshold, scale = fd.threshold_and_scale(rate, True)
+    keep = fd.dropout_keep_mask(h.shape, key, threshold) if rate else \
+        torch.ones_like(h, dtype=torch.bool)
+    h = torch.where(keep, h * scale, torch.zeros_like(h)).to(dtype).float()
+    y_ref = (h @ w2.to(dtype).float().t() + b2).to(dtype)
+    ref = torch.autograd.grad(y_ref, leaves, dy)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _rel(y, y_ref.detach()) <= tol
+    for name, got, want in zip(("dx", "dw1", "db1", "dw2", "db2"), grads,
+                               ref):
+        assert got.shape == want.shape, name
+        assert _rel(got, want.detach()) <= tol, name
+
+
+@pytest.mark.parametrize("d", [128, 256, 512, 1024])
+@pytest.mark.parametrize("mode", ["train", "train_drop", "infer"])
+def test_gate_is_the_jax_packages(mode, d):
+    assert kernel_gates.fused_ffn_min_rows(mode, d) == \
+        jax_gate_min_rows("fused_ffn", mode, d=d)
+
+
+@pytest.mark.parametrize("rows, training, rate, want", [
+    (30000, True, 0.1, True),    # the recipe's encoder FFNs
+    (6000, True, 0.1, True),     # its decoder FFNs
+    (1023, True, 0.1, False),
+    (30000, True, 0.0, True),    # dropout 0: the encoder FFNs
+    (6000, True, 0.0, False),    # ... but not the decoder's
+    (30000, False, 0.0, False),  # decode: never
+])
+def test_gate_at_the_recipe_shapes(rows, training, rate, want):
+    assert port.fused_ffn_available(256, 2048, "relu", rows, training,
+                                    rate) == want
+    assert not port.fused_ffn_available(256, 2048, "gelu", rows, training,
+                                        rate)
+
+
+def test_cpu_tensors_take_the_plain_version_and_dropout_needs_a_key():
+    a = _inputs(12)
+    args = (_t(a["x"]), _t(a["w1"].T), _t(a["b1"]), _t(a["w2"].T),
+            _t(a["b2"]))
+    before = (port.fused_ffn_fwd.launches, port.fused_ffn_bwd.launches)
+    y, _ = port.fused_ffn_fwd(*args)
+    assert torch.equal(y, port._fwd_plain(*args, (0, 1.0, None), False)[0])
+    assert (port.fused_ffn_fwd.launches,
+            port.fused_ffn_bwd.launches) == before
+    with pytest.raises(ValueError, match="dropout_key"):
+        port.fused_ffn_fwd(*args, 0.1)
+
+
+def test_kernel_input_checks_refuse():
+    a = _inputs(12)
+    x, w1, w2 = _t(a["x"]), _t(a["w1"].T.copy()), _t(a["w2"].T.copy())
+    with pytest.raises(TypeError, match="share"):
+        port._check_cuda_inputs(x, w1.bfloat16(), w2)
+    with pytest.raises(ValueError, match="want"):
+        port._check_cuda_inputs(x, w2, w1)
+    # the kernels are built for D = 256 only
+    with pytest.raises(ValueError, match="not in"):
+        port._check_cuda_inputs(x, w1, w2)
+    assert not port.fused_ffn_available(D, 2048, "relu", 30000, True, 0.1)
+    x, w1, w2 = torch.zeros(12, 256), torch.zeros(F, 256), torch.zeros(256, F)
+    with pytest.raises(ValueError, match="CUDA"):
+        port._check_cuda_inputs(x, w1, w2)
+
+
+def test_dw_splits_cover_the_card():
+    """At the recipe's shapes the dW pass has well over 132 blocks."""
+    for rows in (30000, 6000):
+        splits = port.dw_splits(rows, 2048, torch.bfloat16)
+        assert 2048 // port._DW_COLS * splits >= 264
+    assert port.dw_splits(37, 2048, torch.bfloat16) == 1

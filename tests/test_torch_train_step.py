@@ -13,7 +13,10 @@ Compared: the loss, every gradient (the JAX gradient tree mapped onto
 the port's names through ``flat_to_state_dict``), and after two steps
 the metrics and every parameter; one step with ``update_cycle=2`` over
 ragged micro-batches; and the port's logits path against its prelogits
-path; and ``make_eval_step``'s statistics.
+path; and ``make_eval_step``'s statistics.  Then the step's dropout
+key: at rate 0 it changes nothing; with the recipe's dropout 0.1 the
+same (seed, step) gives the same loss, micro-batches draw distinct
+keys, and a missing key raises.
 """
 
 import os
@@ -49,6 +52,7 @@ from neurst_tpu_torch.parallel import (TrainState,  # noqa: E402
                                        make_eval_step, make_train_step)
 from neurst_tpu_torch.utils.param_bridge import (  # noqa: E402
     flat_to_state_dict, load_flat_params)
+from neurst_tpu_torch.utils.rng import fold_in, make_key, split  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -256,3 +260,77 @@ def test_eval_step(setup):
     stats = make_eval_step(model, crit)(setup["batches"][1])
     for ours, ref in zip(stats, setup["eval"]):
         assert np.abs(ours.numpy() - ref).max() <= TOL * np.abs(ref).max()
+
+
+def test_two_steps_with_an_rng_at_rate_0(setup):
+    """The step's ``rng`` argument (a ``DropoutKey``, folded with the
+    step) changes nothing when every rate is 0: the JAX metrics and the
+    parameters after two steps, as without it."""
+    model, step, state = _port(setup)
+    for batch, ref in zip(setup["batches"], setup["metrics"]):
+        state, metrics = step(state, batch, make_key(1))
+        assert _rel(metrics["loss"], ref["loss"]) <= TOL
+        assert _rel(metrics["grad_norm"], ref["grad_norm"]) <= TOL
+    _check_params(model, setup["params"], 2 * sum(_lrs()))
+
+
+def _dropout_setup(setup, update_cycle=1):
+    cfg = dict(setup["cfg"])
+    params = dict(cfg["model.params"])
+    for side in ("encoder", "decoder"):
+        for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                     "layer_postprocess_dropout_rate"):
+            params[f"{side}.{rate}"] = 0.1
+    return _port(dict(setup, cfg=dict(cfg, **{"model.params": params})),
+                 update_cycle)
+
+
+def test_dropout_is_deterministic_in_seed_and_step(setup):
+    """With the recipe's dropout 0.1 at every site: the same (seed, step)
+    gives a bitwise equal loss and gradients; the next step, another
+    seed or no dropout give other losses."""
+    batch = setup["batches"][0]
+    results = {}
+    for name, seed, step in (("a", 3, 0), ("again", 3, 0), ("next", 3, 1),
+                             ("seed", 4, 0)):
+        _, train_step, state = _dropout_setup(setup)
+        results[name] = train_step.compute_grads(
+            state.params, batch, fold_in(make_key(seed), step))
+    loss, _, grads = results["a"]
+    assert torch.equal(loss, results["again"][0])
+    for n, g in grads.items():
+        assert torch.equal(g, results["again"][2][n]), n
+    assert float(loss) != float(results["next"][0])
+    assert float(loss) != float(results["seed"][0])
+    assert abs(float(loss) - setup["loss"]) > 1e-6
+    # a whole step: the state's step count picks the masks
+    _, train_step, state = _dropout_setup(setup)
+    _, metrics = train_step(state, batch, make_key(3))
+    assert float(metrics["loss"]) == float(loss)
+    assert np.isfinite(float(metrics["grad_norm"]))
+
+
+def test_update_cycle_two_draws_distinct_micro_batch_keys(setup,
+                                                          monkeypatch):
+    model, step, state = _dropout_setup(setup, update_cycle=2)
+    keys = []
+    call_train = model.call_train
+
+    def record(batch, want_prelogits=False, dropout_key=None):
+        keys.append(dropout_key)
+        return call_train(batch, want_prelogits, dropout_key)
+
+    monkeypatch.setattr(model, "call_train", record)
+    b0 = setup["batches"][0]
+    stacked = {k: np.stack([b0[k], b0[k]]) for k in b0}
+    state, metrics = step(state, stacked, make_key(9))
+    assert [k.micro for k in keys] == [0, 1]
+    assert keys == split(fold_in(make_key(9), 0), 2)
+    assert (keys[0].k0, keys[0].k1) != (keys[1].k0, keys[1].k1)
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_rng_none_with_dropout_raises(setup):
+    _, step, state = _dropout_setup(setup)
+    with pytest.raises(ValueError, match="dropout key"):
+        step(state, setup["batches"][0])

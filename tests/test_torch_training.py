@@ -4,7 +4,7 @@ the logits and the fused prelogits paths, each way of weighting tokens),
 the noam schedule, the Adam chain with clipping (and its AdamW and
 AMSGrad forms), the bf16-params wrapper with its float32 master, the
 distributions of ``init_params`` and the bf16-residual attention
-softmax; and the refusal of dropout in training, which is not ported.
+softmax; and the refusal of dropout in training without a dropout key.
 """
 
 import numpy as np
@@ -264,13 +264,14 @@ def test_softmax_bf16_residual_matches_jax():
 
 
 def test_training_with_dropout_is_refused():
-    """Dropout in training is not ported: the model and every dropout
-    site raise, while inference and rate 0 pass through."""
+    """Dropout in training without a dropout key is refused: the model
+    and every dropout site raise, while inference and rate 0 pass
+    through."""
     from neurst_tpu_torch.layers.common_layers import apply_dropout
     x = torch.ones(3)
     assert apply_dropout(x, 0.1, False) is x
     assert apply_dropout(x, 0.0, True) is x
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout key"):
         apply_dropout(x, 0.1, True)
     cfg = JaxSpeechTransformer.build_model_args_by_name(
         "speech_transformer_toy")
@@ -281,6 +282,6 @@ def test_training_with_dropout_is_refused():
     inputs = {"src": np.zeros((1, 8, 16), np.float32),
               "src_length": np.asarray([8]),
               "trg_input": np.zeros((1, 3), np.int64)}
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout key"):
         model.call_train(inputs)
     assert model(inputs).shape == (1, 3, 10)

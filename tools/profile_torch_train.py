@@ -2,11 +2,13 @@
 """Where one training step of the PyTorch port spends its time, on one
 NVIDIA GPU.
 
-    python3 tools/profile_torch_train.py [--seed N] [--steps N]
+    python3 tools/profile_torch_train.py [--seed N] [--steps N] [--dropout R]
 
 Builds the training slice that ``chip_smoke.py`` drives
 (speech_transformer_s, encoder flash attention, bf16 with bf16 stored
-params and an f32 master, dropout 0, 40 x 3000 frames, target 150),
+params and an f32 master, 40 x 3000 frames, target 150; dropout 0, or
+with ``--dropout 0.1`` the recipe's rate at every site and a dropout
+key),
 runs two warm-up steps, then profiles whole steps with
 ``torch.profiler``.  For each step it prints one JSON line: wall time
 (host clock, synchronised), device kernel time (the sum of the CUDA
@@ -32,32 +34,39 @@ from profile_torch_decode import _profile  # noqa: E402
 # substrings of the CUDA kernel names of the port's hand-written kernels
 OWN_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                "linear_xent_fwd_kernel", "linear_xent_dx_kernel",
-               "linear_xent_dw_kernel")
+               "linear_xent_dw_kernel", "dropout_kernel", "ffn_fwd_kernel",
+               "ffn_dx_kernel", "ffn_dw_kernel", "ffn_dw_sum_kernel")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=2)
+    parser.add_argument("--dropout", type=float, default=0.0,
+                        help="rate of every dropout site (the recipe: 0.1)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs an NVIDIA GPU")
     import chip_smoke
+    from neurst_tpu_torch.utils.rng import make_key
 
     t = chip_smoke.TRAIN
-    _, _, _, state, step = chip_smoke.build_train(args.seed)
+    _, _, _, state, step = chip_smoke.build_train(args.seed,
+                                                  dropout=args.dropout)
+    key = make_key(args.seed + 7) if args.dropout else None
     rng = np.random.RandomState(args.seed + 5)
     batches = [chip_smoke.train_batch(rng, "cuda", t["batch"], t["frames"],
                                       t["min_src"], t["trg_len"],
                                       t["min_trg"])
                for _ in range(2 + args.steps)]
     for batch in batches[:2]:
-        state, _ = step(state, batch)
+        state, _ = step(state, batch, key)
     for i, batch in enumerate(batches[2:]):
-        (state, _), row = _profile(lambda: step(state, batch), top=40,
+        (state, _), row = _profile(lambda: step(state, batch, key), top=40,
                                    own=OWN_KERNELS)
-        print(json.dumps(dict(step=i, **row)), flush=True)
+        print(json.dumps(dict(step=i, dropout=args.dropout, **row)),
+              flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
