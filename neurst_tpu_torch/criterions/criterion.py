@@ -15,8 +15,8 @@ class Criterion(object):
         self._args = dict(args or {})
 
     @staticmethod
-    def default_params():
-        return {}
+    def class_or_method_args():
+        return []
 
     def __call__(self, model_inp: dict, model_out):
         """Returns a tuple of per-sample statistics tensors."""

@@ -20,6 +20,7 @@ from neurst_tpu_torch.criterions.criterion import (Criterion,
                                                    register_criterion)
 from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
 from neurst_tpu_torch.ops.fused_ce import fused_linear_xent
+from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["LabelSmoothedCrossEntropy"]
 
@@ -36,8 +37,9 @@ class LabelSmoothedCrossEntropy(Criterion):
             self._args.get("label_smoothing") or 0.0)
 
     @staticmethod
-    def default_params():
-        return {"label_smoothing": 0.0}
+    def class_or_method_args():
+        return [Flag("label_smoothing", dtype=Flag.TYPE.FLOAT, default=0.,
+                     help="The label smoothing constant.")]
 
     def __call__(self, model_inp: dict, model_out):
         """Returns (nll_sum [B], n_samples [1], n_tokens [B])."""

@@ -1,0 +1,6 @@
+from neurst_tpu_torch.data.text.tokenizer import (Tokenizer,  # noqa: F401
+                                                  build_tokenizer,
+                                                  register_tokenizer)
+from neurst_tpu_torch.data.text.vocab import PaddingMode, Vocab  # noqa: F401
+from neurst_tpu_torch.data.text import bpe  # noqa: F401
+from neurst_tpu_torch.data.text import moses  # noqa: F401

@@ -1,0 +1,3 @@
+from neurst_tpu_torch.exps.base_experiment import (BaseExperiment,  # noqa: F401
+                                                   build_exp, register_exp)
+from neurst_tpu_torch.exps import sequence_generator  # noqa: F401

@@ -1,0 +1,164 @@
+"""The generation ("predict") entry (the port's counterpart of
+``neurst_tpu/exps/sequence_generator.py``, one dataset, one model).
+
+Restores the latest checkpoint of the model dir (or ``checkpoint_path``)
+into the model, decodes the dataset's INFER batches with the search layer
+(beam search), turns the top hypothesis of each row that ``sample_mask``
+keeps into text, writes them to ``output_file`` and scores them against
+the dataset's references with the metric.  The returned dict also holds
+``timing``: seconds spent reading and batching, decoding (the search,
+synchronized by the copy of its result to the host), and turning ids
+into text and scoring; and the seconds to the first batch's hypotheses.
+
+Not ported: ensembles (several model dirs) and tensor-parallel decode
+raise ``NotImplementedError``.
+"""
+
+import json
+import logging
+import time
+
+import numpy as np
+import torch
+
+from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
+from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
+from neurst_tpu_torch.utils import checkpoints as ckpt_lib
+from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
+from neurst_tpu_torch.utils.configurable import flatten_string_list
+from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
+from neurst_tpu_torch.utils.param_policy import (cast_params_for_inference,
+                                                 restore_inference_params)
+
+__all__ = ["SequenceGenerator", "recover_targets"]
+
+
+def recover_targets(task, dataset, targets):
+    """Raw reference texts from a dataset's targets whatever their
+    DataStatus (the copy of ``neurst_tpu/training/validator.py:38``):
+    PROCESSED strings are detokenized, PROJECTED ids decoded, raw strings
+    pass through."""
+    status = dataset.status
+    if isinstance(status, dict):
+        status = status.get("transcript", DataStatus.RAW)
+    post = task.get_data_postprocess_fn(status)
+    if status == DataStatus.PROCESSED:
+        return [post(t) for t in targets]
+    return [post(t) if not isinstance(t, str) else t for t in targets]
+
+
+@register_exp("predict", "generation")
+class SequenceGenerator(BaseExperiment):
+
+    @staticmethod
+    def class_or_method_args():
+        return [
+            ModuleFlag("search_method", "search_method",
+                       default="beam_search", help="The search layer."),
+            ModuleFlag("metric", "metric", help="The evaluation metric."),
+            Flag("output_file", dtype=Flag.TYPE.STRING, default=None,
+                 help="The file to write hypotheses to."),
+            Flag("save_metric", dtype=Flag.TYPE.STRING, default=None,
+                 help="Path to dump the metric result JSON."),
+            Flag("checkpoint_path", dtype=Flag.TYPE.STRING, default=None,
+                 help="Explicit checkpoint path (defaults to latest in "
+                      "model_dir)."),
+            Flag("decode_data_parallel", dtype=Flag.TYPE.BOOLEAN,
+                 default=None,
+                 help="Shard decode batches over all devices (one device "
+                      "here)."),
+            Flag("decode_tensor_parallel", dtype=Flag.TYPE.INTEGER,
+                 default=None,
+                 help="Shard the model's parameters over this many devices "
+                      "during decode (not ported)."),
+        ]
+
+    def restore_params(self):
+        """Loads the checkpoint into the model (bf16 at rest for a bf16
+        model); without one the model keeps a seeded random init, as the
+        JAX entry does (another random draw)."""
+        path = self._args.get("checkpoint_path")
+        if path is None and self._model_dir:
+            path = ckpt_lib.latest_checkpoint(self._model_dir)
+        if path is None:
+            logging.warning("No checkpoint found; using random init.")
+            self._model.init_params(torch.Generator().manual_seed(0))
+            return cast_params_for_inference(
+                self._model, self._model.args.get("dtype"))
+        restore_inference_params(self._model,
+                                 ckpt_lib.restore_checkpoint_params(path))
+        logging.info("Restored generation model from %s", path)
+        return self._model
+
+    def _refuse_unported(self):
+        if len(flatten_string_list(self._model_dir)) > 1:
+            raise NotImplementedError("ensembles of several model dirs are "
+                                      "not ported")
+        if (self._args.get("decode_tensor_parallel") or 1) > 1:
+            raise NotImplementedError("tensor-parallel decode is not ported")
+
+    def run(self):
+        self._refuse_unported()
+        task, args = self._task, self._args
+        self.restore_params()
+        search = build_search_layer(args)
+        search.set_model(self._model)
+        batch_iter = task.create_batch_iterator(
+            self._custom_dataset, ModeKeys.INFER, args)
+        hypo_decode = task.get_data_postprocess_fn(DataStatus.PROJECTED)
+
+        hypotheses, scores = [], []
+        timing = {"read_batch_s": 0.0, "decode_s": 0.0,
+                  "detok_metric_s": 0.0, "first_batch_s": None}
+        start = time.perf_counter()
+        batches = batch_iter()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            t1 = time.perf_counter()
+            timing["read_batch_s"] += t1 - t0
+            if batch is None:
+                break
+            model_inp = {k: v for k, v in batch.items()
+                         if isinstance(v, np.ndarray) and v.dtype != object}
+            hyp, score = search(model_inp)
+            hyp, score = hyp.cpu().numpy(), score.cpu().numpy()
+            t2 = time.perf_counter()
+            timing["decode_s"] += t2 - t1
+            if timing["first_batch_s"] is None:
+                timing["first_batch_s"] = t2 - start
+            mask = batch.get("sample_mask")
+            bsz = mask.shape[0] if mask is not None else hyp.shape[0]
+            top_k = hyp.shape[0] // bsz
+            for i in range(bsz):
+                if mask is not None and mask[i] == 0:
+                    continue
+                hypotheses.append(hypo_decode(hyp[i * top_k].tolist()))
+                scores.append(float(score[i * top_k]))
+            timing["detok_metric_s"] += time.perf_counter() - t2
+        elapsed = time.perf_counter() - start
+        n_samples = len(hypotheses)
+        logging.info("Generation of %d samples took %.2fs (%.2f samples/s)",
+                     n_samples, elapsed, n_samples / max(elapsed, 1e-6))
+
+        t0 = time.perf_counter()
+        if args.get("output_file"):
+            with open(args["output_file"], "w", encoding="utf-8") as f:
+                for h in hypotheses:
+                    f.write(h + "\n")
+            logging.info("Hypotheses written to %s", args["output_file"])
+        results = {"samples": n_samples,
+                   "samples_per_sec": n_samples / max(elapsed, 1e-6)}
+        targets = task.eval_targets(self._custom_dataset)
+        if targets:
+            targets = recover_targets(task, self._custom_dataset,
+                                      list(targets)[:len(hypotheses)])
+            metric_result = task.get_eval_metric(args)(hypotheses, targets)
+            logging.info("Evaluation result: %s", metric_result)
+            results.update(metric_result)
+            if args.get("save_metric"):
+                with open(args["save_metric"], "w") as f:
+                    json.dump(results, f, indent=2)
+        timing["detok_metric_s"] += time.perf_counter() - t0
+        return {"hypotheses": hypotheses, "scores": scores, **results,
+                "timing": timing}

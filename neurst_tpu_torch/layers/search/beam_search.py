@@ -20,6 +20,7 @@ from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.layer_utils import NEG_INF
 from neurst_tpu_torch.layers.search.sequence_search import (
     SequenceSearch, register_search_layer)
+from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["sequence_beam_search", "BeamSearch"]
 
@@ -160,12 +161,50 @@ class BeamSearch(SequenceSearch):
     """Search layer wrapping ``sequence_beam_search``."""
 
     @staticmethod
-    def default_params():
-        return {"beam_size": 4, "length_penalty": 0.6, "top_k": 1,
-                "maximum_decode_length": 256, "minimum_decode_length": 0,
-                "extra_decode_length": 50, "enable_unk": False,
-                "prefix_decode_chunk": 64, "decode_unroll": 4,
-                "cache_indirection": True, "padded_decode": True}
+    def class_or_method_args():
+        return [
+            Flag("beam_size", dtype=Flag.TYPE.INTEGER, default=4,
+                 help="The beam width of beam search inference."),
+            Flag("length_penalty", dtype=Flag.TYPE.FLOAT, default=0.6,
+                 help="The length penalty (GNMT); negative for average "
+                      "log-prob normalization."),
+            Flag("top_k", dtype=Flag.TYPE.INTEGER, default=1,
+                 help="The number of hypotheses returned per sample."),
+            Flag("maximum_decode_length", dtype=Flag.TYPE.INTEGER,
+                 default=256, help="The maximum decoding length."),
+            Flag("minimum_decode_length", dtype=Flag.TYPE.INTEGER, default=0,
+                 help="The minimum decoding length."),
+            Flag("extra_decode_length", dtype=Flag.TYPE.INTEGER, default=50,
+                 help="Decode up to source length + this many steps."),
+            Flag("enable_unk", dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether UNK may be generated."),
+            Flag("prefix_decode_chunk", dtype=Flag.TYPE.INTEGER, default=64,
+                 help="Accepted and ignored (a device of the JAX loop; "
+                      "exact either way)."),
+            Flag("decode_unroll", dtype=Flag.TYPE.INTEGER, default=4,
+                 help="Accepted and ignored (a device of the JAX loop; "
+                      "exact either way)."),
+            Flag("cache_indirection", dtype=Flag.TYPE.BOOLEAN, default=True,
+                 help="Read the self kv-cache through a per-beam "
+                      "ancestor-index matrix instead of reordering it "
+                      "every step (exact)."),
+            Flag("padded_decode", dtype=Flag.TYPE.BOOLEAN, default=True,
+                 help="Decode into a static-shape cache (the only mode; "
+                      "false raises)."),
+            Flag("ensemble_weights", dtype=Flag.TYPE.STRING, default=None,
+                 help="Model weights of an ensemble decode (not ported; "
+                      "setting it raises)."),
+        ]
+
+    def __init__(self, args=None):
+        super().__init__(args)
+        if self.args.get("padded_decode") is not None \
+                and not self.args["padded_decode"]:
+            raise NotImplementedError("padded_decode: false is not ported "
+                                      "(decode is static-shape only)")
+        if self.args.get("ensemble_weights"):
+            raise NotImplementedError("ensemble_weights: ensemble decode is "
+                                      "not ported")
 
     def __call__(self, inputs: dict):
         a = self.args

@@ -15,8 +15,8 @@ class SequenceSearch(object):
         self.model = None
 
     @staticmethod
-    def default_params():
-        return {}
+    def class_or_method_args():
+        return []
 
     def set_model(self, model):
         self.model = model

@@ -24,8 +24,9 @@ from neurst_tpu_torch.layers.encoders.transformer_encoder import \
     TransformerEncoder
 from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
 from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
+from neurst_tpu_torch.utils.flags_core import Flag
 
-__all__ = ["EncoderDecoderModel"]
+__all__ = ["EncoderDecoderModel", "encdec_flags"]
 
 # config keys that only matter to the JAX layouts: the port runs the
 # per-layer stack (param_bridge unstacks scanned checkpoints); options
@@ -34,6 +35,60 @@ _LAYOUT_IGNORED = {
     "scan_layers", "pipeline_stages", "pipeline_microbatches",
     "ring_attention_axis", "moe_layer_frequency", "moe_top_k",
     "moe_capacity_factor", "moe_aux_loss_coef", "moe_router_jitter"}
+
+
+def encdec_flags(prefix):
+    """The per-side transformer flags of the JAX package
+    (``neurst_tpu/models/transformer.py:31``).  Options the port lacks
+    default to off and raise ``NotImplementedError`` when switched on."""
+    flags = [
+        Flag(f"{prefix}.num_layers", dtype=Flag.TYPE.INTEGER, default=None,
+             help=f"The number of stacking layers of the {prefix}."),
+        Flag(f"{prefix}.hidden_size", dtype=Flag.TYPE.INTEGER, default=None,
+             help=f"The number of hidden units of the {prefix}."),
+        Flag(f"{prefix}.num_attention_heads", dtype=Flag.TYPE.INTEGER,
+             default=None, help=f"The number of {prefix} attention heads."),
+        Flag(f"{prefix}.filter_size", dtype=Flag.TYPE.INTEGER, default=None,
+             help=f"The filter size of {prefix} ffn."),
+        Flag(f"{prefix}.ffn_activation", dtype=Flag.TYPE.STRING,
+             default="relu", help=f"The {prefix} ffn activation function."),
+        Flag(f"{prefix}.attention_dropout_rate", dtype=Flag.TYPE.FLOAT,
+             default=0., help=f"The {prefix} attention dropout rate."),
+        Flag(f"{prefix}.attention_type", dtype=Flag.TYPE.STRING,
+             default="dot_product", help=f"The {prefix} attention type."),
+        Flag(f"{prefix}.ffn_dropout_rate", dtype=Flag.TYPE.FLOAT, default=0.,
+             help=f"The {prefix} ffn dropout rate."),
+        Flag(f"{prefix}.layer_postprocess_dropout_rate",
+             dtype=Flag.TYPE.FLOAT, default=0.,
+             help=f"The {prefix} layer postprocess dropout rate."),
+        Flag(f"{prefix}.post_normalize", dtype=Flag.TYPE.BOOLEAN,
+             default=False,
+             help=f"Whether to apply layer norm after each {prefix} block."),
+        Flag(f"{prefix}.layer_postprocess_epsilon", dtype=Flag.TYPE.FLOAT,
+             default=1e-6, help=f"The {prefix} layer norm epsilon."),
+    ]
+    switches = ["attention_monotonic", "enable_flash_attention",
+                "enable_ring_attention", "scan_layers"] \
+        if prefix == "encoder" else ["scan_layers", "enable_flash_attention"]
+    flags += [Flag(f"{prefix}.{name}", dtype=Flag.TYPE.BOOLEAN, default=None,
+                   help=f"The JAX package's {prefix} {name} switch.")
+              for name in switches]
+    if prefix == "encoder":
+        flags.append(Flag("encoder.ring_attention_axis",
+                          dtype=Flag.TYPE.STRING, default="data",
+                          help="The mesh axis of ring attention."))
+    flags += [Flag(f"{prefix}.{name}", dtype=dtype, default=None,
+                   help=f"The JAX package's {prefix} {name} setting.")
+              for name, dtype in (
+                  ("pipeline_stages", Flag.TYPE.INTEGER),
+                  ("pipeline_microbatches", Flag.TYPE.INTEGER),
+                  ("moe_num_experts", Flag.TYPE.INTEGER),
+                  ("moe_layer_frequency", Flag.TYPE.INTEGER),
+                  ("moe_top_k", Flag.TYPE.INTEGER),
+                  ("moe_capacity_factor", Flag.TYPE.FLOAT),
+                  ("moe_aux_loss_coef", Flag.TYPE.FLOAT),
+                  ("moe_router_jitter", Flag.TYPE.FLOAT))]
+    return flags
 
 
 def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:

@@ -70,10 +70,6 @@ class BaseModel(nn.Module):
         super().__init__()
         self.args = dict(args or {})
 
-    @staticmethod
-    def default_params() -> Dict[str, Any]:
-        return {}
-
     @classmethod
     def build_model_args_by_name(cls, name: str) -> Optional[dict]:
         """A named hparams set (e.g. ``speech_transformer_s``)."""

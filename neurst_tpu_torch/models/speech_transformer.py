@@ -11,8 +11,10 @@ Inputs:
 from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
 from neurst_tpu_torch.layers.modalities.audio_modalities import (
     AudioConv2dSubsampling, subsampled_length)
-from neurst_tpu_torch.models.encoder_decoder_model import EncoderDecoderModel
+from neurst_tpu_torch.models.encoder_decoder_model import (
+    EncoderDecoderModel, encdec_flags)
 from neurst_tpu_torch.models.model import register_model
+from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["SpeechTransformer"]
 
@@ -36,12 +38,38 @@ class SpeechTransformer(EncoderDecoderModel):
             dtype=self.dtype)
 
     @staticmethod
-    def default_params():
-        return {"modality.source.kernel_size": 3,
-                "modality.source.strides": 2,
-                "modality.source.channels": 256,
-                "modality.source.layer_norm": False,
-                "dtype": "bfloat16"}
+    def class_or_method_args():
+        """The JAX model's flags, so a parsed config and a saved
+        ``model_configs.yml`` carry the same keys in both packages."""
+        return [
+            Flag("modality.share_embedding_and_softmax_weights",
+                 dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether to share the target embedding and softmax."),
+            Flag("modality.dim", dtype=Flag.TYPE.INTEGER, default=None,
+                 help="The default embedding dimension."),
+            Flag("modality.source.dim", dtype=Flag.TYPE.INTEGER,
+                 default=None, help="The source-side embedding dimension."),
+            Flag("modality.target.dim", dtype=Flag.TYPE.INTEGER,
+                 default=None, help="The target-side embedding dimension."),
+            Flag("modality.timing", dtype=Flag.TYPE.STRING, default=None,
+                 help="The position embedding type."),
+            Flag("modality.source.timing", dtype=Flag.TYPE.STRING,
+                 default=None, help="The source position embedding type."),
+            Flag("modality.target.timing", dtype=Flag.TYPE.STRING,
+                 default=None, help="The target position embedding type."),
+            Flag("modality.source.kernel_size", dtype=Flag.TYPE.INTEGER,
+                 default=3, help="The conv kernel size."),
+            Flag("modality.source.strides", dtype=Flag.TYPE.INTEGER,
+                 default=2, help="The conv stride."),
+            Flag("modality.source.channels", dtype=Flag.TYPE.INTEGER,
+                 default=256, help="The conv channels."),
+            Flag("modality.source.layer_norm", dtype=Flag.TYPE.BOOLEAN,
+                 default=False, help="LayerNorm inside conv blocks."),
+            Flag("modality.max_positions", dtype=Flag.TYPE.INTEGER,
+                 default=1024, help="Max positions for learned pos emb."),
+            Flag("dtype", dtype=Flag.TYPE.STRING, default="bfloat16",
+                 help="The computation dtype."),
+        ] + encdec_flags("encoder") + encdec_flags("decoder")
 
     def embed_source(self, inputs):
         src = inputs["src"]

@@ -34,6 +34,7 @@ KERNEL_SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_linear_xent": "fused_linear_xent.cu",
+    "fused_softmax_xent": "fused_softmax_xent.cu",
     "fused_dropout": "fused_dropout.cu",
     "fused_ffn": "fused_ffn.cu",
 }

@@ -1,19 +1,28 @@
-"""Fused vocabulary projection + label-smoothed cross entropy: a
-hand-written CUDA kernel pair and their plain PyTorch versions.
+"""Label-smoothed cross entropy, fused: two hand-written CUDA kernel
+pairs and their plain PyTorch versions, counterparts of
+``neurst_tpu/ops/fused_ce.py``.
 
-Counterpart of ``fused_linear_xent`` in ``neurst_tpu/ops/fused_ce.py``.
-The TPU kernels ``_linear_fwd_kernel`` and ``_linear_bwd_kernel`` become
+``fused_softmax_xent`` (over logits already in memory): the TPU kernels
+``_fwd_kernel`` and ``_bwd_kernel`` become ``csrc/fused_softmax_xent.cu``,
+a forward that streams each row once (one block a row, online max and
+sum-exp in registers) and an elementwise backward over (rows, vocabulary
+tiles); its plain version is the criterion's formula in float32.
+Like the JAX function it has no caller on a model path: the
+criterion's logits path computes the same formula in plain ops, and the
+train step takes the projection-fused kernels below.
+
+``fused_linear_xent`` (the projection fused in): the TPU kernels ``_linear_fwd_kernel`` and ``_linear_bwd_kernel`` become
 ``csrc/fused_linear_xent.cu``: a forward kernel and a backward in two
 kernels (a dx pass over row tiles, a dW/db pass over vocabulary tiles),
 built for sm_90a and called through ctypes (see ``ops/_build.py``).  The
 [R, V] logits never reach device memory.
 
-``fused_linear_xent`` is differentiable (a ``torch.autograd.Function``
-that keeps x, W, bias, labels and the row log-sum-exp and recomputes the
-logits in the backward).  The kernel wrappers ``fused_linear_xent_fwd``
-and ``fused_linear_xent_bwd`` launch the kernels for CUDA tensors and
-raise on anything they do not take; for CPU tensors they compute the
-plain versions, which the CPU tests hold against the JAX functions.
+Both are differentiable (a ``torch.autograd.Function`` that keeps the
+inputs and the row log-sum-exp; ``fused_linear_xent`` recomputes the
+logits in the backward).  The kernel wrappers (``*_fwd``, ``*_bwd``)
+launch the kernels for CUDA tensors and raise on anything they do not
+take; for CPU tensors they compute the plain versions, which the CPU
+tests hold against the JAX functions.
 """
 
 import ctypes
@@ -23,7 +32,9 @@ import torch
 
 __all__ = ["fused_linear_xent", "fused_linear_xent_fwd",
            "fused_linear_xent_bwd", "linear_xent_reference",
-           "fused_linear_ce_available", "DIMS"]
+           "fused_linear_ce_available", "DIMS", "fused_softmax_xent",
+           "fused_softmax_xent_fwd", "fused_softmax_xent_bwd",
+           "fused_ce_available"]
 
 # model dims the CUDA kernels are compiled for
 DIMS = (128, 256, 512)
@@ -226,3 +237,158 @@ def fused_linear_xent(x, w, labels, confidence: float,
 def fused_linear_ce_available(vocab_size: int, dim: int) -> bool:
     """Whether the kernels take this vocabulary and model dim."""
     return vocab_size > 0 and dim in DIMS
+
+
+# ---------------------------------------------------------------------
+# fused_softmax_xent: the cross entropy of logits already in memory
+
+
+def _softmax_fwd_plain(z2, labels, confidence, low_confidence):
+    """The criterion's logits-path formula
+    (``neurst_tpu/criterions/label_smoothed_cross_entropy.py:87-97``) in
+    float32: (xent [R], lse [R])."""
+    z = z2.float()
+    lse = torch.logsumexp(z, dim=-1)
+    label_z = z.gather(1, labels.long()[:, None])[:, 0]
+    xent = (-(confidence - low_confidence) * (label_z - lse)
+            - low_confidence * (z.sum(dim=1) - z.shape[1] * lse))
+    return xent, lse
+
+
+def _softmax_bwd_plain(z2, labels, lse, g, confidence, low_confidence):
+    p = torch.exp(z2.float() - lse[:, None])
+    onehot = torch.zeros_like(p).scatter_(1, labels.long()[:, None], 1.0)
+    dz = g[:, None] * ((confidence - low_confidence) * (p - onehot)
+                       + low_confidence * (z2.shape[1] * p - 1.0))
+    return dz.to(z2.dtype)
+
+
+def _check_softmax_inputs(z2, labels, *row_stats):
+    if z2.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_softmax_xent: logits dtype {z2.dtype}; the "
+                        f"kernels take float32 or bfloat16")
+    if z2.dim() != 2 or 0 in z2.shape:
+        raise ValueError(f"fused_softmax_xent: logits must be a non-empty "
+                         f"[R, V], got {tuple(z2.shape)}")
+    rows = z2.shape[0]
+    if labels.dtype != torch.int32 or labels.shape != (rows,):
+        raise ValueError("fused_softmax_xent: labels must be int32 [R]")
+    for x in row_stats:
+        if x.dtype != torch.float32 or x.shape != (rows,):
+            raise ValueError("fused_softmax_xent: lse and g must be float32 "
+                             "[R]")
+    named = [("logits", z2), ("labels", labels)] + [
+        ("lse/g", x) for x in row_stats]
+    for name, x in named:
+        if not x.is_contiguous():
+            raise ValueError(f"fused_softmax_xent: {name} must be "
+                             f"contiguous")
+    for name, x in named:
+        if x.device.type != "cuda" or x.device != z2.device:
+            raise ValueError(f"fused_softmax_xent: {name} must lie on the "
+                             f"logits' CUDA device, got {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _softmax_kernel(name):
+    """The C entry point ``neurst_softmax_xent_<name>`` (fwd or bwd),
+    built and typed once."""
+    from neurst_tpu_torch.ops._build import load
+    fn = getattr(load("fused_softmax_xent"), f"neurst_softmax_xent_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * {"fwd": 4, "bwd": 5}[name]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _softmax_launch(name, tensors, z2, confidence, low_confidence):
+    stream = torch.cuda.current_stream(z2.device).cuda_stream
+    err = _softmax_kernel(name)(
+        *(t.data_ptr() for t in tensors), z2.shape[0], z2.shape[1],
+        confidence - low_confidence, low_confidence, _DTYPE_CODES[z2.dtype],
+        stream)
+    if err != 0:
+        raise RuntimeError(f"fused_softmax_xent {name} launch failed: CUDA "
+                           f"error {err}")
+
+
+def fused_softmax_xent_fwd(z2, labels, confidence: float,
+                           low_confidence: float):
+    """(xent [R], lse [R]), both float32, of logits z2 [R, V] and int32
+    labels [R].  CUDA tensors run the forward kernel (or raise); CPU
+    tensors run the plain version."""
+    if z2.device.type == "cpu":
+        return _softmax_fwd_plain(z2, labels, confidence, low_confidence)
+    _check_softmax_inputs(z2, labels)
+    xent = torch.empty(z2.shape[0], dtype=torch.float32, device=z2.device)
+    lse = torch.empty_like(xent)
+    _softmax_launch("fwd", (z2, labels, xent, lse), z2, confidence,
+                    low_confidence)
+    fused_softmax_xent_fwd.launches += 1
+    return xent, lse
+
+
+fused_softmax_xent_fwd.launches = 0
+fused_softmax_xent_fwd.kernel_name = "fused_softmax_xent_fwd"
+
+
+def fused_softmax_xent_bwd(z2, labels, lse, g, confidence: float,
+                           low_confidence: float):
+    """dz [R, V] in z2's dtype for the per-row output gradient g [R]
+    float32.  CUDA tensors run the backward kernel (or raise); CPU
+    tensors run the plain version."""
+    if z2.device.type == "cpu":
+        return _softmax_bwd_plain(z2, labels, lse, g, confidence,
+                                  low_confidence)
+    _check_softmax_inputs(z2, labels, lse, g)
+    dz = torch.empty_like(z2)
+    _softmax_launch("bwd", (z2, labels, lse, g, dz), z2, confidence,
+                    low_confidence)
+    fused_softmax_xent_bwd.launches += 1
+    return dz
+
+
+fused_softmax_xent_bwd.launches = 0
+fused_softmax_xent_bwd.kernel_name = "fused_softmax_xent_bwd"
+
+
+class _FusedSoftmaxXent(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, z2, labels, confidence, low_confidence):
+        xent, lse = fused_softmax_xent_fwd(z2, labels, confidence,
+                                           low_confidence)
+        ctx.smoothing = (confidence, low_confidence)
+        ctx.save_for_backward(z2, labels, lse)
+        return xent
+
+    @staticmethod
+    def backward(ctx, g):
+        z2, labels, lse = ctx.saved_tensors
+        dz = fused_softmax_xent_bwd(z2, labels, lse, g.float().contiguous(),
+                                    *ctx.smoothing)
+        return dz, None, None, None
+
+
+def fused_softmax_xent(logits, labels, confidence: float,
+                       low_confidence: float):
+    """Per-token label-smoothed cross entropy of ``logits`` [..., V]
+    (float32 or bfloat16 on the card, any float dtype on the CPU) and
+    ``labels`` [...], without the normalizing constant (the criterion
+    subtracts it).  Returns float32 [...]; differentiable in the logits,
+    whose gradient comes back in their dtype."""
+    vocab = logits.shape[-1]
+    xent = _FusedSoftmaxXent.apply(
+        logits.reshape(-1, vocab).contiguous(),
+        labels.reshape(-1).to(torch.int32).contiguous(), float(confidence),
+        float(low_confidence))
+    return xent.reshape(logits.shape[:-1])
+
+
+def fused_ce_available(vocab_size: int) -> bool:
+    """Whether ``fused_softmax_xent`` launches its kernels here: the
+    JAX gate asks for a TPU backend and a lane-aligned vocabulary of at
+    least one 4096-column block; the CUDA kernels take any vocabulary,
+    so this asks for a CUDA device."""
+    return vocab_size > 0 and torch.cuda.is_available()

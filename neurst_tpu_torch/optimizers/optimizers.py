@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from neurst_tpu_torch.utils.flags_core import Flag
 from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["GradientTransformation", "Optimizer", "build_optimizer",
@@ -167,8 +168,8 @@ class Optimizer(object):
         self._args = dict(args or {})
 
     @staticmethod
-    def default_params():
-        return {}
+    def class_or_method_args():
+        return []
 
     def make(self, learning_rate) -> GradientTransformation:
         raise NotImplementedError
@@ -185,9 +186,21 @@ class Adam(Optimizer):
     ``amsgrad`` ``amsgrad``."""
 
     @staticmethod
-    def default_params():
-        return {"learning_rate": None, "beta_1": 0.9, "beta_2": 0.999,
-                "epsilon": 1e-7, "amsgrad": False, "weight_decay": None}
+    def class_or_method_args():
+        return [
+            Flag("learning_rate", dtype=Flag.TYPE.FLOAT, default=None,
+                 help="A fixed learning rate (overridden by lr_schedule)."),
+            Flag("beta_1", dtype=Flag.TYPE.FLOAT, default=0.9,
+                 help="The exponential decay rate for the 1st moment."),
+            Flag("beta_2", dtype=Flag.TYPE.FLOAT, default=0.999,
+                 help="The exponential decay rate for the 2nd moment."),
+            Flag("epsilon", dtype=Flag.TYPE.FLOAT, default=1e-7,
+                 help="A small constant for numerical stability."),
+            Flag("amsgrad", dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether to apply the AMSGrad variant."),
+            Flag("weight_decay", dtype=Flag.TYPE.FLOAT, default=None,
+                 help="Decoupled (AdamW) weight decay rate."),
+        ]
 
     def make(self, learning_rate):
         a = self._args

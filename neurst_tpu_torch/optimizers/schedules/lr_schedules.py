@@ -3,6 +3,7 @@
 callable ``count -> lr`` evaluated at the optimizer's step count, as
 optax evaluates its schedules."""
 
+from neurst_tpu_torch.utils.flags_core import Flag
 from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["LRSchedule", "build_lr_schedule", "register_lr_schedule",
@@ -15,8 +16,8 @@ class LRSchedule(object):
         self._args = dict(args or {})
 
     @staticmethod
-    def default_params():
-        return {}
+    def class_or_method_args():
+        return []
 
     def __call__(self, global_step) -> float:
         raise NotImplementedError
@@ -54,9 +55,21 @@ class NoamSchedule(LRSchedule):
             self._decay_steps = 1.0
 
     @staticmethod
-    def default_params():
-        return {"dmodel": None, "warmup_steps": 4000, "initial_factor": 1.0,
-                "end_factor": None, "start_decay_at": 0, "decay_steps": None}
+    def class_or_method_args():
+        return [
+            Flag("dmodel", dtype=Flag.TYPE.INTEGER, default=None,
+                 help="The model dimension in the hidden layers."),
+            Flag("warmup_steps", dtype=Flag.TYPE.INTEGER, default=4000,
+                 help="The number of linear warmup steps."),
+            Flag("initial_factor", dtype=Flag.TYPE.FLOAT, default=1.,
+                 help="The initial learning rate scaling factor."),
+            Flag("end_factor", dtype=Flag.TYPE.FLOAT, default=None,
+                 help="The final decayed scaling factor."),
+            Flag("start_decay_at", dtype=Flag.TYPE.INTEGER, default=0,
+                 help="The step at which the factor starts decaying."),
+            Flag("decay_steps", dtype=Flag.TYPE.INTEGER, default=None,
+                 help="The factor decays to end_factor over this many steps."),
+        ]
 
     def __call__(self, global_step) -> float:
         step = float(global_step) + self._initial_step + 1.0

@@ -1,0 +1,3 @@
+from neurst_tpu_torch.tasks.task import (Task, build_task,  # noqa: F401
+                                         register_task)
+from neurst_tpu_torch.tasks import speech2text  # noqa: F401

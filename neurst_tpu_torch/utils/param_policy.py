@@ -9,7 +9,9 @@ step.  LayerNorm ``scale`` / ``bias`` (read in float32) stay float32.
 
 import torch
 
-__all__ = ["cast_params_for_inference"]
+from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+__all__ = ["cast_params_for_inference", "restore_inference_params"]
 
 _BF16_NAMES = ("bfloat16", "bf16")
 
@@ -30,3 +32,13 @@ def cast_params_for_inference(model: torch.nn.Module, model_dtype):
                 continue
             p.data = p.data.to(torch.bfloat16)
     return model
+
+
+def restore_inference_params(model: torch.nn.Module, flat):
+    """Checkpoint -> serving weights (counterpart of
+    ``neurst_tpu/utils/param_policy.py:42``): loads the JAX package's
+    flat parameters through ``param_bridge`` (which raises on a missing
+    or unknown name, where the JAX restore warns), then stores bf16 at
+    rest for a bf16-compute model.  Returns ``model``."""
+    load_flat_params(model, flat)
+    return cast_params_for_inference(model, model.args.get("dtype"))

@@ -9,8 +9,9 @@ setup(
                  "translation, ASR and NMT"),
     packages=find_packages(include=["neurst_tpu", "neurst_tpu.*",
                                     "neurst_tpu_torch", "neurst_tpu_torch.*"]),
-    # the PyTorch/CUDA port builds its kernels from these sources
-    package_data={"neurst_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch/CUDA port builds its kernels from these sources and the
+    # headers they include (philox.cuh)
+    package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml",
@@ -21,6 +22,7 @@ setup(
     entry_points={
         "console_scripts": [
             "neurst-tpu-run = neurst_tpu.cli.run_exp:cli_main",
+            "neurst-tpu-torch-run = neurst_tpu_torch.cli.run_exp:cli_main",
         ],
     },
 )

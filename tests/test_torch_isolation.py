@@ -1,7 +1,9 @@
 """The port stands alone: importing ``neurst_tpu_torch`` (every module of
-it) loads no JAX and nothing of ``neurst_tpu``; its sources and
-``chip_smoke.py`` import neither; an entry point without ``device=`` on
-a host without CUDA raises; and ``chip_smoke.py`` fails without a card.
+it, and each subpackage of the predict path on its own) loads no JAX and
+nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
+neither; an entry point without ``device=`` on a host without CUDA
+raises, the predict CLI included; ``setup.py`` ships every kernel source
+and header; and ``chip_smoke.py`` fails without a card.
 Each check runs in a fresh interpreter so this process's own JAX
 imports cannot hide a leak.
 """
@@ -40,6 +42,48 @@ def test_importing_every_module_loads_no_jax_or_neurst_tpu():
         "sys.exit(1 if bad else 0)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("subpackage", ["cli", "data", "tasks", "metrics",
+                                        "exps"])
+def test_predict_subpackages_load_no_jax_or_neurst_tpu(subpackage):
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"pkg = importlib.import_module('neurst_tpu_torch.{subpackage}')\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
+        "print('MODULES', len(names), 'LEAKED', bad)\n"
+        "sys.exit(1 if bad or not names else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_predict_cli_without_device_raises_on_a_cuda_less_host():
+    proc = subprocess.run(
+        [sys.executable, "-m", "neurst_tpu_torch.cli.run_exp", "--entry",
+         "predict"], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+
+
+def test_setup_ships_every_kernel_source_and_header():
+    import ast
+    import fnmatch
+    with open(os.path.join(REPO, "setup.py")) as f:
+        tree = ast.parse(f.read())
+    globs = next(ast.literal_eval(kw.value) for node in ast.walk(tree)
+                 if isinstance(node, ast.Call)
+                 for kw in node.keywords if kw.arg == "package_data")
+    csrc = os.listdir(os.path.join(PACKAGE, "csrc"))
+    assert any(f.endswith(".cuh") for f in csrc)
+    for name in csrc:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", g)
+                   for g in globs["neurst_tpu_torch"]), name
 
 
 @pytest.mark.parametrize("path", sorted(
