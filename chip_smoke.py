@@ -15,8 +15,9 @@ exits non-zero):
                and bf16, at its path's shape and at a ragged shape; times
                of the kernel, the plain version, one PyTorch library call
                of the same function where there is one, and the card's
-               bound.  Flash forward (decode shape and ragged causal; a
-               head dim it is not built for is refused), flash dq and
+               bound.  Flash forward (decode shape, ragged causal and the
+               training shape [40, 750, 4, 64]; a head dim it is not
+               built for is refused), flash dq and
                dk/dv (training shape [40, 750, 4, 64] with lengths {750,
                375, 1, 0, drawn}, and ragged causal), fused linear xent
                forward and backward ([6000, 256] x 8192 with bias, and
@@ -197,14 +198,29 @@ def build_phase():
           "ptxas": ptxas})
 
 
+# spin-kernel cycles per second of host time to cover (above the H100's
+# top SM clock, so the spin outlasts the host's queueing)
+SPIN_CYCLES_PER_S = 2.5e9
+
+
 def time_ms(fn, iters=30, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.  A
+    spin kernel queued ahead keeps the card busy while the host queues
+    the calls, so the events time the device's work alone, not the host's
+    wrappers and launches between calls (which exceed the work of a
+    kernel of a few tens of microseconds)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host = time.perf_counter()
+    fn()
+    host = time.perf_counter() - host
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * host * iters + 1e-3, 2.0)
+                          * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -295,15 +311,24 @@ def flash_fwd_kernel_phase(seed):
     t_main = SLICE["frames"] // 4
     main_lengths = [t_main, 150, 1, 0] + list(
         rng.randint(1, t_main + 1, size=b - 4))
-    cases = [("main", t_main, main_lengths, False),
-             ("ragged_causal", 200, list(rng.randint(0, 201, size=4)), True)]
+    # the training slice's encoder shape, drawn as flash_bwd_kernel_phase
+    # draws its main case: the dropout-0 training step launches the
+    # forward there 12 times a step
+    train_rng = np.random.RandomState(seed + 10)
+    t_train = TRAIN["frames"] // 4
+    train_lengths = [t_train, t_train // 2, 1, 0] + list(
+        train_rng.randint(1, t_train + 1, size=TRAIN["batch"] - 4))
+    cases = [("main", t_main, main_lengths, False, rng),
+             ("ragged_causal", 200, list(rng.randint(0, 201, size=4)), True,
+              rng),
+             ("train", t_train, train_lengths, False, train_rng)]
     results = {}
-    for case, t, lengths, causal in cases:
+    for case, t, lengths, causal, case_rng in cases:
         for dtype in (torch.float32, torch.bfloat16):
             bb = len(lengths)
             # the main path hands the kernel strided slices of the fused
             # qkv projection
-            qkv = torch.from_numpy(rng.randn(bb, t, 3, n, h).astype(
+            qkv = torch.from_numpy(case_rng.randn(bb, t, 3, n, h).astype(
                 np.float32)).to("cuda", dtype)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")

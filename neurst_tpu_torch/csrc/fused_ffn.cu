@@ -53,34 +53,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using namespace neurst;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kRows = 64;      // rows per tile (forward, dx pass)
 constexpr int kCols = 64;      // filter columns per block (dW pass)
 constexpr int kDwThreads = 512;  // 16 warps (dW pass)
 constexpr int kPad = 8;        // shared-memory row padding, in elements
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 // Filter chunk of the forward and the dx pass: 64 for bf16; 32 for
 // float32, whose operands take twice the shared memory.
@@ -101,120 +85,6 @@ template <>
 struct DwRows<float> {
   static constexpr int value = 32;
 };
-
-// One warp: acc[j] += A[16 x K] * B_j[8 x K]^T for j < NT, the m16n8
-// accumulator fragments of mma.sync (element i of acc[j] is row
-// g + 8 (i >> 1), column 8 j + 2 t + (i & 1), g = lane / 4, t = lane % 4).
-// A is row-major [16][lda] (k contiguous), B is [NT * 8][ldb] (k
-// contiguous); K a multiple of 16.
-template <int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
-                                          const __nv_bfloat16* A, int lda,
-                                          const __nv_bfloat16* B, int ldb,
-                                          int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const __nv_bfloat16* a = A + g * lda + k0 + 2 * t;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + 8 * lda);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + 8 * lda + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* b = B + (8 * j + g) * ldb + k0 + 2 * t;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + 8);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};\n"
-          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]),
-            "+f"(acc[j][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-    }
-  }
-}
-
-// float32: the same fragments, by FMA
-template <int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
-                                          const float* A, int lda,
-                                          const float* B, int ldb, int K,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float a_lo = A[g * lda + k], a_hi = A[(g + 8) * lda + k];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = B[(8 * j + 2 * t) * ldb + k];
-      const float b1 = B[(8 * j + 2 * t + 1) * ldb + k];
-      acc[j][0] = fmaf(a_lo, b0, acc[j][0]);
-      acc[j][1] = fmaf(a_lo, b1, acc[j][1]);
-      acc[j][2] = fmaf(a_hi, b0, acc[j][2]);
-      acc[j][3] = fmaf(a_hi, b1, acc[j][3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-}
-
-// Staging moves 16-byte vectors (8 bf16 or 4 float): every leading
-// dimension, column offset and tile width is a multiple of 8 elements,
-// every shared-memory pitch a multiple of 16 bytes, and the wrapper
-// passes 16-byte aligned tensors.
-template <typename T>
-struct Vec {
-  static constexpr int n = 16 / sizeof(T);
-};
-
-// the 16-byte vector at src[(r0 + r) * ld + c], zero at or past `limit`
-template <typename T>
-__device__ __forceinline__ uint4 load_vec(const T* src, long long ld, int r0,
-                                          int r, int c, int limit) {
-  if (r0 + r >= limit) return make_uint4(0u, 0u, 0u, 0u);
-  return *reinterpret_cast<const uint4*>(
-      src + static_cast<long long>(r0 + r) * ld + c);
-}
-
-// dst[r][c] = src[(r0 + r) * ld + c0 + c] for r < rows, c < cols; rows at
-// or past `limit` read as zero
-template <typename T, int NTHREADS = kThreads>
-__device__ __forceinline__ void load_tile(T* dst, int pitch, const T* src,
-                                          long long ld, int r0, int c0,
-                                          int rows, int cols, int limit,
-                                          int tid) {
-  constexpr int V = Vec<T>::n;
-  const int vcols = cols / V;
-  for (int i = tid; i < rows * vcols; i += NTHREADS) {
-    const int r = i / vcols, c = (i % vcols) * V;
-    *reinterpret_cast<uint4*>(dst + r * pitch + c) =
-        load_vec(src, ld, r0, r, c0 + c, limit);
-  }
-}
-
-// dst[c][r] = src[(r0 + r) * ld + c0 + c] (transposed), zero past `limit`.
-// Neighbouring threads take neighbouring rows, so the scalar stores of
-// one vector element land on distinct banks.
-template <typename T, int NTHREADS = kThreads>
-__device__ __forceinline__ void load_tile_t(T* dst, int pitch, const T* src,
-                                            long long ld, int r0, int c0,
-                                            int rows, int cols, int limit,
-                                            int tid) {
-  constexpr int V = Vec<T>::n;
-  for (int i = tid; i < rows * (cols / V); i += NTHREADS) {
-    const int r = i % rows, c = (i / rows) * V;
-    const uint4 v = load_vec(src, ld, r0, r, c0 + c, limit);
-    const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[(c + j) * pitch + r] = e[j];
-  }
-}
 
 // ---------------------------------------------------------------- forward
 template <typename T, int D>
@@ -249,14 +119,14 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int wn = warp >> 2;  // column half
   const int r0 = blockIdx.x * kRows;
 
-  load_tile(xs, S::kX, x, D, r0, 0, kRows, D, rows, tid);
+  load_tile<kThreads>(xs, S::kX, x, D, r0, 0, kRows, D, rows, tid);
   float acc2[NT2][4];
   zero(acc2);
 
   for (int f0 = 0; f0 < filter; f0 += BF) {
     __syncthreads();  // the previous chunk is consumed
-    load_tile(w1s, S::kW1, w1, D, f0, 0, BF, D, filter, tid);
-    load_tile(w2s, S::kW2, w2, filter, 0, f0, D, BF, D, tid);
+    load_tile<kThreads>(w1s, S::kW1, w1, D, f0, 0, BF, D, filter, tid);
+    load_tile<kThreads>(w2s, S::kW2, w2, filter, 0, f0, D, BF, D, tid);
     __syncthreads();
 
     float acc1[NT1][4];
@@ -336,15 +206,15 @@ ffn_dx_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
   const int wm = warp & 3, wn = warp >> 2;
   const int r0 = blockIdx.x * kRows;
 
-  load_tile(dys, S::kDy, dy, D, r0, 0, kRows, D, rows, tid);
+  load_tile<kThreads>(dys, S::kDy, dy, D, r0, 0, kRows, D, rows, tid);
   float acc2[NT2][4];
   zero(acc2);
 
   for (int f0 = 0; f0 < filter; f0 += BF) {
     __syncthreads();
-    load_tile_t(w2t, S::kW2t, w2, filter, 0, f0, D, BF, D, tid);
-    load_tile(hs, S::kH, hd, filter, r0, f0, kRows, BF, rows, tid);
-    load_tile_t(w1t, S::kW1t, w1, D, f0, 0, BF, D, filter, tid);
+    load_tile_t<kThreads>(w2t, S::kW2t, w2, filter, 0, f0, D, BF, D, tid);
+    load_tile<kThreads>(hs, S::kH, hd, filter, r0, f0, kRows, BF, rows, tid);
+    load_tile_t<kThreads>(w1t, S::kW1t, w1, D, f0, 0, BF, D, filter, tid);
     __syncthreads();
 
     // dhd = dy W2[:, chunk]; dh = (hd > 0) dhd * scale, in place of hd
@@ -421,7 +291,7 @@ ffn_dw_kernel(const T* __restrict__ x, const T* __restrict__ w2,
   const int per_split = (tiles + splits - 1) / splits;
   const int tile_end = min(tiles, (split + 1) * per_split);
 
-  load_tile_t<T, kDwThreads>(w2t, S::kW2t, w2, filter, 0, f0, D, kCols, D,
+  load_tile_t<kDwThreads>(w2t, S::kW2t, w2, filter, 0, f0, D, kCols, D,
                              tid);
   float acc_w1[NTB][4], acc_w2[NTB][4];
   zero(acc_w1);
@@ -440,8 +310,8 @@ ffn_dw_kernel(const T* __restrict__ x, const T* __restrict__ w2,
 #pragma unroll
       for (int j = 0; j < V; ++j) dyt[(d + j) * S::kT + r] = e[j];
     }
-    load_tile_t<T, kDwThreads>(xt, S::kT, x, D, r0, 0, BR, D, rows, tid);
-    load_tile_t<T, kDwThreads>(hdt, S::kT, hd, filter, r0, f0, BR, kCols,
+    load_tile_t<kDwThreads>(xt, S::kT, x, D, r0, 0, BR, D, rows, tid);
+    load_tile_t<kDwThreads>(hdt, S::kT, hd, filter, r0, f0, BR, kCols,
                                rows, tid);
     __syncthreads();
 

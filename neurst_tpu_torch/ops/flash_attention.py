@@ -17,9 +17,11 @@ keeps (q, k, v, lengths, o, lse) from the forward and recomputes the
 probabilities in the backward.  Each kernel wrapper
 (``flash_attention_fwd``, ``flash_attention_dq``, ``flash_attention_dkv``)
 launches its kernel for CUDA tensors and raises on anything it does not
-take; for CPU tensors it computes the plain version, the same math in
-PyTorch, which the CPU tests hold against the JAX functions.  There is
-no fallback from a CUDA tensor to the plain version.
+take (bfloat16 views must keep every row on 16 bytes, as the kernels'
+cp.async and ldmatrix staging reads them); for CPU tensors it computes
+the plain version, the same math in PyTorch, which the CPU tests hold
+against the JAX functions.  There is no fallback from a CUDA tensor to
+the plain version.
 """
 
 import ctypes
@@ -163,6 +165,13 @@ def flash_attention_bwd_reference(q, k, v, lengths, o, lse, do,
                       _drop_consts(dropout_rate, dropout_key))
 
 
+def _aligned16(x):
+    """Whether every [T, N] row of the view starts on 16 bytes."""
+    vec = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        s % vec == 0 for s in x.stride()[:3])
+
+
 def _check_cuda_inputs(q, k, v, lengths, do=None):
     named = [("q", q), ("k", k), ("v", v)]
     if do is not None:
@@ -188,6 +197,15 @@ def _check_cuda_inputs(q, k, v, lengths, do=None):
                          "than 65535 (batch * head) slices")
     if lengths.shape != (b,):
         raise ValueError("flash_attention: lengths must be [B]")
+    if q.dtype == torch.bfloat16:
+        for name, x in named:
+            if not _aligned16(x):
+                raise ValueError(
+                    f"flash_attention: bfloat16 {name} must start on 16 "
+                    f"bytes with B, T and N strides of whole 16-byte "
+                    f"vectors (cp.async and ldmatrix read 16-byte rows); "
+                    f"got offset {x.data_ptr() % 16}, strides "
+                    f"{tuple(x.stride()[:3])}")
     for name, x in named + [("lengths", lengths)]:
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"flash_attention: {name} must lie on "
@@ -350,8 +368,10 @@ def flash_attention_bwd(q, k, v, lengths, o, lse, do, causal: bool = False,
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, lengths, causal,
                           _drop_consts(dropout_rate, dropout_key))
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _aligned16(do)):
+        # a fresh copy: contiguous and 16-byte aligned
+        do = do.clone(memory_format=torch.contiguous_format)
     drop = (dropout_rate, dropout_key)
     dq = flash_attention_dq(q, k, v, do, lse, delta, lengths, causal, *drop)
     return (dq,) + flash_attention_dkv(q, k, v, do, lse, delta, lengths,

@@ -225,8 +225,14 @@ def test_library_hash_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_hashes_its_philox_header():
-    for name in ("fused_dropout", "fused_ffn", "flash_attention_fwd",
-                 "flash_attention_bwd"):
+    """Each masking kernel's library name covers philox.cuh and the other
+    local headers it includes (the tensor-core helpers of mma.cuh, the
+    flash kernels' keep-bit tiles of flash_tile.cuh), in include order."""
+    flash = ["flash_tile.cuh", "philox.cuh", "mma.cuh"]
+    for name, headers in (("fused_dropout", ["philox.cuh"]),
+                          ("fused_ffn", ["mma.cuh", "philox.cuh"]),
+                          ("flash_attention_fwd", flash),
+                          ("flash_attention_bwd", flash)):
         sources = _build._sources(_build.CSRC_DIR
                                   / _build.KERNEL_SOURCES[name])
-        assert [p.name for p in sources][1:] == ["philox.cuh"], name
+        assert [p.name for p in sources][1:] == headers, name

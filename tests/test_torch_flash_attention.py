@@ -120,11 +120,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 
 @pytest.mark.parametrize("what, match", [
     ("head_dim", "head_dim 32"), ("device", "CUDA device"),
-    ("dtype", "dtype"), ("lengths", "lengths")])
+    ("dtype", "dtype"), ("lengths", "lengths"),
+    ("alignment", "16 bytes")])
 def test_kernel_input_checks_refuse(what, match):
     """What the CUDA kernel does not take is refused before any launch:
     a head dim it is not built for, tensors off the card, mixed dtypes,
-    lengths of the wrong shape."""
+    lengths of the wrong shape, a bf16 view whose rows do not start on
+    16 bytes (the kernels stage rows by 16-byte cp.async)."""
     q, k, v = (torch.from_numpy(x) for x in
                _inputs(9, 2, 16, 16, 2, 64, "float32"))
     lens = torch.tensor([16, 5], dtype=torch.int32)
@@ -134,6 +136,15 @@ def test_kernel_input_checks_refuse(what, match):
         k = k.bfloat16()
     elif what == "lengths":
         lens = lens[:1]
+    elif what == "alignment":
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        # the fused qkv layout the main path passes is aligned; the same
+        # view shifted by one element is not
+        qkv = torch.stack([q, k, v], dim=2)
+        assert all(port._aligned16(qkv[:, :, i]) for i in range(3))
+        flat = torch.zeros(qkv.numel() + 1, dtype=torch.bfloat16)
+        shifted = flat[1:].view(qkv.shape)
+        q = shifted[:, :, 0]
     with pytest.raises((ValueError, TypeError), match=match):
         port._check_cuda_inputs(q, k, v, lens)
 
