@@ -45,10 +45,11 @@ exits non-zero):
                With attention dropout 0.1: the flash kernels against the
                plain versions with the same mask (and the mask read
                bitwise); the dropout mask kernel ([30000, 256] quantized
-               rate, [37, 200] exact rate; bitwise, keep rate within 5
-               sigma, mean(y) / mean(x)); the fused FFN forward and
-               backward (R = 30000, 6000 and 37, D 256, F 2048, rate 0
-               and 0.1; its mask bitwise).
+               rate, [37, 200] and [37, 199] exact rate, an unaligned
+               flat view; bitwise, keep rate within 5 sigma, mean(y) /
+               mean(x)); the fused FFN forward and backward (R = 30000,
+               6000 and 37, D 256, F 2048, rate 0 and 0.1; its mask
+               bitwise; two backward calls bitwise equal).
 7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
                largest bucket (40 x 3000 frames, target 150), bf16 with
                bf16 stored params and an f32 master, encoder flash
@@ -680,11 +681,14 @@ def _keep_rate_ok(kept, keep_p, n):
 
 def dropout_kernel_phase(seed):
     """fused_dropout_apply (the mask kernel) against its plain version:
-    the encoder's postprocess site [30000, 256] (rate quantized to 1/256)
-    and a ragged [37, 200] (exact rate).  Outputs and masks bitwise
-    equal; the kept share within 5 sigma of its expectation; mean(y) /
-    mean(x) within 5 sigma (plus half a bf16 ulp) of 1.  The library call
-    is ``F.dropout`` (its own generator)."""
+    the encoder's postprocess site [30000, 256] (rate quantized to 1/256),
+    a ragged [37, 200] (exact rate), a [37, 199] whose length is not a
+    whole number of 16-byte vectors (a scalar tail), and a flat view
+    ``buf[1:]`` whose pointer is not 16-byte aligned (the kernel gathers
+    its vectors).  Outputs and masks bitwise equal; the kept share within
+    5 sigma of its expectation; mean(y) / mean(x) within 5 sigma (plus
+    half a bf16 ulp) of 1.  The library call is ``F.dropout`` (its own
+    generator)."""
     import torch
     from torch.nn import functional as F
 
@@ -694,13 +698,23 @@ def dropout_kernel_phase(seed):
     key = _site_key(rng, 1 << 16 | 1)
     rows = TRAIN["batch"] * TRAIN["frames"] // 4
     results = {}
-    for case, shape in (("main", (rows, 256)), ("ragged", (37, 200))):
+    for case, shape in (("main", (rows, 256)), ("ragged", (37, 200)),
+                        ("ragged_tail", (37, 199)),
+                        ("unaligned", (100003,))):
         threshold, scale = fd.threshold_and_scale(
             DROPOUT_RATE, fd.quantized_site(shape))
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
-            x = torch.from_numpy((rng.rand(*shape) + 0.5).astype(
-                np.float32)).to("cuda", dtype)
+            if case == "unaligned":
+                buf = torch.from_numpy((rng.rand(shape[0] + 1) + 0.5).astype(
+                    np.float32)).to("cuda", dtype)
+                x = buf[1:]
+                if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+                    raise AssertionError("dropout unaligned case: the view "
+                                         "is aligned")
+            else:
+                x = torch.from_numpy((rng.rand(*shape) + 0.5).astype(
+                    np.float32)).to("cuda", dtype)
             y = fd.fused_dropout_apply(x, key, threshold, scale)
             want = fd.dropout_reference(x, key, threshold, scale)
             torch.cuda.synchronize()
@@ -724,6 +738,7 @@ def dropout_kernel_phase(seed):
             bound, bound_by = bound_ms(2 * n * x.element_size(), 0, dtype)
             row = {"phase": "kernel", "kernel": "fused_dropout",
                    "case": case, "dtype": name, "shape": list(shape),
+                   "offset_bytes": x.data_ptr() % 16,
                    "quantized": fd.quantized_site(shape),
                    "threshold": threshold, "scale": scale,
                    "masks_equal": same_mask, "max_abs_err": err, "tol": 0.0,
@@ -763,9 +778,10 @@ def ffn_kernel_phase(seed):
     encoder rows (30,000), decoder rows (6,000) and a ragged 37, D 256,
     F 2048, rate 0 and 0.1.  The dropout mask is compared bitwise with b1
     = 100 (every pre-activation positive, so hd is 0 exactly where
-    dropped) and its kept share checked.  No single PyTorch call computes
-    the function: ``library_ms`` is null and ``linear -> relu -> dropout
-    -> linear`` is timed beside it as a composite."""
+    dropped) and its kept share checked; two backward calls must give
+    the same bits.  No single PyTorch call computes the function:
+    ``library_ms`` is null and ``linear -> relu -> dropout -> linear`` is
+    timed beside it as a composite."""
     import torch
     from torch.nn import functional as F
 
@@ -798,6 +814,12 @@ def ffn_kernel_phase(seed):
                 bwd_args = (x, w1, w2, hd_ref, dy, drop[1])
                 grads = ff.fused_ffn_bwd(*bwd_args)
                 ref_grads = ff._bwd_plain(*bwd_args)
+                # no atomics: a second call gives the same bits
+                repeat = all(torch.equal(a, b_) for a, b_ in zip(
+                    grads, ff.fused_ffn_bwd(*bwd_args)))
+                if not repeat:
+                    raise AssertionError(f"fused_ffn {case} rate {rate} "
+                                         f"{name}: two backward calls differ")
                 mask = {}
                 if rate:
                     big = torch.full_like(b1, 100.0)
@@ -858,6 +880,8 @@ def ffn_kernel_phase(seed):
                         "library_ms": None,
                         "composite_linear_relu_dropout_linear_ms": comp,
                         "bound_ms": bound, "bound_by": bound_by}, **mask)
+                    if kernel == "bwd":
+                        row["bitwise_repeat"] = repeat
                     emit(row)
                     results[(kernel, case, rate, name)] = row
     return results

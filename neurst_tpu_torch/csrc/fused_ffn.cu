@@ -1,9 +1,10 @@
 // Fused position-wise FFN, y = dropout(relu(x W1^T + b1)) W2^T + b2, for
 // Hopper (sm_90a), plain C interface: a forward kernel and a backward in
-// three (a dx pass over row tiles, a dW pass over filter-column tiles and
-// row splits, and a deterministic sum of the splits).  bf16 products run
-// on the tensor cores (warp-level mma.sync.m16n8k16, float32
-// accumulation); float32 runs the same tiling with FMA loops.
+// three launches (a dx pass over row tiles, a dW pass, and a
+// deterministic sum of the dW pass's row splits and of the bias
+// partials).  bf16 products run on the tensor cores (warp-level
+// mma.sync.m16n8k16, float32 accumulation); float32, which only the
+// card-vs-CPU checks run, keeps FMA loops.
 //
 // Replaces: neurst_tpu/ops/fused_ffn.py:_ffn_fwd_kernel (the Pallas call
 // at :232) and :_ffn_bwd_kernel (the call at :262).  Same function:
@@ -22,32 +23,51 @@
 // Layouts are nn.Linear's: x [R, D], W1 [F, D], W2 [D, F] of one dtype;
 // b1 [F], b2 [D] float32; y, dx [R, D] and hd [R, F] in the operand
 // dtype; dW1 [F, D] and dW2 [D, F] in the operand dtype, db1 [F] and db2
-// [D] float32.  D is 256, F a multiple of 64.
+// [D] float32.  D is 256, F a multiple of 64 (of 128 for the bf16
+// backward).
 //
 // Why this shape on an H100: the TPU kernel keeps W1, W2 and the float32
 // dW1/dW2 (8 MB at D 256, F 2048) resident in VMEM across a sequential
 // grid.  A block here has 227 KB of shared memory and blocks run in no
-// order, so (a) the forward and the dx pass walk 64-row tiles and stream
-// W1/W2 through shared memory in 64-column filter chunks (from L2: 2 MB
-// of weights re-read by every block), keeping y (or dx) in registers and
-// the hidden chunk in shared memory only; (b) the dW pass gives each
-// 512-thread block 64 filter columns and one of S row splits (S chosen by
-// the caller so that F / 64 * S is well over 132 blocks; fewer, wider
-// column blocks re-read x and dy fewer times), recomputes dh for its columns
-// from dy, W2 and hd (D multiply-adds per value, cheap at D 256), and
-// keeps its dW1/dW2 columns in registers; (c) a last kernel sums the S
-// float32 partials in a fixed order: no atomics, so the gradients are
-// deterministic.
+// order, so the forward and the dx pass walk row tiles and stream W1/W2
+// through shared memory in 64-column filter chunks (from L2), keeping y
+// (or dx) in registers and only a chunk of the hidden in shared memory;
+// the dW pass splits its rows over blocks, and a last kernel sums the
+// float32 partials in a fixed order: no atomics, so two calls give the
+// same bits.
 //
 // What bounds it on an H100: operations.  At R = 30000, D = 256, F = 2048
 // the forward does 4 R D F = 63 GFLOP (~64 us at 989 TFLOP/s) against
-// ~16 MB of x, y and ~123 MB of hd; the backward 8 R D F (the dW pass's
-// recompute adds 2 R D F more).  This first design issues mma.sync from
-// operands in shared memory staged by 16-byte vector loads (no TMA, no
-// wgmma, no pipelining between the staging and the products), so it is
-// bound by the staging (every block re-reads the weights, and every dW
-// block x and dy, from L2), shared-memory traffic and the
-// synchronisation between stages.
+// ~16 MB of x, y and ~123 MB of hd; the backward 8 R D F (~127 us).
+//
+// The bf16 backward (the section below gives its tiles): every operand
+// arrives by 16-byte cp.async into 128-byte-swizzled tiles, in a ring
+// deep enough that the next chunk's copies run under this chunk's
+// products, so no copy waits between two barriers; fragments come by
+// ldmatrix, whose .trans reads the untransposed tiles in the other
+// orientation, so nothing is transposed in shared memory.  The dx pass
+// takes 128 rows a block (64 below one wave of them), so the 2 MB of
+// weights are re-read from L2 once per 128 rows.  It writes round(dh)
+// [R, F] once, so the dW pass is two plain products over rows, dW1 =
+// round(dh)^T x and dW2 = dy^T hd, with no recompute of dh, and its grid
+// of 128 x 256 tiles x row splits fills the card's resident blocks (one
+// an SM) once.  The bias sums come from the accumulator fragments by warp
+// shuffles in a fixed order, then one warp a column in the sum kernel.
+// The copies' addresses are recomputed every chunk (see `opaque`): held,
+// they take the registers the accumulators need.  What bounds it: in the
+// dx pass, shared-memory reads of the fragments (~384 KB a 64-column
+// chunk) and the latency of each block's chunk loop, whose two barriers
+// keep 8 warps an SM in step; in the dW pass, the operand traffic from
+// L2 (~740 MB a call at 30000 rows) and device memory (dh and hd, 2 x
+// 123 MB, the price of not recomputing dh).  wgmma, which reads its
+// operands from shared memory without the register file, is the next
+// step.
+//
+// The float32 backward keeps FMA loops: the dx pass over 64-row
+// tiles; the dW pass gives each 512-thread block 64 filter columns and
+// one of S row splits, recomputes dh for its columns from dy, W2 and hd,
+// keeps its dW1/dW2 columns in registers and sums db1 (and, in column
+// tile 0, db2) row by row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,13 +81,13 @@ namespace {
 using namespace neurst;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 64;      // rows per tile (forward, dx pass)
-constexpr int kCols = 64;      // filter columns per block (dW pass)
-constexpr int kDwThreads = 512;  // 16 warps (dW pass)
+constexpr int kRows = 64;      // rows per tile (forward, float32 dx pass)
+constexpr int kCols = 64;      // filter columns per block (float32 dW pass)
+constexpr int kDwThreads = 512;  // 16 warps (float32 dW pass)
 constexpr int kPad = 8;        // shared-memory row padding, in elements
 
-// Filter chunk of the forward and the dx pass: 64 for bf16; 32 for
-// float32, whose operands take twice the shared memory.
+// Filter chunk of the forward and the float32 dx pass: 64 for bf16; 32
+// for float32, whose operands take twice the shared memory.
 template <typename T>
 struct Chunk {
   static constexpr int value = 64;
@@ -76,15 +96,8 @@ template <>
 struct Chunk<float> {
   static constexpr int value = 32;
 };
-// rows per tile of the dW pass
-template <typename T>
-struct DwRows {
-  static constexpr int value = 64;
-};
-template <>
-struct DwRows<float> {
-  static constexpr int value = 32;
-};
+// rows per tile of the float32 dW pass
+constexpr int kDwRowsF32 = 32;
 
 // ---------------------------------------------------------------- forward
 template <typename T, int D>
@@ -176,7 +189,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     }
 }
 
-// ---------------------------------------------------------------- dx pass
+// -------------------------------------------- float32 dx pass: FMA loops
 template <typename T, int D>
 struct DxSmem {
   static constexpr int BF = Chunk<T>::value;
@@ -248,10 +261,376 @@ ffn_dx_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
     }
 }
 
-// ---------------------------------------------------------------- dW pass
+// ------------------------------------------- bf16 backward: tensor cores
+//
+// dx pass: one block of 8 warps per 128-row tile (64 below one wave of
+// them, see DxTile); dy [128][256] comes in
+// once, and the filter streams in 64-column chunks (W2[:, chunk] [256][64],
+// W1[chunk, :] [64][256], hd [128][64]) through a 2-stage cp.async ring,
+// so chunk j + 1's copies overlap chunk j's products.  Per chunk:
+//   P1  dhd [128][64] = dy W2[:, chunk]: warps 4 (rows) x 2 (columns),
+//       32 x 32 each; dy by ldsm_a, W2 (a [k][n] tile) by ldsm_trans;
+//   dh = (hd > 0) ? dhd * scale : 0 from the accumulators, written over
+//       hd in shared memory as round(dh), which then goes out to the dh
+//       buffer [R][F] by 16-byte stores; the chunk's db1 partial sums the
+//       unrounded dh by warp shuffles, then the 4 row warps, in a fixed
+//       order;
+//   P2  dx [128][256] += round(dh) W1[chunk, :]: warps 2 x 4, 64 x 64
+//       each (128 accumulators a thread for the whole filter); dh by
+//       ldsm_a, W1 by ldsm_trans.
+// Its last step sums the tile's dy columns into the db2 partial.  Of the
+// layouts measured (8 or 16 warps, k loops unrolled 1-16), 8 warps with
+// every loop unrolled ran fastest: the fewest fragment re-reads (the
+// weights by 4 or 2 row warps, not 8 or 4).
+
+// x, as a value the compiler cannot see through: what is derived from it
+// inside a loop is computed there, not hoisted and held in registers
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
+
+constexpr int kDim = 256;  // D of the bf16 kernels
+constexpr int kDxWarps = 8;
+constexpr int kDxThreads = 32 * kDxWarps;
+constexpr int kDxChunk = 64;
+constexpr int kW2cBytes = kDim * kDxChunk * 2;         // 1 panel
+constexpr int kW1cBytes = kDxChunk * kDim * 2;         // 4 panels
+constexpr int kW1cPanel = kDxChunk * 128;
+constexpr int kDxStages = 2;
+// P1: row warps x 2 column warps (32 filter columns each); P2: row warps
+// x 4 column warps (64 dims each)
+constexpr int kDxRowWarps1 = kDxWarps / 2;
+constexpr int kDxRowWarps2 = kDxWarps / 4;
+constexpr int kDxRed = kDxRowWarps1 * kDxChunk * 4;  // db1 partial sums
+
+// The dx pass's tile of kRows rows: 128, or 64 where 128-row tiles would
+// not fill the card once (the decoder's 6000 rows: 47 blocks for 132
+// SMs); the weights are then re-read twice as often, from L2.
+template <int kRows>
+struct DxTile {
+  static constexpr int kDyBytes = kRows * kDim * 2;     // 4 panels
+  static constexpr int kDyPanel = kRows * 128;
+  static constexpr int kHdBytes = kRows * kDxChunk * 2;  // 1 panel
+  static constexpr int kStage = kW2cBytes + kW1cBytes + kHdBytes;
+  static constexpr int kMt1 = kRows / kDxRowWarps1 / 16;  // m tiles, P1
+  static constexpr int kMt2 = kRows / kDxRowWarps2 / 16;  // m tiles, P2
+  static constexpr size_t kSmem = kDyBytes + kDxStages * kStage + kDxRed;
+};
+
+template <int kDxRows>
+__global__ void __launch_bounds__(kDxThreads, 1)
+ffn_dx_bf16_kernel(const __nv_bfloat16* __restrict__ w1,
+                   const __nv_bfloat16* __restrict__ w2,
+                   const __nv_bfloat16* __restrict__ hd,
+                   const __nv_bfloat16* __restrict__ dy,
+                   __nv_bfloat16* __restrict__ dx,
+                   __nv_bfloat16* __restrict__ dh, float* __restrict__ db1p,
+                   float* __restrict__ db2p, int rows, int filter,
+                   float scale) {
+  using Tile = DxTile<kDxRows>;
+  constexpr int kDyBytes = Tile::kDyBytes, kDyPanel = Tile::kDyPanel;
+  constexpr int kDxStage = Tile::kStage;
+  constexpr int kDxMt1 = Tile::kMt1, kDxMt2 = Tile::kMt2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  const uint32_t dy_s = base;
+  float* red = reinterpret_cast<float*>(smem + kDyBytes +
+                                        kDxStages * kDxStage);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // P1: rows 16 kDxMt1 wm, columns 32 wn; P2: rows 16 kDxMt2 wm2, dims
+  // 64 wn2
+  const int wm = warp % kDxRowWarps1, wn = warp / kDxRowWarps1;
+  const int wm2 = warp % kDxRowWarps2, wn2 = warp / kDxRowWarps2;
+  const int tile = blockIdx.x, r0 = tile * kDxRows;
+  const int chunks = filter / kDxChunk;
+
+  // The copies' addresses are recomputed from an opaque thread index
+  // every chunk: held across the loop, their ten pointers and offsets
+  // would take the registers the accumulators need.
+  auto load_chunk = [&](int j) {
+    const int ot = opaque(tid);
+    const uint32_t st = base + kDyBytes + (j % kDxStages) * kDxStage;
+    const int f0 = j * kDxChunk;
+    load_panels_async<kDxThreads, kDim, kDxChunk>(st, w2, filter, 0, f0,
+                                                  kDim, ot);
+    load_panels_async<kDxThreads, kDxChunk, kDim>(st + kW2cBytes, w1, kDim,
+                                                  f0, 0, filter, ot);
+    load_panels_async<kDxThreads, kDxRows, kDxChunk>(
+        st + kW2cBytes + kW1cBytes, hd, filter, r0, f0, rows, ot);
+  };
+  load_panels_async<kDxThreads, kDxRows, kDim>(dy_s, dy, kDim, r0, 0, rows,
+                                               tid);
+  load_chunk(0);
+  cp_async_commit();
+
+  float acc2[kDxMt2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < kDxMt2; ++mi) zero(acc2[mi]);
+
+  for (int j = 0; j < chunks; ++j) {
+    cp_async_wait<0>();  // chunk j (and dy) landed
+    __syncthreads();     // ... for every thread; chunk j - 1 is consumed
+    if (j + 1 < chunks) load_chunk(j + 1);
+    cp_async_commit();
+    const int st_off = kDyBytes + (j % kDxStages) * kDxStage;
+    const uint32_t w2c = base + st_off;
+    const uint32_t w1c = w2c + kW2cBytes;
+    const int hs_off = st_off + kW2cBytes + kW1cBytes;
+    const uint32_t hs = base + hs_off;
+    const int f0 = j * kDxChunk;
+
+    // P1: dhd [128 r][64 f] = dy W2[:, chunk]
+    float acc1[kDxMt1][4][4];
+#pragma unroll
+    for (int mi = 0; mi < kDxMt1; ++mi) zero(acc1[mi]);
+#pragma unroll
+    for (int kk = 0; kk < kDim / 16; ++kk) {
+      uint32_t a[kDxMt1][4];
+#pragma unroll
+      for (int mi = 0; mi < kDxMt1; ++mi)
+        ldsm_a(a[mi], dy_s + (kk >> 2) * kDyPanel,
+               16 * (kDxMt1 * wm + mi), 2 * (kk & 3), lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_trans(b, w2c, 16 * kk, 4 * wn + 2 * np, lane);
+#pragma unroll
+        for (int mi = 0; mi < kDxMt1; ++mi) {
+          mma_bf16(acc1[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc1[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+
+    // dh = (hd > 0) dhd * scale over hd, rounded; db1 from the unrounded
+    float cs[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      cs[nt][0] = cs[nt][1] = 0.f;
+#pragma unroll
+      for (int mi = 0; mi < kDxMt1; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * (kDxMt1 * wm + mi) + g + 8 * h;
+          const int f = 32 * wn + 8 * nt + 2 * t;  // f, f + 1: one word
+          uint32_t* p = reinterpret_cast<uint32_t*>(
+              smem + hs_off + swz(r, f >> 3) + (f & 7) * 2);
+          const uint32_t hv = *p;
+          const float d0 = __uint_as_float(hv << 16) > 0.f
+                               ? acc1[mi][nt][2 * h] * scale
+                               : 0.f;
+          const float d1 = __uint_as_float(hv & 0xFFFF0000u) > 0.f
+                               ? acc1[mi][nt][2 * h + 1] * scale
+                               : 0.f;
+          cs[nt][0] += d0;
+          cs[nt][1] += d1;
+          *p = pack_bf16(d0, d1);
+        }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          cs[nt][e] += __shfl_xor_sync(0xFFFFFFFFu, cs[nt][e], o);
+    if (g == 0)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[wm * kDxChunk + 32 * wn + 8 * nt + 2 * t + e] = cs[nt][e];
+    __syncthreads();  // round(dh) and the db1 sums are in place
+
+    if (tid < kDxChunk) {
+      float b = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDxRowWarps1; ++w) b += red[w * kDxChunk + tid];
+      db1p[static_cast<long long>(tile) * filter + f0 + tid] = b;
+    }
+#pragma unroll
+    for (int q = 0; q < kDxRows * 8 / kDxThreads; ++q) {
+      const int i = tid + q * kDxThreads;
+      const int r = i >> 3, c = i & 7;
+      if (r0 + r < rows)
+        *reinterpret_cast<uint4*>(dh + static_cast<long long>(r0 + r) *
+                                           filter + f0 + 8 * c) =
+            *reinterpret_cast<const uint4*>(smem + hs_off + swz(r, c));
+    }
+
+    // P2: dx [128 r][256 d] += round(dh) W1[chunk, :]
+#pragma unroll
+    for (int kk = 0; kk < kDxChunk / 16; ++kk) {
+      uint32_t a[kDxMt2][4];
+#pragma unroll
+      for (int mi = 0; mi < kDxMt2; ++mi)
+        ldsm_a(a[mi], hs, 16 * (kDxMt2 * wm2 + mi), 2 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_trans(b, w1c + wn2 * kW1cPanel, 16 * kk, 2 * np, lane);
+#pragma unroll
+        for (int mi = 0; mi < kDxMt2; ++mi) {
+          mma_bf16(acc2[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc2[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < kDxMt2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * (kDxMt2 * wm2 + mi) + g + 8 * h;
+        const int d = 64 * wn2 + 8 * nt + 2 * t;
+        if (r < rows)
+          *reinterpret_cast<uint32_t*>(dx + static_cast<long long>(r) * kDim +
+                                       d) =
+              pack_bf16(acc2[mi][nt][2 * h], acc2[mi][nt][2 * h + 1]);
+      }
+  // db2 partial: column tid of the tile's dy, rows in order (rows >= R
+  // are zero)
+  if (tid < kDim) {
+    const int d = tid;
+    const unsigned char* col = smem + (d >> 6) * kDyPanel + (d & 7) * 2;
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < kDxRows; ++r)
+      s += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+          col + swz(r, (d & 63) >> 3)));
+    db2p[static_cast<long long>(tile) * kDim + d] = s;
+  }
+}
+
+// dW pass: two products over rows, split over row ranges,
+//   dW1 [F][D] = round(dh)^T x   and   dW2^T [F][D] = hd^T dy,
+// as one grid of 128 x 256 output tiles (F x all of D; 16 of each product
+// at F 2048) x S row splits.  Each block streams 64-row slabs of its two
+// operands ([64][128] of dh or hd, [64][256] of x or dy) through a
+// 3-stage cp.async ring; 8 warps, 64 x 64 outputs each, read the left
+// operand transposed by ldsm_at and the right one by ldsm_trans.  Taking
+// all of D a tile reads each row's 384 operand values once per 128
+// filter columns (128 x 128 tiles read 512).  A block writes its float32
+// partial (dW2's transposed back to [D][F]); the sum kernel adds the S
+// partials in split order.  Measured against 64 x 32 warp tiles (16
+// warps) and 32-row slabs (4 stages), this was the fastest, by 1-15%.
+constexpr int kDwTileF = 128;
+constexpr int kDwK = 64;
+constexpr int kDwStages = 3;
+constexpr int kDwWarpCols = 64;  // a warp's output columns (of D)
+constexpr int kDwColWarps = kDim / kDwWarpCols;
+constexpr int kDwThreadsBf16 = 32 * 2 * kDwColWarps;
+constexpr int kDwPanel = kDwK * 128;          // [64][64] bf16
+constexpr int kDwA = 2 * kDwPanel;            // [64][128]
+constexpr int kDwB = 4 * kDwPanel;            // [64][256]
+constexpr int kDwStage = kDwA + kDwB;
+constexpr size_t kDwSmemBf16 = kDwStages * kDwStage;
+
+// C [S][F][D] (float32 partials; [S][D][F] when `transposed`) = sum over
+// rows of a [R][F]^T b [R][D]
+struct RowProduct {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  float* c;
+  bool transposed;
+};
+
+__global__ void __launch_bounds__(kDwThreadsBf16, 1)
+ffn_dw_bf16_kernel(RowProduct p0, RowProduct p1, int rows, int filter) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // rows 64 wm, cols kDwWarpCols wn
+  const int wm = warp & 1, wn = warp >> 1;
+  const int tiles0 = filter / kDwTileF;
+  const bool second = static_cast<int>(blockIdx.x) >= tiles0;
+  const RowProduct p = second ? p1 : p0;
+  const int m0 = (blockIdx.x - (second ? tiles0 : 0)) * kDwTileF;
+  const int slabs = (rows + kDwK - 1) / kDwK;
+  const int per_split = (slabs + gridDim.y - 1) / gridDim.y;
+  const int s0 = blockIdx.y * per_split;
+  const int n_slabs = max(0, min(slabs, s0 + per_split) - s0);
+
+  auto load_slab = [&](int j) {  // addresses recomputed, as in dx
+    const int ot = opaque(tid);
+    const uint32_t st = base + (j % kDwStages) * kDwStage;
+    const int r0 = (s0 + j) * kDwK;
+    load_panels_async<kDwThreadsBf16, kDwK, kDwTileF>(st, p.a, filter, r0,
+                                                      m0, rows, ot);
+    load_panels_async<kDwThreadsBf16, kDwK, kDim>(st + kDwA, p.b, kDim, r0,
+                                                  0, rows, ot);
+  };
+#pragma unroll
+  for (int j = 0; j < kDwStages - 1; ++j) {
+    if (j < n_slabs) load_slab(j);
+    cp_async_commit();
+  }
+
+  float acc[4][kDwWarpCols / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) zero(acc[mi]);
+
+  for (int j = 0; j < n_slabs; ++j) {
+    cp_async_wait<kDwStages - 2>();  // slab j landed
+    __syncthreads();  // ... for every thread; slab j - 1 is consumed
+    if (j + kDwStages - 1 < n_slabs) load_slab(j + kDwStages - 1);
+    cp_async_commit();
+    const uint32_t st = base + (j % kDwStages) * kDwStage;
+    const uint32_t a_s = st + wm * kDwPanel;
+    const uint32_t b_s = st + kDwA + ((kDwWarpCols * wn) >> 6) * kDwPanel;
+    const int b_c0 = ((kDwWarpCols * wn) & 63) >> 3;
+#pragma unroll
+    for (int ks = 0; ks < kDwK / 16; ++ks) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) ldsm_at(a[mi], a_s, 16 * ks, 2 * mi, lane);
+#pragma unroll
+      for (int np = 0; np < kDwWarpCols / 16; ++np) {
+        uint32_t b[4];
+        ldsm_trans(b, b_s, 16 * ks, b_c0 + 2 * np, lane);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* c = p.c + static_cast<long long>(blockIdx.y) * filter * kDim;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < kDwWarpCols / 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wm + 16 * mi + g + 8 * h;
+        const int n = kDwWarpCols * wn + 8 * nt + 2 * t;
+        if (p.transposed) {
+          c[static_cast<long long>(n) * filter + m] = acc[mi][nt][2 * h];
+          c[static_cast<long long>(n + 1) * filter + m] =
+              acc[mi][nt][2 * h + 1];
+        } else {
+          *reinterpret_cast<float2*>(c + static_cast<long long>(m) * kDim +
+                                     n) =
+              make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+        }
+      }
+}
+
+// ------------------------------------------- float32 dW pass: FMA loops
 template <typename T, int D>
 struct DwSmem {
-  static constexpr int BR = DwRows<T>::value;
+  static constexpr int BR = kDwRowsF32;
   static constexpr int kW2t = D + kPad, kDy = D + kPad, kT = BR + kPad;
   static constexpr size_t bytes =
       sizeof(T) * (kCols * kW2t + BR * kDy + 2 * D * kT + 2 * kCols * kT) +
@@ -364,7 +743,9 @@ ffn_dw_kernel(const T* __restrict__ x, const T* __restrict__ w2,
 }
 
 // dW1, dW2 (operand dtype) and db1, db2 (float32): the sums of the S
-// partials, in split order
+// weight partials in split order, and of the P bias partials, one warp
+// a bias column (lane l adds parts l, l + 32, ... in order, then a fixed
+// butterfly of shuffles)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_dw_sum_kernel(const float* __restrict__ dw1p,
@@ -372,12 +753,13 @@ ffn_dw_sum_kernel(const float* __restrict__ dw1p,
                   const float* __restrict__ db1p,
                   const float* __restrict__ db2p, T* __restrict__ dw1,
                   T* __restrict__ dw2, float* __restrict__ db1,
-                  float* __restrict__ db2, int filter, int dim, int splits) {
+                  float* __restrict__ db2, int filter, int dim, int splits,
+                  int bias_parts) {
   const long long fd = static_cast<long long>(filter) * dim;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       e < fd; e += stride) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (long long e = first; e < fd; e += stride) {
     float s1 = 0.f, s2 = 0.f;
     for (int s = 0; s < splits; ++s) {
       s1 += dw1p[s * fd + e];
@@ -385,15 +767,22 @@ ffn_dw_sum_kernel(const float* __restrict__ dw1p,
     }
     dw1[e] = from_float<T>(s1);
     dw2[e] = from_float<T>(s2);
-    if (e < filter) {
-      float b = 0.f;
-      for (int s = 0; s < splits; ++s) b += db1p[s * filter + e];
-      db1[e] = b;
-    }
-    if (e < dim) {
-      float b = 0.f;
-      for (int s = 0; s < splits; ++s) b += db2p[s * dim + e];
-      db2[e] = b;
+  }
+  const int lane = threadIdx.x & 31;
+  for (long long c = first >> 5; c < filter + dim; c += stride >> 5) {
+    const bool b1 = c < filter;
+    const float* p = b1 ? db1p + c : db2p + (c - filter);
+    const long long ld = b1 ? filter : dim;
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < bias_parts; i += 32) s += p[i * ld];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+    if (lane == 0) {
+      if (b1)
+        db1[c] = s;
+      else
+        db2[c - filter] = s;
     }
   }
 }
@@ -404,6 +793,32 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
 }
+
+// The partials buffer: dW1 [S][F][D], dW2 [S][D][F], then db1 [P][F] and
+// db2 [P][D] (P bias partials: the S splits of the float32 dW pass, or
+// the row tiles of the bf16 dx pass)
+struct Partials {
+  float *dw1, *dw2, *db1, *db2;
+};
+
+Partials split_partials(void* partials, int filter, int dim, int splits,
+                        int bias_parts) {
+  const long long fd = static_cast<long long>(filter) * dim;
+  float* p = static_cast<float*>(partials);
+  Partials out;
+  out.dw1 = p;
+  out.dw2 = out.dw1 + splits * fd;
+  out.db1 = out.dw2 + splits * fd;
+  out.db2 = out.db1 + static_cast<long long>(bias_parts) * filter;
+  return out;
+}
+
+constexpr int kSms = 132;
+
+// rows of a dx tile: 128 when those tiles fill the SMs at least once
+int dx_rows(int rows) { return (rows + 127) / 128 >= kSms ? 128 : 64; }
+
+int dx_tiles(int rows) { return (rows + dx_rows(rows) - 1) / dx_rows(rows); }
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* x, const void* w1, const float* b1,
@@ -421,62 +836,89 @@ cudaError_t launch_fwd(const void* x, const void* w1, const float* b1,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dx(const void* w1, const void* w2, const void* hd,
-                      const void* dy, void* dx, int rows, int filter,
-                      float scale, cudaStream_t s) {
-  auto kernel = ffn_dx_kernel<T, D>;
-  const size_t bytes = DxSmem<T, D>::bytes;
+cudaError_t launch_dx_f32(const void* w1, const void* w2, const void* hd,
+                          const void* dy, void* dx, int rows, int filter,
+                          float scale, cudaStream_t s) {
+  auto kernel = ffn_dx_kernel<float, 256>;
+  const size_t bytes = DxSmem<float, 256>::bytes;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(rows + kRows - 1) / kRows, kThreads, bytes, s>>>(
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const T*>(hd), static_cast<const T*>(dy),
-      static_cast<T*>(dx), rows, filter, scale);
+      static_cast<const float*>(w1), static_cast<const float*>(w2),
+      static_cast<const float*>(hd), static_cast<const float*>(dy),
+      static_cast<float*>(dx), rows, filter, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dw(const void* x, const void* w2, const void* hd,
-                      const void* dy, float* partials, int rows, int filter,
-                      int splits, float scale, cudaStream_t s) {
-  auto kernel = ffn_dw_kernel<T, D>;
-  const size_t bytes = DwSmem<T, D>::bytes;
+cudaError_t launch_dx_bf16(const void* w1, const void* w2, const void* hd,
+                           const void* dy, void* dx, void* dh,
+                           const Partials& p, int rows, int filter,
+                           float scale, cudaStream_t s) {
+  auto kernel = dx_rows(rows) == 128 ? ffn_dx_bf16_kernel<128>
+                                     : ffn_dx_bf16_kernel<64>;
+  const size_t bytes =
+      dx_rows(rows) == 128 ? DxTile<128>::kSmem : DxTile<64>::kSmem;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const long long fd = static_cast<long long>(filter) * D;
-  float* dw1p = partials;
-  float* dw2p = dw1p + splits * fd;
-  float* db1p = dw2p + splits * fd;
-  float* db2p = db1p + static_cast<long long>(splits) * filter;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dx_tiles(rows), kDxThreads, bytes, s>>>(
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(hd), static_cast<const bf16*>(dy),
+      static_cast<bf16*>(dx), static_cast<bf16*>(dh), p.db1, p.db2, rows,
+      filter, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw_f32(const void* x, const void* w2, const void* hd,
+                          const void* dy, const Partials& p, int rows,
+                          int filter, int splits, float scale,
+                          cudaStream_t s) {
+  auto kernel = ffn_dw_kernel<float, 256>;
+  const size_t bytes = DwSmem<float, 256>::bytes;
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(filter / kCols, splits), kDwThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w2),
-      static_cast<const T*>(hd), static_cast<const T*>(dy), dw1p, dw2p, db1p,
-      db2p, rows, filter, scale);
+      static_cast<const float*>(x), static_cast<const float*>(w2),
+      static_cast<const float*>(hd), static_cast<const float*>(dy), p.dw1,
+      p.dw2, p.db1, p.db2, rows, filter, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw_bf16(const void* x, const void* hd, const void* dy,
+                           const void* dh, const Partials& p, int rows,
+                           int filter, int splits, cudaStream_t s) {
+  cudaError_t err = set_smem(ffn_dw_bf16_kernel, kDwSmemBf16);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  // dW1 [F][D] = round(dh)^T x ; dW2^T [F][D] = hd^T dy, stored [D][F]
+  const RowProduct p0{static_cast<const bf16*>(dh),
+                      static_cast<const bf16*>(x), p.dw1, false};
+  const RowProduct p1{static_cast<const bf16*>(hd),
+                      static_cast<const bf16*>(dy), p.dw2, true};
+  ffn_dw_bf16_kernel<<<dim3(2 * (filter / kDwTileF), splits), kDwThreadsBf16,
+                       kDwSmemBf16, s>>>(p0, p1, rows, filter);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dw_sum(const float* partials, void* dw1, void* dw2,
+cudaError_t launch_dw_sum(const Partials& p, void* dw1, void* dw2,
                           float* db1, float* db2, int filter, int dim,
-                          int splits, cudaStream_t s) {
+                          int splits, int bias_parts, cudaStream_t s) {
   const long long fd = static_cast<long long>(filter) * dim;
-  const float* dw1p = partials;
-  const float* dw2p = dw1p + splits * fd;
-  const float* db1p = dw2p + splits * fd;
-  const float* db2p = db1p + static_cast<long long>(splits) * filter;
   const long long blocks = (fd + kThreads - 1) / kThreads;
   ffn_dw_sum_kernel<T><<<static_cast<int>(blocks < 132 * 8 ? blocks
                                                             : 132 * 8),
                          kThreads, 0, s>>>(
-      dw1p, dw2p, db1p, db2p, static_cast<T*>(dw1), static_cast<T*>(dw2), db1,
-      db2, filter, dim, splits);
+      p.dw1, p.dw2, p.db1, p.db2, static_cast<T*>(dw1), static_cast<T*>(dw2),
+      db1, db2, filter, dim, splits, bias_parts);
   return cudaGetLastError();
 }
 
+// the bf16 backward also tiles the filter by 128 (the dW pass's tiles)
 bool bad_args(int rows, int filter, int dim, int dtype) {
   return rows <= 0 || filter <= 0 || filter % 64 != 0 ||
-         dim != 256 || (dtype != 0 && dtype != 1);
+         (dtype == 1 && filter % kDwTileF != 0) || dim != 256 ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
@@ -506,53 +948,69 @@ extern "C" int neurst_ffn_fwd(const void* x, const void* w1, const void* b1,
   return static_cast<int>(err);
 }
 
-// dx [R, D] from hd and dy; scale = 1 / (1 - realized rate), 1 without
-// dropout.
+// The backward, three launches: dx, dW, dW sum.  scale = 1 / (1 - realized
+// rate), 1 without dropout.  `partials` holds 2 S F D + P (F + D) floats
+// (see Partials): P = S for float32, the dx tiles for bf16.  bf16 also
+// takes dh [R, F] in the operand dtype, which its dx pass writes and its
+// dW pass reads; float32 ignores dh (its dW pass recomputes dh).
+
+// dx [R, D] from hd and dy; bf16 also writes round(dh) and the bias
+// partials.
 extern "C" int neurst_ffn_dx(const void* w1, const void* w2, const void* hd,
-                             const void* dy, void* dx, int rows, int filter,
-                             int dim, float scale, int dtype, void* stream) {
-  if (bad_args(rows, filter, dim, dtype))
+                             const void* dy, void* dx, void* dh,
+                             void* partials, int rows, int filter, int dim,
+                             int splits, float scale, int dtype,
+                             void* stream) {
+  if (bad_args(rows, filter, dim, dtype) || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0 ? launch_dx<float, 256>(w1, w2, hd, dy, dx, rows, filter,
-                                         scale, s)
-                 : launch_dx<__nv_bfloat16, 256>(w1, w2, hd, dy, dx, rows,
-                                                 filter, scale, s);
-  return static_cast<int>(err);
+  if (dtype == 0)
+    return static_cast<int>(
+        launch_dx_f32(w1, w2, hd, dy, dx, rows, filter, scale, s));
+  if (dh == nullptr || partials == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Partials p =
+      split_partials(partials, filter, dim, splits, dx_tiles(rows));
+  return static_cast<int>(launch_dx_bf16(w1, w2, hd, dy, dx, dh, p, rows,
+                                         filter, scale, s));
 }
 
-// The float32 partials of `splits` row splits into `partials`
-// (2 splits F D + splits (F + D) floats).
+// The float32 partials of `splits` row splits of dW1 and dW2 (and, for
+// float32, of db1 and db2).
 extern "C" int neurst_ffn_dw(const void* x, const void* w2, const void* hd,
-                             const void* dy, void* partials, int rows,
-                             int filter, int dim, int splits, float scale,
-                             int dtype, void* stream) {
+                             const void* dy, const void* dh, void* partials,
+                             int rows, int filter, int dim, int splits,
+                             float scale, int dtype, void* stream) {
   if (bad_args(rows, filter, dim, dtype) || splits <= 0 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* p = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0 ? launch_dw<float, 256>(x, w2, hd, dy, p, rows, filter,
-                                         splits, scale, s)
-                 : launch_dw<__nv_bfloat16, 256>(x, w2, hd, dy, p, rows,
-                                                 filter, splits, scale, s);
-  return static_cast<int>(err);
+  if (dtype == 0)
+    return static_cast<int>(launch_dw_f32(
+        x, w2, hd, dy, split_partials(partials, filter, dim, splits, splits),
+        rows, filter, splits, scale, s));
+  if (dh == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Partials p =
+      split_partials(partials, filter, dim, splits, dx_tiles(rows));
+  return static_cast<int>(
+      launch_dw_bf16(x, hd, dy, dh, p, rows, filter, splits, s));
 }
 
 extern "C" int neurst_ffn_dw_sum(const void* partials, void* dw1, void* dw2,
                                  void* db1, void* db2, int filter, int dim,
-                                 int splits, int dtype, void* stream) {
-  if (bad_args(1, filter, dim, dtype) || splits <= 0)
+                                 int splits, int bias_parts, int dtype,
+                                 void* stream) {
+  if (bad_args(1, filter, dim, dtype) || splits <= 0 || bias_parts <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* p = static_cast<const float*>(partials);
+  const Partials p = split_partials(const_cast<void*>(partials), filter, dim,
+                                    splits, bias_parts);
   float* db1f = static_cast<float*>(db1);
   float* db2f = static_cast<float*>(db2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0 ? launch_dw_sum<float>(p, dw1, dw2, db1f, db2f, filter, dim,
-                                        splits, s)
+                                        splits, bias_parts, s)
                  : launch_dw_sum<__nv_bfloat16>(p, dw1, dw2, db1f, db2f,
-                                                filter, dim, splits, s);
+                                                filter, dim, splits,
+                                                bias_parts, s);
   return static_cast<int>(err);
 }

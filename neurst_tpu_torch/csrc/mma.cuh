@@ -1,8 +1,9 @@
 // Tensor-core fragments and staging helpers shared by the fused-FFN and
 // flash-attention kernels (sm_90a): dtype conversions, the warp-level
 // mma.sync.m16n8k16 bf16 product with its float32 FMA twin, 16-byte
-// vector staging by plain loads (fused FFN) and by cp.async into
-// swizzled tiles read with ldmatrix (flash attention).
+// vector staging by plain loads (the fused-FFN forward and float32
+// kernels) and by cp.async into swizzled tiles read with ldmatrix (flash
+// attention, the bf16 fused-FFN backward).
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 row-major: a0 (row g, k 2t, 2t+1), a1 (row g+8, k 2t..),
@@ -263,6 +264,46 @@ __device__ __forceinline__ void ldsm_b(uint32_t (&r)[4], uint32_t tile,
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// The A fragment (rows m, k) of a TRANSPOSED [k][m] tile (m contiguous,
+// as a product over rows reads its left operand): k rows r0 .. r0 + 15,
+// m columns at chunks c0, c0 + 1.  ldsm_b's addressing with .trans:
+// a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7), a2 (m 0-7, k 8-15), a3.
+__device__ __forceinline__ void ldsm_at(uint32_t (&r)[4], uint32_t tile,
+                                        int r0, int c0, int lane) {
+  const uint32_t addr = tile + swz(r0 + (lane & 7) + ((lane >> 4) << 3),
+                                   c0 + ((lane >> 3) & 1));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// A [ROWS][COLS] bf16 tile (COLS a multiple of 64) is stored as COLS / 64
+// swizzled panels of [ROWS][64], panel p at tile + p * ROWS * 128, so
+// ldsm_* address a panel as they address a 64-wide tile.  This copies
+// rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of a row-major matrix
+// with leading dimension ld by 16-byte cp.async (neighbouring threads
+// take neighbouring chunks of a row); rows at or past `limit` are zero.
+template <int NTHREADS, int ROWS, int COLS>
+__device__ __forceinline__ void load_panels_async(uint32_t tile,
+                                                  const __nv_bfloat16* src,
+                                                  long long ld, int r0,
+                                                  int c0, int limit,
+                                                  int tid) {
+  constexpr int kChunks = COLS / 8;
+  static_assert(ROWS * kChunks % NTHREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunks / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
+    const int r = i / kChunks, cc = i % kChunks;
+    const bool in = r0 + r < limit;
+    const __nv_bfloat16* p =
+        in ? src + static_cast<long long>(r0 + r) * ld + c0 + 8 * cc : src;
+    cp_async16(tile + (cc >> 3) * (ROWS * 128) + swz(r, cc & 7), p, in);
+  }
 }
 
 }  // namespace neurst

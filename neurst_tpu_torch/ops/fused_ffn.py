@@ -4,9 +4,12 @@ hand-written CUDA kernel set and its plain PyTorch version.
 Counterpart of ``neurst_tpu/ops/fused_ffn.py``.  The TPU kernels
 ``_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` become ``csrc/fused_ffn.cu``:
 a forward kernel (bf16 products on the tensor cores) and a backward in
-three launches (a dx pass over row tiles, a dW pass over filter columns
-and row splits, a deterministic sum of the splits), built for sm_90a and
-called through ctypes (see ``ops/_build.py``).
+three launches (a dx pass over row tiles, a dW pass over row splits, a
+deterministic sum of the splits and of the bias partials), built for
+sm_90a and called through ctypes (see ``ops/_build.py``).  The bf16 dx
+pass also writes round(dh) [R, F] to a scratch buffer, which makes its
+dW pass two products over rows, round(dh)^T x and dy^T hd; the float32
+dW pass recomputes dh (``bwd_scratch`` sizes the buffers).
 
 Semantics follow the TPU kernels: float32 accumulation; the hidden is
 rounded to the compute dtype after the bias, relu and dropout; the
@@ -40,14 +43,21 @@ __all__ = ["fused_ffn", "fused_ffn_fwd", "fused_ffn_bwd",
            "fused_ffn_available", "DIMS"]
 
 # model dims the CUDA kernels are compiled for; the filter size must be a
-# multiple of 64
+# multiple of 128
 DIMS = (256,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# rows per tile of the dW pass (csrc/fused_ffn.cu: DwRows) and the
-# filter columns of one of its blocks (kCols)
-_DW_ROWS = {torch.float32: 32, torch.bfloat16: 64}
-_DW_COLS = 64
 _SMS = 132
+# float32 dW pass (csrc/fused_ffn.cu): rows per tile (kDwRowsF32) and the
+# filter columns of one of its blocks (kCols)
+_DW_ROWS_F32 = 32
+_DW_COLS_F32 = 64
+# bf16 backward: the filter rows of a dW pass output tile (kDwTileF, by
+# all of D), its row slabs (kDwK), its resident blocks an SM
+# (__launch_bounds__) and the fewest slabs a split takes
+_DW_TILE_F = 128
+_DW_SLAB = 64
+_DW_BLOCKS_PER_SM = 1
+_DW_MIN_SLABS = 4
 
 
 def fused_ffn_available(d: int, f: int, activation: str, rows: int,
@@ -121,9 +131,9 @@ def _check_cuda_inputs(x2, w1, w2, *others):
         raise ValueError(f"fused_ffn: x {tuple(x2.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}; want "
                          f"[R, D], [F, D], [D, F]")
-    if dim not in DIMS or filter_size % 64 or rows == 0:
+    if dim not in DIMS or filter_size % 128 or rows == 0:
         raise ValueError(f"fused_ffn: dim {dim} not in {DIMS}, filter "
-                         f"{filter_size} not a multiple of 64, or no rows")
+                         f"{filter_size} not a multiple of 128, or no rows")
     for x in (x2, w1, w2) + others:
         if x.device.type != "cuda" or x.device != x2.device \
                 or not x.is_contiguous() or x.data_ptr() % 16:
@@ -140,9 +150,9 @@ def _kernel(name):
                           ctypes.c_uint32)
     fn.argtypes = {
         "fwd": [ptr] * 7 + [i32] * 3 + [u32, f32] + [u32] * 4 + [i32, ptr],
-        "dx": [ptr] * 5 + [i32] * 3 + [f32, i32, ptr],
-        "dw": [ptr] * 5 + [i32] * 4 + [f32, i32, ptr],
-        "dw_sum": [ptr] * 5 + [i32] * 4 + [ptr],
+        "dx": [ptr] * 7 + [i32] * 4 + [f32, i32, ptr],
+        "dw": [ptr] * 6 + [i32] * 4 + [f32, i32, ptr],
+        "dw_sum": [ptr] * 5 + [i32] * 5 + [ptr],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -186,11 +196,40 @@ fused_ffn_fwd.kernel_name = "fused_ffn_fwd"
 
 
 def dw_splits(rows: int, filter_size: int, dtype) -> int:
-    """Row splits of the dW pass: enough blocks (F / 64 per split) to
-    cover the card's SMs twice, at most one split per row tile."""
-    tiles = -(-rows // _DW_ROWS[dtype])
-    col_blocks = filter_size // _DW_COLS
+    """Row splits of the dW pass.  bf16: its 128 x D output tiles of
+    both products times the splits fill the card's resident blocks once
+    (a whole wave), each split taking at least ``_DW_MIN_SLABS`` slabs of
+    64 rows.  float32: enough blocks (F / 64 per split) to cover the
+    SMs twice, at most one split per row tile."""
+    if dtype == torch.bfloat16:
+        tiles = 2 * (filter_size // _DW_TILE_F)
+        slabs = -(-rows // _DW_SLAB)
+        return max(1, min(_SMS * _DW_BLOCKS_PER_SM // tiles,
+                          slabs // _DW_MIN_SLABS))
+    tiles = -(-rows // _DW_ROWS_F32)
+    col_blocks = filter_size // _DW_COLS_F32
     return max(1, min(tiles, -(-2 * _SMS // col_blocks)))
+
+
+def dx_rows(rows: int) -> int:
+    """Rows of a bf16 dx-pass tile (csrc/fused_ffn.cu: dx_rows): 128 where
+    those tiles fill the card's SMs at least once, else 64."""
+    return 128 if -(-rows // 128) >= _SMS else 64
+
+
+def bwd_scratch(rows: int, filter_size: int, dim: int, dtype):
+    """(splits, bias partials P, dh elements, float32 partial elements)
+    of the backward's scratch: dh [R, F] in bf16 (none for float32, whose
+    dW pass recomputes it); dW1 and dW2 partials [S, F, D] each, then
+    db1 [P, F] and db2 [P, D], P the bf16 dx pass's tiles (``dx_rows``)
+    or the float32 dW pass's splits."""
+    splits = dw_splits(rows, filter_size, dtype)
+    if dtype == torch.bfloat16:
+        parts, dh = -(-rows // dx_rows(rows)), rows * filter_size
+    else:
+        parts, dh = splits, 0
+    return (splits, parts, dh,
+            2 * splits * filter_size * dim + parts * (filter_size + dim))
 
 
 def fused_ffn_bwd(x2, w1, w2, hd, dy, scale: float):
@@ -210,17 +249,20 @@ def fused_ffn_bwd(x2, w1, w2, hd, dy, scale: float):
                          "x's dtype")
     code = _DTYPE_CODES[x2.dtype]
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    splits, parts, dh_size, partial_size = bwd_scratch(
+        rows, filter_size, dim, x2.dtype)
     dx = torch.empty_like(x2)
+    dh = torch.empty(dh_size, dtype=x2.dtype, device=x2.device)
+    partials = torch.empty(partial_size, dtype=torch.float32,
+                           device=x2.device)
+    dh_ptr = dh.data_ptr() if dh_size else 0
     _check("dx", _kernel("dx")(
         w1.data_ptr(), w2.data_ptr(), hd.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), rows, filter_size, dim, scale, code, stream))
+        dx.data_ptr(), dh_ptr, partials.data_ptr(), rows, filter_size, dim,
+        splits, scale, code, stream))
     fused_ffn_bwd.launches += 1
-    splits = dw_splits(rows, filter_size, x2.dtype)
-    partials = torch.empty(
-        2 * splits * filter_size * dim + splits * (filter_size + dim),
-        dtype=torch.float32, device=x2.device)
     _check("dw", _kernel("dw")(
-        x2.data_ptr(), w2.data_ptr(), hd.data_ptr(), dy.data_ptr(),
+        x2.data_ptr(), w2.data_ptr(), hd.data_ptr(), dy.data_ptr(), dh_ptr,
         partials.data_ptr(), rows, filter_size, dim, splits, scale, code,
         stream))
     fused_ffn_bwd.launches += 1
@@ -230,7 +272,7 @@ def fused_ffn_bwd(x2, w1, w2, hd, dy, scale: float):
     db2 = torch.empty(dim, dtype=torch.float32, device=x2.device)
     _check("dw_sum", _kernel("dw_sum")(
         partials.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(),
-        db2.data_ptr(), filter_size, dim, splits, code, stream))
+        db2.data_ptr(), filter_size, dim, splits, parts, code, stream))
     fused_ffn_bwd.launches += 1
     return dx, dw1, dw2, db1, db2
 

@@ -196,6 +196,26 @@ def test_backward_mask_equals_forward_mask(dtype):
                                                    0.1, True)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mask_follows_the_element_index_not_the_address(dtype):
+    """A view whose pointer the kernel's 16-byte vectors do not align
+    with, and a length that is not a whole number of vectors, draw the
+    mask of their element indices: the same output as an aligned copy,
+    element i kept where word i & 3 of group i >> 2 reaches the
+    threshold."""
+    n = 37 * 199
+    buf = torch.from_numpy(np.random.RandomState(2).rand(n + 1).astype(
+        np.float32) + 0.5).to(dtype)
+    x = buf[1:]
+    assert x.storage_offset() == 1 and x.is_contiguous()
+    key = rng.DropoutKey(5, 6, stream=3)
+    threshold, scale = fd.threshold_and_scale(0.1, False)
+    y = fd.fused_dropout_apply(x, key, threshold, scale)
+    assert torch.equal(y, fd.fused_dropout_apply(x.clone(), key, threshold,
+                                                 scale))
+    assert torch.equal(y != 0, fd.dropout_words(n, key) >= threshold)
+
+
 def test_rate_zero_and_cpu_tensors_launch_nothing():
     x = torch.ones(8, 128)
     assert fd.dropout(x, 0.0, rng.make_key(0), True) is x

@@ -194,8 +194,35 @@ def test_kernel_input_checks_refuse():
 
 
 def test_dw_splits_cover_the_card():
-    """At the recipe's shapes the dW pass has well over 132 blocks."""
+    """At the recipe's shapes the bf16 dW pass fills the card's resident
+    blocks in one whole wave: its 32 output tiles (both products, 128
+    filter rows by all 256 dims) times the splits fit the one block an
+    SM of 132 SMs and leave fewer free slots than one more split would
+    take; a ragged 37 rows takes one split.  The float32 pass keeps well
+    over 132 blocks."""
+    slots = port._SMS * port._DW_BLOCKS_PER_SM
+    tiles = 2 * (2048 // port._DW_TILE_F)
     for rows in (30000, 6000):
         splits = port.dw_splits(rows, 2048, torch.bfloat16)
-        assert 2048 // port._DW_COLS * splits >= 264
+        assert tiles * splits <= slots < tiles * (splits + 1)
+        f32 = port.dw_splits(rows, 2048, torch.float32)
+        assert 2048 // port._DW_COLS_F32 * f32 >= 264
     assert port.dw_splits(37, 2048, torch.bfloat16) == 1
+
+
+@pytest.mark.parametrize("rows, dtype, want", [
+    # bf16: 4 splits; 235 dx tiles of 128 rows, or 94 (1) of 64 where 128
+    # rows a tile would not fill the 132 SMs once; dh [R, F]
+    (30000, torch.bfloat16, (4, 235, 30000 * 2048,
+                             2 * 4 * 2048 * 256 + 235 * (2048 + 256))),
+    (6000, torch.bfloat16, (4, 94, 6000 * 2048,
+                            2 * 4 * 2048 * 256 + 94 * (2048 + 256))),
+    (37, torch.bfloat16, (1, 1, 37 * 2048, 2 * 2048 * 256 + 2048 + 256)),
+    # float32 recomputes dh in its dW pass: no dh, one bias partial a split
+    (30000, torch.float32, (9, 9, 0, 2 * 9 * 2048 * 256 + 9 * (2048 + 256))),
+])
+def test_bwd_scratch_sizes(rows, dtype, want):
+    """The backward's scratch: the dh buffer the bf16 dx pass writes and
+    its dW pass reads, and the float32 partials the sum kernel adds (dW1
+    and dW2 per split, db1 and db2 per bias partial)."""
+    assert port.bwd_scratch(rows, 2048, 256, dtype) == want
