@@ -20,8 +20,10 @@ exits non-zero):
                built for is refused), flash dq and
                dk/dv (training shape [40, 750, 4, 64] with lengths {750,
                375, 1, 0, drawn}, and ragged causal), fused linear xent
-               forward and backward ([6000, 256] x 8192 with bias, and
-               R = 37, V = 650), fused softmax xent forward and backward
+               forward and backward ([6000, 256] x 8192 with bias,
+               R = 37, V = 650, R = 1000, V = 8190 and [4096, 512] x
+               32768; two backward calls bitwise equal), fused softmax
+               xent forward and backward
                ([6000, 8192] f32 and bf16, [32768, 32768] bf16, ragged
                [67, 512], [9, 5120] and [37, 650]; no path runs them).
 4. slice    -- ``speech_transformer_s`` (encoder flash attention on,
@@ -48,7 +50,7 @@ exits non-zero):
                rate, [37, 200] and [37, 199] exact rate, an unaligned
                flat view; bitwise, keep rate within 5 sigma, mean(y) /
                mean(x)); the fused FFN forward and backward (R = 30000,
-               6000 and 37, D 256, F 2048, rate 0 and 0.1; its mask
+               6000, 2000 and 37, D 256, F 2048, rate 0 and 0.1; its mask
                bitwise; two backward calls bitwise equal).
 7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
                largest bucket (40 x 3000 frames, target 150), bf16 with
@@ -467,12 +469,14 @@ def flash_bwd_kernel_phase(seed):
 def xent_kernel_phase(seed):
     """fused_linear_xent_fwd and _bwd against their plain versions on the
     same inputs, at the training slice's shape (6000 target rows, d 256,
-    the 8192-word tied softmax with its bias) and at a ragged one.  No
-    single PyTorch call computes this function: ``label_smoothing`` of
-    ``cross_entropy`` spreads eps over all V classes where NeurST spreads
-    it over V - 1, so ``library_ms`` is null and the time of
-    ``F.cross_entropy(F.linear(...))`` is printed beside it as a
-    composite."""
+    the 8192-word tied softmax with its bias), at a ragged one, at one
+    whose row tiles and vocabulary split both end ragged (1000 rows,
+    8190 words) and at d 512 (4096 rows, 32768 words); two backward
+    calls must give the same bits.  No single PyTorch call computes this
+    function: ``label_smoothing`` of ``cross_entropy`` spreads eps over
+    all V classes where NeurST spreads it over V - 1, so ``library_ms``
+    is null and the time of ``F.cross_entropy(F.linear(...))`` is
+    printed beside it as a composite."""
     import torch
     from torch.nn import functional as F
 
@@ -481,7 +485,8 @@ def xent_kernel_phase(seed):
     rng = np.random.RandomState(seed + 20)
     smoothing = TRAIN["label_smoothing"]
     cases = [("main", TRAIN["batch"] * TRAIN["trg_len"], TRAIN["vocab"],
-              256), ("ragged", 37, 650, 256)]
+              256), ("ragged", 37, 650, 256),
+             ("ragged_split", 1000, 8190, 256), ("d512", 4096, 32768, 512)]
     results = {}
     for case, rows, vocab, dim in cases:
         c, low = 1.0 - smoothing, smoothing / (vocab - 1)
@@ -499,6 +504,9 @@ def xent_kernel_phase(seed):
             xent, lse = fc.fused_linear_xent_fwd(*fwd_args)
             bwd_args = (x, w, bias, labels, lse, g, c, low)
             grads = fc.fused_linear_xent_bwd(*bwd_args)
+            # no atomics: a second call gives the same bits
+            repeat = all(torch.equal(a, b_) for a, b_ in zip(
+                grads, fc.fused_linear_xent_bwd(*bwd_args)))
             ref_xent, ref_lse = fc._fwd_plain(*fwd_args)
             ref_grads = fc._bwd_plain(*bwd_args)
             torch.cuda.synchronize()
@@ -507,11 +515,12 @@ def xent_kernel_phase(seed):
             fwd_err = max(_abs_err(xent, ref_xent), _abs_err(lse, ref_lse))
             rel = {k: _rel_err(a, b_) for k, a, b_ in zip(
                 ("dx", "dw", "db"), grads, ref_grads)}
-            if fwd_err > val_tol or max(rel.values()) > grad_tol:
+            if fwd_err > val_tol or max(rel.values()) > grad_tol \
+                    or not repeat:
                 raise AssertionError(
                     f"fused_linear_xent {case} {name}: xent/lse err "
                     f"{fwd_err} (tol {val_tol}), gradients {rel} (tol "
-                    f"{grad_tol})")
+                    f"{grad_tol}), two backward calls equal: {repeat}")
             leaves = [t.detach().requires_grad_() for t in (x, w)]
 
             def composite():
@@ -541,6 +550,7 @@ def xent_kernel_phase(seed):
                        "bound_ms": bound, "bound_by": bound_by}
                 if kernel == "bwd":
                     row["rel_err"] = rel
+                    row["bitwise_repeat"] = repeat
                 emit(row)
                 results[(kernel, case, name)] = row
     return results
@@ -775,8 +785,10 @@ def ffn_bound_ms(x, filter_size, kernel):
 def ffn_kernel_phase(seed):
     """fused_ffn_fwd and _bwd against their plain versions on the same
     inputs (the backward fed the plain forward's hd), at the slice's
-    encoder rows (30,000), decoder rows (6,000) and a ragged 37, D 256,
-    F 2048, rate 0 and 0.1.  The dropout mask is compared bitwise with b1
+    encoder rows (30,000), decoder rows (6,000; the bf16 forward splits
+    the filter over two blocks a row tile), 2,000 (four, with a ragged
+    last tile) and a ragged 37, D 256, F 2048, rate 0 and 0.1.  The
+    dropout mask is compared bitwise with b1
     = 100 (every pre-activation positive, so hd is 0 exactly where
     dropped) and its kept share checked; two backward calls must give
     the same bits.  No single PyTorch call computes the function:
@@ -791,7 +803,8 @@ def ffn_kernel_phase(seed):
     dim, filter_size = 256, 2048
     key = _site_key(rng, 1 << 16 | 4)
     cases = [("main", TRAIN["batch"] * TRAIN["frames"] // 4),
-             ("decoder", TRAIN["batch"] * TRAIN["trg_len"]), ("ragged", 37)]
+             ("decoder", TRAIN["batch"] * TRAIN["trg_len"]),
+             ("split", 2000), ("ragged", 37)]
     results = {}
     for case, rows in cases:
         for rate in (0.0, DROPOUT_RATE):
@@ -1491,17 +1504,21 @@ def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
 
 
 def expected_launches(model, enc_rows, dec_rows, dropout):
-    """Kernel launches of one training step, from the configuration:
-    the encoder's flash kernels once a layer; the fused xent forward once
-    and its backward twice; the fused FFN where its gate says so, with
-    three backward launches; with dropout, the mask kernel at every site
-    the kernels above do not cover (two postprocess sites an encoder
+    """Kernel launches of one training step, from the configuration and
+    the wrappers' plans: the encoder's flash kernels once a layer; the
+    fused xent forward once and its backward's launches; the fused FFN
+    where its gate says so, with its forward's launches at each row count
+    and three backward launches; with dropout, the mask kernel at every
+    site the kernels above do not cover (two postprocess sites an encoder
     layer, three a decoder layer, the decoder's two attention-weight
     sites, the FFN hidden where it is not fused), once forward and once
     backward."""
-    from neurst_tpu_torch.ops.fused_ffn import fused_ffn_available
+    from neurst_tpu_torch.ops.fused_ce import bwd_launches
+    from neurst_tpu_torch.ops.fused_ffn import (fused_ffn_available,
+                                                fwd_launches)
     enc, dec = model.encoder, model.decoder
     dense1 = enc.layer_0.ffn.dense1
+    dtype = enc.layer_0.ffn.dtype  # the compute dtype of FFN and xent
     rate = DROPOUT_RATE if dropout else 0.0
 
     def fused(rows):
@@ -1509,7 +1526,10 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
                                    "relu", rows, True, rate)
 
     flash = enc.num_layers if enc.enable_flash_attention else 0
-    ffn = enc.num_layers * fused(enc_rows) + dec.num_layers * fused(dec_rows)
+    layers = [(enc.num_layers, enc_rows), (dec.num_layers, dec_rows)]
+    ffn = sum(n * fused(rows) for n, rows in layers)
+    ffn_fwd = sum(n * fused(rows) * fwd_launches(
+        rows, dense1.out_features, dtype) for n, rows in layers)
     sites = 0
     if dropout:
         sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
@@ -1517,9 +1537,10 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
         sites += dec.num_layers * (5 + (not fused(dec_rows)))
     return {"flash_attention_fwd": flash, "flash_attention_dq": flash,
             "flash_attention_dkv": flash, "fused_linear_xent_fwd": 1,
-            "fused_linear_xent_bwd": 2, "fused_softmax_xent_fwd": 0,
-            "fused_softmax_xent_bwd": 0, "fused_dropout": 2 * sites,
-            "fused_ffn_fwd": ffn, "fused_ffn_bwd": 3 * ffn}
+            "fused_linear_xent_bwd": bwd_launches(dtype),
+            "fused_softmax_xent_fwd": 0, "fused_softmax_xent_bwd": 0,
+            "fused_dropout": 2 * sites, "fused_ffn_fwd": ffn_fwd,
+            "fused_ffn_bwd": 3 * ffn}
 
 
 def train_phase(seed, dropout=False):

@@ -1,7 +1,7 @@
 // What the flash-attention forward and backward kernels share: the
 // layout constants, the element strides of a [B, T, N, H] view and their
-// alignment test, the exponential, and the attention dropout's keep bits
-// of one 64 x 64 (query, key) tile.
+// alignment test, and the attention dropout's keep bits of one 64 x 64
+// (query, key) tile (the exponential, fast_exp2, is in mma.cuh).
 
 #pragma once
 
@@ -28,15 +28,6 @@ struct Strides {
 inline bool aligned16(const void* p, const Strides& s) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 8 == 0 &&
          s.t % 8 == 0 && s.n % 8 == 0;
-}
-
-// 2^x on the special-function unit (ex2.approx.ftz: relative error
-// ~2^-22, results below 2^-126 flushed to 0, -inf gives 0), in place of
-// exp2f's range-checked sequence
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The keep bits of the tile at (q0, k0) of slice bn, by a block of 128

@@ -1,10 +1,10 @@
 // Fused position-wise FFN, y = dropout(relu(x W1^T + b1)) W2^T + b2, for
-// Hopper (sm_90a), plain C interface: a forward kernel and a backward in
-// three launches (a dx pass over row tiles, a dW pass, and a
-// deterministic sum of the dW pass's row splits and of the bias
-// partials).  bf16 products run on the tensor cores (warp-level
-// mma.sync.m16n8k16, float32 accumulation); float32, which only the
-// card-vs-CPU checks run, keeps FMA loops.
+// Hopper (sm_90a), plain C interface: a forward (one launch, or two where
+// a filter split sums its partials) and a backward in three launches (a
+// dx pass over row tiles, a dW pass, and a deterministic sum of the dW
+// pass's row splits and of the bias partials).  bf16 products run on the
+// tensor cores (warp-level mma.sync.m16n8k16, float32 accumulation);
+// float32, which only the card-vs-CPU checks run, keeps FMA loops.
 //
 // Replaces: neurst_tpu/ops/fused_ffn.py:_ffn_fwd_kernel (the Pallas call
 // at :232) and :_ffn_bwd_kernel (the call at :262).  Same function:
@@ -23,8 +23,7 @@
 // Layouts are nn.Linear's: x [R, D], W1 [F, D], W2 [D, F] of one dtype;
 // b1 [F], b2 [D] float32; y, dx [R, D] and hd [R, F] in the operand
 // dtype; dW1 [F, D] and dW2 [D, F] in the operand dtype, db1 [F] and db2
-// [D] float32.  D is 256, F a multiple of 64 (of 128 for the bf16
-// backward).
+// [D] float32.  D is 256, F a multiple of 64 (of 128 for bf16).
 //
 // Why this shape on an H100: the TPU kernel keeps W1, W2 and the float32
 // dW1/dW2 (8 MB at D 256, F 2048) resident in VMEM across a sequential
@@ -40,33 +39,38 @@
 // the forward does 4 R D F = 63 GFLOP (~64 us at 989 TFLOP/s) against
 // ~16 MB of x, y and ~123 MB of hd; the backward 8 R D F (~127 us).
 //
-// The bf16 backward (the section below gives its tiles): every operand
+// The bf16 kernels (the sections below give their tiles): every operand
 // arrives by 16-byte cp.async into 128-byte-swizzled tiles, in a ring
 // deep enough that the next chunk's copies run under this chunk's
 // products, so no copy waits between two barriers; fragments come by
 // ldmatrix, whose .trans reads the untransposed tiles in the other
-// orientation, so nothing is transposed in shared memory.  The dx pass
-// takes 128 rows a block (64 below one wave of them), so the 2 MB of
-// weights are re-read from L2 once per 128 rows.  It writes round(dh)
-// [R, F] once, so the dW pass is two plain products over rows, dW1 =
-// round(dh)^T x and dW2 = dy^T hd, with no recompute of dh, and its grid
-// of 128 x 256 tiles x row splits fills the card's resident blocks (one
-// an SM) once.  The bias sums come from the accumulator fragments by warp
-// shuffles in a fixed order, then one warp a column in the sum kernel.
-// The copies' addresses are recomputed every chunk (see `opaque`): held,
-// they take the registers the accumulators need.  What bounds it: in the
-// dx pass, shared-memory reads of the fragments (~384 KB a 64-column
-// chunk) and the latency of each block's chunk loop, whose two barriers
-// keep 8 warps an SM in step; in the dW pass, the operand traffic from
-// L2 (~740 MB a call at 30000 rows) and device memory (dh and hd, 2 x
-// 123 MB, the price of not recomputing dh).  wgmma, which reads its
-// operands from shared memory without the register file, is the next
-// step.
+// orientation, so nothing is transposed in shared memory.  The forward
+// and the dx pass are two chained products through a 64-column chunk of
+// the hidden with an elementwise step between them.  The forward takes
+// 128 rows a block, so the 2 MB of weights are re-read from L2 once per
+// 128 rows, and splits the filter over S blocks a row tile where the
+// tiles alone would not fill the card; its hd leaves by 16-byte stores
+// from the chunk's tile, and each Philox group is drawn once.  The dx
+// pass takes 128 rows a block (64 below one wave of them).  It writes
+// round(dh) [R, F] once, so the dW pass is two plain products over rows,
+// dW1 = round(dh)^T x and dW2 = dy^T hd (csrc/row_product.cuh), with no
+// recompute of dh, and its grid of 128 x 256 tiles x row splits fills the
+// card's resident blocks (one an SM) once.  The bias sums come from the
+// accumulator fragments by warp shuffles in a fixed order, then one warp
+// a column in the sum kernel.  The copies' addresses are recomputed every
+// chunk (`opaque`, mma.cuh): held, they take the registers the
+// accumulators need.  What bounds them: shared-memory reads of the
+// fragments (~384 KB a 64-column chunk) and the latency of each block's
+// chunk loop, whose two barriers keep 8 warps an SM in step; in the dW
+// pass, the operand traffic from L2 (~740 MB a call at 30000 rows) and
+// device memory (dh and hd, 2 x 123 MB, the price of not recomputing dh).
+// wgmma, which reads its operands from shared memory without the register
+// file, is the next step.
 //
-// The float32 backward keeps FMA loops: the dx pass over 64-row
-// tiles; the dW pass gives each 512-thread block 64 filter columns and
-// one of S row splits, recomputes dh for its columns from dy, W2 and hd,
-// keeps its dW1/dW2 columns in registers and sums db1 (and, in column
+// The float32 kernels keep FMA loops: the forward and the dx pass over
+// 64-row tiles; the dW pass gives each 512-thread block 64 filter columns
+// and one of S row splits, recomputes dh for its columns from dy, W2 and
+// hd, keeps its dW1/dW2 columns in registers and sums db1 (and, in column
 // tile 0, db2) row by row.
 
 #include <cuda_bf16.h>
@@ -75,6 +79,7 @@
 
 #include "mma.cuh"
 #include "philox.cuh"
+#include "row_product.cuh"
 
 namespace {
 
@@ -86,23 +91,16 @@ constexpr int kCols = 64;      // filter columns per block (float32 dW pass)
 constexpr int kDwThreads = 512;  // 16 warps (float32 dW pass)
 constexpr int kPad = 8;        // shared-memory row padding, in elements
 
-// Filter chunk of the forward and the float32 dx pass: 64 for bf16; 32
-// for float32, whose operands take twice the shared memory.
-template <typename T>
-struct Chunk {
-  static constexpr int value = 64;
-};
-template <>
-struct Chunk<float> {
-  static constexpr int value = 32;
-};
+// Filter chunk of the float32 forward and dx pass (32: float32 operands
+// take twice the shared memory of the bf16 kernels' 64)
+constexpr int kChunkF32 = 32;
 // rows per tile of the float32 dW pass
 constexpr int kDwRowsF32 = 32;
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------- float32 forward: FMA loops
 template <typename T, int D>
 struct FwdSmem {
-  static constexpr int BF = Chunk<T>::value;
+  static constexpr int BF = kChunkF32;
   static constexpr int kX = D + kPad, kW1 = D + kPad, kW2 = BF + kPad,
                        kH = BF + kPad;
   static constexpr size_t bytes =
@@ -192,7 +190,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 // -------------------------------------------- float32 dx pass: FMA loops
 template <typename T, int D>
 struct DxSmem {
-  static constexpr int BF = Chunk<T>::value;
+  static constexpr int BF = kChunkF32;
   static constexpr int kDy = D + kPad, kW2t = D + kPad, kH = BF + kPad,
                        kW1t = BF + kPad;
   static constexpr size_t bytes =
@@ -282,13 +280,6 @@ ffn_dx_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
 // layouts measured (8 or 16 warps, k loops unrolled 1-16), 8 warps with
 // every loop unrolled ran fastest: the fewest fragment re-reads (the
 // weights by 4 or 2 row warps, not 8 or 4).
-
-// x, as a value the compiler cannot see through: what is derived from it
-// inside a loop is computed there, not hoisted and held in registers
-__device__ __forceinline__ int opaque(int x) {
-  asm volatile("mov.b32 %0, %0;" : "+r"(x));
-  return x;
-}
 
 constexpr int kDim = 256;  // D of the bf16 kernels
 constexpr int kDxWarps = 8;
@@ -509,122 +500,264 @@ ffn_dx_bf16_kernel(const __nv_bfloat16* __restrict__ w1,
   }
 }
 
-// dW pass: two products over rows, split over row ranges,
-//   dW1 [F][D] = round(dh)^T x   and   dW2^T [F][D] = hd^T dy,
-// as one grid of 128 x 256 output tiles (F x all of D; 16 of each product
-// at F 2048) x S row splits.  Each block streams 64-row slabs of its two
-// operands ([64][128] of dh or hd, [64][256] of x or dy) through a
-// 3-stage cp.async ring; 8 warps, 64 x 64 outputs each, read the left
-// operand transposed by ldsm_at and the right one by ldsm_trans.  Taking
-// all of D a tile reads each row's 384 operand values once per 128
-// filter columns (128 x 128 tiles read 512).  A block writes its float32
-// partial (dW2's transposed back to [D][F]); the sum kernel adds the S
-// partials in split order.  Measured against 64 x 32 warp tiles (16
-// warps) and 32-row slabs (4 stages), this was the fastest, by 1-15%.
-constexpr int kDwTileF = 128;
-constexpr int kDwK = 64;
-constexpr int kDwStages = 3;
-constexpr int kDwWarpCols = 64;  // a warp's output columns (of D)
-constexpr int kDwColWarps = kDim / kDwWarpCols;
-constexpr int kDwThreadsBf16 = 32 * 2 * kDwColWarps;
-constexpr int kDwPanel = kDwK * 128;          // [64][64] bf16
-constexpr int kDwA = 2 * kDwPanel;            // [64][128]
-constexpr int kDwB = 4 * kDwPanel;            // [64][256]
-constexpr int kDwStage = kDwA + kDwB;
-constexpr size_t kDwSmemBf16 = kDwStages * kDwStage;
+// ------------------------------------------- bf16 forward: tensor cores
+//
+// One block of 8 warps per (128-row tile, filter split): x [128][256]
+// comes in once, and the split's filter streams in 64-column chunks
+// (W1[chunk, :] [64][256], W2[:, chunk] [256][64]) through a 2-stage
+// cp.async ring, so chunk j + 1's copies overlap chunk j's products.
+// Per chunk:
+//   P1  z1 [128][64] = x W1[chunk, :]^T: warps 4 (rows) x 2 (columns),
+//       32 x 32 each; x by ldsm_a, W1 (an [n][k] tile) by ldsm_b;
+//   hd = round(dropout(relu(z1 + b1))) from the accumulators into a
+//       swizzled [128][64] tile, with keep bits drawn ahead of P1: lanes
+//       2i and 2i + 1 hold the two halves of one Philox group (four
+//       columns) in two rows, so each draws the group of one row and
+//       hands the other lane the two words it needs, and every group is
+//       drawn once.  In training hd then goes out by 16-byte stores from
+//       the tile;
+//   P2  y [128][256] += hd W2[:, chunk]^T: warps 2 x 4, 64 x 64 each (128
+//       accumulators a thread for the whole filter); hd by ldsm_a, W2 (an
+//       [n][k] tile) by ldsm_b.
+// With one split the block adds b2 and stores y.  Where the row tiles
+// alone would leave SMs idle (the decoder's 6000 rows: 47 tiles for 132
+// SMs), S blocks share a row tile, each over F / S of the filter, and
+// write float32 partials [S][R][256] that ffn_fwd_sum_kernel adds in
+// split order (ops/fused_ffn.py: fwd_splits picks S).
+constexpr int kFwdRows = 128;
+constexpr int kFwdStages = 2;
+constexpr int kFwdXBytes = kFwdRows * kDim * 2;      // 4 panels
+constexpr int kFwdXPanel = kFwdRows * 128;
+constexpr int kFwdStage = kW1cBytes + kW2cBytes;
+constexpr int kFwdHBytes = kFwdRows * kDxChunk * 2;  // 1 panel
+constexpr size_t kFwdSmem =
+    kFwdXBytes + kFwdStages * kFwdStage + kFwdHBytes;
+constexpr int kFwdMt1 = kFwdRows / kDxRowWarps1 / 16;  // m tiles, P1
+constexpr int kFwdMt2 = kFwdRows / kDxRowWarps2 / 16;  // m tiles, P2
 
-// C [S][F][D] (float32 partials; [S][D][F] when `transposed`) = sum over
-// rows of a [R][F]^T b [R][D]
-struct RowProduct {
-  const __nv_bfloat16* a;
-  const __nv_bfloat16* b;
-  float* c;
-  bool transposed;
-};
-
-__global__ void __launch_bounds__(kDwThreadsBf16, 1)
-ffn_dw_bf16_kernel(RowProduct p0, RowProduct p1, int rows, int filter) {
+template <bool kDrop>
+__global__ void __launch_bounds__(kDxThreads, 1)
+ffn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const __nv_bfloat16* __restrict__ w2,
+                    const float* __restrict__ b2,
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ yp,
+                    __nv_bfloat16* __restrict__ hd, int rows, int filter,
+                    unsigned threshold, float scale,
+                    neurst::DropoutSite site) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_addr(smem);
+  const uint32_t x_s = base;
+  constexpr int hs_off = kFwdXBytes + kFwdStages * kFwdStage;
+  const uint32_t hs = base + hs_off;
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // rows 64 wm, cols kDwWarpCols wn
-  const int wm = warp & 1, wn = warp >> 1;
-  const int tiles0 = filter / kDwTileF;
-  const bool second = static_cast<int>(blockIdx.x) >= tiles0;
-  const RowProduct p = second ? p1 : p0;
-  const int m0 = (blockIdx.x - (second ? tiles0 : 0)) * kDwTileF;
-  const int slabs = (rows + kDwK - 1) / kDwK;
-  const int per_split = (slabs + gridDim.y - 1) / gridDim.y;
-  const int s0 = blockIdx.y * per_split;
-  const int n_slabs = max(0, min(slabs, s0 + per_split) - s0);
+  // P1: rows 16 kFwdMt1 wm, columns 32 wn; P2: rows 16 kFwdMt2 wm2, dims
+  // 64 wn2
+  const int wm = warp % kDxRowWarps1, wn = warp / kDxRowWarps1;
+  const int wm2 = warp % kDxRowWarps2, wn2 = warp / kDxRowWarps2;
+  const int r0 = blockIdx.x * kFwdRows;
+  const int chunks = filter / kDxChunk;
+  const int per_split = (chunks + gridDim.y - 1) / gridDim.y;
+  const int c0 = blockIdx.y * per_split;
+  const int n_chunks = max(0, min(chunks, c0 + per_split) - c0);
 
-  auto load_slab = [&](int j) {  // addresses recomputed, as in dx
+  auto load_chunk = [&](int j) {  // addresses recomputed, as in dx
     const int ot = opaque(tid);
-    const uint32_t st = base + (j % kDwStages) * kDwStage;
-    const int r0 = (s0 + j) * kDwK;
-    load_panels_async<kDwThreadsBf16, kDwK, kDwTileF>(st, p.a, filter, r0,
-                                                      m0, rows, ot);
-    load_panels_async<kDwThreadsBf16, kDwK, kDim>(st + kDwA, p.b, kDim, r0,
-                                                  0, rows, ot);
+    const uint32_t st = base + kFwdXBytes + (j % kFwdStages) * kFwdStage;
+    const int f0 = (c0 + j) * kDxChunk;
+    load_panels_async<kDxThreads, kDxChunk, kDim>(st, w1, kDim, f0, 0,
+                                                  filter, ot);
+    load_panels_async<kDxThreads, kDim, kDxChunk>(st + kW1cBytes, w2, filter,
+                                                  0, f0, kDim, ot);
   };
-#pragma unroll
-  for (int j = 0; j < kDwStages - 1; ++j) {
-    if (j < n_slabs) load_slab(j);
-    cp_async_commit();
-  }
+  load_panels_async<kDxThreads, kFwdRows, kDim>(x_s, x, kDim, r0, 0, rows,
+                                                tid);
+  if (n_chunks > 0) load_chunk(0);
+  cp_async_commit();
 
-  float acc[4][kDwWarpCols / 8][4];
+  float acc2[kFwdMt2][8][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) zero(acc[mi]);
+  for (int mi = 0; mi < kFwdMt2; ++mi) zero(acc2[mi]);
 
-  for (int j = 0; j < n_slabs; ++j) {
-    cp_async_wait<kDwStages - 2>();  // slab j landed
-    __syncthreads();  // ... for every thread; slab j - 1 is consumed
-    if (j + kDwStages - 1 < n_slabs) load_slab(j + kDwStages - 1);
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<0>();  // chunk j (and x) landed
+    __syncthreads();     // ... for every thread; chunk j - 1 is consumed
+    if (j + 1 < n_chunks) load_chunk(j + 1);
     cp_async_commit();
-    const uint32_t st = base + (j % kDwStages) * kDwStage;
-    const uint32_t a_s = st + wm * kDwPanel;
-    const uint32_t b_s = st + kDwA + ((kDwWarpCols * wn) >> 6) * kDwPanel;
-    const int b_c0 = ((kDwWarpCols * wn) & 63) >> 3;
+    const uint32_t w1c = base + kFwdXBytes + (j % kFwdStages) * kFwdStage;
+    const uint32_t w2c = w1c + kW1cBytes;
+    const int f0 = (c0 + j) * kDxChunk;
+
+    // The chunk's keep bits, bit 4 (4 nt + mi) + 2 hh + e for row r + 8 hh
+    // (r = 16 (2 wm + mi) + g), column 32 wn + 8 nt + 2 t + e: drawn ahead
+    // of P1, on which they do not depend, so the scheduler can run the
+    // Philox rounds between its products.  The group of columns f & ~3
+    // .. + 3 is drawn once: the even lane (words 0, 1) draws it for row
+    // r, the odd one (words 2, 3) for r + 8, and each hands the other
+    // lane the two words it needs.
+    uint32_t keep = 0u;
+    if constexpr (kDrop) {
+      const int odd = t & 1;
 #pragma unroll
-    for (int ks = 0; ks < kDwK / 16; ++ks) {
-      uint32_t a[4][4];
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_at(a[mi], a_s, 16 * ks, 2 * mi, lane);
+        for (int mi = 0; mi < kFwdMt1; ++mi) {
+          const int f = 32 * wn + 8 * nt + 2 * t;
+          const int r = 16 * (kFwdMt1 * wm + mi) + g;
+          const unsigned long long idx =
+              static_cast<unsigned long long>(r0 + r + 8 * odd) * filter +
+              f0 + (f & ~3);
+          const uint4 w = neurst::dropout_words(idx >> 2, site);
+          const unsigned got0 =
+              __shfl_xor_sync(0xFFFFFFFFu, odd ? w.x : w.z, 1);
+          const unsigned got1 =
+              __shfl_xor_sync(0xFFFFFFFFu, odd ? w.y : w.w, 1);
+          const unsigned words[4] = {odd ? got0 : w.x, odd ? got1 : w.y,
+                                     odd ? w.z : got0, odd ? w.w : got1};
 #pragma unroll
-      for (int np = 0; np < kDwWarpCols / 16; ++np) {
+          for (int q = 0; q < 4; ++q)
+            keep |= static_cast<uint32_t>(words[q] >= threshold)
+                    << (4 * (kFwdMt1 * nt + mi) + q);
+        }
+    }
+
+    // P1: z1 [128 r][64 f] = x W1[chunk, :]^T
+    float acc1[kFwdMt1][4][4];
+#pragma unroll
+    for (int mi = 0; mi < kFwdMt1; ++mi) zero(acc1[mi]);
+#pragma unroll
+    for (int kk = 0; kk < kDim / 16; ++kk) {
+      uint32_t a[kFwdMt1][4];
+#pragma unroll
+      for (int mi = 0; mi < kFwdMt1; ++mi)
+        ldsm_a(a[mi], x_s + (kk >> 2) * kFwdXPanel,
+               16 * (kFwdMt1 * wm + mi), 2 * (kk & 3), lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
         uint32_t b[4];
-        ldsm_trans(b, b_s, 16 * ks, b_c0 + 2 * np, lane);
+        ldsm_b(b, w1c + (kk >> 2) * kW1cPanel, 32 * wn + 16 * np,
+               2 * (kk & 3), lane);
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        for (int mi = 0; mi < kFwdMt1; ++mi) {
+          mma_bf16(acc1[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc1[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+
+    // hd = round(dropout(relu(z1 + b1))) into the chunk's tile
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int f = 32 * wn + 8 * nt + 2 * t;  // f, f + 1: one word
+      const float bias0 = b1[f0 + f], bias1 = b1[f0 + f + 1];
+#pragma unroll
+      for (int mi = 0; mi < kFwdMt1; ++mi) {
+        const int r = 16 * (kFwdMt1 * wm + mi) + g;  // rows r and r + 8
+        float h[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          h[hh][0] = fmaxf(acc1[mi][nt][2 * hh] + bias0, 0.f);
+          h[hh][1] = fmaxf(acc1[mi][nt][2 * hh + 1] + bias1, 0.f);
+        }
+        if constexpr (kDrop) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              h[hh][e] = (keep >> (4 * (kFwdMt1 * nt + mi) + 2 * hh + e)) & 1u
+                             ? h[hh][e] * scale
+                             : 0.f;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(smem + hs_off +
+                                       swz(r + 8 * hh, f >> 3) +
+                                       (f & 7) * 2) =
+              pack_bf16(h[hh][0], h[hh][1]);
+      }
+    }
+    __syncthreads();  // hd is in place
+
+    if (hd != nullptr) {
+#pragma unroll
+      for (int q = 0; q < kFwdRows * 8 / kDxThreads; ++q) {
+        const int i = tid + q * kDxThreads;
+        const int r = i >> 3, c = i & 7;
+        if (r0 + r < rows)
+          *reinterpret_cast<uint4*>(hd + static_cast<long long>(r0 + r) *
+                                             filter + f0 + 8 * c) =
+              *reinterpret_cast<const uint4*>(smem + hs_off + swz(r, c));
+      }
+    }
+
+    // P2: y [128 r][256 d] += hd W2[:, chunk]^T
+#pragma unroll
+    for (int kk = 0; kk < kDxChunk / 16; ++kk) {
+      uint32_t a[kFwdMt2][4];
+#pragma unroll
+      for (int mi = 0; mi < kFwdMt2; ++mi)
+        ldsm_a(a[mi], hs, 16 * (kFwdMt2 * wm2 + mi), 2 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_b(b, w2c, 64 * wn2 + 16 * np, 2 * kk, lane);
+#pragma unroll
+        for (int mi = 0; mi < kFwdMt2; ++mi) {
+          mma_bf16(acc2[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc2[mi][2 * np + 1], a[mi], b[2], b[3]);
         }
       }
     }
   }
   cp_async_wait<0>();
 
-  float* c = p.c + static_cast<long long>(blockIdx.y) * filter * kDim;
+  const bool whole = gridDim.y == 1;
+  float* part = yp + static_cast<long long>(blockIdx.y) * rows * kDim;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < kFwdMt2; ++mi)
 #pragma unroll
-    for (int nt = 0; nt < kDwWarpCols / 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 64 * wm + 16 * mi + g + 8 * h;
-        const int n = kDwWarpCols * wn + 8 * nt + 2 * t;
-        if (p.transposed) {
-          c[static_cast<long long>(n) * filter + m] = acc[mi][nt][2 * h];
-          c[static_cast<long long>(n + 1) * filter + m] =
-              acc[mi][nt][2 * h + 1];
-        } else {
-          *reinterpret_cast<float2*>(c + static_cast<long long>(m) * kDim +
-                                     n) =
-              make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
-        }
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 16 * (kFwdMt2 * wm2 + mi) + g + 8 * hh;
+        const int d = 64 * wn2 + 8 * nt + 2 * t;
+        if (r >= rows) continue;
+        const long long e = static_cast<long long>(r) * kDim + d;
+        const float v0 = acc2[mi][nt][2 * hh], v1 = acc2[mi][nt][2 * hh + 1];
+        if (whole)
+          *reinterpret_cast<uint32_t*>(y + e) =
+              pack_bf16(v0 + b2[d], v1 + b2[d + 1]);
+        else
+          *reinterpret_cast<float2*>(part + e) = make_float2(v0, v1);
       }
+}
+
+// y = round(sum of the S float32 partials in split order + b2), four
+// values a thread
+__global__ void __launch_bounds__(kThreads)
+ffn_fwd_sum_kernel(const float* __restrict__ yp, const float* __restrict__ b2,
+                   __nv_bfloat16* __restrict__ y, int rows, int splits) {
+  const long long n4 = static_cast<long long>(rows) * kDim / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       e < n4; e += stride) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 v = reinterpret_cast<const float4*>(yp)[sp * n4 + e];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int d = static_cast<int>((4 * e) % kDim);
+    reinterpret_cast<uint2*>(y)[e] =
+        make_uint2(pack_bf16(s.x + b2[d], s.y + b2[d + 1]),
+                   pack_bf16(s.z + b2[d + 2], s.w + b2[d + 3]));
+  }
 }
 
 // ------------------------------------------- float32 dW pass: FMA loops
@@ -820,19 +953,38 @@ int dx_rows(int rows) { return (rows + 127) / 128 >= kSms ? 128 : 64; }
 
 int dx_tiles(int rows) { return (rows + dx_rows(rows) - 1) / dx_rows(rows); }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* x, const void* w1, const float* b1,
-                       const void* w2, const float* b2, void* y, void* hd,
-                       int rows, int filter, unsigned threshold, float scale,
-                       const neurst::DropoutSite& site, cudaStream_t s) {
-  auto kernel = ffn_fwd_kernel<T, D>;
-  const size_t bytes = FwdSmem<T, D>::bytes;
+cudaError_t launch_fwd_f32(const void* x, const void* w1, const float* b1,
+                           const void* w2, const float* b2, void* y,
+                           void* hd, int rows, int filter, unsigned threshold,
+                           float scale, const neurst::DropoutSite& site,
+                           cudaStream_t s) {
+  auto kernel = ffn_fwd_kernel<float, 256>;
+  const size_t bytes = FwdSmem<float, 256>::bytes;
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(rows + kRows - 1) / kRows, kThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, static_cast<T*>(y), static_cast<T*>(hd),
-      rows, filter, threshold, scale, site);
+      static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+      static_cast<const float*>(w2), b2, static_cast<float*>(y),
+      static_cast<float*>(hd), rows, filter, threshold, scale, site);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_bf16(const void* x, const void* w1, const float* b1,
+                            const void* w2, const float* b2, void* y,
+                            float* yp, void* hd, int rows, int filter,
+                            int splits, unsigned threshold, float scale,
+                            const neurst::DropoutSite& site,
+                            cudaStream_t s) {
+  auto kernel = threshold != 0u ? ffn_fwd_bf16_kernel<true>
+                                : ffn_fwd_bf16_kernel<false>;
+  cudaError_t err = set_smem(kernel, kFwdSmem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dim3((rows + kFwdRows - 1) / kFwdRows, splits), kDxThreads,
+           kFwdSmem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+      static_cast<const bf16*>(w2), b2, static_cast<bf16*>(y), yp,
+      static_cast<bf16*>(hd), rows, filter, threshold, scale, site);
   return cudaGetLastError();
 }
 
@@ -887,17 +1039,15 @@ cudaError_t launch_dw_f32(const void* x, const void* w2, const void* hd,
 cudaError_t launch_dw_bf16(const void* x, const void* hd, const void* dy,
                            const void* dh, const Partials& p, int rows,
                            int filter, int splits, cudaStream_t s) {
-  cudaError_t err = set_smem(ffn_dw_bf16_kernel, kDwSmemBf16);
-  if (err != cudaSuccess) return err;
   using bf16 = __nv_bfloat16;
   // dW1 [F][D] = round(dh)^T x ; dW2^T [F][D] = hd^T dy, stored [D][F]
   const RowProduct p0{static_cast<const bf16*>(dh),
-                      static_cast<const bf16*>(x), p.dw1, false};
+                      static_cast<const bf16*>(x), p.dw1, filter, kDim,
+                      false};
   const RowProduct p1{static_cast<const bf16*>(hd),
-                      static_cast<const bf16*>(dy), p.dw2, true};
-  ffn_dw_bf16_kernel<<<dim3(2 * (filter / kDwTileF), splits), kDwThreadsBf16,
-                       kDwSmemBf16, s>>>(p0, p1, rows, filter);
-  return cudaGetLastError();
+                      static_cast<const bf16*>(dy), p.dw2, filter, kDim,
+                      true};
+  return launch_row_product<kDim>(p0, &p1, rows, splits, s);
 }
 
 template <typename T>
@@ -917,7 +1067,7 @@ cudaError_t launch_dw_sum(const Partials& p, void* dw1, void* dw2,
 // the bf16 backward also tiles the filter by 128 (the dW pass's tiles)
 bool bad_args(int rows, int filter, int dim, int dtype) {
   return rows <= 0 || filter <= 0 || filter % 64 != 0 ||
-         (dtype == 1 && filter % kDwTileF != 0) || dim != 256 ||
+         (dtype == 1 && filter % kRpTileM != 0) || dim != 256 ||
          (dtype != 0 && dtype != 1);
 }
 
@@ -926,26 +1076,48 @@ bool bad_args(int rows, int filter, int dim, int dtype) {
 // Every entry point returns the cudaError_t of its launch (0 on success).
 // dtype: 0 = float32, 1 = bfloat16.  `hd` may be null (inference).
 // threshold 0 = no dropout; otherwise the FFN site (k0, k1, stream_id,
-// micro) and scale = 1 / (1 - realized rate).
+// micro) and scale = 1 / (1 - realized rate).  `splits` filter splits
+// (bf16 only; float32 takes 1): above 1 the kernel writes S float32
+// partials [S, R, D] to `partials` and neurst_ffn_fwd_sum forms y.
 extern "C" int neurst_ffn_fwd(const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* y,
-                              void* hd, int rows, int filter, int dim,
+                              void* hd, void* partials, int rows,
+                              int filter, int dim, int splits,
                               unsigned threshold, float scale, unsigned k0,
                               unsigned k1, unsigned stream_id,
                               unsigned micro, int dtype, void* stream) {
-  if (bad_args(rows, filter, dim, dtype))
+  if (bad_args(rows, filter, dim, dtype) || splits <= 0 ||
+      splits > filter / kDxChunk || (dtype == 0 && splits != 1) ||
+      (splits > 1 && partials == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const neurst::DropoutSite site{k0, k1, stream_id, micro};
   const float* b1f = static_cast<const float*>(b1);
   const float* b2f = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 0 ? launch_fwd<float, 256>(x, w1, b1f, w2, b2f, y, hd, rows,
-                                          filter, threshold, scale, site, s)
-                 : launch_fwd<__nv_bfloat16, 256>(x, w1, b1f, w2, b2f, y, hd,
-                                                  rows, filter, threshold,
-                                                  scale, site, s);
+      dtype == 0
+          ? launch_fwd_f32(x, w1, b1f, w2, b2f, y, hd, rows, filter,
+                           threshold, scale, site, s)
+          : launch_fwd_bf16(x, w1, b1f, w2, b2f, y,
+                            static_cast<float*>(partials), hd, rows, filter,
+                            splits, threshold, scale, site, s);
   return static_cast<int>(err);
+}
+
+// bf16 y [R, D] from the forward's S partials and b2
+extern "C" int neurst_ffn_fwd_sum(const void* partials, const void* b2,
+                                  void* y, int rows, int dim, int splits,
+                                  void* stream) {
+  if (rows <= 0 || dim != kDim || splits <= 0 || partials == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      (static_cast<long long>(rows) * dim / 4 + kThreads - 1) / kThreads;
+  ffn_fwd_sum_kernel<<<static_cast<int>(blocks < kSms * 8 ? blocks
+                                                          : kSms * 8),
+                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partials), static_cast<const float*>(b2),
+      static_cast<__nv_bfloat16*>(y), rows, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward, three launches: dx, dW, dW sum.  scale = 1 / (1 - realized

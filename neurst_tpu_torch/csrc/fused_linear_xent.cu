@@ -1,6 +1,7 @@
 // Fused vocabulary projection + label-smoothed cross entropy for Hopper
-// (sm_90a), plain C interface: a forward kernel and a backward in two
-// passes.  The [R, V] logits never reach device memory.
+// (sm_90a), plain C interface: a forward kernel and a backward in three
+// launches (bf16) or two (float32).  The [R, V] logits never reach device
+// memory.
 //
 // Replaces: neurst_tpu/ops/fused_ce.py:_linear_fwd_kernel (the Pallas
 // call at :395) and :_linear_bwd_kernel (the call at :434).  Same
@@ -16,61 +17,62 @@
 // dz (:344-360).  round() is the operand dtype, as `dzc` in the TPU
 // kernel.
 //
-// Why two backward passes: the TPU kernel keeps the whole [V, D] float32
-// dW accumulator in VMEM (8 MB at V = 8192, D = 256) across its
+// Why the backward is split: the TPU kernel keeps the whole [V, D]
+// float32 dW accumulator in VMEM (8 MB at V = 8192, D = 256) across its
 // sequential grid.  An H100 block has 227 KB of shared memory and blocks
-// run in no order, so the dx pass walks row tiles (each block looping
-// over vocab tiles and accumulating its rows of dx in registers) and the
-// dW/db pass walks vocab tiles (each block looping over row tiles and
-// accumulating its rows of dW in registers).  Each pass recomputes z, so
-// the backward does 8 R V D operations where the function needs 6.
+// run in no order, so a pass over row tiles (each block looping over the
+// vocabulary and keeping its rows of dx in registers) forms dx, and dW is
+// a product over rows that another pass splits over blocks.
 //
 // What bounds it on an H100: at the training slice's shape (R = 6000
 // rows, D = 256, V = 8192, bf16) the function moves ~8 MB but does
 // 25 GFLOP forward and 75 GFLOP backward, so the card's bound is its bf16
-// tensor-core rate (~0.03 ms forward, ~0.08 ms backward).  This first
-// design runs every product as float32 FMA loops out of shared memory (no
-// tensor cores), so it is bound by FMA issue and shared-memory loads.
-// What it does about that: each thread owns a 4 x 2 (forward, dx pass)
-// or 4 x 1 (dW pass) tile of z and a 4 x D/32 tile of its output rows,
-// the x tile stays in shared memory for the whole block, and W (4 MB in
-// bf16) is re-read from L2 by every block rather than from device
-// memory.  Row tiles of 32 give 188 blocks at R = 6000 (two fit an SM),
-// the dW pass 256 blocks of 32 vocabulary rows.  Tensor cores and a
-// vocabulary split for more blocks are later work.
+// tensor-core rate (~0.03 ms forward, ~0.08 ms backward).
+//
+// The bf16 backward (its section below gives the tiles) runs on the
+// tensor cores, mma.sync fed by 16-byte cp.async into 128-byte-swizzled
+// tiles read by ldmatrix, in three launches: a dx pass over (row tile,
+// vocabulary split) blocks that computes z and dz once, writes round(dz)
+// [R, Vp] to a scratch buffer and the float32 dx and db partials; a dW
+// pass, round(dz)^T x, over row splits (csrc/row_product.cuh); and a sum
+// of the partials in a fixed order, so two calls give the same bits.
+// The backward thus does the 6 R V D operations the function needs, at
+// the price of the dz round trip (2 x 98 MB at the slice's shape).
+//
+// The forward and the float32 backward run every product as float32 FMA
+// loops out of shared memory (no tensor cores), bound by FMA issue and
+// shared-memory loads: each thread owns a 4 x 2 (forward, dx pass) or
+// 4 x 1 (dW pass) tile of z and a 4 x D/32 tile of its output rows, the
+// x tile stays in shared memory for the whole block, and W is re-read
+// from L2 by every block.  Row tiles of 32 give 188 blocks at R = 6000
+// (two fit an SM); the float32 dW/db pass walks 32 vocabulary rows a
+// block over all row tiles and recomputes z, so that backward does
+// 8 R V D operations.
 //
 // Layout: x [R, D] and W [V, D] contiguous, of one dtype (float32 or
-// bfloat16); bias [V], lse, g and xent [R] float32; labels [R] int32;
-// dx [R, D] and dW [V, D] in the operand dtype, db [V] float32.
-// D is one of 128, 256, 512.  256 threads as 8 warps; warp ty owns rows
-// ty + 8 i of a tile, so a row's softmax statistics reduce with warp
-// shuffles.  Shared rows have an odd pitch (D + 1), so the lanes of a
-// warp read distinct banks.
+// bfloat16; bf16 16-byte aligned); bias [V], lse, g and xent [R]
+// float32; labels [R] int32; dx [R, D] and dW [V, D] in the operand
+// dtype, db [V] float32.  D is one of 128, 256, 512.  The FMA kernels:
+// 256 threads as 8 warps; warp ty owns rows ty + 8 i of a tile, so a
+// row's softmax statistics reduce with warp shuffles.  Shared rows have
+// an odd pitch (D + 1), so the lanes of a warp read distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+#include "row_product.cuh"
 
 namespace {
+
+using namespace neurst;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 32;      // rows per tile
 constexpr int kVocab = 64;     // vocabulary columns per tile (fwd, dx)
 constexpr int kVocabW = 32;    // vocabulary rows per block (dW pass)
 constexpr float kNegInf = -1.0e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -397,6 +399,312 @@ linear_xent_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---------------------------------------------- bf16 backward: tensor cores
+//
+// (a) dx pass: one block of 8 warps per (row tile, vocabulary split).
+// x [kRows][D] comes in once, and the split's vocabulary streams in
+// 64-row chunks W_c [64][D] through a 2-stage cp.async ring, so chunk
+// j + 1's copies overlap chunk j's products.  Per chunk:
+//   P1  z [kRows][64] = x W_c^T (k = D): warps 4 (rows) x 2 (columns); x
+//       by ldsm_a, W_c (an [n][k] tile) by ldsm_b;
+//   dz from z + bias, lse, label and g (exp on the special-function
+//       unit), zero on columns >= V and rows >= R, into a swizzled
+//       [kRows][64] tile as round(dz), which goes out to the dz buffer
+//       [R][Vp] by 16-byte stores; the chunk's db partial sums the
+//       unrounded dz by warp shuffles, then the 4 row warps, in a fixed
+//       order;
+//   P2  dx [kRows][D] += round(dz) W_c (k = 64): warps 2 x 4; dz by
+//       ldsm_a, W_c (the same tile, read as [k][n]) by ldsm_trans.
+// The block ends by writing its float32 dx partial [S][R][D].  kRows is
+// 128, or 64 at D 512 (128 rows would need 256 accumulators a thread):
+// 128 accumulators a thread at D 256 and 512.  The splits S are picked
+// so that the (tile, split) blocks fill the card with the fewest chunk
+// steps (ops/_plan.py).
+// (b) dW pass: dW [Vp][D] = round(dz)^T x, a product over rows in row
+// splits (csrc/row_product.cuh), as the fused-FFN backward's dW1.
+// (c) the sum kernel adds the dx and dW partials in split order and the
+// db partials in tile order, and rounds dx and dW.
+// Vp is V rounded up to the dW pass's 128-row tiles; the dx pass walks
+// every chunk of it, so the dz columns >= V are written as zeros.
+constexpr int kXentThreads = 256;
+constexpr int kXentChunk = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kXentStages = 2;
+
+template <int D>
+struct XentTile {
+  static constexpr int kRows = D == 512 ? 64 : 128;
+  static constexpr int kXBytes = kRows * D * 2;            // D / 64 panels
+  static constexpr int kXPanel = kRows * 128;
+  static constexpr int kWBytes = kXentChunk * D * 2;       // D / 64 panels
+  static constexpr int kWPanel = kXentChunk * 128;
+  static constexpr int kDzBytes = kRows * kXentChunk * 2;  // 1 panel
+  static constexpr int kMt1 = kRows / 4 / 16;  // m tiles, P1
+  static constexpr int kMt2 = kRows / 2 / 16;  // m tiles, P2
+  static constexpr int kNt2 = D / 4 / 8;       // n tiles, P2
+  static constexpr int kDzOff = kXBytes + kXentStages * kWBytes;
+  // each row's (lse log2 e, g), then its label, then the db sums of the
+  // 4 row warps
+  static constexpr int kRowOff = kDzOff + kDzBytes;
+  static constexpr int kLabelOff = kRowOff + kRows * 8;
+  static constexpr int kRedOff = kLabelOff + kRows * 4;
+  static constexpr size_t kSmem = kRedOff + 4 * kXentChunk * sizeof(float);
+};
+
+// dz = g ((c - low)(p - onehot) + low (V p - 1))
+//    = g (a p - low - (onehot ? c - low : 0)),  a = c - low + low V;
+// the terms are kernel arguments, read from the constant bank rather
+// than held in registers
+struct DzTerms {
+  float a, low, label;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kXentThreads, 1)
+linear_xent_dx_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ bias,
+                           const int* __restrict__ labels,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ grad,
+                           __nv_bfloat16* __restrict__ dz,
+                           float* __restrict__ dxp, float* __restrict__ dbp,
+                           int rows, int vocab, int vpad, DzTerms terms) {
+  using Tile = XentTile<D>;
+  constexpr int kR = Tile::kRows, kMt1 = Tile::kMt1, kMt2 = Tile::kMt2,
+                kNt2 = Tile::kNt2;
+  // (the FMA kernels declare their dynamic shared memory as float)
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t base = smem_addr(smem_tc);
+  const uint32_t x_s = base;
+  const uint32_t dzs = base + Tile::kDzOff;
+  float2* row_terms = reinterpret_cast<float2*>(smem_tc + Tile::kRowOff);
+  int* row_label = reinterpret_cast<int*>(smem_tc + Tile::kLabelOff);
+  float* red = reinterpret_cast<float*>(smem_tc + Tile::kRedOff);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // P1: rows 16 kMt1 wm, columns 32 wn; P2: rows 16 kMt2 wm2, dims
+  // D / 4 wn2
+  const int wm = warp & 3, wn = warp >> 2;
+  const int wm2 = warp & 1, wn2 = warp >> 1;
+  const int tile = blockIdx.x, r0 = tile * kR;
+  const int chunks = vpad / kXentChunk;
+  const int per_split = (chunks + gridDim.y - 1) / gridDim.y;
+  const int c0 = blockIdx.y * per_split;
+  const int n_chunks = max(0, min(chunks, c0 + per_split) - c0);
+
+  auto load_chunk = [&](int j) {  // addresses recomputed each chunk
+    const int ot = opaque(tid);
+    const uint32_t st =
+        base + Tile::kXBytes + (j % kXentStages) * Tile::kWBytes;
+    load_panels_async<kXentThreads, kXentChunk, D>(
+        st, w, D, (c0 + j) * kXentChunk, 0, vocab, ot);
+  };
+  load_panels_async<kXentThreads, kR, D>(x_s, x, D, r0, 0, rows, tid);
+  if (n_chunks > 0) load_chunk(0);
+  cp_async_commit();
+  if (tid < kR) {  // read after the loop's first barrier
+    const int r = r0 + tid;
+    const bool in = r < rows;
+    row_terms[tid] = make_float2(in ? lse[r] * kLog2e : 0.f,
+                                 in ? grad[r] : 0.f);
+    row_label[tid] = in ? labels[r] : -1;
+  }
+
+  float acc2[kMt2][kNt2][4];
+#pragma unroll
+  for (int mi = 0; mi < kMt2; ++mi) zero(acc2[mi]);
+
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<0>();  // chunk j (and x) landed
+    __syncthreads();     // ... for every thread; chunk j - 1 is consumed
+    if (j + 1 < n_chunks) load_chunk(j + 1);
+    cp_async_commit();
+    const uint32_t wc =
+        base + Tile::kXBytes + (j % kXentStages) * Tile::kWBytes;
+    const int v0 = (c0 + j) * kXentChunk;
+
+    // P1: z [kR r][64 v] = x W_c^T.  Its k loop is unrolled by 8:
+    // unrolled whole, its fragment prefetch beside the dz step spilled
+    // 20-68 bytes at D 256.
+    float acc1[kMt1][4][4];
+#pragma unroll
+    for (int mi = 0; mi < kMt1; ++mi) zero(acc1[mi]);
+#pragma unroll 8
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[kMt1][4];
+#pragma unroll
+      for (int mi = 0; mi < kMt1; ++mi)
+        ldsm_a(a[mi], x_s + (kk >> 2) * Tile::kXPanel,
+               16 * (kMt1 * wm + mi), 2 * (kk & 3), lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_b(b, wc + (kk >> 2) * Tile::kWPanel, 32 * wn + 16 * np,
+               2 * (kk & 3), lane);
+#pragma unroll
+        for (int mi = 0; mi < kMt1; ++mi) {
+          mma_bf16(acc1[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc1[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+
+    // dz into the chunk's tile, rounded; db from the unrounded, each
+    // column pair's sums reduced over the warp's rows before the next
+    // pair (fewer live registers than reducing all four pairs at once)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int f = 32 * wn + 8 * nt + 2 * t;  // f, f + 1: one word
+      bool col_ok[2];
+      float b[2], cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        col_ok[e] = v0 + f + e < vocab;
+        b[e] = col_ok[e] ? bias[v0 + f + e] : 0.f;
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMt1; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = 16 * (kMt1 * wm + mi) + g + 8 * hh;
+          const bool row_ok = r0 + r < rows;
+          const float2 row = row_terms[r];  // (lse log2 e, g)
+          const int label = row_label[r];
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float z = acc1[mi][nt][2 * hh + e] + b[e];
+            const float p = fast_exp2(fmaf(z, kLog2e, -row.x));
+            d[e] = row_ok && col_ok[e]
+                       ? row.y * (fmaf(terms.a, p, -terms.low) -
+                                  (v0 + f + e == label ? terms.label : 0.f))
+                       : 0.f;
+            cs[e] += d[e];
+          }
+          *reinterpret_cast<uint32_t*>(smem_tc + Tile::kDzOff +
+                                       swz(r, f >> 3) + (f & 7) * 2) =
+              pack_bf16(d[0], d[1]);
+        }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          cs[e] += __shfl_xor_sync(0xFFFFFFFFu, cs[e], o);
+      if (g == 0)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) red[wm * kXentChunk + f + e] = cs[e];
+    }
+    __syncthreads();  // round(dz) and the db sums are in place
+
+    if (tid < kXentChunk) {
+      float s = 0.f;
+#pragma unroll
+      for (int w4 = 0; w4 < 4; ++w4) s += red[w4 * kXentChunk + tid];
+      dbp[static_cast<long long>(tile) * vpad + v0 + tid] = s;
+    }
+#pragma unroll
+    for (int q = 0; q < kR * 8 / kXentThreads; ++q) {
+      const int i = tid + q * kXentThreads;
+      const int r = i >> 3, c = i & 7;
+      if (r0 + r < rows)
+        *reinterpret_cast<uint4*>(dz + static_cast<long long>(r0 + r) * vpad +
+                                  v0 + 8 * c) =
+            *reinterpret_cast<const uint4*>(smem_tc + Tile::kDzOff +
+                                            swz(r, c));
+    }
+
+    // P2: dx [kR r][D d] += round(dz) W_c
+#pragma unroll
+    for (int kk = 0; kk < kXentChunk / 16; ++kk) {
+      uint32_t a[kMt2][4];
+#pragma unroll
+      for (int mi = 0; mi < kMt2; ++mi)
+        ldsm_a(a[mi], dzs, 16 * (kMt2 * wm2 + mi), 2 * kk, lane);
+#pragma unroll
+      for (int np = 0; np < kNt2 / 2; ++np) {
+        const int d0 = (D / 4) * wn2 + 16 * np;
+        uint32_t b[4];
+        ldsm_trans(b, wc + (d0 >> 6) * Tile::kWPanel, 16 * kk,
+                   (d0 & 63) >> 3, lane);
+#pragma unroll
+        for (int mi = 0; mi < kMt2; ++mi) {
+          mma_bf16(acc2[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc2[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* part = dxp + static_cast<long long>(blockIdx.y) * rows * D;
+#pragma unroll
+  for (int mi = 0; mi < kMt2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < kNt2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 16 * (kMt2 * wm2 + mi) + g + 8 * hh;
+        const int d = (D / 4) * wn2 + 8 * nt + 2 * t;
+        if (r < rows)
+          *reinterpret_cast<float2*>(part + static_cast<long long>(r) * D +
+                                     d) =
+              make_float2(acc2[mi][nt][2 * hh], acc2[mi][nt][2 * hh + 1]);
+      }
+}
+
+// dx [R][D] and dW [V][D] (bf16), db [V] (float32): the sums of the dx
+// partials [Sx][R][D] and dW partials [Sw][Vp][D] in split order, four
+// values a thread, and of the db partials [T][Vp] in tile order, one warp
+// a column (lane l adds tiles l, l + 32, ... in order, then a fixed
+// butterfly of shuffles)
+__global__ void __launch_bounds__(kThreads)
+linear_xent_sum_kernel(const float* __restrict__ dxp,
+                       const float* __restrict__ dwp,
+                       const float* __restrict__ dbp,
+                       __nv_bfloat16* __restrict__ dx,
+                       __nv_bfloat16* __restrict__ dw,
+                       float* __restrict__ db, int rows, int vocab, int vpad,
+                       int dim, int dx_splits, int dw_splits, int tiles) {
+  const long long nx = static_cast<long long>(rows) * dim / 4;
+  const long long nw = static_cast<long long>(vocab) * dim / 4;
+  const long long wstep = static_cast<long long>(vpad) * dim / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (long long e = first; e < nx + nw; e += stride) {
+    const bool is_x = e < nx;
+    const float4* src = is_x ? reinterpret_cast<const float4*>(dxp) + e
+                             : reinterpret_cast<const float4*>(dwp) + (e - nx);
+    const long long step = is_x ? nx : wstep;
+    const int n = is_x ? dx_splits : dw_splits;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < n; ++sp) {
+      const float4 v = src[sp * step];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const uint2 out = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+    if (is_x)
+      reinterpret_cast<uint2*>(dx)[e] = out;
+    else
+      reinterpret_cast<uint2*>(dw)[e - nx] = out;
+  }
+  const int lane = threadIdx.x & 31;
+  for (long long c = first >> 5; c < vocab; c += stride >> 5) {
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < tiles; i += 32)
+      s += dbp[static_cast<long long>(i) * vpad + c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+    if (lane == 0) db[c] = s;
+  }
+}
+
 template <int kDim>
 constexpr size_t fwd_smem() {
   return (kRows + kVocab) * (kDim + 1) * sizeof(float);
@@ -471,17 +779,18 @@ bool bad_args(int rows, int vocab, int dim, int dtype) {
          (dtype != 0 && dtype != 1);
 }
 
-// Calls F<T, kDim>::run for the runtime dtype and dim.
+// Calls F<T, kDim>::run for the runtime dim, or dtype and dim.
+template <template <typename, int> class F, typename T, typename... A>
+cudaError_t dispatch_dim(int dim, A... args) {
+  if (dim == 128) return F<T, 128>::run(args...);
+  if (dim == 256) return F<T, 256>::run(args...);
+  return F<T, 512>::run(args...);
+}
+
 template <template <typename, int> class F, typename... A>
 cudaError_t dispatch(int dtype, int dim, A... args) {
-  if (dtype == 0) {
-    if (dim == 128) return F<float, 128>::run(args...);
-    if (dim == 256) return F<float, 256>::run(args...);
-    return F<float, 512>::run(args...);
-  }
-  if (dim == 128) return F<__nv_bfloat16, 128>::run(args...);
-  if (dim == 256) return F<__nv_bfloat16, 256>::run(args...);
-  return F<__nv_bfloat16, 512>::run(args...);
+  return dtype == 0 ? dispatch_dim<F, float>(dim, args...)
+                    : dispatch_dim<F, __nv_bfloat16>(dim, args...);
 }
 
 template <typename T, int kDim>
@@ -514,6 +823,82 @@ Args make_args(const void* x, const void* w, const void* bias,
               static_cast<cudaStream_t>(stream)};
 }
 
+// The bf16 backward's scratch (ops/fused_ce.py: bwd_scratch mirrors it):
+// Vp, V rounded up to the dW pass's 128-row tiles; T row tiles of the dx
+// pass; the float32 partials dx [Sx][R][D], then dW [Sw][Vp][D], then db
+// [T][Vp].
+int xent_vpad(int vocab) {
+  return (vocab + kRpTileM - 1) / kRpTileM * kRpTileM;
+}
+
+int xent_tiles(int rows, int dim) {
+  const int tile = dim == 512 ? XentTile<512>::kRows : XentTile<256>::kRows;
+  return (rows + tile - 1) / tile;
+}
+
+struct XentPartials {
+  float *dx, *dw, *db;
+};
+
+XentPartials xent_partials(const void* partials, int rows, int vocab,
+                           int dim, int dx_splits, int dw_splits) {
+  XentPartials out;
+  out.dx = static_cast<float*>(const_cast<void*>(partials));
+  out.dw = out.dx + static_cast<long long>(dx_splits) * rows * dim;
+  out.db = out.dw + static_cast<long long>(dw_splits) * xent_vpad(vocab) * dim;
+  return out;
+}
+
+template <int D>
+cudaError_t launch_dx_bf16(const Args& a, const float* lse, const float* g,
+                           void* dz, const XentPartials& p, int splits) {
+  auto kernel = linear_xent_dx_bf16_kernel<D>;
+  cudaError_t err = set_smem(kernel, XentTile<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dim3(xent_tiles(a.rows, D), splits), kXentThreads,
+           XentTile<D>::kSmem, a.stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.w), a.bias,
+      a.labels, lse, g, static_cast<bf16*>(dz), p.dx, p.db, a.rows, a.vocab,
+      xent_vpad(a.vocab),
+      DzTerms{a.sm.confidence - a.sm.low + a.sm.low * a.vocab, a.sm.low,
+              a.sm.confidence - a.sm.low});
+  return cudaGetLastError();
+}
+
+// dW partials [Sw][Vp][D] = round(dz)^T x, in 128 x min(D, 256) tiles
+cudaError_t launch_dw_bf16(const void* x, const void* dz, float* dwp,
+                           int rows, int vocab, int dim, int splits,
+                           cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const RowProduct p{static_cast<const bf16*>(dz),
+                     static_cast<const bf16*>(x), dwp, xent_vpad(vocab), dim,
+                     false};
+  return dim == 128 ? launch_row_product<128>(p, nullptr, rows, splits, s)
+                    : launch_row_product<256>(p, nullptr, rows, splits, s);
+}
+
+cudaError_t launch_sum_bf16(const XentPartials& p, void* dx, void* dw,
+                            float* db, int rows, int vocab, int dim,
+                            int dx_splits, int dw_splits, cudaStream_t s) {
+  const long long n = (static_cast<long long>(rows) + vocab) * dim / 4;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  linear_xent_sum_kernel<<<static_cast<int>(blocks < 132 * 8 ? blocks
+                                                             : 132 * 8),
+                           kThreads, 0, s>>>(
+      p.dx, p.dw, p.db, static_cast<__nv_bfloat16*>(dx),
+      static_cast<__nv_bfloat16*>(dw), db, rows, vocab, xent_vpad(vocab),
+      dim, dx_splits, dw_splits, xent_tiles(rows, dim));
+  return cudaGetLastError();
+}
+
+bool bad_bf16_args(int rows, int vocab, int dim, int dx_splits,
+                   int dw_splits, const void* partials) {
+  return bad_args(rows, vocab, dim, 1) || dx_splits <= 0 ||
+         dx_splits > xent_vpad(vocab) / kXentChunk || dw_splits <= 0 ||
+         dw_splits > 65535 || partials == nullptr;
+}
+
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
@@ -533,19 +918,20 @@ extern "C" int neurst_linear_xent_fwd(const void* x, const void* w,
                                         static_cast<float*>(lse)));
 }
 
+// The float32 backward, two launches: dx, then dW and db (dtype 0 only).
 extern "C" int neurst_linear_xent_dx(const void* x, const void* w,
                                      const void* bias, const void* labels,
                                      const void* lse, const void* g,
                                      void* dx, int rows, int vocab, int dim,
                                      float confidence, float low_confidence,
                                      int dtype, void* stream) {
-  if (bad_args(rows, vocab, dim, dtype))
+  if (bad_args(rows, vocab, dim, dtype) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(x, w, bias, labels, rows, vocab, confidence,
                            low_confidence, stream);
-  return static_cast<int>(dispatch<Dx>(dtype, dim, a,
-                                       static_cast<const float*>(lse),
-                                       static_cast<const float*>(g), dx));
+  return static_cast<int>(dispatch_dim<Dx, float>(
+      dim, a, static_cast<const float*>(lse), static_cast<const float*>(g),
+      dx));
 }
 
 extern "C" int neurst_linear_xent_dw(const void* x, const void* w,
@@ -555,12 +941,64 @@ extern "C" int neurst_linear_xent_dw(const void* x, const void* w,
                                      int dim, float confidence,
                                      float low_confidence, int dtype,
                                      void* stream) {
-  if (bad_args(rows, vocab, dim, dtype))
+  if (bad_args(rows, vocab, dim, dtype) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(x, w, bias, labels, rows, vocab, confidence,
                            low_confidence, stream);
-  return static_cast<int>(dispatch<Dw>(dtype, dim, a,
-                                       static_cast<const float*>(lse),
-                                       static_cast<const float*>(g), dw,
-                                       static_cast<float*>(db)));
+  return static_cast<int>(dispatch_dim<Dw, float>(
+      dim, a, static_cast<const float*>(lse), static_cast<const float*>(g),
+      dw, static_cast<float*>(db)));
+}
+
+// The bf16 backward, three launches: the dx pass (round(dz) into `dz`
+// [R, Vp] bf16, the dx and db partials), the dW pass (the dW partials)
+// and the sum (dx, dW, db).  `partials` holds Sx R D + Sw Vp D + T Vp
+// floats (see XentPartials); Sx splits the vocabulary of the dx pass, Sw
+// the rows of the dW pass.
+extern "C" int neurst_linear_xent_dx_bf16(
+    const void* x, const void* w, const void* bias, const void* labels,
+    const void* lse, const void* g, void* dz, void* partials, int rows,
+    int vocab, int dim, int dx_splits, int dw_splits, float confidence,
+    float low_confidence, void* stream) {
+  if (bad_bf16_args(rows, vocab, dim, dx_splits, dw_splits, partials) ||
+      dz == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(x, w, bias, labels, rows, vocab, confidence,
+                           low_confidence, stream);
+  const XentPartials p =
+      xent_partials(partials, rows, vocab, dim, dx_splits, dw_splits);
+  const float* lsef = static_cast<const float*>(lse);
+  const float* gf = static_cast<const float*>(g);
+  cudaError_t err =
+      dim == 128   ? launch_dx_bf16<128>(a, lsef, gf, dz, p, dx_splits)
+      : dim == 256 ? launch_dx_bf16<256>(a, lsef, gf, dz, p, dx_splits)
+                   : launch_dx_bf16<512>(a, lsef, gf, dz, p, dx_splits);
+  return static_cast<int>(err);
+}
+
+extern "C" int neurst_linear_xent_dw_bf16(const void* x, const void* dz,
+                                          void* partials, int rows,
+                                          int vocab, int dim, int dx_splits,
+                                          int dw_splits, void* stream) {
+  if (bad_bf16_args(rows, vocab, dim, dx_splits, dw_splits, partials) ||
+      dz == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const XentPartials p =
+      xent_partials(partials, rows, vocab, dim, dx_splits, dw_splits);
+  return static_cast<int>(launch_dw_bf16(x, dz, p.dw, rows, vocab, dim,
+                                         dw_splits,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int neurst_linear_xent_sum_bf16(const void* partials, void* dx,
+                                           void* dw, void* db, int rows,
+                                           int vocab, int dim, int dx_splits,
+                                           int dw_splits, void* stream) {
+  if (bad_bf16_args(rows, vocab, dim, dx_splits, dw_splits, partials))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const XentPartials p =
+      xent_partials(partials, rows, vocab, dim, dx_splits, dw_splits);
+  return static_cast<int>(launch_sum_bf16(
+      p, dx, dw, static_cast<float*>(db), rows, vocab, dim, dx_splits,
+      dw_splits, static_cast<cudaStream_t>(stream)));
 }

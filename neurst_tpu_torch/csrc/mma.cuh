@@ -1,9 +1,10 @@
-// Tensor-core fragments and staging helpers shared by the fused-FFN and
-// flash-attention kernels (sm_90a): dtype conversions, the warp-level
-// mma.sync.m16n8k16 bf16 product with its float32 FMA twin, 16-byte
-// vector staging by plain loads (the fused-FFN forward and float32
-// kernels) and by cp.async into swizzled tiles read with ldmatrix (flash
-// attention, the bf16 fused-FFN backward).
+// Tensor-core fragments and staging helpers shared by the fused-FFN,
+// fused-xent and flash-attention kernels (sm_90a): dtype conversions,
+// the exponential on the special-function unit, the warp-level
+// mma.sync.m16n8k16 bf16 product and a float32 FMA product in its
+// accumulator layout, 16-byte vector staging by plain loads (the float32
+// fused-FFN kernels) and by cp.async into swizzled tiles read with
+// ldmatrix (flash attention, the bf16 fused FFN and fused linear xent).
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16 x 16 row-major: a0 (row g, k 2t, 2t+1), a1 (row g+8, k 2t..),
@@ -34,6 +35,15 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// 2^x on the special-function unit (ex2.approx.ftz: relative error
+// ~2^-22, results below 2^-126 flushed to 0, -inf gives 0), in place of
+// exp2f's range-checked sequence
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // two floats rounded to bf16 and packed: lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -59,34 +69,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
   mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
 }
 
-// One warp: acc[j] += A[16 x K] * B_j[8 x K]^T for j < NT, the m16n8
-// accumulator fragments of mma.sync (element i of acc[j] is row
-// g + 8 (i >> 1), column 8 j + 2 t + (i & 1)).
-// A is row-major [16][lda] (k contiguous), B is [NT * 8][ldb] (k
-// contiguous); K a multiple of 16.
-template <int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
-                                          const __nv_bfloat16* A, int lda,
-                                          const __nv_bfloat16* B, int ldb,
-                                          int K, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const __nv_bfloat16* a = A + g * lda + k0 + 2 * t;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + 8 * lda);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + 8 * lda + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* b = B + (8 * j + g) * ldb + k0 + 2 * t;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + 8);
-      mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-// float32: the same fragments, by FMA
+// One warp: acc[j] += A[16 x K] * B_j[8 x K]^T for j < NT in float32 by
+// FMA, in the m16n8 accumulator layout of mma.sync (element i of acc[j]
+// is row g + 8 (i >> 1), column 8 j + 2 t + (i & 1)): the float32
+// fused-FFN kernels.  A is row-major [16][lda] (k contiguous), B is
+// [NT * 8][ldb] (k contiguous).
 template <int NT>
 __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
                                           const float* A, int lda,
@@ -168,6 +155,15 @@ __device__ __forceinline__ void load_tile_t(T* dst, int pitch, const T* src,
 }
 
 // ------------------------------------------- cp.async and ldmatrix staging
+
+// x, as a value the compiler cannot see through: what is derived from it
+// inside a loop is computed there, not hoisted and held in registers (the
+// bf16 kernels recompute their copies' addresses each chunk this way, so
+// the accumulators keep the registers)
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -11,10 +11,15 @@ Like the JAX function it has no caller on a model path: the
 criterion's logits path computes the same formula in plain ops, and the
 train step takes the projection-fused kernels below.
 
-``fused_linear_xent`` (the projection fused in): the TPU kernels ``_linear_fwd_kernel`` and ``_linear_bwd_kernel`` become
-``csrc/fused_linear_xent.cu``: a forward kernel and a backward in two
-kernels (a dx pass over row tiles, a dW/db pass over vocabulary tiles),
-built for sm_90a and called through ctypes (see ``ops/_build.py``).  The
+``fused_linear_xent`` (the projection fused in): the TPU kernels
+``_linear_fwd_kernel`` and ``_linear_bwd_kernel`` become
+``csrc/fused_linear_xent.cu``, built for sm_90a and called through
+ctypes (see ``ops/_build.py``): a forward kernel and a backward in three
+launches for bf16, on the tensor cores (a dx pass over (row tile,
+vocabulary split) blocks that also writes round(dz) [R, Vp] and the db
+partials, a dW pass over row splits, a sum of the float32 partials in a
+fixed order; ``bwd_scratch`` sizes the buffers) or two for float32 (a
+dx pass over row tiles, a dW/db pass over vocabulary tiles).  The
 [R, V] logits never reach device memory.
 
 Both are differentiable (a ``torch.autograd.Function`` that keeps the
@@ -30,6 +35,8 @@ import functools
 
 import torch
 
+from neurst_tpu_torch.ops._plan import aligned16, chunk_splits, row_splits
+
 __all__ = ["fused_linear_xent", "fused_linear_xent_fwd",
            "fused_linear_xent_bwd", "linear_xent_reference",
            "fused_linear_ce_available", "DIMS", "fused_softmax_xent",
@@ -40,6 +47,11 @@ __all__ = ["fused_linear_xent", "fused_linear_xent_fwd",
 DIMS = (128, 256, 512)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 backward (csrc/fused_linear_xent.cu): the vocabulary chunk of the
+# dx pass (kXentChunk) and the dW pass's vocabulary tile (kRpTileM), to
+# which the dz buffer's columns Vp round up
+_CHUNK = 64
+_VOCAB_TILE = 128
 
 
 def linear_xent_reference(x, w, labels, confidence: float,
@@ -168,16 +180,97 @@ fused_linear_xent_fwd.launches = 0
 fused_linear_xent_fwd.kernel_name = "fused_linear_xent_fwd"
 
 
+def dx_rows(dim: int) -> int:
+    """Rows of a bf16 dx-pass tile (XentTile::kRows): 128, or 64 at D 512,
+    where 128 rows of dx would take 256 accumulators a thread."""
+    return 64 if dim == 512 else 128
+
+
+def bwd_scratch(rows: int, vocab: int, dim: int):
+    """The bf16 backward's plan and scratch, as the CUDA side sizes it:
+    (vocabulary splits Sx of the dx pass, row splits Sw of the dW pass,
+    dx row tiles T, Vp, dz elements (bf16 [R, Vp]), float32 partial
+    elements (dx [Sx, R, D], dW [Sw, Vp, D], db [T, Vp])).  Vp is V
+    rounded up to the dW pass's 128-row tiles."""
+    vpad = -(-vocab // _VOCAB_TILE) * _VOCAB_TILE
+    tiles = -(-rows // dx_rows(dim))
+    dx_splits = chunk_splits(tiles, vpad // _CHUNK)
+    dw_splits = row_splits((vpad // _VOCAB_TILE) * (dim // min(dim, 256)),
+                           rows)
+    partials = (dx_splits * rows * dim + dw_splits * vpad * dim
+                + tiles * vpad)
+    return dx_splits, dw_splits, tiles, vpad, rows * vpad, partials
+
+
+def bwd_launches(dtype) -> int:
+    """Kernel launches of one backward call: bf16 three (dx pass, dW
+    pass, sum), float32 two (dx pass, dW/db pass)."""
+    return 3 if dtype == torch.bfloat16 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel(name):
+    """The bf16 backward's C entry point ``neurst_linear_xent_<name>_bf16``
+    (dx, dw or sum), built and typed once."""
+    from neurst_tpu_torch.ops._build import load
+    fn = getattr(load("fused_linear_xent"), f"neurst_linear_xent_{name}_bf16")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = {
+        "dx": [ptr] * 8 + [i32] * 5 + [ctypes.c_float] * 2 + [ptr],
+        "dw": [ptr] * 3 + [i32] * 5 + [ptr],
+        "sum": [ptr] * 4 + [i32] * 5 + [ptr],
+    }[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_bf16(x2, w, bias, labels, lse, g, confidence, low_confidence):
+    """The bf16 backward's three launches."""
+    for name, t in (("x", x2), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_linear_xent: bf16 {name} must be "
+                             f"16-byte aligned")
+    rows, dim = x2.shape
+    vocab = w.shape[0]
+    dx_splits, dw_splits, _, _, dz_size, partial_size = bwd_scratch(
+        rows, vocab, dim)
+    dz = torch.empty(dz_size, dtype=x2.dtype, device=x2.device)
+    partials = torch.empty(partial_size, dtype=torch.float32,
+                           device=x2.device)
+    dx = torch.empty_like(x2)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(bias)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    plan = (rows, vocab, dim, dx_splits, dw_splits)
+    for name, args in (
+            ("dx", (x2, w, bias, labels, lse, g, dz, partials) + plan
+             + (confidence, low_confidence)),
+            ("dw", (x2, dz, partials) + plan),
+            ("sum", (partials, dx, dw, db) + plan)):
+        err = _bf16_kernel(name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args), stream)
+        if err != 0:
+            raise RuntimeError(f"fused_linear_xent bf16 {name} launch "
+                               f"failed: CUDA error {err}")
+        fused_linear_xent_bwd.launches += 1
+    return dx, dw, db
+
+
 def fused_linear_xent_bwd(x2, w, bias, labels, lse, g, confidence: float,
                           low_confidence: float):
     """(dx [R, D] in x2's dtype, dW [V, D] in w's dtype, db [V] float32)
     for the per-row output gradient g [R] float32.  CUDA tensors run the
-    dx pass and the dW/db pass (two launches) or raise; CPU tensors run
-    the plain version."""
+    kernels (bf16: the dx pass, the dW pass and the sum of their
+    partials; float32: the dx pass and the dW/db pass) or raise; CPU
+    tensors run the plain version."""
     if x2.device.type == "cpu":
         return _bwd_plain(x2, w, bias, labels, lse, g, confidence,
                           low_confidence)
     _check_cuda_inputs(x2, w, bias, labels, lse, g)
+    if x2.dtype == torch.bfloat16:
+        return _bwd_bf16(x2, w, bias, labels, lse, g, confidence,
+                         low_confidence)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
     db = torch.empty_like(bias)
@@ -228,7 +321,7 @@ def fused_linear_xent(x, w, labels, confidence: float,
     bias2 = (torch.zeros(vocab, dtype=torch.float32, device=x.device)
              if bias is None else bias.float())
     xent = _FusedLinearXent.apply(
-        x.reshape(-1, d).contiguous(), w.to(x.dtype).contiguous(), bias2,
+        aligned16(x.reshape(-1, d)), aligned16(w.to(x.dtype)), bias2,
         labels.reshape(-1).to(torch.int32), float(confidence),
         float(low_confidence))
     return xent.reshape(lead)

@@ -3,13 +3,15 @@ hand-written CUDA kernel set and its plain PyTorch version.
 
 Counterpart of ``neurst_tpu/ops/fused_ffn.py``.  The TPU kernels
 ``_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` become ``csrc/fused_ffn.cu``:
-a forward kernel (bf16 products on the tensor cores) and a backward in
-three launches (a dx pass over row tiles, a dW pass over row splits, a
+a forward kernel, followed where it splits the filter over blocks by a
+sum of the float32 partials (``fwd_splits``), and a backward in three
+launches (a dx pass over row tiles, a dW pass over row splits, a
 deterministic sum of the splits and of the bias partials), built for
-sm_90a and called through ctypes (see ``ops/_build.py``).  The bf16 dx
-pass also writes round(dh) [R, F] to a scratch buffer, which makes its
-dW pass two products over rows, round(dh)^T x and dy^T hd; the float32
-dW pass recomputes dh (``bwd_scratch`` sizes the buffers).
+sm_90a and called through ctypes (see ``ops/_build.py``).  bf16 products
+run on the tensor cores.  The bf16 dx pass also writes round(dh) [R, F]
+to a scratch buffer, which makes its dW pass two products over rows,
+round(dh)^T x and dy^T hd; the float32 dW pass recomputes dh
+(``bwd_scratch`` sizes the buffers).
 
 Semantics follow the TPU kernels: float32 accumulation; the hidden is
 rounded to the compute dtype after the bias, relu and dropout; the
@@ -34,6 +36,8 @@ import functools
 
 import torch
 
+from neurst_tpu_torch.ops._plan import (SMS, aligned16, chunk_splits,
+                                       row_splits)
 from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
                                                 threshold_and_scale)
 from neurst_tpu_torch.ops.kernel_gates import fused_ffn_min_rows
@@ -46,18 +50,20 @@ __all__ = ["fused_ffn", "fused_ffn_fwd", "fused_ffn_bwd",
 # multiple of 128
 DIMS = (256,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = 132
+_SMS = SMS
+# bf16 forward (kFwdRows, kDxChunk): rows of a tile, filter columns of a
+# chunk
+_FWD_ROWS = 128
+_CHUNK = 64
 # float32 dW pass (csrc/fused_ffn.cu): rows per tile (kDwRowsF32) and the
 # filter columns of one of its blocks (kCols)
 _DW_ROWS_F32 = 32
 _DW_COLS_F32 = 64
-# bf16 backward: the filter rows of a dW pass output tile (kDwTileF, by
-# all of D), its row slabs (kDwK), its resident blocks an SM
-# (__launch_bounds__) and the fewest slabs a split takes
+# bf16 backward: the filter rows of a dW pass output tile (kRpTileM of
+# csrc/row_product.cuh, by all of D) and its resident blocks an SM
+# (__launch_bounds__)
 _DW_TILE_F = 128
-_DW_SLAB = 64
 _DW_BLOCKS_PER_SM = 1
-_DW_MIN_SLABS = 4
 
 
 def fused_ffn_available(d: int, f: int, activation: str, rows: int,
@@ -149,7 +155,8 @@ def _kernel(name):
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
     fn.argtypes = {
-        "fwd": [ptr] * 7 + [i32] * 3 + [u32, f32] + [u32] * 4 + [i32, ptr],
+        "fwd": [ptr] * 8 + [i32] * 4 + [u32, f32] + [u32] * 4 + [i32, ptr],
+        "fwd_sum": [ptr] * 3 + [i32] * 3 + [ptr],
         "dx": [ptr] * 7 + [i32] * 4 + [f32, i32, ptr],
         "dw": [ptr] * 6 + [i32] * 4 + [f32, i32, ptr],
         "dw_sum": [ptr] * 5 + [i32] * 5 + [ptr],
@@ -164,11 +171,28 @@ def _check(name, err):
                            f"{err}")
 
 
+def fwd_splits(rows: int, filter_size: int, dtype) -> int:
+    """Filter splits of the forward: bf16 row tiles of 128 rows, each
+    split over S blocks where the tiles alone would leave SMs idle
+    (``_plan.chunk_splits`` over the 64-column chunks); float32 takes
+    one."""
+    if dtype != torch.bfloat16:
+        return 1
+    return chunk_splits(-(-rows // _FWD_ROWS), filter_size // _CHUNK)
+
+
+def fwd_launches(rows: int, filter_size: int, dtype) -> int:
+    """Kernel launches of one forward call: the forward, and the sum of
+    its partials where it splits the filter."""
+    return 1 + (fwd_splits(rows, filter_size, dtype) > 1)
+
+
 def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
                   dropout_key=None, save_hidden: bool = False):
     """(y [R, D], hd [R, F] or None) for x2 [R, D], w1 [F, D], w2 [D, F]
     of one dtype and float32 biases.  CUDA tensors run the forward
-    kernel (or raise); CPU tensors run the plain version."""
+    kernel, and the sum of its filter splits where it has them (or
+    raise); CPU tensors run the plain version."""
     drop = _drop(dropout_rate, dropout_key)
     if x2.device.type == "cpu":
         return _fwd_plain(x2, w1, b1, w2, b2, drop, save_hidden)
@@ -177,17 +201,26 @@ def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
         raise TypeError("fused_ffn: biases must be float32")
     rows, dim = x2.shape
     filter_size = w1.shape[0]
+    splits = fwd_splits(rows, filter_size, x2.dtype)
     y = torch.empty_like(x2)
     hd = (torch.empty((rows, filter_size), dtype=x2.dtype, device=x2.device)
           if save_hidden else None)
+    partials = (torch.empty(splits * rows * dim, dtype=torch.float32,
+                            device=x2.device) if splits > 1 else None)
     threshold, scale, key = drop
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
     _check("fwd", _kernel("fwd")(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), 0 if hd is None else hd.data_ptr(),
-        rows, filter_size, dim, threshold, scale, *site_words(key),
-        _DTYPE_CODES[x2.dtype],
-        torch.cuda.current_stream(x2.device).cuda_stream))
+        0 if partials is None else partials.data_ptr(), rows, filter_size,
+        dim, splits, threshold, scale, *site_words(key),
+        _DTYPE_CODES[x2.dtype], stream))
     fused_ffn_fwd.launches += 1
+    if partials is not None:
+        _check("fwd_sum", _kernel("fwd_sum")(
+            partials.data_ptr(), b2.data_ptr(), y.data_ptr(), rows, dim,
+            splits, stream))
+        fused_ffn_fwd.launches += 1
     return y, hd
 
 
@@ -198,14 +231,11 @@ fused_ffn_fwd.kernel_name = "fused_ffn_fwd"
 def dw_splits(rows: int, filter_size: int, dtype) -> int:
     """Row splits of the dW pass.  bf16: its 128 x D output tiles of
     both products times the splits fill the card's resident blocks once
-    (a whole wave), each split taking at least ``_DW_MIN_SLABS`` slabs of
-    64 rows.  float32: enough blocks (F / 64 per split) to cover the
-    SMs twice, at most one split per row tile."""
+    (a whole wave; ``_plan.row_splits``).  float32: enough blocks (F / 64
+    per split) to cover the SMs twice, at most one split per row
+    tile."""
     if dtype == torch.bfloat16:
-        tiles = 2 * (filter_size // _DW_TILE_F)
-        slabs = -(-rows // _DW_SLAB)
-        return max(1, min(_SMS * _DW_BLOCKS_PER_SM // tiles,
-                          slabs // _DW_MIN_SLABS))
+        return row_splits(2 * (filter_size // _DW_TILE_F), rows)
     tiles = -(-rows // _DW_ROWS_F32)
     col_blocks = filter_size // _DW_COLS_F32
     return max(1, min(tiles, -(-2 * _SMS // col_blocks)))
@@ -281,13 +311,6 @@ fused_ffn_bwd.launches = 0
 fused_ffn_bwd.kernel_name = "fused_ffn_bwd"
 
 
-def _aligned(x):
-    """x contiguous and 16-byte aligned (the kernels stage 16-byte
-    vectors); a copy only where a view starts mid-vector."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 class _FusedFFN(torch.autograd.Function):
 
     @staticmethod
@@ -304,7 +327,7 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, dy):
         x2, w1, w2, hd = ctx.saved_tensors
         dx, dw1, dw2, db1, db2 = fused_ffn_bwd(
-            x2, w1, w2, hd, _aligned(dy.to(x2.dtype)), ctx.scale)
+            x2, w1, w2, hd, aligned16(dy.to(x2.dtype)), ctx.scale)
         return dx, dw1, db1, dw2, db2, None, None
 
 
@@ -317,8 +340,8 @@ def fused_ffn(x, w1, b1, w2, b2, dropout_rate: float = 0.0,
     the FFN site's ``dropout_key``."""
     d = x.shape[-1]
     y = _FusedFFN.apply(
-        _aligned(x.reshape(-1, d)), _aligned(w1.to(x.dtype)),
-        _aligned(b1.float()), _aligned(w2.to(x.dtype)),
-        _aligned(b2.float()), float(dropout_rate or 0.0), dropout_key)
+        aligned16(x.reshape(-1, d)), aligned16(w1.to(x.dtype)),
+        aligned16(b1.float()), aligned16(w2.to(x.dtype)),
+        aligned16(b2.float()), float(dropout_rate or 0.0), dropout_key)
     return y.reshape(x.shape)
 

@@ -247,10 +247,12 @@ def test_library_hash_follows_included_headers(tmp_path, monkeypatch):
 def test_every_kernel_source_hashes_its_philox_header():
     """Each masking kernel's library name covers philox.cuh and the other
     local headers it includes (the tensor-core helpers of mma.cuh, the
-    flash kernels' keep-bit tiles of flash_tile.cuh), in include order."""
+    product over rows of row_product.cuh, the flash kernels' keep-bit
+    tiles of flash_tile.cuh), in include order."""
     flash = ["flash_tile.cuh", "philox.cuh", "mma.cuh"]
     for name, headers in (("fused_dropout", ["philox.cuh"]),
-                          ("fused_ffn", ["mma.cuh", "philox.cuh"]),
+                          ("fused_ffn", ["mma.cuh", "philox.cuh",
+                                         "row_product.cuh"]),
                           ("flash_attention_fwd", flash),
                           ("flash_attention_bwd", flash)):
         sources = _build._sources(_build.CSRC_DIR

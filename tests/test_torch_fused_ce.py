@@ -271,3 +271,57 @@ def test_softmax_xent_off_the_cpu_launches_or_raises():
         port.fused_softmax_xent_bwd(z, labels, torch.zeros(4, device="meta"),
                                     torch.zeros(4, device="meta"), 0.9, 0.1)
     assert port.fused_ce_available(8192) == torch.cuda.is_available()
+
+
+# (rows, vocab, dim): the training slice's decoder rows, a ragged 37 and
+# transformer_base's 32768 rows, at each dim the kernels are built for
+PLAN_CASES = [(rows, vocab, dim) for rows, vocab in
+              ((6000, 8192), (37, 650), (32768, 32768))
+              for dim in (128, 256, 512)]
+
+
+@pytest.mark.parametrize("rows, vocab, dim", PLAN_CASES)
+def test_bwd_plan_fills_the_card(rows, vocab, dim):
+    """The bf16 backward's dx pass takes 128-row tiles (64 at D 512, 128
+    accumulators a thread either way) and splits each tile's vocabulary
+    where the tiles alone would leave SMs idle; its dW pass splits rows
+    until its output tiles (128 words by min(D, 256) dims) fill the
+    card's 132 SMs once; Vp rounds V up to those tiles."""
+    dx_splits, dw_splits, tiles, vpad, _, _ = port.bwd_scratch(rows, vocab,
+                                                               dim)
+    assert port.dx_rows(dim) == (64 if dim == 512 else 128)
+    assert tiles == -(-rows // port.dx_rows(dim))
+    assert vpad % 128 == 0 and vpad - 128 < vocab <= vpad
+    chunks = vpad // 64
+
+    def path(s):  # waves of blocks times chunks a block
+        return -(-tiles * s // 132) * -(-chunks // s)
+    # splits of at least 8 chunks; the fewest within 1/8 of the shortest
+    # path
+    shortest = min(path(s) for s in range(1, max(1, chunks // 8) + 1))
+    assert chunks // dx_splits >= 8 or dx_splits == 1
+    assert 8 * path(dx_splits) <= 9 * shortest
+    assert all(8 * path(s) > 9 * shortest for s in range(1, dx_splits))
+    out_tiles = (vpad // 128) * (dim // min(dim, 256))
+    assert dw_splits == 1 or out_tiles * dw_splits <= 132 \
+        < out_tiles * (dw_splits + 1)
+
+
+@pytest.mark.parametrize("rows, vocab, dim, want", [
+    # R 6000, V 8192: 47 tiles x 5 vocabulary splits (two waves of 26
+    # chunks), 64 dW tiles x 2 row splits
+    (6000, 8192, 256, (5, 2, 47, 8192)),
+    # a ragged vocabulary pads to the dW pass's tiles
+    (37, 650, 256, (1, 1, 1, 768)),
+    (4096, 32768, 512, (2, 1, 64, 32768)),
+])
+def test_bwd_scratch_sizes(rows, vocab, dim, want):
+    """The bf16 backward's scratch, as the CUDA side lays it out: dz
+    [R, Vp] bf16, then float32 dx partials [Sx, R, D], dW partials
+    [Sw, Vp, D] and db partials [T, Vp]."""
+    dx_splits, dw_splits, tiles, vpad = want
+    assert port.bwd_scratch(rows, vocab, dim) == (
+        dx_splits, dw_splits, tiles, vpad, rows * vpad,
+        dx_splits * rows * dim + dw_splits * vpad * dim + tiles * vpad)
+    assert port.bwd_launches(torch.bfloat16) == 3
+    assert port.bwd_launches(torch.float32) == 2

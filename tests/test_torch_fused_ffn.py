@@ -1,7 +1,7 @@
 """The port's fused FFN (``neurst_tpu_torch/ops/fused_ffn.py``) against
 the JAX package's Pallas kernels in interpret mode, against plain
 autograd of the port's own composite, and its gate against the JAX
-package's.
+package's and the recorded H100 sweep.
 
 On the CPU the kernel wrappers compute the plain versions.  The forward
 is held against ``neurst_tpu.ops.fused_ffn.fused_ffn(..., interpret=True)``
@@ -145,13 +145,41 @@ def test_matches_autograd_of_the_composite(rate, dtype):
 @pytest.mark.parametrize("d", [128, 256, 512, 1024])
 @pytest.mark.parametrize("mode", ["train", "train_drop", "infer"])
 def test_gate_is_the_jax_packages(mode, d):
-    assert kernel_gates.fused_ffn_min_rows(mode, d) == \
-        jax_gate_min_rows("fused_ffn", mode, d=d)
+    """The JAX package's gate, but for D 256 in training, which follows
+    the H100 sweep recorded in ``ops/kernel_gates.py``: the smallest row
+    count from which the fused FFN wins at every larger one, or the JAX
+    package's threshold where it loses at every row count."""
+    want = jax_gate_min_rows("fused_ffn", mode, d=d)
+    if d == 256 and mode != "infer":
+        swept = kernel_gates.min_rows_from_sweep(
+            kernel_gates.H100_SWEEP[mode])
+        want = want if swept is None else swept
+    assert kernel_gates.fused_ffn_min_rows(mode, d) == want
+
+
+@pytest.mark.parametrize("table, want", [
+    ({1: (2.0, 1.0), 2: (1.0, 2.0), 3: (1.0, 2.0)}, 2),
+    # a win below a loss does not count
+    ({1: (1.0, 2.0), 2: (2.0, 1.0), 3: (1.0, 2.0)}, 3),
+    ({1: (1.0, 2.0), 2: (2.0, 1.0)}, None),
+    ({1: (1.0, 2.0), 2: (1.0, 2.0)}, 1),
+])
+def test_min_rows_from_sweep(table, want):
+    assert kernel_gates.min_rows_from_sweep(table) == want
+
+
+def test_h100_sweep_sets_the_d256_training_gate():
+    """As measured: with dropout the fused FFN wins from 16384 rows up;
+    at dropout 0 and in inference it loses at the largest row count."""
+    sweep = kernel_gates.H100_SWEEP
+    assert kernel_gates.min_rows_from_sweep(sweep["train_drop"]) == 16384
+    assert kernel_gates.min_rows_from_sweep(sweep["train"]) is None
+    assert kernel_gates.min_rows_from_sweep(sweep["infer"]) is None
 
 
 @pytest.mark.parametrize("rows, training, rate, want", [
     (30000, True, 0.1, True),    # the recipe's encoder FFNs
-    (6000, True, 0.1, True),     # its decoder FFNs
+    (6000, True, 0.1, False),    # its decoder FFNs: the composite wins
     (1023, True, 0.1, False),
     (30000, True, 0.0, True),    # dropout 0: the encoder FFNs
     (6000, True, 0.0, False),    # ... but not the decoder's
@@ -226,3 +254,27 @@ def test_bwd_scratch_sizes(rows, dtype, want):
     its dW pass reads, and the float32 partials the sum kernel adds (dW1
     and dW2 per split, db1 and db2 per bias partial)."""
     assert port.bwd_scratch(rows, 2048, 256, dtype) == want
+
+
+@pytest.mark.parametrize("rows, want", [
+    # 235 tiles of 128 rows already fill the 132 SMs: no split
+    (30000, 1),
+    # the decoder's 47 tiles: two blocks a tile (94 blocks, one wave;
+    # three would take a second wave)
+    (6000, 2),
+    # one tile: the filter's 32 chunks over four blocks of eight
+    (37, 4),
+])
+def test_fwd_splits_fill_the_card(rows, want):
+    """The bf16 forward splits a row tile's filter over S blocks where
+    its tiles alone would leave SMs idle, each split taking at least 8 of
+    the 32 chunks, and then takes two launches (the forward and the sum
+    of its float32 partials); float32 never splits."""
+    tiles = -(-rows // port._FWD_ROWS)
+    splits = port.fwd_splits(rows, 2048, torch.bfloat16)
+    assert splits == want
+    assert 2048 // port._CHUNK // splits >= 8
+    assert -(-tiles * splits // port._SMS) <= -(-tiles // port._SMS)
+    assert port.fwd_launches(rows, 2048, torch.bfloat16) == 1 + (want > 1)
+    assert port.fwd_splits(rows, 2048, torch.float32) == 1
+    assert port.fwd_launches(rows, 2048, torch.float32) == 1

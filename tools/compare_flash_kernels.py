@@ -3,7 +3,7 @@
 in turns, with this checkout's ``chip_smoke.py`` phases.
 
     python3 tools/compare_flash_kernels.py ROOT [ROOT ...] [--seed N]
-        [--phases flash,dropout,ffn]
+        [--phases flash,dropout,ffn,xent]
 
 Each ROOT is the root directory of a checkout (``.`` for this one; an
 older commit unpacked with ``git archive`` into a directory that
@@ -13,7 +13,8 @@ named phases there and runs their ``chip_smoke.py`` kernel phases:
 ``flash`` (the default) runs ``flash_fwd_kernel_phase``,
 ``flash_bwd_kernel_phase`` and ``flash_dropout_kernel_phase``;
 ``dropout`` runs ``dropout_kernel_phase``; ``ffn`` runs
-``ffn_kernel_phase``.  Every case checks the kernel against its plain
+``ffn_kernel_phase``; ``xent`` runs ``xent_kernel_phase`` (the fused
+linear xent).  Every case checks the kernel against its plain
 version on the same inputs and times kernel, plain version, library call
 (or composite) and bound.  Give the roots as parent, change, change,
 parent to compare two commits on one card.  Each phase row is printed as
@@ -39,6 +40,7 @@ PHASES = {
                "flash_dropout_kernel_phase"]),
     "dropout": (["fused_dropout"], ["dropout_kernel_phase"]),
     "ffn": (["fused_ffn"], ["ffn_kernel_phase"]),
+    "xent": (["fused_linear_xent"], ["xent_kernel_phase"]),
 }
 
 
