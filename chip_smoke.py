@@ -466,13 +466,35 @@ def flash_bwd_kernel_phase(seed):
     return results
 
 
+def _xent_fwd_plan(fc, rows, vocab, dim, dtype, launches):
+    """The forward's plan at this shape (bf16: ``fwd_plan``; float32: the
+    FMA kernel's 32-row tiles over the whole vocabulary) with the
+    launches one call counted, which must be ``fwd_launches``.  None for
+    a package without ``fwd_plan`` (an older checkout that
+    ``tools/compare_flash_kernels.py`` times)."""
+    import torch
+    if not hasattr(fc, "fwd_plan"):
+        return None
+    splits, tile_rows = 1, 32
+    if dtype == torch.bfloat16:
+        splits, _, tile_rows, _ = fc.fwd_plan(rows, vocab, dim)
+    want = fc.fwd_launches(rows, vocab, dim, dtype)
+    if launches != want:
+        raise AssertionError(f"fused_linear_xent_fwd [{rows}, {dim}] x "
+                             f"{vocab} {dtype}: {launches} launches, "
+                             f"expected {want}")
+    return {"splits": splits, "tile_rows": tile_rows, "launches": launches}
+
+
 def xent_kernel_phase(seed):
     """fused_linear_xent_fwd and _bwd against their plain versions on the
     same inputs, at the training slice's shape (6000 target rows, d 256,
     the 8192-word tied softmax with its bias), at a ragged one, at one
     whose row tiles and vocabulary split both end ragged (1000 rows,
     8190 words) and at d 512 (4096 rows, 32768 words); two backward
-    calls must give the same bits.  No single PyTorch call computes this
+    calls of each must give the same bits, and the forward's row carries
+    its plan (vocabulary splits, tile rows, launches a call: counted, and
+    held to ``fwd_launches``).  No single PyTorch call computes this
     function: ``label_smoothing`` of ``cross_entropy`` spreads eps over
     all V classes where NeurST spreads it over V - 1, so ``library_ms``
     is null and the time of ``F.cross_entropy(F.linear(...))`` is
@@ -501,10 +523,15 @@ def xent_kernel_phase(seed):
                 np.int32)).cuda()
             g = torch.from_numpy(rng.rand(rows).astype(np.float32)).cuda()
             fwd_args = (x, w, bias, labels, c, low)
+            before = fc.fused_linear_xent_fwd.launches
             xent, lse = fc.fused_linear_xent_fwd(*fwd_args)
+            plan = _xent_fwd_plan(fc, rows, vocab, dim, dtype,
+                                  fc.fused_linear_xent_fwd.launches - before)
             bwd_args = (x, w, bias, labels, lse, g, c, low)
             grads = fc.fused_linear_xent_bwd(*bwd_args)
-            # no atomics: a second call gives the same bits
+            # no atomics: a second call of each gives the same bits
+            fwd_repeat = all(torch.equal(a, b_) for a, b_ in zip(
+                (xent, lse), fc.fused_linear_xent_fwd(*fwd_args)))
             repeat = all(torch.equal(a, b_) for a, b_ in zip(
                 grads, fc.fused_linear_xent_bwd(*bwd_args)))
             ref_xent, ref_lse = fc._fwd_plain(*fwd_args)
@@ -516,11 +543,12 @@ def xent_kernel_phase(seed):
             rel = {k: _rel_err(a, b_) for k, a, b_ in zip(
                 ("dx", "dw", "db"), grads, ref_grads)}
             if fwd_err > val_tol or max(rel.values()) > grad_tol \
-                    or not repeat:
+                    or not (repeat and fwd_repeat):
                 raise AssertionError(
                     f"fused_linear_xent {case} {name}: xent/lse err "
                     f"{fwd_err} (tol {val_tol}), gradients {rel} (tol "
-                    f"{grad_tol}), two backward calls equal: {repeat}")
+                    f"{grad_tol}), two forward calls equal: {fwd_repeat}, "
+                    f"two backward calls equal: {repeat}")
             leaves = [t.detach().requires_grad_() for t in (x, w)]
 
             def composite():
@@ -548,7 +576,10 @@ def xent_kernel_phase(seed):
                        "library_ms": None,
                        "composite_cross_entropy_linear_ms": composite_ms,
                        "bound_ms": bound, "bound_by": bound_by}
-                if kernel == "bwd":
+                if kernel == "fwd":
+                    row["plan"] = plan
+                    row["bitwise_repeat"] = fwd_repeat
+                else:
                     row["rel_err"] = rel
                     row["bitwise_repeat"] = repeat
                 emit(row)
@@ -1506,7 +1537,8 @@ def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
 def expected_launches(model, enc_rows, dec_rows, dropout):
     """Kernel launches of one training step, from the configuration and
     the wrappers' plans: the encoder's flash kernels once a layer; the
-    fused xent forward once and its backward's launches; the fused FFN
+    fused xent forward's launches (its combine too where it splits the
+    vocabulary) and its backward's; the fused FFN
     where its gate says so, with its forward's launches at each row count
     and three backward launches; with dropout, the mask kernel at every
     site the kernels above do not cover (two postprocess sites an encoder
@@ -1514,6 +1546,8 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
     sites, the FFN hidden where it is not fused), once forward and once
     backward."""
     from neurst_tpu_torch.ops.fused_ce import bwd_launches
+    from neurst_tpu_torch.ops.fused_ce import \
+        fwd_launches as xent_fwd_launches
     from neurst_tpu_torch.ops.fused_ffn import (fused_ffn_available,
                                                 fwd_launches)
     enc, dec = model.encoder, model.decoder
@@ -1536,7 +1570,10 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
                                   + (not fused(enc_rows)))
         sites += dec.num_layers * (5 + (not fused(dec_rows)))
     return {"flash_attention_fwd": flash, "flash_attention_dq": flash,
-            "flash_attention_dkv": flash, "fused_linear_xent_fwd": 1,
+            "flash_attention_dkv": flash,
+            "fused_linear_xent_fwd": xent_fwd_launches(
+                dec_rows, model.trg_meta["vocab_size"], dense1.in_features,
+                dtype),
             "fused_linear_xent_bwd": bwd_launches(dtype),
             "fused_softmax_xent_fwd": 0, "fused_softmax_xent_bwd": 0,
             "fused_dropout": 2 * sites, "fused_ffn_fwd": ffn_fwd,

@@ -1,7 +1,7 @@
 // Fused vocabulary projection + label-smoothed cross entropy for Hopper
-// (sm_90a), plain C interface: a forward kernel and a backward in three
-// launches (bf16) or two (float32).  The [R, V] logits never reach device
-// memory.
+// (sm_90a), plain C interface: a forward in one launch, or two for bf16
+// where the vocabulary splits, and a backward in three launches (bf16)
+// or two (float32).  The [R, V] logits never reach device memory.
 //
 // Replaces: neurst_tpu/ops/fused_ce.py:_linear_fwd_kernel (the Pallas
 // call at :395) and :_linear_bwd_kernel (the call at :434).  Same
@@ -17,11 +17,12 @@
 // dz (:344-360).  round() is the operand dtype, as `dzc` in the TPU
 // kernel.
 //
-// Why the backward is split: the TPU kernel keeps the whole [V, D]
-// float32 dW accumulator in VMEM (8 MB at V = 8192, D = 256) across its
-// sequential grid.  An H100 block has 227 KB of shared memory and blocks
-// run in no order, so a pass over row tiles (each block looping over the
-// vocabulary and keeping its rows of dx in registers) forms dx, and dW is
+// Why the grid differs from the TPU's: the TPU kernels walk a sequential
+// grid and keep whole operands in VMEM (the backward its [V, D] float32
+// dW accumulator, 8 MB at V = 8192, D = 256).  An H100 block has 227 KB
+// of shared memory and blocks run in no order, so each pass splits the
+// vocabulary of a row tile over blocks where the tiles alone leave SMs
+// idle, and merges the splits' float32 partials in a fixed order; dW is
 // a product over rows that another pass splits over blocks.
 //
 // What bounds it on an H100: at the training slice's shape (R = 6000
@@ -29,25 +30,29 @@
 // 25 GFLOP forward and 75 GFLOP backward, so the card's bound is its bf16
 // tensor-core rate (~0.03 ms forward, ~0.08 ms backward).
 //
-// The bf16 backward (its section below gives the tiles) runs on the
-// tensor cores, mma.sync fed by 16-byte cp.async into 128-byte-swizzled
-// tiles read by ldmatrix, in three launches: a dx pass over (row tile,
-// vocabulary split) blocks that computes z and dz once, writes round(dz)
-// [R, Vp] to a scratch buffer and the float32 dx and db partials; a dW
-// pass, round(dz)^T x, over row splits (csrc/row_product.cuh); and a sum
-// of the partials in a fixed order, so two calls give the same bits.
-// The backward thus does the 6 R V D operations the function needs, at
-// the price of the dz round trip (2 x 98 MB at the slice's shape).
+// bf16 runs on the tensor cores (the section below gives the tiles):
+// mma.sync fed by 16-byte cp.async into 128-byte-swizzled tiles read by
+// ldmatrix, through one chunk loop over (row tile, vocabulary split)
+// blocks.  The forward computes z, folds it into each row's running
+// statistics in registers and writes lse and xent, or float32 partials
+// of the statistics that a combine kernel merges in split order.  The
+// backward takes three launches: a dx pass that computes z and dz once,
+// writes round(dz) [R, Vp] to a scratch buffer and the float32 dx and db
+// partials; a dW pass, round(dz)^T x, over row splits
+// (csrc/row_product.cuh); and a sum of the partials in a fixed order.
+// Two calls give the same bits.  The backward thus does the 6 R V D
+// operations the function needs, at the price of the dz round trip
+// (2 x 98 MB at the slice's shape).
 //
-// The forward and the float32 backward run every product as float32 FMA
+// float32 (the card-vs-CPU checks) runs every product as float32 FMA
 // loops out of shared memory (no tensor cores), bound by FMA issue and
 // shared-memory loads: each thread owns a 4 x 2 (forward, dx pass) or
 // 4 x 1 (dW pass) tile of z and a 4 x D/32 tile of its output rows, the
 // x tile stays in shared memory for the whole block, and W is re-read
 // from L2 by every block.  Row tiles of 32 give 188 blocks at R = 6000
-// (two fit an SM); the float32 dW/db pass walks 32 vocabulary rows a
-// block over all row tiles and recomputes z, so that backward does
-// 8 R V D operations.
+// (two fit an SM); the dW/db pass walks 32 vocabulary rows a block over
+// all row tiles and recomputes z, so that backward does 8 R V D
+// operations.
 //
 // Layout: x [R, D] and W [V, D] contiguous, of one dtype (float32 or
 // bfloat16; bf16 16-byte aligned); bias [V], lse, g and xent [R]
@@ -399,50 +404,305 @@ linear_xent_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// ---------------------------------------------- bf16 backward: tensor cores
+// ------------------------------------------------------ bf16: tensor cores
 //
-// (a) dx pass: one block of 8 warps per (row tile, vocabulary split).
-// x [kRows][D] comes in once, and the split's vocabulary streams in
-// 64-row chunks W_c [64][D] through a 2-stage cp.async ring, so chunk
-// j + 1's copies overlap chunk j's products.  Per chunk:
-//   P1  z [kRows][64] = x W_c^T (k = D): warps 4 (rows) x 2 (columns); x
-//       by ldsm_a, W_c (an [n][k] tile) by ldsm_b;
-//   dz from z + bias, lse, label and g (exp on the special-function
-//       unit), zero on columns >= V and rows >= R, into a swizzled
-//       [kRows][64] tile as round(dz), which goes out to the dz buffer
-//       [R][Vp] by 16-byte stores; the chunk's db partial sums the
-//       unrounded dz by warp shuffles, then the 4 row warps, in a fixed
-//       order;
-//   P2  dx [kRows][D] += round(dz) W_c (k = 64): warps 2 x 4; dz by
-//       ldsm_a, W_c (the same tile, read as [k][n]) by ldsm_trans.
-// The block ends by writing its float32 dx partial [S][R][D].  kRows is
-// 128, or 64 at D 512 (128 rows would need 256 accumulators a thread):
-// 128 accumulators a thread at D 256 and 512.  The splits S are picked
-// so that the (tile, split) blocks fill the card with the fewest chunk
-// steps (ops/_plan.py).
-// (b) dW pass: dW [Vp][D] = round(dz)^T x, a product over rows in row
-// splits (csrc/row_product.cuh), as the fused-FFN backward's dW1.
-// (c) the sum kernel adds the dx and dW partials in split order and the
+// Both bf16 passes over the logits walk (row tile, vocabulary split)
+// blocks of 8 warps through one chunk loop (xent_chunks): x [R][D] comes
+// in once, and the split's vocabulary streams in 64-row chunks W_c
+// [64][D], each with its 64 bias values, through a 2-stage cp.async ring,
+// so chunk j + 1's copies overlap chunk j's work.  Per chunk
+//   P1  z [R][64] = x W_c^T (k = D): warps 4 (rows) x 2 (columns); x by
+//       ldsm_a, W_c (an [n][k] tile) by ldsm_b;
+// then the pass's own step on P1's accumulators.
+// (a) The forward's step adds the bias and folds the chunk into the
+// running (max, sum-exp, z_label, sum z) of the rows each thread holds in
+// the accumulator layout, in registers (exp on the special-function
+// unit; no shuffle and no barrier).  The block ends by merging those
+// over the quad's lanes, then over the two column warps through shared
+// memory, in a fixed order.  With one split it writes lse and xent; with
+// S > 1 it writes the statistics as float32 partials [S][R] that the
+// combine kernel merges in split order.  R is 128 rows at every D: at
+// D 512, where x and a ring of two whole chunks would take 256 KB of
+// shared memory, each chunk's W comes through the ring in two parts of
+// 256 columns.  A thread holds P1's 32 accumulators and 16 statistics.
+// (b) The backward's dx pass: its step forms dz from z + bias, lse,
+// label and g (exp on the special-function unit), zero on columns >= V
+// and rows >= R, into a swizzled [R][64] tile as round(dz), which goes
+// out to the dz buffer [R][Vp] by 16-byte stores; the chunk's db partial
+// sums the unrounded dz by warp shuffles, then the 4 row warps, in a
+// fixed order;
+//   P2  dx [R][D] += round(dz) W_c (k = 64): warps 2 x 4; dz by ldsm_a,
+//       W_c (the same tile, read as [k][n]) by ldsm_trans.
+// The block ends by writing its float32 dx partial [S][R][D].  R is 128,
+// or 64 at D 512 (128 rows would need 256 accumulators a thread): 128
+// accumulators a thread at D 256 and 512.
+// (c) The dW pass: dW [Vp][D] = round(dz)^T x, a product over rows in
+// row splits (csrc/row_product.cuh), as the fused-FFN backward's dW1.
+// (d) The sum kernel adds the dx and dW partials in split order and the
 // db partials in tile order, and rounds dx and dW.
-// Vp is V rounded up to the dW pass's 128-row tiles; the dx pass walks
-// every chunk of it, so the dz columns >= V are written as zeros.
+// The splits S of (a) and (b) are picked so that the (tile, split) blocks
+// fill the card with the fewest chunk steps (ops/_plan.py).  The forward
+// walks ceil(V / 64) chunks, the dx pass Vp / 64: Vp is V rounded up to
+// the dW pass's 128-row tiles, so the dz columns >= V are written as
+// zeros.  W rows >= V stage as zeros and their bias as 0.
 constexpr int kXentThreads = 256;
 constexpr int kXentChunk = 64;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kXentStages = 2;
+
+// The chunk loop's shared memory: x [R][D] as D / 64 swizzled panels,
+// the ring's W parts, each [64][D / KS] of a chunk (KS parts a chunk,
+// D / 64 / KS panels each), then a ring of two bias chunks [64] float32.
+template <int D, int R, int KS = 1>
+struct XentStage {
+  static constexpr int kPart = D / KS;  // W columns (k) a ring stage
+  static constexpr int kXBytes = R * D * 2;
+  static constexpr int kXPanel = R * 128;
+  static constexpr int kWBytes = kXentChunk * kPart * 2;
+  static constexpr int kWPanel = kXentChunk * 128;
+  static constexpr int kBiasOff = kXBytes + kXentStages * kWBytes;
+  static constexpr int kBytes = kBiasOff + 2 * kXentChunk * 4;
+  static constexpr int kMt1 = R / 4 / 16;  // m tiles a warp, P1
+  // the W part of ring step s (part s % KS of chunk s / KS)
+  __device__ static uint32_t w_tile(uint32_t base, int s) {
+    return base + kXBytes + (s % kXentStages) * kWBytes;
+  }
+  // the bias of chunk j
+  __device__ static int bias_off(int j) {
+    return kBiasOff + (j % 2) * kXentChunk * 4;
+  }
+};
+
+// The chunk loop of one (row tile, vocabulary split) block: chunks
+// [c0, c0 + n_chunks) of W and bias against rows [r0, r0 + R) of x, both
+// staged from `base` as XentStage lays them out (x rows >= `rows` and W
+// rows >= `vocab` as zeros, their bias as 0).  A chunk's W comes through
+// the ring in KS parts of D / KS columns (k), so a tile of more rows fits
+// beside a ring of two parts.  After each chunk's P1 it calls
+// body(acc1, j): acc1[mi][nt][2 hh + e] is x W^T (no bias) of row
+// 16 (kMt1 wm + mi) + g + 8 hh of the tile and column 32 wn + 8 nt +
+// 2 t + e of the chunk (warp = wm + 4 wn, lane = 4 g + t).  With KS = 1
+// the ring stage of chunk j (Stage::w_tile(base, j)) holds all of W_c
+// while body runs.
+template <int D, int R, int KS, typename Body>
+__device__ __forceinline__ void xent_chunks(
+    uint32_t base, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+    int r0, int rows, int vocab, int c0, int n_chunks, Body&& body) {
+  using S = XentStage<D, R, KS>;
+  constexpr int kMt1 = S::kMt1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int steps = n_chunks * KS;
+  auto load_step = [&](int st) {  // addresses recomputed each step
+    const int ot = opaque(tid);
+    const int j = st / KS, p = st % KS;
+    const int v0 = (c0 + j) * kXentChunk;
+    load_panels_async<kXentThreads, kXentChunk, S::kPart>(
+        S::w_tile(base, st), w, D, v0, p * S::kPart, vocab, ot);
+    if (p == 0 && ot < kXentChunk) {
+      const bool in = v0 + ot < vocab;
+      cp_async4(base + S::bias_off(j) + 4 * ot, in ? bias + v0 + ot : bias,
+                in);
+    }
+  };
+  load_panels_async<kXentThreads, R, D>(base, x, D, r0, 0, rows, tid);
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  float acc1[kMt1][4][4];
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<0>();  // step st (and x) landed
+    __syncthreads();     // ... for every thread; step st - 1 is consumed
+    if (st + 1 < steps) load_step(st + 1);
+    cp_async_commit();
+    const uint32_t wc = S::w_tile(base, st);
+    const uint32_t xp = base + (st % KS) * (S::kPart / 64) * S::kXPanel;
+
+    // P1: z [R r][64 v] = x W_c^T.  Its k loop is unrolled by 8:
+    // unrolled whole, its fragment prefetch beside the dx pass's dz step
+    // spilled 20-68 bytes at D 256.
+    if (st % KS == 0) {
+#pragma unroll
+      for (int mi = 0; mi < kMt1; ++mi) zero(acc1[mi]);
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < S::kPart / 16; ++kk) {
+      uint32_t a[kMt1][4];
+#pragma unroll
+      for (int mi = 0; mi < kMt1; ++mi)
+        ldsm_a(a[mi], xp + (kk >> 2) * S::kXPanel, 16 * (kMt1 * wm + mi),
+               2 * (kk & 3), lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_b(b, wc + (kk >> 2) * S::kWPanel, 32 * wn + 16 * np,
+               2 * (kk & 3), lane);
+#pragma unroll
+        for (int mi = 0; mi < kMt1; ++mi) {
+          mma_bf16(acc1[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc1[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (st % KS == KS - 1) body(acc1, st / KS);
+  }
+  cp_async_wait<0>();
+}
+
+// ---- (a) forward
+
+// The bf16 forward's row tile: 128 rows, with W through the ring in two
+// parts a chunk at D 512, where x [128][512] and two whole chunks would
+// take 256 KB of shared memory (ops/fused_ce.py: _FWD_ROWS mirrors it)
+constexpr int kFwdRows = 128;
+template <int D>
+constexpr int fwd_parts() {
+  return D == 512 ? 2 : 1;
+}
+
+// A row's softmax statistics over some of its columns, as a float4:
+// (m, l, z_label, sum z) with m = max z log2 e and l = sum 2^(z log2 e -
+// m) over the columns < V, (-1e30, 0, 0, 0) over none.  a merged with b,
+// in that order.
+__device__ __forceinline__ float4 merge_stats(float4 a, float4 b) {
+  const float m = fmaxf(a.x, b.x);
+  return make_float4(
+      m, fmaf(a.y, fast_exp2(a.x - m), b.y * fast_exp2(b.x - m)), a.z + b.z,
+      a.w + b.w);
+}
+
+// lse = m ln 2 + log(max(l, 1e-37)) and xent from a row's statistics
+__device__ __forceinline__ void finish_row(float4 s, int vocab, Smoothing sm,
+                                           float* xent, float* lse) {
+  const float row_lse = fmaf(s.x, kLn2, logf(fmaxf(s.y, 1e-37f)));
+  *lse = row_lse;
+  *xent = -(sm.confidence - sm.low) * (s.z - row_lse) -
+          sm.low * (s.w - vocab * row_lse);
+}
+
+template <int D, int R, int KS>
+__global__ void __launch_bounds__(kXentThreads, 1)
+linear_xent_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ w,
+                            const float* __restrict__ bias,
+                            const int* __restrict__ labels,
+                            float* __restrict__ xent,
+                            float* __restrict__ lse,
+                            float4* __restrict__ part, int rows, int vocab,
+                            Smoothing sm) {
+  using S = XentStage<D, R, KS>;
+  constexpr int kMt1 = S::kMt1, kN = 2 * kMt1;  // rows a thread holds
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t base = smem_addr(smem_tc);
+  float4* red = reinterpret_cast<float4*>(smem_tc + S::kBytes);  // [2][R]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int r0 = blockIdx.x * R;
+  const int chunks = (vocab + kXentChunk - 1) / kXentChunk;
+  const int per_split = (chunks + gridDim.y - 1) / gridDim.y;
+  const int c0 = blockIdx.y * per_split;
+  const int n_chunks = max(0, min(chunks, c0 + per_split) - c0);
+
+  // this thread's row i = 2 mi + hh is 16 (kMt1 wm + mi) + g + 8 hh
+  int label[kN];
+  float m[kN], l[kN], zy[kN], sz[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int r = r0 + 16 * (kMt1 * wm + i / 2) + g + 8 * (i % 2);
+    label[i] = r < rows ? labels[r] : -1;
+    m[i] = kNegInf;
+    l[i] = zy[i] = sz[i] = 0.f;
+  }
+
+  xent_chunks<D, R, KS>(
+      base, x, w, bias, r0, rows, vocab, c0, n_chunks,
+      [&](float (&acc1)[kMt1][4][4], int j) {
+        const float* bias_c =
+            reinterpret_cast<const float*>(smem_tc + S::bias_off(j));
+        // column k = 8 nt + e of this thread is col0 + k of the vocabulary
+        const int col0 = (c0 + j) * kXentChunk + 32 * wn + 2 * t;
+        float b[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            b[nt][e] = bias_c[32 * wn + 8 * nt + 2 * t + e];
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          float z2[8];  // z log2 e, -1e30 on columns >= V
+          float zmax = m[i];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = 8 * nt + e;
+              // columns >= V: zero W rows and bias, so z = 0 in sum z
+              const float z = acc1[i / 2][nt][2 * (i % 2) + e] + b[nt][e];
+              sz[i] += z;
+              zy[i] += col0 + k == label[i] ? z : 0.f;
+              z2[2 * nt + e] = col0 + k < vocab ? z * kLog2e : kNegInf;
+              zmax = fmaxf(zmax, z2[2 * nt + e]);
+            }
+          float s = 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) s += fast_exp2(z2[k] - zmax);
+          // no column < V yet: (m, l) stay (-1e30, 0)
+          l[i] = zmax == kNegInf ? 0.f : fmaf(l[i], fast_exp2(m[i] - zmax), s);
+          m[i] = zmax;
+        }
+      });
+
+  // merge over the quad's lanes (the same rows, other columns), then the
+  // two column warps, in that order
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    float4 s = make_float4(m[i], l[i], zy[i], sz[i]);
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+      s = merge_stats(s, make_float4(__shfl_xor_sync(0xFFFFFFFFu, s.x, o),
+                                     __shfl_xor_sync(0xFFFFFFFFu, s.y, o),
+                                     __shfl_xor_sync(0xFFFFFFFFu, s.z, o),
+                                     __shfl_xor_sync(0xFFFFFFFFu, s.w, o)));
+    if (t == 0) red[wn * R + 16 * (kMt1 * wm + i / 2) + g + 8 * (i % 2)] = s;
+  }
+  __syncthreads();
+  const int r = r0 + tid;
+  if (tid < R && r < rows) {
+    const float4 s = merge_stats(red[tid], red[R + tid]);
+    if (gridDim.y == 1)
+      finish_row(s, vocab, sm, xent + r, lse + r);
+    else
+      part[static_cast<long long>(blockIdx.y) * rows + r] = s;
+  }
+}
+
+// xent and lse of each row from the forward's partials [S][R], merged in
+// split order
+__global__ void __launch_bounds__(kThreads)
+linear_xent_combine_kernel(const float4* __restrict__ part,
+                           float* __restrict__ xent, float* __restrict__ lse,
+                           int rows, int vocab, int splits, Smoothing sm) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  float4 s = part[r];
+  for (int sp = 1; sp < splits; ++sp)
+    s = merge_stats(s, part[static_cast<long long>(sp) * rows + r]);
+  finish_row(s, vocab, sm, xent + r, lse + r);
+}
+
+// ---- (b) backward: the dx pass
 
 template <int D>
 struct XentTile {
   static constexpr int kRows = D == 512 ? 64 : 128;
-  static constexpr int kXBytes = kRows * D * 2;            // D / 64 panels
-  static constexpr int kXPanel = kRows * 128;
-  static constexpr int kWBytes = kXentChunk * D * 2;       // D / 64 panels
-  static constexpr int kWPanel = kXentChunk * 128;
+  using Stage = XentStage<D, kRows>;
   static constexpr int kDzBytes = kRows * kXentChunk * 2;  // 1 panel
-  static constexpr int kMt1 = kRows / 4 / 16;  // m tiles, P1
   static constexpr int kMt2 = kRows / 2 / 16;  // m tiles, P2
   static constexpr int kNt2 = D / 4 / 8;       // n tiles, P2
-  static constexpr int kDzOff = kXBytes + kXentStages * kWBytes;
+  static constexpr int kDzOff = Stage::kBytes;
   // each row's (lse log2 e, g), then its label, then the db sums of the
   // 4 row warps
   static constexpr int kRowOff = kDzOff + kDzBytes;
@@ -471,12 +731,12 @@ linear_xent_dx_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                            float* __restrict__ dxp, float* __restrict__ dbp,
                            int rows, int vocab, int vpad, DzTerms terms) {
   using Tile = XentTile<D>;
-  constexpr int kR = Tile::kRows, kMt1 = Tile::kMt1, kMt2 = Tile::kMt2,
+  using Stage = typename Tile::Stage;
+  constexpr int kR = Tile::kRows, kMt1 = Stage::kMt1, kMt2 = Tile::kMt2,
                 kNt2 = Tile::kNt2;
   // (the FMA kernels declare their dynamic shared memory as float)
   extern __shared__ __align__(128) unsigned char smem_tc[];
   const uint32_t base = smem_addr(smem_tc);
-  const uint32_t x_s = base;
   const uint32_t dzs = base + Tile::kDzOff;
   float2* row_terms = reinterpret_cast<float2*>(smem_tc + Tile::kRowOff);
   int* row_label = reinterpret_cast<int*>(smem_tc + Tile::kLabelOff);
@@ -494,16 +754,6 @@ linear_xent_dx_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const int c0 = blockIdx.y * per_split;
   const int n_chunks = max(0, min(chunks, c0 + per_split) - c0);
 
-  auto load_chunk = [&](int j) {  // addresses recomputed each chunk
-    const int ot = opaque(tid);
-    const uint32_t st =
-        base + Tile::kXBytes + (j % kXentStages) * Tile::kWBytes;
-    load_panels_async<kXentThreads, kXentChunk, D>(
-        st, w, D, (c0 + j) * kXentChunk, 0, vocab, ot);
-  };
-  load_panels_async<kXentThreads, kR, D>(x_s, x, D, r0, 0, rows, tid);
-  if (n_chunks > 0) load_chunk(0);
-  cp_async_commit();
   if (tid < kR) {  // read after the loop's first barrier
     const int r = r0 + tid;
     const bool in = r < rows;
@@ -516,127 +766,102 @@ linear_xent_dx_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int mi = 0; mi < kMt2; ++mi) zero(acc2[mi]);
 
-  for (int j = 0; j < n_chunks; ++j) {
-    cp_async_wait<0>();  // chunk j (and x) landed
-    __syncthreads();     // ... for every thread; chunk j - 1 is consumed
-    if (j + 1 < n_chunks) load_chunk(j + 1);
-    cp_async_commit();
-    const uint32_t wc =
-        base + Tile::kXBytes + (j % kXentStages) * Tile::kWBytes;
-    const int v0 = (c0 + j) * kXentChunk;
+  xent_chunks<D, kR, 1>(
+      base, x, w, bias, r0, rows, vocab, c0, n_chunks,
+      [&](float (&acc1)[kMt1][4][4], int j) {
+        const uint32_t wc = Stage::w_tile(base, j);
+        const float* bias_c =
+            reinterpret_cast<const float*>(smem_tc + Stage::bias_off(j));
+        const int v0 = (c0 + j) * kXentChunk;
 
-    // P1: z [kR r][64 v] = x W_c^T.  Its k loop is unrolled by 8:
-    // unrolled whole, its fragment prefetch beside the dz step spilled
-    // 20-68 bytes at D 256.
-    float acc1[kMt1][4][4];
+        // dz into the chunk's tile, rounded; db from the unrounded, each
+        // column pair's sums reduced over the warp's rows before the
+        // next pair (fewer live registers than reducing all four pairs
+        // at once)
 #pragma unroll
-    for (int mi = 0; mi < kMt1; ++mi) zero(acc1[mi]);
-#pragma unroll 8
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[kMt1][4];
-#pragma unroll
-      for (int mi = 0; mi < kMt1; ++mi)
-        ldsm_a(a[mi], x_s + (kk >> 2) * Tile::kXPanel,
-               16 * (kMt1 * wm + mi), 2 * (kk & 3), lane);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        ldsm_b(b, wc + (kk >> 2) * Tile::kWPanel, 32 * wn + 16 * np,
-               2 * (kk & 3), lane);
-#pragma unroll
-        for (int mi = 0; mi < kMt1; ++mi) {
-          mma_bf16(acc1[mi][2 * np], a[mi], b[0], b[1]);
-          mma_bf16(acc1[mi][2 * np + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-
-    // dz into the chunk's tile, rounded; db from the unrounded, each
-    // column pair's sums reduced over the warp's rows before the next
-    // pair (fewer live registers than reducing all four pairs at once)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int f = 32 * wn + 8 * nt + 2 * t;  // f, f + 1: one word
-      bool col_ok[2];
-      float b[2], cs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        col_ok[e] = v0 + f + e < vocab;
-        b[e] = col_ok[e] ? bias[v0 + f + e] : 0.f;
-      }
-#pragma unroll
-      for (int mi = 0; mi < kMt1; ++mi)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = 16 * (kMt1 * wm + mi) + g + 8 * hh;
-          const bool row_ok = r0 + r < rows;
-          const float2 row = row_terms[r];  // (lse log2 e, g)
-          const int label = row_label[r];
-          float d[2];
+        for (int nt = 0; nt < 4; ++nt) {
+          const int f = 32 * wn + 8 * nt + 2 * t;  // f, f + 1: one word
+          bool col_ok[2];
+          float b[2], cs[2] = {0.f, 0.f};
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float z = acc1[mi][nt][2 * hh + e] + b[e];
-            const float p = fast_exp2(fmaf(z, kLog2e, -row.x));
-            d[e] = row_ok && col_ok[e]
-                       ? row.y * (fmaf(terms.a, p, -terms.low) -
-                                  (v0 + f + e == label ? terms.label : 0.f))
-                       : 0.f;
-            cs[e] += d[e];
+            col_ok[e] = v0 + f + e < vocab;
+            b[e] = bias_c[f + e];
           }
-          *reinterpret_cast<uint32_t*>(smem_tc + Tile::kDzOff +
-                                       swz(r, f >> 3) + (f & 7) * 2) =
-              pack_bf16(d[0], d[1]);
+#pragma unroll
+          for (int mi = 0; mi < kMt1; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = 16 * (kMt1 * wm + mi) + g + 8 * hh;
+              const bool row_ok = r0 + r < rows;
+              const float2 row = row_terms[r];  // (lse log2 e, g)
+              const int label = row_label[r];
+              float d[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float z = acc1[mi][nt][2 * hh + e] + b[e];
+                const float p = fast_exp2(fmaf(z, kLog2e, -row.x));
+                d[e] = row_ok && col_ok[e]
+                           ? row.y * (fmaf(terms.a, p, -terms.low) -
+                                      (v0 + f + e == label ? terms.label
+                                                           : 0.f))
+                           : 0.f;
+                cs[e] += d[e];
+              }
+              *reinterpret_cast<uint32_t*>(smem_tc + Tile::kDzOff +
+                                           swz(r, f >> 3) + (f & 7) * 2) =
+                  pack_bf16(d[0], d[1]);
+            }
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              cs[e] += __shfl_xor_sync(0xFFFFFFFFu, cs[e], o);
+          if (g == 0)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) red[wm * kXentChunk + f + e] = cs[e];
+        }
+        __syncthreads();  // round(dz) and the db sums are in place
+
+        if (tid < kXentChunk) {
+          float s = 0.f;
+#pragma unroll
+          for (int w4 = 0; w4 < 4; ++w4) s += red[w4 * kXentChunk + tid];
+          dbp[static_cast<long long>(tile) * vpad + v0 + tid] = s;
         }
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          cs[e] += __shfl_xor_sync(0xFFFFFFFFu, cs[e], o);
-      if (g == 0)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) red[wm * kXentChunk + f + e] = cs[e];
-    }
-    __syncthreads();  // round(dz) and the db sums are in place
-
-    if (tid < kXentChunk) {
-      float s = 0.f;
-#pragma unroll
-      for (int w4 = 0; w4 < 4; ++w4) s += red[w4 * kXentChunk + tid];
-      dbp[static_cast<long long>(tile) * vpad + v0 + tid] = s;
-    }
-#pragma unroll
-    for (int q = 0; q < kR * 8 / kXentThreads; ++q) {
-      const int i = tid + q * kXentThreads;
-      const int r = i >> 3, c = i & 7;
-      if (r0 + r < rows)
-        *reinterpret_cast<uint4*>(dz + static_cast<long long>(r0 + r) * vpad +
-                                  v0 + 8 * c) =
-            *reinterpret_cast<const uint4*>(smem_tc + Tile::kDzOff +
-                                            swz(r, c));
-    }
-
-    // P2: dx [kR r][D d] += round(dz) W_c
-#pragma unroll
-    for (int kk = 0; kk < kXentChunk / 16; ++kk) {
-      uint32_t a[kMt2][4];
-#pragma unroll
-      for (int mi = 0; mi < kMt2; ++mi)
-        ldsm_a(a[mi], dzs, 16 * (kMt2 * wm2 + mi), 2 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < kNt2 / 2; ++np) {
-        const int d0 = (D / 4) * wn2 + 16 * np;
-        uint32_t b[4];
-        ldsm_trans(b, wc + (d0 >> 6) * Tile::kWPanel, 16 * kk,
-                   (d0 & 63) >> 3, lane);
-#pragma unroll
-        for (int mi = 0; mi < kMt2; ++mi) {
-          mma_bf16(acc2[mi][2 * np], a[mi], b[0], b[1]);
-          mma_bf16(acc2[mi][2 * np + 1], a[mi], b[2], b[3]);
+        for (int q = 0; q < kR * 8 / kXentThreads; ++q) {
+          const int i = tid + q * kXentThreads;
+          const int r = i >> 3, c = i & 7;
+          if (r0 + r < rows)
+            *reinterpret_cast<uint4*>(dz +
+                                      static_cast<long long>(r0 + r) * vpad +
+                                      v0 + 8 * c) =
+                *reinterpret_cast<const uint4*>(smem_tc + Tile::kDzOff +
+                                                swz(r, c));
         }
-      }
-    }
-  }
-  cp_async_wait<0>();
+
+        // P2: dx [kR r][D d] += round(dz) W_c
+#pragma unroll
+        for (int kk = 0; kk < kXentChunk / 16; ++kk) {
+          uint32_t a[kMt2][4];
+#pragma unroll
+          for (int mi = 0; mi < kMt2; ++mi)
+            ldsm_a(a[mi], dzs, 16 * (kMt2 * wm2 + mi), 2 * kk, lane);
+#pragma unroll
+          for (int np = 0; np < kNt2 / 2; ++np) {
+            const int d0 = (D / 4) * wn2 + 16 * np;
+            uint32_t b[4];
+            ldsm_trans(b, wc + (d0 >> 6) * Stage::kWPanel, 16 * kk,
+                       (d0 & 63) >> 3, lane);
+#pragma unroll
+            for (int mi = 0; mi < kMt2; ++mi) {
+              mma_bf16(acc2[mi][2 * np], a[mi], b[0], b[1]);
+              mma_bf16(acc2[mi][2 * np + 1], a[mi], b[2], b[3]);
+            }
+          }
+        }
+      });
 
   float* part = dxp + static_cast<long long>(blockIdx.y) * rows * D;
 #pragma unroll
@@ -653,6 +878,8 @@ linear_xent_dx_bf16_kernel(const __nv_bfloat16* __restrict__ x,
               make_float2(acc2[mi][nt][2 * hh], acc2[mi][nt][2 * hh + 1]);
       }
 }
+
+// ---- (d) the backward's sum
 
 // dx [R][D] and dW [V][D] (bf16), db [V] (float32): the sums of the dx
 // partials [Sx][R][D] and dW partials [Sw][Vp][D] in split order, four
@@ -779,18 +1006,12 @@ bool bad_args(int rows, int vocab, int dim, int dtype) {
          (dtype != 0 && dtype != 1);
 }
 
-// Calls F<T, kDim>::run for the runtime dim, or dtype and dim.
+// Calls F<T, kDim>::run for the runtime dim.
 template <template <typename, int> class F, typename T, typename... A>
 cudaError_t dispatch_dim(int dim, A... args) {
   if (dim == 128) return F<T, 128>::run(args...);
   if (dim == 256) return F<T, 256>::run(args...);
   return F<T, 512>::run(args...);
-}
-
-template <template <typename, int> class F, typename... A>
-cudaError_t dispatch(int dtype, int dim, A... args) {
-  return dtype == 0 ? dispatch_dim<F, float>(dim, args...)
-                    : dispatch_dim<F, __nv_bfloat16>(dim, args...);
 }
 
 template <typename T, int kDim>
@@ -850,6 +1071,23 @@ XentPartials xent_partials(const void* partials, int rows, int vocab,
 }
 
 template <int D>
+cudaError_t launch_fwd_bf16(const Args& a, float* xent, float* lse,
+                            float4* part, int splits) {
+  constexpr int R = kFwdRows, KS = fwd_parts<D>();
+  constexpr size_t smem =
+      XentStage<D, R, KS>::kBytes + 2 * R * sizeof(float4);
+  auto kernel = linear_xent_fwd_bf16_kernel<D, R, KS>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  kernel<<<dim3((a.rows + R - 1) / R, splits), kXentThreads, smem,
+           a.stream>>>(static_cast<const bf16*>(a.x),
+                       static_cast<const bf16*>(a.w), a.bias, a.labels, xent,
+                       lse, part, a.rows, a.vocab, a.sm);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dx_bf16(const Args& a, const float* lse, const float* g,
                            void* dz, const XentPartials& p, int splits) {
   auto kernel = linear_xent_dx_bf16_kernel<D>;
@@ -902,20 +1140,60 @@ bool bad_bf16_args(int rows, int vocab, int dim, int dx_splits,
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
-// dtype: 0 = float32, 1 = bfloat16 (x, W, dx and dW share it).
+// The float32 forward, one launch (dtype 0 only; bf16 takes
+// neurst_linear_xent_fwd_bf16).
 extern "C" int neurst_linear_xent_fwd(const void* x, const void* w,
                                       const void* bias, const void* labels,
                                       void* xent, void* lse, int rows,
                                       int vocab, int dim, float confidence,
                                       float low_confidence, int dtype,
                                       void* stream) {
-  if (bad_args(rows, vocab, dim, dtype))
+  if (bad_args(rows, vocab, dim, dtype) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(x, w, bias, labels, rows, vocab, confidence,
                            low_confidence, stream);
-  return static_cast<int>(dispatch<Fwd>(dtype, dim, a,
-                                        static_cast<float*>(xent),
-                                        static_cast<float*>(lse)));
+  return static_cast<int>(dispatch_dim<Fwd, float>(
+      dim, a, static_cast<float*>(xent), static_cast<float*>(lse)));
+}
+
+// The bf16 forward, one launch, or two where the vocabulary splits: with
+// S = 1 the pass writes xent and lse itself; with S > 1 it writes the
+// float32 partials [S][R][4] to `partials` (ops/fused_ce.py: fwd_plan
+// sizes them) and neurst_linear_xent_combine_bf16 merges them.
+extern "C" int neurst_linear_xent_fwd_bf16(
+    const void* x, const void* w, const void* bias, const void* labels,
+    void* xent, void* lse, void* partials, int rows, int vocab, int dim,
+    int splits, float confidence, float low_confidence, void* stream) {
+  if (bad_args(rows, vocab, dim, 1) || splits <= 0 ||
+      splits > (vocab + kXentChunk - 1) / kXentChunk ||
+      (splits > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(x, w, bias, labels, rows, vocab, confidence,
+                           low_confidence, stream);
+  float* xentf = static_cast<float*>(xent);
+  float* lsef = static_cast<float*>(lse);
+  float4* part = static_cast<float4*>(partials);
+  cudaError_t err =
+      dim == 128   ? launch_fwd_bf16<128>(a, xentf, lsef, part, splits)
+      : dim == 256 ? launch_fwd_bf16<256>(a, xentf, lsef, part, splits)
+                   : launch_fwd_bf16<512>(a, xentf, lsef, part, splits);
+  return static_cast<int>(err);
+}
+
+extern "C" int neurst_linear_xent_combine_bf16(const void* partials,
+                                               void* xent, void* lse,
+                                               int rows, int vocab,
+                                               int splits, float confidence,
+                                               float low_confidence,
+                                               void* stream) {
+  if (rows <= 0 || vocab <= 0 || splits <= 1 || partials == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  linear_xent_combine_kernel<<<(rows + kThreads - 1) / kThreads, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(partials), static_cast<float*>(xent),
+      static_cast<float*>(lse), rows, vocab, splits,
+      Smoothing{confidence, low_confidence});
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The float32 backward, two launches: dx, then dW and db (dtype 0 only).

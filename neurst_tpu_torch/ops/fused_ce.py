@@ -14,13 +14,17 @@ train step takes the projection-fused kernels below.
 ``fused_linear_xent`` (the projection fused in): the TPU kernels
 ``_linear_fwd_kernel`` and ``_linear_bwd_kernel`` become
 ``csrc/fused_linear_xent.cu``, built for sm_90a and called through
-ctypes (see ``ops/_build.py``): a forward kernel and a backward in three
-launches for bf16, on the tensor cores (a dx pass over (row tile,
-vocabulary split) blocks that also writes round(dz) [R, Vp] and the db
-partials, a dW pass over row splits, a sum of the float32 partials in a
-fixed order; ``bwd_scratch`` sizes the buffers) or two for float32 (a
-dx pass over row tiles, a dW/db pass over vocabulary tiles).  The
-[R, V] logits never reach device memory.
+ctypes (see ``ops/_build.py``).  bf16 runs on the tensor cores, over
+(row tile, vocabulary split) blocks: the forward in one launch, or two
+where the vocabulary splits (a pass that folds z into each row's
+running max, sum-exp, label logit and sum, then a combine of the
+splits' float32 partials in split order; ``fwd_plan`` plans it), the
+backward in three (a dx pass that also writes round(dz) [R, Vp] and the
+db partials, a dW pass over row splits, a sum of the float32 partials
+in a fixed order; ``bwd_scratch`` sizes the buffers).  float32 runs FMA
+loops: a forward over row tiles, then a dx pass over row tiles and a
+dW/db pass over vocabulary tiles.  The [R, V] logits never reach device
+memory.
 
 Both are differentiable (a ``torch.autograd.Function`` that keeps the
 inputs and the row log-sum-exp; ``fused_linear_xent`` recomputes the
@@ -38,7 +42,8 @@ import torch
 from neurst_tpu_torch.ops._plan import aligned16, chunk_splits, row_splits
 
 __all__ = ["fused_linear_xent", "fused_linear_xent_fwd",
-           "fused_linear_xent_bwd", "linear_xent_reference",
+           "fused_linear_xent_bwd", "fwd_plan", "fwd_launches",
+           "linear_xent_reference",
            "fused_linear_ce_available", "DIMS", "fused_softmax_xent",
            "fused_softmax_xent_fwd", "fused_softmax_xent_bwd",
            "fused_ce_available"]
@@ -47,11 +52,12 @@ __all__ = ["fused_linear_xent", "fused_linear_xent_fwd",
 DIMS = (128, 256, 512)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# bf16 backward (csrc/fused_linear_xent.cu): the vocabulary chunk of the
-# dx pass (kXentChunk) and the dW pass's vocabulary tile (kRpTileM), to
-# which the dz buffer's columns Vp round up
+# bf16 (csrc/fused_linear_xent.cu): the vocabulary chunk of the forward
+# and the dx pass (kXentChunk), and the dW pass's vocabulary tile
+# (kRpTileM), to which the dz buffer's columns Vp round up
 _CHUNK = 64
 _VOCAB_TILE = 128
+_FWD_ROWS = 128  # rows of a bf16 forward tile (kFwdRows)
 
 
 def linear_xent_reference(x, w, labels, confidence: float,
@@ -136,8 +142,8 @@ def _check_cuda_inputs(x2, w, bias, labels, *row_stats):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name):
-    """The C entry point ``neurst_linear_xent_<name>`` (fwd, dx or dw),
-    built and typed once."""
+    """The float32 C entry point ``neurst_linear_xent_<name>`` (fwd, dx
+    or dw), built and typed once."""
     from neurst_tpu_torch.ops._build import load
     fn = getattr(load("fused_linear_xent"), f"neurst_linear_xent_{name}")
     n_ptrs = {"fwd": 6, "dx": 7, "dw": 8}[name]
@@ -158,18 +164,69 @@ def _launch(name, tensors, x2, w, confidence, low_confidence):
                            f"error {err}")
 
 
+def fwd_plan(rows: int, vocab: int, dim: int):
+    """The bf16 forward's plan, as the CUDA side takes it: (vocabulary
+    splits S of each row tile's ceil(V / 64) chunks, row tiles T, tile
+    rows, float32 partial elements: (m, l, z_label, sum z) [S, R] where
+    S > 1, else none).  Tiles are 128 rows at every D (kFwdRows; at D 512
+    each W chunk comes through the ring in two halves, so that x
+    [128, 512] and the ring fit an SM's shared memory)."""
+    tiles = -(-rows // _FWD_ROWS)
+    splits = chunk_splits(tiles, -(-vocab // _CHUNK))
+    return splits, tiles, _FWD_ROWS, 4 * splits * rows if splits > 1 else 0
+
+
+def fwd_launches(rows: int, vocab: int, dim: int, dtype) -> int:
+    """Kernel launches of one forward call: bf16 the split pass, and the
+    combine where the vocabulary splits; float32 one."""
+    if dtype != torch.bfloat16:
+        return 1
+    return 1 + (fwd_plan(rows, vocab, dim)[0] > 1)
+
+
+def _check_aligned16(x2, w):
+    for name, t in (("x", x2), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_linear_xent: bf16 {name} must be "
+                             f"16-byte aligned")
+
+
+def _fwd_bf16(x2, w, bias, labels, xent, lse, confidence, low_confidence):
+    """The bf16 forward's one or two launches."""
+    _check_aligned16(x2, w)
+    rows, dim = x2.shape
+    vocab = w.shape[0]
+    splits, _, _, partial_size = fwd_plan(rows, vocab, dim)
+    partials = (torch.empty(partial_size, dtype=torch.float32,
+                            device=x2.device) if splits > 1 else None)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    smoothing = (confidence, low_confidence)
+    launches = [("fwd", (x2, w, bias, labels, xent, lse, partials, rows,
+                         vocab, dim, splits) + smoothing)]
+    if splits > 1:
+        launches.append(("combine", (partials, xent, lse, rows, vocab,
+                                     splits) + smoothing))
+    for name, args in launches:
+        _launch_bf16(name, args, stream)
+        fused_linear_xent_fwd.launches += 1
+
+
 def fused_linear_xent_fwd(x2, w, bias, labels, confidence: float,
                           low_confidence: float):
     """(xent [R], lse [R]), both float32, of z = x2 W^T + bias.
 
     x2 [R, D] and w [V, D] of one dtype, bias float32 [V], labels int32
-    [R].  CUDA tensors run the forward kernel (or raise); CPU tensors run
-    the plain version."""
+    [R].  CUDA tensors run the forward kernel (bf16: the split pass, and
+    the combine of its partials where ``fwd_plan`` splits the
+    vocabulary) or raise; CPU tensors run the plain version."""
     if x2.device.type == "cpu":
         return _fwd_plain(x2, w, bias, labels, confidence, low_confidence)
     _check_cuda_inputs(x2, w, bias, labels)
     xent = torch.empty(x2.shape[0], dtype=torch.float32, device=x2.device)
     lse = torch.empty_like(xent)
+    if x2.dtype == torch.bfloat16:
+        _fwd_bf16(x2, w, bias, labels, xent, lse, confidence, low_confidence)
+        return xent, lse
     _launch("fwd", (x2, w, bias, labels, xent, lse), x2, w, confidence,
             low_confidence)
     fused_linear_xent_fwd.launches += 1
@@ -210,13 +267,16 @@ def bwd_launches(dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _bf16_kernel(name):
-    """The bf16 backward's C entry point ``neurst_linear_xent_<name>_bf16``
-    (dx, dw or sum), built and typed once."""
+    """The bf16 C entry point ``neurst_linear_xent_<name>_bf16``: the
+    forward's fwd and combine, the backward's dx, dw and sum; built and
+    typed once."""
     from neurst_tpu_torch.ops._build import load
     fn = getattr(load("fused_linear_xent"), f"neurst_linear_xent_{name}_bf16")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
-        "dx": [ptr] * 8 + [i32] * 5 + [ctypes.c_float] * 2 + [ptr],
+        "fwd": [ptr] * 7 + [i32] * 4 + [f32] * 2 + [ptr],
+        "combine": [ptr] * 3 + [i32] * 3 + [f32] * 2 + [ptr],
+        "dx": [ptr] * 8 + [i32] * 5 + [f32] * 2 + [ptr],
         "dw": [ptr] * 3 + [i32] * 5 + [ptr],
         "sum": [ptr] * 4 + [i32] * 5 + [ptr],
     }[name]
@@ -224,12 +284,21 @@ def _bf16_kernel(name):
     return fn
 
 
+def _launch_bf16(name, args, stream):
+    """One launch of a bf16 entry point: tensors pass their pointers,
+    other arguments (ints, floats, None for NULL) as they are; a launch
+    that fails raises."""
+    err = _bf16_kernel(name)(
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"fused_linear_xent bf16 {name} launch failed: "
+                           f"CUDA error {err}")
+
+
 def _bwd_bf16(x2, w, bias, labels, lse, g, confidence, low_confidence):
     """The bf16 backward's three launches."""
-    for name, t in (("x", x2), ("w", w)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"fused_linear_xent: bf16 {name} must be "
-                             f"16-byte aligned")
+    _check_aligned16(x2, w)
     rows, dim = x2.shape
     vocab = w.shape[0]
     dx_splits, dw_splits, _, _, dz_size, partial_size = bwd_scratch(
@@ -247,12 +316,7 @@ def _bwd_bf16(x2, w, bias, labels, lse, g, confidence, low_confidence):
              + (confidence, low_confidence)),
             ("dw", (x2, dz, partials) + plan),
             ("sum", (partials, dx, dw, db) + plan)):
-        err = _bf16_kernel(name)(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args), stream)
-        if err != 0:
-            raise RuntimeError(f"fused_linear_xent bf16 {name} launch "
-                               f"failed: CUDA error {err}")
+        _launch_bf16(name, args, stream)
         fused_linear_xent_bwd.launches += 1
     return dx, dw, db
 

@@ -325,3 +325,122 @@ def test_bwd_scratch_sizes(rows, vocab, dim, want):
         dx_splits * rows * dim + dw_splits * vpad * dim + tiles * vpad)
     assert port.bwd_launches(torch.bfloat16) == 3
     assert port.bwd_launches(torch.float32) == 2
+
+
+@pytest.mark.parametrize("rows, vocab, dim", PLAN_CASES)
+def test_fwd_plan_fills_the_card(rows, vocab, dim):
+    """The bf16 forward takes 128-row tiles at every D (at D 512 its W
+    chunks come through the ring in halves, so that x and the ring fit an
+    SM's shared memory) and splits each tile's ceil(V / 64) chunks by the
+    backward's rule: the
+    fewest splits whose waves x chunks path is within 1/8 of the
+    shortest, each of at least 8 chunks.  Where it splits, it writes
+    float32 (m, l, z_label, sum z) partials [S, R] and launches the
+    combine after the split pass."""
+    splits, tiles, tile_rows, partial_size = port.fwd_plan(rows, vocab, dim)
+    assert tile_rows == 128
+    assert tiles == -(-rows // tile_rows)
+    chunks = -(-vocab // 64)
+
+    def path(s):  # waves of blocks times chunks a block
+        return -(-tiles * s // 132) * -(-chunks // s)
+    shortest = min(path(s) for s in range(1, max(1, chunks // 8) + 1))
+    assert chunks // splits >= 8 or splits == 1
+    assert 8 * path(splits) <= 9 * shortest
+    assert all(8 * path(s) > 9 * shortest for s in range(1, splits))
+    assert partial_size == (4 * splits * rows if splits > 1 else 0)
+    assert port.fwd_launches(rows, vocab, dim, torch.bfloat16) \
+        == 1 + (splits > 1)
+    assert port.fwd_launches(rows, vocab, dim, torch.float32) == 1
+
+
+@pytest.mark.parametrize("rows, vocab, dim, want", [
+    # R 6000, V 8192: 47 tiles x 5 splits (two waves of 26 chunks)
+    (6000, 8192, 256, (5, 47, 128, 4 * 5 * 6000)),
+    # one tile of 11 chunks: no split, no combine
+    (37, 650, 256, (1, 1, 128, 0)),
+    # D 512: 32 tiles x 4 splits, one wave of 128 chunks a block
+    (4096, 32768, 512, (4, 32, 128, 4 * 4 * 4096)),
+])
+def test_fwd_plan_at_the_kernel_shapes(rows, vocab, dim, want):
+    assert port.fwd_plan(rows, vocab, dim) == want
+    assert port.fwd_launches(rows, vocab, dim, torch.bfloat16) \
+        == 1 + (want[0] > 1)
+
+
+def _split_fwd(x2, w, bias, labels, confidence, low_confidence, splits):
+    """The bf16 forward's split pass and combine in plain torch: for each
+    split of ceil(V / 64) chunks of 64 columns (the last splits may hold
+    no column), a row's (max, sum-exp, label logit, sum of logits),
+    merged in split order as the combine kernel merges them; a split
+    without columns is (-1e30, 0, 0, 0)."""
+    rows, vocab = x2.shape[0], w.shape[0]
+    z = port._logits(x2, w, bias)
+    lab = labels.long()
+    per = -(-(-(-vocab // 64)) // splits) * 64  # columns a split
+    m = torch.full((rows,), -1e30)
+    l, zy, sz = (torch.zeros(rows) for _ in range(3))
+    for s in range(splits):
+        lo, hi = min(vocab, s * per), min(vocab, (s + 1) * per)
+        zs = z[:, lo:hi]
+        if hi > lo:
+            ms = zs.max(dim=1).values
+            ls = torch.exp(zs - ms[:, None]).sum(dim=1)
+        else:
+            ms, ls = torch.full((rows,), -1e30), torch.zeros(rows)
+        mm = torch.maximum(m, ms)
+        l = l * torch.exp(m - mm) + ls * torch.exp(ms - mm)
+        m = mm
+        zy = zy + torch.where((lab >= lo) & (lab < hi),
+                              z.gather(1, lab[:, None])[:, 0], 0.0)
+        sz = sz + zs.sum(dim=1)
+    lse = m + torch.log(l.clamp_min(1e-37))
+    xent = (-(confidence - low_confidence) * (zy - lse)
+            - low_confidence * (sz - vocab * lse))
+    return xent, lse
+
+
+# (rows, dim, vocab, dtype, splits): ragged vocabularies, 11 chunks in 3
+# splits, in 5 (the last split holds no column) and in 2 (bf16), and 8
+# one-chunk splits
+SPLIT_CASES = [(21, 128, 650, "float32", 3), (21, 128, 650, "float32", 5),
+               (13, 256, 650, "bfloat16", 2), (9, 128, 512, "float32", 8)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: f"{c[2]}-{c[3]}-s{c[4]}")
+def test_split_fwd_matches_plain_and_pallas_interpret(case):
+    """The split forward's statistics, merged in the kernel's order, give
+    the plain version's xent and lse and the JAX ``fused_linear_xent``'s
+    xent (its Pallas forward kernel in interpret mode)."""
+    rows, dim, vocab, dtype, splits = case
+    x, w, labels, bias, _ = _inputs(rows + vocab, (rows,), dim, vocab, True,
+                                    dtype)
+    c, low = 0.9, 0.1 / (vocab - 1)
+    tdt = getattr(torch, dtype)
+    args = (torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
+            torch.from_numpy(bias), torch.from_numpy(labels), c, low)
+    xent, lse = _split_fwd(*args, splits)
+    ref_xent, ref_lse = port._fwd_plain(*args)
+    tol = TOL[dtype][0]
+    assert (xent - ref_xent).abs().max() <= tol
+    assert (lse - ref_lse).abs().max() <= tol
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jax_xent = jax_fused_linear_xent(
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt), jnp.asarray(labels), c, low,
+        bias=jnp.asarray(bias), interpret=True)
+    assert np.abs(xent.numpy() - np.asarray(jax_xent)).max() <= tol
+
+
+def test_bf16_operands_must_be_16_byte_aligned():
+    """The bf16 kernels stage 16-byte vectors: a view that starts
+    mid-vector is refused (``fused_linear_xent`` hands them aligned
+    copies)."""
+    buf = torch.zeros(6 * 128 + 1, dtype=torch.bfloat16)
+    aligned = buf[:6 * 128].view(6, 128)
+    shifted = buf[1:].view(6, 128)
+    port._check_aligned16(aligned, aligned)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        port._check_aligned16(shifted, aligned)
+    with pytest.raises(ValueError, match="w must be 16-byte aligned"):
+        port._check_aligned16(aligned, shifted)

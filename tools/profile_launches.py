@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device time of each launch of the fused FFN forward and backward and
-of the fused linear xent backward, on one NVIDIA GPU.
+of the fused linear xent forward and backward, on one NVIDIA GPU.
 
     python3 tools/profile_launches.py [--root ROOT]
-        [--kernels ffn_fwd,ffn_bwd,xent_bwd] [--rows 30000,6000]
+        [--kernels ffn_fwd,ffn_bwd,xent_fwd,xent_bwd] [--rows 30000,6000]
         [--xent 6000x8192x256] [--calls N] [--seed N]
 
 Imports ``neurst_tpu_torch`` from ROOT (default: this checkout; an older
@@ -14,8 +14,8 @@ inputs of ``chip_smoke.py``'s FFN phase (D 256, F 2048, bf16, dropout
 those of its xent phase (bf16, label smoothing 0.1).  It then profiles N
 calls of the wrapper with ``torch.profiler``.  One JSON line a kernel
 and shape: the device ms a call of each CUDA kernel it launched (the
-passes, the sums) and of all of them.  The last line names the card and
-its power limit.
+passes, the sums, the xent forward's combine) and of all of them.  The
+last line names the card and its power limit.
 """
 
 import argparse
@@ -49,7 +49,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    parser.add_argument("--kernels", default="ffn_fwd,ffn_bwd,xent_bwd")
+    parser.add_argument("--kernels",
+                        default="ffn_fwd,ffn_bwd,xent_fwd,xent_bwd")
     parser.add_argument("--rows", default="30000,6000")
     parser.add_argument("--xent", default="6000x8192x256")
     parser.add_argument("--calls", type=int, default=20)
@@ -97,7 +98,7 @@ def main(argv=None):
                     "rate": rate, "package": package, "ms_per_call": ms,
                     "total_ms_per_call": sum(ms.values())}), flush=True)
     for shape in (s for s in args.xent.split(",") if s):
-        if "xent_bwd" not in kernels:
+        if not {"xent_fwd", "xent_bwd"} & set(kernels):
             break
         rows, vocab, d = (int(v) for v in shape.split("x"))
         rng = np.random.RandomState(args.seed + rows)
@@ -109,13 +110,19 @@ def main(argv=None):
         g = torch.from_numpy(rng.rand(rows).astype(np.float32)).cuda()
         c, low = 0.9, 0.1 / (vocab - 1)
         _, lse = fc.fused_linear_xent_fwd(x, w, bias, labels, c, low)
-        ms = _per_call(args.calls, lambda: fc.fused_linear_xent_bwd(
-            x, w, bias, labels, lse, g, c, low))
-        print(json.dumps({"kernel": "xent_bwd", "rows": rows, "vocab": vocab,
-                          "dim": d, "dtype": "bfloat16", "package": package,
-                          "ms_per_call": ms,
-                          "total_ms_per_call": sum(ms.values())}),
-              flush=True)
+        calls = {
+            "xent_fwd": lambda: fc.fused_linear_xent_fwd(x, w, bias, labels,
+                                                         c, low),
+            "xent_bwd": lambda: fc.fused_linear_xent_bwd(
+                x, w, bias, labels, lse, g, c, low)}
+        for name in ("xent_fwd", "xent_bwd"):
+            if name in kernels:
+                ms = _per_call(args.calls, calls[name])
+                print(json.dumps({
+                    "kernel": name, "rows": rows, "vocab": vocab, "dim": d,
+                    "dtype": "bfloat16", "package": package,
+                    "ms_per_call": ms,
+                    "total_ms_per_call": sum(ms.values())}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

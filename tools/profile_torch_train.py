@@ -35,7 +35,8 @@ from profile_torch_decode import _profile  # noqa: E402
 # (bf16 and float32 instantiations alike; row_product_bf16_kernel is the
 # dW pass of both the FFN and the xent backward)
 OWN_KERNELS = ("flash_fwd_", "flash_dq_", "flash_dkv_",
-               "linear_xent_fwd_kernel", "linear_xent_dx_kernel",
+               "linear_xent_fwd_kernel", "linear_xent_fwd_bf16_kernel",
+               "linear_xent_combine_kernel", "linear_xent_dx_kernel",
                "linear_xent_dx_bf16_kernel", "linear_xent_dw_kernel",
                "linear_xent_sum_kernel", "dropout_kernel", "ffn_fwd_kernel",
                "ffn_fwd_bf16_kernel", "ffn_fwd_sum_kernel", "ffn_dx_",
