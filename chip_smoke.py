@@ -49,9 +49,11 @@ exits non-zero):
                bitwise); the dropout mask kernel ([30000, 256] quantized
                rate, [37, 200] and [37, 199] exact rate, an unaligned
                flat view; bitwise, keep rate within 5 sigma, mean(y) /
-               mean(x)); the fused FFN forward and backward (R = 30000,
-               6000, 2000 and 37, D 256, F 2048, rate 0 and 0.1; its mask
-               bitwise; two backward calls bitwise equal).
+               mean(x)); the fused FFN forward and backward (D 256: R =
+               30000, 6000, 2000 and 37; D 512: R = 32768, 2000 and 37;
+               F 2048, rate 0 and 0.1; its mask bitwise; two backward
+               calls bitwise equal); the fused linear xent also at the
+               NMT cell's [32768, 512] x 32768 (bf16).
 7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
                largest bucket (40 x 3000 frames, target 150), bf16 with
                bf16 stored params and an f32 master, encoder flash
@@ -64,11 +66,23 @@ exits non-zero):
 8. train_dropout -- the same with the recipe's dropout 0.1 at every
                site and a dropout key: also the same (key, step) gives a
                bitwise equal loss and the next step another.
+   train_base, train_base_bf16 -- bench.py's train cell (``NMT_TRAIN``):
+               ``transformer_base`` on [256, 128] token ids, vocabulary
+               32768, bf16 compute, dropout 0.1 at every site with a
+               dropout key, label smoothing 0.1, Adam, noam, clip norm 1;
+               float32 stored params, then bf16 params with an f32
+               master: 2 warm-up and 5 timed steps, the split, target
+               tokens/s, MFU (bench.py's FLOPs of a step over the step
+               and the bf16 peak), peak memory, launches per step against
+               the configuration (the fused FFN at D 512 in all 12
+               layers), the (key, step) repeat.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
-               loss, gradients, grad norm and updated parameters.
-Then the kernel summary line, and last the device line.
+               loss, gradients, grad norm and updated parameters; then
+               the same for ``transformer_128_2e_2d_4h`` on [2, 16] ids.
+Then the kernel summary line (launches by path), and last the device
+line.
 
 The script imports nothing of JAX and nothing of ``neurst_tpu``.
 """
@@ -144,6 +158,19 @@ SLICE = dict(model="speech_transformer_s", batch=16, frames=1024,
 TRAIN = dict(model="speech_transformer_s", batch=40, frames=3000,
              min_src=2400, trg_len=150, min_trg=100, feature_dim=80,
              vocab=8192, label_smoothing=0.1, warmup=2, steps=5, split=2)
+# bench.py's train cell (bench.py:160-164, 864-923): transformer_base, the
+# WMT14 recipe's model (examples/translation/task_args_bpe.yml), at
+# [256, 128] seeded token ids with no padding and a vocabulary of 32768
+# on both sides, bf16 compute, dropout 0.1 at every site, label smoothing
+# 0.1, Adam (0.9, 0.98, 1e-9), noam (dmodel 512, warmup 4000), clip norm
+# 1; once with float32 stored params, once with bf16 params and a float32
+# master.  The float32 card-vs-CPU check trains transformer_128_2e_2d_4h
+# on [2, 16].
+NMT_TRAIN = dict(model="transformer_base", batch=256, length=128,
+                 vocab=32768, label_smoothing=0.1, clip_norm=1.0, warmup=2,
+                 steps=5, split=2, check_model="transformer_128_2e_2d_4h",
+                 check_batch=2, check_length=16, check_src_vocab=384,
+                 check_trg_vocab=256)
 # the predict CLI as the MuST-C recipe runs it on tst-COMMON
 # (examples/speech_transformer/must-c/st_prediction_args.yml: beam 4,
 # length penalty -1, at most 150 tokens, BLEU) with batch_size 16: 64
@@ -491,7 +518,8 @@ def xent_kernel_phase(seed):
     same inputs, at the training slice's shape (6000 target rows, d 256,
     the 8192-word tied softmax with its bias), at a ragged one, at one
     whose row tiles and vocabulary split both end ragged (1000 rows,
-    8190 words) and at d 512 (4096 rows, 32768 words); two backward
+    8190 words), at d 512 (4096 rows, 32768 words) and, in bf16 alone,
+    at the NMT train cell's [32768, 512] x 32768; two backward
     calls of each must give the same bits, and the forward's row carries
     its plan (vocabulary splits, tile rows, launches a call: counted, and
     held to ``fwd_launches``).  No single PyTorch call computes this
@@ -506,13 +534,17 @@ def xent_kernel_phase(seed):
 
     rng = np.random.RandomState(seed + 20)
     smoothing = TRAIN["label_smoothing"]
+    both = (torch.float32, torch.bfloat16)
     cases = [("main", TRAIN["batch"] * TRAIN["trg_len"], TRAIN["vocab"],
-              256), ("ragged", 37, 650, 256),
-             ("ragged_split", 1000, 8190, 256), ("d512", 4096, 32768, 512)]
+              256, both), ("ragged", 37, 650, 256, both),
+             ("ragged_split", 1000, 8190, 256, both),
+             ("d512", 4096, 32768, 512, both),
+             ("nmt_train", NMT_TRAIN["batch"] * NMT_TRAIN["length"],
+              NMT_TRAIN["vocab"], 512, (torch.bfloat16,))]
     results = {}
-    for case, rows, vocab, dim in cases:
+    for case, rows, vocab, dim, dtypes in cases:
         c, low = 1.0 - smoothing, smoothing / (vocab - 1)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             def draw(*shape, scale=1.0):
                 return torch.from_numpy(
                     (scale * rng.randn(*shape)).astype(np.float32)).cuda()
@@ -815,10 +847,13 @@ def ffn_bound_ms(x, filter_size, kernel):
 
 def ffn_kernel_phase(seed):
     """fused_ffn_fwd and _bwd against their plain versions on the same
-    inputs (the backward fed the plain forward's hd), at the slice's
-    encoder rows (30,000), decoder rows (6,000; the bf16 forward splits
-    the filter over two blocks a row tile), 2,000 (four, with a ragged
-    last tile) and a ragged 37, D 256, F 2048, rate 0 and 0.1.  The
+    inputs (the backward fed the plain forward's hd), at D 256: the
+    slice's encoder rows (30,000), decoder rows (6,000; the bf16 forward
+    splits the filter over two blocks a row tile), 2,000 (four, with a
+    ragged last tile) and a ragged 37; at D 512: the NMT train cell's
+    32,768 rows, 2,000 and 37; F 2048, rate 0 and 0.1 (a package built
+    for D 256 alone, an older checkout that
+    ``tools/compare_flash_kernels.py`` times, runs the D 256 cases).  The
     dropout mask is compared bitwise with b1
     = 100 (every pre-activation positive, so hd is 0 exactly where
     dropped) and its kept share checked; two backward calls must give
@@ -831,13 +866,17 @@ def ffn_kernel_phase(seed):
     from neurst_tpu_torch.ops import fused_ffn as ff
 
     rng = np.random.RandomState(seed + 40)
-    dim, filter_size = 256, 2048
+    filter_size = 2048
     key = _site_key(rng, 1 << 16 | 4)
-    cases = [("main", TRAIN["batch"] * TRAIN["frames"] // 4),
-             ("decoder", TRAIN["batch"] * TRAIN["trg_len"]),
-             ("split", 2000), ("ragged", 37)]
+    cases = [("main", TRAIN["batch"] * TRAIN["frames"] // 4, 256),
+             ("decoder", TRAIN["batch"] * TRAIN["trg_len"], 256),
+             ("split", 2000, 256), ("ragged", 37, 256),
+             ("d512", NMT_TRAIN["batch"] * NMT_TRAIN["length"], 512),
+             ("d512_split", 2000, 512), ("d512_ragged", 37, 512)]
     results = {}
-    for case, rows in cases:
+    for case, rows, dim in cases:
+        if dim not in ff.DIMS:
+            continue
         for rate in (0.0, DROPOUT_RATE):
             k = key if rate else None
             drop = ff._drop(rate, k)
@@ -1052,18 +1091,10 @@ def flash_dropout_kernel_phase(seed):
     return results
 
 
-def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
-    """Seeded random weights for a SpeechTransformer in the JAX package's
-    flat-name layout (flax shapes: dense kernels [in, out], fused
-    projections [D, n, N, H], output_transform [N, H, D], conv kernels
-    [kh, kw, in, out]).  Kernels are fan-in-scaled normals."""
-    rng = np.random.RandomState(seed)
-    p = cfg["model.params"]
-    d, c = p["modality.dim"], p["modality.source.channels"]
-    kh = p["modality.source.kernel_size"]
-    stride = p["modality.source.strides"]
-    flat = {}
-
+def _flat_drawers(flat, rng):
+    """Functions that draw seeded arrays into ``flat``: kernels as
+    fan-in-scaled normals, vectors as small normals, LayerNorm scale and
+    bias around 1 and 0."""
     def kernel(name, shape, fan_in):
         flat[name] = (rng.randn(*shape) / math.sqrt(fan_in)).astype(
             np.float32)
@@ -1074,6 +1105,16 @@ def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
     def norm(prefix, size):
         vec(f"{prefix}/scale", size, 1.0, 0.1)
         vec(f"{prefix}/bias", size, 0.0, 0.1)
+
+    return kernel, vec, norm
+
+
+def _stack_flat_params(flat, rng, p):
+    """Seeded weights of the encoder and decoder stacks in the JAX
+    package's flat layout (fused projections [D, n, N, H],
+    output_transform [N, H, D], dense kernels [in, out])."""
+    kernel, vec, norm = _flat_drawers(flat, rng)
+    d = p["modality.dim"]
 
     def attention(prefix, n_heads, fused):
         h = d // n_heads
@@ -1092,17 +1133,6 @@ def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
         kernel(f"{prefix}/dense2/kernel", (filter_size, d), filter_size)
         vec(f"{prefix}/dense2/bias", d)
 
-    cin, freq = 1, feature_dim
-    for i in (1, 2):
-        kernel(f"input_audio_modality/conv{i}/kernel", (kh, kh, cin, c),
-               kh * kh * cin)
-        vec(f"input_audio_modality/conv{i}/bias", c)
-        if p["modality.source.layer_norm"]:
-            norm(f"input_audio_modality/ln{i}", c)
-        cin, freq = c, (freq + 2 * (kh // 2) - kh) // stride + 1
-    kernel("input_audio_modality/output_dense/kernel", (freq * c, d),
-           freq * c)
-    vec("input_audio_modality/output_dense/bias", d)
     for side in ("encoder", "decoder"):
         n_heads = p[f"{side}.num_attention_heads"]
         for i in range(p[f"{side}.num_layers"]):
@@ -1115,9 +1145,59 @@ def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
             ffn(f"{layer}/ffn", p[f"{side}.filter_size"])
             norm(f"{layer}/ffn_ln", d)
         norm(f"{side}/output_ln", d)
+
+
+def speech_transformer_flat_params(cfg, vocab, feature_dim, seed):
+    """Seeded random weights for a SpeechTransformer in the JAX package's
+    flat-name layout (flax shapes: dense kernels [in, out], fused
+    projections [D, n, N, H], output_transform [N, H, D], conv kernels
+    [kh, kw, in, out]).  Kernels are fan-in-scaled normals."""
+    rng = np.random.RandomState(seed)
+    p = cfg["model.params"]
+    d, c = p["modality.dim"], p["modality.source.channels"]
+    kh = p["modality.source.kernel_size"]
+    stride = p["modality.source.strides"]
+    flat = {}
+    kernel, vec, norm = _flat_drawers(flat, rng)
+    cin, freq = 1, feature_dim
+    for i in (1, 2):
+        kernel(f"input_audio_modality/conv{i}/kernel", (kh, kh, cin, c),
+               kh * kh * cin)
+        vec(f"input_audio_modality/conv{i}/bias", c)
+        if p["modality.source.layer_norm"]:
+            norm(f"input_audio_modality/ln{i}", c)
+        cin, freq = c, (freq + 2 * (kh // 2) - kh) // stride + 1
+    kernel("input_audio_modality/output_dense/kernel", (freq * c, d),
+           freq * c)
+    vec("input_audio_modality/output_dense/bias", d)
+    _stack_flat_params(flat, rng, p)
     flat["target_symbol_modality/weights"] = (
         rng.randn(vocab, d) / math.sqrt(d)).astype(np.float32)
     vec("target_symbol_modality/bias", vocab)
+    return flat
+
+
+def transformer_flat_params(cfg, src_vocab, trg_vocab, seed):
+    """Seeded random weights for a Transformer in the JAX package's
+    flat-name layout: the stacks as for the speech model, the tied target
+    table and its softmax bias, and the source table
+    (``input_symbol_modality``; with a shared embedding one
+    ``shared_symbol_modality`` serves both sides).  Tables are normals of
+    variance 1 / D, as the JAX initializer draws them."""
+    rng = np.random.RandomState(seed)
+    p = cfg["model.params"]
+    d = p["modality.dim"]
+    flat = {}
+    _stack_flat_params(flat, rng, p)
+    target = ("shared_symbol_modality"
+              if p.get("modality.share_source_target_embedding")
+              else "target_symbol_modality")
+    flat[f"{target}/weights"] = (
+        rng.randn(trg_vocab, d) / math.sqrt(d)).astype(np.float32)
+    flat[f"{target}/bias"] = (0.02 * rng.randn(trg_vocab)).astype(np.float32)
+    if target == "target_symbol_modality":
+        flat["input_symbol_modality/weights"] = (
+            rng.randn(src_vocab, d) / math.sqrt(d)).astype(np.float32)
     return flat
 
 
@@ -1563,7 +1643,8 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
     layers = [(enc.num_layers, enc_rows), (dec.num_layers, dec_rows)]
     ffn = sum(n * fused(rows) for n, rows in layers)
     ffn_fwd = sum(n * fused(rows) * fwd_launches(
-        rows, dense1.out_features, dtype) for n, rows in layers)
+        rows, dense1.out_features, dense1.in_features, dtype)
+        for n, rows in layers)
     sites = 0
     if dropout:
         sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
@@ -1580,38 +1661,32 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
             "fused_ffn_bwd": 3 * ffn}
 
 
-def train_phase(seed, dropout=False):
-    """Warm-up steps, then timed steps on fresh batches (launches per
-    step of every kernel checked against the configuration), then the
-    step's three parts timed apart.  With ``dropout`` (the recipe's 0.1
-    at every site) the step takes a dropout key, and the same (key, step)
-    must give a bitwise equal loss while the next step's masks give
-    another."""
+def _drive_train(model, criterion, tx, state, step, batches, warmup,
+                 steps, key, expected):
+    """``warmup`` steps, then ``steps`` timed steps (launches per step of
+    every kernel held to ``expected``), then the step's three parts
+    timed apart on the remaining batches.  Checks finite losses and grad
+    norms, that every stored parameter moved (the float32 master's, with
+    bf16 params), and with ``key`` that the same (key, step) gives a
+    bitwise equal loss and the next step another.  Returns the
+    measurements and the launch totals."""
     import torch
 
     from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
     from neurst_tpu_torch.optimizers.optimizers import apply_updates
-    from neurst_tpu_torch.utils.rng import fold_in, make_key
+    from neurst_tpu_torch.utils.rng import fold_in
 
-    model, criterion, tx, state, step = build_train(
-        seed, dropout=DROPOUT_RATE if dropout else 0.0)
-    key = make_key(seed + 7) if dropout else None
-    rng = np.random.RandomState(seed + 3)
-    batches = [train_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
-                           TRAIN["min_src"], TRAIN["trg_len"],
-                           TRAIN["min_trg"])
-               for _ in range(TRAIN["warmup"] + TRAIN["steps"]
-                              + TRAIN["split"])]
-    timed = batches[TRAIN["warmup"]:TRAIN["warmup"] + TRAIN["steps"]]
-    master0 = {n: m.clone() for n, m in state.opt_state["master"].items()}
-    live0 = {n: p.detach().clone() for n, p in state.params.items()}
-    for batch in batches[:TRAIN["warmup"]]:
+    timed = batches[warmup:warmup + steps]
+    has_master = isinstance(state.opt_state, dict) \
+        and "master" in state.opt_state
+    stored = state.opt_state["master"] if has_master else state.params
+    stored0 = {n: m.detach().clone() for n, m in stored.items()}
+    live0 = {n: p.detach().clone() for n, p in state.params.items()} \
+        if has_master else stored0
+    for batch in batches[:warmup]:
         state, _ = step(state, batch, key)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    expected = expected_launches(
-        model, TRAIN["batch"] * TRAIN["frames"] // 4,
-        TRAIN["batch"] * TRAIN["trg_len"], dropout)
     step_ms, per_step, metrics = [], [], []
     totals = dict.fromkeys(expected, 0)
     for batch in timed:
@@ -1632,14 +1707,14 @@ def train_phase(seed, dropout=False):
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all()
                for m in metrics):
         raise AssertionError(f"non-finite loss or grad norm: {metrics}")
-    master = state.opt_state["master"]
-    unmoved = [n for n in master if torch.equal(master[n], master0[n])]
+    stored = state.opt_state["master"] if has_master else state.params
+    unmoved = [n for n in stored if torch.equal(stored[n], stored0[n])]
     if unmoved:
         raise AssertionError(f"parameters that did not move: {unmoved}")
     live_moved = sum(int((p.detach() != live0[n]).sum())
                      for n, p in state.params.items())
     determinism = None
-    if dropout:
+    if key is not None:
         losses = [float(step.compute_grads(state.params, timed[0],
                                            fold_in(key, s))[0])
                   for s in (state.step, state.step, state.step + 1)]
@@ -1652,7 +1727,7 @@ def train_phase(seed, dropout=False):
     # backward, optimizer update
     params = state.params
     split = []
-    for batch in batches[-TRAIN["split"]:]:
+    for batch in batches[warmup + steps:]:
         marks = [time.perf_counter()]
         out, aux = model.call_train(
             batch, model.supports_fused_softmax_ce(),
@@ -1669,49 +1744,208 @@ def train_phase(seed, dropout=False):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         split.append([(b_ - a) * 1e3 for a, b_ in zip(marks, marks[1:])])
-    median_ms = float(np.median(step_ms))
+    return {"steps": len(timed), "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms)),
+            "split_ms": {k: float(np.median([s_[i] for s_ in split]))
+                         for i, k in enumerate(("forward", "backward",
+                                                "optimizer"))},
+            "split_runs_ms": split, "max_memory_allocated": peak_bytes,
+            "launches_per_step": per_step,
+            "loss": [m["loss"] for m in metrics],
+            "grad_norm": [m["grad_norm"] for m in metrics],
+            "lr": [m["lr"] for m in metrics],
+            "live_values_moved": live_moved,
+            "stored_tensors_moved": len(stored),
+            "expected_launches_per_step": expected,
+            "dropout_determinism": determinism}, totals
+
+
+def train_phase(seed, dropout=False):
+    """The speech training slice: warm-up steps, then timed steps on
+    fresh batches (launches per step of every kernel checked against the
+    configuration), then the step's three parts timed apart.  With
+    ``dropout`` (the recipe's 0.1 at every site) the step takes a dropout
+    key, and the same (key, step) must give a bitwise equal loss while
+    the next step's masks give another."""
+    from neurst_tpu_torch.utils.rng import make_key
+
+    model, criterion, tx, state, step = build_train(
+        seed, dropout=DROPOUT_RATE if dropout else 0.0)
+    key = make_key(seed + 7) if dropout else None
+    rng = np.random.RandomState(seed + 3)
+    batches = [train_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
+                           TRAIN["min_src"], TRAIN["trg_len"],
+                           TRAIN["min_trg"])
+               for _ in range(TRAIN["warmup"] + TRAIN["steps"]
+                              + TRAIN["split"])]
+    expected = expected_launches(
+        model, TRAIN["batch"] * TRAIN["frames"] // 4,
+        TRAIN["batch"] * TRAIN["trg_len"], dropout)
+    out, totals = _drive_train(model, criterion, tx, state, step, batches,
+                               TRAIN["warmup"], TRAIN["steps"], key,
+                               expected)
+    timed = batches[TRAIN["warmup"]:TRAIN["warmup"] + TRAIN["steps"]]
+    median_s = out["step_ms_median"] / 1e3
     tokens = float(np.mean([float((1.0 - b["trg_padding"]).sum())
                             for b in timed]))
     frames = float(np.mean([float(b["src_length"].sum()) for b in timed]))
-    emit({"phase": "train_dropout" if dropout else "train",
-          "model": TRAIN["model"], "dtype": "bfloat16",
-          "dropout": DROPOUT_RATE if dropout else 0.0,
-          "bf16_params": True, "batch": TRAIN["batch"],
-          "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
-          "steps": len(timed), "step_ms": step_ms,
-          "step_ms_median": median_ms,
-          "target_tokens_per_s": tokens / (median_ms / 1e3),
-          "frames_per_s": frames / (median_ms / 1e3),
-          "split_ms": {k: float(np.median([s_[i] for s_ in split]))
-                       for i, k in enumerate(("forward", "backward",
-                                              "optimizer"))},
-          "split_runs_ms": split, "max_memory_allocated": peak_bytes,
-          "launches_per_step": per_step, "loss": [m["loss"] for m in metrics],
-          "grad_norm": [m["grad_norm"] for m in metrics],
-          "lr": [m["lr"] for m in metrics],
-          "live_bf16_values_moved": live_moved,
-          "master_tensors_moved": len(master),
-          "expected_launches_per_step": expected,
-          "dropout_determinism": determinism})
+    emit(dict({"phase": "train_dropout" if dropout else "train",
+               "model": TRAIN["model"], "dtype": "bfloat16",
+               "dropout": DROPOUT_RATE if dropout else 0.0,
+               "bf16_params": True, "batch": TRAIN["batch"],
+               "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
+               "target_tokens_per_s": tokens / median_s,
+               "frames_per_s": frames / median_s}, **out))
     return totals
 
 
-def train_reference_check_phase(seed, dropout=False):
-    """One float32 training step of the full-width model on a small
-    batch, on the card (kernels) and on the CPU (plain versions, which
-    the CPU tests hold against the JAX package's step); with
-    ``dropout`` at the recipe's 0.1, whose masks the kernels and the
-    plain versions draw bit for bit alike."""
+def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
+                    dropout=DROPOUT_RATE, model_name=None, src_vocab=None,
+                    trg_vocab=None):
+    """The NMT training cell through the entry points the JAX trainer
+    uses: ``build_model("transformer")`` with weights from ``seed`` in
+    the JAX flat layout (through ``param_bridge``), the hparams set's
+    Adam and noam schedule with bench.py's clip norm, with bf16 params
+    and an f32 master where ``bf16_params`` (bench.py's
+    ``with_bf16_params`` variant), the label-smoothed criterion,
+    ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
+    rate of all six dropout sites (the hparams set's is 0.1)."""
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.optimizers.master_weights import (
+        cast_params_bf16, with_bf16_params)
+    from neurst_tpu_torch.optimizers.optimizers import create_optax_chain
+    from neurst_tpu_torch.parallel import TrainState, make_train_step
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    src_vocab = src_vocab or NMT_TRAIN["vocab"]
+    trg_vocab = trg_vocab or NMT_TRAIN["vocab"]
+    cfg = Transformer.build_model_args_by_name(
+        model_name or NMT_TRAIN["model"])
+    params = dict(cfg["model.params"], dtype=dtype)
+    for side in ("encoder", "decoder"):
+        for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                     "layer_postprocess_dropout_rate"):
+            params[f"{side}.{rate}"] = dropout
+    cfg = dict(cfg, **{"model.params": params})
+
+    def meta(vocab):
+        return {"vocab_size": vocab, "eos_id": 1, "bos_id": 2, "unk_id": 3}
+
+    model = neurst_tpu_torch.build_model(
+        cfg, src_meta=meta(src_vocab), trg_meta=meta(trg_vocab),
+        device=device)
+    load_flat_params(model, transformer_flat_params(cfg, src_vocab,
+                                                    trg_vocab, seed))
+    lr = neurst_tpu_torch.build_lr_schedule(cfg)
+    tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr,
+                            clip_norm=NMT_TRAIN["clip_norm"])
+    if bf16_params:
+        cast_params_bf16(model)
+        tx = with_bf16_params(tx)
+    criterion = neurst_tpu_torch.build_criterion({
+        "criterion.class": "label_smoothed_cross_entropy",
+        "criterion.params": {
+            "label_smoothing": NMT_TRAIN["label_smoothing"]}})
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    return model, criterion, tx, state, step
+
+
+def nmt_batch(rng, device, batch, length, src_vocab, trg_vocab):
+    """bench.py's train batch: seeded token ids [batch, length] on both
+    sides, no padding."""
+    import torch
+    arrays = {
+        "src": rng.randint(4, src_vocab, size=(batch, length)),
+        "src_padding": np.zeros((batch, length), np.float32),
+        "trg_input": rng.randint(4, trg_vocab, size=(batch, length)),
+        "trg": rng.randint(4, trg_vocab, size=(batch, length)),
+        "trg_padding": np.zeros((batch, length), np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def train_flops(n_src_tok, n_trg_tok, dmodel=512, layers=6, ffn=2048,
+                vocab=32768, batch=256, length=128):
+    """bench.py's analytic transformer_base train FLOPs
+    (``bench.py:425-441`` ``_train_flops``: forward + 2x backward = 3x
+    forward; the matmuls, the tied softmax and the attention scores and
+    context at full length)."""
+    enc_mat = layers * (4 * dmodel * dmodel + 2 * dmodel * ffn)
+    dec_mat = layers * (8 * dmodel * dmodel + 2 * dmodel * ffn)
+    softmax_mat = dmodel * vocab
+    fwd_mat = 2 * (enc_mat * n_src_tok
+                   + (dec_mat + softmax_mat) * n_trg_tok)
+    att = 4 * dmodel * layers * batch * 3 * length * length
+    return 3 * (fwd_mat + att)
+
+
+def nmt_train_phase(seed, bf16_params):
+    """The NMT train cell (``NMT_TRAIN``): transformer_base at
+    [256, 128], dropout 0.1 with a dropout key, float32 stored params or
+    bf16 params with an f32 master.  Target tokens/s, MFU (bench.py's
+    FLOPs over the median step and the bf16 peak), the split and peak
+    memory; launches per step held to the configuration (attention runs
+    dense: flash is off)."""
+    from neurst_tpu_torch.utils.rng import make_key
+
+    t = NMT_TRAIN
+    model, criterion, tx, state, step = build_nmt_train(
+        seed, bf16_params=bf16_params)
+    key = make_key(seed + 9)
+    rng = np.random.RandomState(seed + 10)
+    batches = [nmt_batch(rng, "cuda", t["batch"], t["length"], t["vocab"],
+                         t["vocab"])
+               for _ in range(t["warmup"] + t["steps"] + t["split"])]
+    rows = t["batch"] * t["length"]
+    expected = expected_launches(model, rows, rows, True)
+    layers = model.encoder.num_layers + model.decoder.num_layers
+    if expected["fused_ffn_bwd"] != 3 * layers:
+        raise AssertionError(f"every FFN of the cell must run the fused "
+                             f"FFN at D 512: {expected}")
+    out, totals = _drive_train(model, criterion, tx, state, step, batches,
+                               t["warmup"], t["steps"], key, expected)
+    median_s = out["step_ms_median"] / 1e3
+    flops = train_flops(rows, rows, batch=t["batch"], length=t["length"],
+                        vocab=t["vocab"])
+    emit(dict({"phase": "train_base_bf16" if bf16_params else "train_base",
+               "model": t["model"], "dtype": "bfloat16",
+               "dropout": DROPOUT_RATE, "bf16_params": bf16_params,
+               "batch": t["batch"], "length": t["length"],
+               "vocab": t["vocab"],
+               "target_tokens_per_s": rows / median_s,
+               "train_flops": flops,
+               "mfu": flops / median_s / PEAK_FLOPS["bfloat16"]}, **out))
+    return totals
+
+
+def train_reference_check_phase(seed, dropout=False, nmt=False):
+    """One float32 training step on a small batch, on the card (kernels)
+    and on the CPU (plain versions, which the CPU tests hold against the
+    JAX package's step): the full-width speech model on 2 x 256 frames,
+    or with ``nmt`` the text model ``NMT_TRAIN["check_model"]`` on
+    [2, 16] ids; with ``dropout`` at the recipe's 0.1, whose masks the
+    kernels and the plain versions draw bit for bit alike."""
     import torch
 
     from neurst_tpu_torch.utils.rng import fold_in, make_key
     key = make_key(seed + 8) if dropout else None
+    rate = DROPOUT_RATE if dropout else 0.0
+    t = NMT_TRAIN
     outs = {}
     for device in ("cuda", "cpu"):
-        model, _, _, state, step = build_train(
-            seed, device, "float32", DROPOUT_RATE if dropout else 0.0)
-        batch = train_batch(np.random.RandomState(seed + 4), device, 2, 256,
-                            200, 16, 10)
+        if nmt:
+            model, _, _, state, step = build_nmt_train(
+                seed, device, "float32", False, rate, t["check_model"],
+                t["check_src_vocab"], t["check_trg_vocab"])
+            batch = nmt_batch(np.random.RandomState(seed + 4), device,
+                              t["check_batch"], t["check_length"],
+                              t["check_src_vocab"], t["check_trg_vocab"])
+        else:
+            model, _, _, state, step = build_train(seed, device, "float32",
+                                                   rate)
+            batch = train_batch(np.random.RandomState(seed + 4), device, 2,
+                                256, 200, 16, 10)
         loss, _, grads = step.compute_grads(
             state.params, batch, None if key is None else fold_in(key, 0))
         state, metrics = step(state, batch, key)
@@ -1729,9 +1963,12 @@ def train_reference_check_phase(seed, dropout=False):
         for n in ref_grads)
     param_err = max(_abs_err(params[n], ref_params[n]) for n in ref_params)
     param_tol = 2 * ref_metrics["lr"] + 1e-6
+    shape = ({"model": t["check_model"], "batch": t["check_batch"],
+              "length": t["check_length"]} if nmt else
+             {"model": TRAIN["model"], "batch": 2, "frames": 256,
+              "trg_len": 16})
     emit({"phase": "train_reference_check", "dtype": "float32",
-          "dropout": DROPOUT_RATE if dropout else 0.0, "batch": 2,
-          "frames": 256, "trg_len": 16, "loss_rel_err": loss_err,
+          "dropout": rate, **shape, "loss_rel_err": loss_err,
           "grad_norm_rel_err": norm_err, "max_grad_rel_l2_err": grad_err,
           "worst_grad": worst,
           "max_param_abs_err": param_err,
@@ -1743,18 +1980,19 @@ def train_reference_check_phase(seed, dropout=False):
                              "the CPU step")
 
 
-def _summary_row(name, row, launches, by_path, dropout_row=None):
-    out = {"name": name, "route": "cuda",
-           "source": SOURCES[name], "replaces": REPLACES[name],
-           "launches": launches, "launches_by_path": by_path,
-           "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-           "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-    if dropout_row is not None:
-        out["with_dropout"] = {k: dropout_row[v] for k, v in (
-            ("max_abs_err", "max_abs_err"), ("ms", "kernel_ms"),
-            ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
-            ("bound_by", "bound_by"), ("library_ms", "library_ms"))}
+def _summary_row(name, row, launches, by_path, extra):
+    """The kernel's summary entry from its phase row at the main shape;
+    ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
+    another case whose numbers ride along under that label."""
+    def numbers(r):
+        return {"max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    out = dict({"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches,
+                "launches_by_path": by_path}, **numbers(row))
+    for label, other in extra.items():
+        out[label] = dict(numbers(other), shape=other["shape"])
     return out
 
 
@@ -1812,33 +2050,39 @@ def main(argv=None):
     predict_counts = predict_phase(args.seed)
     by_path = {"train": train_phase(args.seed),
                "train_dropout": train_phase(args.seed, dropout=True),
+               "train_base": nmt_train_phase(args.seed, bf16_params=False),
+               "train_base_bf16": nmt_train_phase(args.seed,
+                                                  bf16_params=True),
                "decode": decode_counts, "predict": predict_counts}
-    train_reference_check_phase(args.seed)
-    train_reference_check_phase(args.seed, dropout=True)
+    for nmt in (False, True):
+        train_reference_check_phase(args.seed, nmt=nmt)
+        train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
     main_bf16 = ("main", "bfloat16")
-    rows = {
-        "flash_attention_fwd": (fwd_rows[main_bf16],
-                                flash_drop_rows[("fwd",) + main_bf16]),
-        "flash_attention_dq": (bwd_rows[("dq",) + main_bf16],
-                               flash_drop_rows[("dq",) + main_bf16]),
-        "flash_attention_dkv": (bwd_rows[("dkv",) + main_bf16],
-                                flash_drop_rows[("dkv",) + main_bf16]),
-        "fused_linear_xent_fwd": (xent_rows[("fwd",) + main_bf16], None),
-        "fused_linear_xent_bwd": (xent_rows[("bwd",) + main_bf16], None),
-        "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], None),
-        "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], None),
-        "fused_dropout": (dropout_rows[main_bf16], None),
-        "fused_ffn_fwd": (ffn_rows[("fwd", "main", DROPOUT_RATE,
-                                    "bfloat16")], None),
-        "fused_ffn_bwd": (ffn_rows[("bwd", "main", DROPOUT_RATE,
-                                    "bfloat16")], None)}
+    rows = {  # name -> (main row, {label: row of another case})
+        "flash_attention_fwd": (fwd_rows[main_bf16], {
+            "with_dropout": flash_drop_rows[("fwd",) + main_bf16]}),
+        "flash_attention_dq": (bwd_rows[("dq",) + main_bf16], {
+            "with_dropout": flash_drop_rows[("dq",) + main_bf16]}),
+        "flash_attention_dkv": (bwd_rows[("dkv",) + main_bf16], {
+            "with_dropout": flash_drop_rows[("dkv",) + main_bf16]}),
+        "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], {}),
+        "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], {}),
+        "fused_dropout": (dropout_rows[main_bf16], {})}
+    for kernel in ("fwd", "bwd"):
+        rows[f"fused_linear_xent_{kernel}"] = (
+            xent_rows[(kernel,) + main_bf16],
+            {"nmt_train": xent_rows[(kernel, "nmt_train", "bfloat16")]})
+        rows[f"fused_ffn_{kernel}"] = (
+            ffn_rows[(kernel, "main", DROPOUT_RATE, "bfloat16")],
+            {"nmt_train": ffn_rows[(kernel, "d512", DROPOUT_RATE,
+                                    "bfloat16")]})
     summary = []
-    for name, (row, dropout_row) in rows.items():
+    for name, (row, extra) in rows.items():
         counts = {path: c[name] for path, c in by_path.items() if name in c}
         if name not in OFF_PATH and not any(counts.values()):
             raise AssertionError(f"{name} never ran on the main paths")
         summary.append(_summary_row(name, row, sum(counts.values()), counts,
-                                    dropout_row))
+                                    extra))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
 from neurst_tpu_torch.layers.search.sequence_search import \
     build_search_layer  # noqa: F401
 from neurst_tpu_torch.models import speech_transformer  # noqa: F401
+from neurst_tpu_torch.models import transformer  # noqa: F401
 from neurst_tpu_torch.models.model import build_model  # noqa: F401
 from neurst_tpu_torch.optimizers.optimizers import \
     build_optimizer  # noqa: F401

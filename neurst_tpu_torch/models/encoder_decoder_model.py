@@ -2,9 +2,13 @@
 ``neurst_tpu/models/encoder_decoder_model.py``: ``Seq2SeqModule`` and
 ``EncoderDecoderModel`` in one ``nn.Module``).
 
-Subclasses supply the source side through ``embed_source``; this class
-holds the target modality with the tied softmax, the encoder and the
-decoder, the generation interface beam search drives
+The source side is token ids through a word embedding, as in the JAX
+module (``input_symbol_modality``, or one ``shared_symbol_modality`` for
+both sides with ``modality.share_source_target_embedding``); a subclass
+with another source (the speech model's audio) sets ``token_source`` to
+False and overrides ``embed_source``.  This class also holds the target
+modality with the tied softmax, the encoder and the decoder, the
+generation interface beam search drives
 (``prepare_generation`` -> (``decode_step``, generation initializer)),
 and the training interface the train step drives (``call_train``,
 ``supports_fused_softmax_ce``).  Training with dropout > 0 takes a
@@ -22,6 +26,7 @@ from neurst_tpu_torch.layers.decoders.transformer_decoder import \
     TransformerDecoder
 from neurst_tpu_torch.layers.encoders.transformer_encoder import \
     TransformerEncoder
+from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
 from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
 from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
 from neurst_tpu_torch.utils.flags_core import Flag
@@ -112,6 +117,45 @@ def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:
 
 class EncoderDecoderModel(BaseModel):
 
+    # whether the source is token ids (a word embedding); the speech
+    # model's is audio
+    token_source = True
+
+    @staticmethod
+    def class_or_method_args():
+        """The JAX model's flags
+        (``neurst_tpu/models/encoder_decoder_model.py:279-305``)."""
+        return [
+            Flag("modality.share_source_target_embedding",
+                 dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether to share source and target embedding "
+                      "table."),
+            Flag("modality.share_embedding_and_softmax_weights",
+                 dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether to share the embedding table and softmax "
+                      "weights."),
+            Flag("modality.dim", dtype=Flag.TYPE.INTEGER, default=None,
+                 help="The default embedding dimension."),
+            Flag("modality.source.dim", dtype=Flag.TYPE.INTEGER,
+                 default=None, help="The source-side embedding dimension."),
+            Flag("modality.target.dim", dtype=Flag.TYPE.INTEGER,
+                 default=None, help="The target-side embedding dimension."),
+            Flag("modality.timing", dtype=Flag.TYPE.STRING, default=None,
+                 help="The position embedding type (sinusoids/emb)."),
+            Flag("modality.source.timing", dtype=Flag.TYPE.STRING,
+                 default=None, help="The source-side position embedding "
+                                    "type."),
+            Flag("modality.target.timing", dtype=Flag.TYPE.STRING,
+                 default=None, help="The target-side position embedding "
+                                    "type."),
+            Flag("modality.max_positions", dtype=Flag.TYPE.INTEGER,
+                 default=1024,
+                 help="The maximum positions for learned position "
+                      "embedding."),
+            Flag("dtype", dtype=Flag.TYPE.STRING, default="bfloat16",
+                 help="The computation dtype (params stay float32)."),
+        ]
+
     def __init__(self, args, src_meta, trg_meta):
         super().__init__(args)
         self.src_meta = dict(src_meta or {})
@@ -121,13 +165,24 @@ class EncoderDecoderModel(BaseModel):
             raise NotImplementedError(
                 "the port has the tied embedding/softmax "
                 "(modality.share_embedding_and_softmax_weights: true)")
+        timing = args.get("modality.timing")
         trg_dim = args.get("modality.target.dim") or args["modality.dim"]
-        self.target_symbol_modality = WordEmbedding(
+        target = WordEmbedding(
             self.trg_meta["vocab_size"], trg_dim,
             share_softmax_weights=True,
-            timing=(args.get("modality.target.timing")
-                    or args.get("modality.timing")),
+            timing=args.get("modality.target.timing") or timing,
             dtype=self.dtype)
+        shared = self.token_source and bool(
+            args.get("modality.share_source_target_embedding"))
+        if shared:
+            if self.src_meta.get("vocab_size") != self.trg_meta["vocab_size"]:
+                raise ValueError(
+                    "modality.share_source_target_embedding needs one "
+                    f"vocabulary, got {self.src_meta.get('vocab_size')} "
+                    f"and {self.trg_meta['vocab_size']}")
+            self.shared_symbol_modality = target
+        else:
+            self.target_symbol_modality = target
         self.encoder = TransformerEncoder(
             **_stack_kwargs(TransformerEncoder, args, "encoder."),
             dtype=self.dtype)
@@ -136,6 +191,12 @@ class EncoderDecoderModel(BaseModel):
         self.decoder = TransformerDecoder(
             **_stack_kwargs(TransformerDecoder, decoder_args, "decoder."),
             dtype=self.dtype)
+        if self.token_source and not shared:
+            self.input_symbol_modality = WordEmbedding(
+                self.src_meta["vocab_size"],
+                args.get("modality.source.dim") or args["modality.dim"],
+                timing=args.get("modality.source.timing") or timing,
+                dtype=self.dtype)
         self._has_dropout = any(
             float(args.get(f"{side}.{rate}") or 0.0) > 0.0
             for side in ("encoder", "decoder")
@@ -152,9 +213,29 @@ class EncoderDecoderModel(BaseModel):
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in inputs.items()}
 
+    @property
+    def trg_modality(self) -> WordEmbedding:
+        """The target embedding and tied softmax."""
+        return self._modules.get("shared_symbol_modality") \
+            or self.target_symbol_modality
+
+    @property
+    def src_modality(self) -> WordEmbedding:
+        """The source word embedding (a token-source model's)."""
+        return self._modules.get("shared_symbol_modality") \
+            or self.input_symbol_modality
+
     def embed_source(self, inputs):
-        """-> (source embeddings [B, S, D], source padding [B, S])."""
-        raise NotImplementedError
+        """-> (source embeddings [B, S, D], source padding [B, S]): src
+        [B, S] token ids; the padding is ``src_padding`` where given, else
+        from ``src_length``."""
+        src = inputs["src"]
+        if inputs.get("src_padding") is not None:
+            padding = inputs["src_padding"].float()
+        else:
+            padding = input_length_to_padding(inputs["src_length"],
+                                              src.shape[1])
+        return self.src_modality(src), padding
 
     def encode(self, inputs, is_training=False, dropout_key=None):
         """Returns (encoder_outputs [B, S, D], memory_padding [B, S])."""
@@ -173,11 +254,11 @@ class EncoderDecoderModel(BaseModel):
         [B, T, V] logits are never formed."""
         enc, src_padding = self.encode(inputs, is_training, dropout_key)
         trg = torch.as_tensor(inputs["trg_input"], device=self.device)
-        dec_out, _ = self.decoder(self.target_symbol_modality(trg),
+        dec_out, _ = self.decoder(self.trg_modality(trg),
                                   memory=enc, memory_padding=src_padding,
                                   is_training=is_training,
                                   dropout_key=dropout_key)
-        modality = self.target_symbol_modality
+        modality = self.trg_modality
         if return_prelogits:
             return {"prelogits": dec_out, "softmax_w": modality.weights,
                     "softmax_bias": modality.bias}
@@ -200,7 +281,7 @@ class EncoderDecoderModel(BaseModel):
         [V, D] float32 accumulator of at most 80 MiB), so both packages
         take the same path, and a dim the CUDA kernels are built for."""
         v = self.trg_meta["vocab_size"]
-        d = self.target_symbol_modality.embedding_dim
+        d = self.trg_modality.embedding_dim
         return (v % 128 == 0 and d % 128 == 0 and v * d * 4 <= 80 * 2 ** 20
                 and fused_linear_ce_available(v, d))
 
@@ -220,14 +301,14 @@ class EncoderDecoderModel(BaseModel):
         """One decode step: ids [N] at position ``step`` -> (float32
         logits [N, V], cache).  A ``beam_anc`` entry in the cache is
         passed to the decoder's self-attention."""
-        emb = self.target_symbol_modality(ids, time=step)
+        emb = self.trg_modality(ids, time=step)
         dec_out, layers = self.decoder(
             emb[:, None, :], memory=None,
             memory_padding=cache["memory_padding"], cache=cache["layers"],
             decode_step=step, beam_anc=cache.get("beam_anc"))
         new_cache = dict(cache)
         new_cache["layers"] = layers
-        return self.target_symbol_modality.attend(dec_out[:, 0, :]), \
+        return self.trg_modality.attend(dec_out[:, 0, :]), \
             new_cache
 
     @property

@@ -22,6 +22,8 @@ __all__ = ["SpeechTransformer"]
 @register_model
 class SpeechTransformer(EncoderDecoderModel):
 
+    token_source = False
+
     def __init__(self, args, src_meta, trg_meta):
         super().__init__(args, src_meta, trg_meta)
         src_dim = args.get("modality.source.dim") or args["modality.dim"]

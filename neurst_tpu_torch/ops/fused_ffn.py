@@ -7,11 +7,11 @@ a forward kernel, followed where it splits the filter over blocks by a
 sum of the float32 partials (``fwd_splits``), and a backward in three
 launches (a dx pass over row tiles, a dW pass over row splits, a
 deterministic sum of the splits and of the bias partials), built for
-sm_90a and called through ctypes (see ``ops/_build.py``).  bf16 products
-run on the tensor cores.  The bf16 dx pass also writes round(dh) [R, F]
-to a scratch buffer, which makes its dW pass two products over rows,
-round(dh)^T x and dy^T hd; the float32 dW pass recomputes dh
-(``bwd_scratch`` sizes the buffers).
+sm_90a for D 256 and 512 and called through ctypes (see
+``ops/_build.py``).  bf16 products run on the tensor cores.  The bf16 dx
+pass also writes round(dh) [R, F] to a scratch buffer, which makes its
+dW pass two products over rows, round(dh)^T x and dy^T hd; the float32
+dW pass recomputes dh (``bwd_scratch`` sizes the buffers).
 
 Semantics follow the TPU kernels: float32 accumulation; the hidden is
 rounded to the compute dtype after the bias, relu and dropout; the
@@ -46,23 +46,22 @@ from neurst_tpu_torch.utils.rng import site_words
 __all__ = ["fused_ffn", "fused_ffn_fwd", "fused_ffn_bwd",
            "fused_ffn_available", "DIMS"]
 
-# model dims the CUDA kernels are compiled for; the filter size must be a
-# multiple of 128
-DIMS = (256,)
+# model dims the CUDA kernels are compiled for (those at which the JAX
+# package's gate fuses); the filter size must be a multiple of 128
+DIMS = (256, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = SMS
-# bf16 forward (kFwdRows, kDxChunk): rows of a tile, filter columns of a
-# chunk
-_FWD_ROWS = 128
+# bf16 forward and dx pass: filter columns of a chunk (kDxChunk)
 _CHUNK = 64
 # float32 dW pass (csrc/fused_ffn.cu): rows per tile (kDwRowsF32) and the
 # filter columns of one of its blocks (kCols)
 _DW_ROWS_F32 = 32
 _DW_COLS_F32 = 64
-# bf16 backward: the filter rows of a dW pass output tile (kRpTileM of
-# csrc/row_product.cuh, by all of D) and its resident blocks an SM
+# bf16 backward: the filter rows and dims of a dW pass output tile
+# (kRpTileM and kN of csrc/row_product.cuh) and its resident blocks an SM
 # (__launch_bounds__)
 _DW_TILE_F = 128
+_DW_TILE_D = 256
 _DW_BLOCKS_PER_SM = 1
 
 
@@ -171,20 +170,26 @@ def _check(name, err):
                            f"{err}")
 
 
-def fwd_splits(rows: int, filter_size: int, dtype) -> int:
-    """Filter splits of the forward: bf16 row tiles of 128 rows, each
+def fwd_rows(dim: int) -> int:
+    """Rows of a bf16 forward tile (csrc/fused_ffn.cu: kFwdRows, and
+    kWideRows at D 512)."""
+    return 64 if dim == 512 else 128
+
+
+def fwd_splits(rows: int, filter_size: int, dim: int, dtype) -> int:
+    """Filter splits of the forward: bf16 row tiles (``fwd_rows``), each
     split over S blocks where the tiles alone would leave SMs idle
     (``_plan.chunk_splits`` over the 64-column chunks); float32 takes
     one."""
     if dtype != torch.bfloat16:
         return 1
-    return chunk_splits(-(-rows // _FWD_ROWS), filter_size // _CHUNK)
+    return chunk_splits(-(-rows // fwd_rows(dim)), filter_size // _CHUNK)
 
 
-def fwd_launches(rows: int, filter_size: int, dtype) -> int:
+def fwd_launches(rows: int, filter_size: int, dim: int, dtype) -> int:
     """Kernel launches of one forward call: the forward, and the sum of
     its partials where it splits the filter."""
-    return 1 + (fwd_splits(rows, filter_size, dtype) > 1)
+    return 1 + (fwd_splits(rows, filter_size, dim, dtype) > 1)
 
 
 def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
@@ -201,7 +206,7 @@ def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
         raise TypeError("fused_ffn: biases must be float32")
     rows, dim = x2.shape
     filter_size = w1.shape[0]
-    splits = fwd_splits(rows, filter_size, x2.dtype)
+    splits = fwd_splits(rows, filter_size, dim, x2.dtype)
     y = torch.empty_like(x2)
     hd = (torch.empty((rows, filter_size), dtype=x2.dtype, device=x2.device)
           if save_hidden else None)
@@ -228,23 +233,25 @@ fused_ffn_fwd.launches = 0
 fused_ffn_fwd.kernel_name = "fused_ffn_fwd"
 
 
-def dw_splits(rows: int, filter_size: int, dtype) -> int:
-    """Row splits of the dW pass.  bf16: its 128 x D output tiles of
-    both products times the splits fill the card's resident blocks once
-    (a whole wave; ``_plan.row_splits``).  float32: enough blocks (F / 64
-    per split) to cover the SMs twice, at most one split per row
-    tile."""
+def dw_splits(rows: int, filter_size: int, dim: int, dtype) -> int:
+    """Row splits of the dW pass.  bf16: its output tiles of both
+    products (128 filter rows by 256 dims: two a row at D 512) times the
+    splits fill the card's resident blocks once (a whole wave;
+    ``_plan.row_splits``).  float32: enough blocks (F / 64 per split) to
+    cover the SMs twice, at most one split per row tile."""
     if dtype == torch.bfloat16:
-        return row_splits(2 * (filter_size // _DW_TILE_F), rows)
+        return row_splits(2 * (filter_size // _DW_TILE_F)
+                          * (dim // _DW_TILE_D), rows)
     tiles = -(-rows // _DW_ROWS_F32)
     col_blocks = filter_size // _DW_COLS_F32
     return max(1, min(tiles, -(-2 * _SMS // col_blocks)))
 
 
-def dx_rows(rows: int) -> int:
-    """Rows of a bf16 dx-pass tile (csrc/fused_ffn.cu: dx_rows): 128 where
-    those tiles fill the card's SMs at least once, else 64."""
-    return 128 if -(-rows // 128) >= _SMS else 64
+def dx_rows(rows: int, dim: int) -> int:
+    """Rows of a bf16 dx-pass tile (csrc/fused_ffn.cu: dx_rows): at D 256,
+    128 where those tiles fill the card's SMs at least once, else 64; at
+    D 512, 64."""
+    return 128 if dim == 256 and -(-rows // 128) >= _SMS else 64
 
 
 def bwd_scratch(rows: int, filter_size: int, dim: int, dtype):
@@ -253,9 +260,9 @@ def bwd_scratch(rows: int, filter_size: int, dim: int, dtype):
     dW pass recomputes it); dW1 and dW2 partials [S, F, D] each, then
     db1 [P, F] and db2 [P, D], P the bf16 dx pass's tiles (``dx_rows``)
     or the float32 dW pass's splits."""
-    splits = dw_splits(rows, filter_size, dtype)
+    splits = dw_splits(rows, filter_size, dim, dtype)
     if dtype == torch.bfloat16:
-        parts, dh = -(-rows // dx_rows(rows)), rows * filter_size
+        parts, dh = -(-rows // dx_rows(rows, dim)), rows * filter_size
     else:
         parts, dh = splits, 0
     return (splits, parts, dh,

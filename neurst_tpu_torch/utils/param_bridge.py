@@ -3,8 +3,12 @@
 ``flat_to_state_dict(flat, model)`` takes ``neurst_tpu``'s flat
 parameters (name -> numpy array, as its ``flatten_params`` gives them
 and as its ``.npz`` checkpoints store them) and returns ``model``'s
-``state_dict``.  Names are the same paths with ``/`` -> ``.``; the
-layouts change as follows:
+``state_dict``.  Names are the same paths with ``/`` -> ``.``: the
+modalities of both models (the speech model's ``input_audio_modality``,
+the text model's ``input_symbol_modality`` or, with a shared table,
+``shared_symbol_modality``, and ``target_symbol_modality``), the encoder
+and decoder layers and their attention projections.  The layouts change
+as follows:
 
 * dense kernels: flax ``[in, out]`` -> ``nn.Linear`` ``[out, in]``
   (the port keeps torch's layout and transposes here);

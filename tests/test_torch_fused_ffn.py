@@ -42,15 +42,15 @@ FWD_ATOL = 1e-5
 BWD_REL = 2e-5
 
 
-def _inputs(rows, seed=0):
+def _inputs(rows, seed=0, d=D):
     r = np.random.RandomState(seed + rows)
-    return {"x": r.randn(rows, D).astype(np.float32),
+    return {"x": r.randn(rows, d).astype(np.float32),
             # JAX layout: w1 [D, F], w2 [F, D]
-            "w1": (r.randn(D, F) / np.sqrt(D)).astype(np.float32),
+            "w1": (r.randn(d, F) / np.sqrt(d)).astype(np.float32),
             "b1": (0.1 * r.randn(F)).astype(np.float32),
-            "w2": (r.randn(F, D) / np.sqrt(F)).astype(np.float32),
-            "b2": (0.1 * r.randn(D)).astype(np.float32),
-            "dy": r.randn(rows, D).astype(np.float32)}
+            "w2": (r.randn(F, d) / np.sqrt(F)).astype(np.float32),
+            "b2": (0.1 * r.randn(d)).astype(np.float32),
+            "dy": r.randn(rows, d).astype(np.float32)}
 
 
 def _t(a):
@@ -65,28 +65,34 @@ def _rel(ours, ref):
     return float(np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-@pytest.mark.parametrize("rows", [9, 12, 2000])
-def test_forward_matches_pallas_interpret(rows):
-    a = _inputs(rows)
+def _check_forward(rows, d):
+    a = _inputs(rows, d=d)
     ref = jax_fused_ffn(*(jnp.asarray(a[k]) for k in
                           ("x", "w1", "b1", "w2", "b2")), interpret=True)
     y, hd = port.fused_ffn_fwd(_t(a["x"]), _t(a["w1"].T), _t(a["b1"]),
                                _t(a["w2"].T), _t(a["b2"]),
                                save_hidden=True)
-    assert y.shape == (rows, D) and hd.shape == (rows, F)
+    assert y.shape == (rows, d) and hd.shape == (rows, F)
     assert np.abs(y.numpy() - np.asarray(ref)).max() <= FWD_ATOL
     public = port.fused_ffn(_t(a["x"])[None], _t(a["w1"].T), _t(a["b1"]),
                             _t(a["w2"].T), _t(a["b2"]))
     assert torch.equal(public[0], y)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("rows", [9, 12, 2000])
-def test_backward_matches_pallas_interpret(rows, rate):
-    """dx, dW1, dW2, db1, db2 from the port's hd against the Pallas
-    backward on the same hd (rel 2e-5 of each gradient's largest
-    value)."""
-    a = _inputs(rows, seed=1)
+def test_forward_matches_pallas_interpret(rows):
+    _check_forward(rows, D)
+
+
+@pytest.mark.parametrize("rows", [9, 130])
+def test_forward_matches_pallas_interpret_at_d512(rows):
+    """The plain forward at D 512, the transformer_base width the CUDA
+    kernels are also built for."""
+    _check_forward(rows, 512)
+
+
+def _check_backward(rows, rate, d):
+    a = _inputs(rows, seed=1, d=d)
     key = KEY if rate else None
     _, hd = port.fused_ffn_fwd(_t(a["x"]), _t(a["w1"].T), _t(a["b1"]),
                                _t(a["w2"].T), _t(a["b2"]), rate, key,
@@ -108,6 +114,20 @@ def test_backward_matches_pallas_interpret(rows, rate):
                             (dx, dw1, dw2, db1, db2), want):
         assert got.shape == np.asarray(w).shape, name
         assert _rel(got, w) <= BWD_REL, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", [9, 12, 2000])
+def test_backward_matches_pallas_interpret(rows, rate):
+    """dx, dW1, dW2, db1, db2 from the port's hd against the Pallas
+    backward on the same hd (rel 2e-5 of each gradient's largest
+    value)."""
+    _check_backward(rows, rate, D)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_matches_pallas_interpret_at_d512(rate):
+    _check_backward(130, rate, 512)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -145,14 +165,15 @@ def test_matches_autograd_of_the_composite(rate, dtype):
 @pytest.mark.parametrize("d", [128, 256, 512, 1024])
 @pytest.mark.parametrize("mode", ["train", "train_drop", "infer"])
 def test_gate_is_the_jax_packages(mode, d):
-    """The JAX package's gate, but for D 256 in training, which follows
-    the H100 sweep recorded in ``ops/kernel_gates.py``: the smallest row
-    count from which the fused FFN wins at every larger one, or the JAX
-    package's threshold where it loses at every row count."""
+    """The JAX package's gate, but for D 256 and 512 in training, which
+    follow the H100 sweeps recorded in ``ops/kernel_gates.py``: the
+    smallest row count from which the fused FFN wins at every larger
+    one, or the JAX package's threshold where it loses at every row
+    count."""
     want = jax_gate_min_rows("fused_ffn", mode, d=d)
-    if d == 256 and mode != "infer":
+    if d in kernel_gates.H100_SWEEP and mode != "infer":
         swept = kernel_gates.min_rows_from_sweep(
-            kernel_gates.H100_SWEEP[mode])
+            kernel_gates.H100_SWEEP[d][mode])
         want = want if swept is None else swept
     assert kernel_gates.fused_ffn_min_rows(mode, d) == want
 
@@ -168,10 +189,22 @@ def test_min_rows_from_sweep(table, want):
     assert kernel_gates.min_rows_from_sweep(table) == want
 
 
+def test_h100_sweep_keeps_the_jax_gate_at_d512():
+    """At D 512 the fused FFN loses at every measured row count and
+    mode, so the training thresholds stay the JAX package's 16384 and the
+    NMT cell's 32768-row FFNs still run the ported kernels."""
+    sweep = kernel_gates.H100_SWEEP[512]
+    for mode in ("train", "train_drop", "infer"):
+        assert kernel_gates.min_rows_from_sweep(sweep[mode]) is None
+        assert max(sweep[mode]) == 32768
+    for mode in ("train", "train_drop"):
+        assert kernel_gates.fused_ffn_min_rows(mode, 512) == 16384
+
+
 def test_h100_sweep_sets_the_d256_training_gate():
     """As measured: with dropout the fused FFN wins from 16384 rows up;
     at dropout 0 and in inference it loses at the largest row count."""
-    sweep = kernel_gates.H100_SWEEP
+    sweep = kernel_gates.H100_SWEEP[256]
     assert kernel_gates.min_rows_from_sweep(sweep["train_drop"]) == 16384
     assert kernel_gates.min_rows_from_sweep(sweep["train"]) is None
     assert kernel_gates.min_rows_from_sweep(sweep["infer"]) is None
@@ -190,6 +223,19 @@ def test_gate_at_the_recipe_shapes(rows, training, rate, want):
                                     rate) == want
     assert not port.fused_ffn_available(256, 2048, "gelu", rows, training,
                                         rate)
+
+
+@pytest.mark.parametrize("rows, training, rate, want", [
+    (32768, True, 0.1, True),    # the NMT cell's 12 FFNs
+    (32768, True, 0.0, True),
+    (16383, True, 0.1, False),
+    (32768, False, 0.0, False),  # decode: never
+])
+def test_gate_at_the_nmt_cell(rows, training, rate, want):
+    """transformer_base at [256, 128] (32768 rows a side) runs the fused
+    FFN at D 512 in every layer of both stacks."""
+    assert port.fused_ffn_available(512, 2048, "relu", rows, training,
+                                    rate) == want
 
 
 def test_cpu_tensors_take_the_plain_version_and_dropout_needs_a_key():
@@ -212,10 +258,14 @@ def test_kernel_input_checks_refuse():
         port._check_cuda_inputs(x, w1.bfloat16(), w2)
     with pytest.raises(ValueError, match="want"):
         port._check_cuda_inputs(x, w2, w1)
-    # the kernels are built for D = 256 only
+    # the kernels are built for D = 256 and 512 only
     with pytest.raises(ValueError, match="not in"):
         port._check_cuda_inputs(x, w1, w2)
     assert not port.fused_ffn_available(D, 2048, "relu", 30000, True, 0.1)
+    w1, w2 = torch.zeros(F, 384), torch.zeros(384, F)
+    with pytest.raises(ValueError, match="not in"):
+        port._check_cuda_inputs(torch.zeros(12, 384), w1, w2)
+    assert not port.fused_ffn_available(384, 1536, "relu", 30000, True, 0.1)
     x, w1, w2 = torch.zeros(12, 256), torch.zeros(F, 256), torch.zeros(256, F)
     with pytest.raises(ValueError, match="CUDA"):
         port._check_cuda_inputs(x, w1, w2)
@@ -224,18 +274,18 @@ def test_kernel_input_checks_refuse():
 def test_dw_splits_cover_the_card():
     """At the recipe's shapes the bf16 dW pass fills the card's resident
     blocks in one whole wave: its 32 output tiles (both products, 128
-    filter rows by all 256 dims) times the splits fit the one block an
-    SM of 132 SMs and leave fewer free slots than one more split would
-    take; a ragged 37 rows takes one split.  The float32 pass keeps well
-    over 132 blocks."""
+    filter rows by all 256 dims; 64 at D 512, two 256-column tiles a
+    row) times the splits fit the one block an SM of 132 SMs and leave
+    fewer free slots than one more split would take; a ragged 37 rows
+    takes one split.  The float32 pass keeps well over 132 blocks."""
     slots = port._SMS * port._DW_BLOCKS_PER_SM
-    tiles = 2 * (2048 // port._DW_TILE_F)
-    for rows in (30000, 6000):
-        splits = port.dw_splits(rows, 2048, torch.bfloat16)
+    for dim, rows in ((256, 30000), (256, 6000), (512, 32768)):
+        tiles = 2 * (2048 // port._DW_TILE_F) * (dim // port._DW_TILE_D)
+        splits = port.dw_splits(rows, 2048, dim, torch.bfloat16)
         assert tiles * splits <= slots < tiles * (splits + 1)
-        f32 = port.dw_splits(rows, 2048, torch.float32)
+        f32 = port.dw_splits(rows, 2048, dim, torch.float32)
         assert 2048 // port._DW_COLS_F32 * f32 >= 264
-    assert port.dw_splits(37, 2048, torch.bfloat16) == 1
+    assert port.dw_splits(37, 2048, 256, torch.bfloat16) == 1
 
 
 @pytest.mark.parametrize("rows, dtype, want", [
@@ -256,6 +306,22 @@ def test_bwd_scratch_sizes(rows, dtype, want):
     assert port.bwd_scratch(rows, 2048, 256, dtype) == want
 
 
+@pytest.mark.parametrize("rows, dtype, want", [
+    # the NMT cell: 2 splits of 64 tiles; 512 dx tiles of 64 rows
+    (32768, torch.bfloat16, (2, 512, 32768 * 2048,
+                             2 * 2 * 2048 * 512 + 512 * (2048 + 512))),
+    (2000, torch.bfloat16, (2, 32, 2000 * 2048,
+                            2 * 2 * 2048 * 512 + 32 * (2048 + 512))),
+    (37, torch.bfloat16, (1, 1, 37 * 2048, 2 * 2048 * 512 + 2048 + 512)),
+    (32768, torch.float32, (9, 9, 0,
+                            2 * 9 * 2048 * 512 + 9 * (2048 + 512))),
+])
+def test_bwd_scratch_sizes_at_d512(rows, dtype, want):
+    """At D 512 every bf16 dx tile has 64 rows and the dW pass's output
+    tiles double (two 256-column tiles a row)."""
+    assert port.bwd_scratch(rows, 2048, 512, dtype) == want
+
+
 @pytest.mark.parametrize("rows, want", [
     # 235 tiles of 128 rows already fill the 132 SMs: no split
     (30000, 1),
@@ -270,11 +336,30 @@ def test_fwd_splits_fill_the_card(rows, want):
     its tiles alone would leave SMs idle, each split taking at least 8 of
     the 32 chunks, and then takes two launches (the forward and the sum
     of its float32 partials); float32 never splits."""
-    tiles = -(-rows // port._FWD_ROWS)
-    splits = port.fwd_splits(rows, 2048, torch.bfloat16)
+    _check_fwd_splits(rows, 256, want)
+
+
+def _check_fwd_splits(rows, dim, want):
+    tiles = -(-rows // port.fwd_rows(dim))
+    splits = port.fwd_splits(rows, 2048, dim, torch.bfloat16)
     assert splits == want
     assert 2048 // port._CHUNK // splits >= 8
     assert -(-tiles * splits // port._SMS) <= -(-tiles // port._SMS)
-    assert port.fwd_launches(rows, 2048, torch.bfloat16) == 1 + (want > 1)
-    assert port.fwd_splits(rows, 2048, torch.float32) == 1
-    assert port.fwd_launches(rows, 2048, torch.float32) == 1
+    assert port.fwd_launches(rows, 2048, dim, torch.bfloat16) \
+        == 1 + (want > 1)
+    assert port.fwd_splits(rows, 2048, dim, torch.float32) == 1
+    assert port.fwd_launches(rows, 2048, dim, torch.float32) == 1
+
+
+@pytest.mark.parametrize("rows, want", [
+    # the NMT cell: 512 tiles of 64 rows fill the card almost four times
+    (32768, 1),
+    # 32 tiles: four blocks a tile (128 blocks, one wave)
+    (2000, 4),
+    (37, 4),
+])
+def test_fwd_splits_fill_the_card_at_d512(rows, want):
+    """At D 512 the forward's tiles have 64 rows; the splits follow the
+    same rule."""
+    assert port.fwd_rows(512) == 64 and port.fwd_rows(256) == 128
+    _check_fwd_splits(rows, 512, want)

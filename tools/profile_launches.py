@@ -4,12 +4,12 @@ of the fused linear xent forward and backward, on one NVIDIA GPU.
 
     python3 tools/profile_launches.py [--root ROOT]
         [--kernels ffn_fwd,ffn_bwd,xent_fwd,xent_bwd] [--rows 30000,6000]
-        [--xent 6000x8192x256] [--calls N] [--seed N]
+        [--dim 256|512] [--xent 6000x8192x256] [--calls N] [--seed N]
 
 Imports ``neurst_tpu_torch`` from ROOT (default: this checkout; an older
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
 lists) and builds its kernels.  For each FFN row count it draws the
-inputs of ``chip_smoke.py``'s FFN phase (D 256, F 2048, bf16, dropout
+inputs of ``chip_smoke.py``'s FFN phase (D ``--dim``, F 2048, bf16, dropout
 0.1, the backward fed the forward's hd); for each xent shape (R x V x D)
 those of its xent phase (bf16, label smoothing 0.1).  It then profiles N
 calls of the wrapper with ``torch.profiler``.  One JSON line a kernel
@@ -52,6 +52,7 @@ def main(argv=None):
     parser.add_argument("--kernels",
                         default="ffn_fwd,ffn_bwd,xent_fwd,xent_bwd")
     parser.add_argument("--rows", default="30000,6000")
+    parser.add_argument("--dim", type=int, default=256, choices=(256, 512))
     parser.add_argument("--xent", default="6000x8192x256")
     parser.add_argument("--calls", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
@@ -72,7 +73,7 @@ def main(argv=None):
         return torch.from_numpy((scale * rng.randn(*shape)).astype(
             np.float32)).to("cuda", dtype)
 
-    dim, filter_size, rate = 256, 2048, 0.1
+    dim, filter_size, rate = args.dim, 2048, 0.1
     for rows in (int(r) for r in args.rows.split(",") if r):
         if not {"ffn_fwd", "ffn_bwd"} & set(kernels):
             break

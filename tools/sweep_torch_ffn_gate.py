@@ -2,12 +2,13 @@
 """Sweeps the port's fused-FFN gate on one NVIDIA GPU: the fused FFN
 against the composite at each row count and mode.
 
-    python3 tools/sweep_torch_ffn_gate.py [--rows 1024,2048,...]
-        [--modes train,train_drop,infer] [--seed N]
+    python3 tools/sweep_torch_ffn_gate.py [--dim 256|512]
+        [--rows 1024,2048,...] [--modes train,train_drop,infer] [--seed N]
 
 For each mode and row count it builds the layer the model runs
-(``layers.common_layers.TransformerFFN``, D 256, F 2048, bf16 weights
-and compute) and times it twice with ``chip_smoke.time_ms`` (device
+(``layers.common_layers.TransformerFFN``, D 256 (speech_transformer_s)
+or 512 (transformer_base), F 2048, bf16 weights and compute) and times
+it twice with ``chip_smoke.time_ms`` (device
 time), once with the gate forced to the fused kernels and once to the
 composite (linear -> relu -> the port's dropout -> linear): in ``train``
 (dropout 0) and ``train_drop`` (the recipe's 0.1, with a dropout key)
@@ -30,12 +31,13 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-ROWS = (1024, 2048, 4096, 6000, 8192, 12000, 16384, 30000)
+ROWS = (1024, 2048, 4096, 6000, 8192, 12000, 16384, 30000, 32768)
 RATES = {"train": 0.0, "train_drop": 0.1, "infer": 0.0}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dim", type=int, default=256, choices=(256, 512))
     parser.add_argument("--rows", default=",".join(map(str, ROWS)))
     parser.add_argument("--modes", default=",".join(RATES))
     parser.add_argument("--seed", type=int, default=0)
@@ -49,7 +51,7 @@ def main(argv=None):
     from neurst_tpu_torch.ops.kernel_gates import min_rows_from_sweep
     from neurst_tpu_torch.utils.rng import DropoutKey
 
-    dim, filter_size = 256, 2048
+    dim, filter_size = args.dim, 2048
     rng = np.random.RandomState(args.seed)
     torch.manual_seed(args.seed)
     gate = common_layers.fused_ffn_available
