@@ -53,7 +53,11 @@ exits non-zero):
                30000, 6000, 2000 and 37; D 512: R = 32768, 2000 and 37;
                F 2048, rate 0 and 0.1; its mask bitwise; two backward
                calls bitwise equal); the fused linear xent also at the
-               NMT cell's [32768, 512] x 32768 (bf16).
+               NMT cell's [32768, 512] x 32768 (bf16); and the flash
+               forward and backward at a TRAIN bucket's odd shape
+               ([656, 46, 4, 64], the last row of length 0; f32 and bf16,
+               dropout 0 and 0.1): finite, within the main shape's
+               tolerances, the length-0 row's o, dq, dk, dv exactly 0.
 7. train    -- ``speech_transformer_s`` trained in its MuST-C recipe's
                largest bucket (40 x 3000 frames, target 150), bf16 with
                bf16 stored params and an f32 master, encoder flash
@@ -76,6 +80,19 @@ exits non-zero):
                and the bf16 peak), peak memory, launches per step against
                the configuration (the fused FFN at D 512 in all 12
                layers), the (key, step) repeat.
+   trainer  -- the MuST-C recipe through ``run_exp --entry train``
+               (``TRAINER``): run A, 12 steps on the top bucket (40 x
+               <= 3000 frames, 100-150 target tokens), timed from the
+               trainer's log windows, with the data-wait share of
+               ``Trainer.run``, checkpoint seconds, peak memory and
+               launches per step against the configuration; run B, the
+               resume (step, Adam count and f32 master exact; first lr
+               noam(13)); run C, one epoch over 128-3000 frames (a padded
+               batch a bucket shape, finite losses and grad norms, first
+               step time per shape); run D, ``avg_checkpoint`` of ckpt-6
+               and ckpt-12, the predict entry on the average, and a
+               float32 trainer on the card against the CPU
+               (``speech_transformer_toy``, 2 steps).
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -91,6 +108,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1091,6 +1109,73 @@ def flash_dropout_kernel_phase(seed):
     return results
 
 
+# a bucket of the recipe's TRAIN batcher with an odd encoder length: 183
+# frames (T 46 after the two stride-2 convolutions), 656 utterances
+# (round_up(120000 // 183, 8)), the last a length-0 padding row
+BUCKET = dict(frames=183, time=46, batch=656)
+
+
+def flash_bucket_kernel_phase(seed):
+    """The flash forward and backward at ``BUCKET``'s shape, float32 and
+    bf16, dropout 0 and 0.1, against the plain versions (the tolerances
+    of the main shape); every output finite, and the length-0 row's o,
+    dq, dk and dv exactly 0."""
+    import torch
+
+    from neurst_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 60)
+    b, t, n, h = BUCKET["batch"], BUCKET["time"], 4, 64
+    lengths = [t, 1] + list(rng.randint(1, t + 1, size=b - 3)) + [0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    key = _site_key(rng, 1 << 16)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        qkv = torch.from_numpy(rng.randn(b, t, 3, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.from_numpy(rng.randn(b, t, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        for rate in (0.0, DROPOUT_RATE):
+            drop = (rate, key) if rate else (0.0, None)
+            fwd_args = (q, k, v, lens, False) + drop
+            o, lse = fa.flash_attention_fwd(*fwd_args)
+            o_ref, lse_ref = fa.flash_attention_reference(*fwd_args)
+            delta = fa._delta(o, do)
+            args = (q, k, v, do, lse, delta, lens, False) + drop
+            got = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(
+                *args)
+            want = fa._bwd_plain(*args[:8], fa._drop_consts(*drop))
+            torch.cuda.synchronize()
+            tol, lse_tol = KERNEL_TOL[name]
+            valid = lens > 0
+            fwd_err = _abs_err(o, o_ref)
+            lse_err = _abs_err(lse[valid], lse_ref[valid])
+            rel = {g: _rel_err(x, y) for g, x, y in zip(
+                ("dq", "dk", "dv"), got, want)}
+            finite = all(bool(torch.isfinite(x.float()).all())
+                         for x in (o,) + got)
+            zero_row = all(bool((x[-1] == 0).all()) for x in (o,) + got)
+            row = {"phase": "kernel", "kernel": "flash_attention_bucket",
+                   "case": "bucket_length0", "dtype": name,
+                   "shape": [b, t, n, h], "dropout": rate,
+                   "o_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+                   "tol": [tol, lse_tol, BWD_TOL[name]], "rel_err": rel,
+                   "finite": finite, "length0_row_exactly_zero": zero_row,
+                   "fwd_ms": time_ms(lambda: fa.flash_attention_fwd(
+                       *fwd_args)),
+                   "dq_ms": time_ms(lambda: fa.flash_attention_dq(*args)),
+                   "dkv_ms": time_ms(lambda: fa.flash_attention_dkv(*args))}
+            emit(row)
+            if not (finite and zero_row and fwd_err <= tol
+                    and lse_err <= lse_tol
+                    and max(rel.values()) <= BWD_TOL[name]):
+                raise AssertionError(f"flash at the bucket shape: {row}")
+            results[(name, rate)] = row
+    return results
+
+
 def _flat_drawers(flat, rng):
     """Functions that draw seeded arrays into ``flat``: kernels as
     fan-in-scaled normals, vectors as small normals, LayerNorm scale and
@@ -1315,6 +1400,26 @@ def _random_word(rng, low, high):
                               int(rng.randint(low, high + 1))))
 
 
+def write_vocab(rng, root):
+    """A vocabulary of 8189 random subword units (8192 with the
+    pipeline's three control tokens) and BPE codes over them, under
+    ``root``; returns the text pipeline's params (BPE, no Moses)."""
+    units = set()
+    while len(units) < PREDICT["vocab"] - 3:
+        unit = _random_word(rng, 1, 6)
+        units.add(unit + "@@" if rng.rand() < 0.5 else unit)
+    units = sorted(units)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(units) + "\n")
+    codes = os.path.join(root, "codes.bpe")
+    with open(codes, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(
+            f"{u[0]} {u[1]}" for u in units if len(u) == 2) + "\n")
+    return {"vocab_path": vocab, "language": "en", "subtokenizer": "bpe",
+            "subtokenizer_codes": codes}
+
+
 def write_predict_dir(seed, root):
     """Everything the predict CLI reads, from ``seed``, under ``root``: a
     model dir (``ckpt-1.npz`` of ``speech_transformer_flat_params`` in
@@ -1332,21 +1437,8 @@ def write_predict_dir(seed, root):
     from neurst_tpu_torch.utils.checkpoints import save_checkpoint
 
     rng = np.random.RandomState(seed + 70)
-    units = set()
-    while len(units) < PREDICT["vocab"] - 3:
-        unit = _random_word(rng, 1, 6)
-        units.add(unit + "@@" if rng.rand() < 0.5 else unit)
-    units = sorted(units)
-    vocab = os.path.join(root, "vocab.txt")
-    with open(vocab, "w") as f:
-        f.write("\n".join(units) + "\n")
-    codes = os.path.join(root, "codes.bpe")
-    with open(codes, "w") as f:
-        f.write("#version: 0.2\n" + "\n".join(
-            f"{u[0]} {u[1]}" for u in units if len(u) == 2) + "\n")
-    pipeline = {"vocab_path": vocab, "language": "en",
-                "subtokenizer": "bpe", "subtokenizer_codes": codes,
-                "tokenizer": "moses" if HAS_SACREMOSES else None}
+    pipeline = write_vocab(rng, root)
+    pipeline["tokenizer"] = "moses" if HAS_SACREMOSES else None
 
     cfg = SpeechTransformer.build_model_args_by_name(PREDICT["model"])
     params = dict(cfg["model.params"], dtype="bfloat16")
@@ -1789,14 +1881,15 @@ def train_phase(seed, dropout=False):
     tokens = float(np.mean([float((1.0 - b["trg_padding"]).sum())
                             for b in timed]))
     frames = float(np.mean([float(b["src_length"].sum()) for b in timed]))
-    emit(dict({"phase": "train_dropout" if dropout else "train",
-               "model": TRAIN["model"], "dtype": "bfloat16",
-               "dropout": DROPOUT_RATE if dropout else 0.0,
-               "bf16_params": True, "batch": TRAIN["batch"],
-               "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
-               "target_tokens_per_s": tokens / median_s,
-               "frames_per_s": frames / median_s}, **out))
-    return totals
+    row = dict({"phase": "train_dropout" if dropout else "train",
+                "model": TRAIN["model"], "dtype": "bfloat16",
+                "dropout": DROPOUT_RATE if dropout else 0.0,
+                "bf16_params": True, "batch": TRAIN["batch"],
+                "frames": TRAIN["frames"], "trg_len": TRAIN["trg_len"],
+                "target_tokens_per_s": tokens / median_s,
+                "frames_per_s": frames / median_s}, **out)
+    emit(row)
+    return totals, row
 
 
 def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
@@ -1980,6 +2073,445 @@ def train_reference_check_phase(seed, dropout=False, nmt=False):
                              "the CPU step")
 
 
+# the MuST-C ST recipe (examples/speech_transformer/must-c/
+# st_training_args.yml) through ``run_exp --entry train``: its task flags,
+# speech_transformer_s with its dropout 0.1 and encoder flash attention,
+# bf16 with bf16 stored params and an f32 master, label smoothing 0.1, the
+# hparams set's Adam and noam.  Run A: 80 utterances of 2782-3000 frames
+# (every batch the top bucket's 40 x <= 3000) with 100-150 target tokens,
+# 12 steps (six epochs of 2 batches), a checkpoint every 6, a log every 2;
+# run B resumes it to 18; run C: 96 utterances of 128-3000 frames, one
+# epoch, one padded batch a non-empty bucket; run D: avg_checkpoint, the
+# predict entry on the average (16 utterances), and a float32 card-vs-CPU
+# trainer check (speech_transformer_toy, 2 steps, dropout 0)
+TRAINER = dict(hparams_set="speech_transformer_s", utterances=80, min_frames=2782, max_frames=3000,
+               min_tokens=106, max_tokens=150, steps=12, save_every=6,
+               summary=2, resume_steps=18, shapes_utterances=96,
+               shapes_min_frames=128, predict_utterances=16,
+               check_utterances=8, check_max_frames=64, check_steps=2)
+TRAINER_TASK = {"audio_feature_dim": 80, "batch_by_frames": True,
+                "batch_size": 120000, "max_src_len": 3000,
+                "max_trg_len": 150, "truncate_src": True,
+                "min_src_bucket_boundary": 128,
+                "experimental_frame_transcript_ratio": 12.0,
+                "specaug": "LB"}
+TRAIN_LINE = re.compile(
+    r"step (\d+) \| loss (\S+) \| lr (\S+) \| grad_norm (\S+) \| \S+ "
+    r"steps/s \| (\S+) secs/step \| (\S+) tokens/s")
+
+
+def _words(rng, pipeline, n=3000):
+    """Random words and the subword units each encodes to (EOS left
+    out)."""
+    words = [_random_word(rng, 2, 8) for _ in range(n)]
+    return [(w, len(pipeline.encode(w)) - 1) for w in words]
+
+
+def _sentence(rng, words, tokens):
+    """Words whose units and EOS come to at most ``tokens`` (at least one
+    word), as close as the draws allow."""
+    out, total = [], 1
+    for _ in range(4 * tokens):
+        word, pieces = words[rng.randint(len(words))]
+        if total + pieces <= tokens or not out:
+            out.append(word)
+            total += pieces
+    return " ".join(out), total
+
+
+def write_train_records(path, rng, words, frames, tokens):
+    """An ``audio_tfrecord`` file of one utterance per (frames, tokens)
+    pair: seeded fbank-like features and a raw translation of at most
+    ``tokens`` target tokens.  Returns the token counts."""
+    from neurst_tpu_torch.data.recordio import RecordWriter, build_example
+    counts = []
+    with RecordWriter(path) as w:
+        for f, t in zip(frames, tokens):
+            text, n = _sentence(rng, words, int(t))
+            counts.append(n)
+            audio = rng.randn(int(f), 80).astype(np.float32)
+            w.write(build_example({"audio": audio.reshape(-1),
+                                   "translation": text}))
+    return counts
+
+
+def trainer_config(path, records, pipeline, task=None, model=None,
+                   **entry):
+    cfg = {"task.class": "speech2text",
+           "task.params": dict(TRAINER_TASK, **(task or {}),
+                               **{"transcript_data_pipeline.class":
+                                  "TextDataPipeline",
+                                  "transcript_data_pipeline.params":
+                                  pipeline}),
+           "dataset.class": "audio_tfrecord",
+           "dataset.params": {"data_path": records, "feature_key": "audio",
+                              "transcript_key": "translation"},
+           "hparams_set": TRAINER["hparams_set"],
+           "model.params": dict({"encoder.enable_flash_attention": True},
+                                **(model or {})),
+           "entry.class": "trainer",
+           "entry.params": dict({
+               "criterion.class": "label_smoothed_cross_entropy",
+               "criterion.params": {"label_smoothing":
+                                    TRAIN["label_smoothing"]}}, **entry)}
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def run_trainer(argv):
+    """``run_exp.cli_main(argv)`` in-process with the launch counts set to
+    0 before and read after, the task's TRAIN iterator wrapped to time
+    each ``next()`` and record each batch's shape, ``Trainer._save``
+    timed, and the log lines kept.  Returns the trainer's final state and
+    what it measured."""
+    import logging
+
+    import torch
+
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.exps.trainer import Trainer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.tasks.speech2text import SpeechToText
+
+    seen = {"wait_s": 0.0, "shapes": [], "rows": [], "save_s": [],
+            "messages": []}
+    make_batches, save, run = (SpeechToText.create_batch_iterator,
+                               Trainer._save, Trainer.run)
+
+    def timed_batches(self, *a, **kw):
+        make_iter = make_batches(self, *a, **kw)
+
+        def timed():
+            it = make_iter()
+            while True:
+                start = time.perf_counter()
+                batch = next(it, None)
+                seen["wait_s"] += time.perf_counter() - start
+                if batch is None:
+                    return
+                seen["shapes"].append([int(batch["src"].shape[0]),
+                                       int(batch["src"].shape[1]),
+                                       int(batch["trg"].shape[1])])
+                seen["rows"].append(int(batch["sample_mask"].sum()))
+                yield batch
+        return timed
+
+    def timed_save(self, *a, **kw):
+        start = time.perf_counter()
+        save(self, *a, **kw)
+        seen["save_s"].append(time.perf_counter() - start)
+
+    def timed_run(self):
+        seen["model"] = self.model
+        start = time.perf_counter()
+        try:
+            return run(self)
+        finally:
+            torch.cuda.synchronize()
+            seen["run_s"] = time.perf_counter() - start
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            seen["messages"].append(record.getMessage())
+
+    handler = Lines(logging.INFO)
+    logger = logging.getLogger()
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    SpeechToText.create_batch_iterator = timed_batches
+    Trainer._save, Trainer.run = timed_save, timed_run
+    np.random.seed(0)
+    reset_launch_counts()
+    try:
+        state = run_exp.cli_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        seen["launches"] = launch_counts()
+        SpeechToText.create_batch_iterator = make_batches
+        Trainer._save, Trainer.run = save, run
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    seen["windows"] = [
+        {"step": int(m.group(1)), "loss": float(m.group(2)),
+         "lr": float(m.group(3)), "grad_norm": float(m.group(4)),
+         "secs_per_step": float(m.group(5)),
+         "tokens_per_s": float(m.group(6))}
+        for m in (TRAIN_LINE.match(x) for x in seen["messages"]) if m]
+    return state, seen
+
+
+def _train_path_checks(seen, steps, what):
+    losses = [w["loss"] for w in seen["windows"]]
+    norms = [w["grad_norm"] for w in seen["windows"]]
+    if not (seen["windows"] and np.isfinite(losses).all()
+            and np.isfinite(norms).all()):
+        raise AssertionError(f"{what}: non-finite loss or grad norm "
+                             f"{seen['windows']}")
+    if not any(f"Training finished at step {steps}" in m
+               for m in seen["messages"]):
+        raise AssertionError(f"{what}: did not finish at step {steps}")
+
+
+def trainer_phase(seed, train_dropout_row):
+    """Runs A-D of the ``train`` entry (see ``TRAINER``) under
+    ``build/train_smoke/``, removed after.  Returns the launch counts of
+    run A, the recipe's training path."""
+    import torch
+
+    from neurst_tpu_torch.cli import avg_checkpoint, run_exp
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
+        NoamSchedule
+    from neurst_tpu_torch.tasks.speech2text import train_bucket_shapes
+    from neurst_tpu_torch.utils.checkpoints import restore_checkpoint_params
+    from neurst_tpu_torch.utils.param_bridge import state_dict_to_flat
+
+    t = TRAINER
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        start = time.perf_counter()
+        rng = np.random.RandomState(seed + 80)
+        pipeline = write_vocab(rng, root)
+        words = _words(rng, build_data_pipeline(
+            {"data_pipeline.class": "TextDataPipeline",
+             "data_pipeline.params": pipeline}))
+        records_a = os.path.join(root, "a.tfrecords")
+        tokens_a = write_train_records(
+            records_a, rng, words,
+            rng.randint(t["min_frames"], t["max_frames"] + 1,
+                        size=t["utterances"]),
+            rng.randint(t["min_tokens"], t["max_tokens"] + 1,
+                        size=t["utterances"]))
+        _, shapes = train_bucket_shapes(dict(TRAINER_TASK,
+                                             batch_size_multiple=8))
+        frames_c = rng.randint(t["shapes_min_frames"], t["max_frames"] + 1,
+                               size=t["shapes_utterances"])
+        bucket_c = [next(i for i, (_, b, _) in enumerate(shapes) if f <= b)
+                    for f in frames_c]
+        records_c = os.path.join(root, "c.tfrecords")
+        write_train_records(records_c, rng, words, frames_c,
+                            [rng.randint(2, shapes[i][2][0] + 1)
+                             for i in bucket_c])
+        steps_c = len(set(bucket_c))
+        write_s = time.perf_counter() - start
+
+        # run A: the recipe's top bucket, timed
+        dir_a = os.path.join(root, "model_a")
+        cfg_a = trainer_config(
+            os.path.join(root, "a.json"), records_a, pipeline,
+            train_steps=t["steps"], save_checkpoint_steps=t["save_every"],
+            summary_steps=t["summary"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, seen_a = run_trainer(["--config_paths", cfg_a, "--model_dir",
+                                 dir_a])
+        peak_bytes = torch.cuda.max_memory_allocated()
+        _train_path_checks(seen_a, t["steps"], "run A")
+        top = shapes[-1]
+        expected = expected_launches(seen_a["model"], top[0] * top[1] // 4,
+                                     top[0] * top[2][-1], True)
+        launches_a = {k: seen_a["launches"][k] for k in expected}
+        if launches_a != {k: v * t["steps"] for k, v in expected.items()}:
+            raise AssertionError(f"run A launches {launches_a}, expected "
+                                 f"{t['steps']} x {expected}")
+        if any(s != [top[0], top[1], top[2][-1]] for s in seen_a["shapes"]):
+            raise AssertionError(f"run A batch shapes {seen_a['shapes']}")
+        windows = seen_a["windows"][1:]
+        step_s = float(np.median([w["secs_per_step"] for w in windows]))
+        tokens_per_s = float(np.median([w["tokens_per_s"] for w in windows]))
+
+        # run B: the optimizer state of step 12 comes back exactly, then
+        # training goes on from step 13
+        state, _ = run_trainer(["--config_paths", cfg_a, "--model_dir",
+                                dir_a])
+        saved = restore_checkpoint_params(
+            os.path.join(dir_a, f"ckpt-{t['steps']}.npz"))
+        master = state_dict_to_flat(seen_a["model"],
+                                    state.opt_state["master"])
+        restored_exact = sorted(master) == sorted(saved) and all(
+            np.array_equal(master[k], saved[k]) for k in saved)
+        adam_count = state.opt_state["inner"][0]["count"]
+        _, seen_b = run_trainer(["--config_paths", cfg_a, "--model_dir",
+                                 dir_a, "--train_steps",
+                                 str(t["resume_steps"]), "--summary_steps",
+                                 "1"])
+        _train_path_checks(seen_b, t["resume_steps"], "run B")
+        noam = NoamSchedule(dict(run_exp.get_hyper_parameters(
+            t["hparams_set"])["lr_schedule.params"]), initial_step=0)
+        first_lr = seen_b["windows"][0]["lr"]
+        resume = {"restored_step": state.step, "adam_count": adam_count,
+                  "master_equals_checkpoint": restored_exact,
+                  "first_step": seen_b["windows"][0]["step"],
+                  "first_lr": first_lr, "noam_13": noam(t["steps"]),
+                  "losses": [w["loss"] for w in seen_b["windows"]]}
+        if not (state.step == adam_count == t["steps"] and restored_exact
+                and resume["first_step"] == t["steps"] + 1
+                and abs(first_lr / noam(t["steps"]) - 1) < 2e-3):
+            raise AssertionError(f"run B resume: {resume}")
+
+        # run C: every bucket shape the records reach, once
+        dir_c = os.path.join(root, "model_c")
+        cfg_c = trainer_config(
+            os.path.join(root, "c.json"), records_c, pipeline,
+            train_steps=steps_c, save_checkpoint_steps=1000,
+            summary_steps=1)
+        _, seen_c = run_trainer(["--config_paths", cfg_c, "--model_dir",
+                                 dir_c])
+        _train_path_checks(seen_c, steps_c, "run C")
+        first_step_s = {}
+        for shape, w in zip(seen_c["shapes"], seen_c["windows"]):
+            first_step_s.setdefault("x".join(map(str, shape)),
+                                    w["secs_per_step"])
+        padded = sum(1 for s, n in zip(seen_c["shapes"], seen_c["rows"])
+                     if n < s[0])
+
+        # run D: the average of ckpt-6 and ckpt-12, the predict entry on
+        # it, and a float32 trainer step on the card against the CPU
+        dir_avg = os.path.join(root, "model_avg")
+        pair = [os.path.join(dir_a, f"ckpt-{s}.npz")
+                for s in (t["save_every"], t["steps"])]
+        avg_checkpoint.main(["--checkpoint_paths", *pair, "--model_dir",
+                             dir_a, "--output_dir", dir_avg])
+        avg = restore_checkpoint_params(
+            os.path.join(dir_avg, f"ckpt-{t['steps']}.npz"))
+        ends = [restore_checkpoint_params(p) for p in pair]
+        avg_err = max(float(np.abs(avg[k] - (ends[0][k].astype(np.float64)
+                                             + ends[1][k]) / 2).max())
+                      for k in avg)
+        records_p = os.path.join(root, "p.tfrecords")
+        write_train_records(
+            records_p, rng, words,
+            rng.randint(PREDICT["min_frames"], PREDICT["max_frames"] + 1,
+                        size=t["predict_utterances"]),
+            rng.randint(10, 60, size=t["predict_utterances"]))
+        predict_cfg = json.loads(json.dumps(PREDICT_ARGS))
+        predict_cfg["dataset.params"]["data_path"] = records_p
+        with open(os.path.join(root, "p.json"), "w") as f:
+            json.dump(predict_cfg, f)
+        predicted = run_exp.cli_main(["--config_paths",
+                                      os.path.join(root, "p.json"),
+                                      "--model_dir", dir_avg])
+        check = trainer_reference_check(root, rng, words, pipeline)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "trainer", "model": TRAIN["model"], "dtype": "bfloat16",
+           "dropout": DROPOUT_RATE, "bf16_params": True,
+           "write_inputs_s": write_s,
+           "run_a": {"steps": t["steps"], "batch_shape": seen_a["shapes"][0],
+                     "target_tokens_per_batch": "100-150 a row",
+                     "tokens_drawn": [min(tokens_a), max(tokens_a)],
+                     "step_s_median": step_s,
+                     "target_tokens_per_s": tokens_per_s,
+                     "windows": seen_a["windows"],
+                     "run_s": seen_a["run_s"], "data_wait_s":
+                     seen_a["wait_s"], "data_wait_share":
+                     seen_a["wait_s"] / seen_a["run_s"],
+                     "checkpoint_s": seen_a["save_s"],
+                     "max_memory_allocated": peak_bytes,
+                     "launches": launches_a,
+                     "launches_per_step_expected": expected},
+           "train_dropout_phase": {
+               "step_s_median": train_dropout_row["step_ms_median"] / 1e3,
+               "target_tokens_per_s":
+                   train_dropout_row["target_tokens_per_s"]},
+           "run_b_resume": resume,
+           "run_c_shapes": {"steps": steps_c, "batches_padded": padded,
+                            "first_step_s_by_shape": first_step_s,
+                            "losses": [w["loss"]
+                                       for w in seen_c["windows"]],
+                            "grad_norms": [w["grad_norm"]
+                                           for w in seen_c["windows"]],
+                            "data_wait_share":
+                                seen_c["wait_s"] / seen_c["run_s"]},
+           "run_d": {"avg_max_abs_err": avg_err,
+                     "predict_samples": predicted["samples"],
+                     "predict_BLEU": predicted["BLEU"],
+                     "predict_samples_per_s": predicted["samples_per_sec"],
+                              "f32_card_vs_cpu": check}}
+    emit(row)
+    if not (avg_err <= 1e-7
+            and predicted["samples"] == t["predict_utterances"]
+            and math.isfinite(predicted["BLEU"])
+            and len(seen_c["shapes"]) == steps_c):
+        raise AssertionError(f"trainer phase failed: {row['run_d']}")
+    return launches_a
+
+
+def _key_bias(name, value):
+    """The key part of an attention projection's bias, else None: its
+    gradient is 0 up to rounding (the softmax drops a constant a query),
+    so Adam moves it by up to lr a step along that noise."""
+    if name.endswith("/qkv_transform/bias"):
+        return value[1]
+    if name.endswith("/kv_transform/bias"):
+        return value[0]
+    return None
+
+
+def trainer_reference_check(root, rng, words, pipeline):
+    """The train entry in float32 on the card and on the CPU (plain
+    versions, which the CPU tests hold against the JAX trainer):
+    ``speech_transformer_toy``, dropout 0, one bucket of 8 short
+    utterances, noam with warmup 1 (lr 1e-3 at step 1), 2 steps; ckpt-2
+    within 2 lr + 1e-6 (the key biases, which follow rounding noise,
+    within 2 x the summed lr + 1e-6)."""
+    t = TRAINER
+    records = os.path.join(root, "check.tfrecords")
+    write_train_records(records, rng, words,
+                        rng.randint(20, t["check_max_frames"] + 1,
+                                    size=t["check_utterances"]),
+                        rng.randint(4, 9, size=t["check_utterances"]))
+    rates = {f"{side}.{r}": 0.0 for side in ("encoder", "decoder")
+             for r in ("attention_dropout_rate", "ffn_dropout_rate",
+                       "layer_postprocess_dropout_rate")}
+    cfg = trainer_config(
+        os.path.join(root, "check.json"), records, pipeline,
+        task={"max_src_len": t["check_max_frames"], "max_trg_len": 16,
+              "min_src_bucket_boundary": t["check_max_frames"],
+              "batch_size": 8 * t["check_max_frames"], "shuffle_buffer": 0},
+        model=dict(rates, dtype="float32",
+                   **{"encoder.enable_flash_attention": False}),
+        train_steps=t["check_steps"], save_checkpoint_steps=1000,
+        summary_steps=1, enable_tensorboard=False,
+        **{"lr_schedule.params": {"warmup_steps": 1,
+                                  "initial_factor": 0.004}})
+    from neurst_tpu_torch.utils.checkpoints import restore_checkpoint_params
+    out = {}
+    for device in ("cuda", "cpu"):
+        model_dir = os.path.join(root, f"check_{device}")
+        _, seen = run_trainer(["--config_paths", cfg, "--hparams_set",
+                               "speech_transformer_toy", "--model_dir",
+                               model_dir, "--device", device])
+        out[device] = (restore_checkpoint_params(os.path.join(
+            model_dir, f"ckpt-{t['check_steps']}.npz")),
+            [w["loss"] for w in seen["windows"]])
+    lrs = [0.004 * 16 ** -0.5 / math.sqrt(s)
+           for s in range(1, t["check_steps"] + 1)]
+    tol, noise_tol = 2 * lrs[0] + 1e-6, 2 * sum(lrs) + 1e-6
+    err = noise = 0.0
+    for name, ref in out["cpu"][0].items():
+        diff = np.abs(out["cuda"][0][name] - ref)
+        key = _key_bias(name, diff)
+        if key is not None:
+            noise = max(noise, float(key.max()))
+            diff = np.delete(diff, 1 if "qkv" in name else 0, axis=0)
+        err = max(err, float(diff.max()))
+    row = {"model": "speech_transformer_toy", "steps": t["check_steps"],
+           "max_param_abs_err": err, "key_bias_max_abs_err": noise,
+           "tol": [tol, noise_tol], "losses_card": out["cuda"][1],
+           "losses_cpu": out["cpu"][1]}
+    if not (err <= tol and noise <= noise_tol
+            and np.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)):
+        raise AssertionError(f"the card's float32 trainer disagrees with "
+                             f"the CPU's: {row}")
+    return row
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -2039,6 +2571,7 @@ def main(argv=None):
     fwd_rows = flash_fwd_kernel_phase(args.seed)
     bwd_rows = flash_bwd_kernel_phase(args.seed)
     flash_drop_rows = flash_dropout_kernel_phase(args.seed)
+    flash_bucket_kernel_phase(args.seed)
     xent_rows = xent_kernel_phase(args.seed)
     softmax_rows = softmax_xent_kernel_phase(args.seed)
     dropout_rows = dropout_kernel_phase(args.seed)
@@ -2048,8 +2581,11 @@ def main(argv=None):
     del model
     reference_check_phase(args.seed)
     predict_counts = predict_phase(args.seed)
-    by_path = {"train": train_phase(args.seed),
-               "train_dropout": train_phase(args.seed, dropout=True),
+    train_counts, _ = train_phase(args.seed)
+    train_dropout_counts, train_dropout_row = train_phase(args.seed,
+                                                          dropout=True)
+    by_path = {"train": train_counts, "train_dropout": train_dropout_counts,
+               "trainer": trainer_phase(args.seed, train_dropout_row),
                "train_base": nmt_train_phase(args.seed, bf16_params=False),
                "train_base_bf16": nmt_train_phase(args.seed,
                                                   bf16_params=True),

@@ -4,11 +4,12 @@
 Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
 models, search layers, criterions, optimizers, learning-rate schedules,
-tasks, datasets, data pipelines, tokenizers, metrics and entries;
+tasks, datasets, data pipelines, tokenizers, metrics, validators and
+entries (``predict`` and ``train``);
 kernels are built on first use.
 """
 
-from neurst_tpu_torch import data, exps, metrics, tasks  # noqa: F401
+from neurst_tpu_torch import data, exps, metrics, tasks, training  # noqa: F401
 from neurst_tpu_torch.criterions import build_criterion  # noqa: F401
 from neurst_tpu_torch.data import data_pipelines, datasets, text  # noqa: F401
 from neurst_tpu_torch.layers.search import beam_search  # noqa: F401

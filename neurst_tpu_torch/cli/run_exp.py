@@ -1,5 +1,5 @@
 """The main CLI of the port:
-``python -m neurst_tpu_torch.cli.run_exp --entry predict ...``
+``python -m neurst_tpu_torch.cli.run_exp --entry predict|train ...``
 (counterpart of ``neurst_tpu/cli/run_exp.py``).
 
 Config precedence as in the JAX package: command line > ``config_paths``
@@ -13,7 +13,9 @@ QAT and int8 serving, ``--include`` plug-ins, multi-host initialization,
 the XLA compilation cache, ``enable_xla: true``, NaN checks and any
 ``distribution_strategy`` but one device; so do the JAX package's
 MultipleDataset / MixedTrainDataset and sampling or speculative searches.
-Only the ``predict`` entry is ported.
+The ``predict`` and ``train`` entries are ported (the recipes' ``trainer``
+is ``train`` by its class name); the trainer refuses the features it
+lacks itself (``exps/trainer.py``).
 """
 
 import logging
@@ -184,7 +186,7 @@ def cli_main(argv=None):
         argv = sys.argv[1:]
     args = parse_and_merge(argv)
     if not args.get("entry.class"):
-        raise ValueError("--entry must be specified (predict).")
+        raise ValueError("--entry must be specified (predict or train).")
     flags_core.verbose_flags(args)
     return run_experiment(args)
 

@@ -38,6 +38,10 @@ class Criterion(object):
         """Aggregates the statistics of many batches into metrics."""
         raise NotImplementedError
 
+    def as_metric(self):
+        """The Metric a validator selects checkpoints by."""
+        raise NotImplementedError
+
 
 build_criterion, register_criterion = setup_registry(
     "criterion", base_class=Criterion,

@@ -19,6 +19,7 @@ import torch
 from neurst_tpu_torch.criterions.criterion import (Criterion,
                                                    register_criterion)
 from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
+from neurst_tpu_torch.metrics.metric import MetricWrapper
 from neurst_tpu_torch.ops.fused_ce import fused_linear_xent
 from neurst_tpu_torch.utils.flags_core import Flag
 
@@ -113,3 +114,6 @@ class LabelSmoothedCrossEntropy(Criterion):
             tokens += float(torch.as_tensor(_t).sum())
         return {"NLL": nll / max(samples, 1.0),
                 "PPL": 2.0 ** (nll / max(tokens, 1.0))}
+
+    def as_metric(self):
+        return MetricWrapper(flag="NLL", greater_is_better=False)

@@ -1,7 +1,8 @@
-"""Host-side batching for inference (the part of
-``neurst_tpu/data/dataset_utils.py`` the predict path uses): fixed-size
-batches whose sequence dims are padded to a multiple, the last batch
-filled up to the batch size with rows that ``sample_mask`` marks 0.
+"""Host-side data helpers (the part of ``neurst_tpu/data/dataset_utils.py``
+the predict and train paths use): fixed-size inference batches whose
+sequence dims are padded to a multiple, the last batch filled up to the
+batch size with rows that ``sample_mask`` marks 0; a streaming reservoir
+shuffle; and a prefetching thread between the reader and the consumer.
 
 One difference from the JAX package: a field of float arrays (audio
 features) keeps float32 in its batch.  The JAX batcher builds every field
@@ -10,11 +11,15 @@ as int32 and so truncates features to integers
 """
 
 import logging
-from typing import Dict, Iterator, Optional, Sequence
+import queue
+import random
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["round_up", "adjust_batch_size", "pad_to", "batch_fixed_size"]
+__all__ = ["round_up", "adjust_batch_size", "pad_to", "batch_fixed_size",
+           "shuffle_iterator", "prefetch_iterator"]
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -102,3 +107,66 @@ def batch_fixed_size(iterator: Iterator[dict],
             yield emit()
     if buf:
         yield emit()
+
+
+def shuffle_iterator(it: Iterator, buffer_size: int,
+                     seed: Optional[int] = None) -> Iterator:
+    """A streaming shuffle through a reservoir of ``buffer_size`` items
+    (``random.Random(seed)``; the JAX package's algorithm, so one seed
+    gives both the same order)."""
+    rng = random.Random(seed)
+    buf = []
+    for x in it:
+        buf.append(x)
+        if len(buf) >= buffer_size:
+            idx = rng.randrange(len(buf))
+            buf[idx], buf[-1] = buf[-1], buf[idx]
+            yield buf.pop()
+    rng.shuffle(buf)
+    yield from buf
+
+
+def prefetch_iterator(it: Iterator, buffer_size: int = 64) -> Iterator:
+    """Runs ``it`` in a daemon thread, ``buffer_size`` items ahead of the
+    consumer.  An error upstream is raised in the consumer after the
+    items before it; abandoning the generator (the trainer stopping at
+    ``train_steps``) stops the thread instead of leaving it blocked on a
+    full queue."""
+    q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
+    end = object()
+    err: List[BaseException] = []
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for x in it:
+                while not stop.is_set():
+                    try:
+                        q.put(x, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # noqa: BLE001 - raised in the consumer
+            err.append(e)
+        finally:
+            while not stop.is_set():
+                try:
+                    q.put(end, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            x = q.get()
+            if x is end:
+                if err:
+                    raise err[0]
+                return
+            yield x
+    finally:
+        stop.set()

@@ -1,3 +1,4 @@
 from neurst_tpu_torch.exps.base_experiment import (BaseExperiment,  # noqa: F401
                                                    build_exp, register_exp)
 from neurst_tpu_torch.exps import sequence_generator  # noqa: F401
+from neurst_tpu_torch.exps import trainer  # noqa: F401

@@ -107,6 +107,7 @@ class BLEU(Metric):
     def __init__(self, args=None, language="en"):
         super().__init__(args)
         self._language = self._args.get("language") or language
+        self._flag = "BLEU"
 
     @staticmethod
     def class_or_method_args():

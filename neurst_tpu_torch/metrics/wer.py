@@ -32,11 +32,15 @@ class WER(Metric):
     def __init__(self, args=None, language="en"):
         super().__init__(args)
         self._language = self._args.get("language") or language
+        self._flag = "CER" if self._language in ("zh", "ja") else "WER"
 
     @staticmethod
     def class_or_method_args():
         return [Flag("language", dtype=Flag.TYPE.STRING, default="en",
                      help="The language (CER for zh/ja).")]
+
+    def greater_or_eq(self, result1, result2):
+        return self.get_value(result1) <= self.get_value(result2)
 
     def _tokens(self, text):
         if self._language in ("zh", "ja"):
@@ -54,4 +58,4 @@ class WER(Metric):
             total_err += edit_distance(h, r)
             total_ref += len(r)
         wer = 100.0 * total_err / max(total_ref, 1)
-        return {"CER" if self._language in ("zh", "ja") else "WER": wer}
+        return {self._flag: wer}

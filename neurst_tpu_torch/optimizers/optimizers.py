@@ -4,7 +4,10 @@ The JAX package builds optax chains; here the same chain is a small set
 of gradient transformations with optax's interface and arithmetic:
 ``init(params) -> state`` and ``update(updates, state, params) ->
 (updates, state)`` over dicts of tensors (name -> tensor, in
-``named_parameters`` order), with the step count kept in the state.
+``named_parameters`` order), with the step count kept in the state and
+per-parameter state (moments, accumulators) kept in dicts under the
+parameters' names, so a state saves and restores by name
+(``utils/checkpoints.opt_state_to_flat``).
 ``torch.optim`` is not used: it takes neither the step count nor the
 master-weight policy the way optax does.  Updates are new tensors; the
 optimizer state (moments, counts) is updated in place, and
@@ -24,8 +27,10 @@ from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["GradientTransformation", "Optimizer", "build_optimizer",
            "register_optimizer", "create_optax_chain", "chain", "clip",
-           "clip_by_global_norm", "scale_by_adam", "add_decayed_weights",
-           "scale_by_learning_rate", "apply_updates", "global_norm"]
+           "clip_by_global_norm", "scale_by_adam", "scale_by_rss",
+           "scale_by_adadelta", "trace", "add_decayed_weights",
+           "scale_by_learning_rate", "freeze", "apply_updates",
+           "global_norm"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -37,6 +42,10 @@ class GradientTransformation(NamedTuple):
 
 def _rebuild(tree: Tree, values) -> Tree:
     return dict(zip(tree, values))
+
+
+def _zeros(params: Tree, fill: float = 0.0) -> Tree:
+    return {n: torch.full_like(p, fill) for n, p in params.items()}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -118,16 +127,15 @@ def scale_by_adam(b1: float, b2: float, eps: float,
     after this step (nu_hat the running maximum under AMSGrad)."""
 
     def init(params):
-        state = {"count": 0,
-                 "mu": [torch.zeros_like(p) for p in params.values()],
-                 "nu": [torch.zeros_like(p) for p in params.values()]}
+        state = {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
         if amsgrad:
-            state["nu_max"] = [torch.zeros_like(p) for p in params.values()]
+            state["nu_max"] = _zeros(params)
         return state
 
     def update(updates, state, params=None):
-        g = list(updates.values())
-        mu, nu = state["mu"], state["nu"]
+        names = list(state["mu"])
+        g = [updates[n] for n in names]
+        mu, nu = list(state["mu"].values()), list(state["nu"].values())
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
@@ -137,13 +145,94 @@ def scale_by_adam(b1: float, b2: float, eps: float,
         mu_hat = torch._foreach_div(mu, _bias_correction(b1, count))
         nu_hat = torch._foreach_div(nu, _bias_correction(b2, count))
         if amsgrad:
-            torch._foreach_maximum_(state["nu_max"], nu_hat)
-            nu_hat = state["nu_max"]
+            nu_max = list(state["nu_max"].values())
+            torch._foreach_maximum_(nu_max, nu_hat)
+            nu_hat = nu_max
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, eps)
-        return _rebuild(updates, torch._foreach_div(mu_hat, denom)), state
+        return dict(zip(names, torch._foreach_div(mu_hat, denom))), state
 
     return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7) -> GradientTransformation:
+    """optax's ``scale_by_rss`` (Adagrad): s = s + g^2 (from
+    ``initial_accumulator_value``), updates g / sqrt(s + eps) where
+    s > 0, else 0."""
+
+    def update(updates, state, params=None):
+        out = {}
+        for n, s in state["sum_of_squares"].items():
+            g = updates[n]
+            s.addcmul_(g, g)
+            out[n] = torch.where(s > 0, torch.rsqrt(s + eps),
+                                 torch.zeros_like(s)) * g
+        return out, state
+
+    return GradientTransformation(
+        lambda params: {"sum_of_squares": _zeros(
+            params, initial_accumulator_value)}, update)
+
+
+def scale_by_adadelta(rho: float = 0.9,
+                      eps: float = 1e-6) -> GradientTransformation:
+    """optax's ``scale_by_adadelta``: e_g = rho e_g + (1 - rho) g^2,
+    u = sqrt(e_x + eps) / sqrt(e_g + eps) g, e_x = rho e_x + (1 - rho)
+    u^2."""
+
+    def update(updates, state, params=None):
+        out = []
+        for n, g in updates.items():
+            e_g, e_x = state["e_g"][n], state["e_x"][n]
+            e_g.mul_(rho).addcmul_(g, g, value=1.0 - rho)
+            u = torch.sqrt(e_x + eps) / torch.sqrt(e_g + eps) * g
+            e_x.mul_(rho).addcmul_(u, u, value=1.0 - rho)
+            out.append(u)
+        return _rebuild(updates, out), state
+
+    return GradientTransformation(
+        lambda params: {"e_g": _zeros(params), "e_x": _zeros(params)},
+        update)
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax's ``trace`` (SGD momentum): t = g + decay t, updates t (or
+    g + decay t with ``nesterov``)."""
+
+    def update(updates, state, params=None):
+        names = list(state["trace"])
+        g = [updates[n] for n in names]
+        t = list(state["trace"].values())
+        torch._foreach_mul_(t, decay)
+        torch._foreach_add_(t, g)
+        out = torch._foreach_add(g, t, alpha=decay) if nesterov \
+            else [x.clone() for x in t]
+        return dict(zip(names, out)), state
+
+    return GradientTransformation(
+        lambda params: {"trace": _zeros(params)}, update)
+
+
+def freeze(tx: GradientTransformation, frozen) -> GradientTransformation:
+    """optax's ``multi_transform({"train": tx, "frozen": set_to_zero()})``:
+    ``tx`` sees only the parameters ``frozen(name)`` leaves out (its
+    clipping norm too); the frozen ones get zero updates."""
+
+    def train_part(tree):
+        return {n: v for n, v in tree.items() if not frozen(n)}
+
+    def update(updates, state, params=None):
+        inner = train_part(updates)
+        if inner:  # with everything frozen, the inner state stays put
+            inner, state["inner"] = tx.update(
+                inner, state["inner"],
+                None if params is None else train_part(params))
+        return {n: inner[n] if n in inner else torch.zeros_like(g)
+                for n, g in updates.items()}, state
+
+    return GradientTransformation(
+        lambda params: {"inner": tx.init(train_part(params))}, update)
 
 
 def scale_by_learning_rate(learning_rate: Union[float, Callable]
@@ -213,6 +302,67 @@ class Adam(Optimizer):
             parts.append(add_decayed_weights(a["weight_decay"]))
         parts.append(scale_by_learning_rate(learning_rate))
         return chain(*parts)
+
+
+@register_optimizer("adagrad")
+class Adagrad(Optimizer):
+    """optax's ``adagrad``."""
+
+    @staticmethod
+    def class_or_method_args():
+        return [
+            Flag("initial_accumulator_value", dtype=Flag.TYPE.FLOAT,
+                 default=0.1, help="Starting accumulator value."),
+            Flag("epsilon", dtype=Flag.TYPE.FLOAT, default=1e-7,
+                 help="A small constant for numerical stability."),
+        ]
+
+    def make(self, learning_rate):
+        a = self._args
+        return chain(scale_by_rss(a.get("initial_accumulator_value", 0.1),
+                                  a.get("epsilon", 1e-7)),
+                     scale_by_learning_rate(learning_rate))
+
+
+@register_optimizer("adadelta")
+class Adadelta(Optimizer):
+    """optax's ``adadelta`` (no weight decay)."""
+
+    @staticmethod
+    def class_or_method_args():
+        return [
+            Flag("rho", dtype=Flag.TYPE.FLOAT, default=0.95,
+                 help="The decay rate."),
+            Flag("epsilon", dtype=Flag.TYPE.FLOAT, default=1e-7,
+                 help="A small constant for numerical stability."),
+        ]
+
+    def make(self, learning_rate):
+        a = self._args
+        return chain(scale_by_adadelta(a.get("rho", 0.95),
+                                       a.get("epsilon", 1e-7)),
+                     scale_by_learning_rate(learning_rate))
+
+
+@register_optimizer("sgd")
+class SGD(Optimizer):
+    """optax's ``sgd``: momentum (a trace) when ``momentum`` is set."""
+
+    @staticmethod
+    def class_or_method_args():
+        return [
+            Flag("momentum", dtype=Flag.TYPE.FLOAT, default=0.,
+                 help="The momentum factor."),
+            Flag("nesterov", dtype=Flag.TYPE.BOOLEAN, default=False,
+                 help="Whether to use Nesterov momentum."),
+        ]
+
+    def make(self, learning_rate):
+        a = self._args
+        if a.get("momentum"):
+            return chain(trace(a["momentum"], bool(a.get("nesterov"))),
+                         scale_by_learning_rate(learning_rate))
+        return scale_by_learning_rate(learning_rate)
 
 
 def create_optax_chain(optimizer: Optimizer,

@@ -1,36 +1,101 @@
 """Speech-to-text task, ASR and end-to-end ST (the port's counterpart of
-``SpeechToText`` in ``neurst_tpu/tasks/speech2text.py``; the inference and
-evaluation side).
+``SpeechToText`` in ``neurst_tpu/tasks/speech2text.py``).
 
 Model inputs:
     src        float [B, frames, feat_dim, channels]
     src_length int    [B]
-    trg_input  int    [B] (INFER: the BOS id) or [B, U] (EVAL)
+    trg_input  int    [B] (INFER: the BOS id) or [B, U] (TRAIN, EVAL)
+    trg, trg_length, trg_padding (TRAIN, EVAL)
 
-Audio is flattened to one sequence field and padded to a multiple of 64
-frames by ``batch_fixed_size``; the last batch is filled up with rows of
-length 0 that ``sample_mask`` marks 0.  The bucketed TRAIN iterator and
-SpecAugment are not ported yet: TRAIN mode raises.
+INFER / EVAL: audio is flattened to one sequence field and padded to a
+multiple of 64 frames by ``batch_fixed_size``; the last batch is filled up
+with rows of length 0 that ``sample_mask`` marks 0.
+
+TRAIN: SpecAugment masks each utterance on the host, and batches are
+bucketed in two dimensions, frames and transcript length: geometric frame
+boundaries (``create_audio_bucket_boundaries``), a batch size per bucket
+from the frame budget, a transcript cap per bucket from
+``experimental_frame_transcript_ratio`` with the next bucket's cap as the
+one fallback shape, and a bucket's batch filled up with zero rows of
+length 0 that ``sample_mask`` marks 0.  Every non-empty bucket is flushed
+at the end of an epoch.
 """
+
+import logging
 
 import numpy as np
 
 from neurst_tpu_torch.data import dataset_utils
+from neurst_tpu_torch.data.dataset_utils import round_up
 from neurst_tpu_torch.metrics.metric import build_metric
 from neurst_tpu_torch.models.model import build_model
 from neurst_tpu_torch.tasks.seq2seq import build_pipeline
 from neurst_tpu_torch.tasks.task import Task, register_task
+from neurst_tpu_torch.utils.audio_lib import SpecAugment
 from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
 from neurst_tpu_torch.utils.configurable import deep_merge_dict
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
 
-__all__ = ["SpeechToText"]
+__all__ = ["SpeechToText", "create_audio_bucket_boundaries",
+           "train_bucket_shapes"]
 
 
-def _training_is_not_ported():
-    return NotImplementedError(
-        "speech2text TRAIN batching (2-D bucketing, SpecAugment) is not "
-        "ported yet; the port's task serves INFER and EVAL")
+def create_audio_bucket_boundaries(maxlen: int, minlen: int = 128):
+    """Geometric frame-count boundaries from ``minlen`` (x1.2 each) up to
+    ``maxlen``, which is the last."""
+    if minlen is None:
+        minlen = 128
+    bounds = []
+    x = minlen
+    while x < maxlen:
+        bounds.append(x)
+        x = max(x + 1, int(x * 1.2))
+    bounds.append(maxlen)
+    return bounds
+
+
+def train_bucket_shapes(args, num_replicas=1):
+    """The TRAIN buckets of ``args``: (frame bounds, [(batch size, frame
+    bound, sorted transcript caps)] one a bucket).  The frame budget
+    ``batch_size`` per replica must exceed ``max_src_len``; a bucket's
+    batch size is the budget over its bound, rounded up to a multiple of
+    8 (floored at 8) unless ``disable_batch_efficiency``, then to
+    ``batch_size_multiple``; its transcript caps are its own and the next
+    bucket's."""
+    batch_size = dataset_utils.adjust_batch_size(
+        args.get("batch_size"),
+        args.get("batch_size_per_gpu") or args.get("batch_size_per_replica"),
+        num_replicas, verbose=False)
+    max_src_len = int(args.get("max_src_len") or 3000)
+    max_trg_len = int(args.get("max_trg_len") or 120)
+    bounds = create_audio_bucket_boundaries(
+        max_src_len, args.get("min_src_bucket_boundary"))
+    bounds[-1] = round_up(bounds[-1], 8)
+    replicas = max(num_replicas, 1)
+    bs_per_replica = batch_size // replicas
+    if bs_per_replica <= max_src_len:
+        raise ValueError(f"the frame budget per replica ({bs_per_replica}) "
+                         f"must exceed max_src_len={max_src_len}")
+    multiple = int(args.get("batch_size_multiple") or max(8, num_replicas))
+    if args.get("disable_batch_efficiency"):
+        sizes = [max(int(bs_per_replica // b), 1) * replicas for b in bounds]
+    else:
+        sizes = [max(round_up(int(bs_per_replica // b), 8), 8) * replicas
+                 for b in bounds]
+    sizes = [round_up(b, multiple) for b in sizes]
+    ratio = args.get("experimental_frame_transcript_ratio")
+    if ratio is None:
+        logging.warning("experimental_frame_transcript_ratio not set; "
+                        "max_trg_len caps every audio bucket")
+        caps = [max_trg_len] * len(bounds)
+    else:
+        caps = [int(b / (ratio + i * (max_src_len / max_trg_len - ratio)
+                         / len(bounds))) for i, b in enumerate(bounds)]
+        caps = [round_up(min(t, max_trg_len), 8) for t in caps]
+    shapes = [(sizes[i], bounds[i],
+               sorted({caps[i], caps[min(i + 1, len(bounds) - 1)]}))
+              for i in range(len(bounds))]
+    return bounds, shapes
 
 
 @register_task("speech2text", "audio2text", "AudioToText")
@@ -44,10 +109,21 @@ class SpeechToText(Task):
             self._args.get("audio_feature_dim") or 80)
         self._audio_feature_channels = int(
             self._args.get("audio_feature_channels") or 1)
+        self._specaug = SpecAugment.build(self._args.get("specaug"))
 
     @property
     def trg_pipeline(self):
         return self._trg_data_pipeline
+
+    def get_config(self):
+        return {
+            "transcript_data_pipeline.class":
+                type(self._trg_data_pipeline).__name__,
+            "transcript_data_pipeline.params":
+                self._trg_data_pipeline.config,
+            "audio_feature_dim": self._audio_feature_dim,
+            "audio_feature_channels": self._audio_feature_channels,
+        }
 
     @staticmethod
     def class_or_method_args():
@@ -59,7 +135,8 @@ class SpeechToText(Task):
             Flag("audio_feature_channels", dtype=Flag.TYPE.INTEGER,
                  default=1, help="The number of audio feature channels."),
             Flag("specaug", dtype=Flag.TYPE.STRING, default=None,
-                 help="SpecAugment setting (TRAIN only)."),
+                 help="SpecAugment setting (TRAIN only): LB/LD/SM/SS or a "
+                      "YAML dict."),
             Flag("min_src_bucket_boundary", dtype=Flag.TYPE.INTEGER,
                  default=128, help="The minimum audio bucket boundary."),
             Flag("experimental_frame_transcript_ratio",
@@ -85,8 +162,6 @@ class SpeechToText(Task):
 
     def get_data_preprocess_fn(self, mode, data_status=DataStatus.RAW,
                                args=None):
-        if mode == ModeKeys.TRAIN:
-            raise _training_is_not_ported()
         args = self._args if args is None else deep_merge_dict(
             self._args, args, local_overwrite=False)
         if isinstance(data_status, dict):
@@ -99,22 +174,33 @@ class SpeechToText(Task):
                                "(records of fbank features).")
         trunc = args.get("truncate_src")
         max_src_len = args.get("max_src_len")
+        max_trg_len = args.get("max_trg_len")
+        truncate_trg = mode == ModeKeys.TRAIN and args.get("truncate_trg") \
+            and max_trg_len
         feat_elems = self._feature_elems()
+        specaug = self._specaug if mode == ModeKeys.TRAIN else None
 
         def _process(data):
             audio = np.asarray(data["audio"], np.float32).reshape(-1)
             if trunc and max_src_len:
                 audio = audio[:max_src_len * feat_elems]
             frames = len(audio) // feat_elems
-            out = {"audio": audio.reshape(frames, feat_elems),
-                   "audio_length": frames}
+            audio = audio.reshape(frames, feat_elems)
+            if specaug is not None:
+                audio = specaug.apply_numpy(audio)
+            out = {"audio": audio, "audio_length": frames}
             transcript = data.get("transcript")
             if transcript is not None and mode != ModeKeys.INFER:
                 if trans_status != DataStatus.PROJECTED:
                     transcript = self._trg_data_pipeline.encode(
                         transcript,
                         is_processed=(trans_status == DataStatus.PROCESSED))
-                out["transcript"] = [int(x) for x in transcript]
+                transcript = [int(x) for x in transcript]
+                if truncate_trg and len(transcript) > max_trg_len:
+                    # keep the last id (EOS)
+                    transcript = transcript[:max_trg_len - 1] \
+                        + transcript[-1:]
+                out["transcript"] = transcript
             if "translation" in data:
                 out["translation"] = data["translation"]
             return out
@@ -156,13 +242,16 @@ class SpeechToText(Task):
     def create_batch_iterator(self, ds, mode, args=None,
                               num_replicas_in_sync=1,
                               shard_id=0, total_shards=1):
-        """INFER / EVAL batches of ``batch_size`` (16 by default)
-        utterances, audio padded to a multiple of 64 frames."""
-        if mode == ModeKeys.TRAIN:
-            raise _training_is_not_ported()
+        """TRAIN: 2-D bucketed batches (``_train_iterator``).  INFER /
+        EVAL: batches of ``batch_size`` (16 by default) utterances, audio
+        padded to a multiple of 64 frames."""
         args = self._args if args is None else deep_merge_dict(
             self._args, args, local_overwrite=False)
         preprocess = self.get_data_preprocess_fn(mode, ds.status, args)
+        if mode == ModeKeys.TRAIN:
+            return self._train_iterator(ds, preprocess, args,
+                                        num_replicas_in_sync, shard_id,
+                                        total_shards)
         feat_elems = self._feature_elems()
         trg_pad = self._trg_data_pipeline.meta["pad_id"]
         batch_size = dataset_utils.adjust_batch_size(
@@ -198,6 +287,75 @@ class SpeechToText(Task):
                     batch["transcript"] = b["transcript"]
                     batch["transcript_length"] = b["transcript_length"]
                 yield self.example_to_input(batch, mode)
+        return make_iter
+
+    def _train_iterator(self, ds, preprocess, args, num_replicas, shard_id,
+                        total_shards):
+        """Batches of (frames x transcript) buckets: an example goes to the
+        first bucket whose frame bound and larger transcript cap hold it
+        (examples no bucket holds are dropped and counted); a full bucket
+        is emitted at the smaller cap that holds its longest transcript,
+        and every non-empty bucket at the end of the epoch."""
+        bounds, shapes = train_bucket_shapes(args, num_replicas)
+        if shard_id == 0:
+            logging.info("speech2text: %d input shapes",
+                         sum(len(caps) for _, _, caps in shapes))
+            for bs, bound, caps in shapes:
+                logging.info("  - batch=%d frames<=%d transcript<=%s", bs,
+                             bound, caps)
+        feat_elems = self._feature_elems()
+        trg_pad = self._trg_data_pipeline.meta["pad_id"]
+
+        def emit(exs, i):
+            bs, bound, caps = shapes[i]
+            tmax = max(len(ex["transcript"]) for ex in exs)
+            tcap = next((t for t in caps if tmax <= t), caps[-1])
+            audio = np.zeros([bs, bound, feat_elems], np.float32)
+            lens = np.zeros([bs], np.int32)
+            trg = np.full([bs, tcap], trg_pad, np.int32)
+            trg_lens = np.zeros([bs], np.int32)
+            for j, ex in enumerate(exs):
+                audio[j, :ex["audio_length"]] = ex["audio"]
+                lens[j] = ex["audio_length"]
+                ids = ex["transcript"][:tcap]
+                trg[j, :len(ids)] = ids
+                trg_lens[j] = len(ids)
+            mask = np.zeros([bs], np.float32)
+            mask[:len(exs)] = 1.0
+            return self.example_to_input(
+                {"audio": audio, "audio_length": lens, "transcript": trg,
+                 "transcript_length": trg_lens, "sample_mask": mask},
+                ModeKeys.TRAIN)
+
+        def make_iter():
+            it = ds.build_iterator(map_func=preprocess, shard_id=shard_id,
+                                   total_shards=total_shards)()
+            shuffle_buffer = args.get("shuffle_buffer")
+            if shuffle_buffer is None or shuffle_buffer > 0:
+                it = dataset_utils.shuffle_iterator(it, shuffle_buffer or 512)
+            buckets = [[] for _ in bounds]
+            dropped = 0
+            for ex in dataset_utils.prefetch_iterator(it):
+                if "transcript" not in ex:
+                    continue
+                frames, tlen = ex["audio_length"], len(ex["transcript"])
+                i = next((i for i, (_, bound, caps) in enumerate(shapes)
+                          if frames <= bound and tlen <= caps[-1]), None)
+                if i is None:
+                    dropped += 1
+                    if dropped % 1000 == 1:
+                        logging.warning(
+                            "speech2text: dropped %d unbucketable examples "
+                            "so far (frames=%d transcript=%d)", dropped,
+                            frames, tlen)
+                    continue
+                buckets[i].append(ex)
+                if len(buckets[i]) >= shapes[i][0]:
+                    exs, buckets[i] = buckets[i], []
+                    yield emit(exs, i)
+            for i, exs in enumerate(buckets):
+                if exs:
+                    yield emit(exs, i)
         return make_iter
 
     def get_eval_metric(self, args, name="metric", ds=None):

@@ -30,6 +30,19 @@ class Task(object):
     def class_or_method_args():
         return list(COMMON_DATA_ARGS)
 
+    def get_config(self) -> dict:
+        """The task's serializable configuration (for
+        ``model_configs.yml``)."""
+        return {}
+
+    def model_configs(self, model) -> dict:
+        """Everything needed to rebuild the task and the model: the
+        ``model_configs.yml`` a trainer writes and both packages read."""
+        return {"task.class": type(self).__name__,
+                "task.params": self.get_config(),
+                "model.class": type(model).__name__,
+                "model.params": dict(model.args)}
+
     def build_model(self, args, name=None, **kwargs):
         raise NotImplementedError
 

@@ -1,10 +1,20 @@
-"""The JAX package's name-keyed checkpoints (the subset of
-``neurst_tpu/utils/checkpoints.py`` that serving needs).
+"""The JAX package's name-keyed checkpoints (the port's copy of
+``neurst_tpu/utils/checkpoints.py``, npz format).
 
-A checkpoint is a flat ``{path/to/param: ndarray}`` mapping stored as
+A checkpoint is a flat ``{path/to/param: ndarray}`` mapping in the JAX
+package's names and layouts (``utils/param_bridge``) stored as
 ``<model_dir>/ckpt-<step>.npz``, listed in ``checkpoint.json`` beside it.
 Legacy files may hold bfloat16 arrays saved as raw void ``|V2`` bytes;
 they are read back exactly as float32, and saves write float32.
+
+The optimizer sidecar differs from the JAX package's on purpose: the port
+writes ``ckpt-<step>.torch_optstate.npz``, the optimizer state flattened
+by name (``opt_state_to_flat``: moments, accumulators and counts under
+the port's parameter names, the bf16 params' float32 master, and the
+train state's step).  It never writes the JAX package's ``.optstate``
+(flax msgpack of an optax state), which it cannot read: a JAX trainer
+given a directory the port wrote restores the parameters and starts a
+fresh optimizer, its own behaviour without a sidecar.
 """
 
 import json
@@ -14,10 +24,18 @@ import re
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 __all__ = ["flatten_params", "unflatten_params",
            "restore_checkpoint_params", "bf16_bytes_to_float32",
-           "save_checkpoint", "list_checkpoints", "latest_checkpoint"]
+           "save_checkpoint", "list_checkpoints", "latest_checkpoint",
+           "restore_into", "average_checkpoints", "opt_state_to_flat",
+           "load_opt_state", "sidecar_path", "JAX_SIDECAR_SUFFIX",
+           "NameBasedCheckpointManager", "KeepBestCheckpointSaver",
+           "AverageCheckpointSaver"]
+
+SIDECAR_SUFFIX = ".torch_optstate.npz"
+JAX_SIDECAR_SUFFIX = ".optstate"
 
 _META_FILE = "checkpoint.json"
 
@@ -81,19 +99,32 @@ def _write_meta(model_dir, meta: dict):
     os.replace(path + ".tmp", path)
 
 
-def save_checkpoint(model_dir: str, step: int, params,
-                    max_to_keep: Optional[int] = 8) -> str:
-    """Saves params (a nested or flat name -> array mapping) as
-    ``ckpt-<step>.npz`` in float32 (bfloat16 widened exactly), records
-    the step in ``checkpoint.json`` and prunes all but the newest
-    ``max_to_keep``.  Returns the path."""
-    os.makedirs(model_dir, exist_ok=True)
-    flat = {k: bf16_bytes_to_float32(np.asarray(v))
-            for k, v in flatten_params(params).items()}
-    path = _ckpt_path(model_dir, step)
+def sidecar_path(path: str) -> str:
+    """The port's optimizer sidecar beside checkpoint ``path``."""
+    return path[:-len(".npz")] + SIDECAR_SUFFIX
+
+
+def _savez(path: str, flat: Dict[str, np.ndarray]):
     with open(path + ".tmp", "wb") as f:
         np.savez(f, **flat)
     os.replace(path + ".tmp", path)
+
+
+def save_checkpoint(model_dir: str, step: int, params,
+                    max_to_keep: Optional[int] = 8,
+                    opt_state: Optional[Dict[str, np.ndarray]] = None
+                    ) -> str:
+    """Saves params (a nested or flat name -> array mapping) as
+    ``ckpt-<step>.npz`` in float32 (bfloat16 widened exactly), and
+    ``opt_state`` (``opt_state_to_flat``'s mapping) as its sidecar;
+    records the step in ``checkpoint.json`` and prunes all but the newest
+    ``max_to_keep`` with their sidecars.  Returns the path."""
+    os.makedirs(model_dir, exist_ok=True)
+    path = _ckpt_path(model_dir, step)
+    _savez(path, {k: bf16_bytes_to_float32(np.asarray(v))
+                  for k, v in flatten_params(params).items()})
+    if opt_state is not None:
+        _savez(sidecar_path(path), opt_state)
     meta = _read_meta(model_dir)
     if step not in meta["all"]:
         meta["all"].append(step)
@@ -101,8 +132,10 @@ def save_checkpoint(model_dir: str, step: int, params,
     if max_to_keep and len(meta["all"]) > max_to_keep:
         for old in sorted(meta["all"])[:-max_to_keep]:
             meta["all"].remove(old)
-            if os.path.exists(_ckpt_path(model_dir, old)):
-                os.remove(_ckpt_path(model_dir, old))
+            old_path = _ckpt_path(model_dir, old)
+            for p in (old_path, sidecar_path(old_path)):
+                if os.path.exists(p):
+                    os.remove(p)
     _write_meta(model_dir, meta)
     logging.info("Saved checkpoint %s", path)
     return path
@@ -132,3 +165,232 @@ def latest_checkpoint(model_dir: Optional[str]) -> Optional[str]:
     if step is None or not os.path.exists(_ckpt_path(model_dir, step)):
         return None
     return _ckpt_path(model_dir, step)
+
+
+def _unstack_scan_layers(flat: Dict[str, np.ndarray]):
+    """``<stack>/layers/layer/REST`` [L, ...] -> ``<stack>/layer_<i>/REST``
+    (the JAX package's scan-stacked checkpoints, per layer)."""
+    out = {}
+    for name, value in flat.items():
+        m = re.match(r"^(.*)/layers/layer/(.*)$", name)
+        if m is None:
+            out[name] = value
+            continue
+        for i, layer_value in enumerate(np.asarray(value)):
+            out[f"{m.group(1)}/layer_{i}/{m.group(2)}"] = layer_value
+    return out
+
+
+def restore_into(model: torch.nn.Module, flat: Dict[str, np.ndarray],
+                 name_pattern: Optional[str] = None):
+    """Name-based partial restore into ``model``'s parameters, in place:
+    every parameter whose JAX flat name matches ``name_pattern`` (all
+    without one) and is in ``flat`` with its shape is filled (in the
+    parameter's dtype).  Scan-stacked checkpoints are read per layer.
+    Returns (restored, missing): JAX flat names filled, and those matched
+    but left as they were."""
+    from neurst_tpu_torch.utils.param_bridge import (flat_to_state_dict,
+                                                     state_dict_to_flat)
+    pattern = re.compile(name_pattern) if name_pattern else None
+    source = _unstack_scan_layers(flat)
+    target = state_dict_to_flat(model)
+    restored, missing = [], []
+    for name, current in target.items():
+        if pattern and not pattern.search(name):
+            continue
+        value = source.get(name)
+        if value is None:
+            missing.append(name)
+            continue
+        value = bf16_bytes_to_float32(np.asarray(value)).astype(np.float32)
+        if value.shape != current.shape:
+            logging.warning("Shape mismatch for %s: ckpt %s vs model %s",
+                            name, value.shape, current.shape)
+            missing.append(name)
+            continue
+        target[name] = value
+        restored.append(name)
+    model.load_state_dict(flat_to_state_dict(target, model))
+    if missing:
+        logging.info("Unrestored parameters (%d): %s", len(missing),
+                     missing[:10])
+    logging.info("Restored %d/%d parameters", len(restored), len(target))
+    return restored, missing
+
+
+def average_checkpoints(paths: List[str]) -> Dict[str, np.ndarray]:
+    """The element-wise mean of flat checkpoints (float64 sums, float32
+    result)."""
+    acc: Dict[str, np.ndarray] = {}
+    for p in paths:
+        flat = restore_checkpoint_params(p)
+        if not acc:
+            acc = {k: v.astype(np.float64) for k, v in flat.items()}
+        else:
+            for k in acc:
+                acc[k] += flat[k]
+    return {k: (v / len(paths)).astype(np.float32) for k, v in acc.items()}
+
+
+def _state_leaves(state, prefix=""):
+    """(key, leaf) pairs of a nested optimizer state (dicts by key,
+    tuples and lists by index; tensors and numbers are leaves)."""
+    if isinstance(state, dict):
+        for k, v in state.items():
+            yield from _state_leaves(v, f"{prefix}{k}/")
+    elif isinstance(state, (tuple, list)):
+        for i, v in enumerate(state):
+            yield from _state_leaves(v, f"{prefix}{i}/")
+    elif state is not None:
+        yield prefix[:-1], state
+
+
+def opt_state_to_flat(opt_state, step: int) -> Dict[str, np.ndarray]:
+    """An optimizer state as a flat name -> numpy mapping (tensors as
+    float32 or their integer dtype, counts as int64 scalars), with the
+    train state's ``step`` under "step"."""
+    flat = {"step": np.asarray(step, np.int64)}
+    for key, leaf in _state_leaves(opt_state, "opt_state/"):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+            flat[key] = (leaf.float() if leaf.is_floating_point()
+                         else leaf).cpu().numpy()
+        else:
+            flat[key] = np.asarray(leaf)
+    return flat
+
+
+def load_opt_state(opt_state, flat: Dict[str, np.ndarray]):
+    """Fills ``opt_state`` (a fresh state of the same transformation) from
+    ``opt_state_to_flat``'s mapping: tensors in place, counts replaced.
+    Returns (state, step).  Raises on a missing or unknown key and on a
+    shape mismatch: the sidecar belongs to another optimizer."""
+    used = {"step"}
+
+    def fill(node, prefix):
+        if isinstance(node, dict):
+            return {k: fill(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(fill(v, f"{prefix}{i}/")
+                              for i, v in enumerate(node))
+        if node is None:
+            return None
+        key = prefix[:-1]
+        if key not in flat:
+            raise KeyError(f"optimizer sidecar lacks {key}")
+        used.add(key)
+        value = np.asarray(flat[key])
+        if isinstance(node, torch.Tensor):
+            if tuple(value.shape) != tuple(node.shape):
+                raise ValueError(f"optimizer sidecar {key}: shape "
+                                 f"{value.shape}, state {tuple(node.shape)}")
+            with torch.no_grad():
+                node.copy_(torch.from_numpy(value))
+            return node
+        return type(node)(value.item())
+
+    state = fill(opt_state, "opt_state/")
+    unknown = sorted(set(flat) - used)
+    if unknown:
+        raise KeyError(f"optimizer sidecar holds keys this optimizer does "
+                       f"not have: {unknown[:10]}")
+    return state, int(flat["step"])
+
+
+class NameBasedCheckpointManager(object):
+    """Saves and restores a model's checkpoints in ``model_dir``."""
+
+    def __init__(self, model_dir: str, max_to_keep: int = 8):
+        self._model_dir = model_dir
+        self._max_to_keep = max_to_keep
+
+    @property
+    def model_dir(self):
+        return self._model_dir
+
+    def save(self, step: int, params, opt_state=None):
+        return save_checkpoint(self._model_dir, step, params,
+                               self._max_to_keep, opt_state)
+
+    def restore(self, model: torch.nn.Module):
+        """Restores the newest checkpoint into ``model``: None without
+        one, else {"step", "path", "restored", "missing"}."""
+        from neurst_tpu_torch.utils.compat import hack_global_step
+        path = latest_checkpoint(self._model_dir)
+        if path is None:
+            return None
+        restored, missing = restore_into(model,
+                                         restore_checkpoint_params(path))
+        return {"step": hack_global_step(path[:-len(".npz")]),
+                "path": path, "restored": restored, "missing": missing}
+
+
+def _flat_float32(params) -> Dict[str, np.ndarray]:
+    return {k: bf16_bytes_to_float32(np.asarray(v)).astype(np.float32)
+            for k, v in flatten_params(params).items()}
+
+
+class KeepBestCheckpointSaver(object):
+    """Keeps the ``max_to_keep`` best checkpoints by ``metric`` in
+    ``model_dir/subdir``, their values in ``metrics.json``."""
+
+    def __init__(self, model_dir: str, metric, max_to_keep: int = 8,
+                 subdir: str = "best"):
+        self._dir = os.path.join(model_dir, subdir)
+        os.makedirs(self._dir, exist_ok=True)
+        self._metric = metric
+        self._max_to_keep = max_to_keep
+        self._records_file = os.path.join(self._dir, "metrics.json")
+        self._records = {}
+        if os.path.exists(self._records_file):
+            with open(self._records_file) as f:
+                self._records = {int(k): v for k, v in json.load(f).items()}
+
+    def save(self, step: int, params, metric_value: float) -> bool:
+        worst = None
+        if len(self._records) >= self._max_to_keep:
+            greater = self._metric.greater_or_eq(1.0, 0.0)
+            worst = min(self._records.items(),
+                        key=lambda kv: kv[1] if greater else -kv[1])
+            if not self._metric.greater_or_eq(metric_value, worst[1]):
+                return False
+        save_checkpoint(self._dir, step, params, max_to_keep=None)
+        self._records[step] = float(metric_value)
+        if worst is not None:
+            self._records.pop(worst[0], None)
+            p = _ckpt_path(self._dir, worst[0])
+            if os.path.exists(p):
+                os.remove(p)
+        with open(self._records_file, "w") as f:
+            json.dump(self._records, f)
+        return True
+
+
+class AverageCheckpointSaver(object):
+    """Keeps a window of the last ``max_to_keep`` evaluated weights and
+    writes their mean to ``model_dir/subdir`` whenever the metric is at
+    least as good as the best so far."""
+
+    def __init__(self, model_dir: str, metric, max_to_keep: int = 8,
+                 subdir: str = "best_avg"):
+        self._dir = os.path.join(model_dir, subdir)
+        os.makedirs(self._dir, exist_ok=True)
+        self._metric = metric
+        self._max_to_keep = max_to_keep
+        self._window: Dict[int, Dict[str, np.ndarray]] = {}
+        self._best: Optional[float] = None
+
+    def save(self, step: int, params, metric_value: float) -> bool:
+        flat = _flat_float32(params)
+        self._window[step] = flat
+        if len(self._window) > self._max_to_keep:
+            del self._window[min(self._window)]
+        if self._best is not None and not self._metric.greater_or_eq(
+                metric_value, self._best):
+            return False
+        self._best = metric_value
+        avg = {k: np.mean([w[k].astype(np.float64)
+                           for w in self._window.values()],
+                          axis=0).astype(np.float32) for k in flat}
+        save_checkpoint(self._dir, step, avg, max_to_keep=2)
+        return True

@@ -4,8 +4,8 @@ port's copy of ``neurst_tpu/utils/configurable.py``).
 ``load_from_config_path`` merges YAML/JSON files in order;
 ``deep_merge_dict`` merges recursively; ``ModelConfigs`` reads and writes
 ``model_configs.yml`` in a model dir, so inference rebuilds the exact
-task and model with no flags.  The JAX package's trainer writes that
-file; the port reads it as it is.
+task and model with no flags.  Both packages' trainers write that file
+in the same YAML, and each package reads the other's.
 """
 
 import copy
@@ -95,6 +95,17 @@ class ModelConfigs(object):
     by a trainer; JSON text is valid YAML too)."""
 
     @staticmethod
+    def dump(model_configs: dict, output_dir: str):
+        """Writes ``model_configs.yml`` into ``output_dir`` atomically."""
+        os.makedirs(output_dir, exist_ok=True)
+        path = os.path.join(output_dir, MODEL_CONFIG_YAML_FILENAME)
+        with open(path + ".tmp", "w", encoding="utf-8") as f:
+            yaml.safe_dump(_yaml_safe(model_configs), f,
+                           default_flow_style=False, sort_keys=False)
+        os.replace(path + ".tmp", path)
+        logging.info("Saved model configs to %s", path)
+
+    @staticmethod
     def load(model_dir: str) -> dict:
         path = model_dir
         if os.path.isdir(model_dir):
@@ -111,3 +122,17 @@ class ModelConfigs(object):
     def exists(model_dir: str) -> bool:
         return os.path.exists(
             os.path.join(model_dir, MODEL_CONFIG_YAML_FILENAME))
+
+
+def _yaml_safe(x):
+    """numpy scalars and tuples -> plain Python for YAML."""
+    if isinstance(x, dict):
+        return {str(k): _yaml_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_yaml_safe(v) for v in x]
+    if hasattr(x, "item") and callable(getattr(x, "item")):
+        try:
+            return x.item()
+        except (TypeError, ValueError):
+            return str(x)
+    return x

@@ -24,17 +24,24 @@ as follows:
 It raises on any name it does not consume and on any port parameter it
 did not fill.  Gradients share their parameters' names and shapes, so a
 JAX gradient tree maps onto the port's names the same way.
+
+``state_dict_to_flat(model)`` is the exact inverse: the port's parameters
+as ``neurst_tpu`` flat params in float32, in the per-layer layout
+``<stack>/layer_<i>/...``, which the JAX package's ``restore_into``
+bridges to its scan-stacked models.  The port's checkpoints are written
+through it, so the JAX package reads them.
 """
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from neurst_tpu_torch.utils.checkpoints import bf16_bytes_to_float32
 
-__all__ = ["flat_to_state_dict", "load_flat_params"]
+__all__ = ["flat_to_state_dict", "load_flat_params", "state_dict_to_flat",
+           "to_jax_name"]
 
 _SCAN_RE = re.compile(r"^(.*)/layers/layer/(.*)$")
 _FUSED_PROJ = ("qkv_transform", "q_transform", "kv_transform")
@@ -105,3 +112,57 @@ def load_flat_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):
     in its parameters' dtypes).  Returns ``model``."""
     model.load_state_dict(flat_to_state_dict(flat, model))
     return model
+
+
+def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
+    """(flax name, array in flax's layout) for one port parameter, the
+    inverse of ``_to_torch_layout``; ``attention`` is the module two
+    levels up (the attention layer of a projection)."""
+    parts = name.split(".")
+    owner, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
+    if owner in _FUSED_PROJ or owner == "output_transform":
+        heads, head_dim = attention.num_heads, attention.head_dim
+    if leaf == "weight":
+        if owner in _FUSED_PROJ:
+            a = a.T.reshape(a.shape[1], -1, heads, head_dim)
+        elif owner == "output_transform":
+            a = a.T.reshape(heads, head_dim, a.shape[0])
+        elif a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2:
+            a = a.T
+        else:
+            raise ValueError(f"{name}: no flax layout for a weight of "
+                             f"shape {a.shape}")
+        leaf = "kernel"
+    elif leaf == "bias" and owner in _FUSED_PROJ:
+        a = a.reshape(-1, heads, head_dim)
+    return "/".join(parts[:-1] + [leaf]), np.ascontiguousarray(a)
+
+
+def state_dict_to_flat(model: torch.nn.Module,
+                       tensors: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """``model``'s parameters (or ``tensors``, named as they are, e.g.
+    the float32 master of bf16 params) -> ``neurst_tpu`` flat params
+    (float32 numpy arrays, per-layer names), the inverse of
+    ``flat_to_state_dict``."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    flat = {}
+    for name, p in tensors.items():
+        owner = model.get_submodule(name.rsplit(".", 2)[0]) \
+            if name.count(".") >= 2 else model
+        jax_name, a = _to_jax_layout(
+            name, p.detach().float().cpu().numpy(), owner)
+        flat[jax_name] = a
+    return flat
+
+
+def to_jax_name(name: str) -> str:
+    """The JAX package's flat name of a port parameter (every port
+    ``weight`` is a dense or conv kernel)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)

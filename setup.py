@@ -23,6 +23,8 @@ setup(
         "console_scripts": [
             "neurst-tpu-run = neurst_tpu.cli.run_exp:cli_main",
             "neurst-tpu-torch-run = neurst_tpu_torch.cli.run_exp:cli_main",
+            "neurst-tpu-torch-avg-checkpoint = "
+            "neurst_tpu_torch.cli.avg_checkpoint:main",
         ],
     },
 )

@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax_or_neurst_tpu():
 
 
 @pytest.mark.parametrize("subpackage", ["cli", "data", "tasks", "metrics",
-                                        "exps"])
+                                        "exps", "training"])
 def test_predict_subpackages_load_no_jax_or_neurst_tpu(subpackage):
     code = (
         "import importlib, pkgutil, sys\n"
