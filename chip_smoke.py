@@ -93,6 +93,29 @@ exits non-zero):
                and ckpt-12, the predict entry on the average, and a
                float32 trainer on the card against the CPU
                (``speech_transformer_toy``, 2 steps).
+   nmt_trainer -- the MuST-C MT recipe through ``run_exp --entry train``
+               (``NMT_TRAINER``): ``translation`` token buckets of 32768
+               tokens, ``transformer_base`` in bf16 with an f32 master
+               and dropout 0.1, a seeded 4000-pair corpus with a 32768-word
+               vocabulary a side; run A, 12 steps with the inline
+               ``seq_generation_validator`` at step 12 (64 dev lines, beam
+               4, lp 0.6, max 160 + 50); run B, 6 steps from
+               ``parallel_tfrecord`` records: window tokens/s, data-wait
+               share, checkpoint and validator seconds, peak memory, every
+               step's launches of rows 4, 5, 8, 9, 10 against
+               ``expected_launches`` at its bucket.
+   nmt_predict -- the predict entry on run A's dir, must-c/
+               mt_prediction_args.yml's form (MultipleDataset of dev and
+               tst-COMMON, 128 lines each, batch 64, beam 4, lp 0.6, max
+               180, BLEU), then the eval entry on the same sets:
+               per-dataset samples/s and split, weighted metrics, the
+               ``<file>.<name>`` outputs; no kernel launches.
+   nmt_reference_check -- a 2-layer d 64 Transformer trained 2 steps and
+               then predicting, in float32, on the card and on the CPU:
+               losses, parameters and hypotheses agree.
+   mt_quality -- examples/quality/mt_synth_base.yml cut to 300 steps and
+               one validation on dev's first 128 lines: the quarter-mean
+               loss falls, and the BLEU.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -773,7 +796,7 @@ def _keep_rate_ok(kept, keep_p, n):
 def dropout_kernel_phase(seed):
     """fused_dropout_apply (the mask kernel) against its plain version:
     the encoder's postprocess site [30000, 256] (rate quantized to 1/256),
-    a ragged [37, 200] (exact rate), a [37, 199] whose length is not a
+    the text path's [32768, 512], a ragged [37, 200] (exact rate), a [37, 199] whose length is not a
     whole number of 16-byte vectors (a scalar tail), and a flat view
     ``buf[1:]`` whose pointer is not 16-byte aligned (the kernel gathers
     its vectors).  Outputs and masks bitwise equal; the kept share within
@@ -789,8 +812,10 @@ def dropout_kernel_phase(seed):
     key = _site_key(rng, 1 << 16 | 1)
     rows = TRAIN["batch"] * TRAIN["frames"] // 4
     results = {}
-    for case, shape in (("main", (rows, 256)), ("ragged", (37, 200)),
-                        ("ragged_tail", (37, 199)),
+    for case, shape in (("main", (rows, 256)),
+                        ("nmt", (NMT_TRAIN["batch"] * NMT_TRAIN["length"],
+                                 512)),
+                        ("ragged", (37, 200)), ("ragged_tail", (37, 199)),
                         ("unaligned", (100003,))):
         threshold, scale = fd.threshold_and_scale(
             DROPOUT_RATE, fd.quantized_site(shape))
@@ -2098,6 +2123,7 @@ TRAINER_TASK = {"audio_feature_dim": 80, "batch_by_frames": True,
 TRAIN_LINE = re.compile(
     r"step (\d+) \| loss (\S+) \| lr (\S+) \| grad_norm (\S+) \| \S+ "
     r"steps/s \| (\S+) secs/step \| (\S+) tokens/s")
+VALIDATION_LINE = re.compile(r"validation @(\d+): (\S+)=(\S+) ")
 
 
 def _words(rng, pipeline, n=3000):
@@ -2159,10 +2185,12 @@ def trainer_config(path, records, pipeline, task=None, model=None,
     return path
 
 
-def run_trainer(argv):
+def run_trainer(argv, task_cls=None):
     """``run_exp.cli_main(argv)`` in-process with the launch counts set to
-    0 before and read after, the task's TRAIN iterator wrapped to time
-    each ``next()`` and record each batch's shape, ``Trainer._save``
+    0 before and read after, the task's (``SpeechToText`` by default)
+    TRAIN iterator wrapped to time each ``next()`` and record each
+    batch's shape, each train step's launches recorded with its batch's
+    shape, ``Trainer._save`` and ``SeqGenerationValidator.validate``
     timed, and the log lines kept.  Returns the trainer's final state and
     what it measured."""
     import logging
@@ -2170,17 +2198,32 @@ def run_trainer(argv):
     import torch
 
     from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.exps import trainer as trainer_mod
     from neurst_tpu_torch.exps.trainer import Trainer
     from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
     from neurst_tpu_torch.tasks.speech2text import SpeechToText
+    from neurst_tpu_torch.training.seq_generation_validator import \
+        SeqGenerationValidator
+    from neurst_tpu_torch.utils.compat import ModeKeys
 
+    def _sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    task_cls = task_cls or SpeechToText
     seen = {"wait_s": 0.0, "shapes": [], "rows": [], "save_s": [],
-            "messages": []}
-    make_batches, save, run = (SpeechToText.create_batch_iterator,
-                               Trainer._save, Trainer.run)
+            "validate_s": [], "steps": [], "messages": []}
+    originals = {
+        (task_cls, "create_batch_iterator"): task_cls.create_batch_iterator,
+        (Trainer, "_save"): Trainer._save, (Trainer, "run"): Trainer.run,
+        (SeqGenerationValidator, "validate"): SeqGenerationValidator.validate,
+        (trainer_mod, "make_train_step"): trainer_mod.make_train_step}
 
-    def timed_batches(self, *a, **kw):
-        make_iter = make_batches(self, *a, **kw)
+    def timed_batches(self, ds, mode, *a, **kw):
+        make_iter = originals[task_cls, "create_batch_iterator"](
+            self, ds, mode, *a, **kw)
+        if mode != ModeKeys.TRAIN:
+            return make_iter
 
         def timed():
             it = make_iter()
@@ -2197,19 +2240,39 @@ def run_trainer(argv):
                 yield batch
         return timed
 
-    def timed_save(self, *a, **kw):
-        start = time.perf_counter()
-        save(self, *a, **kw)
-        seen["save_s"].append(time.perf_counter() - start)
+    def timed(key, into):
+        def call(self, *a, **kw):
+            start = time.perf_counter()
+            try:
+                return originals[key](self, *a, **kw)
+            finally:
+                seen[into].append(time.perf_counter() - start)
+        return call
 
     def timed_run(self):
         seen["model"] = self.model
         start = time.perf_counter()
         try:
-            return run(self)
+            return originals[Trainer, "run"](self)
         finally:
-            torch.cuda.synchronize()
+            _sync()
             seen["run_s"] = time.perf_counter() - start
+
+    def counted_train_step(*a, **kw):
+        step = originals[trainer_mod, "make_train_step"](*a, **kw)
+
+        def run_step(state, batch, rng=None):
+            before = launch_counts()
+            out = step(state, batch, rng)
+            after = launch_counts()
+            seen["steps"].append({
+                "src": list(batch["src"].shape),
+                "trg": list(batch["trg"].shape),
+                "launches": {k: after[k] - before[k] for k in after},
+                "loss": out[1]["loss"]})
+            return out
+        run_step.compute_grads = step.compute_grads
+        return run_step
 
     class Lines(logging.Handler):
         def emit(self, record):
@@ -2220,25 +2283,35 @@ def run_trainer(argv):
     level = logger.level
     logger.setLevel(logging.INFO)
     logger.addHandler(handler)
-    SpeechToText.create_batch_iterator = timed_batches
-    Trainer._save, Trainer.run = timed_save, timed_run
+    task_cls.create_batch_iterator = timed_batches
+    Trainer._save = timed((Trainer, "_save"), "save_s")
+    Trainer.run = timed_run
+    SeqGenerationValidator.validate = timed(
+        (SeqGenerationValidator, "validate"), "validate_s")
+    trainer_mod.make_train_step = counted_train_step
     np.random.seed(0)
     reset_launch_counts()
     try:
         state = run_exp.cli_main(argv)
-        torch.cuda.synchronize()
+        _sync()
     finally:
         seen["launches"] = launch_counts()
-        SpeechToText.create_batch_iterator = make_batches
-        Trainer._save, Trainer.run = save, run
+        for (owner, name), value in originals.items():
+            setattr(owner, name, value)
         logger.removeHandler(handler)
         logger.setLevel(level)
+    for s in seen["steps"]:
+        s["loss"] = float(s["loss"])
     seen["windows"] = [
         {"step": int(m.group(1)), "loss": float(m.group(2)),
          "lr": float(m.group(3)), "grad_norm": float(m.group(4)),
          "secs_per_step": float(m.group(5)),
          "tokens_per_s": float(m.group(6))}
         for m in (TRAIN_LINE.match(x) for x in seen["messages"]) if m]
+    seen["validations"] = [
+        {"step": int(m.group(1)), "metric": m.group(2),
+         "value": float(m.group(3))}
+        for m in (VALIDATION_LINE.match(x) for x in seen["messages"]) if m]
     return state, seen
 
 
@@ -2512,6 +2585,474 @@ def trainer_reference_check(root, rng, words, pipeline):
     return row
 
 
+# the MuST-C MT recipe (examples/speech_transformer/must-c/
+# mt_training_args.yml) through ``run_exp --entry train``: the
+# ``translation`` task's token buckets (32768 tokens a batch, lengths up
+# to 128, pad multiple 8), transformer_base with its dropout 0.1, bf16
+# with bf16 params and an f32 master, label smoothing 0.1, the hparams
+# set's Adam and noam; a seeded corpus of 4000 pairs of 5-127 tokens (EOS
+# included) over a 32768-word vocabulary a side, with no tokenizer (the
+# card has no sacremoses).  Run A: 12 steps, a log every 2, a checkpoint
+# every 6, the inline ``seq_generation_validator`` at step 12 on 64 dev
+# lines with examples/translation/validation_args.yml's search; run B: 6
+# steps of the same corpus from ``parallel_tfrecord`` records.  Then the
+# predict entry in must-c/mt_prediction_args.yml's form (a
+# MultipleDataset of dev and tst-COMMON, 128 lines each, batch 64) and
+# the eval entry on the same sets; a float32 card-vs-CPU check of a
+# 2-layer d 64 Transformer (2 steps, then predict); and mt_quality:
+# examples/quality/mt_synth_base.yml cut to 300 steps and one validation
+# on dev's first 128 lines.
+NMT_TRAINER = dict(hparams_set="transformer_base", vocab=32768, pairs=4000,
+                   min_tokens=5, max_tokens=127, steps=12, save_every=6,
+                   summary=2, records_steps=6, dev_lines=64,
+                   predict_lines=128, predict_batch=64, check_words=60,
+                   check_pairs=24, check_max_tokens=12, check_steps=2,
+                   check_dim=64, quality_steps=300, quality_summary=10,
+                   quality_dev_lines=128)
+NMT_TASK = {"batch_by_tokens": True, "batch_size": 32768, "max_src_len": 128,
+            "max_trg_len": 128, "pad_length_multiple": 8}
+NMT_VALIDATION_SEARCH = {"beam_size": 4, "length_penalty": 0.6,
+                         "maximum_decode_length": 160,
+                         "extra_decode_length": 50}
+NMT_PREDICT_SEARCH = {"beam_size": 4, "length_penalty": 0.6,
+                      "maximum_decode_length": 180}
+NMT_CHECK_TOL = 1e-5
+
+
+def write_word_vocab(path, rng, size):
+    """``size`` distinct random words, one a line (the pipeline adds its
+    three control tokens); returns them."""
+    words = set()
+    while len(words) < size:
+        words.add(_random_word(rng, 2, 9))
+    words = sorted(words)
+    with open(path, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return words
+
+
+def write_parallel(prefix, rng, src_words, trg_words, n, min_tokens,
+                   max_tokens):
+    """``prefix``.src / .trg: ``n`` pairs of random words; a source of
+    ``min_tokens``-``max_tokens`` tokens with its EOS, a target within
+    10% of its length.  Returns the paths."""
+    src_len = rng.randint(min_tokens, max_tokens + 1, size=n)
+    trg_len = np.clip(src_len + np.round(0.1 * src_len * (
+        2 * rng.rand(n) - 1)).astype(int), min_tokens, max_tokens)
+    paths = {}
+    for side, words, lengths in (("src", src_words, src_len),
+                                 ("trg", trg_words, trg_len)):
+        paths[side] = f"{prefix}.{side}"
+        with open(paths[side], "w") as f:
+            for length in lengths:
+                f.write(" ".join(words[i] for i in rng.randint(
+                    len(words), size=int(length) - 1)) + "\n")
+    return paths
+
+
+def write_text_records(path, pipelines, paths):
+    """``parallel_tfrecord`` records of the pairs' ids (EOS included)."""
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.data.recordio import RecordWriter, build_example
+    encode = {side: build_data_pipeline({
+        "data_pipeline.class": "TextDataPipeline",
+        "data_pipeline.params": pipelines[side]}).encode
+        for side in ("src", "trg")}
+    with open(paths["src"]) as fs, open(paths["trg"]) as ft, \
+            RecordWriter(path) as w:
+        for src, trg in zip(fs, ft):
+            w.write(build_example({
+                "feature": np.asarray(encode["src"](src.strip()), np.int64),
+                "label": np.asarray(encode["trg"](trg.strip()), np.int64)}))
+
+
+def nmt_config(path, pipelines, dataset, **entry):
+    cfg = {"task.class": "translation",
+           "task.params": dict(NMT_TASK, **{
+               f"{side}_data_pipeline.class": "TextDataPipeline"
+               for side in ("src", "trg")}, **{
+               f"{side}_data_pipeline.params": pipelines[side]
+               for side in ("src", "trg")}),
+           "dataset.class": dataset[0], "dataset.params": dataset[1],
+           "hparams_set": NMT_TRAINER["hparams_set"], "dtype": "bfloat16",
+           "entry.class": "trainer",
+           "entry.params": dict({
+               "criterion.class": "label_smoothed_cross_entropy",
+               "criterion.params": {"label_smoothing":
+                                    NMT_TRAIN["label_smoothing"]}},
+               **entry)}
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def _parallel(paths):
+    return {"src_file": paths["src"], "trg_file": paths["trg"]}
+
+
+def _nmt_step_checks(seen, model):
+    """Every step's launches of rows 4, 5, 8, 9 and 10 against
+    ``expected_launches`` at its batch's rows (the encoder's B x S, the
+    decoder's B x T); nothing else launched in the run.  Returns the
+    launches a step by batch shape."""
+    by_shape, total = {}, {}
+    for s in seen["steps"]:
+        b, length = s["src"]
+        expected = expected_launches(model, b * length, b * s["trg"][1],
+                                     True)
+        got = {k: s["launches"][k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"step of {s['src']} x {s['trg']}: "
+                                 f"launches {got}, expected {expected}")
+        by_shape["x".join(map(str, [b, length, s["trg"][1]]))] = {
+            k: v for k, v in got.items() if v}
+        for k, v in s["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if total != seen["launches"]:
+        raise AssertionError(f"launches outside the train steps: "
+                             f"{seen['launches']} against {total}")
+    return by_shape
+
+
+def _trainer_numbers(seen, peak_bytes):
+    windows = seen["windows"][1:] or seen["windows"]
+    return {"steps": len(seen["steps"]),
+            "target_tokens_per_s": float(np.median(
+                [w["tokens_per_s"] for w in windows])),
+            "step_s_median": float(np.median(
+                [w["secs_per_step"] for w in windows])),
+            "windows": seen["windows"], "run_s": seen["run_s"],
+            "data_wait_s": seen["wait_s"],
+            "data_wait_share": seen["wait_s"] / seen["run_s"],
+            "checkpoint_s": seen["save_s"], "validate_s": seen["validate_s"],
+            "validations": seen["validations"],
+            "max_memory_allocated": peak_bytes,
+            "batch_shapes": sorted({"x".join(map(str, x))
+                                    for x in seen["shapes"]})}
+
+
+def nmt_trainer_phase(seed, root, device="cuda"):
+    """Runs A and B of the text train entry (``NMT_TRAINER``) under
+    ``root``.  Returns (run A's launch counts, the model dir, the
+    pipelines, the word lists)."""
+    import torch
+
+    from neurst_tpu_torch.tasks.translation import Translation
+
+    t = NMT_TRAINER
+    start = time.perf_counter()
+    rng = np.random.RandomState(seed + 90)
+    words, pipelines = {}, {}
+    for side, language in (("src", "en"), ("trg", "de")):
+        vocab = os.path.join(root, f"vocab.{side}")
+        words[side] = write_word_vocab(vocab, rng, t["vocab"] - 3)
+        pipelines[side] = {"vocab_path": vocab, "language": language}
+    train = write_parallel(os.path.join(root, "train"), rng, words["src"],
+                           words["trg"], t["pairs"], t["min_tokens"],
+                           t["max_tokens"])
+    dev = write_parallel(os.path.join(root, "dev"), rng, words["src"],
+                         words["trg"], t["dev_lines"], t["min_tokens"],
+                         t["max_tokens"])
+    records = os.path.join(root, "train.tfrecords")
+    write_text_records(records, pipelines, train)
+    write_s = time.perf_counter() - start
+    validator = {
+        "validator.class": "SeqGenerationValidator",
+        "validator.params": {
+            "eval_dataset": "ParallelTextDataset",
+            "eval_dataset.params": _parallel(dev), "eval_batch_size": 64,
+            "eval_start_at": t["steps"], "eval_steps": t["steps"],
+            "eval_search_method": "beam_search",
+            "eval_search_method.params": NMT_VALIDATION_SEARCH,
+            "eval_metric": "bleu", "eval_top_checkpoints_to_keep": 10,
+            "eval_auto_average_checkpoints": True}}
+    cfg_a = nmt_config(os.path.join(root, "a.json"), pipelines,
+                       ("parallel_text", _parallel(train)),
+                       train_steps=t["steps"], summary_steps=t["summary"],
+                       save_checkpoint_steps=t["save_every"], **validator)
+    dir_a = os.path.join(root, "model_a")
+    rows = {}
+    for run, cfg, model_dir in (
+            ("run_a", cfg_a, dir_a),
+            ("run_b_records", nmt_config(
+                os.path.join(root, "b.json"), pipelines,
+                ("parallel_tfrecord", {"data_path": records}),
+                train_steps=t["records_steps"], summary_steps=t["summary"],
+                save_checkpoint_steps=1000),
+             os.path.join(root, "model_b"))):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _, seen = run_trainer(["--config_paths", cfg, "--model_dir",
+                               model_dir, "--device", device], Translation)
+        steps = t["steps"] if run == "run_a" else t["records_steps"]
+        _train_path_checks(seen, steps, run)
+        rows[run] = dict(_trainer_numbers(
+            seen, torch.cuda.max_memory_allocated() if device == "cuda"
+            else None), launches_per_step_by_shape=_nmt_step_checks(
+                seen, seen["model"]))
+        if run == "run_a":
+            launches = seen["launches"]
+            if len(seen["validations"]) != 1 or not seen["validate_s"]:
+                raise AssertionError(f"run A validated "
+                                     f"{seen['validations']}")
+    emit({"phase": "nmt_trainer", "model": t["hparams_set"],
+          "dtype": "bfloat16", "bf16_params": True, "dropout": DROPOUT_RATE,
+          "recipe": "examples/speech_transformer/must-c/mt_training_args.yml",
+          "task": NMT_TASK, "pairs": t["pairs"],
+          "tokens_a_pair": [t["min_tokens"], t["max_tokens"]],
+          "write_inputs_s": write_s, **rows})
+    return launches, dir_a, pipelines, words
+
+
+def nmt_predict_phase(seed, root, model_dir, words, device="cuda"):
+    """The predict entry on run A's dir in must-c/mt_prediction_args.yml's
+    form (``NMT_PREDICT_SEARCH``, batch 64, BLEU) over a MultipleDataset
+    of ``dev`` and ``tst-COMMON``, then the eval entry on the same sets.
+    Returns the launch counts of the predict run (every kernel 0: the
+    infer gates keep the fused FFN off and attention is dense)."""
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t = NMT_TRAINER
+    rng = np.random.RandomState(seed + 91)
+    sets = {name: {"dataset.class": "ParallelTextDataset",
+                   "dataset.params": _parallel(write_parallel(
+                       os.path.join(root, name), rng, words["src"],
+                       words["trg"], t["predict_lines"], t["min_tokens"],
+                       t["max_tokens"]))}
+            for name in ("dev", "tst-COMMON")}
+    hypo = os.path.join(root, "hypo.txt")
+    cfg = os.path.join(root, "predict.json")
+    with open(cfg, "w") as f:
+        json.dump({"entry.class": "predict", "entry.params": {
+            "search_method.class": "beam_search",
+            "search_method.params": NMT_PREDICT_SEARCH,
+            "metric.class": "bleu", "output_file": hypo,
+            "save_metric": hypo + ".json"},
+            "batch_size": t["predict_batch"],
+            "dataset.class": "MultipleDataset",
+            "dataset.params": {"multiple_datasets": sets}}, f, indent=1)
+    argv = ["--config_paths", cfg, "--model_dir", model_dir, "--device",
+            device]
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = run_exp.cli_main(argv)
+    wall_s = time.perf_counter() - start
+    counts = launch_counts()
+    start = time.perf_counter()
+    evaluated = run_exp.cli_main(argv[:2] + ["--entry", "eval"] + argv[2:])
+    eval_s = time.perf_counter() - start
+    per_set = {}
+    for name, res in result["datasets"].items():
+        with open(f"{hypo}.{name}") as f:
+            lines = f.read().splitlines()
+        per_set[name] = {
+            "samples": res["samples"], "output_lines": len(lines),
+            "samples_per_s": res["samples_per_sec"], "timing_s":
+            res["timing"], "BLEU": res["BLEU"],
+            "eval": evaluated["datasets"][name]}
+    row = {"phase": "nmt_predict", "model": t["hparams_set"],
+           "dtype": "bfloat16",
+           "recipe": "examples/speech_transformer/must-c/"
+                     "mt_prediction_args.yml",
+           "search": NMT_PREDICT_SEARCH, "batch_size": t["predict_batch"],
+           "datasets": per_set, "weighted": result["weighted"],
+           "eval_weighted": evaluated["weighted"], "predict_wall_s": wall_s,
+           "eval_wall_s": eval_s, "launches": counts,
+           "saved_metrics": os.path.exists(hypo + ".json")}
+    emit(row)
+    if not (all(r["samples"] == r["output_lines"] == t["predict_lines"]
+                for r in per_set.values())
+            and sorted(per_set) == ["dev", "tst-COMMON"]
+            and math.isfinite(result["weighted"]["BLEU"])
+            and math.isfinite(evaluated["weighted"]["NLL"])
+            and row["saved_metrics"] and not any(counts.values())):
+        raise AssertionError(f"nmt_predict phase failed: {row}")
+    return counts
+
+
+def nmt_reference_check(seed, root, devices=("cuda", "cpu")):
+    """The text train and predict entries in float32 on the card and on
+    the CPU (plain versions): a 2-layer d 64 Transformer, dropout 0, noam
+    with warmup 1 (lr 1e-3 at step 1), 2 steps, then beam-2 predict.
+    Losses within ``NMT_CHECK_TOL`` relative, ckpt-2 within 2 lr + 1e-6
+    (the key biases within 2 x the summed lr + 1e-6), hypotheses equal
+    (the decoded strings stop at the first EOS)."""
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.tasks.translation import Translation
+    from neurst_tpu_torch.utils.checkpoints import restore_checkpoint_params
+
+    t = NMT_TRAINER
+    rng = np.random.RandomState(seed + 92)
+    vocab = os.path.join(root, "check_vocab.txt")
+    words = write_word_vocab(vocab, rng, t["check_words"])
+    pair = write_parallel(os.path.join(root, "check"), rng, words, words,
+                          t["check_pairs"], 3, t["check_max_tokens"])
+    pipelines = {"src": {"vocab_path": vocab}, "trg": {"vocab_path": vocab}}
+    d = t["check_dim"]
+    model = {"modality.share_source_target_embedding": True,
+             "modality.share_embedding_and_softmax_weights": True,
+             "modality.dim": d, "modality.timing": "sinusoids"}
+    for side in ("encoder", "decoder"):
+        model.update({f"{side}.num_layers": 2, f"{side}.hidden_size": d,
+                      f"{side}.num_attention_heads": 4,
+                      f"{side}.filter_size": 4 * d})
+    cfg = nmt_config(os.path.join(root, "check.json"), pipelines,
+                     ("parallel_text", _parallel(pair)),
+                     train_steps=t["check_steps"],
+                     save_checkpoint_steps=1000, summary_steps=1,
+                     enable_tensorboard=False, **{
+                         "optimizer.class": "adam",
+                         "optimizer.params": {"epsilon": 1e-9,
+                                              "beta_1": 0.9,
+                                              "beta_2": 0.98},
+                         "lr_schedule.class": "noam",
+                         "lr_schedule.params": {"dmodel": d,
+                                                "warmup_steps": 1,
+                                                "initial_factor": 0.008}})
+    with open(cfg) as f:
+        config = json.load(f)
+    config.pop("hparams_set")
+    config["task.params"].update(batch_size=256, max_src_len=16,
+                                 max_trg_len=16, shuffle_buffer=0)
+    config.update({"dtype": "float32", "model.class": "transformer",
+                   "model.params": model})
+    with open(cfg, "w") as f:
+        json.dump(config, f)
+    predict = os.path.join(root, "check_predict.json")
+    with open(predict, "w") as f:
+        json.dump({"entry.class": "predict", "batch_size": 8,
+                   "entry.params": {"search_method.class": "beam_search",
+                                    "search_method.params": {
+                                        "beam_size": 2,
+                                        "maximum_decode_length": 16}},
+                   "dataset.class": "parallel_text",
+                   "dataset.params": {"src_file": pair["src"]}}, f)
+    out = []
+    for i, device in enumerate(devices):
+        model_dir = os.path.join(root, f"check_{i}_{device}")
+        _, seen = run_trainer(["--config_paths", cfg, "--model_dir",
+                               model_dir, "--device", device], Translation)
+        hyps = run_exp.cli_main(["--config_paths", predict, "--model_dir",
+                                 model_dir, "--device", device])
+        out.append((restore_checkpoint_params(os.path.join(
+            model_dir, f"ckpt-{t['check_steps']}.npz")),
+            [s["loss"] for s in seen["steps"]], hyps["hypotheses"]))
+    card, cpu = out
+    lrs = [0.008 * d ** -0.5 / math.sqrt(s)
+           for s in range(1, t["check_steps"] + 1)]
+    tol, noise_tol = 2 * lrs[0] + 1e-6, 2 * sum(lrs) + 1e-6
+    err = noise = 0.0
+    for name, ref in cpu[0].items():
+        diff = np.abs(card[0][name] - ref)
+        key = _key_bias(name, diff)
+        if key is not None:
+            noise = max(noise, float(key.max()))
+            diff = np.delete(diff, 1 if "qkv" in name else 0, axis=0)
+        err = max(err, float(diff.max()))
+    losses = (card[1], cpu[1])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    row = {"phase": "nmt_reference_check", "dtype": "float32",
+           "layers": 2, "dim": d, "steps": t["check_steps"],
+           "max_param_abs_err": err, "key_bias_max_abs_err": noise,
+           "param_tol": [tol, noise_tol], "loss_rel_err": loss_err,
+           "loss_tol": NMT_CHECK_TOL, "losses_card": losses[0],
+           "losses_cpu": losses[1],
+           "hypotheses_equal": card[2] == cpu[2],
+           "hypotheses": len(cpu[2]), "distinct_hypotheses": len(set(cpu[2]))}
+    emit(row)
+    if not (err <= tol and noise <= noise_tol
+            and len(losses[0]) == len(losses[1]) == t["check_steps"]
+            and loss_err <= NMT_CHECK_TOL and row["hypotheses_equal"]
+            and row["hypotheses"] == t["check_pairs"]):
+        raise AssertionError(f"the card's float32 text entries disagree "
+                             f"with the CPU's: {row}")
+
+
+def mt_quality_phase(root, device="cuda", recipe=None):
+    """examples/quality/mt_synth_base.yml (transformer_base, bf16 with an
+    f32 master, update_cycle 2, on the committed reversal corpus) cut to
+    ``quality_steps`` steps, a log every ``quality_summary`` and one
+    validation at the end on dev's first ``quality_dev_lines`` lines: the
+    mean loss must fall from quarter to quarter (QUALITY_r05's
+    ``loss_monotone_by_quarter``); prints the BLEU."""
+    import yaml
+
+    from neurst_tpu_torch.tasks.translation import Translation
+
+    t = NMT_TRAINER
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = recipe or os.path.join(here, "examples", "quality",
+                                    "mt_synth_base.yml")
+    with open(recipe) as f:
+        cfg = json.loads(json.dumps(yaml.safe_load(f)).replace(
+            '"examples/quality/', f'"{here}/examples/quality/'))
+    dev = {}
+    for side in ("src", "trg"):
+        dev[side] = os.path.join(root, f"quality_dev.{side}")
+        with open(cfg["entry.params"]["validator.params"][
+                "eval_dataset.params"][f"{side}_file"]) as f:
+            lines = f.read().splitlines()[:t["quality_dev_lines"]]
+        with open(dev[side], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    steps = t["quality_steps"]
+    cfg["entry.class"] = "trainer"
+    cfg["entry.params"].update(
+        train_steps=steps, summary_steps=t["quality_summary"],
+        save_checkpoint_steps=steps, enable_tensorboard=False)
+    cfg["entry.params"]["validator.params"].update(
+        {"eval_steps": steps, "eval_start_at": steps,
+         "eval_dataset.params": _parallel(dev)})
+    path = os.path.join(root, "quality.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    _, seen = run_trainer(["--config_paths", path, "--model_dir",
+                           os.path.join(root, "quality"), "--device",
+                           device], Translation)
+    _train_path_checks(seen, steps, "mt_quality")
+    losses = [w["loss"] for w in seen["windows"]]
+    q = len(losses) // 4
+    quarters = [float(np.mean(losses[i * q:(i + 1) * q])) for i in range(4)]
+    row = {"phase": "mt_quality", "recipe": "examples/quality/"
+           "mt_synth_base.yml", "steps": steps,
+           "dev_lines": t["quality_dev_lines"],
+           "loss_trajectory": [[w["step"], w["loss"]]
+                               for w in seen["windows"]],
+           "loss_quarters": quarters,
+           "loss_monotone_by_quarter": all(
+               a > b for a, b in zip(quarters, quarters[1:])),
+           "step_s_median": float(np.median(
+               [w["secs_per_step"] for w in seen["windows"][1:]])),
+           "validations": seen["validations"],
+           "validate_s": seen["validate_s"], "run_s": seen["run_s"]}
+    emit(row)
+    if not (row["loss_monotone_by_quarter"] and len(seen["validations"]) == 1
+            and math.isfinite(seen["validations"][0]["value"])):
+        raise AssertionError(f"mt_quality phase failed: {row}")
+    return row
+
+
+def nmt_phases(seed, device="cuda"):
+    """The text path's phases under ``build/nmt_smoke/``, removed after.
+    Returns the launch counts of the trainer's run A and of predict."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "nmt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        trainer_counts, model_dir, _, words = nmt_trainer_phase(seed, root,
+                                                                device)
+        predict_counts = nmt_predict_phase(seed, root, model_dir, words,
+                                           device)
+        if device == "cuda":
+            nmt_reference_check(seed, root)
+        mt_quality_phase(root, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return trainer_counts, predict_counts
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -2590,6 +3131,7 @@ def main(argv=None):
                "train_base_bf16": nmt_train_phase(args.seed,
                                                   bf16_params=True),
                "decode": decode_counts, "predict": predict_counts}
+    by_path["nmt_trainer"], by_path["nmt_predict"] = nmt_phases(args.seed)
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
@@ -2603,7 +3145,8 @@ def main(argv=None):
             "with_dropout": flash_drop_rows[("dkv",) + main_bf16]}),
         "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], {}),
         "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], {}),
-        "fused_dropout": (dropout_rows[main_bf16], {})}
+        "fused_dropout": (dropout_rows[main_bf16], {
+            "nmt_train": dropout_rows[("nmt", "bfloat16")]})}
     for kernel in ("fwd", "bwd"):
         rows[f"fused_linear_xent_{kernel}"] = (
             xent_rows[(kernel,) + main_bf16],

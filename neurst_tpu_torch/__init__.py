@@ -5,7 +5,8 @@ Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
 models, search layers, criterions, optimizers, learning-rate schedules,
 tasks, datasets, data pipelines, tokenizers, metrics, validators and
-entries (``predict`` and ``train``);
+entries (``predict``, ``train``, ``eval``, ``sequence_evaluator`` and
+``validation``);
 kernels are built on first use.
 """
 

@@ -1,5 +1,6 @@
 """The main CLI of the port:
-``python -m neurst_tpu_torch.cli.run_exp --entry predict|train ...``
+``python -m neurst_tpu_torch.cli.run_exp --entry
+predict|train|eval|sequence_evaluator|validation ...``
 (counterpart of ``neurst_tpu/cli/run_exp.py``).
 
 Config precedence as in the JAX package: command line > ``config_paths``
@@ -11,11 +12,11 @@ top-level config seeds ``entry.params``.  ``--device`` picks the card
 Flags of features the port lacks raise ``NotImplementedError`` when set:
 QAT and int8 serving, ``--include`` plug-ins, multi-host initialization,
 the XLA compilation cache, ``enable_xla: true``, NaN checks and any
-``distribution_strategy`` but one device; so do the JAX package's
-MultipleDataset / MixedTrainDataset and sampling or speculative searches.
-The ``predict`` and ``train`` entries are ported (the recipes' ``trainer``
-is ``train`` by its class name); the trainer refuses the features it
-lacks itself (``exps/trainer.py``).
+``distribution_strategy`` but one device; so do sampling and speculative
+searches.  The ``predict``, ``train``, ``eval``, ``sequence_evaluator``
+and ``validation`` entries are ported (the recipes' ``trainer`` is
+``train`` by its class name); the trainer refuses the features it lacks
+itself (``exps/trainer.py``).
 """
 
 import logging
@@ -96,14 +97,11 @@ _UNPORTED = {"enable_quant": False, "quant_params": None,
              "enable_check_numerics": None, "enable_xla": (None, False)}
 # the strategies that mean one device, which is what the port runs
 _ONE_DEVICE_STRATEGIES = (None, "", "none", "one_device", "onedevice")
-# the JAX package's registered components the port lacks (class names
+# the JAX package's registered search layers the port lacks (class names
 # and aliases, lower-cased); any other unknown name raises LookupError
-_UNPORTED_COMPONENTS = {
-    "dataset.class": ("multiple_datasets", "multipledataset", "mixed_train",
-                      "mixedtraindataset"),
-    "search_method.class": ("top_sampling", "sampling", "topsampling",
-                            "speculative_decode", "speculative",
-                            "speculativedecode")}
+_UNPORTED_SEARCHES = ("top_sampling", "sampling", "topsampling",
+                      "speculative_decode", "speculative",
+                      "speculativedecode")
 
 
 def _format_hparams(predefined: dict) -> dict:
@@ -152,12 +150,10 @@ def run_experiment(args):
             not in _ONE_DEVICE_STRATEGIES:
         raise NotImplementedError(f"distribution_strategy {strategy} is not "
                                   f"ported (one device only)")
-    # the dataset the CLI builds, and the search the entry builds
-    for key, name in (("dataset.class", args.get("dataset.class")),
-                      ("search_method.class", (args.get("entry.params") or {})
-                       .get("search_method.class"))):
-        if str(name).lower() in _UNPORTED_COMPONENTS[key]:
-            raise NotImplementedError(f"{key} {name} is not ported")
+    search = (args.get("entry.params") or {}).get("search_method.class")
+    if str(search).lower() in _UNPORTED_SEARCHES:
+        raise NotImplementedError(f"search_method.class {search} is not "
+                                  f"ported")
     device = resolve_device(args.get("device"))
     task = build_task(args)
     custom_dataset = build_dataset(args) if args.get("dataset.class") \
@@ -186,7 +182,8 @@ def cli_main(argv=None):
         argv = sys.argv[1:]
     args = parse_and_merge(argv)
     if not args.get("entry.class"):
-        raise ValueError("--entry must be specified (predict or train).")
+        raise ValueError("--entry must be specified (predict, train, eval, "
+                         "sequence_evaluator or validation).")
     flags_core.verbose_flags(args)
     return run_experiment(args)
 

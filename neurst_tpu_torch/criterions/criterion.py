@@ -38,6 +38,11 @@ class Criterion(object):
         """Aggregates the statistics of many batches into metrics."""
         raise NotImplementedError
 
+    def reduce_sample_metrics(self, eval_res) -> list:
+        """Per-sample metric dicts of one batch's statistics (for the
+        ``sequence_evaluator`` entry)."""
+        raise NotImplementedError
+
     def as_metric(self):
         """The Metric a validator selects checkpoints by."""
         raise NotImplementedError

@@ -115,5 +115,12 @@ class LabelSmoothedCrossEntropy(Criterion):
         return {"NLL": nll / max(samples, 1.0),
                 "PPL": 2.0 ** (nll / max(tokens, 1.0))}
 
+    def reduce_sample_metrics(self, eval_res) -> list:
+        nll_sum, _, n_tokens = (torch.as_tensor(x).double().cpu().tolist()
+                                for x in eval_res)
+        return [{"nll": n, "ppl": 2.0 ** (n / max(t, 1.)),
+                 "nll_per_token": n / max(t, 1.)}
+                for n, t in zip(nll_sum, n_tokens)]
+
     def as_metric(self):
         return MetricWrapper(flag="NLL", greater_is_better=False)

@@ -1,8 +1,10 @@
-"""Host-side data helpers (the part of ``neurst_tpu/data/dataset_utils.py``
-the predict and train paths use): fixed-size inference batches whose
-sequence dims are padded to a multiple, the last batch filled up to the
-batch size with rows that ``sample_mask`` marks 0; a streaming reservoir
-shuffle; and a prefetching thread between the reader and the consumer.
+"""Host-side data helpers (the port's copy of
+``neurst_tpu/data/dataset_utils.py``): geometric length buckets and their
+src/trg association, token-budget bucketed TRAIN batches of a bounded set
+of shapes, fixed-size inference batches whose sequence dims are padded to
+a multiple, the last batch filled up to the batch size with rows that
+``sample_mask`` marks 0; a streaming reservoir shuffle; and a prefetching
+thread between the reader and the consumer.
 
 One difference from the JAX package: a field of float arrays (audio
 features) keeps float32 in its batch.  The JAX batcher builds every field
@@ -11,19 +13,70 @@ as int32 and so truncates features to integers
 """
 
 import logging
+import math
 import queue
 import random
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = ["round_up", "adjust_batch_size", "pad_to", "batch_fixed_size",
-           "shuffle_iterator", "prefetch_iterator"]
+           "shuffle_iterator", "prefetch_iterator",
+           "create_batch_bucket_boundaries", "associated_bucket_boundaries",
+           "clean_by_length", "batch_by_tokens_bucketed"]
+
+_MIN_BUCKET_BOUNDARY = 8
+_BUCKET_BOUNDARY_SCALE = 1.1
 
 
 def round_up(x: int, multiple: int) -> int:
     return ((int(x) + multiple - 1) // multiple) * multiple
+
+
+def create_batch_bucket_boundaries(
+        max_length: int, min_boundary: int = _MIN_BUCKET_BOUNDARY,
+        boundary_scale: float = _BUCKET_BOUNDARY_SCALE,
+        length_multiple: int = 8) -> List[int]:
+    """Geometric boundaries from ``min_boundary`` (x ``boundary_scale``
+    each) up to ``max_length``, which the last covers; each rounded up to
+    ``length_multiple``, duplicates dropped."""
+    raw = []
+    x = min_boundary
+    while x < max_length:
+        raw.append(x)
+        x = max(x + 1, int(x * boundary_scale))
+    raw.append(max(max_length, min_boundary))
+    out = []
+    for b in raw:
+        b = round_up(b, length_multiple)
+        if not out or b > out[-1]:
+            out.append(b)
+    return out
+
+
+def associated_bucket_boundaries(a: List[int], b: List[int]
+                                 ) -> Tuple[List[int], List[int]]:
+    """Resamples two boundary lists to the shorter one's length, position
+    by position, so one bucket index names a (src, trg) pair."""
+    la, lb = len(a), len(b)
+    if la == lb:
+        return a, b
+    step_a, step_b = (la / lb, 1.0) if la > lb else (1.0, lb / la)
+    out_a, out_b = [], []
+    for i in range(1, min(la, lb) + 1):
+        out_a.append(a[int(math.ceil(i * step_a)) - 1])
+        out_b.append(b[int(math.ceil(i * step_b)) - 1])
+    return out_a, out_b
+
+
+def clean_by_length(example: dict,
+                    max_lens: Dict[str, Optional[int]]) -> Optional[dict]:
+    """None when a listed field of ``example`` exceeds its max length."""
+    for key, max_len in max_lens.items():
+        if max_len and key in example and len(example[key]) > max_len:
+            return None
+    return example
 
 
 def adjust_batch_size(batch_size: Optional[int] = None,
@@ -170,3 +223,81 @@ def prefetch_iterator(it: Iterator, buffer_size: int = 64) -> Iterator:
             yield x
     finally:
         stop.set()
+
+
+def batch_by_tokens_bucketed(
+        iterator: Iterator[dict],
+        batch_size_in_tokens: int,
+        bucket_boundaries: Dict[str, List[int]],
+        padding_values: Dict[str, int],
+        length_fn: Callable[[dict], Dict[str, int]],
+        batch_size_multiple: int = 8,
+        extra_fields: Sequence[str] = (),
+        drop_oversized: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Token-budget bucketed batches of a bounded set of shapes.
+
+    An example goes to the first bucket whose boundary holds every field
+    (``bucket_boundaries``: {field: associated boundary list}); examples
+    no bucket holds are dropped (or raise without ``drop_oversized``).
+    Bucket i's batch size is the budget over its largest boundary,
+    rounded down to ``batch_size_multiple`` and at least that; a full
+    bucket is emitted as [batch size, boundary] int32 arrays per field,
+    with ``<field>_length`` and ``sample_mask``, and every non-empty
+    bucket is emitted, filled up with masked rows, at the end."""
+    fields = list(bucket_boundaries)
+    num_buckets = len(bucket_boundaries[fields[0]])
+    for f in fields:
+        if len(bucket_boundaries[f]) != num_buckets:
+            raise ValueError("bucket boundary lists must be associated "
+                             "(equal length)")
+    sizes = []
+    for i in range(num_buckets):
+        max_len = max(bucket_boundaries[f][i] for f in fields)
+        bs = max(batch_size_in_tokens // max_len, 1)
+        sizes.append(max(bs // batch_size_multiple * batch_size_multiple,
+                         batch_size_multiple))
+    shapes = sorted({(sizes[i],) + tuple(bucket_boundaries[f][i]
+                                         for f in fields)
+                     for i in range(num_buckets)})
+    logging.info("bucketed batching: %d buckets, %d distinct shapes: %s",
+                 num_buckets, len(shapes), shapes)
+    buckets: List[List[dict]] = [[] for _ in range(num_buckets)]
+
+    def emit(i: int) -> Dict[str, np.ndarray]:
+        examples, buckets[i] = buckets[i], []
+        bs = sizes[i]
+        batch: Dict[str, np.ndarray] = {}
+        for f in fields:
+            arr = np.full([bs, bucket_boundaries[f][i]],
+                          padding_values.get(f, 0), dtype=np.int32)
+            for j, ex in enumerate(examples):
+                arr[j, :len(ex[f])] = np.asarray(ex[f], dtype=np.int32)
+            batch[f] = arr
+        for f in fields:
+            lens = np.zeros([bs], dtype=np.int32)
+            lens[:len(examples)] = [len(ex[f]) for ex in examples]
+            batch[f + "_length"] = lens
+        mask = np.zeros([bs], dtype=np.float32)
+        mask[:len(examples)] = 1.0
+        batch["sample_mask"] = mask
+        for f in extra_fields:
+            batch[f] = np.asarray([ex.get(f) for ex in examples]
+                                  + [None] * (bs - len(examples)),
+                                  dtype=object)
+        return batch
+
+    for example in iterator:
+        lengths = length_fn(example)
+        i = next((i for i in range(num_buckets)
+                  if all(lengths[f] <= bucket_boundaries[f][i]
+                         for f in fields)), None)
+        if i is None:
+            if drop_oversized:
+                continue
+            raise ValueError(f"Example exceeds largest bucket: {lengths}")
+        buckets[i].append(example)
+        if len(buckets[i]) >= sizes[i]:
+            yield emit(i)
+    for i in range(num_buckets):
+        if buckets[i]:
+            yield emit(i)

@@ -1,5 +1,4 @@
-"""Datasets (the port's copy of the part of
-``neurst_tpu/data/datasets/dataset.py`` the predict path uses).
+"""Datasets (the port's copy of ``neurst_tpu/data/datasets/dataset.py``).
 
 A Dataset exposes a plain Python generator (``build_iterator``) of
 example dicts; the task's batcher turns it into numpy batches.  Sharding
@@ -34,6 +33,11 @@ class Dataset(object):
         """DataStatus of the fields this dataset yields."""
         return DataStatus.RAW
 
+    @property
+    def fields(self) -> Optional[dict]:
+        """Record field declaration ({name: dtype str}) or None."""
+        return None
+
     @staticmethod
     def class_or_method_args():
         return []
@@ -44,6 +48,15 @@ class Dataset(object):
         """A zero-arg callable producing a fresh iterator; ``map_func``
         transforms each example on the fly (a task's preprocess fn)."""
         raise NotImplementedError
+
+    @property
+    def num_samples(self) -> Optional[int]:
+        """The number of examples, counted by a scan (None where the
+        dataset cannot iterate)."""
+        try:
+            return sum(1 for _ in self.build_iterator()())
+        except NotImplementedError:
+            return None
 
 
 class TextGenDataset(Dataset):

@@ -7,11 +7,16 @@ of ``neurst_tpu/data/recordio.py``).
   (features: map<string, Feature>, Feature = oneof {bytes_list,
   float_list, int64_list}).
 
-Files written by either package read in the other.  crc32c runs in numpy
-(``crc32c``): records of audio features are megabytes each, and a byte
-loop in Python would take seconds a record.
+Files written by either package read in the other.  ``crc32c`` runs in
+the port's host library (``csrc/crc32c.cpp``: the SSE4.2 crc32
+instruction, or slicing-by-8 tables), built on first use by
+``ops/_build.py``; a build that fails raises.  ``crc32c_numpy`` is its
+plain version, which the tests hold it against: records of audio
+features are megabytes each, and a byte loop in Python would take seconds
+a record.
 """
 
+import ctypes
 import functools
 import glob as _glob
 import os
@@ -21,7 +26,7 @@ from typing import Dict, Iterator, List, Union
 import numpy as np
 
 __all__ = ["RecordWriter", "record_iterator", "parse_example",
-           "build_example", "glob_record_files", "crc32c"]
+           "build_example", "glob_record_files", "crc32c", "crc32c_numpy"]
 
 _POLY = 0x82F63B78  # Castagnoli, reflected
 _MASK_DELTA = 0xA282EAD8
@@ -62,11 +67,29 @@ def _feed(states: np.ndarray, data: np.ndarray) -> np.ndarray:
     return states
 
 
+@functools.lru_cache(maxsize=None)
+def _native() -> ctypes.CDLL:
+    from neurst_tpu_torch.ops import _build
+    lib = _build.load("crc32c")
+    for fn in (lib.neurst_crc32c, lib.neurst_crc32c_tables):
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+        fn.restype = ctypes.c_uint32
+    return lib
+
+
 def crc32c(data: bytes) -> int:
-    """CRC-32C of ``data``.  The register update is affine over GF(2), so
-    the bytes are cut into equal chunks that run side by side from a zero
-    register (one vectorized step per byte of a chunk), and the chunk
-    results are chained through the 'feed L zero bytes' operator."""
+    """CRC-32C of ``data`` (bytes-like), in the host library."""
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return _native().neurst_crc32c(data, len(data))
+
+
+def crc32c_numpy(data: bytes) -> int:
+    """CRC-32C of ``data`` in numpy.  The register update is affine over
+    GF(2), so the bytes are cut into equal chunks that run side by side
+    from a zero register (one vectorized step per byte of a chunk), and
+    the chunk results are chained through the 'feed L zero bytes'
+    operator."""
     buf = np.frombuffer(data, dtype=np.uint8)
     chunk = max(64, int(np.sqrt(buf.size)) // 64 * 64)
     n_chunks = buf.size // chunk if buf.size >= 4 * chunk else 0

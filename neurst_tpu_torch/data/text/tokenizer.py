@@ -39,6 +39,21 @@ class Tokenizer(object):
     def _convert_to_str(text: Union[str, List[str]]) -> str:
         return " ".join(text) if isinstance(text, list) else text
 
+    @staticmethod
+    def cjk_deseg(text: str) -> str:
+        """Removes the spaces between two CJK characters (zh / ja
+        detokenization)."""
+        def is_cjk(ch):
+            code = ord(ch)
+            return (0x4E00 <= code <= 0x9FFF or 0x3400 <= code <= 0x4DBF
+                    or 0xF900 <= code <= 0xFAFF or 0x3000 <= code <= 0x303F
+                    or 0xFF00 <= code <= 0xFFEF or 0x30A0 <= code <= 0x30FF
+                    or 0x3040 <= code <= 0x309F)
+        return "".join(
+            ch for i, ch in enumerate(text)
+            if not (ch == " " and 0 < i < len(text) - 1
+                    and is_cjk(text[i - 1]) and is_cjk(text[i + 1])))
+
 
 build_tokenizer, register_tokenizer = setup_registry(
     "tokenizer", base_class=Tokenizer,

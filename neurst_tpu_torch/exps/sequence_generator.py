@@ -1,5 +1,5 @@
 """The generation ("predict") entry (the port's counterpart of
-``neurst_tpu/exps/sequence_generator.py``, one dataset, one model).
+``neurst_tpu/exps/sequence_generator.py``, one model).
 
 Restores the latest checkpoint of the model dir (or ``checkpoint_path``)
 into the model, decodes the dataset's INFER batches with the search layer
@@ -10,6 +10,12 @@ the dataset's references with the metric.  The returned dict also holds
 synchronized by the copy of its result to the host), and turning ids
 into text and scoring; and the seconds to the first batch's hypotheses.
 
+A ``MultipleDataset`` is decoded one named dataset at a time, in name
+order, each with ``output_file.<name>`` and ``save_metric.<name>``; the
+result holds each dataset's result under ``datasets`` and the
+``sample_weights`` mixture of their numbers under ``weighted``, which
+``save_metric`` also receives.
+
 Not ported: ensembles (several model dirs) and tensor-parallel decode
 raise ``NotImplementedError``.
 """
@@ -19,18 +25,16 @@ import logging
 import time
 
 import numpy as np
-import torch
 
+from neurst_tpu_torch.data.datasets.mixed_train_dataset import \
+    MultipleDataset
 from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
 from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
-from neurst_tpu_torch.utils import checkpoints as ckpt_lib
 from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
 from neurst_tpu_torch.utils.configurable import flatten_string_list
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
-from neurst_tpu_torch.utils.param_policy import (cast_params_for_inference,
-                                                 restore_inference_params)
 
-__all__ = ["SequenceGenerator", "recover_targets"]
+__all__ = ["SequenceGenerator", "recover_targets", "weighted_mixture"]
 
 
 def recover_targets(task, dataset, targets):
@@ -45,6 +49,18 @@ def recover_targets(task, dataset, targets):
     if status == DataStatus.PROCESSED:
         return [post(t) for t in targets]
     return [post(t) if not isinstance(t, str) else t for t in targets]
+
+
+def weighted_mixture(results, weights, skip=()):
+    """{number key: sum over datasets of weight x value} of each
+    dataset's int and float results (keys in ``skip`` left out)."""
+    mixed = {}
+    for name, res in results.items():
+        w = weights.get(name, 0.0)
+        for k, v in res.items():
+            if isinstance(v, (int, float)) and k not in skip:
+                mixed[k] = mixed.get(k, 0.0) + w * v
+    return mixed
 
 
 @register_exp("predict", "generation")
@@ -73,23 +89,6 @@ class SequenceGenerator(BaseExperiment):
                       "during decode (not ported)."),
         ]
 
-    def restore_params(self):
-        """Loads the checkpoint into the model (bf16 at rest for a bf16
-        model); without one the model keeps a seeded random init, as the
-        JAX entry does (another random draw)."""
-        path = self._args.get("checkpoint_path")
-        if path is None and self._model_dir:
-            path = ckpt_lib.latest_checkpoint(self._model_dir)
-        if path is None:
-            logging.warning("No checkpoint found; using random init.")
-            self._model.init_params(torch.Generator().manual_seed(0))
-            return cast_params_for_inference(
-                self._model, self._model.args.get("dtype"))
-        restore_inference_params(self._model,
-                                 ckpt_lib.restore_checkpoint_params(path))
-        logging.info("Restored generation model from %s", path)
-        return self._model
-
     def _refuse_unported(self):
         if len(flatten_string_list(self._model_dir)) > 1:
             raise NotImplementedError("ensembles of several model dirs are "
@@ -97,8 +96,36 @@ class SequenceGenerator(BaseExperiment):
         if (self._args.get("decode_tensor_parallel") or 1) > 1:
             raise NotImplementedError("tensor-parallel decode is not ported")
 
+    def _run_multiple(self):
+        results = {}
+        base_output = self._args.get("output_file")
+        base_metric = self._args.get("save_metric")
+        for name, sub in sorted(self._custom_dataset.datasets.items()):
+            logging.info("===== decoding dataset '%s' =====", name)
+            results[name] = SequenceGenerator(
+                dict(self._args,
+                     output_file=(f"{base_output}.{name}"
+                                  if base_output else None),
+                     save_metric=(f"{base_metric}.{name}"
+                                  if base_metric else None)),
+                task=self._task, model=self._model, custom_dataset=sub,
+                model_dir=self._model_dir).run()
+        weighted = weighted_mixture(
+            results, self._custom_dataset.sample_weights, skip=("samples",))
+        logging.info("Weighted mixture metrics: %s", weighted)
+        if base_metric:
+            with open(base_metric, "w") as f:
+                json.dump({"datasets": {
+                    k: {m: v for m, v in r.items()
+                        if isinstance(v, (int, float))}
+                    for k, r in results.items()},
+                    "weighted": weighted}, f, indent=2)
+        return {"datasets": results, "weighted": weighted}
+
     def run(self):
         self._refuse_unported()
+        if isinstance(self._custom_dataset, MultipleDataset):
+            return self._run_multiple()
         task, args = self._task, self._args
         self.restore_params()
         search = build_search_layer(args)

@@ -1,15 +1,20 @@
-"""Builds the port's CUDA kernels and loads them with ctypes.
+"""Builds the port's CUDA kernels and host libraries and loads them with
+ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on
 its own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root
-(listed in ``.gitignore``).  The library's file name carries a hash of
+(listed in ``.gitignore``); each ``csrc/<name>.cpp`` (host code: the
+record reader's crc32c) likewise with the host C++ compiler (``$CXX``,
+else ``c++``).  The library's file name carries a hash of
 its source and of every ``csrc/*.cuh`` header the source includes
 (``#include "..."``, followed transitively), so an edited source or
 shared header is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs at import: the first call that
 launches a kernel builds it, and ``build()`` builds every kernel at
-once, one ``nvcc`` per source, all started together.
+once, one compiler per source, all started together.  A library is
+written to a file of the process's own and renamed into place, so
+processes that build the same library at once do not clash.
 
 A build that fails raises ``RuntimeError`` with the compiler's output.
 """
@@ -24,7 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "library_path"]
+__all__ = ["KERNEL_SOURCES", "HOST_SOURCES", "BUILD_DIR", "build", "load",
+           "library_path"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -38,10 +44,13 @@ KERNEL_SOURCES = {
     "fused_dropout": "fused_dropout.cu",
     "fused_ffn": "fused_ffn.cu",
 }
+# host library name -> source file under csrc/
+HOST_SOURCES = {"crc32c": "crc32c.cpp"}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -56,6 +65,25 @@ def _nvcc() -> str:
             return path
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
                        "on a machine with the CUDA toolkit")
+
+
+def _cxx() -> str:
+    path = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not path:
+        raise RuntimeError("no host C++ compiler (c++ or $CXX) to build the "
+                           "port's host libraries")
+    return path
+
+
+def _compiler(name: str):
+    """(command prefix, flags) of the library's compiler."""
+    if name in HOST_SOURCES:
+        return [_cxx()], CXX_FLAGS
+    return [_nvcc()], NVCC_FLAGS
+
+
+def _source(name: str) -> Path:
+    return CSRC_DIR / (HOST_SOURCES.get(name) or KERNEL_SOURCES[name])
 
 
 def _sources(path: Path, seen=None):
@@ -73,18 +101,21 @@ def _sources(path: Path, seen=None):
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for path in _sources(CSRC_DIR / KERNEL_SOURCES[name]):
+    for path in _sources(_source(name)):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(CXX_FLAGS if name in HOST_SOURCES
+                           else NVCC_FLAGS).encode())
     digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compiles the named kernels (all by default) that are not built
-    yet, all in parallel.  Returns {name: seconds} of the compiles run;
-    the ptxas report of each lands in ``<library>.log``."""
-    names = list(KERNEL_SOURCES if names is None else names)
+    """Compiles the named libraries (every kernel and host library by
+    default) that are not built yet, all in parallel.  Returns {name:
+    seconds} of the compiles run; the compiler's report of each (ptxas's
+    for a kernel) lands in ``<library>.log``."""
+    names = list([*KERNEL_SOURCES, *HOST_SOURCES] if names is None
+                 else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -92,8 +123,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / KERNEL_SOURCES[name])]
+        compiler, flags = _compiler(name)
+        cmd = [*compiler, *flags, "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, lib, time.perf_counter())
@@ -112,7 +143,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+    """The kernel's (or host library's) shared library, built first if
+    needed."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)

@@ -39,12 +39,13 @@ class Flag(object):
     is_module_flag = False
 
     def __init__(self, name, dtype=None, default=None, help="",
-                 multiple=False):
+                 multiple=False, choices=None):
         self.name = name
         self.dtype = dtype or Flag.TYPE.STRING
         self.default = default
         self.help = help
         self.multiple = multiple
+        self.choices = choices
 
     def convert(self, value):
         """Converts a raw (string or python) value to the flag's type."""
@@ -184,6 +185,10 @@ def _parse_flag_list(flag_list, argv_dict, consumed, existing: dict):
             result[f.name] = f.convert(raw)
         else:
             result[f.name] = f.convert(result.get(f.name, f.default))
+        if f.choices and result[f.name] is not None \
+                and result[f.name] not in f.choices:
+            raise ValueError(f"--{f.name} must be one of {f.choices}, "
+                             f"got {result[f.name]}")
     return result
 
 

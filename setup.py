@@ -10,8 +10,9 @@ setup(
     packages=find_packages(include=["neurst_tpu", "neurst_tpu.*",
                                     "neurst_tpu_torch", "neurst_tpu_torch.*"]),
     # the PyTorch/CUDA port builds its kernels from these sources and the
-    # headers they include (philox.cuh)
-    package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # headers they include (philox.cuh), and its host crc32c from csrc/*.cpp
+    package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml",

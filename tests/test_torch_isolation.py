@@ -91,7 +91,8 @@ def test_setup_ships_every_kernel_source_and_header():
      for f in files if f.endswith(".py")]
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "profile_torch_decode.py"),
-       os.path.join(REPO, "tools", "profile_torch_train.py")]),
+       os.path.join(REPO, "tools", "profile_torch_train.py"),
+       os.path.join(REPO, "tools", "quality_torch_mt.py")]),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_or_neurst_tpu(path):
     with open(path) as f:

@@ -180,6 +180,53 @@ def test_cli_predict_matches_jax(workdir, metric):
                                    "detok_metric_s", "first_batch_s"}
 
 
+def test_cli_multi_set_predict_matches_jax(workdir):
+    """The recipes' multi-set prediction (``MultipleDataset`` of ``dev``
+    and ``tst-COMMON``, as in must-c/st_prediction_args.yml): per-dataset
+    hypotheses, output files ``<file>.<name>`` and metrics equal to the
+    JAX CLI's (within 1e-6), and the weighted mixture within 1e-5."""
+    root, model_dir, cfg_path, records, _ = workdir
+    sets = {"multiple_datasets": {
+        name: {"dataset.class": "audio_tfrecord",
+               "dataset.params": {"data_path": records,
+                                  "feature_key": "audio",
+                                  "transcript_key": "translation"}}
+        for name in ("dev", "tst-COMMON")},
+        "sample_weights": {"dev": 1.0, "tst-COMMON": 3.0}}
+    out = {}
+    for name, main, extra in (("jax", jax_run_exp.cli_main, []),
+                              ("port", port_run_exp.cli_main,
+                               ["--device", "cpu"])):
+        hypo = os.path.join(root, f"multi.{name}.txt")
+        result = main(["--config_paths", cfg_path, "--model_dir", model_dir,
+                       "--dataset.class", "MultipleDataset",
+                       "--dataset.params", json.dumps(sets),
+                       "--output_file", hypo, "--save_metric",
+                       hypo + ".json"] + extra)
+        files = {}
+        for ds in ("dev", "tst-COMMON"):
+            with open(f"{hypo}.{ds}") as f:
+                files[ds] = f.read()
+        with open(hypo + ".json") as f:
+            saved = json.load(f)
+        out[name] = (result, files, saved)
+    (jres, jfiles, jsaved), (pres, pfiles, psaved) = out["jax"], out["port"]
+    assert sorted(pres["datasets"]) == sorted(jres["datasets"]) == [
+        "dev", "tst-COMMON"]
+    assert pfiles == jfiles
+    for ds in ("dev", "tst-COMMON"):
+        p, j = pres["datasets"][ds], jres["datasets"][ds]
+        assert p["hypotheses"] == j["hypotheses"]
+        assert p["samples"] == j["samples"] == 7
+        for key in ("BLEU", "UncasedBLEU"):
+            assert abs(p[key] - j[key]) <= 1e-6
+    for key in ("BLEU", "UncasedBLEU"):
+        assert abs(pres["weighted"][key] - jres["weighted"][key]) <= 1e-5
+        assert abs(psaved["weighted"][key] - jsaved["weighted"][key]) <= 1e-5
+    assert pres["weighted"]["BLEU"] > 0.0
+    assert sorted(psaved["datasets"]) == sorted(jsaved["datasets"])
+
+
 @pytest.fixture(scope="module")
 def fractional(workdir):
     """Records of 7 utterances with fractional features, and a predict
@@ -287,10 +334,8 @@ def test_cli_refuses_what_the_port_lacks(workdir):
         port_run_exp.cli_main(base[:2] + ["--model_dir",
                                           f"{model_dir},{model_dir}",
                                           "--device", "cpu"])
-    for extra in (["--search_method", "sampling"],
-                  ["--dataset.class", "multiple_datasets"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_run_exp.cli_main(base + extra)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_run_exp.cli_main(base + ["--search_method", "sampling"])
     with pytest.raises(LookupError):
         port_run_exp.cli_main(base + ["--search_method", "no_such_search"])
 
