@@ -116,6 +116,31 @@ exits non-zero):
    mt_quality -- examples/quality/mt_synth_base.yml cut to 300 steps and
                one validation on dev's first 128 lines: the quarter-mean
                loss falls, and the BLEU.
+   audio_prep -- the MuST-C ST recipe's stages 02-03 through the port's
+               CLIs (``AUDIO_PREP``), each a subprocess: prep_records, a
+               seeded MuST-C tarball (16 talks of 60 s cut into 1-10 s
+               train segments, 32 dev and 64 tst-COMMON segments) through
+               extract_audio_transcripts and create_records (fbank, nfilt
+               80; train by 1 and by 2 processors over 8 shards, the same
+               records either way), and a LibriSpeech tarball of 32 FLAC
+               files (``flac_encode``) whose decoded PCM must be bitwise
+               the encoded one; record counts, and each record's frames =
+               ``num_frames`` of its samples.  device_fbank,
+               ``device_logfbank`` on 64 train segments read again from
+               the tarball against their records' features (< 2e-3 on
+               every channel with a filter; the empty channel 0), frame
+               lengths equal, padding 0; its device ms against the host
+               extractor's.  prep_project, learn_bpe (8000 symbols),
+               process_text (bpe) and the triple records projected by
+               ``MultiTaskSpeechTranslation`` (no Moses).  prep_train,
+               ``run_exp --entry train`` with st_training_args.yml's task
+               flags on the triple records (6 steps, a checkpoint at 6;
+               every step's launches against ``expected_launches``);
+               prep_predict, ``--entry predict`` in
+               st_prediction_args.yml's form on tst-COMMON (12 flash
+               launches a batch).  Wall seconds of each stage, audio
+               seconds per wall second, megabytes of records, tokens/s,
+               data-wait share, samples/s.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -1733,9 +1758,10 @@ def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
 
 def expected_launches(model, enc_rows, dec_rows, dropout):
     """Kernel launches of one training step, from the configuration and
-    the wrappers' plans: the encoder's flash kernels once a layer; the
-    fused xent forward's launches (its combine too where it splits the
-    vocabulary) and its backward's; the fused FFN
+    the wrappers' plans: the encoder's flash kernels once a layer; where
+    the model fuses the projection into the xent, the fused xent
+    forward's launches (its combine too where it splits the vocabulary)
+    and its backward's; the fused FFN
     where its gate says so, with its forward's launches at each row count
     and three backward launches; with dropout, the mask kernel at every
     site the kernels above do not cover (two postprocess sites an encoder
@@ -1767,12 +1793,16 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
         sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
                                   + (not fused(enc_rows)))
         sites += dec.num_layers * (5 + (not fused(dec_rows)))
+    # the train step fuses the projection into the xent only where the
+    # model allows it (a vocabulary a multiple of 128 among the JAX
+    # package's conditions); else the logits path launches neither
+    xent = model.supports_fused_softmax_ce()
     return {"flash_attention_fwd": flash, "flash_attention_dq": flash,
             "flash_attention_dkv": flash,
-            "fused_linear_xent_fwd": xent_fwd_launches(
+            "fused_linear_xent_fwd": xent * xent_fwd_launches(
                 dec_rows, model.trg_meta["vocab_size"], dense1.in_features,
                 dtype),
-            "fused_linear_xent_bwd": bwd_launches(dtype),
+            "fused_linear_xent_bwd": xent * bwd_launches(dtype),
             "fused_softmax_xent_fwd": 0, "fused_softmax_xent_bwd": 0,
             "fused_dropout": 2 * sites, "fused_ffn_fwd": ffn_fwd,
             "fused_ffn_bwd": 3 * ffn}
@@ -2690,15 +2720,18 @@ def _parallel(paths):
     return {"src_file": paths["src"], "trg_file": paths["trg"]}
 
 
-def _nmt_step_checks(seen, model):
-    """Every step's launches of rows 4, 5, 8, 9 and 10 against
-    ``expected_launches`` at its batch's rows (the encoder's B x S, the
-    decoder's B x T); nothing else launched in the run.  Returns the
-    launches a step by batch shape."""
+def _step_launch_checks(seen, model):
+    """Every step's launches of rows 1-5 and 8-10 against
+    ``expected_launches`` at its batch's rows (the encoder's B x S for
+    token ids, B x frames / 4 for audio; the decoder's B x T); nothing
+    else launched in the run.  Returns the launches a step by batch
+    shape."""
     by_shape, total = {}, {}
     for s in seen["steps"]:
-        b, length = s["src"]
-        expected = expected_launches(model, b * length, b * s["trg"][1],
+        b, length = s["src"][:2]
+        enc_rows = b * length if len(s["src"]) == 2 \
+            else _speech_rows(s["src"])
+        expected = expected_launches(model, enc_rows, b * s["trg"][1],
                                      True)
         got = {k: s["launches"][k] for k in expected}
         if got != expected:
@@ -2712,6 +2745,13 @@ def _nmt_step_checks(seen, model):
         raise AssertionError(f"launches outside the train steps: "
                              f"{seen['launches']} against {total}")
     return by_shape
+
+
+def _speech_rows(src_shape):
+    """The encoder's rows of a [B, frames, ...] batch: B x frames after
+    the two stride-2 convolutions."""
+    b, frames = src_shape[0], src_shape[1]
+    return b * (-(-(-(-frames // 2)) // 2))
 
 
 def _trainer_numbers(seen, peak_bytes):
@@ -2789,7 +2829,7 @@ def nmt_trainer_phase(seed, root, device="cuda"):
         _train_path_checks(seen, steps, run)
         rows[run] = dict(_trainer_numbers(
             seen, torch.cuda.max_memory_allocated() if device == "cuda"
-            else None), launches_per_step_by_shape=_nmt_step_checks(
+            else None), launches_per_step_by_shape=_step_launch_checks(
                 seen, seen["model"]))
         if run == "run_a":
             launches = seen["launches"]
@@ -3053,6 +3093,614 @@ def nmt_phases(seed, device="cuda"):
     return trainer_counts, predict_counts
 
 
+# Stages 02-03 of the MuST-C ST recipe
+# (examples/speech_transformer/must-c/02-audio_feature_extraction.sh and
+# 03-preprocess.sh) through the port's CLIs on a seeded MuST-C-shaped
+# corpus: 16 talks of 60 s of 16 kHz int16 audio cut into segments of
+# 1-10 s for train, 32 dev and 64 tst-COMMON segments, sentences of 5-40
+# words from a lexicon of 2000 words a side; fbank with nfilt 80; train
+# records from 1 and from 2 processors over 8 shards; joint BPE of 8000
+# symbols; the triple records' text projected by TranscriptDataPipeline
+# without Moses (the card has no sacremoses).  Then the ST recipe's train
+# entry (st_training_args.yml's task flags) for 6 steps on the triple
+# records and its predict entry (st_prediction_args.yml's form) on
+# tst-COMMON.  Also a LibriSpeech-shaped tarball of 32 FLAC files of 1-4
+# s through create_records, and device_logfbank on 64 train segments
+# against their records' host features.
+AUDIO_PREP = dict(rate=16000, train_talks=16, talk_s=60.0, min_seg_s=1.0,
+                  max_seg_s=10.0, dev_segments=32, test_segments=64,
+                  lexicon=2000, min_words=5, max_words=40, flac_files=32,
+                  flac_min_s=1.0, flac_max_s=4.0, flac_block=4096, nfilt=80,
+                  processors=2, shards=8, device_segments=64,
+                  bpe_symbols=8000, train_steps=6, summary_steps=2,
+                  hparams_set="speech_transformer_s", trg_lang="de")
+# the bound the JAX package holds its device_logfbank to against the host
+# features (tests/data/test_device_fbank.py)
+FBANK_TOL = 2e-3
+
+
+def _wav_bytes(pcm, rate):
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def _talk_pcm(rng, n, rate):
+    """Speech-like int16 PCM: smoothed noise under a slow envelope."""
+    noise = np.convolve(rng.randn(n + 7), np.ones(8) / 8.0, mode="valid")
+    env = 0.2 + np.abs(np.sin(np.arange(n) * (2 * np.pi * 0.7 / rate)))
+    return np.clip(noise * env * 12000.0, -32768, 32767).astype(np.int16)
+
+
+def _pack_bits(values, widths):
+    """The big-endian bit string of each value in its width, one after
+    another, zero-padded to whole bytes."""
+    values = np.asarray(values, np.int64)
+    widths = np.asarray(widths, np.int64)
+    total = int(widths.sum())
+    starts = np.repeat(np.cumsum(widths) - widths, widths)
+    shift = np.repeat(widths, widths) - 1 - (np.arange(total) - starts)
+    bits = (np.repeat(values, widths) >> shift) & 1
+    return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def flac_encode(pcm, rate=16000, block=4096):
+    """Mono 16-bit FLAC of ``pcm`` (int16): STREAMINFO, then frames of
+    ``block`` samples, VERBATIM and FIXED order 2 in turn (one Rice
+    partition, its parameter from the mean residual; VERBATIM where the
+    residuals would not fit); the CRC fields are 0 (the decoder does not
+    read them)."""
+    pcm = np.asarray(pcm, np.int64)
+    info = _pack_bits([1, 0, 34, 16, block, 0, 0, rate, 0, 15, len(pcm), 0,
+                       0], [1, 7, 24, 16, 16, 24, 24, 20, 3, 5, 36, 64, 64])
+    out = [b"fLaC", info]
+    for n, start in enumerate(range(0, len(pcm), block)):
+        x = pcm[start:start + block]
+        # sync, reserved, fixed blocking, 16-bit block size follows, rate
+        # and channels from STREAMINFO, 16 bits, frame number, block size
+        # - 1, CRC-8
+        vals = [0x3FFE, 0, 0, 7, 0, 0, 4, 0, 0, len(x) - 1, 0]
+        wids = [14, 1, 1, 4, 4, 4, 3, 1, 8, 16, 8]
+        fixed = None
+        if n % 2 and len(x) > 2:
+            r = x[2:] - 2 * x[1:-1] + x[:-2]
+            u = np.where(r >= 0, 2 * r, -2 * r - 1)
+            k = int(min(max(np.log2(u.mean() + 1.0), 0), 14))
+            q = u >> k
+            if q.max() + 1 + k <= 62:
+                fixed = (k, q, u & ((1 << k) - 1))
+        if fixed is None:
+            vals += [0, 1, 0] + list(x & 0xFFFF)
+            wids += [1, 6, 1] + [16] * len(x)
+        else:
+            k, q, rem = fixed
+            body_v = np.stack([np.ones_like(q), rem], 1).reshape(-1)
+            body_w = np.stack([q + 1, np.full_like(q, k)], 1).reshape(-1)
+            vals += [0, 0x08 | 2, 0, x[0] & 0xFFFF, x[1] & 0xFFFF, 0, 0, k]
+            wids += [1, 6, 1, 16, 16, 2, 4, 4]
+            vals, wids = np.concatenate([vals, body_v]), \
+                np.concatenate([wids, body_w])
+        out.append(_pack_bits(vals, wids) + b"\0\0")
+    return b"".join(out)
+
+
+def _tar_add(tar, name, data):
+    import io
+    import tarfile
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    tar.addfile(info, io.BytesIO(data))
+
+
+def _cut_talk(rng, seconds, lo, hi, limit):
+    """(offset, duration) segments of 1/100 s resolution, in order, with
+    gaps of up to 0.5 s, inside a talk of ``seconds``."""
+    segs, t = [], 0.0
+    while len(segs) < limit:
+        offset = round(t + rng.uniform(0.0, 0.5), 2)
+        duration = round(rng.uniform(lo, hi), 2)
+        if offset + duration > seconds:
+            break
+        segs.append((offset, duration))
+        t = offset + duration
+    return segs
+
+
+def write_mustc_corpus(root, rng, cfg=AUDIO_PREP):
+    """``MUSTC_v1.0_en-<lang>.tar.gz`` under ``root`` in MuST-C's layout
+    (``en-<lang>/data/<split>/wav/*.wav``, ``txt/<split>.yaml``,
+    ``.en``, ``.<lang>``).  Returns its path and, by split, the segments:
+    talk, offset, duration, samples (as the reader cuts them),
+    transcript and translation."""
+    import tarfile
+    import yaml
+    rate, lang = cfg["rate"], cfg["trg_lang"]
+    lexicon = {side: sorted({_random_word(rng, 2, 9) for _ in range(
+        2 * cfg["lexicon"])})[:cfg["lexicon"]] for side in ("en", lang)}
+
+    def sentence(side):
+        n = rng.randint(cfg["min_words"], cfg["max_words"] + 1)
+        return " ".join(lexicon[side][i] for i in rng.randint(
+            len(lexicon[side]), size=n))
+
+    path = os.path.join(root, f"MUSTC_v1.0_en-{lang}.tar.gz")
+    splits = {}
+    with tarfile.open(path, "w:gz") as tar:
+        for split, talks, target in (
+                ("train", cfg["train_talks"], None),
+                ("dev", None, cfg["dev_segments"]),
+                ("tst-COMMON", None, cfg["test_segments"])):
+            segs, t = [], 0
+            while (t < talks) if talks else (len(segs) < target):
+                name = f"ted_{split}_{t}.wav"
+                n = int(cfg["talk_s"] * rate)
+                _tar_add(tar, f"en-{lang}/data/{split}/wav/{name}",
+                         _wav_bytes(_talk_pcm(rng, n, rate), rate))
+                limit = target - len(segs) if target else 10 ** 9
+                for offset, duration in _cut_talk(
+                        rng, cfg["talk_s"], cfg["min_seg_s"],
+                        cfg["max_seg_s"], limit):
+                    segs.append({"wav": name, "offset": offset,
+                                 "duration": duration,
+                                 "samples": int(duration * rate),
+                                 "transcript": sentence("en"),
+                                 "translation": sentence(lang)})
+                t += 1
+            meta = [{"duration": s["duration"], "offset": s["offset"],
+                     "speaker_id": "spk", "wav": s["wav"]} for s in segs]
+            txt = f"en-{lang}/data/{split}/txt/{split}"
+            _tar_add(tar, txt + ".yaml", yaml.safe_dump(meta).encode())
+            _tar_add(tar, txt + ".en", "".join(
+                s["transcript"] + "\n" for s in segs).encode())
+            _tar_add(tar, f"{txt}.{lang}", "".join(
+                s["translation"] + "\n" for s in segs).encode())
+            splits[split] = segs
+    return path, splits
+
+
+def write_librispeech_flac(root, rng, cfg=AUDIO_PREP):
+    """A LibriSpeech-shaped tarball of ``flac_files`` utterances
+    (``<spk>-<chapter>-<utt>.flac`` and ``<spk>-<chapter>.trans.txt``)
+    from ``flac_encode``.  Returns its path and {utterance id: (flac
+    bytes, pcm)}."""
+    import tarfile
+    rate = cfg["rate"]
+    path = os.path.join(root, "train-clean-100.tar.gz")
+    utts = {}
+    with tarfile.open(path, "w:gz") as tar:
+        for chapter in range(-(-cfg["flac_files"] // 4)):
+            spk, chap = 100 + chapter // 2, 2000 + chapter
+            lines = []
+            for u in range(min(4, cfg["flac_files"] - 4 * chapter)):
+                utt = f"{spk}-{chap}-{u:04d}"
+                pcm = _talk_pcm(rng, int(rng.uniform(
+                    cfg["flac_min_s"], cfg["flac_max_s"]) * rate), rate)
+                data = flac_encode(pcm, rate, cfg["flac_block"])
+                _tar_add(tar, f"LibriSpeech/train-clean-100/{spk}/{chap}/"
+                         f"{utt}.flac", data)
+                utts[utt] = (data, pcm)
+                lines.append(utt + " " + " ".join(
+                    _random_word(rng, 2, 8).upper() for _ in range(6)))
+            _tar_add(tar, f"LibriSpeech/train-clean-100/{spk}/{chap}/"
+                     f"{spk}-{chap}.trans.txt",
+                     ("\n".join(lines) + "\n").encode())
+    return path, utts
+
+
+def run_clis(calls):
+    """Runs ``python -m neurst_tpu_torch.cli.<module> <args>`` for each
+    (module, args) of ``calls`` at once, from the repository root, and
+    waits for all; raises with the tail of its output where one exits
+    non-zero.  Returns the wall seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    procs = [(module, subprocess.Popen(
+        [sys.executable, "-m", f"neurst_tpu_torch.cli.{module}", *args],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for module, args in calls]
+    failed = []
+    for module, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{module} exited {proc.returncode}:\n"
+                          f"{output[-3000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - start
+
+
+def _shard_calls(args, template, processors, shards):
+    """create_records calls of the recipe's form: ``processors``
+    processes, each over its range of the ``shards`` shards."""
+    per = shards // processors
+    return [("create_records", [
+        "--processor_id", str(p), "--num_processors", str(processors),
+        "--num_output_shards", str(shards),
+        "--output_range_begin", str(per * p),
+        "--output_range_end", str(per * p + per), *args,
+        "--output_template", template]) for p in range(processors)]
+
+
+def _records(path):
+    from neurst_tpu_torch.data.recordio import (glob_record_files,
+                                                parse_example,
+                                                record_iterator)
+    files = glob_record_files(path)
+    return [parse_example(r) for f in files for r in record_iterator(
+        f, check_crc=True)], sum(os.path.getsize(f) for f in files)
+
+
+def _raw_records(path):
+    from neurst_tpu_torch.data.recordio import (glob_record_files,
+                                                record_iterator)
+    return sorted(r for f in glob_record_files(path)
+                  for r in record_iterator(f))
+
+
+def prep_records_phase(root, seed, cfg=AUDIO_PREP):
+    """Stage 02: the corpus, transcripts of the three splits, fbank
+    records of train (1 processor, then 2, over 8 shards; the same
+    records either way), dev and tst-COMMON (one shard each) and the
+    FLAC tarball.  Checks the record counts, each record's frames against
+    ``num_frames`` of its samples, and each FLAC file's decoded PCM
+    bitwise."""
+    from neurst_tpu_torch.data.audio.flac_io import decode_flac
+    from neurst_tpu_torch.ops.device_fbank import num_frames
+
+    rng = np.random.RandomState(seed + 90)
+    start = time.perf_counter()
+    tarball, splits = write_mustc_corpus(root, rng, cfg)
+    flac_tarball, utts = write_librispeech_flac(root, rng, cfg)
+    write_s = time.perf_counter() - start
+    lang, rate = cfg["trg_lang"], cfg["rate"]
+    ts = os.path.join(root, "transcripts")
+    os.makedirs(ts)
+    common = ["--trg_lang", lang, "--input_tarball", tarball]
+    fbank = ["--feature_extractor.class", "fbank",
+             "--feature_extractor.params",
+             json.dumps({"nfilt": cfg["nfilt"]})]
+    extract_s = run_clis([("extract_audio_transcripts", [
+        "--dataset", "MuSTC", "--extraction", split, *common,
+        "--output_transcript_file", f"{ts}/{split}.en.txt",
+        "--output_translation_file", f"{ts}/{split}.{lang}.txt"])
+        for split in splits])
+    train_args = ["--dataset", "MuSTC", "--extraction", "train", *common,
+                  *fbank]
+    template = "train.tfrecords-%5.5d-of-%5.5d"
+    wall = {}
+    for procs in (1, cfg["processors"]):
+        out = os.path.join(root, f"train_p{procs}")
+        wall[procs] = run_clis(_shard_calls(
+            train_args, os.path.join(out, template), procs, cfg["shards"]))
+    devtest_s = run_clis([
+        ("create_records", ["--processor_id", "0", "--num_processors", "1",
+                            "--num_output_shards", "1",
+                            "--output_range_begin", "0",
+                            "--output_range_end", "1", "--dataset", "MuSTC",
+                            "--extraction", split, *common, *fbank,
+                            "--output_template", os.path.join(
+                                root, "devtest", f"{split}.en-{lang}."
+                                "tfrecords-%5.5d-of-%5.5d")])
+        for split in ("dev", "tst-COMMON")] + [
+        ("create_records", ["--dataset", "LibriSpeech", "--input_tarball",
+                            flac_tarball, *fbank, "--output_template",
+                            os.path.join(root, "librispeech", template)])])
+
+    train_dir = os.path.join(root, f"train_p{cfg['processors']}")
+    same_records = _raw_records(train_dir) == _raw_records(
+        os.path.join(root, "train_p1"))
+    counts, frames_ok, megabytes = {}, True, {}
+    for split, path in (("train", train_dir),
+                        ("dev", os.path.join(root, "devtest",
+                                             f"dev.en-{lang}.*")),
+                        ("tst-COMMON", os.path.join(
+                            root, "devtest", f"tst-COMMON.en-{lang}.*"))):
+        examples, nbytes = _records(path)
+        counts[split] = [len(examples), len(splits[split])]
+        megabytes[split] = nbytes / 1e6
+        by_text = {s["transcript"]: s for s in splits[split]}
+        for ex in examples:
+            seg = by_text[ex["transcript"][0].decode()]
+            frames = num_frames(seg["samples"], rate)
+            frames_ok &= (int(ex["audio_length"][0]) == frames
+                          and len(ex["audio"]) == frames * cfg["nfilt"]
+                          and ex["translation"][0].decode()
+                          == seg["translation"])
+    libri, nbytes = _records(os.path.join(root, "librispeech"))
+    megabytes["librispeech"] = nbytes / 1e6
+    counts["librispeech"] = [len(libri), len(utts)]
+    libri_frames = sorted(int(ex["audio_length"][0]) for ex in libri)
+    frames_ok &= libri_frames == sorted(num_frames(len(pcm), rate)
+                                        for _, pcm in utts.values())
+    decoded = [(decode_flac(data), pcm) for data, pcm in utts.values()]
+    flac_bitwise = all(np.array_equal(wave, pcm.astype(np.float32))
+                       and got_rate == rate
+                       for (wave, got_rate), pcm in decoded)
+    with open(os.path.join(ts, "train.en.txt")) as f:
+        transcripts_ok = f.read().splitlines() == [
+            s["transcript"] for s in splits["train"]]
+    audio_s = sum(s["samples"] for s in splits["train"]) / rate
+    row = {"phase": "prep_records", "write_corpus_s": write_s,
+           "corpus_mb": os.path.getsize(tarball) / 1e6,
+           "train_segments": len(splits["train"]), "train_audio_s": audio_s,
+           "extract_transcripts_s": extract_s,
+           "create_records_s": {f"{p}_processors": s
+                                for p, s in wall.items()},
+           "audio_s_per_wall_s": {f"{p}_processors": audio_s / s
+                                  for p, s in wall.items()},
+           "devtest_librispeech_s": devtest_s, "records": counts,
+           "records_mb": megabytes, "frames_equal_num_frames": frames_ok,
+           "same_records_1_and_2_processors": same_records,
+           "transcripts_equal": transcripts_ok,
+           "flac_files": len(utts), "flac_pcm_bitwise": flac_bitwise}
+    emit(row)
+    if not (frames_ok and same_records and transcripts_ok and flac_bitwise
+            and all(a == b for a, b in counts.values())):
+        raise AssertionError(f"prep_records phase failed: {row}")
+    return tarball, splits, train_dir
+
+
+def device_fbank_phase(root, tarball, train_dir, device="cuda",
+                       cfg=AUDIO_PREP):
+    """``device_logfbank`` on the first ``device_segments`` train segments
+    read again from the tarball (waveforms, no extractor), batched with
+    their lengths, against the records' host features: max abs error
+    below ``FBANK_TOL`` on every channel with a filter, the empty ones 0
+    (the host's constant over each utterance), frame lengths equal,
+    padding exactly 0; its device ms against the host extractor's ms on
+    the same segments."""
+    import torch
+
+    from neurst_tpu_torch.data.audio.log_mel_fbank import (LogMelFbank,
+                                                           get_filterbanks)
+    from neurst_tpu_torch.data.datasets.dataset import build_dataset
+    from neurst_tpu_torch.ops.device_fbank import device_logfbank
+
+    ds = build_dataset({"dataset.class": "MuSTC", "dataset.params": {
+        "input_tarball": tarball, "extraction": "train",
+        "trg_lang": cfg["trg_lang"]}})
+    clips = []
+    for ex in ds.build_iterator()():
+        clips.append(ex)
+        if len(clips) == cfg["device_segments"]:
+            break
+    host = {ex["transcript"][0].decode(): ex for ex in _records(train_dir)[0]}
+    lens = [len(c["audio"]) for c in clips]
+    batch = np.zeros([len(clips), max(lens)], np.float32)
+    for i, c in enumerate(clips):
+        batch[i, :lens[i]] = c["audio"]
+    x = torch.as_tensor(batch, device=device)
+    lengths = torch.as_tensor(lens, device=device)
+    feat, fl = device_logfbank(x, lengths, cfg["rate"], nfilt=cfg["nfilt"])
+    feat, fl = feat.cpu().numpy(), fl.cpu().numpy()
+    # a mel band no FFT bin falls in (channel 2 at nfilt 80) is log(eps)
+    # in every frame: the host's CMVN turns it into its float64 mean's
+    # rounding error over the 1e-10 floor, one value an utterance, where
+    # the device gives 0; the bound holds on the other channels
+    empty = np.nonzero(get_filterbanks(cfg["nfilt"], 512, cfg["rate"]).sum(
+        axis=1) == 0)[0]
+    full = np.setdiff1d(np.arange(cfg["nfilt"]), empty)
+    err, err_all, empty_host = 0.0, 0.0, 0.0
+    lengths_equal, padding_zero, empty_ok = True, True, True
+    for i, c in enumerate(clips):
+        ref = host[c["transcript"]]
+        frames = int(ref["audio_length"][0])
+        ref = np.asarray(ref["audio"]).reshape(frames, cfg["nfilt"])
+        got = feat[i, :frames]
+        lengths_equal &= int(fl[i]) == frames
+        err = max(err, float(np.abs(got[:, full] - ref[:, full]).max()))
+        err_all = max(err_all, float(np.abs(got - ref).max()))
+        empty_host = max(empty_host, float(np.abs(ref[:, empty]).max(
+            initial=0.0)))
+        empty_ok &= bool((got[:, empty] == 0).all()
+                         and (ref[:, empty] == ref[:1, empty]).all())
+        padding_zero &= bool((feat[i, frames:] == 0).all())
+    fe = LogMelFbank({"nfilt": cfg["nfilt"]})
+    start = time.perf_counter()
+    for c in clips:
+        fe(c["audio"], cfg["rate"])
+    host_ms = (time.perf_counter() - start) * 1e3
+    row = {"phase": "device_fbank", "device": device,
+           "batch": list(batch.shape), "frames": list(feat.shape[1:]),
+           "max_abs_err": err, "tolerance": FBANK_TOL,
+           "max_abs_err_all_channels": err_all,
+           "empty_channels": empty.tolist(),
+           "empty_channels_host_max_abs": empty_host,
+           "empty_channels_device_0_host_constant": empty_ok,
+           "frame_lengths_equal": lengths_equal,
+           "padding_exactly_zero": padding_zero,
+           "host_logfbank_ms": host_ms,
+           "device_ms": time_ms(lambda: device_logfbank(
+               x, lengths, cfg["rate"], nfilt=cfg["nfilt"]), iters=10)
+           if device == "cuda" else None}
+    emit(row)
+    if not (err < FBANK_TOL and lengths_equal and padding_zero
+            and empty_ok):
+        raise AssertionError(f"device_fbank phase failed: {row}")
+
+
+def prep_project_phase(root, cfg=AUDIO_PREP):
+    """Stage 03: joint BPE over the train transcripts, the BPE text, and
+    the triple records whose two text sides ``MultiTaskSpeechTranslation``
+    projects.  Returns the codes and vocabulary paths."""
+    lang = cfg["trg_lang"]
+    ts = os.path.join(root, "transcripts")
+    codes = os.path.join(ts, "codes.bpe")
+    vocab = {side: os.path.join(ts, f"vocab.{side}") for side in ("en", lang)}
+    bpe_s = run_clis([("learn_bpe", [
+        "--input", f"{ts}/train.en.txt", f"{ts}/train.{lang}.txt",
+        "--symbols", str(cfg["bpe_symbols"]), "--output", codes,
+        "--write_vocabulary", vocab["en"], vocab[lang]])])
+    with open(codes) as f:
+        merges = sum(1 for line in f if not line.startswith("#version"))
+    text_s = run_clis([("process_text", [
+        "--tokenizer", "bpe", "--subtokenizer_codes", codes, "--input",
+        f"{ts}/train.{side}.txt", "--output", f"{ts}/train.{side}.bpe.txt"])
+        for side in ("en", lang)])
+
+    def pipeline(side, clean):
+        return {"remove_punctuation": clean, "lowercase": clean,
+                "language": side, "subtokenizer": "bpe",
+                "subtokenizer_codes": codes, "vocab_path": vocab[side]}
+    task = {"transcript_data_pipeline.class": "TranscriptDataPipeline",
+            "transcript_data_pipeline.params": pipeline("en", True),
+            "translation_data_pipeline.class": "TranscriptDataPipeline",
+            "translation_data_pipeline.params": pipeline(lang, False)}
+    out = os.path.join(root, "asr_st", "train")
+    records_s = run_clis(_shard_calls(
+        ["--dataset", "AudioTripleTFRecordDataset", "--feature_key", "audio",
+         "--transcript_key", "transcript", "--translation_key",
+         "translation", "--data_path", os.path.join(
+             root, f"train_p{cfg['processors']}"),
+         "--task", "MultiTaskSpeechTranslation", "--task.params",
+         json.dumps(task)],
+        os.path.join(out, "train.tfrecords-%5.5d-of-%5.5d"),
+        cfg["processors"], cfg["shards"]))
+    examples, nbytes = _records(out)
+    projected = all(np.asarray(ex[k]).dtype.kind == "i" and len(ex[k]) > 1
+                    for ex in examples for k in ("transcript", "translation"))
+    vocab_size = {}
+    for side, p in vocab.items():
+        with open(p) as f:
+            vocab_size[side] = sum(1 for _ in f)
+    row = {"phase": "prep_project", "bpe_symbols": cfg["bpe_symbols"],
+           "merges_learned": merges, "vocab_size": vocab_size,
+           "learn_bpe_s": bpe_s, "process_text_s": text_s,
+           "create_records_s": records_s, "records": len(examples),
+           "records_mb": nbytes / 1e6, "ids_projected": projected}
+    emit(row)
+    if not (projected and examples and merges > 0
+            and min(vocab_size.values()) > 0):
+        raise AssertionError(f"prep_project phase failed: {row}")
+    return codes, vocab[lang], out
+
+
+def prep_train_phase(root, codes, vocab, records, device="cuda",
+                     cfg=AUDIO_PREP):
+    """The ST recipe's train entry on the triple records for
+    ``train_steps`` steps, a checkpoint at the last; each step's launches
+    against ``expected_launches`` at its batch.  Returns the model dir
+    and the run's launch counts."""
+    import torch
+
+    pipeline = {"remove_punctuation": False, "lowercase": False,
+                "language": cfg["trg_lang"], "subtokenizer": "bpe",
+                "subtokenizer_codes": codes, "vocab_path": vocab}
+    model_dir = os.path.join(root, "model")
+    path = trainer_config(
+        os.path.join(root, "st_train.json"), records, pipeline,
+        train_steps=cfg["train_steps"],
+        save_checkpoint_steps=cfg["train_steps"],
+        summary_steps=cfg["summary_steps"])
+    with open(path) as f:
+        config = json.load(f)
+    config["task.params"]["transcript_data_pipeline.class"] = \
+        "TranscriptDataPipeline"
+    config["hparams_set"] = cfg["hparams_set"]
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    argv = ["--config_paths", path, "--model_dir", model_dir]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        torch.cuda.reset_peak_memory_stats()
+    _, seen = run_trainer(argv)
+    _train_path_checks(seen, cfg["train_steps"], "prep_train")
+    on_card = device == "cuda"
+    row = dict({"phase": "prep_train", "model": cfg["hparams_set"],
+                "dtype": "bfloat16", "launches_by_batch_shape":
+                _step_launch_checks(seen, seen["model"]) if on_card else {},
+                "launches": seen["launches"]},
+               **_trainer_numbers(seen, torch.cuda.max_memory_allocated()
+                                  if on_card else None))
+    emit(row)
+    if not os.path.exists(os.path.join(
+            model_dir, f"ckpt-{cfg['train_steps']}.npz")):
+        raise AssertionError(f"prep_train wrote no checkpoint: {row}")
+    return model_dir, seen["launches"]
+
+
+def prep_predict_phase(root, model_dir, device="cuda", cfg=AUDIO_PREP):
+    """The predict entry in st_prediction_args.yml's form on the
+    tst-COMMON records with the train phase's dir.  Returns the launch
+    counts."""
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    config = json.loads(json.dumps(PREDICT_ARGS))
+    config["dataset.params"]["data_path"] = os.path.join(
+        root, "devtest", f"tst-COMMON.en-{cfg['trg_lang']}.*")
+    config["entry.params"]["output_file"] = os.path.join(root, "hypo.txt")
+    path = os.path.join(root, "st_predict.json")
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    argv = ["--config_paths", path, "--model_dir", model_dir]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = run_exp.cli_main(argv)
+    wall_s = time.perf_counter() - start
+    counts = launch_counts()
+    with open(os.path.join(root, "hypo.txt")) as f:
+        lines = f.read().splitlines()
+    batches = -(-cfg["test_segments"] // PREDICT_ARGS["batch_size"])
+    expected = 12 * batches if device == "cuda" else 0
+    row = {"phase": "prep_predict", "samples": result["samples"],
+           "output_lines": len(lines), "BLEU": result["BLEU"],
+           "samples_per_s": result["samples_per_sec"], "cli_wall_s": wall_s,
+           "timing_s": result["timing"],
+           "flash_fwd_launches": counts["flash_attention_fwd"],
+           "flash_fwd_expected": expected}
+    emit(row)
+    if not (result["samples"] == len(lines) == cfg["test_segments"]
+            and math.isfinite(result["BLEU"])
+            and counts["flash_attention_fwd"] == expected):
+        raise AssertionError(f"prep_predict phase failed: {row}")
+    return counts
+
+
+def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP):
+    """The speech recipes' data preparation and what it feeds, under
+    ``build/audio_prep_smoke/`` (removed after): ``prep_records``,
+    ``device_fbank``, ``prep_project``, ``prep_train`` and
+    ``prep_predict``, with each stage's wall seconds.  Returns the launch
+    counts of the train and the predict runs."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "audio_prep_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages = {}
+    try:
+        start = time.perf_counter()
+        tarball, _, train_dir = prep_records_phase(root, seed, cfg)
+        stages["prep_records"] = time.perf_counter() - start
+        start = time.perf_counter()
+        device_fbank_phase(root, tarball, train_dir, device, cfg)
+        stages["device_fbank"] = time.perf_counter() - start
+        start = time.perf_counter()
+        codes, vocab, records = prep_project_phase(root, cfg)
+        stages["prep_project"] = time.perf_counter() - start
+        start = time.perf_counter()
+        model_dir, train_counts = prep_train_phase(root, codes, vocab,
+                                                   records, device, cfg)
+        stages["prep_train"] = time.perf_counter() - start
+        start = time.perf_counter()
+        predict_counts = prep_predict_phase(root, model_dir, device, cfg)
+        stages["prep_predict"] = time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "audio_prep", "stage_wall_s": stages,
+          "total_s": sum(stages.values())})
+    return train_counts, predict_counts
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -3132,6 +3780,8 @@ def main(argv=None):
                                                   bf16_params=True),
                "decode": decode_counts, "predict": predict_counts}
     by_path["nmt_trainer"], by_path["nmt_predict"] = nmt_phases(args.seed)
+    by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
+        args.seed)
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)

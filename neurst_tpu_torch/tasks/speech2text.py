@@ -1,5 +1,6 @@
-"""Speech-to-text task, ASR and end-to-end ST (the port's counterpart of
-``SpeechToText`` in ``neurst_tpu/tasks/speech2text.py``).
+"""Speech-to-text tasks, ASR and end-to-end ST (the port's counterparts of
+``SpeechToText`` and ``MultiTaskSpeechTranslation`` in
+``neurst_tpu/tasks/speech2text.py``).
 
 Model inputs:
     src        float [B, frames, feat_dim, channels]
@@ -18,7 +19,9 @@ from the frame budget, a transcript cap per bucket from
 ``experimental_frame_transcript_ratio`` with the next bucket's cap as the
 one fallback shape, and a bucket's batch filled up with zero rows of
 length 0 that ``sample_mask`` marks 0.  Every non-empty bucket is flushed
-at the end of an epoch.
+at the end of an epoch.  The text fields a batch carries are the task's
+``_batch_text_fields`` (the transcript; the multi-task task adds the
+translation), and the text length of an example is its longest field's.
 """
 
 import logging
@@ -36,8 +39,8 @@ from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
 from neurst_tpu_torch.utils.configurable import deep_merge_dict
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
 
-__all__ = ["SpeechToText", "create_audio_bucket_boundaries",
-           "train_bucket_shapes"]
+__all__ = ["SpeechToText", "MultiTaskSpeechTranslation",
+           "create_audio_bucket_boundaries", "train_bucket_shapes"]
 
 
 def create_audio_bucket_boundaries(maxlen: int, minlen: int = 128):
@@ -253,14 +256,14 @@ class SpeechToText(Task):
                                         num_replicas_in_sync, shard_id,
                                         total_shards)
         feat_elems = self._feature_elems()
-        trg_pad = self._trg_data_pipeline.meta["pad_id"]
+        text_fields = self._batch_text_fields()
         batch_size = dataset_utils.adjust_batch_size(
             args.get("batch_size") or 16,
             args.get("batch_size_per_gpu") or args.get(
                 "batch_size_per_replica"),
             num_replicas_in_sync, verbose=(shard_id == 0))
         fields = ["audio"] + ([] if mode == ModeKeys.INFER
-                              else ["transcript"])
+                              else [f for f, _ in text_fields])
 
         def make_iter():
             it = ds.build_iterator(map_func=preprocess, shard_id=shard_id,
@@ -269,10 +272,10 @@ class SpeechToText(Task):
             # batcher treats it as one sequence field
             flat = ({"audio": ex["audio"].reshape(-1),
                      "audio_frames": ex["audio_length"],
-                     **({"transcript": ex["transcript"]}
-                        if "transcript" in ex else {})} for ex in it)
+                     **{f: ex[f] for f, _ in text_fields if f in ex}}
+                    for ex in it)
             for b in dataset_utils.batch_fixed_size(
-                    flat, batch_size, {"audio": 0, "transcript": trg_pad},
+                    flat, batch_size, {"audio": 0, **dict(text_fields)},
                     fields=fields, pad_length_multiple=64 * feat_elems,
                     extra_fields=("audio_frames",)):
                 frames = b["audio"].shape[1] // feat_elems
@@ -283,19 +286,26 @@ class SpeechToText(Task):
                         [0 if x is None else int(x)
                          for x in b["audio_frames"]], np.int32),
                     "sample_mask": b["sample_mask"]}
-                if "transcript" in b:
-                    batch["transcript"] = b["transcript"]
-                    batch["transcript_length"] = b["transcript_length"]
+                for f, _ in text_fields:
+                    if f in b:
+                        batch[f] = b[f]
+                        batch[f + "_length"] = b[f + "_length"]
                 yield self.example_to_input(batch, mode)
         return make_iter
 
+    def _batch_text_fields(self):
+        """[(field, pad id)] of the text fields batches carry (the
+        multi-task subclass adds the translation)."""
+        return [("transcript", self._trg_data_pipeline.meta["pad_id"])]
+
     def _train_iterator(self, ds, preprocess, args, num_replicas, shard_id,
                         total_shards):
-        """Batches of (frames x transcript) buckets: an example goes to the
-        first bucket whose frame bound and larger transcript cap hold it
-        (examples no bucket holds are dropped and counted); a full bucket
-        is emitted at the smaller cap that holds its longest transcript,
-        and every non-empty bucket at the end of the epoch."""
+        """Batches of (frames x text) buckets, the text length an
+        example's longest text field: an example goes to the first bucket
+        whose frame bound and larger text cap hold it (examples no bucket
+        holds are dropped and counted); a full bucket is emitted at the
+        smaller cap that holds its longest text, and every non-empty
+        bucket at the end of the epoch."""
         bounds, shapes = train_bucket_shapes(args, num_replicas)
         if shard_id == 0:
             logging.info("speech2text: %d input shapes",
@@ -304,28 +314,31 @@ class SpeechToText(Task):
                 logging.info("  - batch=%d frames<=%d transcript<=%s", bs,
                              bound, caps)
         feat_elems = self._feature_elems()
-        trg_pad = self._trg_data_pipeline.meta["pad_id"]
+        text_fields = self._batch_text_fields()
+
+        def text_len(ex):
+            return max(len(ex[f]) for f, _ in text_fields)
 
         def emit(exs, i):
             bs, bound, caps = shapes[i]
-            tmax = max(len(ex["transcript"]) for ex in exs)
+            tmax = max(text_len(ex) for ex in exs)
             tcap = next((t for t in caps if tmax <= t), caps[-1])
             audio = np.zeros([bs, bound, feat_elems], np.float32)
             lens = np.zeros([bs], np.int32)
-            trg = np.full([bs, tcap], trg_pad, np.int32)
-            trg_lens = np.zeros([bs], np.int32)
+            batch = {"audio": audio, "audio_length": lens}
+            for f, pad in text_fields:
+                batch[f] = np.full([bs, tcap], pad, np.int32)
+                batch[f + "_length"] = np.zeros([bs], np.int32)
             for j, ex in enumerate(exs):
                 audio[j, :ex["audio_length"]] = ex["audio"]
                 lens[j] = ex["audio_length"]
-                ids = ex["transcript"][:tcap]
-                trg[j, :len(ids)] = ids
-                trg_lens[j] = len(ids)
-            mask = np.zeros([bs], np.float32)
-            mask[:len(exs)] = 1.0
-            return self.example_to_input(
-                {"audio": audio, "audio_length": lens, "transcript": trg,
-                 "transcript_length": trg_lens, "sample_mask": mask},
-                ModeKeys.TRAIN)
+                for f, _ in text_fields:
+                    ids = ex[f][:tcap]
+                    batch[f][j, :len(ids)] = ids
+                    batch[f + "_length"][j] = len(ids)
+            batch["sample_mask"] = np.zeros([bs], np.float32)
+            batch["sample_mask"][:len(exs)] = 1.0
+            return self.example_to_input(batch, ModeKeys.TRAIN)
 
         def make_iter():
             it = ds.build_iterator(map_func=preprocess, shard_id=shard_id,
@@ -336,9 +349,9 @@ class SpeechToText(Task):
             buckets = [[] for _ in bounds]
             dropped = 0
             for ex in dataset_utils.prefetch_iterator(it):
-                if "transcript" not in ex:
+                if any(f not in ex for f, _ in text_fields):
                     continue
-                frames, tlen = ex["audio_length"], len(ex["transcript"])
+                frames, tlen = ex["audio_length"], text_len(ex)
                 i = next((i for i, (_, bound, caps) in enumerate(shapes)
                           if frames <= bound and tlen <= caps[-1]), None)
                 if i is None:
@@ -364,3 +377,157 @@ class SpeechToText(Task):
             "language", self._trg_data_pipeline.meta.get("language", "en"))
         return build_metric({"metric.class": args.get(f"{name}.class")
                              or "WER", "metric.params": params})
+
+
+@register_task("multi_task_speech_translation", "MultiTaskSpeechTranslation")
+class MultiTaskSpeechTranslation(SpeechToText):
+    """Joint ASR + ST from audio triples (audio, transcript, translation).
+
+    ``get_data_preprocess_fn`` projects both text sides (the transcript by
+    the inherited pipeline, the translation by
+    ``translation_data_pipeline``): stage 03 of the speech recipes writes
+    its triple records through it with ``create_records``.  Batches carry
+    both sides through the parent's 2-D frames x text bucketing (the text
+    cap the longer side's); ``example_to_input`` gives the translation as
+    the primary ``trg*`` targets and the transcript as ``asr_trg*``.
+    Generation decodes the ST side, or with ``--generation_output asr``
+    the transcript (postprocessing, metric and references follow the
+    side).  ``build_model`` raises: the shared-encoder dual-decoder model
+    and its joint criterion are not ported yet.
+    """
+
+    def __init__(self, args=None):
+        super().__init__(args)
+        self._translation_pipeline = build_pipeline(
+            self._args, "translation_data_pipeline") \
+            if self._args.get("translation_data_pipeline.class") else None
+
+    @staticmethod
+    def class_or_method_args():
+        return SpeechToText.class_or_method_args() + [
+            ModuleFlag("translation_data_pipeline", "data_pipeline",
+                       help="The data pipeline for the translation text."),
+            Flag("generation_output", dtype=Flag.TYPE.STRING, default="st",
+                 choices=["st", "asr"],
+                 help="Which head generation decodes: the translation "
+                      "(st) or the transcript (asr)."),
+        ]
+
+    def get_config(self):
+        cfg = super().get_config()
+        if self._translation_pipeline is not None:
+            cfg["translation_data_pipeline.class"] = \
+                type(self._translation_pipeline).__name__
+            cfg["translation_data_pipeline.params"] = \
+                self._translation_pipeline.config
+        cfg["generation_output"] = self._gen_side
+        return cfg
+
+    @property
+    def _gen_side(self):
+        return self._args.get("generation_output") or "st"
+
+    def _gen_pipeline(self):
+        if self._gen_side == "asr" or self._translation_pipeline is None:
+            return self._trg_data_pipeline
+        return self._translation_pipeline
+
+    def get_data_preprocess_fn(self, mode, data_status=DataStatus.RAW,
+                               args=None):
+        base = super().get_data_preprocess_fn(mode, data_status, args)
+        if isinstance(data_status, dict):
+            trans_status = data_status.get("translation", DataStatus.RAW)
+        else:
+            trans_status = data_status
+
+        def _process(data):
+            out = base(data)
+            translation = out.get("translation")
+            if translation is not None \
+                    and self._translation_pipeline is not None \
+                    and trans_status != DataStatus.PROJECTED:
+                out["translation"] = [int(x) for x in
+                                      self._translation_pipeline.encode(
+                    translation,
+                    is_processed=(trans_status == DataStatus.PROCESSED))]
+            return out
+        return _process
+
+    def _batch_text_fields(self):
+        fields = super()._batch_text_fields()
+        if self._translation_pipeline is not None:
+            fields.append(
+                ("translation", self._translation_pipeline.meta["pad_id"]))
+        return fields
+
+    def example_to_input(self, batch_of_data, mode):
+        audio = batch_of_data["audio"]
+        batch, frames = audio.shape[0], audio.shape[1]
+        input_dict = {
+            "src": audio.reshape(batch, frames, self._audio_feature_dim,
+                                 self._audio_feature_channels),
+            "src_length": batch_of_data["audio_length"],
+        }
+        if "sample_mask" in batch_of_data:
+            input_dict["sample_mask"] = batch_of_data["sample_mask"]
+        if mode == ModeKeys.INFER:
+            input_dict["trg_input"] = np.full(
+                [batch], self._gen_pipeline().meta["bos_id"], np.int32)
+            return input_dict
+
+        def put(prefix, field, meta):
+            trg = batch_of_data[field]
+            trg_len = batch_of_data[field + "_length"]
+            input_dict[prefix + "trg"] = trg
+            input_dict[prefix + "trg_length"] = trg_len
+            input_dict[prefix + "trg_padding"] = (
+                np.arange(trg.shape[1])[None, :]
+                >= trg_len[:, None]).astype(np.float32)
+            input_dict[prefix + "trg_input"] = np.concatenate(
+                [np.full([batch, 1], meta["bos_id"], np.int32),
+                 trg[:, :-1]], axis=1)
+
+        # the translation is the primary head (trg*), the transcript the
+        # ASR head
+        put("", "translation", self._translation_pipeline.meta)
+        put("asr_", "transcript", self._trg_data_pipeline.meta)
+        return input_dict
+
+    def build_model(self, args, name=None, **kwargs):
+        raise NotImplementedError(
+            "multi_task_speech_translation: the multi-task speech model "
+            "(models/multi_task_speech_transformer.py) and its joint "
+            "criterion (criterions/joint_criterion.py) are not ported yet "
+            "(ROADMAP, module queue: the multi-task speech model); this "
+            "task serves data preparation only")
+
+    def get_data_postprocess_fn(self, data_status, **kwargs):
+        if isinstance(data_status, dict):
+            key = "transcript" if self._gen_side == "asr" else "translation"
+            data_status = data_status.get(key, DataStatus.RAW)
+        pipeline = self._gen_pipeline()
+        if data_status == DataStatus.PROJECTED:
+            return pipeline.decode
+        if data_status == DataStatus.PROCESSED:
+            return pipeline.postprocess
+        return lambda x: x
+
+    def get_eval_metric(self, args, name="metric", ds=None):
+        default_cls = "WER" if self._gen_side == "asr" else "bleu"
+        params = dict(args.get(f"{name}.params") or {})
+        params.setdefault(
+            "language", self._gen_pipeline().meta.get("language", "en"))
+        return build_metric({"metric.class": args.get(f"{name}.class")
+                             or default_cls, "metric.params": params})
+
+    def eval_targets(self, dataset):
+        """The translations (the dataset's targets), or the transcripts
+        where generation decodes the ASR side."""
+        if self._gen_side == "asr":
+            try:
+                return [ex["transcript"]
+                        for ex in dataset.build_iterator()()
+                        if "transcript" in ex]
+            except (AttributeError, OSError):
+                return None
+        return super().eval_targets(dataset)

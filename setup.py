@@ -10,7 +10,8 @@ setup(
     packages=find_packages(include=["neurst_tpu", "neurst_tpu.*",
                                     "neurst_tpu_torch", "neurst_tpu_torch.*"]),
     # the PyTorch/CUDA port builds its kernels from these sources and the
-    # headers they include (philox.cuh), and its host crc32c from csrc/*.cpp
+    # headers they include (philox.cuh), and its host libraries (crc32c,
+    # the FLAC decoder) from csrc/*.cpp
     package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
                                        "csrc/*.cpp"]},
     python_requires=">=3.10",
@@ -26,6 +27,20 @@ setup(
             "neurst-tpu-torch-run = neurst_tpu_torch.cli.run_exp:cli_main",
             "neurst-tpu-torch-avg-checkpoint = "
             "neurst_tpu_torch.cli.avg_checkpoint:main",
+            "neurst-tpu-torch-extract-audio-transcripts = "
+            "neurst_tpu_torch.cli.extract_audio_transcripts:main",
+            "neurst-tpu-torch-create-records = "
+            "neurst_tpu_torch.cli.create_records:main",
+            "neurst-tpu-torch-process-text = "
+            "neurst_tpu_torch.cli.process_text:main",
+            "neurst-tpu-torch-learn-bpe = "
+            "neurst_tpu_torch.cli.learn_bpe:main",
+            "neurst-tpu-torch-generate-vocab = "
+            "neurst_tpu_torch.cli.generate_vocab:main",
+            "neurst-tpu-torch-view-records = "
+            "neurst_tpu_torch.cli.view_records:main",
+            "neurst-tpu-torch-audio-analysis = "
+            "neurst_tpu_torch.cli.audio_analysis:main",
         ],
     },
 )
