@@ -141,6 +141,28 @@ exits non-zero):
                launches a batch).  Wall seconds of each stage, audio
                seconds per wall second, megabytes of records, tokens/s,
                data-wait share, samples/s.
+   multitask -- the joint ASR + ST recipe (``MULTITASK``): multitask_train,
+               examples/multi_task_st/example_configs/multitask_st.yml
+               through ``run_exp --entry train`` (its task flags and
+               joint criterion; ``speech_transformer_s``, flash, dropout
+               0.1, bf16 + f32 master) on 80 seeded triples of 2782-3000
+               frames with 90-120-unit transcripts and translations, 12
+               steps, a checkpoint every 6: every step's launches against
+               ``expected_launches`` (the transcript decoder counted: 192
+               dropout, 0 fused xent), both decoders' weights moving,
+               window tokens/s of both sides, data wait, checkpoint
+               seconds, peak memory, and the bare step at the top bucket
+               beside train_dropout's; multitask_predict, ``--entry
+               predict`` on 64 triples (batch 16, beam 4, max 150) on the
+               translation head (BLEU) and the transcript head (WER), then
+               ``--model_dir A,B`` (ckpt-12, ckpt-6) and ``A,A``, which
+               must give A's hypotheses: 12 flash launches a batch a
+               model; cascade, ``cascade_st`` from an ASR dir (6 steps of
+               must-c/asr_training_args.yml's flags) to an MT dir (6 steps
+               of mt_training_args.yml's, ``transformer_base``) with each
+               side's samples/s and BLEU; multitask_reference_check, the
+               joint trainer at ``speech_transformer_toy`` in float32 for
+               2 steps and an ASR-head decode, card against CPU.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -153,6 +175,9 @@ The script imports nothing of JAX and nothing of ``neurst_tpu``.
 """
 
 import argparse
+import ast
+import contextlib
+import io
 import json
 import math
 import os
@@ -1767,7 +1792,9 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
     site the kernels above do not cover (two postprocess sites an encoder
     layer, three a decoder layer, the decoder's two attention-weight
     sites, the FFN hidden where it is not fused), once forward and once
-    backward."""
+    backward.  The multi-task model's transcript decoder (``asr_decoder``)
+    counts as a second decoder over ``dec_rows`` (both text sides of a
+    batch are padded to one length)."""
     from neurst_tpu_torch.ops.fused_ce import bwd_launches
     from neurst_tpu_torch.ops.fused_ce import \
         fwd_launches as xent_fwd_launches
@@ -1783,7 +1810,11 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
                                    "relu", rows, True, rate)
 
     flash = enc.num_layers if enc.enable_flash_attention else 0
-    layers = [(enc.num_layers, enc_rows), (dec.num_layers, dec_rows)]
+    decoders = [dec.num_layers]
+    if getattr(model, "asr_decoder", None) is not None:
+        decoders.append(model.asr_decoder.num_layers)
+    layers = [(enc.num_layers, enc_rows)] + [(n, dec_rows)
+                                             for n in decoders]
     ffn = sum(n * fused(rows) for n, rows in layers)
     ffn_fwd = sum(n * fused(rows) * fwd_launches(
         rows, dense1.out_features, dense1.in_features, dtype)
@@ -1792,7 +1823,7 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
     if dropout:
         sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
                                   + (not fused(enc_rows)))
-        sites += dec.num_layers * (5 + (not fused(dec_rows)))
+        sites += sum(decoders) * (5 + (not fused(dec_rows)))
     # the train step fuses the projection into the xent only where the
     # model allows it (a vocabulary a multiple of 128 among the JAX
     # package's conditions); else the logits path launches neither
@@ -2221,8 +2252,8 @@ def run_trainer(argv, task_cls=None):
     TRAIN iterator wrapped to time each ``next()`` and record each
     batch's shape, each train step's launches recorded with its batch's
     shape, ``Trainer._save`` and ``SeqGenerationValidator.validate``
-    timed, and the log lines kept.  Returns the trainer's final state and
-    what it measured."""
+    timed, each batch's text token counts, and the log lines kept.
+    Returns the trainer's final state and what it measured."""
     import logging
 
     import torch
@@ -2242,7 +2273,7 @@ def run_trainer(argv, task_cls=None):
 
     task_cls = task_cls or SpeechToText
     seen = {"wait_s": 0.0, "shapes": [], "rows": [], "save_s": [],
-            "validate_s": [], "steps": [], "messages": []}
+            "validate_s": [], "steps": [], "messages": [], "tokens": []}
     originals = {
         (task_cls, "create_batch_iterator"): task_cls.create_batch_iterator,
         (Trainer, "_save"): Trainer._save, (Trainer, "run"): Trainer.run,
@@ -2267,6 +2298,10 @@ def run_trainer(argv, task_cls=None):
                                        int(batch["src"].shape[1]),
                                        int(batch["trg"].shape[1])])
                 seen["rows"].append(int(batch["sample_mask"].sum()))
+                seen["tokens"].append({
+                    k: int(batch[k].sum()) for k in ("trg_length",
+                                                     "asr_trg_length")
+                    if k in batch})
                 yield batch
         return timed
 
@@ -3701,6 +3736,602 @@ def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP):
     return train_counts, predict_counts
 
 
+# the joint ASR + ST recipe (examples/multi_task_st/example_configs/
+# multitask_st.yml) through ``run_exp --entry train``: its task flags
+# (120,000-frame budget, max_trg_len 120, frame/transcript ratio 13.0,
+# SpecAugment LB) and joint criterion (ST 1.0, ASR 0.3, label smoothing
+# 0.1); speech_transformer_s with encoder flash attention, dropout 0.1,
+# bf16 with an f32 master, Adam and noam; 80 seeded triples of 2782-3000
+# frames whose transcripts and translations have 90-120 units, over two
+# seeded BPE vocabularies of 8192 (the ST recipe's size); 12 steps, a
+# checkpoint every 6; the bare step at the top bucket beside the train
+# phases'.  Then --entry predict on both heads (64 triples of 300-3000
+# frames and 10-60 units, batch 16, beam 4, lp -1, max 150), the
+# ensemble of ckpt-12 (A) and ckpt-6 (B) and of A with itself, the ASR ->
+# MT cascade from 6 steps of must-c/asr_training_args.yml's and
+# mt_training_args.yml's flags on the same audio and texts, and a
+# float32 card-vs-CPU check at toy width (2 steps, then an ASR-head
+# decode).
+MULTITASK = dict(hparams_set="speech_transformer_s", triples=80,
+                 min_frames=2782, max_frames=3000, min_tokens=90,
+                 max_tokens=120, steps=12, save_every=6, summary=2,
+                 bare_warmup=2, bare_steps=5, bare_split=2,
+                 predict_triples=64, predict_min_frames=300,
+                 predict_max_frames=3000, predict_min_tokens=10,
+                 predict_max_tokens=60, cascade_steps=6, check_triples=8,
+                 check_max_frames=64, check_steps=2, check_max_decode=16)
+MULTITASK_TASK = {"audio_feature_dim": 80, "batch_size": 120000,
+                  "max_src_len": 3000, "max_trg_len": 120,
+                  "experimental_frame_transcript_ratio": 13.0,
+                  "specaug": "LB"}
+JOINT_CRITERION = {
+    "criterion.class": "joint_criterion",
+    "criterion.params": {"criterions": (
+        "[{class: label_smoothed_cross_entropy, params: "
+        "{label_smoothing: 0.1}, output_key: st, weight: 1.0}, "
+        "{class: label_smoothed_cross_entropy, params: "
+        "{label_smoothing: 0.1}, output_key: asr, input_prefix: asr, "
+        "weight: 0.3}]")}}
+TRIPLE_DATASET = {"feature_key": "audio", "transcript_key": "transcript",
+                  "translation_key": "translation"}
+ASR_HEAD = ["--task.params", json.dumps({"generation_output": "asr"}),
+            "--metric.class", "wer"]
+ST_HEAD = ["--metric.class", "bleu"]
+
+
+def write_triple_records(path, rng, words, frames, low, high):
+    """An ``audio_triple_tfrecord`` file of one utterance a frame count:
+    seeded fbank-like features, a raw transcript over ``words["en"]`` and
+    a raw translation over ``words["de"]``, each of ``low``-``high``
+    subword units (EOS included) as the draws allow.  Returns the
+    (transcript, translation) texts."""
+    from neurst_tpu_torch.data.recordio import RecordWriter, build_example
+    texts = []
+    with RecordWriter(path) as w:
+        for f in frames:
+            pair = tuple(_sentence(rng, words[side], int(rng.randint(
+                low, high + 1)))[0] for side in ("en", "de"))
+            texts.append(pair)
+            audio = rng.randn(int(f), 80).astype(np.float32)
+            w.write(build_example({"audio": audio.reshape(-1),
+                                   "transcript": pair[0],
+                                   "translation": pair[1]}))
+    return texts
+
+
+def multitask_config(path, records, pipelines, task=None, model=None,
+                     **entry):
+    cfg = {"task.class": "multi_task_speech_translation",
+           "task.params": dict(MULTITASK_TASK, **(task or {}), **{
+               "transcript_data_pipeline.class": "TextDataPipeline",
+               "transcript_data_pipeline.params": pipelines["en"],
+               "translation_data_pipeline.class": "TextDataPipeline",
+               "translation_data_pipeline.params": pipelines["de"]}),
+           "dataset.class": "audio_triple_tfrecord",
+           "dataset.params": dict(TRIPLE_DATASET, data_path=records),
+           "model.class": "multi_task_speech_transformer",
+           "hparams_set": MULTITASK["hparams_set"],
+           "model.params": dict({"encoder.enable_flash_attention": True},
+                                **(model or {})),
+           "entry.class": "trainer",
+           "entry.params": dict(JOINT_CRITERION, **entry)}
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def multitask_batch(rng, device, batch, frames, trg_len):
+    """A top-bucket batch of the joint model: seeded frames, and target
+    ids and padding for both heads (90 to ``trg_len`` units a row)."""
+    import torch
+    arrays = {"src": rng.randn(batch, frames, TRAIN["feature_dim"], 1
+                               ).astype(np.float32),
+              "src_length": rng.randint(TRAIN["min_src"], frames + 1,
+                                        size=batch).astype(np.int32)}
+    for prefix in ("", "asr_"):
+        lengths = rng.randint(MULTITASK["min_tokens"], trg_len + 1,
+                              size=batch)
+        for key in ("trg_input", "trg"):
+            arrays[prefix + key] = rng.randint(4, TRAIN["vocab"],
+                                               size=(batch, trg_len))
+        arrays[prefix + "trg_padding"] = (
+            np.arange(trg_len)[None] >= lengths[:, None]).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def build_multitask_train(seed, device="cuda"):
+    """The joint model's training step as the recipe builds it:
+    ``speech_transformer_s`` as ``multi_task_speech_transformer`` with
+    encoder flash attention and its dropout 0.1, random weights from
+    ``seed``, bf16 params with an f32 master, the hparams set's Adam and
+    noam, the joint criterion, ``TrainState.create`` and
+    ``make_train_step``."""
+    import torch
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
+    from neurst_tpu_torch.optimizers.master_weights import (
+        cast_params_bf16, with_bf16_params)
+    from neurst_tpu_torch.optimizers.optimizers import create_optax_chain
+    from neurst_tpu_torch.parallel import TrainState, make_train_step
+
+    cfg = SpeechTransformer.build_model_args_by_name(
+        MULTITASK["hparams_set"])
+    cfg = dict(cfg, **{"model.class": "multi_task_speech_transformer",
+                       "model.params": dict(
+                           cfg["model.params"],
+                           **{"encoder.enable_flash_attention": True})})
+    meta = {"vocab_size": TRAIN["vocab"], "eos_id": 1, "bos_id": 2,
+            "unk_id": 3}
+    model = neurst_tpu_torch.build_model(
+        cfg, src_meta={"audio_feature_dim": TRAIN["feature_dim"],
+                       "audio_feature_channels": 1},
+        trg_meta=meta, asr_meta=meta, device=device)
+    model.init_params(torch.Generator().manual_seed(seed))
+    lr = neurst_tpu_torch.build_lr_schedule(cfg)
+    tx = with_bf16_params(create_optax_chain(
+        neurst_tpu_torch.build_optimizer(cfg), lr))
+    cast_params_bf16(model)
+    criterion = neurst_tpu_torch.build_criterion(JOINT_CRITERION)
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    return model, criterion, tx, state, make_train_step(
+        model, criterion, tx, lr_schedule=lr)
+
+
+def multitask_bare_step(seed, enc_rows, dec_rows):
+    """The joint model's train step alone at the top bucket
+    (``build_multitask_train``), driven as the train phases drive theirs.
+    Returns (row, launch totals)."""
+    from neurst_tpu_torch.utils.rng import make_key
+
+    t = MULTITASK
+    model, criterion, tx, state, step = build_multitask_train(seed)
+    rng = np.random.RandomState(seed + 5)
+    batches = [multitask_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
+                               MULTITASK_TASK["max_trg_len"])
+               for _ in range(t["bare_warmup"] + t["bare_steps"]
+                              + t["bare_split"])]
+    expected = expected_launches(model, enc_rows, dec_rows, True)
+    out, totals = _drive_train(model, criterion, tx, state, step, batches,
+                               t["bare_warmup"], t["bare_steps"],
+                               make_key(seed + 7), expected)
+    timed = batches[t["bare_warmup"]:t["bare_warmup"] + t["bare_steps"]]
+    tokens = {side: float(np.mean([float((1.0 - b[f"{side}trg_padding"]
+                                          ).sum()) for b in timed]))
+              for side in ("", "asr_")}
+    median_s = out["step_ms_median"] / 1e3
+    return dict(out, target_tokens_per_s=tokens[""] / median_s,
+                transcript_tokens_per_s=tokens["asr_"] / median_s), totals
+
+
+def _moved_by_prefix(before, after, prefixes):
+    """{prefix: (tensors moved, tensors)} between two flat checkpoints;
+    the attention key biases (gradient 0 up to rounding) are left out."""
+    out = {}
+    for prefix in prefixes:
+        names = [k for k in after if k.startswith(prefix)
+                 and _key_bias(k, after[k]) is None]
+        out[prefix] = (sum(not np.array_equal(before[k], after[k])
+                           for k in names), len(names))
+    return out
+
+
+def multitask_train_phase(seed, root, train_dropout_row, device="cuda"):
+    """The joint recipe's train entry (``MULTITASK``), every step's
+    launches against ``expected_launches`` (192 dropout, 0 fused xent at
+    the top bucket), both decoders' weights moving between ckpt-6 and
+    ckpt-12; then the bare step at the top bucket.  Returns what the
+    later phases read: the model dir, pipelines, words, records and
+    texts, and the launch counts by path."""
+    import torch
+
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.tasks.speech2text import (
+        MultiTaskSpeechTranslation, train_bucket_shapes)
+    from neurst_tpu_torch.utils.checkpoints import restore_checkpoint_params
+
+    t = MULTITASK
+    start = time.perf_counter()
+    rng = np.random.RandomState(seed + 100)
+    pipelines, words = {}, {}
+    for side in ("en", "de"):
+        os.makedirs(os.path.join(root, side))
+        pipelines[side] = dict(write_vocab(rng, os.path.join(root, side)),
+                               language=side)
+        words[side] = _words(rng, build_data_pipeline(
+            {"data_pipeline.class": "TextDataPipeline",
+             "data_pipeline.params": pipelines[side]}))
+    records = {name: os.path.join(root, f"{name}.tfrecords")
+               for name in ("train", "predict")}
+    texts = {"train": write_triple_records(
+        records["train"], rng, words, rng.randint(
+            t["min_frames"], t["max_frames"] + 1, size=t["triples"]),
+        t["min_tokens"], t["max_tokens"])}
+    texts["predict"] = write_triple_records(
+        records["predict"], rng, words, rng.randint(
+            t["predict_min_frames"], t["predict_max_frames"] + 1,
+            size=t["predict_triples"]),
+        t["predict_min_tokens"], t["predict_max_tokens"])
+    write_s = time.perf_counter() - start
+
+    model_dir = os.path.join(root, "model_a")
+    cfg = multitask_config(os.path.join(root, "train.json"),
+                           records["train"], pipelines,
+                           train_steps=t["steps"],
+                           save_checkpoint_steps=t["save_every"],
+                           summary_steps=t["summary"])
+    argv = ["--config_paths", cfg, "--model_dir", model_dir]
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        argv += ["--device", device]
+    _, seen = run_trainer(argv, MultiTaskSpeechTranslation)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    _train_path_checks(seen, t["steps"], "multitask_train")
+    model = seen["model"]
+    _, shapes = train_bucket_shapes(dict(MULTITASK_TASK,
+                                         batch_size_multiple=8))
+    top = [shapes[-1][0], shapes[-1][1], shapes[-1][2][-1]]
+    enc_rows, dec_rows = _speech_rows(top), top[0] * top[2]
+    expected = expected_launches(model, enc_rows, dec_rows, True)
+    by_shape = _step_launch_checks(seen, model) if on_card else {}
+    ckpts = [restore_checkpoint_params(os.path.join(
+        model_dir, f"ckpt-{s}.npz")) for s in (t["save_every"], t["steps"])]
+    moved = _moved_by_prefix(*ckpts, ("decoder/", "asr_decoder/",
+                                      "asr_symbol_modality/"))
+    windows = seen["windows"][1:] or seen["windows"]
+    per_step = [sum(tok.get("asr_trg_length", 0) for tok in
+                    seen["tokens"][w["step"] - t["summary"]:w["step"]])
+                / (t["summary"] * w["secs_per_step"]) for w in windows]
+    row = dict({"phase": "multitask_train", "model": t["hparams_set"],
+                "recipe": "examples/multi_task_st/example_configs/"
+                          "multitask_st.yml",
+                "dtype": "bfloat16", "bf16_params": True,
+                "dropout": DROPOUT_RATE, "triples": t["triples"],
+                "write_inputs_s": write_s, "top_bucket": top,
+                "launches_per_step_expected": expected,
+                "launches_per_step_by_shape": by_shape,
+                "decoder_tensors_moved_between_checkpoints": moved,
+                "transcript_tokens_per_s": float(np.median(per_step)),
+                "tokens_per_s_counts": "the translation's non-pad target "
+                                       "tokens (the trainer's log line)"},
+               **_trainer_numbers(seen, peak))
+    if on_card:
+        bare, bare_totals = multitask_bare_step(seed, enc_rows, dec_rows)
+        row["bare_step"] = {
+            k: bare[k] for k in ("step_ms_median", "step_ms", "split_ms",
+                                 "target_tokens_per_s",
+                                 "transcript_tokens_per_s",
+                                 "max_memory_allocated",
+                                 "dropout_determinism")}
+        row["bare_step"]["st_train_s_recipe_step_ms_median"] = \
+            train_dropout_row["step_ms_median"]
+        row["bare_step"]["ratio_to_st_train_s_recipe"] = \
+            bare["step_ms_median"] / train_dropout_row["step_ms_median"]
+    emit(row)
+    if on_card and not (
+            expected["fused_dropout"] == 192
+            and expected["fused_linear_xent_fwd"] == 0
+            and expected["fused_linear_xent_bwd"] == 0
+            and all(s == top for s in seen["shapes"])):
+        raise AssertionError(f"multitask_train: expected {expected}, "
+                             f"shapes {seen['shapes']}")
+    if not all(n == total > 0 for n, total in moved.values()):
+        raise AssertionError(f"multitask_train: decoder weights that did "
+                             f"not move from ckpt-6 to ckpt-12: {moved}")
+    launches = {"multitask_train": seen["launches"]}
+    if on_card:
+        launches["multitask_step"] = bare_totals
+    return {"model_dir": model_dir, "pipelines": pipelines, "words": words,
+            "records": records, "texts": texts}, launches
+
+
+def _predict_config(root, name, records, dataset):
+    """PREDICT_ARGS over ``records``, the metric left to the command
+    line."""
+    config = json.loads(json.dumps(PREDICT_ARGS))
+    del config["entry.params"]["metric.class"]
+    config["dataset.class"], config["dataset.params"] = dataset, dict(
+        TRIPLE_DATASET, data_path=records)
+    config["entry.params"]["output_file"] = os.path.join(root,
+                                                         f"hypo.{name}.txt")
+    path = os.path.join(root, f"predict.{name}.json")
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    return path
+
+
+def _counted_predict(argv):
+    """``run_exp.cli_main(argv)`` with the launch counts set to 0 before
+    and read after: (result, counts, wall seconds)."""
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = run_exp.cli_main(argv)
+    return result, launch_counts(), time.perf_counter() - start
+
+
+def multitask_predict_phases(root, run, device="cuda"):
+    """--entry predict on the translation head (BLEU) and the transcript
+    head (WER), then the ensemble of ckpt-12 (A) and ckpt-6 (B) and of A
+    with itself; 12 flash launches a batch a model.  Returns the launch
+    counts by path."""
+    t = MULTITASK
+    batches = -(-t["predict_triples"] // PREDICT_ARGS["batch_size"])
+    per_batch = 12 if device == "cuda" else 0
+    extra = [] if device == "cuda" else ["--device", device]
+    dir_a = run["model_dir"]
+    dir_b = os.path.join(root, "model_b")
+    os.makedirs(dir_b)
+    for name in ("model_configs.yml", f"ckpt-{t['save_every']}.npz"):
+        shutil.copy(os.path.join(dir_a, name), dir_b)
+    refs = {"st": [p[1] for p in run["texts"]["predict"]],
+            "asr": [p[0] for p in run["texts"]["predict"]]}
+    rows, launches, hyps = {}, {}, {}
+    for name, model_dir, head in (
+            ("st", dir_a, ST_HEAD), ("asr", dir_a, ASR_HEAD),
+            ("ensemble_ab", f"{dir_a},{dir_b}", ST_HEAD),
+            ("ensemble_aa", f"{dir_a},{dir_a}", ST_HEAD)):
+        config = _predict_config(root, name, run["records"]["predict"],
+                                 "audio_triple_tfrecord")
+        result, counts, wall_s = _counted_predict(
+            ["--config_paths", config, "--model_dir", model_dir] + head
+            + extra)
+        members = len(model_dir.split(","))
+        hyps[name] = result["hypotheses"]
+        rows[name] = {
+            "models": members, "samples": result["samples"],
+            "samples_per_s": result["samples_per_sec"], "cli_wall_s": wall_s,
+            "timing_s": result["timing"],
+            "metric": {k: result[k] for k in ("BLEU", "WER") if k in result},
+            "flash_fwd_launches": counts["flash_attention_fwd"],
+            "flash_fwd_expected": per_batch * members * batches}
+        launches[f"predict_{name}"] = counts
+        if not (result["samples"] == t["predict_triples"]
+                and counts["flash_attention_fwd"]
+                == per_batch * members * batches
+                and all(math.isfinite(v)
+                        for v in rows[name]["metric"].values())):
+            raise AssertionError(f"multitask predict {name}: {rows[name]}")
+    rows["ensemble_aa"]["equals_single_model"] = \
+        hyps["ensemble_aa"] == hyps["st"]
+    rows["ensemble_ab"]["differs_from_a"] = hyps["ensemble_ab"] != hyps["st"]
+    rows["asr"]["differs_from_st"] = hyps["asr"] != hyps["st"]
+    emit({"phase": "multitask_predict", "search": PREDICT_ARGS[
+        "entry.params"]["search_method.params"],
+          "batch_size": PREDICT_ARGS["batch_size"],
+          "reference_words": {k: sum(len(x.split()) for x in v)
+                              for k, v in refs.items()},
+          **rows})
+    if not rows["ensemble_aa"]["equals_single_model"]:
+        raise AssertionError("multitask predict: the ensemble of A with "
+                             "itself did not give A's hypotheses")
+    return launches
+
+
+def cascade_phase(root, run, device="cuda"):
+    """The ASR -> MT cascade: an ASR dir from 6 steps of
+    must-c/asr_training_args.yml's task flags on the train triples'
+    audio and transcripts, an MT dir from 6 steps of
+    mt_training_args.yml's flags on their transcripts and translations,
+    then ``cascade_st`` on the predict triples with BLEU against their
+    translations.  Returns the launch counts by path."""
+    import torch
+
+    from neurst_tpu_torch.cli import cascade_st
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.tasks.speech2text import SpeechToText
+    from neurst_tpu_torch.tasks.translation import Translation
+
+    t = MULTITASK
+    on_card = device == "cuda"
+    extra = [] if on_card else ["--device", device]
+    asr_pipeline = dict(run["pipelines"]["en"], remove_punctuation=True,
+                        lowercase=True)
+    asr_cfg = trainer_config(
+        os.path.join(root, "asr_train.json"), run["records"]["train"],
+        asr_pipeline, train_steps=t["cascade_steps"],
+        save_checkpoint_steps=t["cascade_steps"], summary_steps=t["summary"])
+    with open(asr_cfg) as f:
+        config = json.load(f)
+    config["task.params"]["transcript_data_pipeline.class"] = \
+        "TranscriptDataPipeline"
+    config["dataset.params"]["transcript_key"] = "transcript"
+    with open(asr_cfg, "w") as f:
+        json.dump(config, f, indent=1)
+    texts = {}
+    for side, i in (("src", 0), ("trg", 1)):
+        texts[side] = os.path.join(root, f"mt_train.{side}")
+        with open(texts[side], "w") as f:
+            f.write("\n".join(p[i] for p in run["texts"]["train"]) + "\n")
+    mt_cfg = nmt_config(
+        os.path.join(root, "mt_train.json"),
+        {"src": run["pipelines"]["en"], "trg": run["pipelines"]["de"]},
+        ("parallel_text", _parallel(texts)),
+        train_steps=t["cascade_steps"],
+        save_checkpoint_steps=t["cascade_steps"], summary_steps=t["summary"])
+    dirs, trained, launches = {}, {}, {}
+    for side, cfg, task_cls in (("asr", asr_cfg, SpeechToText),
+                                ("mt", mt_cfg, Translation)):
+        dirs[side] = os.path.join(root, f"cascade_{side}")
+        _, seen = run_trainer(["--config_paths", cfg, "--model_dir",
+                               dirs[side]] + extra, task_cls)
+        _train_path_checks(seen, t["cascade_steps"], f"cascade {side}")
+        trained[side] = dict(_trainer_numbers(seen, None),
+                             launches_per_step_by_shape=_step_launch_checks(
+                                 seen, seen["model"]) if on_card else {})
+        launches[f"cascade_{side}_train"] = seen["launches"]
+    refs = os.path.join(root, "cascade.refs")
+    with open(refs, "w") as f:
+        f.write("\n".join(p[1] for p in run["texts"]["predict"]) + "\n")
+    sides = []
+    decode = cascade_st._decode_dataset
+
+    def timed_decode(*a, **kw):
+        start = time.perf_counter()
+        task, hyps = decode(*a, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        sides.append({"samples": len(hyps),
+                      "wall_s": time.perf_counter() - start})
+        return task, hyps
+
+    out = os.path.join(root, "cascade.out")
+    printed = io.StringIO()
+    cascade_st._decode_dataset = timed_decode
+    reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(printed):
+            cascade_st.main([
+                "--asr_model_dir", dirs["asr"], "--mt_model_dir", dirs["mt"],
+                "--dataset", "audio_tfrecord", "--data_path",
+                run["records"]["predict"], "--batch_size",
+                str(PREDICT_ARGS["batch_size"]), "--output_file", out,
+                "--ref_file", refs] + extra)
+    finally:
+        cascade_st._decode_dataset = decode
+    counts = launch_counts()
+    launches["cascade"] = counts
+    metric = ast.literal_eval(printed.getvalue().strip().splitlines()[-1])
+    with open(out) as f:
+        lines = f.read().splitlines()
+    batches = -(-t["predict_triples"] // PREDICT_ARGS["batch_size"])
+    expected = 12 * batches if on_card else 0
+    row = {"phase": "cascade",
+           "asr_recipe": "examples/speech_transformer/must-c/"
+                         "asr_training_args.yml",
+           "mt_recipe": "examples/speech_transformer/must-c/"
+                        "mt_training_args.yml",
+           "trained": trained,
+           "asr_side": dict(sides[0], samples_per_s=sides[0]["samples"]
+                            / sides[0]["wall_s"]),
+           "mt_side": dict(sides[1], samples_per_s=sides[1]["samples"]
+                           / sides[1]["wall_s"]),
+           "output_lines": len(lines), "metric": metric,
+           "flash_fwd_launches": counts["flash_attention_fwd"],
+           "flash_fwd_expected": expected}
+    emit(row)
+    if not (len(lines) == t["predict_triples"] and len(sides) == 2
+            and math.isfinite(metric["BLEU"])
+            and counts["flash_attention_fwd"] == expected):
+        raise AssertionError(f"cascade phase failed: {row}")
+    return launches
+
+
+def multitask_reference_check(root, run, devices=("cuda", "cpu")):
+    """The joint recipe in float32 on the card and on the CPU (plain
+    versions, which the CPU tests hold against the JAX package):
+    ``speech_transformer_toy``, dropout 0, one bucket of 8 short triples,
+    noam with warmup 1 (lr 1e-3 at step 1), 2 steps, then an ASR-head
+    decode of the same triples: losses within 1e-5 relative, ckpt-2
+    within 2 lr + 1e-6 (the key biases within 2 x the summed lr + 1e-6),
+    hypotheses equal."""
+    from neurst_tpu_torch.utils.checkpoints import restore_checkpoint_params
+
+    t = MULTITASK
+    rng = np.random.RandomState(5)
+    records = os.path.join(root, "check.tfrecords")
+    write_triple_records(records, rng, run["words"], rng.randint(
+        20, t["check_max_frames"] + 1, size=t["check_triples"]), 4, 8)
+    rates = {f"{side}.{r}": 0.0 for side in ("encoder", "decoder")
+             for r in ("attention_dropout_rate", "ffn_dropout_rate",
+                       "layer_postprocess_dropout_rate")}
+    cfg = multitask_config(
+        os.path.join(root, "check.json"), records, run["pipelines"],
+        task={"max_src_len": t["check_max_frames"], "max_trg_len": 16,
+              "min_src_bucket_boundary": t["check_max_frames"],
+              "batch_size": 8 * t["check_max_frames"], "shuffle_buffer": 0},
+        model=dict(rates, dtype="float32",
+                   **{"encoder.enable_flash_attention": False}),
+        train_steps=t["check_steps"], save_checkpoint_steps=1000,
+        summary_steps=1, enable_tensorboard=False,
+        **{"lr_schedule.params": {"warmup_steps": 1,
+                                  "initial_factor": 0.004}})
+    predict = json.loads(json.dumps(PREDICT_ARGS))
+    del predict["entry.params"]["metric.class"]
+    predict["entry.params"]["search_method.params"][
+        "maximum_decode_length"] = t["check_max_decode"]
+    predict["dataset.class"] = "audio_triple_tfrecord"
+    predict["dataset.params"] = dict(TRIPLE_DATASET, data_path=records)
+    predict_cfg = os.path.join(root, "check_predict.json")
+    with open(predict_cfg, "w") as f:
+        json.dump(predict, f)
+    from neurst_tpu_torch.cli import run_exp
+    out = {}
+    for i, device in enumerate(devices):
+        model_dir = os.path.join(root, f"check_{i}_{device}")
+        _, seen = run_trainer(["--config_paths", cfg, "--hparams_set",
+                               "speech_transformer_toy", "--model_dir",
+                               model_dir, "--device", device])
+        hyps = run_exp.cli_main(["--config_paths", predict_cfg,
+                                 "--model_dir", model_dir, "--device",
+                                 device] + ASR_HEAD)["hypotheses"]
+        out[i] = (restore_checkpoint_params(os.path.join(
+            model_dir, f"ckpt-{t['check_steps']}.npz")),
+            [w["loss"] for w in seen["windows"]], hyps)
+    card, cpu = (out[i] for i in range(len(devices)))
+    lrs = [0.004 * 16 ** -0.5 / math.sqrt(s)
+           for s in range(1, t["check_steps"] + 1)]
+    tol, noise_tol = 2 * lrs[0] + 1e-6, 2 * sum(lrs) + 1e-6
+    err = noise = 0.0
+    for name, ref in cpu[0].items():
+        diff = np.abs(card[0][name] - ref)
+        key = _key_bias(name, diff)
+        if key is not None:
+            noise = max(noise, float(key.max()))
+            diff = np.delete(diff, 1 if "qkv" in name else 0, axis=0)
+        err = max(err, float(diff.max()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    row = {"phase": "multitask_reference_check",
+           "model": "speech_transformer_toy", "devices": list(devices),
+           "steps": t["check_steps"], "max_param_abs_err": err,
+           "key_bias_max_abs_err": noise, "tol": [tol, noise_tol],
+           "losses": [out[i][1] for i in range(len(devices))],
+           "loss_max_rel_err": loss_err,
+           "asr_hypotheses_equal": card[2] == cpu[2],
+           "asr_hypothesis_head": cpu[2][0][:60]}
+    emit(row)
+    if not (err <= tol and noise <= noise_tol and loss_err <= 1e-5
+            and len(card[1]) == t["check_steps"] and card[2] == cpu[2]):
+        raise AssertionError(f"the card's float32 joint trainer disagrees "
+                             f"with the CPU's: {row}")
+    return row
+
+
+def multitask_phases(seed, train_dropout_row, device="cuda"):
+    """The multi-task group under ``build/multitask_smoke/`` (removed
+    after): multitask_train, multitask_predict (both heads and the
+    ensembles), cascade and multitask_reference_check, with each phase's
+    wall seconds.  Returns the launch counts by path."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "multitask_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages = {}
+    try:
+        start = time.perf_counter()
+        run, launches = multitask_train_phase(seed, root, train_dropout_row,
+                                              device)
+        stages["multitask_train"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches.update(multitask_predict_phases(root, run, device))
+        stages["multitask_predict"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches.update(cascade_phase(root, run, device))
+        stages["cascade"] = time.perf_counter() - start
+        start = time.perf_counter()
+        multitask_reference_check(root, run, (device, "cpu"))
+        stages["multitask_reference_check"] = time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "multitask", "stage_wall_s": stages,
+          "total_s": sum(stages.values())})
+    return launches
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -3782,6 +4413,7 @@ def main(argv=None):
     by_path["nmt_trainer"], by_path["nmt_predict"] = nmt_phases(args.seed)
     by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
         args.seed)
+    by_path.update(multitask_phases(args.seed, train_dropout_row))
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)

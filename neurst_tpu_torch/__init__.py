@@ -3,11 +3,12 @@
 
 Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
-models, search layers, criterions, optimizers, learning-rate schedules,
-tasks, datasets, data pipelines, tokenizers, metrics, validators and
-entries (``predict``, ``train``, ``eval``, ``sequence_evaluator`` and
-``validation``);
-kernels are built on first use.
+models (the multi-task speech model among them), search layers,
+criterions (``joint_criterion`` among them), optimizers, learning-rate
+schedules, tasks, datasets, data pipelines, tokenizers, metrics,
+validators and entries (``predict``, ``train``, ``eval``,
+``sequence_evaluator`` and ``validation``); kernels are built on first
+use.
 """
 
 from neurst_tpu_torch import data, exps, metrics, tasks, training  # noqa: F401
@@ -16,6 +17,7 @@ from neurst_tpu_torch.data import data_pipelines, datasets, text  # noqa: F401
 from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
 from neurst_tpu_torch.layers.search.sequence_search import \
     build_search_layer  # noqa: F401
+from neurst_tpu_torch.models import multi_task_speech_transformer  # noqa: F401
 from neurst_tpu_torch.models import speech_transformer  # noqa: F401
 from neurst_tpu_torch.models import transformer  # noqa: F401
 from neurst_tpu_torch.models.model import build_model  # noqa: F401

@@ -9,3 +9,5 @@ from neurst_tpu_torch.data.datasets import record_text_dataset  # noqa: F401
 from neurst_tpu_torch.data.datasets import mixed_train_dataset  # noqa: F401
 from neurst_tpu_torch.data.datasets import data_sampler  # noqa: F401
 from neurst_tpu_torch.data.datasets import audio  # noqa: F401
+from neurst_tpu_torch.data.datasets import \
+    mixed_speech_text_dataset  # noqa: F401

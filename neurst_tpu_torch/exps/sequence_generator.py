@@ -1,5 +1,5 @@
 """The generation ("predict") entry (the port's counterpart of
-``neurst_tpu/exps/sequence_generator.py``, one model).
+``neurst_tpu/exps/sequence_generator.py``).
 
 Restores the latest checkpoint of the model dir (or ``checkpoint_path``)
 into the model, decodes the dataset's INFER batches with the search layer
@@ -16,8 +16,13 @@ result holds each dataset's result under ``datasets`` and the
 ``sample_weights`` mixture of their numbers under ``weighted``, which
 ``save_metric`` also receives.
 
-Not ported: ensembles (several model dirs) and tensor-parallel decode
-raise ``NotImplementedError``.
+Several model dirs (``--model_dir a,b,c``) decode as one ensemble
+(``models/ensemble_model.py``): each member is built from its own dir's
+``model_configs.yml`` and restored from its newest checkpoint, and the
+members' probabilities mix with ``ensemble_weights`` (of the entry or of
+the search's params; equal by default).
+
+Not ported: tensor-parallel decode raises ``NotImplementedError``.
 """
 
 import json
@@ -30,8 +35,12 @@ from neurst_tpu_torch.data.datasets.mixed_train_dataset import \
     MultipleDataset
 from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
 from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
+from neurst_tpu_torch.models.ensemble_model import \
+    EncoderDecoderEnsembleModel
+from neurst_tpu_torch.tasks.task import build_task
 from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
-from neurst_tpu_torch.utils.configurable import flatten_string_list
+from neurst_tpu_torch.utils.configurable import (
+    ModelConfigs, flatten_string_list, strip_training_only_model_flags)
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
 
 __all__ = ["SequenceGenerator", "recover_targets", "weighted_mixture"]
@@ -89,12 +98,29 @@ class SequenceGenerator(BaseExperiment):
                       "during decode (not ported)."),
         ]
 
-    def _refuse_unported(self):
-        if len(flatten_string_list(self._model_dir)) > 1:
-            raise NotImplementedError("ensembles of several model dirs are "
-                                      "not ported")
-        if (self._args.get("decode_tensor_parallel") or 1) > 1:
-            raise NotImplementedError("tensor-parallel decode is not ported")
+    def _maybe_build_ensemble(self):
+        """Several model dirs -> the ensemble of their models, each built
+        from its dir's configs on the entry's device and restored from its
+        newest checkpoint; else None."""
+        model_dirs = flatten_string_list(self._model_dir)
+        if len(model_dirs) <= 1:
+            return None
+        members = []
+        for model_dir in model_dirs:
+            cfg = ModelConfigs.load(model_dir)
+            cfg["model.params"] = strip_training_only_model_flags(
+                cfg.get("model.params"))
+            member = build_task(cfg).build_model(cfg,
+                                                 device=self._model.device)
+            BaseExperiment(model=member, model_dir=model_dir
+                           ).restore_params()
+            members.append(member)
+        weights = (self._args.get("ensemble_weights")
+                   or (self._args.get("search_method.params")
+                       or {}).get("ensemble_weights"))
+        if isinstance(weights, str):
+            weights = [float(x) for x in weights.split(",")]
+        return EncoderDecoderEnsembleModel(members, weights)
 
     def _run_multiple(self):
         results = {}
@@ -123,13 +149,16 @@ class SequenceGenerator(BaseExperiment):
         return {"datasets": results, "weighted": weighted}
 
     def run(self):
-        self._refuse_unported()
+        if (self._args.get("decode_tensor_parallel") or 1) > 1:
+            raise NotImplementedError("tensor-parallel decode is not ported")
         if isinstance(self._custom_dataset, MultipleDataset):
             return self._run_multiple()
         task, args = self._task, self._args
-        self.restore_params()
+        model = self._maybe_build_ensemble()
+        if model is None:
+            model = self.restore_params()
         search = build_search_layer(args)
-        search.set_model(self._model)
+        search.set_model(model)
         batch_iter = task.create_batch_iterator(
             self._custom_dataset, ModeKeys.INFER, args)
         hypo_decode = task.get_data_postprocess_fn(DataStatus.PROJECTED)

@@ -315,6 +315,9 @@ class Trainer(BaseExperiment):
                 state, metrics = train_step(state, device_batch, step_key)
                 step += 1
                 epoch_batches += 1
+                # tokens/s counts the primary target's non-pad tokens
+                # (``trg_length``), as the JAX trainer does: for the
+                # multi-task model the translation's, not the transcript's
                 window_tokens += int(np.sum(batch["trg_length"]))
                 window_samples += int(np.sum(batch["sample_mask"]))
                 if step % log_every == 0:

@@ -30,9 +30,10 @@ class TransformerDecoder(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, side: int = SIDE_DECODER):
         super().__init__()
         self.num_layers = num_layers
+        self.side = side
         self.num_heads = num_attention_heads
         self.head_dim = hidden_size // num_attention_heads
         self.post_normalize = post_normalize
@@ -75,8 +76,9 @@ class TransformerDecoder(nn.Module):
         a cache from ``create_decoding_internal_cache`` (updated in
         place).  ``beam_anc`` [B, beam, max_len]: the beam ancestor
         matrix the self-attention reads the cache through.  Layer i draws
-        its dropout masks from stream ``SIDE_DECODER << 16 | i << 4`` of
-        ``dropout_key``.
+        its dropout masks from stream ``side << 16 | i << 4`` of
+        ``dropout_key`` (``side`` is ``SIDE_DECODER`` unless the model
+        gives another).
 
         Returns (outputs, cache)."""
         if decode_lagging is not None:
@@ -115,7 +117,7 @@ class TransformerDecoder(nn.Module):
                       cross_flash_lengths=cross_flash_lengths,
                       beam_anc=beam_anc, is_training=is_training,
                       dropout_key=at_site(dropout_key,
-                                          SIDE_DECODER << 16 | i << 4))
+                                          self.side << 16 | i << 4))
         if not self.post_normalize:
             x = self.output_ln(x)
         return x, cache

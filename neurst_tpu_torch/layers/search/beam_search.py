@@ -192,8 +192,9 @@ class BeamSearch(SequenceSearch):
                  help="Decode into a static-shape cache (the only mode; "
                       "false raises)."),
             Flag("ensemble_weights", dtype=Flag.TYPE.STRING, default=None,
-                 help="Model weights of an ensemble decode (not ported; "
-                      "setting it raises)."),
+                 help="Comma-separated model weights for ensemble decode "
+                      "(the predict entry reads them where --model_dir "
+                      "names several dirs)."),
         ]
 
     def __init__(self, args=None):
@@ -202,9 +203,6 @@ class BeamSearch(SequenceSearch):
                 and not self.args["padded_decode"]:
             raise NotImplementedError("padded_decode: false is not ported "
                                       "(decode is static-shape only)")
-        if self.args.get("ensemble_weights"):
-            raise NotImplementedError("ensemble_weights: ensemble decode is "
-                                      "not ported")
 
     def __call__(self, inputs: dict):
         a = self.args

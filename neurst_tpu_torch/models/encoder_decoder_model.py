@@ -253,16 +253,26 @@ class EncoderDecoderModel(BaseModel):
         "softmax_w": [V, D], "softmax_bias": [V]} instead, and the
         [B, T, V] logits are never formed."""
         enc, src_padding = self.encode(inputs, is_training, dropout_key)
-        trg = torch.as_tensor(inputs["trg_input"], device=self.device)
-        dec_out, _ = self.decoder(self.trg_modality(trg),
-                                  memory=enc, memory_padding=src_padding,
-                                  is_training=is_training,
-                                  dropout_key=dropout_key)
         modality = self.trg_modality
+        dec_out = self.teacher_force(self.decoder, modality,
+                                     inputs["trg_input"], enc, src_padding,
+                                     is_training, dropout_key)
         if return_prelogits:
             return {"prelogits": dec_out, "softmax_w": modality.weights,
                     "softmax_bias": modality.bias}
         return modality.attend(dec_out)
+
+    def teacher_force(self, decoder, modality, trg_input, enc, src_padding,
+                      is_training=False, dropout_key=None):
+        """``decoder`` over ``modality``'s embeddings of ``trg_input``
+        [B, T] under a causal mask, cross-attending to ``enc`` -> decoder
+        output [B, T, D]."""
+        trg = torch.as_tensor(trg_input, device=self.device)
+        dec_out, _ = decoder(modality(trg), memory=enc,
+                             memory_padding=src_padding,
+                             is_training=is_training,
+                             dropout_key=dropout_key)
+        return dec_out
 
     def call_train(self, inputs, want_prelogits=False, dropout_key=None):
         """Training forward -> (model_out, aux_loss).  The auxiliary loss
@@ -285,10 +295,27 @@ class EncoderDecoderModel(BaseModel):
         return (v % 128 == 0 and d % 128 == 0 and v * d * 4 <= 80 * 2 ** 20
                 and fused_linear_ce_available(v, d))
 
+    @property
+    def generation_meta(self) -> dict:
+        """The eos / bos / unk ids of the side generation decodes (a
+        model with several decoders selects one)."""
+        return self.trg_meta
+
+    @property
+    def generation_decoder(self) -> TransformerDecoder:
+        """The decoder stepwise generation runs."""
+        return self.decoder
+
+    @property
+    def generation_modality(self) -> WordEmbedding:
+        """The embedding and tied softmax of the generated side."""
+        return self.trg_modality
+
     def init_cache(self, encoder_outputs, memory_padding,
                    decode_padded_length: int):
         """Static-shape decoding cache, memory padding included."""
-        return {"layers": self.decoder.create_decoding_internal_cache(
+        return {"layers":
+                self.generation_decoder.create_decoding_internal_cache(
                     encoder_outputs, decode_padded_length),
                 "memory_padding": memory_padding}
 
@@ -301,19 +328,20 @@ class EncoderDecoderModel(BaseModel):
         """One decode step: ids [N] at position ``step`` -> (float32
         logits [N, V], cache).  A ``beam_anc`` entry in the cache is
         passed to the decoder's self-attention."""
-        emb = self.trg_modality(ids, time=step)
-        dec_out, layers = self.decoder(
+        modality = self.generation_modality
+        emb = modality(ids, time=step)
+        dec_out, layers = self.generation_decoder(
             emb[:, None, :], memory=None,
             memory_padding=cache["memory_padding"], cache=cache["layers"],
             decode_step=step, beam_anc=cache.get("beam_anc"))
         new_cache = dict(cache)
         new_cache["layers"] = layers
-        return self.trg_modality.attend(dec_out[:, 0, :]), \
-            new_cache
+        return modality.attend(dec_out[:, 0, :]), new_cache
 
     @property
     def bos_id(self) -> int:
-        return self.trg_meta.get("bos_id", self.trg_meta["eos_id"])
+        meta = self.generation_meta
+        return meta.get("bos_id", meta["eos_id"])
 
     def prepare_generation(self, inputs, decode_padded_length: int):
         """Encodes the source and builds the decode closure.
@@ -332,7 +360,7 @@ class EncoderDecoderModel(BaseModel):
                                         dtype=torch.long, device=enc.device),
             "decoder_internal_cache": cache,
             "encoder_inputs_maxlen": int(src_len.max().item()),
-            "eos_id": self.trg_meta["eos_id"],
-            "unk_id": self.trg_meta.get("unk_id"),
+            "eos_id": self.generation_meta["eos_id"],
+            "unk_id": self.generation_meta.get("unk_id"),
             "beam_cache_indirection_ok": self.beam_cache_indirection_ok(),
         }

@@ -119,10 +119,13 @@ class BaseModel(nn.Module):
         return dict(self.named_parameters())
 
 
-def _create_model(cls, args, src_meta=None, trg_meta=None, device=None):
+def _create_model(cls, args, src_meta=None, trg_meta=None, device=None,
+                  **metas):
+    """``metas``: a model's further vocabulary metas (the multi-task
+    speech model's ``asr_meta``)."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = cls(args, src_meta or {}, trg_meta or {})
+        model = cls(args, src_meta or {}, trg_meta or {}, **metas)
     return model.to_empty(device=device).eval()
 
 

@@ -154,10 +154,12 @@ class SpeechToText(Task):
                       "TRAIN mode."),
         ]
 
+    def _src_meta(self):
+        return {"audio_feature_dim": self._audio_feature_dim,
+                "audio_feature_channels": self._audio_feature_channels}
+
     def build_model(self, args, name=None, **kwargs):
-        src_meta = {"audio_feature_dim": self._audio_feature_dim,
-                    "audio_feature_channels": self._audio_feature_channels}
-        return build_model(args, src_meta=src_meta,
+        return build_model(args, src_meta=self._src_meta(),
                            trg_meta=self._trg_data_pipeline.meta, **kwargs)
 
     def _feature_elems(self):
@@ -392,8 +394,8 @@ class MultiTaskSpeechTranslation(SpeechToText):
     the primary ``trg*`` targets and the transcript as ``asr_trg*``.
     Generation decodes the ST side, or with ``--generation_output asr``
     the transcript (postprocessing, metric and references follow the
-    side).  ``build_model`` raises: the shared-encoder dual-decoder model
-    and its joint criterion are not ported yet.
+    side).  ``build_model`` builds ``MultiTaskSpeechTransformer``, which
+    trains through ``joint_criterion``.
     """
 
     def __init__(self, args=None):
@@ -494,12 +496,20 @@ class MultiTaskSpeechTranslation(SpeechToText):
         return input_dict
 
     def build_model(self, args, name=None, **kwargs):
-        raise NotImplementedError(
-            "multi_task_speech_translation: the multi-task speech model "
-            "(models/multi_task_speech_transformer.py) and its joint "
-            "criterion (criterions/joint_criterion.py) are not ported yet "
-            "(ROADMAP, module queue: the multi-task speech model); this "
-            "task serves data preparation only")
+        """The multi-task model over the translation (``trg_meta``) and
+        transcript (``asr_meta``) vocabularies; ``generation_output: asr``
+        of the task reaches the model's params."""
+        if self._translation_pipeline is None:
+            raise ValueError(
+                "multi_task_speech_translation requires "
+                "translation_data_pipeline.class for the model build "
+                "(preprocess-only use works without it)")
+        if self._gen_side == "asr":
+            args = dict(args, **{"model.params": dict(
+                args.get("model.params") or {}, generation_output="asr")})
+        return build_model(args, src_meta=self._src_meta(),
+                           trg_meta=self._translation_pipeline.meta,
+                           asr_meta=self._trg_data_pipeline.meta, **kwargs)
 
     def get_data_postprocess_fn(self, data_status, **kwargs):
         if isinstance(data_status, dict):

@@ -17,7 +17,8 @@ hardware generator; nothing depends on them.
 from typing import List, NamedTuple, Optional
 
 __all__ = ["DropoutKey", "make_key", "fold_in", "split", "at_site",
-           "site_words", "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER"]
+           "site_words", "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER",
+           "SIDE_ASR_DECODER"]
 
 _MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -26,8 +27,10 @@ PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _FOLD, _SPLIT = 0xF01D0000, 0x5B170000
 
 # stream = side << 16 | layer << 4 | site (sites numbered per layer in
-# ``layers/transformer_layers.py``)
-SIDE_ENCODER, SIDE_DECODER = 1, 2
+# ``layers/transformer_layers.py``); the multi-task speech model's
+# transcript decoder has a side of its own, so its masks are not the
+# translation decoder's
+SIDE_ENCODER, SIDE_DECODER, SIDE_ASR_DECODER = 1, 2, 3
 
 
 def _mulhilo(m: int, c):

@@ -41,6 +41,14 @@ setup(
             "neurst_tpu_torch.cli.view_records:main",
             "neurst-tpu-torch-audio-analysis = "
             "neurst_tpu_torch.cli.audio_analysis:main",
+            "neurst-tpu-torch-cascade-st = "
+            "neurst_tpu_torch.cli.cascade_st:main",
+            "neurst-tpu-torch-text-metric = "
+            "neurst_tpu_torch.cli.text_metric:main",
+            "neurst-tpu-torch-inspect-checkpoint = "
+            "neurst_tpu_torch.cli.inspect_checkpoint:main",
+            "neurst-tpu-torch-view-registry = "
+            "neurst_tpu_torch.cli.view_registry:main",
         ],
     },
 )

@@ -15,7 +15,7 @@ through ``chip_smoke``'s ``prep_train_phase`` / ``prep_predict_phase``.
 Also: ``test_cli_tools.py``'s ``generate_vocab``, ``process_text``,
 ``view_records`` and ``audio_analysis`` cases on both packages, and
 ``MultiTaskSpeechTranslation`` (config, preprocess, batches, metric,
-postprocess) against the JAX task, with its model build's refusal.
+postprocess) against the JAX task, and the joint model it builds.
 """
 
 import contextlib
@@ -372,16 +372,53 @@ def test_multi_task_speech_translation_matches_jax(mustc):
         assert p.eval_targets(ds) == r.eval_targets(jds)
 
 
-def test_multi_task_build_model_refuses(mustc):
-    """The model and its joint criterion are not ported: building one
-    raises before any work is done, naming the ROADMAP item."""
+def test_multi_task_build_model_builds(mustc):
+    """The task builds the joint model over its two vocabularies (the
+    JAX task's parameter names), trains it on the stage-03 records'
+    first TRAIN batch through the joint criterion, and hands the
+    generation side to the model."""
+    from neurst_tpu.utils.checkpoints import flatten_params
+    from neurst_tpu_torch.utils.param_bridge import state_dict_to_flat
     _, _, outs = mustc
     ts = os.path.join(outs["neurst_tpu_torch"], "transcripts")
+    from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
+    cfg = {"model.class": "MultiTaskSpeechTransformer",
+           "model.params": dict(SpeechTransformer.build_model_args_by_name(
+               "speech_transformer_toy")["model.params"], dtype="float32")}
     task = build_task(_task_args(ts))
-    with pytest.raises(NotImplementedError,
-                       match="multi-task speech model"):
-        task.build_model({"model.class": "MultiTaskSpeechTransformer",
-                          "model.params": {}}, device="cpu")
+    model = task.build_model(cfg, device="cpu")
+    meta = {"st": task._translation_pipeline.meta,
+            "asr": task.trg_pipeline.meta}
+    assert model.trg_meta["vocab_size"] == meta["st"]["vocab_size"]
+    assert model.asr_meta["vocab_size"] == meta["asr"]["vocab_size"]
+    jmodel = jax_build_task(_task_args(ts)).build_model(cfg)
+    model.init_params()
+    assert sorted(state_dict_to_flat(model)) == sorted(flatten_params(
+        jmodel.init_params(jax.random.PRNGKey(0))))
+    ds = build_dataset({"dataset.class": "AudioTripleTFRecordDataset",
+                        "dataset.params": {"data_path": os.path.join(
+                            outs["neurst_tpu_torch"], "asr_st", "train")}})
+    batch = _batches(task, ds, ModeKeys.TRAIN)[0]
+    criterion = neurst_tpu_torch.build_criterion({
+        "criterion.class": "joint_criterion", "criterion.params": {
+            "criterions": [
+                {"class": "label_smoothed_cross_entropy",
+                 "params": {"label_smoothing": 0.1}, "output_key": "st"},
+                {"class": "label_smoothed_cross_entropy",
+                 "params": {"label_smoothing": 0.1}, "output_key": "asr",
+                 "input_prefix": "asr", "weight": 0.3}]}})
+    from neurst_tpu_torch.utils.rng import make_key
+    out, _ = model.call_train(batch, dropout_key=make_key(0))
+    for head in ("st", "asr"):
+        prefix = "asr_" if head == "asr" else ""
+        assert out[head].shape == batch[prefix + "trg"].shape + (
+            meta[head]["vocab_size"],)
+    assert np.isfinite(float(criterion.reduce_loss(batch, out).detach()))
+    asr = build_task(_task_args(ts, generation_output="asr")).build_model(
+        cfg, device="cpu")
+    assert asr.generation_meta == meta["asr"] \
+        and model.generation_meta == meta["st"]
+    assert asr.args["generation_output"] == "asr"
 
 
 # ------------------------------------------------------ small CLIs

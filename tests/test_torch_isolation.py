@@ -2,8 +2,8 @@
 it, and each subpackage of the predict path on its own) loads no JAX and
 nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
 neither; an entry point without ``device=`` on a host without CUDA
-raises, the predict CLI included; ``setup.py`` ships every kernel source
-and header; and ``chip_smoke.py`` fails without a card.
+raises, the predict and cascade CLIs included; ``setup.py`` ships every
+kernel source and header; and ``chip_smoke.py`` fails without a card.
 Each check runs in a fresh interpreter so this process's own JAX
 imports cannot hide a leak.
 """
@@ -67,6 +67,37 @@ def test_predict_cli_without_device_raises_on_a_cuda_less_host():
         [sys.executable, "-m", "neurst_tpu_torch.cli.run_exp", "--entry",
          "predict"], cwd=REPO, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", [
+    "neurst_tpu_torch.models.multi_task_speech_transformer",
+    "neurst_tpu_torch.models.ensemble_model",
+    "neurst_tpu_torch.criterions.joint_criterion",
+    "neurst_tpu_torch.data.datasets.mixed_speech_text_dataset",
+    "neurst_tpu_torch.cli.cascade_st", "neurst_tpu_torch.cli.text_metric",
+    "neurst_tpu_torch.cli.inspect_checkpoint",
+    "neurst_tpu_torch.cli.view_registry"])
+def test_multi_task_ensemble_and_cascade_modules_load_no_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cascade_st_without_device_raises_on_a_cuda_less_host(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "neurst_tpu_torch.cli.cascade_st",
+         "--asr_model_dir", str(tmp_path), "--mt_model_dir", str(tmp_path),
+         "--dataset", "audio_tfrecord", "--data_path",
+         str(tmp_path / "none.tfrecords")], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
 

@@ -330,10 +330,6 @@ def test_cli_refuses_what_the_port_lacks(workdir):
                   ["--distributed_init"], ["--include", "plugin.py"]):
         with pytest.raises(NotImplementedError):
             port_run_exp.cli_main(base + extra)
-    with pytest.raises(NotImplementedError, match="ensembles"):
-        port_run_exp.cli_main(base[:2] + ["--model_dir",
-                                          f"{model_dir},{model_dir}",
-                                          "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported"):
         port_run_exp.cli_main(base + ["--search_method", "sampling"])
     with pytest.raises(LookupError):
@@ -344,9 +340,7 @@ def test_cli_refuses_what_the_port_lacks(workdir):
     (["--distribution_strategy", "mirrored"], "distribution_strategy"),
     (["--enable_xla"], "enable_xla"),
     (["--search_method.params", '{"padded_decode": false}'],
-     "padded_decode"),
-    (["--search_method.params", '{"ensemble_weights": "0.5,0.5"}'],
-     "ensemble")])
+     "padded_decode")])
 def test_cli_refuses_flag_values_the_port_does_not_honour(workdir, extra,
                                                           match):
     """Flags kept for the recipes' sake parse as in the JAX package, but a

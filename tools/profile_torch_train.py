@@ -12,7 +12,11 @@ dropout 0, or with ``--dropout 0.1`` the recipe's rate at every site and
 a dropout key); with ``--model transformer_base`` the NMT cell
 (bench.py's train cell: [256, 128] ids, vocabulary 32768, bf16 with
 bf16 stored params and an f32 master, dropout 0.1 unless ``--dropout``
-says otherwise).  It
+says otherwise); with ``--model multi_task_speech_transformer`` the
+joint ASR + ST step of ``chip_smoke.py``'s multitask_train phase (the
+same speech model with a transcript decoder, 40 x 3000 frames, both
+targets 120, the joint criterion, dropout 0.1 unless ``--dropout`` says
+otherwise).  It
 runs two warm-up steps, then profiles whole steps with
 ``torch.profiler``.  For each step it prints one JSON line: wall time
 (host clock, synchronised), device kernel time (the sum of the CUDA
@@ -54,7 +58,8 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=2)
     parser.add_argument("--model", default="speech_transformer_s",
-                        choices=("speech_transformer_s", "transformer_base"))
+                        choices=("speech_transformer_s", "transformer_base",
+                                 "multi_task_speech_transformer"))
     parser.add_argument("--dropout", type=float, default=None,
                         help="rate of every dropout site (default: 0 for "
                              "the speech slice, whose recipe has 0.1; 0.1 "
@@ -75,6 +80,16 @@ def main(argv=None):
         batches = [chip_smoke.nmt_batch(rng, "cuda", t["batch"], t["length"],
                                         t["vocab"], t["vocab"])
                    for _ in range(2 + args.steps)]
+    elif args.model == "multi_task_speech_transformer":
+        t = chip_smoke.TRAIN
+        dropout = 0.1 if args.dropout is None else args.dropout
+        if dropout != 0.1:
+            raise SystemExit("the joint step runs its recipe's dropout 0.1")
+        _, _, _, state, step = chip_smoke.build_multitask_train(args.seed)
+        batches = [chip_smoke.multitask_batch(
+            rng, "cuda", t["batch"], t["frames"],
+            chip_smoke.MULTITASK_TASK["max_trg_len"])
+            for _ in range(2 + args.steps)]
     else:
         t = chip_smoke.TRAIN
         dropout = args.dropout or 0.0
