@@ -163,6 +163,34 @@ exits non-zero):
                side's samples/s and BLEU; multitask_reference_check, the
                joint trainer at ``speech_transformer_toy`` in float32 for
                2 steps and an ASR-head decode, card against CPU.
+   waitk   -- examples/simultaneous_translation/waitk_training_args.yml
+               (``WAITK``) on a seeded 4000-pair corpus with a joint BPE of
+               2000 merges learned by the port's learn_bpe (vocabularies
+               padded with unused entries to a multiple of 128):
+               waitk_train, ``run_exp --entry train`` (``waitk_translation``
+               drawing wait_k from [3, 5, 7, 9] a batch,
+               ``waitk_transformer`` at transformer_base's widths with a
+               monotonic flash encoder, dropout 0.1, bf16 + f32 master,
+               25,000-token buckets, max 128 / 128, 12 steps and a
+               checkpoint at 12: the laggings drawn, every step's
+               launches against ``expected_launches``, window tokens/s,
+               and one batch's float32 loss with the flash encoder against
+               the dense one); waitk_simuleval, ``simuleval_cli`` offline
+               over 32 sentences of 20-60 single-unit words (--wait_k 3,
+               --max_decode_len 64: AL, CW, BLEU, sentences/s, the ms of a
+               READ's re-encode and of a WRITE's step, 6 flash launches a
+               READ) and online against a mock SimulEval server on
+               127.0.0.1 over 8 of them (the agent's output ids and delays
+               equal the offline ones); waitk_predict, ``--entry predict``
+               with beam 4 over 64 sentences (6 flash launches a batch);
+               lightconv_train / lightconv_predict, ``lightconv_base`` with
+               the same data and buckets, dropout 0.1 at every site
+               (convolution weights included), 6 steps, then beam 4 and
+               top_sampling (top_k 8).  The kernel phase also holds the
+               causal flash forward, dq and dk/dv at the wait-k bucket
+               ([192, 128, 8, 64], dropout 0.1) and the forward at the
+               streaming prefixes [1, 8-128, 8, 64] against their plain
+               versions.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -604,13 +632,15 @@ def _xent_fwd_plan(fc, rows, vocab, dim, dtype, launches):
     return {"splits": splits, "tile_rows": tile_rows, "launches": launches}
 
 
-def xent_kernel_phase(seed):
+def xent_kernel_phase(seed, cases=None):
     """fused_linear_xent_fwd and _bwd against their plain versions on the
     same inputs, at the training slice's shape (6000 target rows, d 256,
     the 8192-word tied softmax with its bias), at a ragged one, at one
     whose row tiles and vocabulary split both end ragged (1000 rows,
     8190 words), at d 512 (4096 rows, 32768 words) and, in bf16 alone,
-    at the NMT train cell's [32768, 512] x 32768; two backward
+    at the NMT train cell's [32768, 512] x 32768 and at the LightConv
+    trainer's [24576, 512] x 1536 (or at the given ``cases``, each
+    (name, rows, vocab, dim, dtypes)); two backward
     calls of each must give the same bits, and the forward's row carries
     its plan (vocabulary splits, tile rows, launches a call: counted, and
     held to ``fwd_launches``).  No single PyTorch call computes this
@@ -626,12 +656,15 @@ def xent_kernel_phase(seed):
     rng = np.random.RandomState(seed + 20)
     smoothing = TRAIN["label_smoothing"]
     both = (torch.float32, torch.bfloat16)
-    cases = [("main", TRAIN["batch"] * TRAIN["trg_len"], TRAIN["vocab"],
-              256, both), ("ragged", 37, 650, 256, both),
-             ("ragged_split", 1000, 8190, 256, both),
-             ("d512", 4096, 32768, 512, both),
-             ("nmt_train", NMT_TRAIN["batch"] * NMT_TRAIN["length"],
-              NMT_TRAIN["vocab"], 512, (torch.bfloat16,))]
+    cases = cases or [
+        ("main", TRAIN["batch"] * TRAIN["trg_len"], TRAIN["vocab"], 256,
+         both), ("ragged", 37, 650, 256, both),
+        ("ragged_split", 1000, 8190, 256, both),
+        ("d512", 4096, 32768, 512, both),
+        ("nmt_train", NMT_TRAIN["batch"] * NMT_TRAIN["length"],
+         NMT_TRAIN["vocab"], 512, (torch.bfloat16,)),
+        ("lightconv_train", WAITK["lightconv_xent_rows"],
+         WAITK["target_vocab"], 512, (torch.bfloat16,))]
     results = {}
     for case, rows, vocab, dim, dtypes in cases:
         c, low = 1.0 - smoothing, smoothing / (vocab - 1)
@@ -1251,6 +1284,122 @@ def flash_bucket_kernel_phase(seed):
     return results
 
 
+# the wait-k recipe's largest training bucket (25,000 tokens at 128
+# source positions: round_down(25000 / 128, 8) rows) and the streaming
+# agent's re-encodes (a prefix padded to a multiple of 8, batch 1);
+# transformer_base's 8 heads of 64
+WAITK_BUCKET = dict(batch=192, time=128, heads=8, head_dim=64)
+WAITK_PREFIXES = (8, 16, 32, 64, 128)
+
+
+def flash_waitk_kernel_phase(seed):
+    """The causal flash kernels on the wait-k paths: forward, dq and
+    dk/dv at ``WAITK_BUCKET`` (per-row lengths, dropout 0.1, float32 and
+    bf16) against the plain versions with the same masks, with the
+    kernel, plain, library (``scaled_dot_product_attention`` with the
+    causal key mask and ``dropout_p``) and bound times of the bf16 case;
+    then the forward at each streaming prefix [1, T, 8, 64] (the last 3
+    positions padding, no dropout) against the plain version, with its
+    bf16 time.  Returns {(kernel, dtype): row} of the bucket case."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 70)
+    key = _site_key(rng, 1 << 16)
+    b, t = WAITK_BUCKET["batch"], WAITK_BUCKET["time"]
+    n, h = WAITK_BUCKET["heads"], WAITK_BUCKET["head_dim"]
+    lens = torch.tensor([t] + list(rng.randint(1, t + 1, size=b - 1)),
+                        dtype=torch.int32, device="cuda")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        qkv = torch.from_numpy(rng.randn(b, t, 3, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.from_numpy(rng.randn(b, t, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        fwd_args = (q, k, v, lens, True, DROPOUT_RATE, key)
+        o, lse = fa.flash_attention_fwd(*fwd_args)
+        o_ref, lse_ref = fa.flash_attention_reference(*fwd_args)
+        delta = fa._delta(o, do)
+        args = (q, k, v, do, lse, delta, lens, True, DROPOUT_RATE, key)
+        got = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(*args)
+        want = fa._bwd_plain(*args[:8], fa._drop_consts(DROPOUT_RATE, key))
+        torch.cuda.synchronize()
+        tol, lse_tol = KERNEL_TOL[name]
+        errs = {"fwd": _abs_err(o, o_ref), "lse": _abs_err(lse, lse_ref)}
+        errs.update({g: _rel_err(x, y) for g, x, y in zip(
+            ("dq", "dk", "dv"), got, want)})
+        if errs["fwd"] > tol or errs["lse"] > lse_tol or max(
+                errs[g] for g in ("dq", "dk", "dv")) > BWD_TOL[name]:
+            raise AssertionError(f"flash at the wait-k bucket, {name}: "
+                                 f"{errs} (tol {tol}, {lse_tol}, "
+                                 f"{BWD_TOL[name]})")
+        timed = name == "bfloat16"
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            mask = _key_mask(lens, t, True)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, dropout_p=DROPOUT_RATE)
+
+            library_fwd = time_ms(sdpa)
+            library_bwd = time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), do.transpose(1, 2))) - library_fwd
+            plain_fwd = time_ms(lambda: fa.flash_attention_reference(
+                *fwd_args), iters=3)
+            plain_bwd = time_ms(lambda: fa._bwd_plain(
+                *args[:8], fa._drop_consts(DROPOUT_RATE, key)), iters=3)
+        for kernel, fn, fargs, err in (
+                ("fwd", fa.flash_attention_fwd, fwd_args, errs["fwd"]),
+                ("dq", fa.flash_attention_dq, args, errs["dq"]),
+                ("dkv", fa.flash_attention_dkv, args,
+                 max(errs["dk"], errs["dv"]))):
+            bound, bound_by = attention_bound_ms(q, lens, True, kernel)
+            row = {"phase": "kernel", "kernel": f"flash_attention_{kernel}",
+                   "case": "waitk_bucket", "dtype": name,
+                   "shape": [b, t, n, h], "causal": True,
+                   "dropout": DROPOUT_RATE, "max_abs_err": err,
+                   "errors": errs, "kernel_ms": time_ms(lambda: fn(*fargs))
+                   if timed else None,
+                   "plain_ms": (plain_fwd if kernel == "fwd" else plain_bwd)
+                   if timed else None,
+                   "library_ms": (library_fwd if kernel == "fwd"
+                                  else library_bwd) if timed else None,
+                   "bound_ms": bound, "bound_by": bound_by}
+            emit(row)
+            results[(kernel, name)] = row
+    prefixes = []
+    for t in WAITK_PREFIXES:
+        lens = torch.tensor([t - 3], dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            q, k, v = (torch.from_numpy(rng.randn(1, t, n, h).astype(
+                np.float32)).to("cuda", dtype) for _ in range(3))
+            o, lse = fa.flash_attention_fwd(q, k, v, lens, True)
+            o_ref, lse_ref = fa.flash_attention_reference(q, k, v, lens,
+                                                          True)
+            tol, lse_tol = KERNEL_TOL[name]
+            err = _abs_err(o[:, :t - 3], o_ref[:, :t - 3])
+            lse_err = _abs_err(lse[..., :t - 3], lse_ref[..., :t - 3])
+            if err > tol or lse_err > lse_tol:
+                raise AssertionError(f"flash at the prefix [1, {t}], "
+                                     f"{name}: o {err}, lse {lse_err}")
+            prefixes.append({"time": t, "dtype": name, "max_abs_err": err,
+                             "kernel_ms": time_ms(
+                                 lambda: fa.flash_attention_fwd(
+                                     q, k, v, lens, True))
+                             if name == "bfloat16" else None})
+    emit({"phase": "kernel", "kernel": "flash_attention_fwd",
+          "case": "waitk_prefixes", "shape": [1, "T", n, h], "causal": True,
+          "valid": "T - 3", "prefixes": prefixes})
+    return results
+
+
 def _flat_drawers(flat, rng):
     """Functions that draw seeded arrays into ``flat``: kernels as
     fan-in-scaled normals, vectors as small normals, LayerNorm scale and
@@ -1794,22 +1943,27 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
     sites, the FFN hidden where it is not fused), once forward and once
     backward.  The multi-task model's transcript decoder (``asr_decoder``)
     counts as a second decoder over ``dec_rows`` (both text sides of a
-    batch are padded to one length)."""
+    batch are padded to one length).  A LightConv model has no flash
+    attention; its convolution weights are a dropout site of every layer
+    (a decoder layer's self-attention weight site)."""
     from neurst_tpu_torch.ops.fused_ce import bwd_launches
     from neurst_tpu_torch.ops.fused_ce import \
         fwd_launches as xent_fwd_launches
     from neurst_tpu_torch.ops.fused_ffn import (fused_ffn_available,
                                                 fwd_launches)
     enc, dec = model.encoder, model.decoder
-    dense1 = enc.layer_0.ffn.dense1
-    dtype = enc.layer_0.ffn.dtype  # the compute dtype of FFN and xent
+    lightconv = hasattr(enc, "layer_0_conv")
+    ffn0 = enc.layer_0_ffn if lightconv else enc.layer_0.ffn
+    dense1 = ffn0.dense1
+    dtype = ffn0.dtype  # the compute dtype of FFN and xent
     rate = DROPOUT_RATE if dropout else 0.0
 
     def fused(rows):
         return fused_ffn_available(dense1.in_features, dense1.out_features,
-                                   "relu", rows, True, rate)
+                                   ffn0.activation, rows, True, rate)
 
-    flash = enc.num_layers if enc.enable_flash_attention else 0
+    flash = enc.num_layers if getattr(enc, "enable_flash_attention",
+                                      False) else 0
     decoders = [dec.num_layers]
     if getattr(model, "asr_decoder", None) is not None:
         decoders.append(model.asr_decoder.num_layers)
@@ -1821,7 +1975,10 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
         for n, rows in layers)
     sites = 0
     if dropout:
-        sites = enc.num_layers * (2 + (not enc.enable_flash_attention)
+        # a LightConv encoder layer drops its convolution weights where a
+        # transformer layer drops its attention weights (unless flash
+        # does), and has no attention
+        sites = enc.num_layers * (2 + (lightconv or not flash)
                                   + (not fused(enc_rows)))
         sites += sum(decoders) * (5 + (not fused(dec_rows)))
     # the train step fuses the projection into the xent only where the
@@ -2252,8 +2409,9 @@ def run_trainer(argv, task_cls=None):
     TRAIN iterator wrapped to time each ``next()`` and record each
     batch's shape, each train step's launches recorded with its batch's
     shape, ``Trainer._save`` and ``SeqGenerationValidator.validate``
-    timed, each batch's text token counts, and the log lines kept.
-    Returns the trainer's final state and what it measured."""
+    timed, each batch's text token counts (and a wait-k batch's lagging),
+    and the log lines kept.  Returns the trainer's final state and what
+    it measured."""
     import logging
 
     import torch
@@ -2273,7 +2431,8 @@ def run_trainer(argv, task_cls=None):
 
     task_cls = task_cls or SpeechToText
     seen = {"wait_s": 0.0, "shapes": [], "rows": [], "save_s": [],
-            "validate_s": [], "steps": [], "messages": [], "tokens": []}
+            "validate_s": [], "steps": [], "messages": [], "tokens": [],
+            "laggings": []}
     originals = {
         (task_cls, "create_batch_iterator"): task_cls.create_batch_iterator,
         (Trainer, "_save"): Trainer._save, (Trainer, "run"): Trainer.run,
@@ -2302,6 +2461,8 @@ def run_trainer(argv, task_cls=None):
                     k: int(batch[k].sum()) for k in ("trg_length",
                                                      "asr_trg_length")
                     if k in batch})
+                if "waitk_lagging" in batch:
+                    seen["laggings"].append(int(batch["waitk_lagging"]))
                 yield batch
         return timed
 
@@ -4332,6 +4493,628 @@ def multitask_phases(seed, train_dropout_row, device="cuda"):
     return launches
 
 
+# Simultaneous translation: examples/simultaneous_translation/
+# waitk_training_args.yml (``waitk_translation`` with wait_k [3, 5, 7, 9]
+# drawn per batch, ``waitk_transformer`` at transformer_base's widths with
+# a monotonic encoder, 25,000-token buckets, max 128 / 128) through the
+# train entry with the encoder's flash attention on, dropout 0.1 at every
+# site and bf16 with an f32 master, on a seeded corpus whose joint BPE
+# (learn_bpe, as the recipes prepare their text) is written to
+# vocabularies padded with unused entries to a multiple of 128; then the
+# streaming simuleval_cli (offline, and online against a local mock
+# SimulEval server), the full-sentence predict entry, and the LightConv
+# recipe (``lightconv_base``, the same data and buckets, dropout 0.1 at
+# every site including the convolution weights) trained and decoded with
+# beam search and with top-k sampling.
+WAITK = dict(recipe=os.path.join("examples", "simultaneous_translation",
+                                 "waitk_training_args.yml"),
+             words=2000, pairs=40000, bpe_pairs=4000, min_tokens=5,
+             max_tokens=127, bpe_symbols=2000, vocab_multiple=128,
+             steps=12, summary=2,
+             simul_sentences=32, simul_min_words=20, simul_max_words=60,
+             online_sentences=8, wait_k=3, max_decode_len=64,
+             predict_sentences=64, predict_batch=32, beam=4,
+             lightconv_set="lightconv_base", lightconv_steps=6,
+             sampling_top_k=8, target_vocab=1536,
+             lightconv_xent_rows=192 * 128, check_tokens=2048)
+# float32 flash vs dense encoder, and card vs CPU: the loss relative
+WAITK_CHECK_TOL = 1e-5
+
+
+def _simple_server(sources):
+    """A local SimulEval v1 server on 127.0.0.1 (``GET /``, ``GET /src``,
+    ``PUT /hypo``, ``GET /result``) streaming each source a word at a
+    time and keeping each instance's units.  Returns (server, units)."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    words = [s.split() for s in sources]
+    read = [0] * len(sources)
+    units = [[] for _ in sources]
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _json(self, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            url = urllib.parse.urlparse(self.path)
+            query = dict(urllib.parse.parse_qsl(url.query))
+            if url.path in ("", "/"):
+                self._json({"num_sentences": len(sources)})
+            elif url.path == "/src":
+                i = int(query["instance_id"])
+                seg = words[i][read[i]] if read[i] < len(words[i]) \
+                    else "</s>"
+                read[i] += 1
+                self._json({"instance_id": i, "segment_id": read[i] - 1,
+                            "segment": seg})
+            else:
+                self._json({"instances": len(sources)})
+
+        def do_PUT(self):
+            query = dict(urllib.parse.parse_qsl(
+                urllib.parse.urlparse(self.path).query))
+            n = int(self.headers.get("Content-Length", 0))
+            units[int(query["instance_id"])].append(
+                self.rfile.read(n).decode("utf-8"))
+            self._json({})
+
+    server = HTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, units
+
+
+def write_bpe_corpus(root, rng, cfg=WAITK):
+    """A seeded parallel corpus (``cfg["pairs"]`` pairs of
+    ``min_tokens``-``max_tokens`` words from two lexicons of
+    ``cfg["words"]`` words: enough that every training step of the
+    phases takes a full 25,000-token bucket, not an end-of-epoch flush),
+    joint BPE codes learned by the port's ``learn_bpe`` on its first
+    ``bpe_pairs`` pairs and a vocabulary a side, padded with unused
+    entries so that with the pipeline's three control tokens it is a
+    multiple of ``vocab_multiple``.  Returns (train paths, pipelines,
+    lexicons)."""
+    from neurst_tpu_torch.cli import learn_bpe
+
+    lexicon = {side: sorted({_random_word(rng, 2, 9)
+                             for _ in range(cfg["words"])})
+               for side in ("src", "trg")}
+    train = write_parallel(os.path.join(root, "train"), rng, lexicon["src"],
+                           lexicon["trg"], cfg["pairs"], cfg["min_tokens"],
+                           cfg["max_tokens"])
+    sample = {}
+    for side in ("src", "trg"):
+        sample[side] = os.path.join(root, f"bpe_sample.{side}")
+        with open(train[side]) as f, open(sample[side], "w") as out:
+            out.writelines(line for _, line in zip(range(cfg["bpe_pairs"]),
+                                                   f))
+    codes = os.path.join(root, "codes.bpe")
+    vocabs = {side: os.path.join(root, f"vocab.{lang}")
+              for side, lang in (("src", "en"), ("trg", "de"))}
+    learn_bpe.main(["--input", sample["src"], sample["trg"], "--symbols",
+                    str(cfg["bpe_symbols"]), "--output", codes,
+                    "--write_vocabulary", vocabs["src"], vocabs["trg"]])
+    pipelines = {}
+    for side, lang in (("src", "en"), ("trg", "de")):
+        with open(vocabs[side]) as f:
+            size = sum(1 for _ in f) + 3
+        with open(vocabs[side], "a") as f:
+            for i in range(-size % cfg["vocab_multiple"]):
+                f.write(f"<unused{i}> 0\n")
+        pipelines[side] = {"language": lang, "subtokenizer": "bpe",
+                           "subtokenizer_codes": codes,
+                           "vocab_path": vocabs[side]}
+    return train, pipelines, lexicon
+
+
+def _recipe_config(path, recipe, train, pipelines, model=None, **entry):
+    """The recipe's YAML with the corpus' paths, the given model params
+    and entry flags, written to ``path`` (JSON)."""
+    import yaml
+    with open(recipe) as f:
+        cfg = yaml.safe_load(f)
+    for side in ("src", "trg"):
+        cfg["task.params"][f"{side}_data_pipeline.params"] = pipelines[side]
+    cfg["dataset.class"] = "parallel_text"
+    cfg["dataset.params"] = _parallel(train)
+    cfg["model.params"] = dict(cfg.get("model.params") or {},
+                               **(model or {}))
+    cfg["dtype"] = "bfloat16"
+    cfg["entry.params"] = dict(cfg.get("entry.params") or {},
+                               enable_tensorboard=False, **entry)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def _dropout_params(prefixes, names):
+    return {f"{p}.{name}": DROPOUT_RATE for p in prefixes for name in names}
+
+
+def waitk_train_phase(seed, root, train, pipelines, device="cuda"):
+    """The wait-k recipe through the train entry (``WAITK``): window
+    tokens/s, the lagging each batch drew, each step's launches against
+    ``expected_launches`` at its bucket (no fused xent: the JAX package's
+    gate), checkpoint seconds and peak memory; then one batch's float32
+    loss with the encoder's flash kernels against the dense encoder on
+    the trained weights.  Returns (launch counts, model dir)."""
+    import torch
+
+    from neurst_tpu_torch.tasks.waitk_translation import WaitkTranslation
+
+    t = WAITK
+    model_dir = os.path.join(root, "waitk")
+    cfg = _recipe_config(
+        os.path.join(root, "waitk.json"), t["recipe"], train, pipelines,
+        model=dict({"encoder.enable_flash_attention": True}, **_dropout_params(
+            ("encoder", "decoder"), ("attention_dropout_rate",
+                                     "ffn_dropout_rate",
+                                     "layer_postprocess_dropout_rate"))),
+        train_steps=t["steps"], save_checkpoint_steps=t["steps"],
+        summary_steps=t["summary"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _, seen = run_trainer(["--config_paths", cfg, "--model_dir", model_dir,
+                           "--device", device], WaitkTranslation)
+    _train_path_checks(seen, t["steps"], "waitk_train")
+    tokens = _full_batches(seen, "waitk_train")
+    model = seen["model"]
+    laggings = seen["laggings"]
+    with open(cfg) as f:
+        choices = json.load(f)["task.params"]["wait_k"]
+    row = dict({"phase": "waitk_train", "recipe": t["recipe"],
+                "model": "waitk_transformer (transformer_base widths)",
+                "dtype": "bfloat16", "bf16_params": True,
+                "dropout": DROPOUT_RATE, "encoder_flash": True,
+                "wait_k": choices, "decode_wait_k": model.wait_k,
+                "laggings": laggings, "target_tokens_a_step": tokens,
+                "target_vocab": model.trg_meta["vocab_size"],
+                "fused_xent": model.supports_fused_softmax_ce(),
+                "launches_per_step_by_shape": _step_launch_checks(seen, model)
+                if device == "cuda" else {}},
+               **_trainer_numbers(seen, torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else None))
+    if not (len(laggings) >= t["steps"]
+            and set(laggings) <= set(choices)
+            and os.path.exists(os.path.join(model_dir,
+                                            f"ckpt-{t['steps']}.npz"))):
+        raise AssertionError(f"waitk_train failed: {row}")
+    row["flash_check"] = waitk_flash_check(root, model_dir, train, device)
+    emit(row)
+    return seen["launches"], model_dir
+
+
+def _check_batch(model_dir, train, tokens):
+    """The dir's configs, task and latest checkpoint, with the first
+    TRAIN batch of ``tokens`` tokens of the corpus (no shuffle)."""
+    from neurst_tpu_torch.data.datasets.dataset import build_dataset
+    from neurst_tpu_torch.tasks.task import build_task
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params)
+    from neurst_tpu_torch.utils.compat import ModeKeys
+    from neurst_tpu_torch.utils.configurable import ModelConfigs
+
+    cfg = ModelConfigs.load(model_dir)
+    task = build_task(cfg)
+    flat = restore_checkpoint_params(latest_checkpoint(model_dir))
+    batch = next(task.create_batch_iterator(
+        build_dataset({"dataset.class": "parallel_text",
+                       "dataset.params": _parallel(train)}),
+        ModeKeys.TRAIN, {"batch_by_tokens": True, "batch_size": tokens,
+                         "max_src_len": 128, "max_trg_len": 128,
+                         "shuffle_buffer": 0, "seed": 0})())
+    return cfg, task, flat, batch
+
+
+def _smoothed_xent():
+    from neurst_tpu_torch.criterions import build_criterion
+    return build_criterion({"criterion.class": "label_smoothed_cross_entropy",
+                            "criterion.params": {"label_smoothing": 0.1}})
+
+
+def _full_batches(seen, what):
+    """Every step's batch a full bucket (no masked rows: not an
+    end-of-epoch flush).  Returns the target tokens of each step."""
+    steps = len(seen["steps"])
+    rows, shapes = seen["rows"][:steps], seen["shapes"][:steps]
+    if [r for r, shape in zip(rows, shapes) if r != shape[0]]:
+        raise AssertionError(f"{what}: partial batches, rows {rows} of "
+                             f"{[shape[0] for shape in shapes]}")
+    return [t["trg_length"] for t in seen["tokens"][:steps]]
+
+
+def waitk_flash_check(root, model_dir, train, device="cuda"):
+    """One 4096-token training batch (lagging 5) through the trained
+    weights in float32 with the encoder's flash kernels and with the
+    dense encoder (no dropout): the label-smoothed losses within
+    ``WAITK_CHECK_TOL`` relative."""
+    import torch
+
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    cfg, task, flat, batch = _check_batch(model_dir, train, 4096)
+    batch = dict(batch, waitk_lagging=np.asarray(5, np.int32))
+    crit = _smoothed_xent()
+    losses = {}
+    for flash in (True, False):
+        params = dict(cfg["model.params"], dtype="float32",
+                      **{"encoder.enable_flash_attention": flash})
+        model = task.build_model({"model.class": cfg["model.class"],
+                                  "model.params": params}, device=device)
+        load_flat_params(model, flat)
+        with torch.no_grad():
+            losses[flash] = float(crit.reduce_loss(batch, model(batch)))
+        del model
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    out = {"shape": list(batch["src"].shape), "loss_flash": losses[True],
+           "loss_dense": losses[False], "rel_diff": rel,
+           "tol": WAITK_CHECK_TOL}
+    if not rel <= WAITK_CHECK_TOL:
+        raise AssertionError(f"waitk flash check: {out}")
+    return out
+
+
+def _single_unit_sentences(rng, pipeline, lexicon, n, low, high):
+    """``n`` sentences of ``low``-``high`` words, each word one BPE unit
+    (so the online mode's word-at-a-time reads are the offline mode's
+    unit-at-a-time reads)."""
+    words = [w for w in lexicon if len(pipeline.encode(w)) == 2]
+    if len(words) < 50:
+        raise AssertionError(f"only {len(words)} single-unit words")
+    return [" ".join(words[i] for i in rng.randint(
+        len(words), size=int(rng.randint(low, high + 1))))
+        for _ in range(n)]
+
+
+def waitk_simuleval_phase(seed, root, model_dir, pipelines, lexicon,
+                          device="cuda"):
+    """simuleval_cli on the wait-k dir: offline over ``simul_sentences``
+    sentences (``--wait_k``, ``--max_decode_len``) with sentences/s, AL,
+    CW, BLEU, the ms of a READ's re-encode and of a WRITE's step (host
+    clock, synchronised) and the flash launches a READ; then online
+    against a local mock server over the first ``online_sentences``,
+    whose streams (output ids and delays) must be the offline ones.
+    Returns the offline run's launch counts."""
+    import torch
+
+    from neurst_tpu_torch.cli import simuleval_cli
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.models.waitk_transformer import WaitkTransformer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.simuleval_agents.simul_trans_text_agent \
+        import SimulTransTextAgent
+
+    t = WAITK
+    rng = np.random.RandomState(seed + 95)
+    src_pipeline = build_data_pipeline({
+        "data_pipeline.class": "TextDataPipeline",
+        "data_pipeline.params": pipelines["src"]})
+    sources = _single_unit_sentences(rng, src_pipeline, lexicon["src"],
+                                     t["simul_sentences"],
+                                     t["simul_min_words"],
+                                     t["simul_max_words"])
+    refs = [" ".join(lexicon["trg"][i] for i in rng.randint(
+        len(lexicon["trg"]), size=len(s.split()))) for s in sources]
+    paths = {}
+    for name, lines in (("src", sources), ("ref", refs)):
+        paths[name] = os.path.join(root, f"simul.{name}")
+        with open(paths[name], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    hypo = os.path.join(root, "simul.hyp")
+    timings = {"read": [], "write": []}
+    originals = {name: getattr(WaitkTransformer, name)
+                 for name in ("incremental_encode", "incremental_decode")}
+
+    def timed(name, into):
+        def call(self, *a, **kw):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = originals[name](self, *a, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            timings[into].append((time.perf_counter() - start) * 1e3)
+            return out
+        return call
+
+    streamed = []
+    stream = SimulTransTextAgent.translate_stream
+
+    def recorded(self, *a, **kw):
+        out = stream(self, *a, **kw)
+        streamed.append(out)
+        return out
+
+    argv = ["--model_dir", model_dir, "--wait_k", str(t["wait_k"]),
+            "--max_decode_len", str(t["max_decode_len"]), "--device",
+            device]
+    WaitkTransformer.incremental_encode = timed("incremental_encode", "read")
+    WaitkTransformer.incremental_decode = timed("incremental_decode",
+                                                "write")
+    SimulTransTextAgent.translate_stream = recorded
+    try:
+        reset_launch_counts()
+        start = time.perf_counter()
+        result = simuleval_cli.main(argv + [
+            "--src_file", paths["src"], "--ref_file", paths["ref"],
+            "--output_file", hypo])
+        wall_s = time.perf_counter() - start
+        counts = launch_counts()
+        for name, fn in originals.items():
+            setattr(WaitkTransformer, name, fn)
+        offline = streamed[:]
+        del streamed[:]
+        server, units = _simple_server(sources[:t["online_sentences"]])
+        try:
+            start = time.perf_counter()
+            simuleval_cli.main(argv + ["--hostname", "127.0.0.1", "--port",
+                                       str(server.server_address[1])])
+            online_s = time.perf_counter() - start
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        for name, fn in originals.items():
+            setattr(WaitkTransformer, name, fn)
+        SimulTransTextAgent.translate_stream = stream
+    with open(hypo) as f:
+        hypotheses = f.read().splitlines()
+    reads = len(timings["read"])
+    flash_per_read = counts["flash_attention_fwd"] / max(reads, 1)
+    row = {"phase": "waitk_simuleval", "sentences": len(sources),
+           "words_a_sentence": [t["simul_min_words"], t["simul_max_words"]],
+           "wait_k": t["wait_k"], "max_decode_len": t["max_decode_len"],
+           "AL": result["AL"], "CW": result["CW"], "BLEU": result["BLEU"],
+           "wall_s": wall_s, "sentences_per_s": len(sources) / wall_s,
+           "reads": reads, "writes": len(timings["write"]),
+           "read_ms_median": float(np.median(timings["read"])),
+           "write_ms_median": float(np.median(timings["write"])),
+           "flash_fwd_launches": counts["flash_attention_fwd"],
+           "flash_fwd_per_read": flash_per_read,
+           "online_sentences": len(streamed), "online_wall_s": online_s,
+           "online_equals_offline": streamed == offline[:len(streamed)],
+           "launches": counts}
+    emit(row)
+    expected_flash = 6 if device == "cuda" else 0
+    if not (result["samples"] == len(hypotheses) == len(sources)
+            and row["online_equals_offline"]
+            and len(streamed) == len(units) == t["online_sentences"]
+            and all(u and u[-1] == "</s>" for u in units)
+            and flash_per_read == expected_flash
+            and math.isfinite(result["AL"])):
+        raise AssertionError(f"waitk_simuleval failed: {row}")
+    return counts
+
+
+def _predict_sets(root, rng, lexicon, n, name):
+    paths = write_parallel(os.path.join(root, name), rng, lexicon["src"],
+                           lexicon["trg"], n, 20, 60)
+    return {"dataset.class": "parallel_text", "dataset.params":
+            _parallel(paths)}
+
+
+def waitk_predict_phase(seed, root, model_dir, lexicon, device="cuda"):
+    """Full-sentence wait-k decode of ``predict_sentences`` sentences
+    through ``--entry predict`` (beam ``WAITK["beam"]``, the model's
+    smallest k): samples/s and the encoder's flash launches a batch."""
+    t = WAITK
+    data = _predict_sets(root, np.random.RandomState(seed + 96), lexicon,
+                         t["predict_sentences"], "waitk_dev")
+    hypo = os.path.join(root, "waitk_predict.hyp")
+    result, counts, wall_s = _counted_predict([
+        "--entry", "predict", "--model_dir", model_dir,
+        "--dataset.class", data["dataset.class"], "--dataset.params",
+        json.dumps(data["dataset.params"]), "--batch_size",
+        str(t["predict_batch"]), "--search_method.params",
+        json.dumps({"beam_size": t["beam"], "maximum_decode_length": 180}),
+        "--metric", "bleu", "--output_file", hypo, "--device", device])
+    batches = -(-t["predict_sentences"] // t["predict_batch"])
+    expected = 6 * batches if device == "cuda" else 0
+    row = {"phase": "waitk_predict", "samples": result["samples"],
+           "beam": t["beam"], "samples_per_s": result["samples_per_sec"],
+           "timing_s": result["timing"], "cli_wall_s": wall_s,
+           "BLEU": result["BLEU"],
+           "flash_fwd_launches": counts["flash_attention_fwd"],
+           "flash_fwd_expected": expected, "launches": counts}
+    emit(row)
+    if not (result["samples"] == t["predict_sentences"]
+            and counts["flash_attention_fwd"] == expected
+            and math.isfinite(result["BLEU"])):
+        raise AssertionError(f"waitk_predict failed: {row}")
+    return counts
+
+
+def lightconv_phases(seed, root, train, pipelines, lexicon, device="cuda"):
+    """``lightconv_base`` on the wait-k corpus through the train entry
+    (the translation task with the recipe's buckets, dropout 0.1 at every
+    site, bf16 + f32 master, ``lightconv_steps`` steps; every step's
+    launches against ``expected_launches``), then the predict entry with
+    beam search and with top-k sampling.  Returns the launch counts by
+    path."""
+    import torch
+
+    from neurst_tpu_torch.tasks.translation import Translation
+
+    t = WAITK
+    cfg_path = _recipe_config(
+        os.path.join(root, "lightconv.json"), t["recipe"], train, pipelines,
+        train_steps=t["lightconv_steps"],
+        save_checkpoint_steps=t["lightconv_steps"],
+        summary_steps=t["summary"])
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["task.class"] = "translation"
+    cfg["task.params"].pop("wait_k")
+    cfg["model.class"] = "light_convolution_model"
+    cfg["hparams_set"] = t["lightconv_set"]
+    cfg["model.params"] = _dropout_params(
+        ("encoder", "decoder"), ("weight_dropout_rate", "ffn_dropout_rate",
+                                 "layer_postprocess_dropout_rate"))
+    cfg["model.params"]["decoder.attention_dropout_rate"] = DROPOUT_RATE
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    model_dir = os.path.join(root, "lightconv")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _, seen = run_trainer(["--config_paths", cfg_path, "--model_dir",
+                           model_dir, "--device", device], Translation)
+    _train_path_checks(seen, t["lightconv_steps"], "lightconv_train")
+    model = seen["model"]
+    vocab = model.trg_meta["vocab_size"]
+    row = dict({"phase": "lightconv_train", "model": t["lightconv_set"],
+                "dtype": "bfloat16", "bf16_params": True,
+                "dropout": DROPOUT_RATE,
+                "target_tokens_a_step": _full_batches(seen,
+                                                      "lightconv_train"),
+                "target_vocab": vocab,
+                "fused_xent": model.supports_fused_softmax_ce(),
+                "launches_per_step_by_shape":
+                _step_launch_checks(seen, model) if device == "cuda"
+                else {}},
+               **_trainer_numbers(seen, torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else None))
+    if not (row["fused_xent"] and vocab == t["target_vocab"]):
+        raise AssertionError(f"lightconv_train: the fused xent at "
+                             f"{t['target_vocab']} words expected: {row}")
+    launches = {"lightconv_train": seen["launches"]}
+    if device == "cuda":
+        # rows 4-5 against their plain versions at every [B x T, 512] x V
+        # this run gave them
+        row["xent_checked_shapes"] = sorted({
+            (s["trg"][0] * s["trg"][1], vocab) for s in seen["steps"]})
+        xent_kernel_phase(seed + 1, [
+            (f"lightconv_train_{rows}", rows, vocab, 512, (torch.bfloat16,))
+            for rows, _ in row["xent_checked_shapes"]])
+    row["reference_check"] = lightconv_reference_check(model_dir, train,
+                                                       device)
+    emit(row)
+    data = _predict_sets(root, np.random.RandomState(seed + 97), lexicon,
+                         t["predict_sentences"], "lightconv_dev")
+    rows = {}
+    for name, search in (
+            ("beam", ["--search_method.params", json.dumps(
+                {"beam_size": t["beam"], "maximum_decode_length": 180})]),
+            ("top_sampling", ["--search_method", "top_sampling",
+                              "--search_method.params", json.dumps(
+                                  {"top_k": t["sampling_top_k"],
+                                   "maximum_decode_length": 180,
+                                   "seed": seed})])):
+        result, counts, wall_s = _counted_predict([
+            "--entry", "predict", "--model_dir", model_dir,
+            "--dataset.class", data["dataset.class"], "--dataset.params",
+            json.dumps(data["dataset.params"]), "--batch_size",
+            str(t["predict_batch"]), "--metric", "bleu", "--output_file",
+            os.path.join(root, f"lightconv.{name}"), "--device", device]
+            + search)
+        rows[name] = {"samples": result["samples"],
+                      "samples_per_s": result["samples_per_sec"],
+                      "timing_s": result["timing"], "cli_wall_s": wall_s,
+                      "BLEU": result["BLEU"], "launches": counts}
+        launches[f"lightconv_predict_{name}"] = counts
+        if not (result["samples"] == t["predict_sentences"]
+                and math.isfinite(result["BLEU"])):
+            raise AssertionError(f"lightconv_predict {name}: {rows[name]}")
+    emit({"phase": "lightconv_predict", "model": t["lightconv_set"],
+          **rows})
+    return launches
+
+
+def lightconv_reference_check(model_dir, train, device="cuda"):
+    """One ``check_tokens``-token training batch through the trained
+    LightConv weights in float32 (no dropout) on the card and on the CPU
+    (plain versions), on the fused route the trainer takes (prelogits
+    into rows 4-5): the label-smoothed losses within ``WAITK_CHECK_TOL``
+    relative, each gradient within ``TRAIN_REF_TOL[1]`` by its relative
+    L2 error, and rows 4-5 launched on the card."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    cfg, task, flat, batch = _check_batch(model_dir, train,
+                                          WAITK["check_tokens"])
+    crit = _smoothed_xent()
+    out = {}
+    for where in (device, "cpu"):
+        model = task.build_model({"model.class": cfg["model.class"],
+                                  "model.params": dict(cfg["model.params"],
+                                                       dtype="float32")},
+                                 device=where)
+        load_flat_params(model, flat)
+        params = dict(model.named_parameters())
+        reset_launch_counts()
+        loss = crit.reduce_loss(batch, model(batch, return_prelogits=True))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[where] = (float(loss.detach()),
+                      {n: g.cpu() for n, g in zip(params, grads)},
+                      launch_counts())
+        del model, params, grads
+    (loss, grads, counts), (ref_loss, ref_grads, _) = out[device], out["cpu"]
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    grad_err, worst = max(
+        (float((grads[n] - ref_grads[n]).norm()
+               / ref_grads[n].norm().clamp_min(1e-30)), n)
+        for n in ref_grads)
+    xent = [counts["fused_linear_xent_fwd"], counts["fused_linear_xent_bwd"]]
+    result = {"shape": list(batch["trg"].shape), "dtype": "float32",
+              "loss_card": loss, "loss_cpu": ref_loss, "loss_rel_err": rel,
+              "max_grad_rel_l2_err": grad_err, "worst_grad": worst,
+              "tol": [WAITK_CHECK_TOL, TRAIN_REF_TOL[1]],
+              "card_xent_launches": xent}
+    if not (rel <= WAITK_CHECK_TOL and grad_err <= TRAIN_REF_TOL[1]
+            and (device == "cpu" or min(xent) > 0)):
+        raise AssertionError(f"lightconv card vs CPU: {result}")
+    return result
+
+
+def waitk_phases(seed, device="cuda"):
+    """The simultaneous-translation and LightConv group under
+    ``build/waitk_smoke/`` (removed after), with each phase's wall
+    seconds.  Returns the launch counts by path."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "waitk_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages, launches = {}, {}
+    try:
+        start = time.perf_counter()
+        train, pipelines, lexicon = write_bpe_corpus(
+            root, np.random.RandomState(seed + 94))
+        stages["write_corpus_and_bpe"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["waitk_train"], model_dir = waitk_train_phase(
+            seed, root, train, pipelines, device)
+        stages["waitk_train"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["waitk_simuleval"] = waitk_simuleval_phase(
+            seed, root, model_dir, pipelines, lexicon, device)
+        stages["waitk_simuleval"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["waitk_predict"] = waitk_predict_phase(
+            seed, root, model_dir, lexicon, device)
+        stages["waitk_predict"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches.update(lightconv_phases(seed, root, train, pipelines,
+                                         lexicon, device))
+        stages["lightconv"] = time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "waitk", "stage_wall_s": stages,
+          "total_s": sum(stages.values())})
+    return launches
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -4392,6 +5175,7 @@ def main(argv=None):
     bwd_rows = flash_bwd_kernel_phase(args.seed)
     flash_drop_rows = flash_dropout_kernel_phase(args.seed)
     flash_bucket_kernel_phase(args.seed)
+    waitk_flash_rows = flash_waitk_kernel_phase(args.seed)
     xent_rows = xent_kernel_phase(args.seed)
     softmax_rows = softmax_xent_kernel_phase(args.seed)
     dropout_rows = dropout_kernel_phase(args.seed)
@@ -4414,17 +5198,21 @@ def main(argv=None):
     by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
         args.seed)
     by_path.update(multitask_phases(args.seed, train_dropout_row))
+    by_path.update(waitk_phases(args.seed))
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
     main_bf16 = ("main", "bfloat16")
     rows = {  # name -> (main row, {label: row of another case})
         "flash_attention_fwd": (fwd_rows[main_bf16], {
-            "with_dropout": flash_drop_rows[("fwd",) + main_bf16]}),
+            "with_dropout": flash_drop_rows[("fwd",) + main_bf16],
+            "waitk_train": waitk_flash_rows[("fwd", "bfloat16")]}),
         "flash_attention_dq": (bwd_rows[("dq",) + main_bf16], {
-            "with_dropout": flash_drop_rows[("dq",) + main_bf16]}),
+            "with_dropout": flash_drop_rows[("dq",) + main_bf16],
+            "waitk_train": waitk_flash_rows[("dq", "bfloat16")]}),
         "flash_attention_dkv": (bwd_rows[("dkv",) + main_bf16], {
-            "with_dropout": flash_drop_rows[("dkv",) + main_bf16]}),
+            "with_dropout": flash_drop_rows[("dkv",) + main_bf16],
+            "waitk_train": waitk_flash_rows[("dkv", "bfloat16")]}),
         "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], {}),
         "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], {}),
         "fused_dropout": (dropout_rows[main_bf16], {
@@ -4432,7 +5220,9 @@ def main(argv=None):
     for kernel in ("fwd", "bwd"):
         rows[f"fused_linear_xent_{kernel}"] = (
             xent_rows[(kernel,) + main_bf16],
-            {"nmt_train": xent_rows[(kernel, "nmt_train", "bfloat16")]})
+            {"nmt_train": xent_rows[(kernel, "nmt_train", "bfloat16")],
+             "lightconv_train": xent_rows[(kernel, "lightconv_train",
+                                           "bfloat16")]})
         rows[f"fused_ffn_{kernel}"] = (
             ffn_rows[(kernel, "main", DROPOUT_RATE, "bfloat16")],
             {"nmt_train": ffn_rows[(kernel, "d512", DROPOUT_RATE,

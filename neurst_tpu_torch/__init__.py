@@ -3,7 +3,8 @@
 
 Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
-models (the multi-task speech model among them), search layers,
+models (the multi-task speech model, the wait-k Transformer and the
+LightConv model among them), search layers (beam search and sampling),
 criterions (``joint_criterion`` among them), optimizers, learning-rate
 schedules, tasks, datasets, data pipelines, tokenizers, metrics,
 validators and entries (``predict``, ``train``, ``eval``,
@@ -15,11 +16,14 @@ from neurst_tpu_torch import data, exps, metrics, tasks, training  # noqa: F401
 from neurst_tpu_torch.criterions import build_criterion  # noqa: F401
 from neurst_tpu_torch.data import data_pipelines, datasets, text  # noqa: F401
 from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
+from neurst_tpu_torch.layers.search import sampling  # noqa: F401
 from neurst_tpu_torch.layers.search.sequence_search import \
     build_search_layer  # noqa: F401
+from neurst_tpu_torch.models import light_convolution_model  # noqa: F401
 from neurst_tpu_torch.models import multi_task_speech_transformer  # noqa: F401
 from neurst_tpu_torch.models import speech_transformer  # noqa: F401
 from neurst_tpu_torch.models import transformer  # noqa: F401
+from neurst_tpu_torch.models import waitk_transformer  # noqa: F401
 from neurst_tpu_torch.models.model import build_model  # noqa: F401
 from neurst_tpu_torch.optimizers.optimizers import \
     build_optimizer  # noqa: F401

@@ -99,8 +99,7 @@ _UNPORTED = {"enable_quant": False, "quant_params": None,
 _ONE_DEVICE_STRATEGIES = (None, "", "none", "one_device", "onedevice")
 # the JAX package's registered search layers the port lacks (class names
 # and aliases, lower-cased); any other unknown name raises LookupError
-_UNPORTED_SEARCHES = ("top_sampling", "sampling", "topsampling",
-                      "speculative_decode", "speculative",
+_UNPORTED_SEARCHES = ("speculative_decode", "speculative",
                       "speculativedecode")
 
 

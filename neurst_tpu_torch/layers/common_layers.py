@@ -25,7 +25,29 @@ from neurst_tpu_torch.ops.fused_dropout import dropout, quantized_site
 from neurst_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_available
 
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
-           "sinusoidal_position_signal", "linear", "apply_dropout"]
+           "sinusoidal_position_signal", "linear", "apply_dropout",
+           "activation_by_name"]
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_approx": lambda x: F.gelu(x, approximate="tanh"),
+    "swish": F.silu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def activation_by_name(name):
+    """The JAX package's activations (``jax.nn.gelu`` approximates with
+    tanh unless told not to, so "gelu" is the exact erf form and
+    "gelu_approx" the tanh one; swish and silu are x * sigmoid(x));
+    None and "linear" are the identity."""
+    if name is None or name == "linear":
+        return lambda x: x
+    if name not in _ACTIVATIONS:
+        raise KeyError(f"unknown activation {name!r}")
+    return _ACTIVATIONS[name]
 
 
 def apply_dropout(x, rate: float, is_training: bool, key=None):
@@ -67,18 +89,18 @@ class LayerNorm(nn.Module):
 
 
 class TransformerFFN(nn.Module):
-    """dense1 -> relu -> dropout -> dense2.  Where the JAX package's gate
-    says so (``ops/fused_ffn.fused_ffn_available``: training at enough
-    rows) the fused FFN kernels run it, else the plain composite; both
-    take the same parameters and the same dropout site."""
+    """dense1 -> activation -> dropout -> dense2.  Where the JAX
+    package's gate says so (``ops/fused_ffn.fused_ffn_available``: relu,
+    training at enough rows) the fused FFN kernels run it, else the plain
+    composite; both take the same parameters and the same dropout
+    site."""
 
     def __init__(self, input_size: int, filter_size: int, output_size: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
                  dtype=torch.float32):
         super().__init__()
-        if activation != "relu":
-            raise NotImplementedError(
-                f"ffn activation {activation!r}: the port has relu")
+        self.activation = activation
+        self._activate = activation_by_name(activation)
         self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.dense1 = nn.Linear(input_size, filter_size)
@@ -88,12 +110,12 @@ class TransformerFFN(nn.Module):
         rate = self.dropout_rate if is_training else 0.0
         rows = x.numel() // x.shape[-1]
         if fused_ffn_available(x.shape[-1], self.dense1.out_features,
-                               "relu", rows, is_training, rate):
+                               self.activation, rows, is_training, rate):
             return fused_ffn(x.to(self.dtype), self.dense1.weight,
                              self.dense1.bias, self.dense2.weight,
                              self.dense2.bias, rate,
                              dropout_key if rate else None)
-        h = torch.relu(linear(self.dense1, x, self.dtype))
+        h = self._activate(linear(self.dense1, x, self.dtype))
         h = apply_dropout(h, self.dropout_rate, is_training, dropout_key)
         return linear(self.dense2, h, self.dtype)
 
@@ -124,15 +146,16 @@ def sinusoidal_position_signal(length: int, channels: int, start: int = 0,
 class WordEmbedding(nn.Module):
     """Embedding table ``weights`` [V, D] with the tied pre-softmax
     projection ``attend`` (+ ``bias`` [V] when the softmax is shared).
-    ``timing='sinusoids'`` scales by sqrt(D) and adds the signal."""
+    ``timing='sinusoids'`` scales by sqrt(D) and adds the signal;
+    ``timing='emb'`` adds rows of a learned table ``position_weights``
+    [max_positions, D] (unscaled), as the JAX module does."""
 
     def __init__(self, vocab_size: int, embedding_dim: int,
                  share_softmax_weights: bool = False, use_bias: bool = True,
-                 timing=None, dtype=torch.float32):
+                 timing=None, max_positions: int = 512, dtype=torch.float32):
         super().__init__()
-        if timing not in (None, "sinusoids"):
-            raise NotImplementedError(f"timing {timing!r}: the port has "
-                                      "sinusoids")
+        if timing not in (None, "sinusoids", "emb"):
+            raise ValueError(f"Unknown timing: {timing}")
         self.embedding_dim = embedding_dim
         self.timing = timing
         self.dtype = dtype
@@ -141,6 +164,9 @@ class WordEmbedding(nn.Module):
             self.bias = nn.Parameter(torch.zeros(vocab_size))
         else:
             self.bias = None
+        if timing == "emb":
+            self.position_weights = nn.Parameter(
+                torch.empty(max_positions, embedding_dim))
 
     def forward(self, ids, time=None):
         """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D]."""
@@ -150,11 +176,18 @@ class WordEmbedding(nn.Module):
         squeeze = ids.dim() == 1
         if squeeze:
             emb = emb[:, None, :]
-        signal = sinusoidal_position_signal(
-            emb.shape[1], self.embedding_dim,
-            start=0 if time is None else time, dtype=emb.dtype,
-            device=emb.device)
-        emb = emb * (self.embedding_dim ** 0.5) + signal[None]
+        start = 0 if time is None else int(time)
+        length = emb.shape[1]
+        if self.timing == "sinusoids":
+            signal = sinusoidal_position_signal(
+                length, self.embedding_dim, start=start, dtype=emb.dtype,
+                device=emb.device)
+            emb = emb * (self.embedding_dim ** 0.5) + signal[None]
+        else:
+            # lax.dynamic_slice clamps the start so the slice fits
+            table = self.position_weights
+            start = max(0, min(start, table.shape[0] - length))
+            emb = emb + table[start:start + length].to(emb.dtype)[None]
         return emb[:, 0, :] if squeeze else emb
 
     def attend(self, features):

@@ -68,6 +68,16 @@ class TransformerDecoder(nn.Module):
             cache[f"layer_{i}"] = layer_cache
         return cache
 
+    @staticmethod
+    def _lagging_bias(length, src_len, decode_step, lagging, device):
+        if decode_step is None:
+            return layer_utils.waitk_cross_attention_bias(
+                length, src_len, lagging, device=device)
+        allowed = torch.arange(src_len, device=device) < (
+            decode_step + torch.as_tensor(lagging, device=device))
+        return torch.where(allowed, 0.0,
+                           layer_utils.NEG_INF)[None, None, None, :]
+
     def forward(self, inputs, memory=None, memory_padding=None, cache=None,
                 decode_step=None, decode_lagging=None, beam_anc=None,
                 is_training=False, dropout_key=None):
@@ -80,12 +90,14 @@ class TransformerDecoder(nn.Module):
         ``dropout_key`` (``side`` is ``SIDE_DECODER`` unless the model
         gives another).
 
+        ``decode_lagging`` (wait-k; an int or a 0-d tensor) masks the
+        cross-attention so target position i sees source positions
+        < i + lagging (at a decode step: < step + lagging); the mask is
+        arbitrary, so both attentions then stay on the dense path.
+
         Returns (outputs, cache)."""
-        if decode_lagging is not None:
-            raise NotImplementedError("decode_lagging (wait-k) is not "
-                                      "ported yet")
         use_flash = (self.enable_flash_attention and decode_step is None
-                     and cache is None)
+                     and cache is None and decode_lagging is None)
         self_bias = memory_bias = cross_flash_lengths = None
         if decode_step is None:
             if not use_flash:
@@ -108,6 +120,10 @@ class TransformerDecoder(nn.Module):
             else:
                 memory_bias = layer_utils.input_padding_to_bias(
                     memory_padding)
+                if decode_lagging is not None:
+                    memory_bias = memory_bias + self._lagging_bias(
+                        inputs.shape[1], memory_padding.shape[1],
+                        decode_step, decode_lagging, inputs.device)
         x = inputs
         for i, layer in enumerate(self._layers()):
             x = layer(x, self_attention_bias=self_bias, memory=memory,

@@ -12,6 +12,7 @@ import torch
 
 __all__ = ["NEG_INF", "CACHE_SKIP_KEYS", "input_length_to_padding",
            "input_padding_to_bias", "causal_self_attention_bias",
+           "waitk_cross_attention_bias",
            "stack_beam_size", "stack_beam_size_selective",
            "gather_beams_selective", "self_cache_time_len",
            "cache_has_only_self_state"]
@@ -38,6 +39,16 @@ def causal_self_attention_bias(length: int, device=None,
                                  dtype=torch.float32, device=device),
                       diagonal=1)
     return mask.to(dtype)[None, None]
+
+
+def waitk_cross_attention_bias(query_len: int, memory_len: int, lagging,
+                               device=None, dtype=torch.float32):
+    """[1, 1, query_len, memory_len] wait-k bias: target position i sees
+    source positions < i + ``lagging`` (an int or a 0-d tensor)."""
+    q_pos = torch.arange(query_len, device=device)[:, None]
+    m_pos = torch.arange(memory_len, device=device)[None, :]
+    allowed = m_pos < q_pos + torch.as_tensor(lagging, device=device)
+    return torch.where(allowed, 0.0, NEG_INF).to(dtype)[None, None]
 
 
 def stack_beam_size(x, beam_size: int):

@@ -6,8 +6,11 @@ The source side is token ids through a word embedding, as in the JAX
 module (``input_symbol_modality``, or one ``shared_symbol_modality`` for
 both sides with ``modality.share_source_target_embedding``); a subclass
 with another source (the speech model's audio) sets ``token_source`` to
-False and overrides ``embed_source``.  This class also holds the target
-modality with the tied softmax, the encoder and the decoder, the
+False and overrides ``embed_source``; one with other stacks overrides
+``build_encoder`` / ``build_decoder``.  This class also holds the target
+modality with the tied softmax (or, with
+``modality.share_embedding_and_softmax_weights: false``, the
+``output_linear`` projection), the encoder and the decoder, the
 generation interface beam search drives
 (``prepare_generation`` -> (``decode_step``, generation initializer)),
 and the training interface the train step drives (``call_train``,
@@ -21,7 +24,7 @@ from typing import Any, Dict
 
 import torch
 
-from neurst_tpu_torch.layers.common_layers import WordEmbedding
+from neurst_tpu_torch.layers.common_layers import WordEmbedding, linear
 from neurst_tpu_torch.layers.decoders.transformer_decoder import \
     TransformerDecoder
 from neurst_tpu_torch.layers.encoders.transformer_encoder import \
@@ -161,17 +164,16 @@ class EncoderDecoderModel(BaseModel):
         self.src_meta = dict(src_meta or {})
         self.trg_meta = dict(trg_meta or {})
         self.dtype = dtype_by_name(args.get("dtype"))
-        if not args.get("modality.share_embedding_and_softmax_weights"):
-            raise NotImplementedError(
-                "the port has the tied embedding/softmax "
-                "(modality.share_embedding_and_softmax_weights: true)")
+        self.tied_softmax = bool(
+            args.get("modality.share_embedding_and_softmax_weights"))
         timing = args.get("modality.timing")
+        max_positions = args.get("modality.max_positions") or 1024
         trg_dim = args.get("modality.target.dim") or args["modality.dim"]
         target = WordEmbedding(
             self.trg_meta["vocab_size"], trg_dim,
-            share_softmax_weights=True,
+            share_softmax_weights=self.tied_softmax,
             timing=args.get("modality.target.timing") or timing,
-            dtype=self.dtype)
+            max_positions=max_positions, dtype=self.dtype)
         shared = self.token_source and bool(
             args.get("modality.share_source_target_embedding"))
         if shared:
@@ -183,25 +185,39 @@ class EncoderDecoderModel(BaseModel):
             self.shared_symbol_modality = target
         else:
             self.target_symbol_modality = target
-        self.encoder = TransformerEncoder(
-            **_stack_kwargs(TransformerEncoder, args, "encoder."),
-            dtype=self.dtype)
-        decoder_args = {k: v for k, v in args.items()
-                        if k != "decoder.attention_monotonic"}
-        self.decoder = TransformerDecoder(
-            **_stack_kwargs(TransformerDecoder, decoder_args, "decoder."),
-            dtype=self.dtype)
+        self.encoder = self.build_encoder(args)
+        self.decoder = self.build_decoder(args)
         if self.token_source and not shared:
             self.input_symbol_modality = WordEmbedding(
                 self.src_meta["vocab_size"],
                 args.get("modality.source.dim") or args["modality.dim"],
                 timing=args.get("modality.source.timing") or timing,
-                dtype=self.dtype)
+                max_positions=max_positions, dtype=self.dtype)
+        if not self.tied_softmax:
+            # the JAX module's ``output_linear``: a dense without bias
+            self.output_linear = torch.nn.Linear(
+                trg_dim, self.trg_meta["vocab_size"], bias=False)
         self._has_dropout = any(
             float(args.get(f"{side}.{rate}") or 0.0) > 0.0
             for side in ("encoder", "decoder")
             for rate in ("attention_dropout_rate", "ffn_dropout_rate",
-                         "layer_postprocess_dropout_rate"))
+                         "layer_postprocess_dropout_rate",
+                         "weight_dropout_rate"))
+
+    def build_encoder(self, args):
+        """The encoder stack from the ``encoder.*`` flags (a subclass with
+        another stack overrides this)."""
+        return TransformerEncoder(
+            **_stack_kwargs(TransformerEncoder, args, "encoder."),
+            dtype=self.dtype)
+
+    def build_decoder(self, args):
+        """The decoder stack from the ``decoder.*`` flags."""
+        decoder_args = {k: v for k, v in args.items()
+                        if k != "decoder.attention_monotonic"}
+        return TransformerDecoder(
+            **_stack_kwargs(TransformerDecoder, decoder_args, "decoder."),
+            dtype=self.dtype)
 
     def _check_training(self, is_training, dropout_key):
         if is_training and self._has_dropout and dropout_key is None:
@@ -252,24 +268,44 @@ class EncoderDecoderModel(BaseModel):
         training path) it returns {"prelogits": decoder output [B, T, D],
         "softmax_w": [V, D], "softmax_bias": [V]} instead, and the
         [B, T, V] logits are never formed."""
+        if return_prelogits and not self.tied_softmax:
+            raise ValueError("prelogits (the fused projection + "
+                             "cross-entropy path) need the tied softmax; "
+                             "supports_fused_softmax_ce is False here")
         enc, src_padding = self.encode(inputs, is_training, dropout_key)
         modality = self.trg_modality
-        dec_out = self.teacher_force(self.decoder, modality,
-                                     inputs["trg_input"], enc, src_padding,
-                                     is_training, dropout_key)
+        dec_out = self.teacher_force(
+            self.decoder, modality, inputs["trg_input"], enc, src_padding,
+            is_training, dropout_key,
+            decode_lagging=self.decode_lagging_of(inputs))
         if return_prelogits:
             return {"prelogits": dec_out, "softmax_w": modality.weights,
                     "softmax_bias": modality.bias}
-        return modality.attend(dec_out)
+        return self.output_logits(dec_out)
+
+    def decode_lagging_of(self, inputs):
+        """The wait-k lagging teacher forcing masks the cross-attention
+        with: none here (``models/waitk_transformer.py`` has one)."""
+        return None
+
+    def output_logits(self, dec_out):
+        """[..., D] -> float32 logits [..., V]: the tied table's
+        ``attend``, else ``output_linear`` in the compute dtype, as the
+        JAX module's ``output_logits``."""
+        if self.tied_softmax:
+            return self.trg_modality.attend(dec_out)
+        return linear(self.output_linear, dec_out, self.dtype).float()
 
     def teacher_force(self, decoder, modality, trg_input, enc, src_padding,
-                      is_training=False, dropout_key=None):
+                      is_training=False, dropout_key=None,
+                      decode_lagging=None):
         """``decoder`` over ``modality``'s embeddings of ``trg_input``
         [B, T] under a causal mask, cross-attending to ``enc`` -> decoder
         output [B, T, D]."""
         trg = torch.as_tensor(trg_input, device=self.device)
         dec_out, _ = decoder(modality(trg), memory=enc,
                              memory_padding=src_padding,
+                             decode_lagging=decode_lagging,
                              is_training=is_training,
                              dropout_key=dropout_key)
         return dec_out
@@ -289,10 +325,13 @@ class EncoderDecoderModel(BaseModel):
         vocabulary projection into the cross-entropy kernels: the JAX
         package's conditions (tied softmax, V and D multiples of 128, a
         [V, D] float32 accumulator of at most 80 MiB), so both packages
-        take the same path, and a dim the CUDA kernels are built for."""
+        take the same path, and a dim the CUDA kernels are built for.  An
+        untied model trains through its logits and the composite
+        label-smoothed cross-entropy."""
         v = self.trg_meta["vocab_size"]
         d = self.trg_modality.embedding_dim
-        return (v % 128 == 0 and d % 128 == 0 and v * d * 4 <= 80 * 2 ** 20
+        return (self.tied_softmax and v % 128 == 0 and d % 128 == 0
+                and v * d * 4 <= 80 * 2 ** 20
                 and fused_linear_ce_available(v, d))
 
     @property
@@ -308,8 +347,12 @@ class EncoderDecoderModel(BaseModel):
 
     @property
     def generation_modality(self) -> WordEmbedding:
-        """The embedding and tied softmax of the generated side."""
+        """The embedding of the generated side."""
         return self.trg_modality
+
+    def generation_logits(self, dec_out):
+        """The generated side's logits of decoder outputs."""
+        return self.output_logits(dec_out)
 
     def init_cache(self, encoder_outputs, memory_padding,
                    decode_padded_length: int):
@@ -324,19 +367,20 @@ class EncoderDecoderModel(BaseModel):
         ``beam_anc`` ancestor matrix."""
         return True
 
-    def decode_step(self, ids, cache, step: int):
+    def decode_step(self, ids, cache, step: int, decode_lagging=None):
         """One decode step: ids [N] at position ``step`` -> (float32
         logits [N, V], cache).  A ``beam_anc`` entry in the cache is
-        passed to the decoder's self-attention."""
-        modality = self.generation_modality
-        emb = modality(ids, time=step)
+        passed to the decoder's self-attention; ``decode_lagging`` (wait-k)
+        masks source positions from step + lagging on."""
+        emb = self.generation_modality(ids, time=step)
         dec_out, layers = self.generation_decoder(
             emb[:, None, :], memory=None,
             memory_padding=cache["memory_padding"], cache=cache["layers"],
-            decode_step=step, beam_anc=cache.get("beam_anc"))
+            decode_step=step, decode_lagging=decode_lagging,
+            beam_anc=cache.get("beam_anc"))
         new_cache = dict(cache)
         new_cache["layers"] = layers
-        return modality.attend(dec_out[:, 0, :]), new_cache
+        return self.generation_logits(dec_out[:, 0, :]), new_cache
 
     @property
     def bos_id(self) -> int:

@@ -21,7 +21,7 @@ from neurst_tpu_torch.layers.common_layers import LayerNorm, WordEmbedding
 from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["BaseModel", "build_model", "register_model", "dtype_by_name",
-           "resolve_device"]
+           "resolve_device", "lecun_normal"]
 
 
 def dtype_by_name(name: Optional[str]) -> torch.dtype:
@@ -43,7 +43,7 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _lecun_normal(shape, generator):
+def lecun_normal(shape, generator):
     """flax's ``lecun_normal``: a normal truncated at 2 std with variance
     1 / fan_in.  Torch layouts put the output axis first ([out, in] and
     [out, in, kh, kw]), so the fan-in is the size of the rest."""
@@ -84,8 +84,10 @@ class BaseModel(nn.Module):
         """Draws every parameter in place with the JAX package's
         initializers: ``glorot_uniform`` for the attention projections,
         ``lecun_normal`` for the other dense and conv kernels,
-        ``normal(D^-0.5)`` for embedding tables, ones and zeros for
-        LayerNorm, zeros for biases.  Values are drawn on the CPU from
+        ``normal(D^-0.5)`` for embedding and learned position tables,
+        ones and zeros for LayerNorm, zeros for biases; a module with
+        parameters of another kind draws them in its
+        ``init_own_params(generator)``.  Values are drawn on the CPU from
         ``generator`` (a framework cannot match another's random bits;
         the distributions match).  Returns ``dict(named_parameters())``;
         raises if a parameter was left undrawn."""
@@ -98,14 +100,18 @@ class BaseModel(nn.Module):
                 own = dict(module.named_parameters(recurse=False))
                 if isinstance(module, (nn.Linear, nn.Conv2d)):
                     draw = (_glorot_uniform if id(module) in glorot
-                            else _lecun_normal)
+                            else lecun_normal)
                     module.weight.copy_(draw(module.weight.shape, generator))
                 elif isinstance(module, LayerNorm):
                     module.scale.fill_(1.0)
                 elif isinstance(module, WordEmbedding):
-                    module.weights.copy_(torch.randn(
-                        module.weights.shape, generator=generator)
-                        * module.embedding_dim ** -0.5)
+                    for table in own.values():
+                        if table is not module.bias:
+                            table.copy_(torch.randn(
+                                table.shape, generator=generator)
+                                * module.embedding_dim ** -0.5)
+                elif callable(getattr(module, "init_own_params", None)):
+                    module.init_own_params(generator)
                 else:
                     continue
                 for name, p in own.items():

@@ -53,6 +53,7 @@ class MultiTaskSpeechTransformer(SpeechTransformer):
             share_softmax_weights=True,
             timing=(args.get("modality.target.timing")
                     or args.get("modality.timing")),
+            max_positions=args.get("modality.max_positions") or 1024,
             dtype=self.dtype)
         prefix = "asr_decoder." if any(
             k.startswith("asr_decoder.") and v is not None
@@ -92,6 +93,11 @@ class MultiTaskSpeechTransformer(SpeechTransformer):
         return self.asr_symbol_modality if self._generates_asr \
             else self.trg_modality
 
+    def generation_logits(self, dec_out):
+        if self._generates_asr:
+            return self.asr_symbol_modality.attend(dec_out)
+        return self.output_logits(dec_out)
+
     def forward(self, inputs, is_training=False, return_prelogits=False,
                 dropout_key=None):
         """Teacher forcing -> {"st": [B, T, V], "asr": [B, T', V']} float32
@@ -102,7 +108,7 @@ class MultiTaskSpeechTransformer(SpeechTransformer):
                 "and this model has two (supports_fused_softmax_ce is "
                 "False)")
         enc, src_padding = self.encode(inputs, is_training, dropout_key)
-        st = self.trg_modality.attend(self.teacher_force(
+        st = self.output_logits(self.teacher_force(
             self.decoder, self.trg_modality, inputs["trg_input"], enc,
             src_padding, is_training, dropout_key))
         if "asr_trg_input" not in inputs:

@@ -7,8 +7,13 @@ and as its ``.npz`` checkpoints store them) and returns ``model``'s
 modalities of both models (the speech model's ``input_audio_modality``,
 the text model's ``input_symbol_modality`` or, with a shared table,
 ``shared_symbol_modality``, and ``target_symbol_modality``), the encoder
-and decoder layers and their attention projections.  The layouts change
-as follows:
+and decoder layers and their attention projections; the untied
+softmax's ``output_linear`` kernel, a learned position table
+(``<modality>/position_weights``, taken as it is), and LightConv's
+``layer_<i>_conv`` layers (``in_proj``, ``out_proj``, the dynamic
+convolution's ``conv_weight_linear`` as dense kernels; the lightweight
+``conv_shared_weight`` [H, K] as it is).  The layouts change as
+follows:
 
 * dense kernels: flax ``[in, out]`` -> ``nn.Linear`` ``[out, in]``
   (the port keeps torch's layout and transposes here);

@@ -49,6 +49,8 @@ setup(
             "neurst_tpu_torch.cli.inspect_checkpoint:main",
             "neurst-tpu-torch-view-registry = "
             "neurst_tpu_torch.cli.view_registry:main",
+            "neurst-tpu-torch-simuleval = "
+            "neurst_tpu_torch.cli.simuleval_cli:main",
         ],
     },
 )

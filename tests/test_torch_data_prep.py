@@ -30,6 +30,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
+import port_test_support  # noqa: E402,F401
+
 import chip_smoke  # noqa: E402
 import neurst_tpu  # noqa: E402,F401
 import neurst_tpu_torch  # noqa: E402,F401

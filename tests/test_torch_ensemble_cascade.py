@@ -29,6 +29,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
+import port_test_support  # noqa: E402,F401
+
 from neurst_tpu.cli import cascade_st as jax_cascade  # noqa: E402
 from neurst_tpu.cli import inspect_checkpoint as jax_inspect  # noqa: E402
 from neurst_tpu.cli import run_exp as jax_run_exp  # noqa: E402

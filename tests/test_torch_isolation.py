@@ -2,8 +2,9 @@
 it, and each subpackage of the predict path on its own) loads no JAX and
 nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
 neither; an entry point without ``device=`` on a host without CUDA
-raises, the predict and cascade CLIs included; ``setup.py`` ships every
-kernel source and header; and ``chip_smoke.py`` fails without a card.
+raises, the predict, cascade and simuleval CLIs included; ``setup.py``
+ships every kernel source and header; and ``chip_smoke.py`` fails without
+a card.
 Each check runs in a fresh interpreter so this process's own JAX
 imports cannot hide a leak.
 """
@@ -89,6 +90,53 @@ def test_multi_task_ensemble_and_cascade_modules_load_no_jax(module):
         "sys.exit(1 if bad else 0)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "neurst_tpu_torch.models.waitk_transformer",
+    "neurst_tpu_torch.tasks.waitk_translation",
+    "neurst_tpu_torch.models.light_convolution_model",
+    "neurst_tpu_torch.layers.attentions.light_convolution_layer",
+    "neurst_tpu_torch.layers.encoders.light_convolution_encoder",
+    "neurst_tpu_torch.layers.decoders.light_convolution_decoder",
+    "neurst_tpu_torch.layers.search.sampling",
+    "neurst_tpu_torch.utils.simuleval_agents.simul_trans_text_agent",
+    "neurst_tpu_torch.utils.simuleval_agents.online_client",
+    "neurst_tpu_torch.cli.simuleval_cli"])
+def test_wait_k_lightconv_and_sampling_modules_load_no_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_simuleval_cli_without_device_raises_on_a_cuda_less_host(tmp_path):
+    """The model dir is read first (its configs), then the device is
+    resolved: without CUDA and without ``--device cpu`` it raises."""
+    import json
+    with open(tmp_path / "model_configs.yml", "w") as f:
+        vocab = {"vocab_path": os.path.join(REPO, "tests", "examples",
+                                            "vocab.txt")}
+        json.dump({"task.class": "waitk_translation", "task.params": {
+            "src_data_pipeline.class": "TextDataPipeline",
+            "src_data_pipeline.params": vocab,
+            "trg_data_pipeline.class": "TextDataPipeline",
+            "trg_data_pipeline.params": vocab},
+            "model.class": "waitk_transformer", "model.params": {}}, f)
+    src = tmp_path / "src.txt"
+    src.write_text("tok1 tok2\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "neurst_tpu_torch.cli.simuleval_cli",
+         "--model_dir", str(tmp_path), "--src_file", str(src)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
 
 
 def test_cascade_st_without_device_raises_on_a_cuda_less_host(tmp_path):

@@ -331,7 +331,7 @@ def test_cli_refuses_what_the_port_lacks(workdir):
         with pytest.raises(NotImplementedError):
             port_run_exp.cli_main(base + extra)
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_run_exp.cli_main(base + ["--search_method", "sampling"])
+        port_run_exp.cli_main(base + ["--search_method", "speculative"])
     with pytest.raises(LookupError):
         port_run_exp.cli_main(base + ["--search_method", "no_such_search"])
 

@@ -37,6 +37,8 @@ import yaml
 
 jax = pytest.importorskip("jax")
 
+import port_test_support  # noqa: E402,F401
+
 import neurst_tpu_torch  # noqa: E402,F401
 from neurst_tpu.cli import run_exp as jax_run_exp  # noqa: E402
 from neurst_tpu.tasks.task import build_task as jax_build_task  # noqa: E402
