@@ -191,6 +191,39 @@ exits non-zero):
                ([192, 128, 8, 64], dropout 0.1) and the forward at the
                streaming prefixes [1, 8-128, 8, 64] against their plain
                versions.
+   pretrained -- slice 10 under ``build/pretrained_smoke/``: convert,
+               four seeded state dicts in the public layouts at their
+               published sizes (BERT-base cased, GPT-2 117M, wav2vec2-base,
+               fairseq transformer_wmt_en_de) written with torch.save and
+               converted by ``python -m neurst_tpu_torch.cli.
+               convert_checkpoint`` (seconds, bytes); reference_golden,
+               every original-NeurST TF fixture under
+               tests/fixtures/reference_goldens converted by the port's
+               TF-free reader and decoded in float32 on the card, every
+               hypothesis equal to its golden; ctnmt, examples/ctnmt's
+               dynamic_switch.yml at its widths (BERT-base 12 x 768 beside
+               a 12-layer encoder and a 6-layer decoder of 768) through
+               ``run_exp --entry train`` for 30 steps with the converted
+               BERT restored under ``bert/`` (151 names) and frozen (its
+               saved weights bf16(pretrain) bit for bit), every step's
+               launches (the mask kernel at every dropout site, BERT's
+               included; rows 1-5 and 9-10 0), then predict (beam 8, lp
+               0.6, max 200) over 64 sentences, one step each of
+               rate_schedule.yml (bert_as_encoder) and
+               asy_distillation.yml (the KD criterion, a KD term > 0), and
+               a float32 loss on the card against the CPU; gpt2_lm,
+               ``gpt2_117m`` from the converted GPT-2 on 256-1024-token
+               sequences (8192-token buckets, dropout 0.1): 20 steps, eval
+               (PPL), predict (32 prompts continued 64 tokens by beam 4 and
+               by top_sampling), float32 logits on the card against the
+               CPU; wav2vec2, the converted wav2vec2-base over [8, 160000]
+               samples in bf16 and float32 (499 frames), float32 against
+               the CPU.
+   long_audio -- bench.py's long-audio cells: ``speech_transformer_s``'s
+               encoder over 4 x 8192 frames (T 2048), dense and flash,
+               forward and forward + backward (bf16); the kernel phase
+               holds the flash forward, dq and dk/dv at [4, 2048, 4, 64]
+               against their plain versions.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -2453,8 +2486,9 @@ def run_trainer(argv, task_cls=None):
                 seen["wait_s"] += time.perf_counter() - start
                 if batch is None:
                     return
-                seen["shapes"].append([int(batch["src"].shape[0]),
-                                       int(batch["src"].shape[1]),
+                src = batch.get("src", batch["trg"])
+                seen["shapes"].append([int(src.shape[0]),
+                                       int(src.shape[1]),
                                        int(batch["trg"].shape[1])])
                 seen["rows"].append(int(batch["sample_mask"].sum()))
                 seen["tokens"].append({
@@ -2492,7 +2526,7 @@ def run_trainer(argv, task_cls=None):
             out = step(state, batch, rng)
             after = launch_counts()
             seen["steps"].append({
-                "src": list(batch["src"].shape),
+                "src": list(batch.get("src", batch["trg"]).shape),
                 "trg": list(batch["trg"].shape),
                 "launches": {k: after[k] - before[k] for k in after},
                 "loss": out[1]["loss"]})
@@ -5115,6 +5149,1143 @@ def waitk_phases(seed, device="cuda"):
     return launches
 
 
+# ------------------------ pretrained trunks (slice 10) ------------------ #
+
+# the public layouts' published sizes
+BERT_BASE = dict(layers=12, dim=768, heads=12, filter=3072, vocab=28996,
+                 positions=512, token_types=2)
+GPT2_117M = dict(layers=12, dim=768, heads=12, positions=1024, vocab=50257)
+WAV2VEC2_BASE = dict(layers=12, dim=768, heads=12, filter=3072,
+                     conv_channels=512, pos_kernel=128, pos_groups=16)
+FAIRSEQ_WMT_EN_DE = dict(layers=6, dim=512, heads=8, filter=2048,
+                         vocab=32768)
+
+
+def _public_drawers(sd, rng):
+    """Seeded float32 torch-layout tensors: linear weights [out, in] as
+    fan-in-scaled normals, biases and tables as small normals, LayerNorm
+    weights around 1."""
+    def linear(name, out_dim, in_dim, bias=True):
+        sd[f"{name}.weight"] = (rng.standard_normal((out_dim, in_dim),
+                                                    dtype=np.float32)
+                                / np.float32(math.sqrt(in_dim)))
+        if bias:
+            sd[f"{name}.bias"] = 0.02 * rng.standard_normal(
+                out_dim, dtype=np.float32)
+
+    def table(name, rows, dim):
+        sd[name] = 0.02 * rng.standard_normal((rows, dim), dtype=np.float32)
+
+    def layer_norm(name, dim):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * rng.standard_normal(
+            dim, dtype=np.float32)
+        sd[f"{name}.bias"] = 0.1 * rng.standard_normal(dim,
+                                                       dtype=np.float32)
+
+    return linear, table, layer_norm
+
+
+def bert_state_dict(seed, cfg=BERT_BASE):
+    """A seeded BERT in HuggingFace's ``BertModel`` key names and shapes
+    (numpy arrays)."""
+    sd = {}
+    linear, table, layer_norm = _public_drawers(
+        sd, np.random.default_rng(seed))
+    d, f = cfg["dim"], cfg["filter"]
+    table("embeddings.word_embeddings.weight", cfg["vocab"], d)
+    table("embeddings.position_embeddings.weight", cfg["positions"], d)
+    table("embeddings.token_type_embeddings.weight", cfg["token_types"], d)
+    layer_norm("embeddings.LayerNorm", d)
+    for i in range(cfg["layers"]):
+        p = f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{p}.attention.self.{name}", d, d)
+        linear(f"{p}.attention.output.dense", d, d)
+        layer_norm(f"{p}.attention.output.LayerNorm", d)
+        linear(f"{p}.intermediate.dense", f, d)
+        linear(f"{p}.output.dense", d, f)
+        layer_norm(f"{p}.output.LayerNorm", d)
+    linear("pooler.dense", d, d)
+    return sd
+
+
+def gpt2_state_dict(seed, cfg=GPT2_117M):
+    """A seeded GPT-2 in HuggingFace's ``GPT2LMHeadModel`` key names and
+    shapes (``transformer.`` prefix; Conv1D weights [in, out])."""
+    sd = {}
+    rng = np.random.default_rng(seed)
+    _, table, layer_norm = _public_drawers(sd, rng)
+    d = cfg["dim"]
+
+    def conv1d(name, in_dim, out_dim):
+        sd[f"{name}.weight"] = (rng.standard_normal((in_dim, out_dim),
+                                                    dtype=np.float32)
+                                / np.float32(math.sqrt(in_dim)))
+        sd[f"{name}.bias"] = 0.02 * rng.standard_normal(out_dim,
+                                                        dtype=np.float32)
+
+    table("transformer.wte.weight", cfg["vocab"], d)
+    table("transformer.wpe.weight", cfg["positions"], d)
+    for i in range(cfg["layers"]):
+        p = f"transformer.h.{i}"
+        layer_norm(f"{p}.ln_1", d)
+        conv1d(f"{p}.attn.c_attn", d, 3 * d)
+        conv1d(f"{p}.attn.c_proj", d, d)
+        layer_norm(f"{p}.ln_2", d)
+        conv1d(f"{p}.mlp.c_fc", d, 4 * d)
+        conv1d(f"{p}.mlp.c_proj", 4 * d, d)
+    layer_norm("transformer.ln_f", d)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def wav2vec2_state_dict(seed, cfg=WAV2VEC2_BASE):
+    """A seeded wav2vec 2.0 in HuggingFace's ``Wav2Vec2Model`` key names
+    and shapes (``wav2vec2.`` prefix; the weight-normed positional
+    convolution as ``weight_g`` [1, 1, k] and ``weight_v``)."""
+    sd = {}
+    rng = np.random.default_rng(seed)
+    linear, _, layer_norm = _public_drawers(sd, rng)
+    d, c, f = cfg["dim"], cfg["conv_channels"], cfg["filter"]
+    in_ch = 1
+    for i, k in enumerate((10, 3, 3, 3, 3, 2, 2)):
+        sd[f"wav2vec2.feature_extractor.conv_layers.{i}.conv.weight"] = (
+            rng.standard_normal((c, in_ch, k), dtype=np.float32)
+            / np.float32(math.sqrt(in_ch * k)))
+        in_ch = c
+    layer_norm("wav2vec2.feature_extractor.conv_layers.0.layer_norm", c)
+    layer_norm("wav2vec2.feature_projection.layer_norm", c)
+    linear("wav2vec2.feature_projection.projection", d, c)
+    k, groups = cfg["pos_kernel"], cfg["pos_groups"]
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    sd[f"{pc}.weight_v"] = rng.standard_normal((d, d // groups, k),
+                                               dtype=np.float32)
+    sd[f"{pc}.weight_g"] = (1.0 + 0.1 * rng.standard_normal(
+        (1, 1, k), dtype=np.float32)) / np.float32(math.sqrt(d // groups))
+    sd[f"{pc}.bias"] = 0.02 * rng.standard_normal(d, dtype=np.float32)
+    layer_norm("wav2vec2.encoder.layer_norm", d)
+    for i in range(cfg["layers"]):
+        p = f"wav2vec2.encoder.layers.{i}"
+        for name in ("q", "k", "v", "out"):
+            linear(f"{p}.attention.{name}_proj", d, d)
+        layer_norm(f"{p}.layer_norm", d)
+        linear(f"{p}.feed_forward.intermediate_dense", f, d)
+        linear(f"{p}.feed_forward.output_dense", d, f)
+        layer_norm(f"{p}.final_layer_norm", d)
+    return sd
+
+
+def fairseq_transformer_state_dict(seed, cfg=FAIRSEQ_WMT_EN_DE,
+                                   in_proj=False):
+    """A seeded fairseq ``transformer_wmt_en_de`` (post-norm, no final
+    LayerNorms) in fairseq's key names and shapes; ``in_proj`` writes the
+    older fused ``in_proj_weight`` / ``in_proj_bias`` attention layout."""
+    sd = {}
+    linear, table, layer_norm = _public_drawers(
+        sd, np.random.default_rng(seed))
+    d, f = cfg["dim"], cfg["filter"]
+
+    def attention(p):
+        if in_proj:
+            linear(p, 3 * d, d)
+            sd[f"{p}.in_proj_weight"] = sd.pop(f"{p}.weight")
+            sd[f"{p}.in_proj_bias"] = sd.pop(f"{p}.bias")
+        else:
+            for name in ("k", "v", "q"):
+                linear(f"{p}.{name}_proj", d, d)
+        linear(f"{p}.out_proj", d, d)
+
+    for side in ("encoder", "decoder"):
+        table(f"{side}.embed_tokens.weight", cfg["vocab"], d)
+        for i in range(cfg["layers"]):
+            p = f"{side}.layers.{i}"
+            attention(f"{p}.self_attn")
+            layer_norm(f"{p}.self_attn_layer_norm", d)
+            if side == "decoder":
+                attention(f"{p}.encoder_attn")
+                layer_norm(f"{p}.encoder_attn_layer_norm", d)
+            linear(f"{p}.fc1", f, d)
+            linear(f"{p}.fc2", d, f)
+            layer_norm(f"{p}.final_layer_norm", d)
+    sd["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"]
+    return sd
+
+
+def save_torch_checkpoint(path, state, fairseq=False):
+    """``state`` (numpy arrays) as a torch checkpoint: the state dict
+    itself, or fairseq's {"args", "model"} with its training args as an
+    ``argparse.Namespace``."""
+    import torch
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in state.items()}
+    if fairseq:
+        tensors = {"args": argparse.Namespace(
+            arch="transformer_wmt_en_de", share_all_embeddings=False),
+            "model": tensors}
+    torch.save(tensors, path)
+    return path
+
+
+REFERENCE_GOLDENS = os.path.join("tests", "fixtures", "reference_goldens")
+# fixture dir -> (golden, corpus dir or None for a speech golden)
+GOLDEN_CORPORA = {
+    "corpus_tf_ckpt": ("corpus_golden.json", "tests/examples"),
+    "corpus_tf_ckpt_postnorm": ("corpus_golden_postnorm.json",
+                                "tests/examples"),
+    "corpus_tf_ckpt_wide": ("corpus_golden_wide.json",
+                            "tests/examples/wide"),
+    "speech_corpus_tf_ckpt": ("speech_corpus_golden.npz", None),
+    "speech_corpus_tf_ckpt_wide": ("speech_corpus_golden_wide.npz", None),
+    "tf_ckpt": ("transformer_toy_prenorm.npz", None),
+}
+
+
+def _until_eos(row, eos):
+    out = []
+    for t in row:
+        out.append(int(t))
+        if t == eos:
+            break
+    return out
+
+
+def _golden_text(root, flat, golden, corpus, device):
+    """The text golden: the converted model decodes the corpus's dev set
+    in batches of 8 with the golden's search; hypotheses as strings."""
+    from neurst_tpu_torch import build_model, build_search_layer
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+    pipeline = build_data_pipeline({
+        "data_pipeline.class": "TextDataPipeline",
+        "data_pipeline.params": {"vocab_path": os.path.join(
+            root, corpus, "vocab.txt")}})
+    model = build_model({"model.class": "transformer", "model.params": dict(
+        golden["model_params"], dtype="float32")}, src_meta=pipeline.meta,
+        trg_meta=pipeline.meta, device=device)
+    load_flat_params(model, flat)
+    search = build_search_layer({
+        "search_method.class": "beam_search",
+        "search_method.params": dict(golden["search_params"])})
+    search.set_model(model)
+    eos, bos = pipeline.meta["eos_id"], pipeline.meta["bos_id"]
+    with open(os.path.join(root, corpus, "dev.src")) as f:
+        lines = [line.rstrip("\n") for line in f]
+    hypos = []
+    for start in range(0, len(lines), 8):
+        ids = [pipeline.encode(s, is_processed=True)
+               for s in lines[start:start + 8]]
+        width = max(len(x) for x in ids)
+        src = np.full([len(ids), width], eos, np.int64)
+        padding = np.ones([len(ids), width], np.float32)
+        for i, x in enumerate(ids):
+            src[i, :len(x)], padding[i, :len(x)] = x, 0.0
+        out, _ = search({"src": src, "src_padding": padding,
+                         "trg_input": np.full([len(ids)], bos, np.int64)})
+        hypos += [pipeline.decode(row) for row in out.cpu().tolist()]
+    return hypos, golden["hypotheses"]
+
+
+def _golden_speech(flat, golden, device):
+    """The speech golden: the converted model beam-decodes the golden's
+    features; ids up to the first EOS."""
+    import torch
+
+    from neurst_tpu_torch import build_model
+    from neurst_tpu_torch.layers.search.beam_search import \
+        sequence_beam_search
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+    feats, lengths, ref = golden["feats"], golden["lengths"], \
+        golden["hypo_ids"]
+    meta = json.loads(bytes(golden["__meta__"]).decode())
+    model = build_model({"model.class": "speech_transformer",
+                         "model.params": dict(meta["model_params"],
+                                              dtype="float32")},
+                        src_meta=meta["src_meta"], trg_meta=meta["trg_meta"],
+                        device=device)
+    load_flat_params(model, flat)
+    sp = meta["search_params"]
+    with torch.no_grad():
+        s2l, init = model.prepare_generation(
+            {"src": feats.astype(np.float32),
+             "src_length": lengths.astype(np.int64)},
+            sp["maximum_decode_length"])
+        hypos, _ = sequence_beam_search(
+            s2l, init, beam_size=sp["beam_size"], top_k=1,
+            length_penalty=sp["length_penalty"],
+            maximum_decode_length=sp["maximum_decode_length"],
+            extra_decode_length=sp["extra_decode_length"],
+            minimum_decode_length=sp["minimum_decode_length"])
+    eos = meta["trg_meta"]["eos_id"]
+    ours = hypos.cpu().numpy()
+    return ([_until_eos(r, eos) for r in ours],
+            [_until_eos(r[:ours.shape[1]], eos) for r in ref])
+
+
+def _golden_toy(flat, blob, device):
+    """``tf_ckpt``: the converted toy Transformer's teacher-forced logits
+    (non-padded positions, within 5e-5) and its beam-4 ids against the
+    golden's."""
+    import torch
+
+    from neurst_tpu_torch import build_model
+    from neurst_tpu_torch.layers.search.beam_search import \
+        sequence_beam_search
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+    meta = json.loads(bytes(blob["__meta__"]).decode())
+    params = dict(Transformer.build_model_args_by_name(
+        "transformer_toy")["model.params"], dtype="float32")
+    for side in ("encoder", "decoder"):
+        params.update({f"{side}.attention_dropout_rate": 0.0,
+                       f"{side}.ffn_dropout_rate": 0.0,
+                       f"{side}.layer_postprocess_dropout_rate": 0.0,
+                       f"{side}.post_normalize": bool(meta["post_norm"])})
+    model = build_model({"model.class": "transformer",
+                         "model.params": params}, src_meta=meta["src_meta"],
+                        trg_meta=meta["trg_meta"], device=device)
+    load_flat_params(model, flat)
+    src = blob["__input__/src"].astype(np.int64)
+    padding = blob["__input__/src_padding"]
+    with torch.no_grad():
+        logits = model({"src": src, "src_padding": padding,
+                        "trg_input": blob["__input__/trg_input"].astype(
+                            np.int64)}).cpu().numpy()
+        s2l, init = model.prepare_generation(
+            {"src": src, "src_padding": padding}, 10)
+        hypos, _ = sequence_beam_search(
+            s2l, init, beam_size=4, top_k=1, length_penalty=0.6,
+            maximum_decode_length=10, extra_decode_length=5,
+            minimum_decode_length=5)
+    nonpad = (1.0 - blob["__input__/trg_padding"])[:, :, None]
+    err = float(np.abs((logits - blob["__output__/logits"]) * nonpad).max())
+    if err >= 5e-5:
+        raise AssertionError(f"tf_ckpt logits off by {err}")
+    ref = blob["__output__/beam_top1_ids"]
+    eos = meta["trg_meta"]["eos_id"]
+    ours = hypos.cpu().numpy()
+    return ([_until_eos(r, eos) for r in ours[:, :ref.shape[1]]],
+            [_until_eos(r, eos) for r in ref])
+
+
+def reference_golden_decodes(device="cuda", root=None):
+    """Every original-NeurST TF fixture under ``REFERENCE_GOLDENS``,
+    converted by the port's TF-free reader and decoded by the port in
+    float32 on ``device``: {fixture: {"matched", "total", "convert_s",
+    "decode_s"}}.  Raises unless every hypothesis equals its golden."""
+    from neurst_tpu_torch.utils.converters import build_converter
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for fixture, (name, corpus) in sorted(GOLDEN_CORPORA.items()):
+        path = os.path.join(root, REFERENCE_GOLDENS, name)
+        if corpus is not None:
+            with open(path) as f:
+                golden = json.load(f)
+        else:
+            with np.load(path) as d:
+                golden = {k: d[k] for k in d.files}
+        heads = golden["num_heads"] if corpus is not None else json.loads(
+            bytes(golden["__meta__"]).decode())["num_heads"]
+        start = time.perf_counter()
+        flat = build_converter({"converter.class": "neurst_transformer",
+                                "converter.params": {"num_heads": heads}}
+                               ).convert_to_flat(os.path.join(
+                                   root, REFERENCE_GOLDENS, fixture))
+        convert_s = time.perf_counter() - start
+        start = time.perf_counter()
+        if corpus is not None:
+            ours, want = _golden_text(root, flat, golden, corpus, device)
+        elif fixture == "tf_ckpt":
+            ours, want = _golden_toy(flat, golden, device)
+        else:
+            ours, want = _golden_speech(flat, golden, device)
+        matched = sum(a == b for a, b in zip(ours, want))
+        out[fixture] = {"matched": matched, "total": len(want),
+                        "variables": len(flat), "convert_s": convert_s,
+                        "decode_s": time.perf_counter() - start}
+        if matched != len(want) or len(ours) != len(want):
+            raise AssertionError(f"{fixture}: {matched} of {len(want)} "
+                                 f"hypotheses equal the golden")
+    return out
+
+
+def convert_phase(seed, root):
+    """Four seeded public-layout state dicts at their published sizes
+    (``BERT_BASE``, ``GPT2_117M``, ``WAV2VEC2_BASE``,
+    ``FAIRSEQ_WMT_EN_DE``), each written with ``torch.save`` and converted
+    by ``python -m neurst_tpu_torch.cli.convert_checkpoint`` in a
+    subprocess, the four side by side: seconds and bytes of each.  Returns
+    {kind: (torch checkpoint, converted dir)}."""
+    cases = [("bert", "google_bert", BERT_BASE["heads"],
+              lambda: {f"bert.{k}": v for k, v in
+                       bert_state_dict(seed + 100, BERT_BASE).items()},
+              False),
+             ("gpt2", "openai_gpt2", GPT2_117M["heads"],
+              lambda: gpt2_state_dict(seed + 101, GPT2_117M), False),
+             ("wav2vec2", "fairseq_wav2vec2", WAV2VEC2_BASE["heads"],
+              lambda: wav2vec2_state_dict(seed + 102, WAV2VEC2_BASE), False),
+             ("fairseq", "fairseq_transformer", FAIRSEQ_WMT_EN_DE["heads"],
+              lambda: fairseq_transformer_state_dict(
+                  seed + 103, FAIRSEQ_WMT_EN_DE), True)]
+    rows, out, procs = {}, {}, {}
+    for kind, converter, heads, draw, fairseq in cases:
+        start = time.perf_counter()
+        state = draw()
+        pt = save_torch_checkpoint(os.path.join(root, f"{kind}.pt"), state,
+                                   fairseq=fairseq)
+        rows[kind] = {"converter": converter, "parameters": int(sum(
+            v.size for k, v in state.items()
+            if not k.endswith("lm_head.weight"))),
+            "write_torch_s": time.perf_counter() - start,
+            "torch_bytes": os.path.getsize(pt)}
+        del state
+        out[kind] = (pt, os.path.join(root, f"{kind}_ckpt"))
+    for kind, converter, heads, _, _ in cases:
+        procs[kind] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "neurst_tpu_torch.cli.convert_checkpoint",
+             "--converter", converter, "--from_path", out[kind][0],
+             "--to_path", out[kind][1], "--num_heads", str(heads)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    for kind, (start, proc) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"convert {kind}: {err[-2000:]}")
+        npz = os.path.join(out[kind][1], "ckpt-0.npz")
+        with np.load(npz) as data:
+            rows[kind].update(convert_s=time.perf_counter() - start,
+                              names=len(data.files),
+                              npz_bytes=os.path.getsize(npz))
+    emit({"phase": "convert", "concurrent": True, "sizes": {
+        "bert": BERT_BASE, "gpt2": GPT2_117M, "wav2vec2": WAV2VEC2_BASE,
+        "fairseq": FAIRSEQ_WMT_EN_DE}, **rows})
+    return out
+
+
+def reference_golden_phase(device="cuda"):
+    """The original NeurST's TF-trained fixtures converted without
+    TensorFlow and decoded by the port on the card in float32: every
+    hypothesis equals its golden."""
+    start = time.perf_counter()
+    result = reference_golden_decodes(device)
+    emit({"phase": "reference_golden", "dtype": "float32",
+          "wall_s": time.perf_counter() - start,
+          "matched": sum(r["matched"] for r in result.values()),
+          "total": sum(r["total"] for r in result.values()),
+          "fixtures": result})
+
+
+TRUNK_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "fused_linear_xent_fwd",
+                 "fused_linear_xent_bwd", "fused_softmax_xent_fwd",
+                 "fused_softmax_xent_bwd", "fused_dropout", "fused_ffn_fwd",
+                 "fused_ffn_bwd")
+
+
+def _stack_sites(stack):
+    """Dropout sites of one step of a dense transformer stack (none of
+    the trunks' stacks runs flash or the fused FFN): per layer the
+    attention weights of each attention, a postprocess output per
+    sublayer and the FFN hidden, each where its rate is > 0."""
+    sites = 0
+    for i in range(stack.num_layers):
+        layer = getattr(stack, f"layer_{i}")
+        attentions = [layer.self_attention]
+        if getattr(layer, "with_cross_attention", False):
+            attentions.append(layer.cross_attention)
+        sites += sum(a.attention_dropout_rate > 0 for a in attentions)
+        if layer.layer_postprocess_dropout_rate > 0:
+            sites += len(attentions) + 1
+        sites += layer.ffn.dropout_rate > 0
+    return sites
+
+
+def trunk_expected_launches(model):
+    """Kernel launches of one training step of CTNMT or GPT-2: the mask
+    kernel at each dropout site forward and backward (CTNMT's BERT trunk
+    forward only in bert_distillation, whose teacher states are detached),
+    and nothing else: no flash (the stacks are dense, as in the JAX
+    models), no fused FFN (the JAX gate fuses relu at D 256 and 512;
+    these run D 768), no fused xent (neither model takes prelogits, as
+    the JAX gate decides)."""
+    from neurst_tpu_torch.ops.fused_ffn import fused_ffn_available
+    stacks = [s for s in (getattr(model, "encoder", None), model.decoder)
+              if s is not None]
+    for stack in stacks + ([model.bert.encoder]
+                           if hasattr(model, "bert") else []):
+        ffn = stack.layer_0.ffn
+        if fused_ffn_available(ffn.dense1.in_features,
+                               ffn.dense1.out_features, ffn.activation,
+                               1 << 20, True, ffn.dropout_rate):
+            raise AssertionError("a trunk stack would take the fused FFN")
+    if model.supports_fused_softmax_ce():
+        raise AssertionError("a trunk model would take the fused xent")
+    forward = backward = sum(_stack_sites(s) for s in stacks)
+    if hasattr(model, "bert"):
+        bert = _stack_sites(model.bert.encoder)
+        forward += bert
+        backward += 0 if model.bert_mode == "bert_distillation" else bert
+    expected = {k: 0 for k in TRUNK_KERNELS}
+    expected["fused_dropout"] = forward + backward
+    return expected
+
+
+def _trunk_step_checks(seen, model):
+    """Every step's launches equal ``trunk_expected_launches`` and
+    nothing launched outside the steps.  Returns a step's launches."""
+    expected = trunk_expected_launches(model)
+    total = {}
+    for s in seen["steps"]:
+        got = {k: s["launches"][k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"step of {s['trg']}: launches {got}, "
+                                 f"expected {expected}")
+        for k, v in s["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if total != seen["launches"]:
+        raise AssertionError(f"launches outside the train steps: "
+                             f"{seen['launches']} against {total}")
+    return expected
+
+
+def _restored_count(seen):
+    """(restored, total) of the trainer's pretrain restore log line."""
+    for m in seen["messages"]:
+        found = re.match(r"Restored (\d+)/(\d+) parameters", m)
+        if found:
+            return int(found.group(1)), int(found.group(2))
+    raise AssertionError("the trainer restored no pretrain model")
+
+
+# examples/ctnmt/example_configs/*.yml at their widths: BERT-base (12 x 768,
+# 12 heads) beside a 12-layer encoder and a 6-layer decoder of 768, Adam
+# (0.9, 0.98, 1e-9), noam (768, 4000), 8000-token buckets of 10-100
+# tokens; TextDataPipeline word vocabularies (the recipes' BERT vocab and
+# spm need files and sentencepiece the card lacks), no validator (the
+# recipe's first validation is at step 1000)
+CTNMT = dict(recipe_dir=os.path.join("examples", "ctnmt", "example_configs"),
+             src_vocab=BERT_BASE["vocab"], trg_vocab=16384, pairs=3000,
+             min_tokens=10, max_tokens=100, steps=30, summary=5,
+             predict_lines=64, mode_steps=1, check_batch=2, check_length=16,
+             model_params={})
+CTNMT_PREDICT = {"beam_size": 8, "length_penalty": 0.6,
+                 "extra_decode_length": 50, "maximum_decode_length": 200}
+CTNMT_CHECK_TOL = 1e-4
+
+
+def ctnmt_config(path, recipe, pipelines, train, bert_dir, steps,
+                 summary):
+    """The recipe as it is but its data (``TextDataPipeline`` a side, the
+    seeded pairs), ``pretrain_model`` (the ``bert/``-prefixed BERT dir),
+    the step counts and no validator."""
+    import yaml
+    with open(os.path.join(CTNMT["recipe_dir"], recipe)) as f:
+        cfg = yaml.safe_load(f)
+    task = dict(cfg["task.params"])
+    for side in ("src", "trg"):
+        task[f"{side}_data_pipeline.class"] = "TextDataPipeline"
+        task[f"{side}_data_pipeline.params"] = pipelines[side]
+    entry = {k: v for k, v in cfg["entry.params"].items()
+             if not k.startswith("validator")}
+    # one checkpoint, the trainer's final save (a save at the last step
+    # would write the same ~4.4 GB of weights and optimizer state twice)
+    entry.update(train_steps=steps, summary_steps=summary,
+                 save_checkpoint_steps=steps + 1, pretrain_model=[bert_dir],
+                 enable_tensorboard=False)
+    with open(path, "w") as f:
+        json.dump({"task.class": cfg["task.class"], "task.params": task,
+                   "dataset.class": "parallel_text",
+                   "dataset.params": _parallel(train),
+                   "model.class": cfg["model.class"],
+                   "model.params": dict(cfg["model.params"],
+                                        **CTNMT["model_params"]),
+                   "entry.class": "trainer", "entry.params": entry}, f,
+                  indent=1)
+    return path
+
+
+def _peak_bytes(device):
+    import torch
+    return torch.cuda.max_memory_allocated() if device == "cuda" else None
+
+
+def _reset_peak(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def ctnmt_phases(seed, root, bert_pt, device="cuda"):
+    """The slice's main path: the dynamic-switch recipe trains with its
+    BERT restored from the converted BERT-base and frozen, then predicts;
+    one step each of the rate_schedule (bert_as_encoder) and
+    asy_distillation (bert_distillation + the KD criterion) recipes; a
+    float32 card-vs-CPU loss.  Returns the launch counts by path."""
+    import torch
+
+    from neurst_tpu_torch import build_criterion, build_model
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.layers.auto_pretrained_layer import \
+        load_pretrained_flat
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.tasks.translation import Translation
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params,
+                                                    save_checkpoint)
+    from neurst_tpu_torch.utils.configurable import ModelConfigs
+    from neurst_tpu_torch.utils.param_bridge import (load_flat_params,
+                                                     state_dict_to_flat)
+    from neurst_tpu_torch.utils.rng import make_key
+
+    c = CTNMT
+    start = time.perf_counter()
+    rng = np.random.RandomState(seed + 110)
+    words, pipelines = {}, {}
+    for side, size in (("src", c["src_vocab"]), ("trg", c["trg_vocab"])):
+        vocab = os.path.join(root, f"ctnmt_vocab.{side}")
+        words[side] = write_word_vocab(vocab, rng, size - 3)
+        pipelines[side] = {"vocab_path": vocab}
+    train = write_parallel(os.path.join(root, "ctnmt_train"), rng,
+                           words["src"], words["trg"], c["pairs"],
+                           c["min_tokens"], c["max_tokens"])
+    dev = write_parallel(os.path.join(root, "ctnmt_dev"), rng, words["src"],
+                         words["trg"], c["predict_lines"], c["min_tokens"],
+                         c["max_tokens"])
+    # the converted BERT-base under CTNMT's ``bert/`` (load_pretrained_flat
+    # then the prefix, as load_pretrained_into(..., to_prefix="bert/"))
+    bert = {"bert/" + k: v for k, v in load_pretrained_flat(
+        bert_pt, "bert", BERT_BASE["heads"]).items()}
+    bert_dir = os.path.join(root, "bert_prefixed")
+    save_checkpoint(bert_dir, 0, bert, max_to_keep=None)
+    write_s = time.perf_counter() - start
+
+    launches = {}
+    rows = {}
+    main_dir = os.path.join(root, "ctnmt_trainer")
+    for name, recipe, steps in (
+            ("ctnmt_trainer", "dynamic_switch.yml", c["steps"]),
+            ("ctnmt_bert_as_encoder", "rate_schedule.yml", c["mode_steps"]),
+            ("ctnmt_distillation", "asy_distillation.yml",
+             c["mode_steps"])):
+        cfg = ctnmt_config(os.path.join(root, f"{name}.json"), recipe,
+                           pipelines, train, bert_dir, steps, c["summary"]
+                           if steps > c["summary"] else 1)
+        # the one-step mode runs write no model dir (no checkpoint)
+        argv = ["--config_paths", cfg, "--device", device] + (
+            ["--model_dir", main_dir] if name == "ctnmt_trainer" else [])
+        _reset_peak(device)
+        state, seen = run_trainer(argv, Translation)
+        _train_path_checks(seen, steps, name)
+        model = seen["model"]
+        n_bert = sum(1 for n, _ in model.named_parameters()
+                     if n.startswith("bert."))
+        restored = _restored_count(seen)
+        if restored[0] != n_bert or n_bert != 7 + 12 * BERT_BASE["layers"]:
+            raise AssertionError(f"{name}: restored {restored} of "
+                                 f"{n_bert} BERT parameters")
+        per_step = _trunk_step_checks(seen, model)
+        launches[name] = seen["launches"]
+        # bf16 stored params start from bf16(pretrain) and keep it: the
+        # float32 master of every frozen BERT weight (what a checkpoint
+        # saves) is that value after the steps
+        master = state_dict_to_flat(model, state.opt_state["master"])
+        moved = [k for k in bert if not np.array_equal(
+            master[k], torch.from_numpy(bert[k]).bfloat16().float().numpy())]
+        if moved:
+            raise AssertionError(f"{name}: frozen BERT moved: {moved[:4]}")
+        row = dict(_trainer_numbers(seen, _peak_bytes(device)),
+                   recipe=os.path.join(c["recipe_dir"], recipe),
+                   bert_mode=model.bert_mode,
+                   bert_restored=restored[0], launches_per_step=per_step,
+                   step_ms=[None] + [1e3 * w["secs_per_step"]
+                                     for w in seen["windows"]],
+                   losses=[s["loss"] for s in seen["steps"]])
+        if name == "ctnmt_distillation":
+            crit = build_criterion({
+                "criterion.class": "label_smoothed_cross_entropy_with_kd",
+                "criterion.params": {"label_smoothing": 0.1,
+                                     "kd_weight": 0.5}})
+            batch = nmt_batch(np.random.RandomState(seed + 111), device,
+                              c["check_batch"], c["check_length"],
+                              c["src_vocab"], c["trg_vocab"])
+            with torch.no_grad():
+                out, _ = model.call_train(batch, False, make_key(seed))
+                row["kd_term"] = float(crit._kd_term(batch, out))
+            if not (math.isfinite(row["kd_term"]) and row["kd_term"] > 0):
+                raise AssertionError(f"KD term {row['kd_term']}")
+        if not all(math.isfinite(x) for x in row["losses"]):
+            raise AssertionError(f"{name}: losses {row['losses']}")
+        rows[name] = row
+        del model, seen, state
+
+    # predict: the recipe validator's search over 64 dev sentences
+    argv = ["--entry", "predict", "--model_dir", main_dir,
+            "--dataset.class", "parallel_text", "--dataset.params",
+            json.dumps(_parallel(dev)), "--search_method.params",
+            json.dumps(CTNMT_PREDICT), "--metric", "bleu",
+            "--device", device]
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = run_exp.cli_main(argv)
+    predict_s = time.perf_counter() - start
+    launches["ctnmt_predict"] = launch_counts()
+    if result["samples"] != c["predict_lines"] or any(
+            launches["ctnmt_predict"].values()):
+        raise AssertionError(f"ctnmt predict: {result['samples']} samples, "
+                             f"launches {launches['ctnmt_predict']}")
+
+    # float32 loss of one fixed batch on the card and on the CPU
+    cfg = ModelConfigs.load(main_dir)
+    flat = restore_checkpoint_params(latest_checkpoint(main_dir))
+    losses = {}
+    for dev_name in (device, "cpu"):
+        src_meta = {"vocab_size": c["src_vocab"], "eos_id": 1, "bos_id": 2}
+        trg_meta = {"vocab_size": c["trg_vocab"], "eos_id": 1, "bos_id": 2}
+        model = build_model({"model.class": cfg["model.class"],
+                             "model.params": dict(cfg["model.params"],
+                                                  dtype="float32")},
+                            src_meta=src_meta, trg_meta=trg_meta,
+                            device=dev_name)
+        load_flat_params(model, flat)
+        batch = nmt_batch(np.random.RandomState(seed + 112), dev_name,
+                          c["check_batch"], c["check_length"],
+                          c["src_vocab"], c["trg_vocab"])
+        crit = build_criterion({"criterion.class":
+                                "label_smoothed_cross_entropy",
+                                "criterion.params": {"label_smoothing": 0.1}})
+        with torch.no_grad():
+            losses[dev_name] = float(crit.reduce_loss(batch, model(batch)))
+        del model
+    rel = abs(losses[device] - losses["cpu"]) / abs(losses["cpu"])
+    emit({"phase": "ctnmt", "reduced": {
+        "data": "seeded word-level pairs through TextDataPipeline (the "
+                "recipes' BertDataPipeline vocab and spm need files and "
+                "sentencepiece the card lacks)",
+        "steps": {k: len(r["losses"]) for k, r in rows.items()},
+        "validator": "none (the recipe's first is at step 1000)"},
+        "pairs": c["pairs"], "tokens_a_sentence": [c["min_tokens"],
+                                                   c["max_tokens"]],
+        "vocab": [c["src_vocab"], c["trg_vocab"]],
+        "write_inputs_s": write_s, **rows,
+        "predict": {"search": CTNMT_PREDICT, "samples": result["samples"],
+                    "samples_per_s": result["samples_per_sec"],
+                    "wall_s": predict_s, "timing_s": result["timing"],
+                    "BLEU": result.get("BLEU")},
+        "float32_check": {"loss": losses[device], "cpu_loss": losses["cpu"],
+                          "rel_err": rel, "tol": CTNMT_CHECK_TOL}})
+    if rel > CTNMT_CHECK_TOL:
+        raise AssertionError(f"ctnmt float32 loss on the card {losses}")
+    return launches
+
+
+# GPT-2 117M language modelling (``--hparams_set gpt2_117m``) from the
+# converted GPT-2: TextDataPipeline over a seeded 50,257-entry vocabulary
+# whose last entry is its eos (where GPT-2 has <|endoftext|>);
+# 256-1024-token sequences in 8192-token buckets, the hparams set's
+# dropout 0.1
+GPT2_LM = dict(hparams_set="gpt2_117m", vocab=GPT2_117M["vocab"],
+               train_lines=300, heldout_lines=32, min_tokens=256,
+               max_tokens=1024, batch_tokens=8192, steps=20, summary=5,
+               prompts=32, min_prompt=16, max_prompt=64, continuation=64,
+               check_prompt=32)
+GPT2_CHECK_TOL = 1e-3
+
+
+def write_mono(path, rng, words, n, min_tokens, max_tokens):
+    """``n`` lines of random words, each ``min_tokens``-``max_tokens``
+    tokens with its EOS."""
+    with open(path, "w") as f:
+        for length in rng.randint(min_tokens, max_tokens + 1, size=n):
+            f.write(" ".join(words[i] for i in rng.randint(
+                len(words), size=int(length) - 1)) + "\n")
+    return path
+
+
+def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
+    """GPT-2 117M through ``run_exp``: train from the converted
+    checkpoint, eval (PPL on held-out text), predict (prompts continued
+    by beam 4 and by top_sampling), and float32 logits of one prompt on
+    the card against the CPU.  Returns the launch counts by path."""
+    import torch
+
+    from neurst_tpu_torch import build_model
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.models.gpt2 import GPT2
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.tasks.language_model import LanguageModel
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params)
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    g = GPT2_LM
+    start = time.perf_counter()
+    rng = np.random.RandomState(seed + 120)
+    vocab = os.path.join(root, "gpt2_vocab.txt")
+    # the pipeline appends <UNK>, <SEQ_BEG> and <SEQ_END>: the eos is the
+    # last id, as GPT-2's <|endoftext|> (binding that string through
+    # ``eos_id`` does not survive into model_configs.yml: ROADMAP R12)
+    words = write_word_vocab(vocab, rng, g["vocab"] - 3)
+    pipeline = {"vocab_path": vocab}
+    train = write_mono(os.path.join(root, "lm_train.txt"), rng, words,
+                       g["train_lines"], g["min_tokens"], g["max_tokens"])
+    heldout = write_mono(os.path.join(root, "lm_heldout.txt"), rng, words,
+                         g["heldout_lines"], g["min_tokens"],
+                         g["max_tokens"])
+    prompts = write_mono(os.path.join(root, "lm_prompts.txt"), rng, words,
+                         g["prompts"], g["min_prompt"], g["max_prompt"])
+    write_s = time.perf_counter() - start
+    cfg = os.path.join(root, "lm.json")
+    with open(cfg, "w") as f:
+        json.dump({
+            "task.class": "lm",
+            "task.params": {"data_pipeline.class": "TextDataPipeline",
+                            "data_pipeline.params": pipeline,
+                            "batch_by_tokens": True,
+                            "batch_size": g["batch_tokens"],
+                            "max_trg_len": g["max_tokens"]},
+            "dataset.class": "mono_text",
+            "dataset.params": {"data_file": train},
+            "hparams_set": g["hparams_set"], "entry.class": "trainer",
+            "entry.params": {
+                "criterion.class": "label_smoothed_cross_entropy",
+                "optimizer.class": "adam",
+                "optimizer.params": {"epsilon": 1e-8, "beta_1": 0.9,
+                                     "beta_2": 0.999},
+                "lr_schedule.class": "constant",
+                "lr_schedule.params": {"learning_rate": 1e-4},
+                "pretrain_model": [gpt2_dir], "train_steps": g["steps"],
+                "summary_steps": g["summary"],
+                "save_checkpoint_steps": g["steps"] + 1,
+                "enable_tensorboard": False}}, f, indent=1)
+    model_dir = os.path.join(root, "lm_model")
+    _reset_peak(device)
+    _, seen = run_trainer(["--config_paths", cfg, "--model_dir", model_dir,
+                           "--device", device], LanguageModel)
+    _train_path_checks(seen, g["steps"], "gpt2_trainer")
+    model = seen["model"]
+    restored = _restored_count(seen)
+    n_params = sum(1 for _ in model.parameters())
+    if restored[0] != n_params:
+        raise AssertionError(f"gpt2: restored {restored} of {n_params}")
+    per_step = _trunk_step_checks(seen, model)
+    train_row = dict(_trainer_numbers(seen, _peak_bytes(device)),
+                     restored=restored[0], launches_per_step=per_step)
+    del model, seen
+    launches = {"gpt2_trainer": launch_counts()}
+
+    evaluated = run_exp.cli_main([
+        "--entry", "eval", "--model_dir", model_dir, "--dataset.class",
+        "mono_text", "--dataset.params", json.dumps({"data_file": heldout}),
+        "--batch_size", "8", "--device", device])
+    predict = {}
+    reset_launch_counts()
+    for name, method, params in (
+            ("beam4", "beam_search", {"beam_size": 4}),
+            ("top_sampling", "top_sampling", {"top_k": 8, "seed": seed})):
+        start = time.perf_counter()
+        result = run_exp.cli_main([
+            "--entry", "predict", "--model_dir", model_dir,
+            "--dataset.class", "mono_text", "--dataset.params",
+            json.dumps({"data_file": prompts}), "--search_method", method,
+            "--search_method.params", json.dumps(dict(
+                params, maximum_decode_length=g["continuation"])),
+            "--batch_size", str(g["prompts"]), "--device", device])
+        predict[name] = {"samples": result["samples"],
+                         "samples_per_s": result["samples_per_sec"],
+                         "wall_s": time.perf_counter() - start,
+                         "timing_s": result["timing"]}
+        if result["samples"] != g["prompts"]:
+            raise AssertionError(f"gpt2 {name}: {result['samples']}")
+    launches["gpt2_predict"] = launch_counts()
+
+    # float32 logits of one prompt, card against CPU
+    flat = restore_checkpoint_params(latest_checkpoint(model_dir))
+    ids = np.random.RandomState(seed + 121).randint(
+        4, g["vocab"], size=(1, g["check_prompt"]))
+    logits = {}
+    for dev_name in (device, "cpu"):
+        model = build_model({"model.class": "gpt2", "model.params": dict(
+            GPT2.build_model_args_by_name(g["hparams_set"])["model.params"],
+            dtype="float32")}, trg_meta={"vocab_size": g["vocab"],
+                                         "eos_id": g["vocab"] - 1},
+            device=dev_name)
+        load_flat_params(model, flat)
+        with torch.no_grad():
+            logits[dev_name] = model({"trg_input": ids}).cpu()
+        del model
+    rel = _rel_err(logits[device], logits["cpu"])
+    emit({"phase": "gpt2_lm", "hparams_set": g["hparams_set"], "dtype":
+          "bfloat16", "dropout": 0.1, "write_inputs_s": write_s,
+          "lines": [g["train_lines"], g["heldout_lines"], g["prompts"]],
+          "tokens_a_line": [g["min_tokens"], g["max_tokens"]],
+          "train": train_row, "eval": {"PPL": evaluated["PPL"],
+                                       "NLL": evaluated["NLL"]},
+          "predict": predict, "predict_launches": launches["gpt2_predict"],
+          "float32_check": {"rel_err": rel, "tol": GPT2_CHECK_TOL}})
+    if any(launches["gpt2_predict"].values()) or rel > GPT2_CHECK_TOL \
+            or not math.isfinite(evaluated["PPL"]):
+        raise AssertionError("gpt2_lm phase failed")
+    return launches
+
+
+WAV2VEC2_INPUT = dict(batch=8, samples=160000, frames=499, iters=5)
+WAV2VEC2_CHECK_TOL = 1e-3
+
+
+def wav2vec2_phase(seed, w2v_dir, device="cuda"):
+    """The converted wav2vec2-base forward over [8, 160000] samples
+    (10 s at 16 kHz) in bf16 and float32: device ms, output frames; the
+    float32 output of one utterance on the card against the CPU."""
+    import torch
+
+    from neurst_tpu_torch import build_model
+    from neurst_tpu_torch.models.wav2vec2 import wav2vec2_output_length
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params)
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    w = WAV2VEC2_INPUT
+    widths = {"num_layers": WAV2VEC2_BASE["layers"],
+              "hidden_size": WAV2VEC2_BASE["dim"],
+              "num_attention_heads": WAV2VEC2_BASE["heads"],
+              "filter_size": WAV2VEC2_BASE["filter"]}
+    flat = restore_checkpoint_params(latest_checkpoint(w2v_dir))
+    wav = (0.1 * np.random.RandomState(seed + 130).randn(
+        w["batch"], w["samples"])).astype(np.float32)
+    row = {"phase": "wav2vec2", "input": [w["batch"], w["samples"]],
+           "frames_expected": wav2vec2_output_length(w["samples"])}
+    reset_launch_counts()
+    outs = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model({"model.class": "wav2vec2",
+                             "model.params": dict(widths, dtype=dtype)},
+                            device=device)
+        load_flat_params(model, flat)
+        inputs = {"src": torch.from_numpy(wav).to(device)}
+        with torch.no_grad():
+            out = model(inputs)
+            row[f"{dtype}_ms"] = time_ms(lambda: model(inputs),
+                                         iters=w["iters"], warmup=1)
+        enc = out["encoder_outputs"]
+        row[f"{dtype}_frames"] = int(enc.shape[1])
+        if enc.shape[1] != w["frames"] or not torch.isfinite(
+                enc.float()).all():
+            raise AssertionError(f"wav2vec2 {dtype}: {tuple(enc.shape)}")
+        if dtype == "float32":
+            outs[device] = enc[:1].cpu()
+            cpu = build_model({"model.class": "wav2vec2",
+                               "model.params": dict(widths, dtype=dtype)},
+                              device="cpu")
+            load_flat_params(cpu, flat)
+            with torch.no_grad():
+                outs["cpu"] = cpu({"src": wav[:1]})["encoder_outputs"]
+        del model
+    row["launches"] = launch_counts()
+    row["float32_check"] = {"rel_err": _rel_err(outs[device], outs["cpu"]),
+                            "tol": WAV2VEC2_CHECK_TOL}
+    emit(row)
+    if row["float32_check"]["rel_err"] > WAV2VEC2_CHECK_TOL:
+        raise AssertionError("wav2vec2: the card's float32 output disagrees "
+                             "with the CPU's")
+    return row["launches"]
+
+
+def pretrained_phases(seed, device="cuda"):
+    """Slice 10 under ``build/pretrained_smoke/`` (removed after): convert,
+    reference_golden, ctnmt, gpt2_lm and wav2vec2, with each phase's wall
+    seconds.  Returns the launch counts by path."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "pretrained_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages, launches = {}, {}
+    try:
+        start = time.perf_counter()
+        converted = convert_phase(seed, root)
+        stages["convert"] = time.perf_counter() - start
+        start = time.perf_counter()
+        reference_golden_phase(device)
+        stages["reference_golden"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches.update(ctnmt_phases(seed, root, converted["bert"][0],
+                                     device))
+        stages["ctnmt"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches.update(gpt2_lm_phases(seed, root, converted["gpt2"][1],
+                                       device))
+        stages["gpt2_lm"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["wav2vec2"] = wav2vec2_phase(seed, converted["wav2vec2"][1],
+                                              device)
+        stages["wav2vec2"] = time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "pretrained", "stage_wall_s": stages,
+          "total_s": sum(stages.values())})
+    return launches
+
+
+# bench.py's long-audio cells (bench.py:444-536): speech_transformer_s's
+# encoder over 4 x 8192 frames (T = 2048 after the two stride-2
+# convolutions), dense against flash, forward and forward + backward, bf16
+LONG_AUDIO = dict(batch=4, frames=8192, lengths=(8192, 6000, 8192, 4100),
+                  iters=3)
+
+
+def flash_long_audio_kernel_phase(seed):
+    """Flash forward, dq and dk/dv at the long-audio encoder's [4, 2048,
+    4, 64] (lengths 2048, 1500, 2048, 1025; no dropout) against the plain
+    versions (whose [4, 4, 2048, 2048] scores fit), f32 and bf16; the
+    bf16 kernel, plain, library and bound times.  Returns {(kernel,
+    dtype): row}."""
+    import torch
+    from torch.nn import functional as F
+
+    from neurst_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 140)
+    b, n, h = LONG_AUDIO["batch"], 4, 64
+    t = LONG_AUDIO["frames"] // 4
+    lens = torch.tensor([-(-(-(-x // 2)) // 2) for x in
+                         LONG_AUDIO["lengths"]], dtype=torch.int32,
+                        device="cuda")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        qkv = torch.from_numpy(rng.randn(b, t, 3, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.from_numpy(rng.randn(b, t, n, h).astype(
+            np.float32)).to("cuda", dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, lens, False)
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, lens, False)
+        delta = fa._delta(o, do)
+        args = (q, k, v, do, lse, delta, lens, False)
+        got = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(*args)
+        want = fa._bwd_plain(*args)
+        torch.cuda.synchronize()
+        tol, lse_tol = KERNEL_TOL[name]
+        errs = {"fwd": _abs_err(o, o_ref), "lse": _abs_err(lse, lse_ref)}
+        errs.update({g: _rel_err(x, y) for g, x, y in zip(
+            ("dq", "dk", "dv"), got, want)})
+        if errs["fwd"] > tol or errs["lse"] > lse_tol or max(
+                errs[g] for g in ("dq", "dk", "dv")) > BWD_TOL[name]:
+            raise AssertionError(f"flash at the long-audio shape, {name}: "
+                                 f"{errs}")
+        timed = name == "bfloat16"
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            mask = _key_mask(lens, t, False)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+            library_fwd = time_ms(sdpa)
+            library_bwd = time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), do.transpose(1, 2))) - library_fwd
+            plain_fwd = time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, lens, False), iters=3)
+            plain_bwd = time_ms(lambda: fa._bwd_plain(*args), iters=3)
+        for kernel, fn, fargs, err in (
+                ("fwd", fa.flash_attention_fwd, (q, k, v, lens, False),
+                 errs["fwd"]),
+                ("dq", fa.flash_attention_dq, args, errs["dq"]),
+                ("dkv", fa.flash_attention_dkv, args,
+                 max(errs["dk"], errs["dv"]))):
+            bound, bound_by = attention_bound_ms(q, lens, False, kernel)
+            row = {"phase": "kernel", "kernel": f"flash_attention_{kernel}",
+                   "case": "long_audio", "dtype": name,
+                   "shape": [b, t, n, h], "causal": False,
+                   "lengths": lens.tolist(), "max_abs_err": err,
+                   "errors": errs, "kernel_ms": time_ms(lambda: fn(*fargs))
+                   if timed else None,
+                   "plain_ms": (plain_fwd if kernel == "fwd" else plain_bwd)
+                   if timed else None,
+                   "library_ms": (library_fwd if kernel == "fwd"
+                                  else library_bwd) if timed else None,
+                   "bound_ms": bound, "bound_by": bound_by}
+            emit(row)
+            results[(kernel, name)] = row
+    return results
+
+
+def long_audio_phase(seed, device="cuda"):
+    """bench.py's long-audio cells on the port: ``speech_transformer_s``
+    (seeded weights, bf16 compute) encodes 4 x 8192 frames with the dense
+    and the flash encoder, forward and forward + backward: device ms of
+    each, flash against dense outputs within ``ENCODER_TOL``, the flash
+    kernels' launches.  Returns the launch counts of the flash runs."""
+    import torch
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    a = LONG_AUDIO
+    cfg = SpeechTransformer.build_model_args_by_name(SLICE["model"])
+    params = dict(cfg["model.params"], dtype="bfloat16")
+    params["encoder.enable_flash_attention"] = True
+    model = neurst_tpu_torch.build_model(
+        dict(cfg, **{"model.params": params}),
+        src_meta={"audio_feature_dim": SLICE["feature_dim"],
+                  "audio_feature_channels": 1},
+        trg_meta={"vocab_size": SLICE["vocab"], "eos_id": 1, "bos_id": 2},
+        device=device)
+    load_flat_params(model, speech_transformer_flat_params(
+        cfg, SLICE["vocab"], SLICE["feature_dim"], seed))
+    rng = np.random.RandomState(seed + 141)
+    inputs = {"src": torch.from_numpy(rng.randn(
+        a["batch"], a["frames"], SLICE["feature_dim"], 1).astype(
+        np.float32)).to(device),
+        "src_length": torch.tensor(a["lengths"], dtype=torch.int32,
+                                   device=device)}
+
+    def forward():
+        with torch.no_grad():
+            return model.encode(inputs)
+
+    def forward_backward():
+        enc, padding = model.encode(inputs)
+        (enc.float() * (1.0 - padding)[:, :, None]).sum().backward()
+
+    row = {"phase": "long_audio", "model": SLICE["model"], "dtype":
+           "bfloat16", "batch": a["batch"], "frames": a["frames"],
+           "lengths": list(a["lengths"])}
+    outs, counts = {}, {}
+    for name, flash in (("dense", False), ("flash", True)):
+        model.encoder.enable_flash_attention = flash
+        outs[name], padding = forward()
+        reset_launch_counts()
+        forward()
+        forward_backward()
+        counts[name] = launch_counts()
+        row[f"{name}_fwd_ms"] = time_ms(forward, iters=a["iters"], warmup=1)
+        row[f"{name}_fwd_bwd_ms"] = time_ms(forward_backward,
+                                            iters=a["iters"], warmup=1)
+    layers = model.encoder.num_layers
+    want_flash = {"flash_attention_fwd": 2 * layers,
+                  "flash_attention_dq": layers, "flash_attention_dkv": layers}
+    valid = (1.0 - padding)[:, :, None].bool()
+    rel = float(((outs["flash"].float() - outs["dense"].float()).abs()
+                 * valid).max() / outs["dense"].float().abs().max())
+    row.update({"time_after_subsampling": int(outs["flash"].shape[1]),
+                "flash_vs_dense_rel_err": rel, "tol": ENCODER_TOL[1],
+                "launches": {k: counts["flash"][k] for k in want_flash},
+                "dense_launches": {k: counts["dense"][k]
+                                   for k in want_flash}})
+    emit(row)
+    if rel > ENCODER_TOL[1] or any(counts["dense"][k] for k in want_flash) \
+            or any(counts["flash"][k] != v for k, v in want_flash.items()) \
+            or row["time_after_subsampling"] != a["frames"] // 4:
+        raise AssertionError(f"long_audio phase failed: {row}")
+    del model
+    return counts["flash"]
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -5176,6 +6347,7 @@ def main(argv=None):
     flash_drop_rows = flash_dropout_kernel_phase(args.seed)
     flash_bucket_kernel_phase(args.seed)
     waitk_flash_rows = flash_waitk_kernel_phase(args.seed)
+    long_flash_rows = flash_long_audio_kernel_phase(args.seed)
     xent_rows = xent_kernel_phase(args.seed)
     softmax_rows = softmax_xent_kernel_phase(args.seed)
     dropout_rows = dropout_kernel_phase(args.seed)
@@ -5199,6 +6371,8 @@ def main(argv=None):
         args.seed)
     by_path.update(multitask_phases(args.seed, train_dropout_row))
     by_path.update(waitk_phases(args.seed))
+    by_path.update(pretrained_phases(args.seed))
+    by_path["long_audio"] = long_audio_phase(args.seed)
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
@@ -5206,13 +6380,16 @@ def main(argv=None):
     rows = {  # name -> (main row, {label: row of another case})
         "flash_attention_fwd": (fwd_rows[main_bf16], {
             "with_dropout": flash_drop_rows[("fwd",) + main_bf16],
-            "waitk_train": waitk_flash_rows[("fwd", "bfloat16")]}),
+            "waitk_train": waitk_flash_rows[("fwd", "bfloat16")],
+            "long_audio": long_flash_rows[("fwd", "bfloat16")]}),
         "flash_attention_dq": (bwd_rows[("dq",) + main_bf16], {
             "with_dropout": flash_drop_rows[("dq",) + main_bf16],
-            "waitk_train": waitk_flash_rows[("dq", "bfloat16")]}),
+            "waitk_train": waitk_flash_rows[("dq", "bfloat16")],
+            "long_audio": long_flash_rows[("dq", "bfloat16")]}),
         "flash_attention_dkv": (bwd_rows[("dkv",) + main_bf16], {
             "with_dropout": flash_drop_rows[("dkv",) + main_bf16],
-            "waitk_train": waitk_flash_rows[("dkv", "bfloat16")]}),
+            "waitk_train": waitk_flash_rows[("dkv", "bfloat16")],
+            "long_audio": long_flash_rows[("dkv", "bfloat16")]}),
         "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], {}),
         "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], {}),
         "fused_dropout": (dropout_rows[main_bf16], {

@@ -7,3 +7,4 @@ from neurst_tpu_torch.data.text import character  # noqa: F401
 from neurst_tpu_torch.data.text import jieba_tokenizer  # noqa: F401
 from neurst_tpu_torch.data.text import moses  # noqa: F401
 from neurst_tpu_torch.data.text import subtokenizer  # noqa: F401
+from neurst_tpu_torch.data.text import huggingface_tokenizer  # noqa: F401

@@ -6,7 +6,9 @@ The cache is a dict
     {"layer_0": {"self": {keys, values}, "memory": {keys, values}}, ...}
 with self keys/values [B, max_decode_len, N, H] (static shape, written
 in place at each step) and memory keys/values [B, src_len, N, H]
-(precomputed once).
+(precomputed once).  A decoder without cross-attention (GPT-2's,
+``with_cross_attention=False``, as the JAX decoder's switch) has no
+``cross_attention`` blocks and no "memory" entries.
 """
 
 import torch
@@ -30,9 +32,11 @@ class TransformerDecoder(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
+                 with_cross_attention: bool = True,
                  dtype=torch.float32, side: int = SIDE_DECODER):
         super().__init__()
         self.num_layers = num_layers
+        self.with_cross_attention = with_cross_attention
         self.side = side
         self.num_heads = num_attention_heads
         self.head_dim = hidden_size // num_attention_heads
@@ -44,7 +48,8 @@ class TransformerDecoder(nn.Module):
                 hidden_size, num_attention_heads, filter_size,
                 ffn_activation, post_normalize, layer_postprocess_epsilon,
                 attention_dropout_rate, ffn_dropout_rate,
-                layer_postprocess_dropout_rate, dtype))
+                layer_postprocess_dropout_rate, dtype,
+                with_cross_attention=with_cross_attention))
         if not post_normalize:
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)
@@ -53,18 +58,25 @@ class TransformerDecoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
     def create_decoding_internal_cache(self, encoder_outputs,
-                                       decode_padded_length: int):
-        """Zeroed self-attention buffers + precomputed cross k/v."""
-        batch = encoder_outputs.shape[0]
+                                       decode_padded_length: int,
+                                       batch_size=None, device=None):
+        """Zeroed self-attention buffers + precomputed cross k/v (without
+        cross-attention ``encoder_outputs`` is None and ``batch_size`` and
+        ``device`` size the buffers)."""
+        batch = batch_size if encoder_outputs is None \
+            else encoder_outputs.shape[0]
+        device = device if encoder_outputs is None \
+            else encoder_outputs.device
         cache = {}
         for i, layer in enumerate(self._layers()):
             def zeros():
                 return torch.zeros(
                     (batch, decode_padded_length, self.num_heads,
                      self.head_dim), dtype=self.dtype,
-                    device=encoder_outputs.device)
+                    device=device)
             layer_cache = {"self": {"keys": zeros(), "values": zeros()}}
-            layer_cache.update(layer.memorize_memory(encoder_outputs))
+            if self.with_cross_attention:
+                layer_cache.update(layer.memorize_memory(encoder_outputs))
             cache[f"layer_{i}"] = layer_cache
         return cache
 

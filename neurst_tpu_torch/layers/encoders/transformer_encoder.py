@@ -26,9 +26,10 @@ class TransformerEncoder(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, side: int = SIDE_ENCODER):
         super().__init__()
         self.num_layers = num_layers
+        self.side = side
         self.post_normalize = post_normalize
         self.attention_monotonic = bool(attention_monotonic)
         self.enable_flash_attention = bool(enable_flash_attention)
@@ -47,8 +48,9 @@ class TransformerEncoder(nn.Module):
         """inputs [B, T, D]; inputs_padding [B, T] float (1 = pad).
         Padding is contiguous on the right, so with flash attention a
         per-row valid length encodes it for the kernel.  Layer i draws
-        its dropout masks from stream ``SIDE_ENCODER << 16 | i << 4`` of
-        ``dropout_key``."""
+        its dropout masks from stream ``side << 16 | i << 4`` of
+        ``dropout_key`` (``side`` is ``SIDE_ENCODER`` unless the model
+        gives another)."""
         flash_lengths = bias = None
         if self.enable_flash_attention:
             flash_lengths = (1.0 - inputs_padding).sum(dim=1).to(torch.int32)
@@ -63,7 +65,7 @@ class TransformerEncoder(nn.Module):
                 x, bias, flash_lengths=flash_lengths,
                 flash_causal=self.attention_monotonic,
                 is_training=is_training,
-                dropout_key=at_site(dropout_key, SIDE_ENCODER << 16 | i << 4))
+                dropout_key=at_site(dropout_key, self.side << 16 | i << 4))
         if not self.post_normalize:
             x = self.output_ln(x)
         return x

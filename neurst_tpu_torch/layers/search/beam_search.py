@@ -93,11 +93,14 @@ def sequence_beam_search(symbols_to_logits_fn: Callable,
     beam_base = (torch.arange(bb, device=device) // beam_size) * beam_size
     not_first_beam = (torch.arange(bb, device=device) % beam_size) > 0
 
+    # a prompt-prefilled decoder (GPT-2) writes step t at cache position
+    # t + offset
+    time_offset = int(generation_initializer.get("decode_time_offset", 0))
     time = 0
     while time < max_steps and not bool(finished.all()):
         if use_indirection:
             # a beam's own step-t entry is written to its own row
-            cache["beam_anc"][:, :, time] = beam_range[None, :]
+            cache["beam_anc"][:, :, time + time_offset] = beam_range[None, :]
         logits, new_cache = symbols_to_logits_fn(input_ids, cache, time)
         vocab_size = logits.shape[-1]
         log_probs = torch.log_softmax(logits.float(), dim=-1)

@@ -80,17 +80,19 @@ class TransformerDecoderLayer(_LayerCommon):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, with_cross_attention: bool = True):
         super().__init__(hidden_size, num_attention_heads, filter_size,
                          ffn_activation, post_normalize,
                          layer_postprocess_epsilon, attention_dropout_rate,
                          ffn_dropout_rate, layer_postprocess_dropout_rate,
                          dtype)
-        self.cross_attention = MultiHeadAttention(
-            num_attention_heads, hidden_size, attention_dropout_rate,
-            dtype=dtype)
-        self.cross_attention_ln = LayerNorm(
-            hidden_size, layer_postprocess_epsilon, dtype)
+        self.with_cross_attention = with_cross_attention
+        if with_cross_attention:
+            self.cross_attention = MultiHeadAttention(
+                num_attention_heads, hidden_size, attention_dropout_rate,
+                dtype=dtype)
+            self.cross_attention_ln = LayerNorm(
+                hidden_size, layer_postprocess_epsilon, dtype)
 
     def memorize_memory(self, memory):
         """Precomputed cross-attention k/v for decoding."""
@@ -119,14 +121,16 @@ class TransformerDecoderLayer(_LayerCommon):
                 is_training=is_training,
                 dropout_key=at_site(dropout_key, SELF_ATTENTION)),
             is_training, at_site(dropout_key, SELF_ATTENTION_OUT))
-        x = self._prepost(
-            self.cross_attention_ln, x,
-            lambda y: self.cross_attention(
-                y, memory=memory, bias=memory_bias,
-                cache=None if cache is None else cache["memory"],
-                flash_lengths=cross_flash_lengths, is_training=is_training,
-                dropout_key=at_site(dropout_key, CROSS_ATTENTION)),
-            is_training, at_site(dropout_key, CROSS_ATTENTION_OUT))
+        if self.with_cross_attention:
+            x = self._prepost(
+                self.cross_attention_ln, x,
+                lambda y: self.cross_attention(
+                    y, memory=memory, bias=memory_bias,
+                    cache=None if cache is None else cache["memory"],
+                    flash_lengths=cross_flash_lengths,
+                    is_training=is_training,
+                    dropout_key=at_site(dropout_key, CROSS_ATTENTION)),
+                is_training, at_site(dropout_key, CROSS_ATTENTION_OUT))
         return self._prepost(
             self.ffn_ln, x,
             lambda y: self.ffn(y, is_training, at_site(dropout_key, FFN)),

@@ -98,7 +98,7 @@ class BaseModel(nn.Module):
         with torch.no_grad():
             for module in self.modules():
                 own = dict(module.named_parameters(recurse=False))
-                if isinstance(module, (nn.Linear, nn.Conv2d)):
+                if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                     draw = (_glorot_uniform if id(module) in glorot
                             else lecun_normal)
                     module.weight.copy_(draw(module.weight.shape, generator))

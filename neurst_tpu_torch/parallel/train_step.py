@@ -43,6 +43,15 @@ class TrainState:
         return cls(step=0, params=params, opt_state=tx.init(params))
 
 
+def _grad(loss, leaves):
+    """d loss / d leaves, zeros for a parameter the loss does not reach
+    (BERT's pooler in CTNMT, the detached teacher trunk of its
+    distillation mode), as JAX's gradient gives them."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
                     lr_schedule: Optional[Callable] = None):
@@ -67,7 +76,7 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         if update_cycle == 1:
             out, aux = model.call_train(batch, want_prelogits, rng)
             loss = criterion.reduce_loss(batch, out) + aux
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grad(loss, leaves)
             return loss.detach(), aux.detach(), dict(zip(names, grads))
 
         # accumulate in float32 even when the params (hence the grads)
@@ -83,7 +92,7 @@ def make_train_step(model, criterion, tx: GradientTransformation,
             micro_loss, micro_denom = criterion.reduce_loss_terms(micro, out)
             # the auxiliary loss weighs by the micro-batch's token count
             micro_aux = aux * micro_denom.detach()
-            grads = torch.autograd.grad(micro_loss + micro_aux, leaves)
+            grads = _grad(micro_loss + micro_aux, leaves)
             torch._foreach_add_(acc, [g.float() for g in grads])
             loss_sum = loss_sum + micro_loss.detach()
             denom = denom + micro_denom.detach()

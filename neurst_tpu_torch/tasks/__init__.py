@@ -4,3 +4,4 @@ from neurst_tpu_torch.tasks import seq2seq  # noqa: F401
 from neurst_tpu_torch.tasks import speech2text  # noqa: F401
 from neurst_tpu_torch.tasks import translation  # noqa: F401
 from neurst_tpu_torch.tasks import waitk_translation  # noqa: F401
+from neurst_tpu_torch.tasks import language_model  # noqa: F401

@@ -12,7 +12,13 @@ softmax's ``output_linear`` kernel, a learned position table
 (``<modality>/position_weights``, taken as it is), and LightConv's
 ``layer_<i>_conv`` layers (``in_proj``, ``out_proj``, the dynamic
 convolution's ``conv_weight_linear`` as dense kernels; the lightweight
-``conv_shared_weight`` [H, K] as it is).  The layouts change as
+``conv_shared_weight`` [H, K] as it is); the pretrained trunks' names:
+BERT's (``word_embedding``, ``position_embedding``,
+``token_type_embedding`` as they are, ``emb_ln``, ``pooler``, and
+CTNMT's ``bert/`` sub-tree with its ``ds_gate_w`` / ``ds_gate_u``),
+GPT-2's decoder without ``cross_attention``, and wav2vec 2.0's
+``feature_conv_<i>``, ``feature_gn``, ``feature_proj(_ln)``,
+``pos_conv`` and ``post_extract_ln``.  The layouts change as
 follows:
 
 * dense kernels: flax ``[in, out]`` -> ``nn.Linear`` ``[out, in]``
@@ -21,7 +27,9 @@ follows:
   ``kv_transform`` kernels ``[D, n, N, H]`` -> ``[n * N * H, D]``, their
   biases ``[n, N, H]`` -> ``[n * N * H]``; ``output_transform`` kernel
   ``[N, H, D]`` -> ``[D, N * H]``;
-* conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
+* conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``, and 1-D
+  conv kernels ``[k, in / groups, out]`` -> ``[out, in / groups, k]``
+  (wav2vec 2.0's feature convolutions and grouped ``pos_conv``);
 * the scan-stacked layout ``<stack>/layers/layer/...`` (a leading
   layer axis) is unstacked into ``<stack>/layer_<i>/...``;
 * bfloat16 arrays (also raw ``|V2`` bytes) become float32, exactly.
@@ -75,6 +83,8 @@ def _to_torch_layout(name: str, a: np.ndarray):
             a = a.reshape(-1, a.shape[-1]).T
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 3:
+            a = a.transpose(2, 1, 0)
         elif a.ndim == 2:
             a = a.T
         else:
@@ -134,6 +144,8 @@ def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
             a = a.T.reshape(heads, head_dim, a.shape[0])
         elif a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 3:
+            a = a.transpose(2, 1, 0)
         elif a.ndim == 2:
             a = a.T
         else:

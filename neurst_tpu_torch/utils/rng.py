@@ -18,7 +18,7 @@ from typing import List, NamedTuple, Optional
 
 __all__ = ["DropoutKey", "make_key", "fold_in", "split", "at_site",
            "site_words", "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER",
-           "SIDE_ASR_DECODER"]
+           "SIDE_ASR_DECODER", "SIDE_BERT"]
 
 _MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -29,8 +29,9 @@ _FOLD, _SPLIT = 0xF01D0000, 0x5B170000
 # stream = side << 16 | layer << 4 | site (sites numbered per layer in
 # ``layers/transformer_layers.py``); the multi-task speech model's
 # transcript decoder has a side of its own, so its masks are not the
-# translation decoder's
-SIDE_ENCODER, SIDE_DECODER, SIDE_ASR_DECODER = 1, 2, 3
+# translation decoder's, and so has a BERT trunk (CTNMT runs one beside
+# its own encoder)
+SIDE_ENCODER, SIDE_DECODER, SIDE_ASR_DECODER, SIDE_BERT = 1, 2, 3, 4
 
 
 def _mulhilo(m: int, c):

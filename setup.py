@@ -51,6 +51,8 @@ setup(
             "neurst_tpu_torch.cli.view_registry:main",
             "neurst-tpu-torch-simuleval = "
             "neurst_tpu_torch.cli.simuleval_cli:main",
+            "neurst-tpu-torch-convert-checkpoint = "
+            "neurst_tpu_torch.cli.convert_checkpoint:main",
         ],
     },
 )

@@ -1,8 +1,10 @@
 """The port stands alone: importing ``neurst_tpu_torch`` (every module of
 it, and each subpackage of the predict path on its own) loads no JAX and
 nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
-neither; an entry point without ``device=`` on a host without CUDA
-raises, the predict, cascade and simuleval CLIs included; ``setup.py``
+neither; the converters and the pretrained trunks' modules import no
+TensorFlow either; an entry point without ``device=`` on a host without
+CUDA raises, the predict, cascade and simuleval CLIs included (the
+host-only converter CLI runs without one); ``setup.py``
 ships every kernel source and header; and ``chip_smoke.py`` fails without
 a card.
 Each check runs in a fresh interpreter so this process's own JAX
@@ -113,6 +115,71 @@ def test_wait_k_lightconv_and_sampling_modules_load_no_jax(module):
         "sys.exit(1 if bad else 0)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+PRETRAINED_MODULES = [
+    "neurst_tpu_torch.cli.convert_checkpoint",
+    "neurst_tpu_torch.utils.converters",
+    "neurst_tpu_torch.utils.converters.converter",
+    "neurst_tpu_torch.utils.converters.tf_bundle",
+    "neurst_tpu_torch.utils.converters.neurst_transformer",
+    "neurst_tpu_torch.utils.converters.fairseq_transformer",
+    "neurst_tpu_torch.utils.converters.google_bert",
+    "neurst_tpu_torch.utils.converters.openai_gpt2",
+    "neurst_tpu_torch.utils.converters.fairseq_wav2vec2",
+    "neurst_tpu_torch.layers.auto_pretrained_layer",
+    "neurst_tpu_torch.models.bert", "neurst_tpu_torch.models.gpt2",
+    "neurst_tpu_torch.models.wav2vec2",
+    "neurst_tpu_torch.models.ctnmt_transformer",
+    "neurst_tpu_torch.criterions.label_smoothed_cross_entropy_with_kd",
+    "neurst_tpu_torch.tasks.language_model",
+    "neurst_tpu_torch.data.text.huggingface_tokenizer",
+    "neurst_tpu_torch.data.data_pipelines.bert_data_pipeline",
+    "neurst_tpu_torch.data.data_pipelines.gpt2_data_pipeline"]
+
+
+@pytest.mark.parametrize("module", PRETRAINED_MODULES)
+def test_pretrained_trunk_modules_load_no_jax_or_tensorflow(module):
+    """The converters, the pretrained models and their task and data
+    modules import neither JAX nor ``neurst_tpu`` nor TensorFlow."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu', 'tensorflow'))\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(PACKAGE, "utils", "converters", f)
+    for f in os.listdir(os.path.join(PACKAGE, "utils", "converters"))
+    if f.endswith(".py")), ids=os.path.basename)
+def test_converters_never_mention_tensorflow_imports(path):
+    """The TF-free bundle reader replaces the JAX converter's ``import
+    tensorflow``: no converter source imports it, even lazily."""
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r"^\s*(import|from)\s+tensorflow\b", text,
+                         re.MULTILINE), path
+    assert "tensorflow as tf" not in text, path
+
+
+def test_convert_checkpoint_cli_runs_without_a_card(tmp_path):
+    """The converter CLI is host-only: it converts on a CUDA-less host
+    without ``--device``."""
+    fixture = os.path.join(REPO, "tests", "fixtures", "reference_goldens",
+                           "tf_ckpt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "neurst_tpu_torch.cli.convert_checkpoint",
+         "--converter", "neurst_transformer", "--from_path", fixture,
+         "--to_path", str(tmp_path / "out"), "--num_heads", "2"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert (tmp_path / "out" / "ckpt-0.npz").exists()
 
 
 def test_simuleval_cli_without_device_raises_on_a_cuda_less_host(tmp_path):

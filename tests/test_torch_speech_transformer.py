@@ -8,7 +8,7 @@ decode-step logits within 1e-4; the full ``BeamSearch`` hypotheses
 identical up to the first EOS and scores within 1e-4, against the JAX
 decode with ``decode_unroll=1`` and ``prefix_decode_chunk=0``; and the
 reference golden logits of ``speech_transformer_toy.npz`` through the
-JAX converter and the bridge.
+port's own converter and the bridge.
 """
 
 import json
@@ -167,9 +167,9 @@ def test_beam_search_without_cache_indirection(pair):
 
 
 def test_reference_golden_logits():
-    """Reference (TF) weights -> JAX converter -> param_bridge -> port
-    logits equal the golden reference logits."""
-    from neurst_tpu.utils.converters.neurst_transformer import \
+    """Reference (TF) weights -> the port's own converter -> param_bridge
+    -> port logits equal the golden reference logits."""
+    from neurst_tpu_torch.utils.converters.neurst_transformer import \
         map_reference_variables
     with np.load(GOLDEN) as d:
         blob = {k: d[k] for k in d.files}
