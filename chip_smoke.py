@@ -224,6 +224,25 @@ exits non-zero):
                forward and forward + backward (bf16); the kernel phase
                holds the flash forward, dq and dk/dv at [4, 2048, 4, 64]
                against their plain versions.
+   spec_*   -- speculative decoding through ``run_exp --entry predict``
+               against plain greedy, in bfloat16 and float32 (target
+               passes, tokens committed and host synchronisations a pass,
+               samples/s; every row equal to plain greedy but from a
+               near-tie, ``SPEC_TIE_TOL``): spec_speech after predict on
+               its dir (n-gram, k 4; flash 12 a batch), spec_text after
+               mt_quality on its dir (the committed n-gram and draft ymls,
+               a 300-step transformer_256_3e_1d draft, sampling top_k 8),
+               spec_gpt2 after gpt2_lm on its dir (prompt lookup, 64
+               tokens).
+   multilingual -- must-c/mt_training_args.yml's flags on the
+               multilingual task (``MULTILINGUAL``): 12 steps of
+               transformer_base over four directions of a seeded
+               three-language corpus, every step a full bucket with its
+               launches, each direction's share; 5 steps with the target
+               tag on the source and ``enable_profiler`` (the trace holds
+               the card's kernels); predict per direction (no tag in a
+               hypothesis, R13's start token); one float32 batch's loss
+               on the card against the CPU.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -238,6 +257,7 @@ The script imports nothing of JAX and nothing of ``neurst_tpu``.
 import argparse
 import ast
 import contextlib
+import glob
 import io
 import json
 import math
@@ -1782,7 +1802,8 @@ def predict_phase(seed):
     split, the first batch's latency and peak memory.  Then the float32
     card-vs-CPU check: the CLI on 4 short utterances with ``--dtype
     float32`` gives the same hypotheses with ``--device cuda`` and
-    ``--device cpu``.  Returns the launch counts of the CLI run."""
+    ``--device cpu``.  Then spec_speech on the same dir.  Returns the
+    launch counts of the CLI run and of spec_speech."""
     import torch
 
     from neurst_tpu_torch.cli import run_exp
@@ -1817,6 +1838,7 @@ def predict_phase(seed):
                 ["--config_paths", paths["check"], "--model_dir",
                  paths["model_dir"], "--dtype", "float32", "--device",
                  device])["hypotheses"]
+        spec_counts = spec_speech_phase(paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     flash = counts["flash_attention_fwd"]
@@ -1845,7 +1867,7 @@ def predict_phase(seed):
             and len(check["cpu"]) == PREDICT["check_utterances"]
             and math.isfinite(result["BLEU"])):
         raise AssertionError(f"predict phase failed: {row}")
-    return {"flash_attention_fwd": flash}
+    return {"flash_attention_fwd": flash}, spec_counts
 
 
 def encoder_cross_check_phase(model, inputs):
@@ -2436,15 +2458,15 @@ def trainer_config(path, records, pipeline, task=None, model=None,
     return path
 
 
-def run_trainer(argv, task_cls=None):
+def run_trainer(argv, task_cls=None, inspect=None):
     """``run_exp.cli_main(argv)`` in-process with the launch counts set to
     0 before and read after, the task's (``SpeechToText`` by default)
     TRAIN iterator wrapped to time each ``next()`` and record each
     batch's shape, each train step's launches recorded with its batch's
     shape, ``Trainer._save`` and ``SeqGenerationValidator.validate``
-    timed, each batch's text token counts (and a wait-k batch's lagging),
-    and the log lines kept.  Returns the trainer's final state and what
-    it measured."""
+    timed, each batch's text token counts (and a wait-k batch's lagging,
+    and ``inspect(batch)`` where given), and the log lines kept.  Returns
+    the trainer's final state and what it measured."""
     import logging
 
     import torch
@@ -2465,7 +2487,7 @@ def run_trainer(argv, task_cls=None):
     task_cls = task_cls or SpeechToText
     seen = {"wait_s": 0.0, "shapes": [], "rows": [], "save_s": [],
             "validate_s": [], "steps": [], "messages": [], "tokens": [],
-            "laggings": []}
+            "laggings": [], "inspected": []}
     originals = {
         (task_cls, "create_batch_iterator"): task_cls.create_batch_iterator,
         (Trainer, "_save"): Trainer._save, (Trainer, "run"): Trainer.run,
@@ -2497,6 +2519,8 @@ def run_trainer(argv, task_cls=None):
                     if k in batch})
                 if "waitk_lagging" in batch:
                     seen["laggings"].append(int(batch["waitk_lagging"]))
+                if inspect is not None:
+                    seen["inspected"].append(inspect(batch))
                 yield batch
         return timed
 
@@ -3240,13 +3264,16 @@ def nmt_reference_check(seed, root, devices=("cuda", "cpu")):
                              f"with the CPU's: {row}")
 
 
-def mt_quality_phase(root, device="cuda", recipe=None):
-    """examples/quality/mt_synth_base.yml (transformer_base, bf16 with an
-    f32 master, update_cycle 2, on the committed reversal corpus) cut to
-    ``quality_steps`` steps, a log every ``quality_summary`` and one
-    validation at the end on dev's first ``quality_dev_lines`` lines: the
-    mean loss must fall from quarter to quarter (QUALITY_r05's
-    ``loss_monotone_by_quarter``); prints the BLEU."""
+def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
+                     name="quality"):
+    """examples/quality/mt_synth_base.yml (transformer_base, or
+    ``hparams_set``, bf16 with an f32 master, update_cycle 2, on the
+    committed reversal corpus) cut to ``quality_steps`` steps, a log every
+    ``quality_summary`` and one validation at the end on dev's first
+    ``quality_dev_lines`` lines, into ``<root>/<name>``: the mean loss
+    must fall from quarter to quarter (QUALITY_r05's
+    ``loss_monotone_by_quarter``); prints the BLEU.  Returns the row, with
+    the model dir and the dev files."""
     import yaml
 
     from neurst_tpu_torch.tasks.translation import Translation
@@ -3267,6 +3294,8 @@ def mt_quality_phase(root, device="cuda", recipe=None):
         with open(dev[side], "w") as f:
             f.write("\n".join(lines) + "\n")
     steps = t["quality_steps"]
+    if hparams_set:
+        cfg["hparams_set"] = hparams_set
     cfg["entry.class"] = "trainer"
     cfg["entry.params"].update(
         train_steps=steps, summary_steps=t["quality_summary"],
@@ -3274,18 +3303,19 @@ def mt_quality_phase(root, device="cuda", recipe=None):
     cfg["entry.params"]["validator.params"].update(
         {"eval_steps": steps, "eval_start_at": steps,
          "eval_dataset.params": _parallel(dev)})
-    path = os.path.join(root, "quality.json")
+    path = os.path.join(root, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
+    model_dir = os.path.join(root, name)
     _, seen = run_trainer(["--config_paths", path, "--model_dir",
-                           os.path.join(root, "quality"), "--device",
-                           device], Translation)
+                           model_dir, "--device", device], Translation)
     _train_path_checks(seen, steps, "mt_quality")
     losses = [w["loss"] for w in seen["windows"]]
     q = len(losses) // 4
     quarters = [float(np.mean(losses[i * q:(i + 1) * q])) for i in range(4)]
     row = {"phase": "mt_quality", "recipe": "examples/quality/"
-           "mt_synth_base.yml", "steps": steps,
+           "mt_synth_base.yml", "hparams_set": cfg.get("hparams_set"),
+           "steps": steps,
            "dev_lines": t["quality_dev_lines"],
            "loss_trajectory": [[w["step"], w["loss"]]
                                for w in seen["windows"]],
@@ -3300,12 +3330,13 @@ def mt_quality_phase(root, device="cuda", recipe=None):
     if not (row["loss_monotone_by_quarter"] and len(seen["validations"]) == 1
             and math.isfinite(seen["validations"][0]["value"])):
         raise AssertionError(f"mt_quality phase failed: {row}")
-    return row
+    return dict(row, model_dir=model_dir, dev=dev)
 
 
 def nmt_phases(seed, device="cuda"):
     """The text path's phases under ``build/nmt_smoke/``, removed after.
-    Returns the launch counts of the trainer's run A and of predict."""
+    Returns the launch counts of the trainer's run A, of predict and of
+    spec_text."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "nmt_smoke")
     shutil.rmtree(root, ignore_errors=True)
@@ -3317,10 +3348,12 @@ def nmt_phases(seed, device="cuda"):
                                            device)
         if device == "cuda":
             nmt_reference_check(seed, root)
-        mt_quality_phase(root, device)
+        quality = mt_quality_phase(root, device)
+        spec_counts = spec_text_phase(seed, root, quality["model_dir"],
+                                      quality["dev"], device)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return trainer_counts, predict_counts
+    return trainer_counts, predict_counts, spec_counts
 
 
 # Stages 02-03 of the MuST-C ST recipe
@@ -5904,8 +5937,9 @@ def write_mono(path, rng, words, n, min_tokens, max_tokens):
 def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
     """GPT-2 117M through ``run_exp``: train from the converted
     checkpoint, eval (PPL on held-out text), predict (prompts continued
-    by beam 4 and by top_sampling), and float32 logits of one prompt on
-    the card against the CPU.  Returns the launch counts by path."""
+    by beam 4 and by top_sampling), spec_gpt2 on the trained dir, and
+    float32 logits of one prompt on the card against the CPU.  Returns
+    the launch counts by path."""
     import torch
 
     from neurst_tpu_torch import build_model
@@ -5997,6 +6031,8 @@ def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
         if result["samples"] != g["prompts"]:
             raise AssertionError(f"gpt2 {name}: {result['samples']}")
     launches["gpt2_predict"] = launch_counts()
+    launches["spec_gpt2"] = spec_gpt2_phase(root, model_dir, prompts,
+                                            device)
 
     # float32 logits of one prompt, card against CPU
     flat = restore_checkpoint_params(latest_checkpoint(model_dir))
@@ -6286,6 +6322,625 @@ def long_audio_phase(seed, device="cuda"):
     return counts["flash"]
 
 
+# ----------------------- speculative decoding (slice 11) ---------------- #
+
+# speculative decoding through ``run_exp --entry predict`` against plain
+# greedy (``top_sampling`` top_k 1) on three trained or converted dirs:
+# the committed examples/speculative_decoding ymls layered over a predict
+# config (spec_text), the n-gram draft on the speech dir (spec_speech,
+# no source lookup: the source is audio) and prompt lookup on GPT-2
+# (spec_gpt2); each in bfloat16 (the serving dtype) and float32
+SPEC = dict(k=4, text_batch=64, max_len=160,
+            draft_hparams="transformer_256_3e_1d", sampling_top_k=8,
+            speech_max_len=150, gpt2_continuation=64)
+SPEC_YMLS = os.path.join("examples", "speculative_decoding",
+                         "example_configs")
+# a speculative decode may differ from plain greedy only from a step where
+# the plain decode's two best log-probs lie this close (a k-row and a
+# 1-row product may round a near-tie apart)
+SPEC_TIE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@contextlib.contextmanager
+def _decode_recorder():
+    """Records, inside a predict run: each plain-greedy batch's ids and
+    the masked log-probs of each of its steps (``top_sampling``'s loop),
+    and each speculative batch's ids, target passes, tokens emitted and
+    the host synchronisations inside its decode loop (torch's sync debug
+    mode on the card)."""
+    import warnings
+
+    import torch
+
+    from neurst_tpu_torch.layers.search import sampling, speculative
+
+    rec = {"greedy": [], "spec": [], "syncs": 0, "steps": []}
+    originals = {(sampling, "masked_step_log_probs"):
+                 sampling.masked_step_log_probs,
+                 (sampling.TopSampling, "__call__"):
+                 sampling.TopSampling.__call__,
+                 (speculative.SpeculativeDecode, "__call__"):
+                 speculative.SpeculativeDecode.__call__,
+                 (speculative, "speculative_greedy_decode"):
+                 speculative.speculative_greedy_decode}
+
+    def masked(*a, **kw):
+        lp = originals[sampling, "masked_step_log_probs"](*a, **kw)
+        rec["steps"].append(lp)
+        return lp
+
+    def greedy_call(self, inputs):
+        rec["eos"] = getattr(self.model, "generation_meta",
+                             self.model.trg_meta)["eos_id"]
+        rec["steps"] = []
+        ids, scores = originals[sampling.TopSampling, "__call__"](self,
+                                                                  inputs)
+        top2 = torch.stack([lp.topk(2, dim=-1).values
+                            for lp in rec["steps"]])
+        rec["greedy"].append({"ids": ids.cpu(),
+                              "gaps": (top2[..., 0] - top2[..., 1]).cpu()})
+        rec["steps"] = []
+        return ids, scores
+
+    def spec_call(self, inputs):
+        ids, scores = originals[speculative.SpeculativeDecode, "__call__"](
+            self, inputs)
+        rec["spec"].append({
+            "ids": ids.cpu(), "passes": self.last_stats["target_passes"],
+            "tokens": self.last_stats["tokens_emitted"].cpu()})
+        return ids, scores
+
+    def counted_decode(*a, **kw):
+        if not torch.cuda.is_available():
+            return originals[speculative, "speculative_greedy_decode"](
+                *a, **kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return originals[speculative, "speculative_greedy_decode"](
+                    *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                rec["syncs"] += sum("synchroniz" in str(w.message)
+                                    for w in caught)
+
+    sampling.masked_step_log_probs = masked
+    sampling.TopSampling.__call__ = greedy_call
+    speculative.SpeculativeDecode.__call__ = spec_call
+    speculative.speculative_greedy_decode = counted_decode
+    try:
+        yield rec
+    finally:
+        for (owner, name), value in originals.items():
+            setattr(owner, name, value)
+
+
+def _tie_check(greedy, spec, eos, tol):
+    """Each speculative row against the plain greedy row (to the first EOS
+    within the plain loop's steps): returns (rows, the near-tie cases:
+    rows that first differ at a step whose two best plain log-probs lie
+    within ``tol``); raises on a row that differs anywhere else."""
+    rows, cases = 0, []
+    for b, (g, s) in enumerate(zip(greedy, spec)):
+        steps = g["gaps"].shape[0]
+        for r, (want, got) in enumerate(zip(g["ids"][:, :steps].tolist(),
+                                            s["ids"][:, :steps].tolist())):
+            rows += 1
+            want = want[:want.index(eos) + 1] if eos in want else want
+            got = got[:got.index(eos) + 1] if eos in got else got
+            if want == got:
+                continue
+            j = next((i for i, (a, c) in enumerate(zip(want, got))
+                      if a != c), min(len(want), len(got)))
+            gap = float(g["gaps"][j, r])
+            case = {"batch": b, "row": r, "step": j, "top2_gap": gap,
+                    "plain": want[j:j + 4], "speculative": got[j:j + 4]}
+            if gap > tol:
+                raise AssertionError(f"speculative decode differs from "
+                                     f"plain greedy off a near-tie: {case}")
+            cases.append(case)
+    return rows, cases
+
+
+def _spec_stats(rec, result, wall_s):
+    passes = sum(s["passes"] for s in rec["spec"])
+    per_row = sum(float(s["tokens"].float().mean()) for s in rec["spec"])
+    return {"samples": result["samples"],
+            "samples_per_s": result["samples_per_sec"], "wall_s": wall_s,
+            "decode_s": result["timing"]["decode_s"],
+            "target_passes": passes,
+            "tokens_committed_per_pass": per_row / max(passes, 1),
+            "host_syncs_per_pass": rec["syncs"] / max(passes, 1),
+            "batches": len(rec["spec"])}
+
+
+def spec_predict_runs(argv, greedy, searches, device="cuda",
+                      dtypes=("bfloat16", "float32")):
+    """``run_exp --entry predict`` with ``argv`` (config, model dir,
+    dataset) under plain greedy (``top_sampling`` top_k 1 with the length
+    flags ``greedy``) and each speculative search of ``searches`` ({name:
+    argv}), in each dtype: samples/s, wall and decode seconds, target
+    passes (and plain greedy's steps over them), tokens committed a pass
+    (the JAX package's mean tokens emitted over passes, a row that has
+    finished counting 0), host syncs a pass, and the tie check of every
+    speculative row against plain greedy.  Returns the rows and the launch
+    counts of the whole set of runs."""
+    import torch
+
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    greedy = ["--search_method", "top_sampling", "--search_method.params",
+              json.dumps(dict(greedy, top_k=1))]
+    rows = {}
+    reset_launch_counts()
+    for dtype in dtypes:
+        for name, extra in [("greedy", greedy)] + list(searches.items()):
+            with _decode_recorder() as rec:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = run_exp.cli_main(argv + extra + [
+                    "--dtype", dtype, "--device", device])
+                wall_s = time.perf_counter() - start
+            if name == "greedy":
+                plain, eos = rec["greedy"], rec["eos"]
+                rows[dtype, name] = {
+                    "samples": result["samples"],
+                    "samples_per_s": result["samples_per_sec"],
+                    "wall_s": wall_s,
+                    "decode_s": result["timing"]["decode_s"],
+                    "target_passes": sum(g["gaps"].shape[0] for g in plain)}
+                continue
+            row = _spec_stats(rec, result, wall_s)
+            row["greedy_steps_per_pass"] = rows[dtype, "greedy"][
+                "target_passes"] / max(row["target_passes"], 1)
+            if name != "sampling":
+                row["rows"], row["near_tie_cases"] = _tie_check(
+                    plain, rec["spec"], eos, SPEC_TIE_TOL[dtype])
+                row["differing_rows"] = len(row["near_tie_cases"])
+            rows[dtype, name] = row
+            if result["samples"] != rows[dtype, "greedy"]["samples"]:
+                raise AssertionError(f"{name} {dtype}: {result['samples']} "
+                                     f"samples")
+    return {f"{d}_{n}": r for (d, n), r in rows.items()}, launch_counts()
+
+
+def _predict_json(path, dataset, batch_size, **extra):
+    with open(path, "w") as f:
+        json.dump(dict(dataset, **extra, **{"entry.class": "predict",
+                                            "batch_size": batch_size}),
+                  f, indent=1)
+    return path
+
+
+def spec_text_phase(seed, root, model_dir, dev, device="cuda"):
+    """Speculative decoding on mt_quality's 300-step ``mt_synth_base.yml``
+    dir over its 128 dev lines (batch 64): plain greedy; the committed
+    n-gram yml layered over the predict config; the committed draft yml
+    with a ``transformer_256_3e_1d`` draft trained 300 steps by the same
+    recipe; speculative sampling (top_k 8) once.  Returns the launch
+    counts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    draft = mt_quality_phase(root, device, hparams_set=SPEC[
+        "draft_hparams"], name="spec_draft")["model_dir"]
+    draft_s = time.perf_counter() - start
+    config = _predict_json(os.path.join(root, "spec_predict.json"),
+                           {"dataset.class": "parallel_text",
+                            "dataset.params": _parallel(dev)},
+                           SPEC["text_batch"], **{"metric.class": "bleu"})
+    k, max_len = SPEC["k"], SPEC["max_len"]
+
+    def layered(yml, params):
+        return ["--config_paths", config + "," + os.path.join(
+            here, SPEC_YMLS, yml), "--search_method.params",
+            json.dumps(dict(params, speculative_k=k,
+                            maximum_decode_length=max_len))]
+    searches = {
+        "ngram": layered("prediction_spec_ngram_args.yml", {
+            "draft_method": "ngram", "draft_ngram": 3,
+            "draft_lookup_source": True}),
+        "draft": layered("prediction_spec_draft_args.yml",
+                         {"draft_model_dir": draft}),
+        "sampling": layered("prediction_spec_ngram_args.yml", {
+            "draft_method": "ngram", "sampling": True,
+            "top_k": SPEC["sampling_top_k"], "seed": seed})}
+    argv = ["--config_paths", config, "--model_dir", model_dir]
+    rows, counts = spec_predict_runs(
+        argv, {"maximum_decode_length": max_len}, searches, device)
+    emit({"phase": "spec_text", "recipe": "examples/quality/"
+          "mt_synth_base.yml", "model": "transformer_base", "draft":
+          SPEC["draft_hparams"], "draft_train_s": draft_s, "k": k,
+          "lines": NMT_TRAINER["quality_dev_lines"],
+          "batch": SPEC["text_batch"], "tie_tol": SPEC_TIE_TOL,
+          "runs": rows, "launches": counts})
+    return counts
+
+
+def spec_speech_phase(paths, device="cuda"):
+    """Speculative n-gram decoding (k 4, no source lookup) against plain
+    greedy through ``--entry predict`` on the predict phase's
+    ``speech_transformer_s`` dir (64 utterances, batch 16, max 150), in
+    bfloat16 and float32: the flash forward must launch 12 times a batch
+    of every run.  Returns the launch counts."""
+    max_len = SPEC["speech_max_len"]
+    searches = {"ngram": [
+        "--search_method", "speculative_decode", "--search_method.params",
+        json.dumps({"draft_method": "ngram", "draft_ngram": 3,
+                    "speculative_k": SPEC["k"],
+                    "maximum_decode_length": max_len})]}
+    argv = ["--config_paths", paths["main"], "--model_dir",
+            paths["model_dir"]]
+    rows, counts = spec_predict_runs(
+        argv, {"maximum_decode_length": max_len}, searches, device)
+    batches = -(-PREDICT["utterances"] // PREDICT["batch"])
+    expected = 12 * batches * 4  # (greedy + ngram) x two dtypes
+    emit({"phase": "spec_speech", "model": PREDICT["model"], "k": SPEC["k"],
+          "utterances": PREDICT["utterances"], "batch": PREDICT["batch"],
+          "tie_tol": SPEC_TIE_TOL, "runs": rows, "launches": counts,
+          "flash_fwd_expected": expected})
+    if device == "cuda" and counts["flash_attention_fwd"] != expected:
+        raise AssertionError(f"spec_speech: flash launches "
+                             f"{counts['flash_attention_fwd']}, expected "
+                             f"{expected}")
+    return counts
+
+
+def spec_gpt2_phase(root, model_dir, prompts, device="cuda"):
+    """Prompt-lookup speculative decoding (the n-gram draft over each
+    prompt, k 4) of gpt2_lm's GPT-2 117M dir against plain greedy: 32
+    prompts of 16-64 tokens continued by 64 tokens (the minimum length:
+    each prompt ends in the EOS the pipeline appends, after which the
+    20-step model emits EOS), bfloat16 and float32.  Returns the launch
+    counts."""
+    cont = SPEC["gpt2_continuation"]
+    lengths = {"maximum_decode_length": cont, "minimum_decode_length": cont}
+    config = _predict_json(os.path.join(root, "spec_gpt2.json"), {
+        "dataset.class": "mono_text",
+        "dataset.params": {"data_file": prompts}}, GPT2_LM["prompts"])
+    searches = {"ngram": [
+        "--search_method", "speculative_decode", "--search_method.params",
+        json.dumps(dict(lengths, draft_method="ngram", draft_ngram=3,
+                        speculative_k=SPEC["k"]))]}
+    rows, counts = spec_predict_runs(
+        ["--config_paths", config, "--model_dir", model_dir], lengths,
+        searches, device)
+    emit({"phase": "spec_gpt2", "model": GPT2_LM["hparams_set"],
+          "k": SPEC["k"], "prompts": GPT2_LM["prompts"],
+          "continuation": cont, "tie_tol": SPEC_TIE_TOL, "runs": rows,
+          "launches": counts})
+    return counts
+
+
+# -------------------- multilingual translation (slice 11) --------------- #
+
+# must-c/mt_training_args.yml's trainer flags (32,768-token buckets, max
+# 128 / 128, transformer_base with Adam and noam, label smoothing 0.1)
+# on the multilingual task: four directions (en->de, de->en, en->fr,
+# fr->en) mixed at 0.25 each by ``mixed_train`` over a seeded word corpus
+# of three languages (disjoint lexicons of one joint 32,768-entry
+# vocabulary, tags included), the source tag on, the target tag as BOS;
+# transformer_base with a shared source/target embedding and tied softmax,
+# dropout 0.1, bf16 with an f32 master
+MULTILINGUAL = dict(hparams_set="transformer_base", vocab=32768,
+                    languages=("en", "de", "fr"), pairs=8000, min_tokens=5,
+                    max_tokens=127, steps=12, save_every=6, summary=2,
+                    src_steps=5, predict_lines=64, predict_batch=64,
+                    check_tokens=2048, share_tol=0.05)
+MULTILINGUAL_TASK = {"batch_by_tokens": True, "batch_size": 32768,
+                     "max_src_len": 128, "max_trg_len": 128,
+                     "with_src_lang_tag": True,
+                     "trg_lang_tag_position": "trg"}
+DIRECTIONS = {"en2de": ("en", "de"), "de2en": ("de", "en"),
+              "en2fr": ("en", "fr"), "fr2en": ("fr", "en")}
+MULTILINGUAL_CHECK_TOL = 1e-5
+
+
+def write_multilingual_corpus(root, rng, cfg=MULTILINGUAL):
+    """A joint vocabulary of ``vocab`` - 6 words (the pipeline adds <UNK>,
+    <SEQ_BEG>, <SEQ_END> and a tag a language) split into three disjoint
+    lexicons; en-de and en-fr training pairs and, per direction, 64 dev
+    pairs.  Returns (vocab path, {direction: (src, trg) train files},
+    {direction: dev dataset params})."""
+    vocab = os.path.join(root, "vocab.joint")
+    words = write_word_vocab(vocab, rng, cfg["vocab"] - 3 - len(
+        cfg["languages"]))
+    order = rng.permutation(len(words))
+    lexicon = {lang: [words[i] for i in order[j::len(cfg["languages"])]]
+               for j, lang in enumerate(cfg["languages"])}
+    train, dev = {}, {}
+    for other in ("de", "fr"):
+        pair = write_parallel(os.path.join(root, f"train.en{other}"), rng,
+                              lexicon["en"], lexicon[other], cfg["pairs"],
+                              cfg["min_tokens"], cfg["max_tokens"])
+        train[f"en2{other}"] = (pair["src"], pair["trg"])
+        train[f"{other}2en"] = (pair["trg"], pair["src"])
+    for name, (src, trg) in DIRECTIONS.items():
+        pair = write_parallel(os.path.join(root, f"dev.{name}"), rng,
+                              lexicon[src], lexicon[trg],
+                              cfg["predict_lines"], cfg["min_tokens"],
+                              cfg["max_tokens"])
+        dev[name] = {"src_file": pair["src"], "trg_file": pair["trg"],
+                     "src_lang": src, "trg_lang": trg}
+    return vocab, train, dev
+
+
+def multilingual_config(path, vocab, train, steps, save_every, summary,
+                        **task):
+    cfg = MULTILINGUAL
+    with open(path, "w") as f:
+        json.dump({
+            "task.class": "multilingual_translation",
+            "task.params": dict(MULTILINGUAL_TASK, **{
+                "multilingual_dp.params": {
+                    "vocab_path": vocab, "languages": list(cfg["languages"]),
+                    "tokenizer": None}}, **task),
+            "dataset.class": "mixed_train",
+            "dataset.params": {
+                "data_files": {name: {
+                    "dataset.class": "multilingual_translation_dataset",
+                    "dataset.params": {
+                        "src_file": train[name][0],
+                        "trg_file": train[name][1],
+                        "src_lang": src, "trg_lang": trg}}
+                    for name, (src, trg) in DIRECTIONS.items()},
+                "data_sampler.class": "data_sampler",
+                "data_sampler.params": {"sample_ratios": {
+                    name: 1.0 / len(DIRECTIONS) for name in DIRECTIONS}}},
+            "hparams_set": cfg["hparams_set"],
+            "model.params": {"modality.share_source_target_embedding": True},
+            "dtype": "bfloat16", "entry.class": "trainer",
+            "entry.params": {
+                "criterion.class": "label_smoothed_cross_entropy",
+                "criterion.params": {"label_smoothing": 0.1},
+                "train_steps": steps, "summary_steps": summary,
+                "save_checkpoint_steps": save_every,
+                "enable_tensorboard": False}}, f, indent=1)
+    return path
+
+
+def _direction_tags(batch):
+    """Each real row's (first source id, first target input id): the source
+    tag and the target tag with the src tag on and the target tag as
+    BOS."""
+    real = batch["sample_mask"] > 0
+    return list(zip(batch["src"][real, 0].tolist(),
+                    batch["trg_input"][real, 0].tolist()))
+
+
+def multilingual_train_phase(seed, root, vocab, train, device="cuda"):
+    """12 steps of the recipe (``MULTILINGUAL``) through ``run_exp --entry
+    train``: window tokens/s, the data-wait share, checkpoint seconds, peak
+    memory, every step a full bucket with its launches against
+    ``expected_launches``, each direction's share of the examples against
+    its ratio; then 5 steps with ``trg_lang_tag_position: src`` (the
+    target tag prepended to the source) and ``enable_profiler``, whose
+    trace must hold the card's kernels.  Returns (launch counts, the model
+    dir)."""
+    from neurst_tpu_torch.tasks.multilingual_translation import \
+        MultilingualTranslation
+    from neurst_tpu_torch.tasks.task import build_task
+
+    cfg = MULTILINGUAL
+    path = multilingual_config(os.path.join(root, "train.json"), vocab,
+                               train, cfg["steps"], cfg["save_every"],
+                               cfg["summary"])
+    with open(path) as f:
+        lang2id = build_task(json.load(f)).pipeline.meta["lang2id"]
+    model_dir = os.path.join(root, "model")
+    _reset_peak(device)
+    _, seen = run_trainer(["--config_paths", path, "--model_dir", model_dir,
+                           "--device", device], MultilingualTranslation,
+                          inspect=_direction_tags)
+    _train_path_checks(seen, cfg["steps"], "multilingual_train")
+    tokens = _full_batches(seen, "multilingual_train")
+    row = dict(_trainer_numbers(seen, _peak_bytes(device)),
+               target_tokens_per_step=tokens)
+    if device == "cuda":
+        row["launches_per_step_by_shape"] = _step_launch_checks(
+            seen, seen["model"])
+    pairs = [p for batch in seen["inspected"][:cfg["steps"]] for p in batch]
+    share = {name: sum(p == (lang2id[s], lang2id[t]) for p in pairs)
+             / len(pairs) for name, (s, t) in DIRECTIONS.items()}
+    row["direction_share"] = share
+    launches = seen["launches"]
+    del seen
+
+    src_path = multilingual_config(
+        os.path.join(root, "train_src.json"), vocab, train,
+        cfg["src_steps"], 1000, 1, trg_lang_tag_position="src")
+    src_dir = os.path.join(root, "model_src")
+    _, seen = run_trainer(["--config_paths", src_path, "--model_dir",
+                           src_dir, "--device", device,
+                           "--enable_profiler", "true"],
+                          MultilingualTranslation,
+                          inspect=lambda b: (b["src"][:, :2].tolist(),
+                                             b["trg_input"][:, 0].tolist(),
+                                             b["sample_mask"].tolist()))
+    _train_path_checks(seen, cfg["src_steps"], "multilingual_src_tag")
+    bos = int(seen["model"].trg_meta["bos_id"])
+    tags = set(lang2id.values())
+    prepend_ok = all(
+        src[0] in tags and src[1] in tags and bos_id == bos
+        for batch in seen["inspected"][:cfg["src_steps"]]
+        for src, bos_id, keep in zip(*batch) if keep)
+    traces = sorted(glob.glob(os.path.join(src_dir, "profile",
+                                           "*.pt.trace.json")))
+    kernels = {}
+    if traces:
+        with open(traces[-1]) as f:
+            for event in json.load(f)["traceEvents"]:
+                if event.get("cat") == "kernel":
+                    kernels[event["name"]] = kernels.get(event["name"],
+                                                         0) + 1
+    row["src_position"] = {
+        "steps": len(seen["steps"]), "prepend_ok": prepend_ok,
+        "windows": seen["windows"], "profile_traces": len(traces),
+        "profiled_kernel_events": sum(kernels.values()),
+        "profiled_kernel_names": len(kernels),
+        "profiled_port_kernels": sorted(
+            name for name in kernels if any(
+                key in name for key in ("xent", "ffn", "dropout")))[:12]}
+    emit({"phase": "multilingual_train", "model": cfg["hparams_set"],
+          "dtype": "bfloat16", "bf16_params": True,
+          "dropout": DROPOUT_RATE, "recipe": "examples/speech_transformer/"
+          "must-c/mt_training_args.yml", "task": MULTILINGUAL_TASK,
+          "directions": DIRECTIONS, "pairs_a_language_pair": cfg["pairs"],
+          **row})
+    if not (prepend_ok and traces and all(
+            abs(v - 1.0 / len(DIRECTIONS)) <= cfg["share_tol"]
+            for v in share.values())
+            and (device != "cuda" or row["src_position"][
+                "profiled_kernel_events"] > 0)):
+        raise AssertionError(f"multilingual_train failed: {row}")
+    return launches, model_dir
+
+
+def multilingual_predict_phase(model_dir, dev, device="cuda"):
+    """``--entry predict`` on the trained dir, one direction at a time
+    (beam 4, lp 0.6, max 180, 64 lines, BLEU): samples/s and BLEU per
+    direction, no language tag in a hypothesis, and the start token of the
+    decode (R13: <SEQ_BEG>, not the batch's target tag).  Returns the
+    launch counts."""
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.models.encoder_decoder_model import \
+        EncoderDecoderModel
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    original = EncoderDecoderModel.prepare_generation
+    starts = []
+
+    def recorded(self, inputs, decode_padded_length):
+        fn, init = original(self, inputs, decode_padded_length)
+        starts.append((int(np.asarray(inputs["trg_input"])[0]),
+                       int(init["decoder_input"][0])))
+        return fn, init
+
+    rows = {}
+    reset_launch_counts()
+    EncoderDecoderModel.prepare_generation = recorded
+    try:
+        for name, params in dev.items():
+            start = time.perf_counter()
+            result = run_exp.cli_main([
+                "--entry", "predict", "--model_dir", model_dir,
+                "--dataset.class", "multilingual_translation_dataset",
+                "--dataset.params", json.dumps(params),
+                "--search_method.params", json.dumps(NMT_PREDICT_SEARCH),
+                "--batch_size", str(MULTILINGUAL["predict_batch"]),
+                "--metric", "bleu", "--device", device])
+            tagged = sum(f"<{lang}>" in h for h in result["hypotheses"]
+                         for lang in MULTILINGUAL["languages"])
+            rows[name] = {"samples": result["samples"],
+                          "samples_per_s": result["samples_per_sec"],
+                          "wall_s": time.perf_counter() - start,
+                          "timing_s": result["timing"],
+                          "BLEU": result["BLEU"],
+                          "tagged_hypotheses": tagged,
+                          "start": {"trg_input": starts[-1][0],
+                                    "decoder_input": starts[-1][1]}}
+    finally:
+        EncoderDecoderModel.prepare_generation = original
+    counts = launch_counts()
+    emit({"phase": "multilingual_predict", "search": NMT_PREDICT_SEARCH,
+          "directions": rows, "launches": counts,
+          "r13_note": "trg_input holds the target tag; every decode starts "
+                      "from decoder_input (<SEQ_BEG>), as in the JAX "
+                      "package"})
+    if not all(r["samples"] == MULTILINGUAL["predict_lines"]
+               and r["tagged_hypotheses"] == 0
+               and math.isfinite(r["BLEU"]) for r in rows.values()):
+        raise AssertionError(f"multilingual_predict failed: {rows}")
+    return counts
+
+
+def multilingual_reference_check(model_dir, train, devices=("cuda",
+                                                            "cpu")):
+    """One ``check_tokens``-token en->de TRAIN batch through the trained
+    weights in float32 (no dropout) on the card and on the CPU: the
+    label-smoothed losses within ``MULTILINGUAL_CHECK_TOL`` relative."""
+    import torch
+
+    from neurst_tpu_torch.data.datasets.dataset import build_dataset
+    from neurst_tpu_torch.tasks.task import build_task
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params)
+    from neurst_tpu_torch.utils.compat import ModeKeys
+    from neurst_tpu_torch.utils.configurable import ModelConfigs
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+
+    cfg = ModelConfigs.load(model_dir)
+    task = build_task(cfg)
+    flat = restore_checkpoint_params(latest_checkpoint(model_dir))
+    batch = next(task.create_batch_iterator(
+        build_dataset({"dataset.class": "multilingual_translation_dataset",
+                       "dataset.params": {
+                           "src_file": train["en2de"][0],
+                           "trg_file": train["en2de"][1],
+                           "src_lang": "en", "trg_lang": "de"}}),
+        ModeKeys.TRAIN, {"batch_by_tokens": True,
+                         "batch_size": MULTILINGUAL["check_tokens"],
+                         "max_src_len": MULTILINGUAL_TASK["max_src_len"],
+                         "max_trg_len": MULTILINGUAL_TASK["max_trg_len"],
+                         "shuffle_buffer": 0})())
+    crit = _smoothed_xent()
+    losses = {}
+    for device in devices:
+        model = task.build_model({"model.class": cfg["model.class"],
+                                  "model.params": dict(cfg["model.params"],
+                                                       dtype="float32")},
+                                 device=device)
+        load_flat_params(model, flat)
+        with torch.no_grad():
+            losses[device] = float(crit.reduce_loss(batch, model(batch)))
+        del model
+    rel = abs(losses[devices[0]] - losses["cpu"]) / abs(losses["cpu"])
+    row = {"phase": "multilingual_reference_check", "dtype": "float32",
+           "shape": list(batch["trg"].shape), "losses": losses,
+           "rel_err": rel, "tol": MULTILINGUAL_CHECK_TOL}
+    emit(row)
+    if not rel <= MULTILINGUAL_CHECK_TOL:
+        raise AssertionError(f"multilingual: the card's float32 loss "
+                             f"disagrees with the CPU's: {row}")
+
+
+def multilingual_phases(seed, device="cuda"):
+    """Slice 11's multilingual group under ``build/multilingual_smoke/``
+    (removed after), with each phase's wall seconds.  Returns the launch
+    counts by path."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "multilingual_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages, launches = {}, {}
+    try:
+        start = time.perf_counter()
+        vocab, train, dev = write_multilingual_corpus(
+            root, np.random.RandomState(seed + 140))
+        stages["write_corpus"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["multilingual_train"], model_dir = \
+            multilingual_train_phase(seed, root, vocab, train, device)
+        stages["multilingual_train"] = time.perf_counter() - start
+        start = time.perf_counter()
+        launches["multilingual_predict"] = multilingual_predict_phase(
+            model_dir, dev, device)
+        stages["multilingual_predict"] = time.perf_counter() - start
+        start = time.perf_counter()
+        multilingual_reference_check(model_dir, train, (device, "cpu")
+                                     if device != "cpu" else ("cpu",))
+        stages["multilingual_reference_check"] = \
+            time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "multilingual", "stage_wall_s": stages,
+          "total_s": sum(stages.values())})
+    return launches
+
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -6356,7 +7011,7 @@ def main(argv=None):
     encoder_cross_check_phase(model, inputs)
     del model
     reference_check_phase(args.seed)
-    predict_counts = predict_phase(args.seed)
+    predict_counts, spec_speech_counts = predict_phase(args.seed)
     train_counts, _ = train_phase(args.seed)
     train_dropout_counts, train_dropout_row = train_phase(args.seed,
                                                           dropout=True)
@@ -6365,14 +7020,17 @@ def main(argv=None):
                "train_base": nmt_train_phase(args.seed, bf16_params=False),
                "train_base_bf16": nmt_train_phase(args.seed,
                                                   bf16_params=True),
-               "decode": decode_counts, "predict": predict_counts}
-    by_path["nmt_trainer"], by_path["nmt_predict"] = nmt_phases(args.seed)
+               "decode": decode_counts, "predict": predict_counts,
+               "spec_speech": spec_speech_counts}
+    (by_path["nmt_trainer"], by_path["nmt_predict"],
+     by_path["spec_text"]) = nmt_phases(args.seed)
     by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
         args.seed)
     by_path.update(multitask_phases(args.seed, train_dropout_row))
     by_path.update(waitk_phases(args.seed))
     by_path.update(pretrained_phases(args.seed))
     by_path["long_audio"] = long_audio_phase(args.seed)
+    by_path.update(multilingual_phases(args.seed))
     for nmt in (False, True):
         train_reference_check_phase(args.seed, nmt=nmt)
         train_reference_check_phase(args.seed, dropout=True, nmt=nmt)

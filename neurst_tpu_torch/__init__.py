@@ -5,9 +5,9 @@ Module paths mirror ``neurst_tpu``'s.  The package imports torch and
 nothing of JAX or ``neurst_tpu``.  Importing it registers the ported
 models (the multi-task speech model, the wait-k Transformer, the
 LightConv model, BERT, CTNMT, GPT-2 and wav2vec 2.0 among them), search
-layers (beam search and sampling), criterions (``joint_criterion`` and
+layers (beam search, sampling and speculative decode), criterions (``joint_criterion`` and
 ``label_smoothed_cross_entropy_with_kd`` among them), optimizers,
-learning-rate schedules, tasks (``lm`` among them), datasets, data
+learning-rate schedules, tasks (``lm`` and ``multilingual_translation`` among them), datasets, data
 pipelines, tokenizers, metrics, validators, checkpoint converters and
 entries (``predict``, ``train``, ``eval``, ``sequence_evaluator`` and
 ``validation``); kernels are built on first use.
@@ -18,6 +18,7 @@ from neurst_tpu_torch.criterions import build_criterion  # noqa: F401
 from neurst_tpu_torch.data import data_pipelines, datasets, text  # noqa: F401
 from neurst_tpu_torch.layers.search import beam_search  # noqa: F401
 from neurst_tpu_torch.layers.search import sampling  # noqa: F401
+from neurst_tpu_torch.layers.search import speculative  # noqa: F401
 from neurst_tpu_torch.layers.search.sequence_search import \
     build_search_layer  # noqa: F401
 from neurst_tpu_torch.models import bert  # noqa: F401

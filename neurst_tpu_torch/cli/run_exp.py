@@ -12,8 +12,7 @@ top-level config seeds ``entry.params``.  ``--device`` picks the card
 Flags of features the port lacks raise ``NotImplementedError`` when set:
 QAT and int8 serving, ``--include`` plug-ins, multi-host initialization,
 the XLA compilation cache, ``enable_xla: true``, NaN checks and any
-``distribution_strategy`` but one device; so do sampling and speculative
-searches.  The ``predict``, ``train``, ``eval``, ``sequence_evaluator``
+``distribution_strategy`` but one device.  The ``predict``, ``train``, ``eval``, ``sequence_evaluator``
 and ``validation`` entries are ported (the recipes' ``trainer`` is
 ``train`` by its class name); the trainer refuses the features it lacks
 itself (``exps/trainer.py``).
@@ -97,10 +96,6 @@ _UNPORTED = {"enable_quant": False, "quant_params": None,
              "enable_check_numerics": None, "enable_xla": (None, False)}
 # the strategies that mean one device, which is what the port runs
 _ONE_DEVICE_STRATEGIES = (None, "", "none", "one_device", "onedevice")
-# the JAX package's registered search layers the port lacks (class names
-# and aliases, lower-cased); any other unknown name raises LookupError
-_UNPORTED_SEARCHES = ("speculative_decode", "speculative",
-                      "speculativedecode")
 
 
 def _format_hparams(predefined: dict) -> dict:
@@ -149,10 +144,6 @@ def run_experiment(args):
             not in _ONE_DEVICE_STRATEGIES:
         raise NotImplementedError(f"distribution_strategy {strategy} is not "
                                   f"ported (one device only)")
-    search = (args.get("entry.params") or {}).get("search_method.class")
-    if str(search).lower() in _UNPORTED_SEARCHES:
-        raise NotImplementedError(f"search_method.class {search} is not "
-                                  f"ported")
     device = resolve_device(args.get("device"))
     task = build_task(args)
     custom_dataset = build_dataset(args) if args.get("dataset.class") \

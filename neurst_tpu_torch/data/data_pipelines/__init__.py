@@ -6,3 +6,5 @@ from neurst_tpu_torch.data.data_pipelines import \
     bert_data_pipeline  # noqa: F401
 from neurst_tpu_torch.data.data_pipelines import \
     gpt2_data_pipeline  # noqa: F401
+from neurst_tpu_torch.data.data_pipelines import \
+    multilingual_text_data_pipeline  # noqa: F401

@@ -1,10 +1,11 @@
 """Parallel text datasets (the port's copy of
 ``neurst_tpu/data/datasets/parallel_text_dataset.py``): a source and a
 target text file (``parallel_text``), lists of such pairs
-(``multiple_parallel_text``) and lists of strings in memory
-(``in_memory_parallel_text``).  A file whose name ends in ``.gz`` is read
-through gzip.  Examples are {"feature": source line, "label": target
-line}, stripped; sharding is round-robin by line."""
+(``multiple_parallel_text``), lists of strings in memory
+(``in_memory_parallel_text``) and one direction of a multilingual corpus
+(``multilingual_translation_dataset``).  A file whose name ends in
+``.gz`` is read through gzip.  Examples are {"feature": source line,
+"label": target line}, stripped; sharding is round-robin by line."""
 
 import gzip
 from typing import Optional
@@ -17,7 +18,7 @@ from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["AbstractParallelDataset", "ParallelTextDataset",
            "MultipleParallelTextDataset", "InMemoryParallelTextDataset",
-           "open_maybe_gz"]
+           "MultilingualTranslationDataset", "open_maybe_gz"]
 
 
 def open_maybe_gz(path):
@@ -207,3 +208,37 @@ class InMemoryParallelTextDataset(_TextStatus, AbstractParallelDataset):
     @property
     def num_samples(self):
         return len(self._src_list)
+
+
+@register_dataset("multilingual_translation_dataset")
+class MultilingualTranslationDataset(ParallelTextDataset):
+    """A parallel corpus of one language direction: every example also
+    carries ``src_lang`` and ``trg_lang`` (the multilingual task's tags;
+    ``mixed_train`` combines several directions)."""
+
+    def __init__(self, args: Optional[dict] = None):
+        super().__init__(args)
+        self._src_lang = self._args.get("src_lang")
+        self._trg_lang = self._args.get("trg_lang")
+
+    @staticmethod
+    def class_or_method_args():
+        return ParallelTextDataset.class_or_method_args() + [
+            Flag("src_lang", dtype=Flag.TYPE.STRING, default=None,
+                 help="The source language code."),
+            Flag("trg_lang", dtype=Flag.TYPE.STRING, default=None,
+                 help="The target language code."),
+        ]
+
+    def build_iterator(self, map_func=None, shard_id=0, total_shards=1):
+        base = super().build_iterator(None, shard_id, total_shards)
+
+        def gen():
+            for example in base():
+                example = dict(example, src_lang=self._src_lang,
+                               trg_lang=self._trg_lang)
+                if map_func is not None:
+                    example = map_func(example)
+                if example is not None:
+                    yield example
+        return gen

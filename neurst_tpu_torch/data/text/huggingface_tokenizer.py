@@ -1,8 +1,10 @@
 """The HuggingFace tokenizer wrapper (the port's copy of
 ``neurst_tpu/data/text/huggingface_tokenizer.py``).  It needs the
 ``transformers`` package, which it imports when the tokenizer is
-initialized (``AutoTokenizer.from_pretrained(codes)``, a local path:
-nothing is downloaded) and raises ``ImportError`` without."""
+initialized, and raises ``ImportError`` without.  ``codes`` goes to
+``AutoTokenizer.from_pretrained`` as it is, as in the JAX wrapper: a
+local path is read from disk, a hub model name is fetched from the
+HuggingFace hub (give a local path where there is no network)."""
 
 from neurst_tpu_torch.data.text.tokenizer import Tokenizer, register_tokenizer
 

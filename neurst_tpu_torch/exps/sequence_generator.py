@@ -159,6 +159,7 @@ class SequenceGenerator(BaseExperiment):
             model = self.restore_params()
         search = build_search_layer(args)
         search.set_model(model)
+        search.prepare()
         batch_iter = task.create_batch_iterator(
             self._custom_dataset, ModeKeys.INFER, args)
         hypo_decode = task.get_data_postprocess_fn(DataStatus.PROJECTED)

@@ -24,8 +24,9 @@ parameters alone).
 
 Not ported, and refused when set: ``checkpoint_format: orbax``, tensor
 and pipeline parallelism, ``gradient_remat``, ``pruning_schedule``,
-quantization-aware training, ``enable_profiler`` and a
-``distribution_strategy`` other than one device.
+quantization-aware training and a ``distribution_strategy`` other than
+one device.  ``enable_profiler`` traces a window of steps with
+``torch.profiler`` (``training/summary.py``).
 """
 
 import logging
@@ -49,7 +50,7 @@ from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
     build_lr_schedule
 from neurst_tpu_torch.parallel import TrainState, make_train_step
 from neurst_tpu_torch.training.summary import (SummaryWriterWrapper,
-                                               maybe_start_profiler)
+                                               TrainingProfiler)
 from neurst_tpu_torch.training.validator import build_validator
 from neurst_tpu_torch.utils import checkpoints as ckpt_lib
 from neurst_tpu_torch.utils import compat
@@ -68,7 +69,6 @@ _UNPORTED = {"checkpoint_format": (None, "npz"),
              "gradient_remat": (None, False),
              "pruning_schedule.class": (None, ""),
              "enable_quant": (None, False),
-             "enable_profiler": (None, False),
              "distribution_strategy": (None, "", "none", "one_device",
                                        "onedevice")}
 
@@ -136,7 +136,8 @@ class Trainer(BaseExperiment):
                  default=True,
                  help="Write TensorBoard scalars under model_dir/train."),
             Flag("enable_profiler", dtype=Flag.TYPE.BOOLEAN, default=None,
-                 help="The profiler server (not ported)."),
+                 help="Trace steps 3-5 with torch.profiler into "
+                      "model_dir/profile (a Chrome trace)."),
             ModuleFlag("validator", "validator",
                        help="Inline validator run every eval_steps."),
             ModuleFlag("pruning_schedule", "pruning_schedule",
@@ -283,7 +284,9 @@ class Trainer(BaseExperiment):
         writer = SummaryWriterWrapper(
             os.path.join(model_dir, "train") if model_dir else None,
             enabled=bool(args.get("enable_tensorboard", True)))
-        maybe_start_profiler(model_dir, bool(args.get("enable_profiler")))
+        profiler = TrainingProfiler(model_dir,
+                                    bool(args.get("enable_profiler")),
+                                    model.device)
         validator = None
         if args.get("validator.class"):
             validator = build_validator(args).build(task, model, model_dir)
@@ -300,57 +303,61 @@ class Trainer(BaseExperiment):
         window_tokens = window_samples = 0
         last_loss = metrics = None
         logging.info("Start training from step %d to %d", step, train_steps)
-        while step < train_steps:
-            epoch_batches = 0
-            for batch in _resilient_batches(batch_iter_fn):
-                host_batch = batch
-                if update_cycle > 1:
-                    host_batch = split_microbatches(batch, update_cycle)
-                    if host_batch is None:
-                        continue
-                device_batch = {
-                    k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                        device, non_blocking=True)
-                    for k, v in host_batch.items()}
-                state, metrics = train_step(state, device_batch, step_key)
-                step += 1
-                epoch_batches += 1
-                # tokens/s counts the primary target's non-pad tokens
-                # (``trg_length``), as the JAX trainer does: for the
-                # multi-task model the translation's, not the transcript's
-                window_tokens += int(np.sum(batch["trg_length"]))
-                window_samples += int(np.sum(batch["sample_mask"]))
-                if step % log_every == 0:
-                    last_loss = float(metrics["loss"])
-                    elapsed = time.perf_counter() - window_start
-                    scalars = {
-                        "loss": last_loss,
-                        "lr": float(metrics.get("lr", 0.0)),
-                        "grad_norm": float(metrics["grad_norm"]),
-                        "steps_per_sec": log_every / elapsed,
-                        "tokens_per_sec": window_tokens / elapsed,
-                        "samples_per_sec": window_samples / elapsed}
-                    logging.info(
-                        "step %d | loss %.4f | lr %.3e | grad_norm %.3f | "
-                        "%.2f steps/s | %.3f secs/step | %.0f tokens/s | "
-                        "%.1f samples/s", step, last_loss, scalars["lr"],
-                        scalars["grad_norm"], scalars["steps_per_sec"],
-                        elapsed / log_every, scalars["tokens_per_sec"],
-                        scalars["samples_per_sec"])
-                    writer.scalars("training", scalars, step)
-                    window_start = time.perf_counter()
-                    window_tokens = window_samples = 0
-                if step % save_every == 0 and model_dir:
-                    self._save(model_dir, step, state, model, args)
-                if validator is not None and validator.should_eval(step):
-                    if validator.validate(step, state_dict_to_flat(model)):
-                        logging.info("Early stop at step %d.", step)
-                        train_steps = step
-                if step >= train_steps:
+        try:
+            while step < train_steps:
+                epoch_batches = 0
+                for batch in _resilient_batches(batch_iter_fn):
+                    host_batch = batch
+                    if update_cycle > 1:
+                        host_batch = split_microbatches(batch, update_cycle)
+                        if host_batch is None:
+                            continue
+                    device_batch = {
+                        k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                            device, non_blocking=True)
+                        for k, v in host_batch.items()}
+                    state, metrics = train_step(state, device_batch, step_key)
+                    profiler.step()
+                    step += 1
+                    epoch_batches += 1
+                    # tokens/s counts the primary target's non-pad tokens
+                    # (``trg_length``), as the JAX trainer does: for the
+                    # multi-task model the translation's, not the transcript's
+                    window_tokens += int(np.sum(batch["trg_length"]))
+                    window_samples += int(np.sum(batch["sample_mask"]))
+                    if step % log_every == 0:
+                        last_loss = float(metrics["loss"])
+                        elapsed = time.perf_counter() - window_start
+                        scalars = {
+                            "loss": last_loss,
+                            "lr": float(metrics.get("lr", 0.0)),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "steps_per_sec": log_every / elapsed,
+                            "tokens_per_sec": window_tokens / elapsed,
+                            "samples_per_sec": window_samples / elapsed}
+                        logging.info(
+                            "step %d | loss %.4f | lr %.3e | grad_norm %.3f | "
+                            "%.2f steps/s | %.3f secs/step | %.0f tokens/s | "
+                            "%.1f samples/s", step, last_loss, scalars["lr"],
+                            scalars["grad_norm"], scalars["steps_per_sec"],
+                            elapsed / log_every, scalars["tokens_per_sec"],
+                            scalars["samples_per_sec"])
+                        writer.scalars("training", scalars, step)
+                        window_start = time.perf_counter()
+                        window_tokens = window_samples = 0
+                    if step % save_every == 0 and model_dir:
+                        self._save(model_dir, step, state, model, args)
+                    if validator is not None and validator.should_eval(step):
+                        if validator.validate(step, state_dict_to_flat(model)):
+                            logging.info("Early stop at step %d.", step)
+                            train_steps = step
+                    if step >= train_steps:
+                        break
+                if epoch_batches == 0:
+                    logging.warning("Empty dataset epoch; stopping.")
                     break
-            if epoch_batches == 0:
-                logging.warning("Empty dataset epoch; stopping.")
-                break
+        finally:
+            profiler.close()
         if model_dir:
             self._save(model_dir, step, state, model, args)
         writer.close()

@@ -161,21 +161,30 @@ class MultiHeadSelfAttention(MultiHeadAttention):
         (key-length mask, optional causal).  Incremental mode
         (``decode_step`` an int): the step's key/value are written into
         ``cache`` at ``decode_step`` in place; the caller's ``bias`` masks
-        positions after it."""
+        positions after it.  With per-row times (``decode_step`` a [B]
+        tensor) row b's keys/values are written at ``decode_step[b]`` on,
+        and no ``beam_anc`` is read."""
         qkv = self._proj(self.qkv_transform, query, 3)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None and flash_lengths is not None:
             return self._flash(q, k, v, flash_lengths, flash_causal,
                                is_training, dropout_key)
         if cache is not None and decode_step is not None:
-            if not isinstance(decode_step, int):
-                raise NotImplementedError(
-                    "per-row decode steps (speculative decode) are not "
-                    "ported; pass the step as an int")
             f = q.shape[1]
-            cache["keys"][:, decode_step:decode_step + f] = k
-            cache["values"][:, decode_step:decode_step + f] = v
+            if isinstance(decode_step, int):
+                cache["keys"][:, decode_step:decode_step + f] = k
+                cache["values"][:, decode_step:decode_step + f] = v
+            else:
+                # per-row times [B] (speculative decode): row b's f slots
+                # land at decode_step[b] + [0, f); the caller sizes the
+                # cache so that no window runs off its end
+                rows = torch.arange(q.shape[0], device=q.device)[:, None]
+                cols = decode_step[:, None] + torch.arange(f,
+                                                           device=q.device)
+                cache["keys"][rows, cols] = k.to(cache["keys"].dtype)
+                cache["values"][rows, cols] = v.to(cache["values"].dtype)
             k, v = cache["keys"], cache["values"]
-            if beam_anc is not None and f == 1:
+            if beam_anc is not None and f == 1 \
+                    and isinstance(decode_step, int):
                 return self._attend_indirect(q, k, v, bias, beam_anc)
         return self._attend(q, k, v, bias, is_training, dropout_key)

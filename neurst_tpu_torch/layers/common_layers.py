@@ -25,7 +25,8 @@ from neurst_tpu_torch.ops.fused_dropout import dropout, quantized_site
 from neurst_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_available
 
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
-           "sinusoidal_position_signal", "linear", "apply_dropout",
+           "sinusoidal_position_signal", "sinusoidal_position_signal_at",
+           "linear", "apply_dropout",
            "activation_by_name"]
 
 _ACTIVATIONS = {
@@ -128,6 +129,18 @@ def sinusoidal_position_signal(length: int, channels: int, start: int = 0,
     odd channel zero-padded."""
     position = torch.arange(length, dtype=torch.float32,
                             device=device) + float(start)
+    return sinusoidal_position_signal_at(position, channels, min_timescale,
+                                         max_timescale, dtype)
+
+
+def sinusoidal_position_signal_at(positions, channels: int,
+                                  min_timescale: float = 1.0,
+                                  max_timescale: float = 1.0e4,
+                                  dtype=torch.float32):
+    """The same sinusoids at explicit ``positions`` [...] (a speculative
+    decode's per-row times) -> [..., channels]."""
+    position = positions.float()
+    device = position.device
     num_timescales = channels // 2
     log_timescale_increment = (
         math.log(float(max_timescale) / float(min_timescale))
@@ -135,9 +148,9 @@ def sinusoidal_position_signal(length: int, channels: int, start: int = 0,
     inv_timescales = min_timescale * torch.exp(
         torch.arange(num_timescales, dtype=torch.float32, device=device)
         * -log_timescale_increment)
-    scaled_time = position[:, None] * inv_timescales[None, :]
+    scaled_time = position[..., None] * inv_timescales
     signal = torch.cat([torch.sin(scaled_time), torch.cos(scaled_time)],
-                       dim=1)
+                       dim=-1)
     if channels % 2:
         signal = F.pad(signal, (0, 1))
     return signal.to(dtype)
@@ -169,15 +182,27 @@ class WordEmbedding(nn.Module):
                 torch.empty(max_positions, embedding_dim))
 
     def forward(self, ids, time=None):
-        """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D]."""
+        """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D].
+        A ``time`` tensor [B] (a speculative decode's per-row times) puts
+        row b's tokens at positions time[b] + [0, L)."""
         emb = self.weights[ids].to(self.dtype)
         if self.timing is None:
             return emb
         squeeze = ids.dim() == 1
         if squeeze:
             emb = emb[:, None, :]
-        start = 0 if time is None else int(time)
         length = emb.shape[1]
+        if isinstance(time, torch.Tensor) and time.dim() == 1:
+            positions = time[:, None] + torch.arange(length,
+                                                     device=time.device)
+            if self.timing == "sinusoids":
+                emb = emb * (self.embedding_dim ** 0.5) \
+                    + sinusoidal_position_signal_at(
+                        positions, self.embedding_dim, dtype=emb.dtype)
+            else:
+                emb = emb + self.position_weights[positions].to(emb.dtype)
+            return emb[:, 0, :] if squeeze else emb
+        start = 0 if time is None else int(time)
         if self.timing == "sinusoids":
             signal = sinusoidal_position_signal(
                 length, self.embedding_dim, start=start, dtype=emb.dtype,

@@ -85,6 +85,10 @@ class TransformerDecoder(nn.Module):
         if decode_step is None:
             return layer_utils.waitk_cross_attention_bias(
                 length, src_len, lagging, device=device)
+        if not isinstance(decode_step, int):
+            raise NotImplementedError(
+                "decode_lagging (wait-k) with per-row decode times "
+                "(speculative decode) is unsupported")
         allowed = torch.arange(src_len, device=device) < (
             decode_step + torch.as_tensor(lagging, device=device))
         return torch.where(allowed, 0.0,
@@ -96,8 +100,11 @@ class TransformerDecoder(nn.Module):
         """Teacher forcing: ``inputs`` [B, T, D] under a causal mask.
         Stepwise decode: ``inputs`` [B, 1, D] at int ``decode_step`` with
         a cache from ``create_decoding_internal_cache`` (updated in
-        place).  ``beam_anc`` [B, beam, max_len]: the beam ancestor
-        matrix the self-attention reads the cache through.  Layer i draws
+        place); or ``inputs`` [B, k, D] at per-row times ``decode_step``
+        [B] (speculative decode's verification: row b's tokens at
+        positions decode_step[b] + [0, k)).  ``beam_anc`` [B, beam,
+        max_len]: the beam ancestor matrix the self-attention reads the
+        cache through (single-token steps only).  Layer i draws
         its dropout masks from stream ``side << 16 | i << 4`` of
         ``dropout_key`` (``side`` is ``SIDE_DECODER`` unless the model
         gives another).
@@ -116,15 +123,21 @@ class TransformerDecoder(nn.Module):
                 self_bias = layer_utils.causal_self_attention_bias(
                     inputs.shape[1], device=inputs.device)
         else:
-            if not isinstance(decode_step, int):
-                raise NotImplementedError(
-                    "per-row decode steps (speculative decode) are not "
-                    "ported; pass the step as an int")
             max_len = cache["layer_0"]["self"]["keys"].shape[1]
             positions = torch.arange(max_len, device=inputs.device)
-            self_bias = torch.where(
-                positions <= decode_step, 0.0,
-                layer_utils.NEG_INF)[None, None, None, :]
+            if isinstance(decode_step, int):
+                self_bias = torch.where(
+                    positions <= decode_step, 0.0,
+                    layer_utils.NEG_INF)[None, None, None, :]
+            else:
+                # per-row times [B] (speculative decode): query slot j of
+                # row b sits at decode_step[b] + j and sees the cache
+                # positions up to it -> [B, 1, k, max_len]
+                qpos = decode_step[:, None] + torch.arange(
+                    inputs.shape[1], device=inputs.device)
+                self_bias = torch.where(
+                    positions[None, None, None, :] <= qpos[:, None, :, None],
+                    0.0, layer_utils.NEG_INF)
         if memory_padding is not None:
             if use_flash:
                 cross_flash_lengths = (1.0 - memory_padding).sum(

@@ -15,7 +15,7 @@ __all__ = ["NEG_INF", "CACHE_SKIP_KEYS", "input_length_to_padding",
            "waitk_cross_attention_bias",
            "stack_beam_size", "stack_beam_size_selective",
            "gather_beams_selective", "self_cache_time_len",
-           "cache_has_only_self_state"]
+           "cache_has_only_self_state", "max_decode_steps"]
 
 NEG_INF = -1.0e9
 CACHE_SKIP_KEYS = ("memory", "memory_padding")
@@ -110,3 +110,16 @@ def self_cache_time_len(nested) -> int:
         if under_self:
             return leaf.shape[1]
     raise ValueError("cache has no 'self' leaves")
+
+
+def max_decode_steps(generation_initializer, extra_decode_length: int,
+                     maximum_decode_length: int,
+                     minimum_decode_length: int) -> int:
+    """The searches' step limit: max(min(longest source +
+    ``extra_decode_length``, ``maximum_decode_length``),
+    ``minimum_decode_length``), ``maximum_decode_length`` without a
+    source length."""
+    enc_maxlen = generation_initializer.get("encoder_inputs_maxlen")
+    steps = maximum_decode_length if enc_maxlen is None else min(
+        int(enc_maxlen) + extra_decode_length, maximum_decode_length)
+    return max(steps, minimum_decode_length)

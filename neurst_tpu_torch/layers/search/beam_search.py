@@ -80,10 +80,9 @@ def sequence_beam_search(symbols_to_logits_fn: Callable,
             batch_size, beam_size, full_len).clone())
         reorder_skip = reorder_skip + ("self", "beam_anc")
 
-    enc_maxlen = generation_initializer.get("encoder_inputs_maxlen")
-    max_steps = maximum_decode_length if enc_maxlen is None else min(
-        int(enc_maxlen) + extra_decode_length, maximum_decode_length)
-    max_steps = max(max_steps, minimum_decode_length)
+    max_steps = layer_utils.max_decode_steps(
+        generation_initializer, extra_decode_length, maximum_decode_length,
+        minimum_decode_length)
 
     finished = torch.zeros(bb, dtype=torch.bool, device=device)
     log_probs_acc = torch.zeros(bb, dtype=torch.float32, device=device)

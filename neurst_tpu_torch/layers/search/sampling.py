@@ -24,7 +24,8 @@ from neurst_tpu_torch.layers.search.sequence_search import (
     SequenceSearch, register_search_layer)
 from neurst_tpu_torch.utils.flags_core import Flag
 
-__all__ = ["masked_step_log_probs", "sequence_sampling", "TopSampling"]
+__all__ = ["masked_step_log_probs", "filter_log_probs", "sequence_sampling",
+           "TopSampling"]
 
 
 def masked_step_log_probs(logits, emit_index, eos_id, unk_id, temperature,
@@ -67,6 +68,16 @@ def _filter_top_p(log_probs, p):
     return torch.where(log_probs < threshold, NEG_INF, log_probs)
 
 
+def filter_log_probs(log_probs, top_k: int = 0, top_p: float = 1.0):
+    """The top-k, then nucleus, filter of ``log_probs`` [..., V]
+    (NEG_INF at the entries dropped): what a sample is drawn from."""
+    if top_k and top_k > 0:
+        log_probs = _filter_top_k(log_probs, top_k)
+    if top_p and top_p < 1.0:
+        log_probs = _filter_top_p(log_probs, top_p)
+    return log_probs
+
+
 def sequence_sampling(symbols_to_logits_fn: Callable,
                       generation_initializer: dict,
                       generator: torch.Generator = None,
@@ -97,10 +108,9 @@ def sequence_sampling(symbols_to_logits_fn: Callable,
         generation_initializer["decoder_internal_cache"], num_samples)
     input_ids = layer_utils.stack_beam_size(decoder_input.long(),
                                             num_samples)
-    enc_maxlen = generation_initializer.get("encoder_inputs_maxlen")
-    max_steps = maximum_decode_length if enc_maxlen is None else min(
-        int(enc_maxlen) + extra_decode_length, maximum_decode_length)
-    max_steps = max(max_steps, minimum_decode_length)
+    max_steps = layer_utils.max_decode_steps(
+        generation_initializer, extra_decode_length, maximum_decode_length,
+        minimum_decode_length)
 
     finished = torch.zeros(bb, dtype=torch.bool, device=device)
     log_probs_acc = torch.zeros(bb, dtype=torch.float32, device=device)
@@ -114,11 +124,7 @@ def sequence_sampling(symbols_to_logits_fn: Callable,
         if greedy:
             sampled = log_probs.argmax(dim=-1)
         else:
-            filtered = log_probs
-            if top_k and top_k > 0:
-                filtered = _filter_top_k(filtered, top_k)
-            if top_p and top_p < 1.0:
-                filtered = _filter_top_p(filtered, top_p)
+            filtered = filter_log_probs(log_probs, top_k, top_p)
             sampled = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
                                         generator=generator)[:, 0]
         sampled = torch.where(finished, eos_id, sampled)

@@ -21,6 +21,10 @@ class SequenceSearch(object):
     def set_model(self, model):
         self.model = model
 
+    def prepare(self):
+        """Host-side setup before the first batch (a draft model's
+        restore)."""
+
     def __call__(self, inputs: dict):
         """Returns (hypotheses [B * top_k, L], scores [B * top_k])."""
         raise NotImplementedError

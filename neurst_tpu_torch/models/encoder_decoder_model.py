@@ -11,8 +11,9 @@ False and overrides ``embed_source``; one with other stacks overrides
 modality with the tied softmax (or, with
 ``modality.share_embedding_and_softmax_weights: false``, the
 ``output_linear`` projection), the encoder and the decoder, the
-generation interface beam search drives
-(``prepare_generation`` -> (``decode_step``, generation initializer)),
+generation interface the searches drive
+(``prepare_generation`` -> (``decode_step``, generation initializer);
+``prepare_speculative`` -> (``decode_steps``, the same initializer)),
 and the training interface the train step drives (``call_train``,
 ``supports_fused_softmax_ce``).  Training with dropout > 0 takes a
 dropout key (``utils/rng.DropoutKey``), as the JAX model takes its
@@ -382,10 +383,45 @@ class EncoderDecoderModel(BaseModel):
         new_cache["layers"] = layers
         return self.generation_logits(dec_out[:, 0, :]), new_cache
 
+    def decode_steps(self, ids, cache, times):
+        """Multi-token decode at per-row times (speculative decode's
+        verification): row b's tokens ids [B, k] at cache positions
+        times[b] + [0, k) -> (float32 logits [B, k, V], cache).  Only the
+        transformer decoder has this path."""
+        if not isinstance(self.generation_decoder, TransformerDecoder):
+            raise NotImplementedError(
+                "speculative decode_steps needs the transformer decoder's "
+                "multi-token per-row-time path; "
+                f"{type(self.generation_decoder).__name__} (e.g. the "
+                "LightConv ring buffer) does not support it")
+        emb = self.generation_modality(ids, time=times)
+        dec_out, layers = self.generation_decoder(
+            emb, memory=None, memory_padding=cache["memory_padding"],
+            cache=cache["layers"], decode_step=times)
+        new_cache = dict(cache)
+        new_cache["layers"] = layers
+        return self.generation_logits(dec_out), new_cache
+
     @property
     def bos_id(self) -> int:
         meta = self.generation_meta
         return meta.get("bos_id", meta["eos_id"])
+
+    def _generation_initializer(self, inputs, decode_padded_length: int):
+        """Encodes the source; the initializer keys decoder_input,
+        decoder_internal_cache, encoder_inputs_maxlen, eos_id, unk_id."""
+        enc, src_padding = self.encode(inputs)
+        cache = self.init_cache(enc, src_padding, decode_padded_length)
+        batch = enc.shape[0]
+        src_len = (1.0 - src_padding).sum(dim=1)
+        return {
+            "decoder_input": torch.full((batch,), self.bos_id,
+                                        dtype=torch.long, device=enc.device),
+            "decoder_internal_cache": cache,
+            "encoder_inputs_maxlen": int(src_len.max().item()),
+            "eos_id": self.generation_meta["eos_id"],
+            "unk_id": self.generation_meta.get("unk_id"),
+        }
 
     def prepare_generation(self, inputs, decode_padded_length: int):
         """Encodes the source and builds the decode closure.
@@ -395,16 +431,13 @@ class EncoderDecoderModel(BaseModel):
         and the initializer keys decoder_input, decoder_internal_cache,
         encoder_inputs_maxlen, eos_id, unk_id, beam_cache_indirection_ok.
         """
-        enc, src_padding = self.encode(inputs)
-        cache = self.init_cache(enc, src_padding, decode_padded_length)
-        batch = enc.shape[0]
-        src_len = (1.0 - src_padding).sum(dim=1)
-        return self.decode_step, {
-            "decoder_input": torch.full((batch,), self.bos_id,
-                                        dtype=torch.long, device=enc.device),
-            "decoder_internal_cache": cache,
-            "encoder_inputs_maxlen": int(src_len.max().item()),
-            "eos_id": self.generation_meta["eos_id"],
-            "unk_id": self.generation_meta.get("unk_id"),
-            "beam_cache_indirection_ok": self.beam_cache_indirection_ok(),
-        }
+        init = self._generation_initializer(inputs, decode_padded_length)
+        init["beam_cache_indirection_ok"] = self.beam_cache_indirection_ok()
+        return self.decode_step, init
+
+    def prepare_speculative(self, inputs, decode_padded_length: int):
+        """Like ``prepare_generation``, with the multi-token closure
+        ``decode_steps(ids [B, k], cache, times [B]) -> (logits [B, k, V],
+        cache)``."""
+        return self.decode_steps, self._generation_initializer(
+            inputs, decode_padded_length)

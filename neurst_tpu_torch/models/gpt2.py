@@ -13,8 +13,9 @@ position t + L - 1, so the cache holds prompt + continuation.  As in the
 JAX model, a batch of prompts of different lengths is right-padded: a
 shorter prompt's padding is prefilled and its last column (a pad id) is
 its first decoder input.  The beam search reads the prompt shift from the
-initializer's ``decode_time_offset``.  Speculative decode's multi-token
-steps (``decode_steps`` / ``prepare_speculative``) are not ported.
+initializer's ``decode_time_offset``; speculative decode's multi-token
+steps (``decode_steps`` through ``prepare_speculative``) run at cache
+positions times + L - 1 in the same way.
 """
 
 import torch
@@ -139,10 +140,6 @@ class GPT2(BaseModel):
     def decode_step(self, ids, cache, step: int):
         """ids [N] at cache position ``step`` -> (float32 logits [N, V],
         cache).  A ``beam_anc`` entry is passed to the self-attention."""
-        if not isinstance(step, int):
-            raise NotImplementedError(
-                "per-row decode steps (speculative decode, ROADMAP module "
-                "item 7) are not ported; pass the step as an int")
         emb = self.trg_modality(ids, time=step)
         out, layers = self.decoder(emb[:, None, :], cache=cache["layers"],
                                    decode_step=step,
@@ -152,13 +149,12 @@ class GPT2(BaseModel):
         return self.trg_modality.attend(out[:, 0, :]), new_cache
 
     def decode_steps(self, ids, cache, times):
-        raise NotImplementedError(
-            "multi-token decode steps belong to speculative decode "
-            "(ROADMAP module item 7), which is not ported")
-
-    def prepare_speculative(self, inputs, decode_padded_length: int):
-        raise NotImplementedError(
-            "speculative decode (ROADMAP module item 7) is not ported")
+        """ids [B, k] at cache positions times[b] + [0, k) -> (float32
+        logits [B, k, V], cache): speculative decode's verification."""
+        emb = self.trg_modality(ids, time=times)
+        out, layers = self.decoder(emb, cache=cache["layers"],
+                                   decode_step=times)
+        return self.trg_modality.attend(out), {"layers": layers}
 
     def _prefill(self, inputs, decode_padded_length: int):
         """Prefills the cache with the prompt but its last token.
@@ -194,6 +190,17 @@ class GPT2(BaseModel):
             return self.decode_step(ids, cache, time + prefill)
 
         return symbols_to_logits_fn, init
+
+    def prepare_speculative(self, inputs, decode_padded_length: int):
+        """The prompt-prefilled multi-token closure, its times shifted by
+        the prefill."""
+        with torch.no_grad():
+            _, prefill, init = self._prefill(inputs, decode_padded_length)
+
+        def steps_fn(ids, cache, times):
+            return self.decode_steps(ids, cache, times + prefill)
+
+        return steps_fn, init
 
 
 register_hparams_set("gpt2_117m")(

@@ -1,13 +1,21 @@
 """TensorBoard scalars (the port's copy of
 ``neurst_tpu/training/summary.py``): the trainer's windowed metrics under
 ``training/``.  Without ``tensorboard`` the writer is a no-op with a
-warning, as in the JAX package.  The profiler hook is not ported."""
+warning, as in the JAX package.
+
+``enable_profiler``: where the JAX trainer starts ``jax.profiler``'s
+server, the port traces a window of training steps with
+``torch.profiler`` (host and, on the card, device activity): the first
+step is skipped, one warms up and the next three are recorded, written
+as a Chrome trace (``*.pt.trace.json``) under ``<model_dir>/profile/``,
+which ``chrome://tracing``, Perfetto and TensorBoard's profiler plugin
+read."""
 
 import logging
 import os
 from typing import Optional
 
-__all__ = ["SummaryWriterWrapper", "maybe_start_profiler"]
+__all__ = ["SummaryWriterWrapper", "TrainingProfiler"]
 
 
 class SummaryWriterWrapper(object):
@@ -37,10 +45,41 @@ class SummaryWriterWrapper(object):
             self._writer.close()
 
 
-def maybe_start_profiler(model_dir: Optional[str], enabled: bool):
-    """The JAX package starts its profiler server here; the port has no
-    counterpart, so ``enable_profiler`` raises."""
-    if enabled:
-        raise NotImplementedError("enable_profiler is not ported (profile "
-                                  "the card with tools/profile_torch_"
-                                  "train.py)")
+class TrainingProfiler(object):
+    """A ``torch.profiler`` window over training steps; ``step()`` after
+    each train step, ``close()`` at the end.  Off (no-op) unless
+    ``enabled`` with a model dir."""
+
+    WAIT, WARMUP, ACTIVE = 1, 1, 3
+
+    def __init__(self, model_dir: Optional[str], enabled: bool,
+                 device="cpu"):
+        self._prof = None
+        if not enabled or not model_dir:
+            return
+        import torch
+        trace_dir = os.path.join(model_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._prof = torch.profiler.profile(
+            activities=activities,
+            schedule=torch.profiler.schedule(
+                wait=self.WAIT, warmup=self.WARMUP, active=self.ACTIVE,
+                repeat=1),
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                trace_dir))
+        self._prof.start()
+        logging.info("torch.profiler traces steps %d-%d -> %s",
+                     self.WAIT + self.WARMUP + 1,
+                     self.WAIT + self.WARMUP + self.ACTIVE, trace_dir)
+
+    def step(self):
+        if self._prof is not None:
+            self._prof.step()
+
+    def close(self):
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None

@@ -330,7 +330,8 @@ def test_cli_refuses_what_the_port_lacks(workdir):
                   ["--distributed_init"], ["--include", "plugin.py"]):
         with pytest.raises(NotImplementedError):
             port_run_exp.cli_main(base + extra)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # speculative decode is ported: without a draft it asks for one
+    with pytest.raises(ValueError, match="draft_model_dir"):
         port_run_exp.cli_main(base + ["--search_method", "speculative"])
     with pytest.raises(LookupError):
         port_run_exp.cli_main(base + ["--search_method", "no_such_search"])

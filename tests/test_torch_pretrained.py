@@ -431,11 +431,22 @@ def test_gpt2_prompted_decode_matches_jax_ids(gpt2_pair, beam):
 
 
 def test_gpt2_speculative_steps_are_not_ported(gpt2_pair):
-    _, _, tm = gpt2_pair
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.decode_steps(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.prepare_speculative({}, 4)
+    """GPT-2's multi-token steps, once refused, now run: after a prompt's
+    prefill, a k-wide step at per-row times gives the JAX model's logits
+    (the cache position is time + prefill in both packages)."""
+    jm, params, tm = gpt2_pair
+    prompt = np.array([[5, 9, 13, 17], [7, 11, 15, 1]], np.int32)
+    ids = np.array([[21, 22, 23], [24, 25, 26]], np.int32)
+    times = np.array([0, 2], np.int32)
+    j_fn, j_init = jm.prepare_speculative(params, {"trg_input": prompt}, 8)
+    want, _ = j_fn(jax.numpy.asarray(ids), j_init["decoder_internal_cache"],
+                   jax.numpy.asarray(times))
+    with torch.no_grad():
+        t_fn, t_init = tm.prepare_speculative({"trg_input": prompt}, 8)
+        got, _ = t_fn(torch.from_numpy(ids).long(),
+                      t_init["decoder_internal_cache"],
+                      torch.from_numpy(times).long())
+    assert _max_diff(got, want) <= TOL
 
 
 # ----------------------------- wav2vec 2.0 ---------------------------- #

@@ -51,6 +51,11 @@ def test_fixtures_read_and_goldens_decode_without_tensorflow_or_jax():
         "print(json.dumps({'goldens': out, 'leaked': bad}))\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env.pop("PYTHONPATH", None)
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        # one torch thread, as port_test_support gives each worker: an
+        # interpreter running all cores' OpenMP threads beside the other
+        # workers slowed from ~13 s to past the timeout
+        env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]

@@ -434,7 +434,7 @@ def test_jax_optstate_without_port_sidecar_raises(runs):
 @pytest.mark.parametrize("flag", [
     ["--checkpoint_format", "orbax"], ["--num_model_partitions", "2"],
     ["--pipeline_parallel", "2"], ["--gradient_remat", "true"],
-    ["--pruning_schedule", "polynomial"], ["--enable_profiler", "true"],
+    ["--pruning_schedule", "polynomial"], ["--enable_quant", "true"],
     ["--distribution_strategy", "mirrored"]])
 def test_refused_trainer_flags(runs, flag):
     d = os.path.join(runs["root"], "refused")
