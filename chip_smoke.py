@@ -153,7 +153,7 @@ exits non-zero):
                window tokens/s of both sides, data wait, checkpoint
                seconds, peak memory, and the bare step at the top bucket
                beside train_dropout's; multitask_predict, ``--entry
-               predict`` on 64 triples (batch 16, beam 4, max 150) on the
+               predict`` on 32 triples (batch 16, beam 4, max 150) on the
                translation head (BLEU) and the transcript head (WER), then
                ``--model_dir A,B`` (ckpt-12, ckpt-6) and ``A,A``, which
                must give A's hypotheses: 12 flash launches a batch a
@@ -176,7 +176,7 @@ exits non-zero):
                launches against ``expected_launches``, window tokens/s,
                and one batch's float32 loss with the flash encoder against
                the dense one); waitk_simuleval, ``simuleval_cli`` offline
-               over 32 sentences of 20-60 single-unit words (--wait_k 3,
+               over 16 sentences of 20-60 single-unit words (--wait_k 3,
                --max_decode_len 64: AL, CW, BLEU, sentences/s, the ms of a
                READ's re-encode and of a WRITE's step, 6 flash launches a
                READ) and online against a mock SimulEval server on
@@ -214,7 +214,7 @@ exits non-zero):
                a float32 loss on the card against the CPU; gpt2_lm,
                ``gpt2_117m`` from the converted GPT-2 on 256-1024-token
                sequences (8192-token buckets, dropout 0.1): 20 steps, eval
-               (PPL), predict (32 prompts continued 64 tokens by beam 4 and
+               (PPL), predict (16 prompts continued 64 tokens by beam 4 and
                by top_sampling), float32 logits on the card against the
                CPU; wav2vec2, the converted wav2vec2-base over [8, 160000]
                samples in bf16 and float32 (499 frames), float32 against
@@ -243,11 +243,46 @@ exits non-zero):
                the card's kernels); predict per direction (no tag in a
                hypothesis, R13's start token); one float32 batch's loss
                on the card against the CPU.
+   qat_*    -- slice 12's quantization-aware training: qat_speech_step,
+               ``speech_transformer_s`` under QAT (mt_synth_qat.yml's
+               quant params) in bf16, flash on, dropout 0.1, on
+               train_dropout's batches and key (launches per step: flash
+               and the mask kernel, no fused FFN or xent; step ms and the
+               losses beside train_dropout's); qat_train,
+               examples/quality/mt_synth_base.yml with the
+               mt_synth_qat.yml overlay through ``run_exp --entry train``
+               cut to 300 steps, as mt_quality (every step's launches:
+               the mask kernel only); qat_predict, ``--entry predict`` on
+               its dir four ways (fake quant, int8 dynamic, int8 static
+               from the learned clips and self-calibration, int8
+               weight-only): BLEU and the share of hypotheses equal to
+               the fake-quant ones.
+   int8_serve -- each ``Int8Dense`` mode on the card against the CPU
+               (int32 accumulators equal, float32 outputs within
+               ``INT8_DENSE_TOL``); the slice's speech decode (16 x 1024
+               frames, beam 4) and bench.py's batch-1 greedy
+               ``transformer_base`` decode (source 32, 64 steps) in bf16
+               and the three int8 modes: request ms, rows equal to bf16,
+               weight bytes at rest.
+   moe_*    -- moe_train, examples/moe's Switch overlay (8 experts, top-1,
+               every 2nd FFN) on ``transformer_base`` at [128, 128],
+               vocabulary 32768, beside the dense model as a bare step
+               (target tokens/s at matched active FLOPs, launches per
+               step against the configuration); moe_trainer and
+               moe_predict, the overlay through ``--entry train`` (12
+               steps on the mt_synth corpus) and ``--entry predict`` (128
+               dev lines); the GShard top-2 overlay as a bare step beside
+               them; then rows 4-5, 8 and 9-10 against their plain
+               versions at the shapes this path gave them.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
                loss, gradients, grad norm and updated parameters; then
-               the same for ``transformer_128_2e_2d_4h`` on [2, 16] ids.
+               the same for ``transformer_128_2e_2d_4h`` on [2, 16] ids;
+               then QAT's fake quant and ``QuantDense`` card against CPU
+               on the same inputs (qat_dense_check), the whole QAT speech
+               step's loss (qat_reference_check) and a float32 Switch
+               MoE step (moe_reference_check) card against CPU.
 Then the kernel summary line (launches by path), and last the device
 line.
 
@@ -365,7 +400,14 @@ PREDICT_ARGS = {
     "batch_size": PREDICT["batch"]}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase row also carries ``t_s``, the seconds since
+    the script started (where a run's time goes, phase by phase)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -929,13 +971,14 @@ def _keep_rate_ok(kept, keep_p, n):
     return abs(kept - keep_p) <= 5 * math.sqrt(keep_p * (1 - keep_p) / n)
 
 
-def dropout_kernel_phase(seed):
+def dropout_kernel_phase(seed, cases=None, dtypes=None):
     """fused_dropout_apply (the mask kernel) against its plain version:
     the encoder's postprocess site [30000, 256] (rate quantized to 1/256),
-    the text path's [32768, 512], a ragged [37, 200] (exact rate), a [37, 199] whose length is not a
-    whole number of 16-byte vectors (a scalar tail), and a flat view
-    ``buf[1:]`` whose pointer is not 16-byte aligned (the kernel gathers
-    its vectors).  Outputs and masks bitwise equal; the kept share within
+    the text path's [32768, 512], a ragged [37, 200] (exact rate), a [37,
+    199] whose length is not a whole number of 16-byte vectors (a scalar
+    tail), and a flat view ``buf[1:]`` whose pointer is not 16-byte
+    aligned (the kernel gathers its vectors); or the given ``cases``
+    ((name, shape) each) in ``dtypes`` (default float32 and bf16).  Outputs and masks bitwise equal; the kept share within
     5 sigma of its expectation; mean(y) / mean(x) within 5 sigma (plus
     half a bf16 ulp) of 1.  The library call is ``F.dropout`` (its own
     generator)."""
@@ -948,14 +991,15 @@ def dropout_kernel_phase(seed):
     key = _site_key(rng, 1 << 16 | 1)
     rows = TRAIN["batch"] * TRAIN["frames"] // 4
     results = {}
-    for case, shape in (("main", (rows, 256)),
-                        ("nmt", (NMT_TRAIN["batch"] * NMT_TRAIN["length"],
-                                 512)),
-                        ("ragged", (37, 200)), ("ragged_tail", (37, 199)),
-                        ("unaligned", (100003,))):
+    cases = cases or (("main", (rows, 256)),
+                      ("nmt", (NMT_TRAIN["batch"] * NMT_TRAIN["length"],
+                               512)),
+                      ("ragged", (37, 200)), ("ragged_tail", (37, 199)),
+                      ("unaligned", (100003,)))
+    for case, shape in cases:
         threshold, scale = fd.threshold_and_scale(
             DROPOUT_RATE, fd.quantized_site(shape))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             if case == "unaligned":
                 buf = torch.from_numpy((rng.rand(shape[0] + 1) + 0.5).astype(
@@ -1024,13 +1068,15 @@ def ffn_bound_ms(x, filter_size, kernel):
     return bound_ms(nbytes, 8.0 * rows * dim * filter_size, dtype)
 
 
-def ffn_kernel_phase(seed):
+def ffn_kernel_phase(seed, cases=None, dtypes=None):
     """fused_ffn_fwd and _bwd against their plain versions on the same
     inputs (the backward fed the plain forward's hd), at D 256: the
     slice's encoder rows (30,000), decoder rows (6,000; the bf16 forward
     splits the filter over two blocks a row tile), 2,000 (four, with a
     ragged last tile) and a ragged 37; at D 512: the NMT train cell's
-    32,768 rows, 2,000 and 37; F 2048, rate 0 and 0.1 (a package built
+    32,768 rows, 2,000 and 37 (or the given ``cases``, each (name, rows,
+    D), in ``dtypes``, default float32 and bf16); F 2048, rate 0 and 0.1
+    (a package built
     for D 256 alone, an older checkout that
     ``tools/compare_flash_kernels.py`` times, runs the D 256 cases).  The
     dropout mask is compared bitwise with b1
@@ -1047,11 +1093,12 @@ def ffn_kernel_phase(seed):
     rng = np.random.RandomState(seed + 40)
     filter_size = 2048
     key = _site_key(rng, 1 << 16 | 4)
-    cases = [("main", TRAIN["batch"] * TRAIN["frames"] // 4, 256),
-             ("decoder", TRAIN["batch"] * TRAIN["trg_len"], 256),
-             ("split", 2000, 256), ("ragged", 37, 256),
-             ("d512", NMT_TRAIN["batch"] * NMT_TRAIN["length"], 512),
-             ("d512_split", 2000, 512), ("d512_ragged", 37, 512)]
+    cases = cases or [
+        ("main", TRAIN["batch"] * TRAIN["frames"] // 4, 256),
+        ("decoder", TRAIN["batch"] * TRAIN["trg_len"], 256),
+        ("split", 2000, 256), ("ragged", 37, 256),
+        ("d512", NMT_TRAIN["batch"] * NMT_TRAIN["length"], 512),
+        ("d512_split", 2000, 512), ("d512_ragged", 37, 512)]
     results = {}
     for case, rows, dim in cases:
         if dim not in ff.DIMS:
@@ -1059,7 +1106,7 @@ def ffn_kernel_phase(seed):
         for rate in (0.0, DROPOUT_RATE):
             k = key if rate else None
             drop = ff._drop(rate, k)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes or (torch.float32, torch.bfloat16):
                 name = str(dtype).replace("torch.", "")
 
                 def draw(*shape, scale=1.0, dt=dtype):
@@ -1565,15 +1612,15 @@ def transformer_flat_params(cfg, src_vocab, trg_vocab, seed):
 
 def build_slice(seed, device="cuda", dtype="bfloat16"):
     """The slice's model (weights from ``seed`` in the JAX flat layout,
-    loaded through ``param_bridge``; bf16 models store them in bf16), its
+    loaded through ``param_bridge``; bf16 models store them in bf16;
+    int8 where the caller turned int8 serving on), its
     beam search, and a function drawing one request of seeded random
     fbank frames."""
     import torch
 
     import neurst_tpu_torch
     from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
-    from neurst_tpu_torch.utils.param_bridge import load_flat_params
-    from neurst_tpu_torch.utils.param_policy import cast_params_for_inference
+    from neurst_tpu_torch.utils.param_policy import restore_inference_params
 
     cfg = SpeechTransformer.build_model_args_by_name(SLICE["model"])
     params = dict(cfg["model.params"], dtype=dtype)
@@ -1587,8 +1634,9 @@ def build_slice(seed, device="cuda", dtype="bfloat16"):
         trg_meta=trg_meta, device=device)
     flat = speech_transformer_flat_params(cfg, SLICE["vocab"],
                                           SLICE["feature_dim"], seed)
-    load_flat_params(model, flat)
-    cast_params_for_inference(model, params["dtype"])
+    # under int8 serving (set by the caller) the float32 weights are
+    # quantized on the way in, as every inference entry restores them
+    restore_inference_params(model, flat)
 
     search = neurst_tpu_torch.build_search_layer({
         "search_method.class": "beam_search",
@@ -1923,15 +1971,21 @@ def reference_check_phase(seed):
                              "CPU path")
 
 
-def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0):
+def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
+                quant_params=None):
     """The training slice through the entry points the JAX trainer uses:
     ``build_model`` with weights from ``seed`` in the JAX flat layout
     (through ``param_bridge``), the recipe's noam schedule and Adam,
     and, for a bf16 model, bf16 stored params with an f32 master (the
     trainer's default for a bf16 model); the label-smoothed criterion,
     ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
-    rate of all six dropout sites (the recipe's is 0.1)."""
+    rate of all six dropout sites (the recipe's is 0.1).  With
+    ``quant_params`` (QAT, whose global config the caller has set) the
+    clips start at the config's values and the step adds
+    ``clip_l2_penalty``, as the trainer does."""
     import neurst_tpu_torch
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        clip_l2_penalty
     from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
     from neurst_tpu_torch.optimizers.master_weights import (
         cast_params_bf16, with_bf16_params)
@@ -1952,8 +2006,11 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0):
                   "audio_feature_channels": 1},
         trg_meta={"vocab_size": TRAIN["vocab"], "eos_id": 1, "bos_id": 2,
                   "unk_id": 3}, device=device)
-    load_flat_params(model, speech_transformer_flat_params(
-        cfg, TRAIN["vocab"], TRAIN["feature_dim"], seed))
+    flat = speech_transformer_flat_params(cfg, TRAIN["vocab"],
+                                          TRAIN["feature_dim"], seed)
+    if quant_params is not None:
+        flat.update(_qat_clips(model, quant_params))
+    load_flat_params(model, flat)
     lr = neurst_tpu_torch.build_lr_schedule(cfg)
     tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr)
     if dtype == "bfloat16":
@@ -1963,8 +2020,26 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0):
         "criterion.class": "label_smoothed_cross_entropy",
         "criterion.params": {"label_smoothing": TRAIN["label_smoothing"]}})
     state = TrainState.create(dict(model.named_parameters()), tx)
-    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    step = make_train_step(
+        model, criterion, tx, lr_schedule=lr,
+        extra_loss_fn=None if quant_params is None else clip_l2_penalty)
     return model, criterion, tx, state, step
+
+
+def _qat_clips(model, quant_params):
+    """The QAT clips of ``model`` (JAX flat names) at the config's initial
+    values, as the JAX initializer sets them."""
+    from neurst_tpu_torch.utils.param_bridge import to_jax_name
+    clips = {}
+    for name, _ in model.named_parameters():
+        if name.endswith("kernel_clip_max"):
+            value = quant_params.get("quant_weight_clip_max", 1.0)
+        elif name.endswith("output_clip_max"):
+            value = quant_params.get("quant_act_clip_max", 16.0)
+        else:
+            continue
+        clips[to_jax_name(name)] = np.float32(value)
+    return clips
 
 
 def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
@@ -1985,66 +2060,78 @@ def train_batch(rng, device, batch, frames, min_src, trg_len, min_trg):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+def _stack_ffns(stack):
+    """The FFN sublayer of each layer of a transformer or LightConv
+    stack, in order."""
+    if hasattr(stack, "layer_0_conv"):
+        return [getattr(stack, f"layer_{i}_ffn")
+                for i in range(stack.num_layers)]
+    return [getattr(stack, f"layer_{i}").ffn
+            for i in range(stack.num_layers)]
+
+
 def expected_launches(model, enc_rows, dec_rows, dropout):
     """Kernel launches of one training step, from the configuration and
     the wrappers' plans: the encoder's flash kernels once a layer; where
     the model fuses the projection into the xent, the fused xent
     forward's launches (its combine too where it splits the vocabulary)
-    and its backward's; the fused FFN
-    where its gate says so, with its forward's launches at each row count
-    and three backward launches; with dropout, the mask kernel at every
+    and its backward's; the fused FFN in each layer whose FFN the gate
+    fuses (a dense FFN outside QAT and int8 serving: an MoE layer's
+    experts and a QAT dense run no kernel of their own), with its
+    forward's launches at the layer's row count and three backward
+    launches; with dropout, the mask kernel at every
     site the kernels above do not cover (two postprocess sites an encoder
     layer, three a decoder layer, the decoder's two attention-weight
-    sites, the FFN hidden where it is not fused), once forward and once
+    sites, the FFN hidden where it is not fused: an MoE layer's expert
+    hidden too), once forward and once
     backward.  The multi-task model's transcript decoder (``asr_decoder``)
     counts as a second decoder over ``dec_rows`` (both text sides of a
     batch are padded to one length).  A LightConv model has no flash
     attention; its convolution weights are a dropout site of every layer
     (a decoder layer's self-attention weight site)."""
+    from neurst_tpu_torch.layers.common_layers import TransformerFFN
     from neurst_tpu_torch.ops.fused_ce import bwd_launches
     from neurst_tpu_torch.ops.fused_ce import \
         fwd_launches as xent_fwd_launches
-    from neurst_tpu_torch.ops.fused_ffn import (fused_ffn_available,
-                                                fwd_launches)
+    from neurst_tpu_torch.ops.fused_ffn import fwd_launches
     enc, dec = model.encoder, model.decoder
     lightconv = hasattr(enc, "layer_0_conv")
-    ffn0 = enc.layer_0_ffn if lightconv else enc.layer_0.ffn
-    dense1 = ffn0.dense1
-    dtype = ffn0.dtype  # the compute dtype of FFN and xent
     rate = DROPOUT_RATE if dropout else 0.0
+    dim = model.trg_modality.embedding_dim
+    dtype = model.dtype  # the compute dtype of FFN and xent
 
-    def fused(rows):
-        return fused_ffn_available(dense1.in_features, dense1.out_features,
-                                   ffn0.activation, rows, True, rate)
+    def fused(ffn, rows):
+        return isinstance(ffn, TransformerFFN) and ffn.fuses(rows, True,
+                                                             rate)
 
     flash = enc.num_layers if getattr(enc, "enable_flash_attention",
                                       False) else 0
-    decoders = [dec.num_layers]
+    decoders = [dec]
     if getattr(model, "asr_decoder", None) is not None:
-        decoders.append(model.asr_decoder.num_layers)
-    layers = [(enc.num_layers, enc_rows)] + [(n, dec_rows)
-                                             for n in decoders]
-    ffn = sum(n * fused(rows) for n, rows in layers)
-    ffn_fwd = sum(n * fused(rows) * fwd_launches(
-        rows, dense1.out_features, dense1.in_features, dtype)
-        for n, rows in layers)
+        decoders.append(model.asr_decoder)
+    layers = [(ffn, enc_rows) for ffn in _stack_ffns(enc)] + [
+        (ffn, dec_rows) for d in decoders for ffn in _stack_ffns(d)]
+    ffn = sum(fused(f, rows) for f, rows in layers)
+    ffn_fwd = sum(fwd_launches(rows, f.dense1.out_features,
+                               f.dense1.in_features, dtype)
+                  for f, rows in layers if fused(f, rows))
     sites = 0
     if dropout:
         # a LightConv encoder layer drops its convolution weights where a
         # transformer layer drops its attention weights (unless flash
         # does), and has no attention
-        sites = enc.num_layers * (2 + (lightconv or not flash)
-                                  + (not fused(enc_rows)))
-        sites += sum(decoders) * (5 + (not fused(dec_rows)))
+        sites = enc.num_layers * (2 + (lightconv or not flash))
+        sites += sum(d.num_layers for d in decoders) * 5
+        sites += sum(not fused(f, rows) for f, rows in layers)
     # the train step fuses the projection into the xent only where the
-    # model allows it (a vocabulary a multiple of 128 among the JAX
-    # package's conditions); else the logits path launches neither
+    # model allows it (a vocabulary a multiple of 128, and neither QAT
+    # nor int8 serving, among the JAX package's conditions); else the
+    # logits path launches neither
     xent = model.supports_fused_softmax_ce()
     return {"flash_attention_fwd": flash, "flash_attention_dq": flash,
             "flash_attention_dkv": flash,
             "fused_linear_xent_fwd": xent * xent_fwd_launches(
-                dec_rows, model.trg_meta["vocab_size"], dense1.in_features,
-                dtype),
+                dec_rows, model.trg_meta["vocab_size"], dim, dtype),
             "fused_linear_xent_bwd": xent * bwd_launches(dtype),
             "fused_softmax_xent_fwd": 0, "fused_softmax_xent_bwd": 0,
             "fused_dropout": 2 * sites, "fused_ffn_fwd": ffn_fwd,
@@ -2052,14 +2139,18 @@ def expected_launches(model, enc_rows, dec_rows, dropout):
 
 
 def _drive_train(model, criterion, tx, state, step, batches, warmup,
-                 steps, key, expected):
+                 steps, key, expected, may_stay=None):
     """``warmup`` steps, then ``steps`` timed steps (launches per step of
     every kernel held to ``expected``), then the step's three parts
     timed apart on the remaining batches.  Checks finite losses and grad
     norms, that every stored parameter moved (the float32 master's, with
     bf16 params), and with ``key`` that the same (key, step) gives a
-    bitwise equal loss and the next step another.  Returns the
-    measurements and the launch totals."""
+    bitwise equal loss and the next step another.  ``may_stay(name)``:
+    stored parameters allowed not to move (QAT's clips, whose first
+    updates at the recipe's warm-up learning rate fall below half a
+    float32 rounding step of their values) if their gradient on the
+    first timed batch is finite and nonzero (the row counts them).
+    Returns the measurements and the launch totals."""
     import torch
 
     from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2099,8 +2190,19 @@ def _drive_train(model, criterion, tx, state, step, batches, warmup,
         raise AssertionError(f"non-finite loss or grad norm: {metrics}")
     stored = state.opt_state["master"] if has_master else state.params
     unmoved = [n for n in stored if torch.equal(stored[n], stored0[n])]
-    if unmoved:
-        raise AssertionError(f"parameters that did not move: {unmoved}")
+    stayed = [n for n in unmoved if may_stay is not None and may_stay(n)]
+    if len(unmoved) > len(stayed):
+        raise AssertionError(f"parameters that did not move: "
+                             f"{sorted(set(unmoved) - set(stayed))}")
+    if stayed:
+        grads = step.compute_grads(state.params, timed[0], None if key is None
+                                   else fold_in(key, state.step))[2]
+        dead = [n for n in stayed
+                if not (bool(torch.isfinite(grads[n]).all())
+                        and bool((grads[n] != 0).any()))]
+        if dead:
+            raise AssertionError(f"parameters that did not move, with a "
+                                 f"zero or non-finite gradient: {dead}")
     live_moved = sum(int((p.detach() != live0[n]).sum())
                      for n, p in state.params.items())
     determinism = None
@@ -2145,7 +2247,8 @@ def _drive_train(model, criterion, tx, state, step, batches, warmup,
             "grad_norm": [m["grad_norm"] for m in metrics],
             "lr": [m["lr"] for m in metrics],
             "live_values_moved": live_moved,
-            "stored_tensors_moved": len(stored),
+            "stored_tensors_moved": len(stored) - len(stayed),
+            "allowed_to_stay": len(stayed),
             "expected_launches_per_step": expected,
             "dropout_determinism": determinism}, totals
 
@@ -2192,7 +2295,7 @@ def train_phase(seed, dropout=False):
 
 def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
                     dropout=DROPOUT_RATE, model_name=None, src_vocab=None,
-                    trg_vocab=None):
+                    trg_vocab=None, quant_params=None):
     """The NMT training cell through the entry points the JAX trainer
     uses: ``build_model("transformer")`` with weights from ``seed`` in
     the JAX flat layout (through ``param_bridge``), the hparams set's
@@ -2200,8 +2303,11 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
     and an f32 master where ``bf16_params`` (bench.py's
     ``with_bf16_params`` variant), the label-smoothed criterion,
     ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
-    rate of all six dropout sites (the hparams set's is 0.1)."""
+    rate of all six dropout sites (the hparams set's is 0.1).
+    ``quant_params``: QAT, as ``build_train`` takes it."""
     import neurst_tpu_torch
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        clip_l2_penalty
     from neurst_tpu_torch.models.transformer import Transformer
     from neurst_tpu_torch.optimizers.master_weights import (
         cast_params_bf16, with_bf16_params)
@@ -2226,8 +2332,10 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
     model = neurst_tpu_torch.build_model(
         cfg, src_meta=meta(src_vocab), trg_meta=meta(trg_vocab),
         device=device)
-    load_flat_params(model, transformer_flat_params(cfg, src_vocab,
-                                                    trg_vocab, seed))
+    flat = transformer_flat_params(cfg, src_vocab, trg_vocab, seed)
+    if quant_params is not None:
+        flat.update(_qat_clips(model, quant_params))
+    load_flat_params(model, flat)
     lr = neurst_tpu_torch.build_lr_schedule(cfg)
     tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr,
                             clip_norm=NMT_TRAIN["clip_norm"])
@@ -2239,7 +2347,9 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
         "criterion.params": {
             "label_smoothing": NMT_TRAIN["label_smoothing"]}})
     state = TrainState.create(dict(model.named_parameters()), tx)
-    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    step = make_train_step(
+        model, criterion, tx, lr_schedule=lr,
+        extra_loss_fn=None if quant_params is None else clip_l2_penalty)
     return model, criterion, tx, state, step
 
 
@@ -2982,16 +3092,19 @@ def _step_launch_checks(seen, model):
     shape."""
     by_shape, total = {}, {}
     for s in seen["steps"]:
-        b, length = s["src"][:2]
-        enc_rows = b * length if len(s["src"]) == 2 \
-            else _speech_rows(s["src"])
-        expected = expected_launches(model, enc_rows, b * s["trg"][1],
-                                     True)
+        src, trg, cycle = s["src"], s["trg"], 1
+        if len(trg) == 3:
+            # update_cycle micro-batches [cycle, B / cycle, ...]
+            cycle, src, trg = trg[0], src[1:], trg[1:]
+        b, length = src[:2]
+        enc_rows = b * length if len(src) == 2 else _speech_rows(src)
+        expected = {k: cycle * v for k, v in expected_launches(
+            model, enc_rows, b * trg[1], True).items()}
         got = {k: s["launches"][k] for k in expected}
         if got != expected:
             raise AssertionError(f"step of {s['src']} x {s['trg']}: "
                                  f"launches {got}, expected {expected}")
-        by_shape["x".join(map(str, [b, length, s["trg"][1]]))] = {
+        by_shape["x".join(map(str, [b, length, trg[1]]))] = {
             k: v for k, v in got.items() if v}
         for k, v in s["launches"].items():
             total[k] = total.get(k, 0) + v
@@ -3265,7 +3378,7 @@ def nmt_reference_check(seed, root, devices=("cuda", "cpu")):
 
 
 def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
-                     name="quality"):
+                     name="quality", overlay=None, steps=None):
     """examples/quality/mt_synth_base.yml (transformer_base, or
     ``hparams_set``, bf16 with an f32 master, update_cycle 2, on the
     committed reversal corpus) cut to ``quality_steps`` steps, a log every
@@ -3273,7 +3386,10 @@ def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
     ``quality_dev_lines`` lines, into ``<root>/<name>``: the mean loss
     must fall from quarter to quarter (QUALITY_r05's
     ``loss_monotone_by_quarter``); prints the BLEU.  Returns the row, with
-    the model dir and the dev files."""
+    the model dir, the dev files and what ``run_trainer`` saw.
+    ``overlay``: a recipe overlay whose top-level keys are merged in
+    (``mt_synth_qat.yml``'s ``enable_quant`` and ``quant_params``);
+    ``steps`` in place of ``quality_steps``."""
     import yaml
 
     from neurst_tpu_torch.tasks.translation import Translation
@@ -3285,6 +3401,9 @@ def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
     with open(recipe) as f:
         cfg = json.loads(json.dumps(yaml.safe_load(f)).replace(
             '"examples/quality/', f'"{here}/examples/quality/'))
+    if overlay:
+        with open(overlay) as f:
+            cfg.update(yaml.safe_load(f))
     dev = {}
     for side in ("src", "trg"):
         dev[side] = os.path.join(root, f"quality_dev.{side}")
@@ -3293,7 +3412,7 @@ def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
             lines = f.read().splitlines()[:t["quality_dev_lines"]]
         with open(dev[side], "w") as f:
             f.write("\n".join(lines) + "\n")
-    steps = t["quality_steps"]
+    steps = steps or t["quality_steps"]
     if hparams_set:
         cfg["hparams_set"] = hparams_set
     cfg["entry.class"] = "trainer"
@@ -3313,8 +3432,10 @@ def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
     losses = [w["loss"] for w in seen["windows"]]
     q = len(losses) // 4
     quarters = [float(np.mean(losses[i * q:(i + 1) * q])) for i in range(4)]
-    row = {"phase": "mt_quality", "recipe": "examples/quality/"
-           "mt_synth_base.yml", "hparams_set": cfg.get("hparams_set"),
+    row = {"phase": "mt_quality" if overlay is None else name,
+           "recipe": os.path.relpath(recipe, here),
+           "overlay": overlay and os.path.relpath(overlay, here),
+           "hparams_set": cfg.get("hparams_set"),
            "steps": steps,
            "dev_lines": t["quality_dev_lines"],
            "loss_trajectory": [[w["step"], w["loss"]]
@@ -3330,7 +3451,7 @@ def mt_quality_phase(root, device="cuda", recipe=None, hparams_set=None,
     if not (row["loss_monotone_by_quarter"] and len(seen["validations"]) == 1
             and math.isfinite(seen["validations"][0]["value"])):
         raise AssertionError(f"mt_quality phase failed: {row}")
-    return dict(row, model_dir=model_dir, dev=dev)
+    return dict(row, model_dir=model_dir, dev=dev, seen=seen)
 
 
 def nmt_phases(seed, device="cuda"):
@@ -3929,10 +4050,12 @@ def prep_predict_phase(root, model_dir, device="cuda", cfg=AUDIO_PREP):
     return counts
 
 
-def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP):
+def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP, after_cpu=None):
     """The speech recipes' data preparation and what it feeds, under
-    ``build/audio_prep_smoke/`` (removed after): ``prep_records``,
-    ``device_fbank``, ``prep_project``, ``prep_train`` and
+    ``build/audio_prep_smoke/`` (removed after): ``prep_records`` and
+    ``prep_project`` (host work alone: the CLIs on the CPU), then
+    ``after_cpu()`` if given (where ``main`` joins the QAT worker that ran
+    beside them), then ``device_fbank``, ``prep_train`` and
     ``prep_predict``, with each stage's wall seconds.  Returns the launch
     counts of the train and the predict runs."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -3945,11 +4068,15 @@ def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP):
         tarball, _, train_dir = prep_records_phase(root, seed, cfg)
         stages["prep_records"] = time.perf_counter() - start
         start = time.perf_counter()
-        device_fbank_phase(root, tarball, train_dir, device, cfg)
-        stages["device_fbank"] = time.perf_counter() - start
-        start = time.perf_counter()
         codes, vocab, records = prep_project_phase(root, cfg)
         stages["prep_project"] = time.perf_counter() - start
+        if after_cpu is not None:
+            start = time.perf_counter()
+            after_cpu()
+            stages["after_cpu"] = time.perf_counter() - start
+        start = time.perf_counter()
+        device_fbank_phase(root, tarball, train_dir, device, cfg)
+        stages["device_fbank"] = time.perf_counter() - start
         start = time.perf_counter()
         model_dir, train_counts = prep_train_phase(root, codes, vocab,
                                                    records, device, cfg)
@@ -3973,7 +4100,7 @@ def audio_prep_phases(seed, device="cuda", cfg=AUDIO_PREP):
 # frames whose transcripts and translations have 90-120 units, over two
 # seeded BPE vocabularies of 8192 (the ST recipe's size); 12 steps, a
 # checkpoint every 6; the bare step at the top bucket beside the train
-# phases'.  Then --entry predict on both heads (64 triples of 300-3000
+# phases'.  Then --entry predict on both heads (32 triples of 300-3000
 # frames and 10-60 units, batch 16, beam 4, lp -1, max 150), the
 # ensemble of ckpt-12 (A) and ckpt-6 (B) and of A with itself, the ASR ->
 # MT cascade from 6 steps of must-c/asr_training_args.yml's and
@@ -3984,7 +4111,7 @@ MULTITASK = dict(hparams_set="speech_transformer_s", triples=80,
                  min_frames=2782, max_frames=3000, min_tokens=90,
                  max_tokens=120, steps=12, save_every=6, summary=2,
                  bare_warmup=2, bare_steps=5, bare_split=2,
-                 predict_triples=64, predict_min_frames=300,
+                 predict_triples=32, predict_min_frames=300,
                  predict_max_frames=3000, predict_min_tokens=10,
                  predict_max_tokens=60, cascade_steps=6, check_triples=8,
                  check_max_frames=64, check_steps=2, check_max_decode=16)
@@ -4578,7 +4705,7 @@ WAITK = dict(recipe=os.path.join("examples", "simultaneous_translation",
              words=2000, pairs=40000, bpe_pairs=4000, min_tokens=5,
              max_tokens=127, bpe_symbols=2000, vocab_multiple=128,
              steps=12, summary=2,
-             simul_sentences=32, simul_min_words=20, simul_max_words=60,
+             simul_sentences=16, simul_min_words=20, simul_max_words=60,
              online_sentences=8, wait_k=3, max_decode_len=64,
              predict_sentences=64, predict_batch=32, beam=4,
              lightconv_set="lightconv_base", lightconv_steps=6,
@@ -5919,7 +6046,7 @@ def ctnmt_phases(seed, root, bert_pt, device="cuda"):
 GPT2_LM = dict(hparams_set="gpt2_117m", vocab=GPT2_117M["vocab"],
                train_lines=300, heldout_lines=32, min_tokens=256,
                max_tokens=1024, batch_tokens=8192, steps=20, summary=5,
-               prompts=32, min_prompt=16, max_prompt=64, continuation=64,
+               prompts=16, min_prompt=16, max_prompt=64, continuation=64,
                check_prompt=32)
 GPT2_CHECK_TOL = 1e-3
 
@@ -6127,19 +6254,26 @@ def wav2vec2_phase(seed, w2v_dir, device="cuda"):
     return row["launches"]
 
 
-def pretrained_phases(seed, device="cuda"):
-    """Slice 10 under ``build/pretrained_smoke/`` (removed after): convert,
-    reference_golden, ctnmt, gpt2_lm and wav2vec2, with each phase's wall
-    seconds.  Returns the launch counts by path."""
+def pretrained_convert(seed):
+    """``convert_phase`` under a fresh ``build/pretrained_smoke/``: (root,
+    its result, seconds)."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "pretrained_smoke")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    stages, launches = {}, {}
+    start = time.perf_counter()
+    return root, convert_phase(seed, root), time.perf_counter() - start
+
+
+def pretrained_phases(seed, device="cuda", prepared=None):
+    """Slice 10 under ``build/pretrained_smoke/`` (removed after): convert
+    (or ``prepared``, ``pretrained_convert``'s result where the conversion
+    ran earlier: ``main`` runs it, host work alone, beside the QAT
+    worker), reference_golden, ctnmt, gpt2_lm and wav2vec2, with each
+    phase's wall seconds.  Returns the launch counts by path."""
+    root, converted, convert_s = prepared or pretrained_convert(seed)
+    stages, launches = {"convert": convert_s}, {}
     try:
-        start = time.perf_counter()
-        converted = convert_phase(seed, root)
-        stages["convert"] = time.perf_counter() - start
         start = time.perf_counter()
         reference_golden_phase(device)
         stages["reference_golden"] = time.perf_counter() - start
@@ -6590,7 +6724,7 @@ def spec_speech_phase(paths, device="cuda"):
 
 def spec_gpt2_phase(root, model_dir, prompts, device="cuda"):
     """Prompt-lookup speculative decoding (the n-gram draft over each
-    prompt, k 4) of gpt2_lm's GPT-2 117M dir against plain greedy: 32
+    prompt, k 4) of gpt2_lm's GPT-2 117M dir against plain greedy: 16
     prompts of 16-64 tokens continued by 64 tokens (the minimum length:
     each prompt ends in the EOS the pipeline appends, after which the
     20-step model emits EOS), bfloat16 and float32.  Returns the launch
@@ -6941,6 +7075,931 @@ def multilingual_phases(seed, device="cuda"):
 
 
 
+# Slice 12: quantization-aware training, int8 serving and mixture of
+# experts.  QAT: examples/quality/mt_synth_base.yml (the mt_synth recipe
+# at transformer_base width) with the mt_synth_qat.yml overlay, cut to
+# 300 steps as mt_quality is (QAT's host-bound step costs ~3x
+# mt_quality's: the single longest phase), then predict on dev's first
+# 128 lines (beam 4, max 20) four ways, as examples/quality/run_quality.py's
+# mt_synth_qat entry serves it; a few steps of speech_transformer_s under
+# QAT at the recipe's dropout with flash on.  int8 serving: the slice's
+# speech decode and bench.py's batch-1 greedy transformer_base decode
+# (bench.py:340-420: source 32, max_decode 64) in bf16 and the three int8
+# modes.  MoE: examples/moe's Switch overlay on transformer_base at
+# bench.py's MoE cell (bench.py:765: [128, 128], vocabulary 32768) as a
+# bare step beside the dense model, then through the train and predict
+# entries on the mt_synth corpus, and the GShard top-2 overlay.
+QAT = dict(recipe=os.path.join("examples", "quality", "mt_synth_base.yml"),
+           overlay=os.path.join("examples", "quality", "mt_synth_qat.yml"),
+           steps=300, beam=4, max_decode=20, batch=64, worker_timeout_s=600)
+INT8_MODES = {"int8_weight_only": {}, "int8_dynamic": {"activations": True},
+              "int8_static": {"activations": True,
+                              "static_activation_scales": True}}
+INT8_FLAGS = {"int8_weight_only": ["--int8_serving"],
+              "int8_dynamic": ["--int8_serving", "--int8_activations"],
+              "int8_static": ["--int8_serving", "--int8_activations",
+                              "--int8_static_activations"]}
+# timed requests a mode of the speech decode (after one warm-up)
+INT8_SPEECH_REQUESTS = 2
+INT8_TEXT = dict(model="transformer_base", vocab=32768, src_len=32,
+                 max_decode=64, requests=2)
+# Int8Dense on the card against the same module on the CPU (float32
+# compute): int32 accumulators equal, outputs within this share of the
+# largest (the weight-only product is a float matmul in another order)
+INT8_DENSE_TOL = 1e-5
+INT8_DENSE_ROWS = (1, 64, 4096)
+# QuantDense on the card against the CPU on the same inputs and weights
+# (float32): the fake-quantized weights and the fake quant of a given
+# tensor bitwise equal (elementwise IEEE operations alike on both), the
+# clips' gradients (sums in other orders) within QAT_GRAD_TOL relative;
+# the dense's output may land on the next level of its grid where the
+# product's rounding differs at a rounding boundary, in at most
+# QAT_FLIP_SHARE of the elements and by one level, and its gradients
+# (straight through the rounding) within QAT_GRAD_TOL by relative L2
+QAT_GRAD_TOL = 1e-4
+QAT_FLIP_SHARE = 1e-3
+# (name, rows, in, out, activation): the QAT speech step's encoder FFN
+# and attention output at its decoder rows (the encoder's 30,000 rows
+# cost the CPU side too long), and transformer_base's FFN at
+# mt_synth_base.yml's 4096-token micro-batch
+QAT_DENSE_CASES = (("speech_dense1", 6000, 256, 2048, "relu"),
+                   ("speech_dense2", 6000, 2048, 256, None),
+                   ("speech_attention_output", 6000, 256, 256, None),
+                   ("base_dense1", 4096, 512, 2048, "relu"),
+                   ("base_dense2", 4096, 2048, 512, None))
+# the whole QAT speech step in float32, card against CPU: the loss
+# within this share (the fake quant's levels make the network
+# discontinuous: a product that rounds the other way at a level boundary
+# moves its output by a whole level, and each such flip moves the later
+# layers, so the gradients of a deep QAT model are compared where the
+# inputs are the same, in qat_dense_check, and printed here beside the
+# CPU's own spread under a one-rounding perturbation of its weights)
+QAT_REF_LOSS_TOL = 1e-3
+MOE = dict(model="transformer_base", batch=128, length=128, vocab=32768,
+           warmup=2, steps=5, split=2, trainer_steps=12,
+           switch=os.path.join("examples", "moe", "example_configs",
+                               "moe_switch_base_args.yml"),
+           gshard=os.path.join("examples", "moe", "example_configs",
+                               "moe_gshard_top2_args.yml"))
+
+
+def _quantization_off():
+    from neurst_tpu_torch.layers.quantization.quant_layers import (
+        global_init, set_int8_serving)
+    global_init(False)
+    set_int8_serving(False)
+
+
+def _qat_quant_params():
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, QAT["overlay"])) as f:
+        overlay = yaml.safe_load(f)
+    qp = overlay["quant_params"]
+    return yaml.safe_load(qp) if isinstance(qp, str) else dict(qp)
+
+
+def _no_fused_rows(counts, what):
+    """Rows 4-5 and 9-10 off (the JAX gates under QAT and int8)."""
+    on = {k: v for k, v in counts.items()
+          if k.startswith(("fused_linear_xent", "fused_ffn")) and v}
+    if on:
+        raise AssertionError(f"{what}: fused kernels ran under "
+                             f"quantization: {on}")
+
+
+def qat_predict_phase(model_dir, dev, device="cuda"):
+    """The QAT dir decoded four ways through ``--entry predict``: fake
+    quant, int8 with dynamic activation scales, int8 with static scales
+    (the learned FFN clips where QAT has them, self-calibration
+    elsewhere), and int8 weight-only: BLEU, samples/s and the share of
+    hypotheses equal to the fake-quant ones, and under static scales the
+    denses whose ``act_scale`` came from a learned clip and the
+    calibrated ones.  Returns the launch counts of the runs (the text
+    decode launches no kernel)."""
+    from neurst_tpu_torch.exps import sequence_generator
+    from neurst_tpu_torch.layers.quantization.quant_layers import Int8Dense
+    calibrated = []
+    write_scales = sequence_generator.write_calibrated_act_scales
+
+    def seen_scales(model, calibration, margin=1.0):
+        calibrated.append({
+            "from_clip": sum(isinstance(m, Int8Dense) and m.act_scale_from_clip
+                             for m in model.modules()),
+            "calibrated": sum(not model.get_submodule(p).act_scale_from_clip
+                              for p in calibration)})
+        return write_scales(model, calibration, margin)
+    argv = ["--entry", "predict", "--model_dir", model_dir,
+            "--metric", "bleu", "--dataset.class", "parallel_text",
+            "--dataset.params", json.dumps(_parallel(dev)),
+            "--search_method.params", json.dumps(
+                {"beam_size": QAT["beam"],
+                 "maximum_decode_length": QAT["max_decode"]}),
+            "--batch_size", str(QAT["batch"]), "--device", device]
+    runs, total = {}, {}
+    sequence_generator.write_calibrated_act_scales = seen_scales
+    try:
+        for name, flags in [("fake_quant", [])] + list(INT8_FLAGS.items()):
+            result, counts, wall = _counted_predict(argv + flags)
+            runs[name] = {"BLEU": result["BLEU"],
+                          "samples": result["samples"],
+                          "samples_per_s": result["samples_per_sec"],
+                          "wall_s": wall, "hypotheses": result["hypotheses"],
+                          "launches": counts}
+            if name == "int8_static":
+                runs[name]["act_scales"] = calibrated[-1]
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        sequence_generator.write_calibrated_act_scales = write_scales
+        _quantization_off()
+    ref = runs["fake_quant"]["hypotheses"]
+    for run in runs.values():
+        hyps = run.pop("hypotheses")
+        run["equal_to_fake_quant"] = float(np.mean(
+            [a == b for a, b in zip(hyps, ref)]))
+        if len(hyps) != len(ref) or not math.isfinite(run["BLEU"]):
+            raise AssertionError(f"qat_predict: {run}")
+    if not (runs["int8_static"]["act_scales"]["from_clip"]
+            and runs["int8_static"]["act_scales"]["calibrated"]):
+        raise AssertionError(f"qat_predict: act_scales from learned QAT "
+                             f"clips and calibrated: "
+                             f"{runs['int8_static']['act_scales']}")
+    emit({"phase": "qat_predict", "model_dir_recipe": QAT["overlay"],
+          "dev_lines": len(ref), "beam": QAT["beam"],
+          "max_decode": QAT["max_decode"], "runs": runs})
+    return total
+
+
+def qat_phases(seed, device="cuda"):
+    """qat_train (the mt_synth QAT recipe through ``--entry train``,
+    every step's launches against ``expected_launches``: the mask kernel
+    only) and qat_predict, under ``build/qat_smoke/``.  Returns the
+    launch counts of the train and the predict runs."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "qat_smoke")
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        quality = mt_quality_phase(
+            root, device, recipe=os.path.join(here, QAT["recipe"]),
+            name="qat_train", overlay=os.path.join(here, QAT["overlay"]),
+            steps=QAT["steps"])
+        seen = quality["seen"]
+        model = seen["model"]
+        if device == "cuda":
+            by_shape = _step_launch_checks(seen, model)
+            _no_fused_rows(seen["launches"], "qat_train")
+            if not seen["launches"]["fused_dropout"]:
+                raise AssertionError("qat_train: the mask kernel never ran")
+            emit({"phase": "qat_train_launches",
+                  "launches_per_step_by_shape": by_shape,
+                  "launches": seen["launches"],
+                  "clips": sum(n.endswith("_clip_max")
+                               for n, _ in model.named_parameters())})
+        predict_counts = qat_predict_phase(quality["model_dir"],
+                                           quality["dev"], device)
+    finally:
+        _quantization_off()
+        shutil.rmtree(root, ignore_errors=True)
+    return seen["launches"], predict_counts
+
+
+def qat_speech_step_phase(seed, train_dropout_row, device="cuda"):
+    """``speech_transformer_s`` under QAT (mt_synth_qat.yml's quant
+    params) in bf16 with flash on and the recipe's dropout 0.1, on
+    train_dropout's batches and key: launches per step against the
+    configuration (flash and the mask kernel; no fused FFN or xent),
+    step ms, and the losses next to train_dropout's without QAT."""
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        global_init
+    from neurst_tpu_torch.utils.rng import make_key
+    qp = _qat_quant_params()
+    global_init(True, **qp)
+    try:
+        model, criterion, tx, state, step = build_train(
+            seed, device, dropout=DROPOUT_RATE, quant_params=qp)
+        key = make_key(seed + 7)
+        rng = np.random.RandomState(seed + 3)
+        batches = [train_batch(rng, device, TRAIN["batch"], TRAIN["frames"],
+                               TRAIN["min_src"], TRAIN["trg_len"],
+                               TRAIN["min_trg"])
+                   for _ in range(TRAIN["warmup"] + TRAIN["steps"]
+                                  + TRAIN["split"])]
+        expected = expected_launches(
+            model, TRAIN["batch"] * TRAIN["frames"] // 4,
+            TRAIN["batch"] * TRAIN["trg_len"], True)
+        _no_fused_rows(expected, "qat_speech_step")
+        if not (expected["flash_attention_fwd"]
+                and expected["fused_dropout"]):
+            raise AssertionError(f"qat_speech_step: {expected}")
+        out, totals = _drive_train(
+            model, criterion, tx, state, step, batches, TRAIN["warmup"],
+            TRAIN["steps"], key, expected,
+            may_stay=lambda n: n.endswith("_clip_max"))
+    finally:
+        global_init(False)
+    emit(dict({"phase": "qat_speech_step", "model": TRAIN["model"],
+               "dtype": "bfloat16", "dropout": DROPOUT_RATE,
+               "quant_params": qp,
+               "loss_without_qat": train_dropout_row["loss"],
+               "step_ms_median_without_qat":
+                   train_dropout_row["step_ms_median"]}, **out))
+    return totals
+
+
+def qat_dense_check(seed):
+    """QAT's fake quant and ``QuantDense`` on the card against the CPU,
+    float32, on the same inputs, weights and upstream gradient, at
+    ``QAT_DENSE_CASES``, with the clips at the 99th percentile of |w| and
+    of the activation's |output| (so that both clips take a gradient
+    from the data): the fake-quantized weights, the fake quant of the
+    CPU's pre-quant output and its dx bitwise equal; the clips'
+    gradients within ``QAT_GRAD_TOL``, finite and nonzero; the dense's
+    output off by one level in at most ``QAT_FLIP_SHARE`` of its
+    elements; dx, dW, db and the clips' gradients within
+    ``QAT_GRAD_TOL``.  Returns the rows."""
+    import torch
+
+    from neurst_tpu_torch.layers.common_layers import activation_by_name
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    rng = np.random.RandomState(seed + 47)
+    rows_out = []
+    ql.global_init(True)
+    try:
+        for name, rows, d_in, d_out, act in QAT_DENSE_CASES:
+            dense = ql.QuantDense(d_in, d_out, activation=act)
+            w = (rng.randn(d_out, d_in) * d_in ** -0.5).astype(np.float32)
+            b = (0.1 * rng.randn(d_out)).astype(np.float32)
+            x = rng.randn(rows, d_in).astype(np.float32)
+            g = rng.randn(rows, d_out).astype(np.float32)
+            pre = x @ w.T + b
+            if act:
+                pre = np.maximum(pre, 0.0)
+            with torch.no_grad():
+                dense.weight.copy_(torch.from_numpy(w))
+                dense.bias.copy_(torch.from_numpy(b))
+                dense.kernel_clip_max.fill_(float(np.quantile(np.abs(w),
+                                                              0.99)))
+                dense.output_clip_max.fill_(float(np.quantile(np.abs(pre),
+                                                              0.99)))
+            card = ql.QuantDense(d_in, d_out, activation=act).cuda()
+            card.load_state_dict(dense.state_dict())
+            with torch.no_grad():
+                # the CPU's activated product: the output fake quant's
+                # input on both devices
+                pre_cpu = torch.nn.functional.linear(
+                    torch.from_numpy(x), dense.quantized_kernel(),
+                    dense.bias)
+                if act:
+                    pre_cpu = activation_by_name(act)(pre_cpu)
+            out, fq = {}, {}
+            for where, mod in (("cuda", card), ("cpu", dense)):
+                xx = torch.from_numpy(x).to(where).requires_grad_()
+                gg = torch.from_numpy(g).to(where)
+                params = [xx, mod.weight, mod.bias, mod.kernel_clip_max,
+                          mod.output_clip_max]
+                y = mod.dense(xx, torch.float32)
+                grads = torch.autograd.grad((y * gg).sum(), params)
+                with torch.no_grad():
+                    wq = mod.quantized_kernel()
+                out[where] = {"y": y.detach().cpu(), "wq": wq.cpu(),
+                              "grads": [t.cpu() for t in grads]}
+                t = pre_cpu.to(where).requires_grad_()
+                q = mod.quantize_output(t)
+                fq[where] = [q.detach().cpu()] + [
+                    v.cpu() for v in torch.autograd.grad(
+                        (q * gg).sum(), [t, mod.output_clip_max])]
+            card_out, ref = out["cuda"], out["cpu"]
+            # a level: max / 255 on relu's [0, max], max / 127 on the
+            # symmetric grid
+            level = float(dense.output_clip_max.detach()) / (
+                255.0 if act == "relu" else 127.0)
+            diff = (card_out["y"] - ref["y"]).abs()
+            flips = diff > 1e-5 * float(ref["y"].abs().max())
+            row = {
+                "case": name, "rows": rows, "in": d_in, "out": d_out,
+                "activation": act,
+                "weights_bitwise": bool(torch.equal(card_out["wq"],
+                                                    ref["wq"])),
+                "act_quant_bitwise": bool(torch.equal(fq["cuda"][0],
+                                                      fq["cpu"][0])),
+                "act_quant_dx_bitwise": bool(torch.equal(fq["cuda"][1],
+                                                         fq["cpu"][1])),
+                "act_quant_dclip_rel_err": abs(float(
+                    fq["cuda"][2] - fq["cpu"][2])) / abs(float(
+                        fq["cpu"][2])),
+                "flip_share": float(flips.float().mean()),
+                "max_flip_levels": float(diff.max()) / level,
+                "grad_rel_l2_err": {
+                    k: float((a - b_).norm() / b_.norm().clamp_min(1e-30))
+                    for k, a, b_ in zip(("dx", "dw", "db", "dkernel_clip",
+                                         "doutput_clip"),
+                                        card_out["grads"], ref["grads"])},
+                "clip_grads": [float(t) for t in card_out["grads"][3:]]}
+            ok = (row["weights_bitwise"] and row["act_quant_bitwise"]
+                  and row["act_quant_dx_bitwise"]
+                  and row["act_quant_dclip_rel_err"] <= QAT_GRAD_TOL
+                  and row["flip_share"] <= QAT_FLIP_SHARE
+                  and row["max_flip_levels"] <= 1.01
+                  and max(row["grad_rel_l2_err"].values()) <= QAT_GRAD_TOL
+                  and all(math.isfinite(c) and c != 0.0
+                          for c in row["clip_grads"]))
+            rows_out.append(row)
+            if not ok:
+                raise AssertionError(f"QuantDense on the card: {row}")
+    finally:
+        ql.global_init(False)
+    emit({"phase": "qat_dense_check", "tol": {
+        "grad": QAT_GRAD_TOL, "flip_share": QAT_FLIP_SHARE}, "rows": rows_out})
+    return rows_out
+
+
+def qat_reference_check(seed):
+    """One float32 QAT speech step (mt_synth_qat.yml's quant params, no
+    dropout, 2 x 256 frames, full depth) on the card and on the CPU: the
+    losses within ``QAT_REF_LOSS_TOL``, every clip's gradient finite and
+    nonzero on the card, and, as readings, the largest relative L2
+    error of a gradient next to the CPU's own under a one-rounding
+    perturbation of every weight (the spread the levels' flips give)."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        global_init
+    qp = _qat_quant_params()
+    global_init(True, **qp)
+    outs = {}
+    try:
+        for where in ("cuda", "cpu", "cpu_perturbed"):
+            device = where[:4].rstrip("_")
+            model, _, _, state, step = build_train(seed, device, "float32",
+                                                   0.0, quant_params=qp)
+            if where == "cpu_perturbed":
+                gen = torch.Generator().manual_seed(seed)
+                with torch.no_grad():
+                    for n, p in state.params.items():
+                        if not n.endswith("_clip_max") and p.ndim:
+                            p.mul_(1.0 + 2.0 ** -24 * torch.randint(
+                                -1, 2, p.shape, generator=gen))
+            batch = train_batch(np.random.RandomState(seed + 4), device, 2,
+                                256, 200, 16, 10)
+            loss, _, grads = step.compute_grads(state.params, batch, None)
+            outs[where] = (float(loss), {n: g.cpu()
+                                         for n, g in grads.items()})
+            del model, state, step
+    finally:
+        global_init(False)
+
+    def spread(a, b_):
+        return max((float((a[1][n] - b_[1][n]).norm()
+                          / b_[1][n].norm().clamp_min(1e-30)), n)
+                   for n in b_[1])
+    ref = outs["cpu"]
+    clips = {n: float(g) for n, g in outs["cuda"][1].items()
+             if n.endswith("_clip_max")}
+    row = {"phase": "qat_reference_check", "model": TRAIN["model"],
+           "dtype": "float32", "quant_params": qp, "batch": 2,
+           "frames": 256, "trg_len": 16, "loss_card": outs["cuda"][0],
+           "loss_cpu": ref[0],
+           "loss_rel_err": abs(outs["cuda"][0] - ref[0]) / abs(ref[0]),
+           "loss_rel_err_cpu_perturbed": abs(
+               outs["cpu_perturbed"][0] - ref[0]) / abs(ref[0]),
+           "max_grad_rel_l2_err": spread(outs["cuda"], ref),
+           "max_grad_rel_l2_err_cpu_perturbed": spread(
+               outs["cpu_perturbed"], ref),
+           "clips": len(clips), "tol": QAT_REF_LOSS_TOL}
+    emit(row)
+    if not (row["loss_rel_err"] <= QAT_REF_LOSS_TOL and clips and all(
+            math.isfinite(v) and v != 0.0 for v in clips.values())):
+        raise AssertionError(f"qat card vs CPU: {row}")
+    return row
+
+
+def _weight_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _set_int8(mode):
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        set_int8_serving
+    if mode == "bf16":
+        set_int8_serving(False)
+    else:
+        set_int8_serving(True, **INT8_MODES[mode])
+
+
+def _time_requests(run, requests):
+    import torch
+    run(requests[0])  # warm-up: handles and plans
+    torch.cuda.synchronize()
+    outs, ms = [], []
+    for inputs in requests:
+        start = time.perf_counter()
+        out = run(inputs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+        outs.append(out)
+    return outs, ms
+
+
+def int8_dense_check(seed):
+    """Each ``Int8Dense`` mode on the card against the same module on the
+    CPU, on the same int8 weights and inputs, at the decode and training
+    row counts (1 is padded to 17 rows for ``torch._int_mm``): the int32
+    accumulators equal, the outputs within ``INT8_DENSE_TOL`` of their
+    largest (float32 compute)."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization.quant_layers import (
+        Int8Dense, int8_matmul, set_int8_serving)
+    rng = np.random.RandomState(seed + 41)
+    rows_out = []
+    try:
+        for mode, kwargs in INT8_MODES.items():
+            set_int8_serving(True, **kwargs)
+            dense = Int8Dense(512, 2048)
+            with torch.no_grad():
+                dense.kernel_q.copy_(torch.from_numpy(rng.randint(
+                    -127, 128, (2048, 512)).astype(np.int8)))
+                dense.kernel_scale.copy_(torch.from_numpy(rng.uniform(
+                    1e-3, 2e-3, 2048).astype(np.float32)))
+                dense.bias.copy_(torch.from_numpy(
+                    rng.randn(2048).astype(np.float32)))
+                if dense.act_scale is not None:
+                    dense.act_scale.fill_(3.0 / 127.0)
+            card = Int8Dense(512, 2048).cuda()
+            card.load_state_dict(dense.state_dict())
+            for rows in INT8_DENSE_ROWS:
+                x = torch.from_numpy(rng.randn(rows, 512).astype(
+                    np.float32))
+                want = dense(x, torch.float32)
+                got = card(x.cuda(), torch.float32).cpu()
+                err = float((got - want).abs().max())
+                ok = err <= INT8_DENSE_TOL * max(1.0, float(
+                    want.abs().max()))
+                acc_equal = None
+                if kwargs:
+                    x_q = torch.from_numpy(rng.randint(
+                        -127, 128, (rows, 512)).astype(np.int8))
+                    acc_equal = bool(torch.equal(
+                        int8_matmul(x_q.cuda(), card.kernel_q).cpu(),
+                        int8_matmul(x_q, dense.kernel_q)))
+                rows_out.append({"mode": mode, "rows": rows,
+                                 "max_abs_err": err, "ok": ok,
+                                 "acc_equal": acc_equal})
+                if not ok or acc_equal is False:
+                    raise AssertionError(f"Int8Dense on the card: "
+                                         f"{rows_out[-1]}")
+    finally:
+        set_int8_serving(False)
+    emit({"phase": "int8_dense_check", "tol": INT8_DENSE_TOL,
+          "rows": rows_out})
+
+
+def int8_serve_phase(seed, device="cuda"):
+    """int8 serving against bf16 on the card.  Speech: the slice's
+    ``speech_transformer_s`` beam-4 decode of 16 x 1024 frames
+    (``INT8_SPEECH_REQUESTS`` timed requests) in bf16, weight-only int8, dynamic int8 and static int8
+    (calibrated on the first request, as bench.py does): request ms,
+    flash launches a request, rows equal to bf16, weight bytes at rest.
+    Text: bench.py's batch-1 greedy ``transformer_base`` decode (source
+    32, 64 steps) in the same four modes.  Returns the launch counts of
+    the speech and the text runs."""
+    import torch
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        calibrate_int8_act_scales
+    from neurst_tpu_torch.layers.search.sampling import sequence_sampling
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.param_policy import restore_inference_params
+
+    if device == "cuda":
+        int8_dense_check(seed)
+    speech, speech_counts, ref = {}, {}, None
+    try:
+        for mode in ["bf16", *INT8_MODES]:
+            _set_int8(mode)
+            model, search, request = build_slice(seed, device)
+            requests = [request() for _ in range(INT8_SPEECH_REQUESTS)]
+            calibrated = None
+            if mode == "int8_static":
+                # bench.py's calibration: one request teacher-forced from
+                # BOS (the predict entry's self-calibration runs in
+                # qat_predict)
+                calibrate_int8_act_scales(model, [dict(
+                    requests[0], trg_input=torch.full(
+                        (SLICE["batch"], 8), model.bos_id, device=device))])
+                calibrated = sum(m.act_scale is not None
+                                 for m in model.modules()
+                                 if hasattr(m, "act_scale"))
+            reset_launch_counts()
+            outs, ms = _time_requests(search, requests)
+            counts = launch_counts()
+            hyps = torch.cat([h for h, _ in outs]).cpu()
+            if ref is None:
+                ref = hyps
+            flash = counts["flash_attention_fwd"]
+            if device == "cuda" and flash != model.encoder.num_layers * (
+                    len(requests) + 1):
+                raise AssertionError(f"int8_serve {mode}: flash {flash}")
+            _no_fused_rows(counts, f"int8_serve {mode}")
+            if not all(bool(torch.isfinite(s).all()) for _, s in outs):
+                raise AssertionError(f"int8_serve {mode}: scores")
+            speech[mode] = {"request_ms": ms,
+                            "request_ms_median": float(np.median(ms)),
+                            "rows_equal_to_bf16": float(
+                                (hyps == ref).all(dim=1).float().mean()),
+                            "weight_bytes": _weight_bytes(model),
+                            "calibrated_denses": calibrated,
+                            "flash_per_request": flash // (len(requests)
+                                                           + 1)}
+            for k, v in counts.items():
+                speech_counts[k] = speech_counts.get(k, 0) + v
+            del model, search
+        emit({"phase": "int8_serve_speech", "model": SLICE["model"],
+              "batch": SLICE["batch"], "frames": SLICE["frames"],
+              "beam": SLICE["beam"], "max_decode": SLICE["max_decode"],
+              "modes": speech})
+
+        t = INT8_TEXT
+        cfg = Transformer.build_model_args_by_name(t["model"])
+        cfg = dict(cfg, **{"model.params": dict(cfg["model.params"],
+                                                 dtype="bfloat16")})
+        meta = {"vocab_size": t["vocab"], "eos_id": 1, "bos_id": 2,
+                "unk_id": 3}
+        flat = transformer_flat_params(cfg, t["vocab"], t["vocab"], seed)
+        rng = np.random.RandomState(seed + 43)
+        sources = [{"src": torch.from_numpy(rng.randint(
+                        4, t["vocab"], (1, t["src_len"]))).to(device),
+                    "src_padding": torch.zeros((1, t["src_len"]),
+                                               device=device)}
+                   for _ in range(t["requests"])]
+        md = t["max_decode"]
+        text, text_counts, ref = {}, {}, None
+        for mode in ["bf16", *INT8_MODES]:
+            _set_int8(mode)
+            model = neurst_tpu_torch.build_model(cfg, src_meta=meta,
+                                                 trg_meta=meta,
+                                                 device=device)
+            restore_inference_params(model, flat)
+            if mode == "int8_static":
+                calibrate_int8_act_scales(model, [dict(
+                    sources[0], trg_input=torch.full(
+                        (1, 8), meta["bos_id"], device=device))])
+
+            def greedy(inputs, m=model):
+                with torch.inference_mode():
+                    fn, init = m.prepare_generation(inputs, md)
+                    return sequence_sampling(
+                        fn, init, top_k=1, maximum_decode_length=md,
+                        extra_decode_length=md,
+                        minimum_decode_length=md - 1)[0]
+
+            reset_launch_counts()
+            outs, ms = _time_requests(greedy, sources)
+            counts = launch_counts()
+            hyps = torch.cat(outs).cpu()
+            if ref is None:
+                ref = hyps
+            _no_fused_rows(counts, f"int8_serve text {mode}")
+            text[mode] = {"request_ms": ms,
+                          "request_ms_median": float(np.median(ms)),
+                          "rows_equal_to_bf16": float(
+                              (hyps == ref).all(dim=1).float().mean()),
+                          "weight_bytes": _weight_bytes(model)}
+            for k, v in counts.items():
+                text_counts[k] = text_counts.get(k, 0) + v
+            del model
+        emit({"phase": "int8_serve_text", "model": t["model"], "batch": 1,
+              "src_len": t["src_len"], "max_decode": md, "modes": text})
+    finally:
+        _quantization_off()
+    return speech_counts, text_counts
+
+
+def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16"):
+    """bench.py's MoE cell: ``transformer_base`` in bf16 with the hparams
+    set's dropout 0.1, its Adam and noam with clip norm 1, bf16 params
+    with an f32 master, and, with ``overlay`` (an examples/moe yml), the
+    overlay's ``moe_*`` fields; weights from the port's initializers
+    seeded with ``seed``.  ``dtype`` "float32": float32 compute and
+    params (the card-vs-CPU check)."""
+    import torch
+    import yaml
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.optimizers.master_weights import (
+        cast_params_bf16, with_bf16_params)
+    from neurst_tpu_torch.optimizers.optimizers import create_optax_chain
+    from neurst_tpu_torch.parallel import TrainState, make_train_step
+
+    cfg = Transformer.build_model_args_by_name(MOE["model"])
+    params = dict(cfg["model.params"], dtype=dtype)
+    if overlay:
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(here, overlay)) as f:
+            params.update(yaml.safe_load(f)["model.params"])
+    cfg = dict(cfg, **{"model.params": params})
+    meta = {"vocab_size": MOE["vocab"], "eos_id": 1, "bos_id": 2,
+            "unk_id": 3}
+    model = neurst_tpu_torch.build_model(cfg, src_meta=meta, trg_meta=meta,
+                                         device=device)
+    model.init_params(torch.Generator().manual_seed(seed))
+    lr = neurst_tpu_torch.build_lr_schedule(cfg)
+    tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr,
+                            clip_norm=NMT_TRAIN["clip_norm"])
+    if dtype == "bfloat16":
+        cast_params_bf16(model)
+        tx = with_bf16_params(tx)
+    criterion = neurst_tpu_torch.build_criterion({
+        "criterion.class": "label_smoothed_cross_entropy",
+        "criterion.params": {"label_smoothing":
+                             NMT_TRAIN["label_smoothing"]}})
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    return model, criterion, tx, state, step
+
+
+def moe_bare_phase(seed, device="cuda"):
+    """The dense model, the Switch MoE (8 experts, top-1, every 2nd FFN:
+    the same active FLOPs a token) and the GShard top-2 MoE at [128,
+    128]: 2 warm-up and 5 timed steps each, launches per step against
+    the configuration (the dense layers' fused FFN at D 512, the experts'
+    hidden a mask-kernel site), target tokens/s, the routing's cost.
+    Then the kernels of this path against their plain versions at the
+    shapes it gave them: rows 4-5 at [16384, 512] x 32768, rows 9-10 at
+    [16384, 512, 2048] (rate 0 and 0.1), the mask kernel at each MoE's
+    expert hidden [B, E, C, F] and at the residual sites' [16384, 512],
+    bf16.  Returns the launch totals by label ("dense", "moe8_top1",
+    "moe8_top2") and the kernel rows by kernel."""
+    import torch
+
+    from neurst_tpu_torch.layers.moe import MoeFFN
+    from neurst_tpu_torch.utils.rng import make_key
+    m, rows = MOE, MOE["batch"] * MOE["length"]
+    out, totals, hidden = {}, {}, {}
+    for label, overlay in (("dense", None), ("moe8_top1", m["switch"]),
+                           ("moe8_top2", m["gshard"])):
+        model, criterion, tx, state, step = build_moe_train(seed, overlay,
+                                                            device)
+        experts = sum(isinstance(x, MoeFFN) for x in model.modules())
+        rng = np.random.RandomState(seed + 45)
+        batches = [nmt_batch(rng, device, m["batch"], m["length"],
+                             m["vocab"], m["vocab"])
+                   for _ in range(m["warmup"] + m["steps"] + m["split"])]
+        expected = expected_launches(model, rows, rows, True)
+        run, totals[label] = _drive_train(
+            model, criterion, tx, state, step, batches, m["warmup"],
+            m["steps"], make_key(seed + 46), expected)
+        aux = 0.0
+        if experts:
+            moe = next(x for x in model.modules() if isinstance(x, MoeFFN))
+            hidden[label] = (m["batch"], moe.num_experts,
+                             moe.capacity(m["length"], True),
+                             moe.expert_dense1_kernel.shape[-1])
+            with torch.no_grad():
+                aux = float(model.call_train(batches[0], False,
+                                             make_key(1))[1])
+        out[label] = dict(run, moe_layers=experts,
+                          layers=model.encoder.num_layers
+                          + model.decoder.num_layers,
+                          target_tokens_per_s=rows / (
+                              run["step_ms_median"] / 1e3),
+                          aux_loss=aux,
+                          parameters=sum(p.numel()
+                                         for p in model.parameters()))
+        del model, state, step, tx
+    out["routing_cost_share"] = 1.0 - (
+        out["moe8_top1"]["target_tokens_per_s"]
+        / out["dense"]["target_tokens_per_s"])
+    emit({"phase": "moe_train", "model": m["model"],
+          "batch": [m["batch"], m["length"]], "vocab": m["vocab"],
+          "overlays": {"moe8_top1": m["switch"], "moe8_top2": m["gshard"]},
+          **out})
+    for label in ("moe8_top1", "moe8_top2"):
+        if not out[label]["aux_loss"] > 0 or not out[label][
+                "moe_layers"] == out["dense"]["layers"] // 2:
+            raise AssertionError(f"moe_train {label}: {out[label]}")
+    bf16 = (torch.bfloat16,)
+    xent = xent_kernel_phase(seed + 2, [("moe_train", rows, m["vocab"], 512,
+                                         bf16)])
+    ffn = ffn_kernel_phase(seed + 2, [("moe_train", rows, 512)], bf16)
+    drop = dropout_kernel_phase(seed + 2, [
+        ("moe_expert_hidden", hidden["moe8_top1"]),
+        ("moe_top2_expert_hidden", hidden["moe8_top2"]),
+        ("moe_residual", (rows, 512))], bf16)
+    checked = {
+        "fused_linear_xent_fwd": xent[("fwd", "moe_train", "bfloat16")],
+        "fused_linear_xent_bwd": xent[("bwd", "moe_train", "bfloat16")],
+        "fused_ffn_fwd": ffn[("fwd", "moe_train", DROPOUT_RATE,
+                              "bfloat16")],
+        "fused_ffn_bwd": ffn[("bwd", "moe_train", DROPOUT_RATE,
+                              "bfloat16")],
+        "fused_dropout": drop[("moe_expert_hidden", "bfloat16")]}
+    return totals, checked
+
+
+def moe_reference_check(seed):
+    """One float32 Switch MoE step (``MOE["switch"]`` over
+    ``transformer_base``, the hparams set's dropout 0.1 and the router's
+    jitter from the same key, [4, 16] ids, V 32768: every MoE layer drops
+    tokens at capacity 3) on the card and on the CPU: the loss and the
+    aux loss within ``TRAIN_REF_TOL[0]`` relative, each gradient (the
+    routers' and the experts' included) within ``TRAIN_REF_TOL[1]`` by
+    its relative L2 error, and rows 4-5 launched on the card."""
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+    key = fold_in(make_key(seed + 48), 0)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model, _, _, state, step = build_moe_train(seed, MOE["switch"],
+                                                   device, "float32")
+        batch = nmt_batch(np.random.RandomState(seed + 49), device, 4, 16,
+                          MOE["vocab"], MOE["vocab"])
+        reset_launch_counts()
+        loss, aux, grads = step.compute_grads(state.params, batch, key)
+        outs[device] = (float(loss), float(aux),
+                        {n: g.cpu() for n, g in grads.items()},
+                        launch_counts())
+        del model, state, step
+    (loss, aux, grads, counts), (ref_loss, ref_aux, ref_grads, _) = \
+        outs["cuda"], outs["cpu"]
+    grad_err, worst = max(
+        (float((grads[n] - ref_grads[n]).norm()
+               / ref_grads[n].norm().clamp_min(1e-30)), n)
+        for n in ref_grads)
+    row = {"phase": "moe_reference_check", "overlay": MOE["switch"],
+           "dtype": "float32", "batch": [4, 16], "loss_card": loss,
+           "loss_cpu": ref_loss, "aux_card": aux, "aux_cpu": ref_aux,
+           "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+           "aux_rel_err": abs(aux - ref_aux) / abs(ref_aux),
+           "max_grad_rel_l2_err": grad_err, "worst_grad": worst,
+           "expert_grads": sum("expert_" in n or "router_" in n
+                               for n in ref_grads),
+           "card_xent_launches": [counts["fused_linear_xent_fwd"],
+                                  counts["fused_linear_xent_bwd"]],
+           "tol": list(TRAIN_REF_TOL)}
+    emit(row)
+    if not (row["loss_rel_err"] <= TRAIN_REF_TOL[0] and ref_aux > 0
+            and row["aux_rel_err"] <= TRAIN_REF_TOL[0]
+            and grad_err <= TRAIN_REF_TOL[1] and row["expert_grads"]
+            and min(row["card_xent_launches"]) > 0):
+        raise AssertionError(f"MoE card vs CPU: {row}")
+    return row
+
+
+def _moe_trainer_config(root, overlay, steps, name):
+    """mt_synth_base.yml (transformer_base on the committed reversal
+    corpus) with an examples/moe overlay, ``steps`` steps, a log every
+    step and one checkpoint, no validator."""
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, QAT["recipe"])) as f:
+        cfg = json.loads(json.dumps(yaml.safe_load(f)).replace(
+            '"examples/quality/', f'"{here}/examples/quality/'))
+    with open(os.path.join(here, overlay)) as f:
+        cfg["model.params"] = yaml.safe_load(f)["model.params"]
+    cfg["entry.class"] = "trainer"
+    for key in ("validator.class", "validator.params"):
+        cfg["entry.params"].pop(key, None)
+    cfg["entry.params"].update(train_steps=steps, summary_steps=1,
+                               save_checkpoint_steps=steps,
+                               enable_tensorboard=False)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def moe_trainer_phases(seed, device="cuda"):
+    """moe_trainer: the Switch overlay through ``--entry train`` (12
+    steps on the mt_synth corpus, every step's launches against
+    ``expected_launches``), moe_predict: ``--entry predict`` from its dir
+    on dev's first 128 lines (beam 4, max 20, BLEU).  Under
+    ``build/moe_smoke/``.  Returns the launch counts of the two runs."""
+    from neurst_tpu_torch.tasks.translation import Translation
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "moe_smoke")
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    counts = {}
+    try:
+        name, overlay, steps = "moe_trainer", MOE["switch"], \
+            MOE["trainer_steps"]
+        model_dir = os.path.join(root, name)
+        _, seen = run_trainer(["--config_paths", _moe_trainer_config(
+            root, overlay, steps, name), "--model_dir", model_dir,
+            "--device", device], Translation)
+        _train_path_checks(seen, steps, name)
+        by_shape = _step_launch_checks(seen, seen["model"]) \
+            if device == "cuda" else None
+        counts[name] = seen["launches"]
+        emit(dict({"phase": name, "overlay": overlay,
+                   "launches_per_step_by_shape": by_shape,
+                   "launches": seen["launches"]},
+                  **_trainer_numbers(seen, _peak_bytes(device))))
+        dev = {}
+        for side in ("src", "trg"):
+            dev[side] = os.path.join(root, f"dev.{side}")
+            with open(os.path.join(here, "examples", "quality",
+                                   f"dev.{side}")) as f:
+                lines = f.read().splitlines()[:128]
+            with open(dev[side], "w") as f:
+                f.write("\n".join(lines) + "\n")
+        result, counts["moe_predict"], wall = _counted_predict([
+            "--entry", "predict", "--model_dir", model_dir,
+            "--metric", "bleu", "--dataset.class", "parallel_text",
+            "--dataset.params", json.dumps(_parallel(dev)),
+            "--search_method.params", json.dumps(
+                {"beam_size": QAT["beam"],
+                 "maximum_decode_length": QAT["max_decode"]}),
+            "--batch_size", str(QAT["batch"]), "--device", device])
+        if result["samples"] != 128 or not math.isfinite(result["BLEU"]):
+            raise AssertionError(f"moe_predict: {result['samples']} "
+                                 f"samples, BLEU {result['BLEU']}")
+        emit({"phase": "moe_predict", "samples": result["samples"],
+              "BLEU": result["BLEU"],
+              "samples_per_s": result["samples_per_sec"],
+              "wall_s": wall, "launches": counts["moe_predict"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+class QatWorker(object):
+    """qat_phases in a process of its own (``chip_smoke.py --qat_worker``),
+    started once the kernels are built and joined after the audio prep's
+    host stages, slice 10's conversions and the float32 card-vs-CPU
+    checks: QAT's 300 host-bound steps run beside work that times
+    nothing on the card, so no timed card phase shares the card with
+    them (qat_train's step time is read beside that load).
+    ``join`` prints the worker's lines as it printed them (their ``t_s``
+    on this script's clock), fails if the worker failed, and returns its
+    launch counts (qat_train's, qat_predict's); the worker is stopped if
+    it is still running."""
+
+    def __init__(self, seed):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.log_path = os.path.join(here, "build", "qat_worker.log")
+        os.makedirs(os.path.dirname(self.log_path), exist_ok=True)
+        self.started = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--qat_worker", "--t0", repr(_START)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=here)
+        self.counts = None
+
+    def join(self):
+        waited = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=QAT["worker_timeout_s"])
+        finally:
+            self.stop()
+        with open(self.log_path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        counts = [json.loads(line)["qat_worker_launches"] for line in lines
+                  if line.startswith('{"qat_worker_launches"')]
+        if rc != 0 or not counts:
+            raise AssertionError(f"the QAT worker failed (exit {rc})")
+        self.counts = counts[-1]
+        emit({"phase": "qat_worker", "run_s": time.perf_counter()
+              - self.started, "waited_s": time.perf_counter() - waited,
+              "beside": ["prep_records", "prep_project", "convert",
+                         "reference_check", "train_reference_check",
+                         "qat_dense_check", "qat_reference_check",
+                         "moe_reference_check"]})
+        return self.counts
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def qat_worker_main(seed, t0):
+    """The worker's side: the card's checks, then ``qat_phases``, then
+    one line of its launch counts."""
+    global _START
+    _START = t0
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --qat_worker: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train, predict = qat_phases(seed)
+    print(json.dumps({"qat_worker_launches": {"qat_train": train,
+                                              "qat_predict": predict}}),
+          flush=True)
+
+
 def _summary_row(name, row, launches, by_path, extra):
     """The kernel's summary entry from its phase row at the main shape;
     ``extra`` maps a label ("with_dropout", "nmt_train") to the row of
@@ -6991,7 +8050,14 @@ OFF_PATH = {"fused_softmax_xent_fwd", "fused_softmax_xent_bwd"}
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--qat_worker", action="store_true",
+                        help="run only the QAT phases (the whole script "
+                             "starts this itself, beside the audio prep)")
+    parser.add_argument("--t0", type=float, default=None,
+                        help="the starting script's clock (--qat_worker)")
     args = parser.parse_args(argv)
+    if args.qat_worker:
+        return qat_worker_main(args.seed, args.t0)
     device_phase()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7010,7 +8076,6 @@ def main(argv=None):
     model, inputs, decode_counts = slice_phase(args.seed)
     encoder_cross_check_phase(model, inputs)
     del model
-    reference_check_phase(args.seed)
     predict_counts, spec_speech_counts = predict_phase(args.seed)
     train_counts, _ = train_phase(args.seed)
     train_dropout_counts, train_dropout_row = train_phase(args.seed,
@@ -7024,16 +8089,42 @@ def main(argv=None):
                "spec_speech": spec_speech_counts}
     (by_path["nmt_trainer"], by_path["nmt_predict"],
      by_path["spec_text"]) = nmt_phases(args.seed)
-    by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
-        args.seed)
+    # QAT's host-bound steps in a worker beside stages that time nothing
+    # on the card: the audio prep's CLIs, slice 10's checkpoint
+    # conversions and the float32 card-vs-CPU checks
+    worker, prepared = QatWorker(args.seed), {}
+
+    def beside_worker():
+        prepared["pretrained"] = pretrained_convert(args.seed)
+        reference_check_phase(args.seed)
+        for nmt in (False, True):
+            train_reference_check_phase(args.seed, nmt=nmt)
+            train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
+        qat_dense_check(args.seed)
+        qat_reference_check(args.seed)
+        moe_reference_check(args.seed)
+        worker.join()
+    try:
+        by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
+            args.seed, after_cpu=beside_worker)
+    finally:
+        worker.stop()
     by_path.update(multitask_phases(args.seed, train_dropout_row))
     by_path.update(waitk_phases(args.seed))
-    by_path.update(pretrained_phases(args.seed))
+    by_path.update(pretrained_phases(args.seed,
+                                     prepared=prepared["pretrained"]))
     by_path["long_audio"] = long_audio_phase(args.seed)
     by_path.update(multilingual_phases(args.seed))
-    for nmt in (False, True):
-        train_reference_check_phase(args.seed, nmt=nmt)
-        train_reference_check_phase(args.seed, dropout=True, nmt=nmt)
+    by_path["qat_speech_step"] = qat_speech_step_phase(args.seed,
+                                                       train_dropout_row)
+    by_path.update(worker.counts)
+    (by_path["int8_serve_speech"],
+     by_path["int8_serve_text"]) = int8_serve_phase(args.seed)
+    moe_totals, moe_rows = moe_bare_phase(args.seed)
+    by_path.update({"moe_train": moe_totals["moe8_top1"],
+                    "moe_dense": moe_totals["dense"],
+                    "moe_gshard": moe_totals["moe8_top2"]})
+    by_path.update(moe_trainer_phases(args.seed))
     main_bf16 = ("main", "bfloat16")
     rows = {  # name -> (main row, {label: row of another case})
         "flash_attention_fwd": (fwd_rows[main_bf16], {
@@ -7051,17 +8142,20 @@ def main(argv=None):
         "fused_softmax_xent_fwd": (softmax_rows[("fwd",) + main_bf16], {}),
         "fused_softmax_xent_bwd": (softmax_rows[("bwd",) + main_bf16], {}),
         "fused_dropout": (dropout_rows[main_bf16], {
-            "nmt_train": dropout_rows[("nmt", "bfloat16")]})}
+            "nmt_train": dropout_rows[("nmt", "bfloat16")],
+            "moe_train": moe_rows["fused_dropout"]})}
     for kernel in ("fwd", "bwd"):
         rows[f"fused_linear_xent_{kernel}"] = (
             xent_rows[(kernel,) + main_bf16],
             {"nmt_train": xent_rows[(kernel, "nmt_train", "bfloat16")],
              "lightconv_train": xent_rows[(kernel, "lightconv_train",
-                                           "bfloat16")]})
+                                           "bfloat16")],
+             "moe_train": moe_rows[f"fused_linear_xent_{kernel}"]})
         rows[f"fused_ffn_{kernel}"] = (
             ffn_rows[(kernel, "main", DROPOUT_RATE, "bfloat16")],
             {"nmt_train": ffn_rows[(kernel, "d512", DROPOUT_RATE,
-                                    "bfloat16")]})
+                                    "bfloat16")],
+             "moe_train": moe_rows[f"fused_ffn_{kernel}"]})
     summary = []
     for name, (row, extra) in rows.items():
         counts = {path: c[name] for path, c in by_path.items() if name in c}

@@ -9,11 +9,17 @@ top-level config seeds ``entry.params``.  ``--device`` picks the card
 (the current CUDA device by default; without CUDA it raises unless
 ``--device cpu`` is given, which runs every kernel's plain version).
 
+Quantization: ``--enable_quant --quant_params`` (QAT; also read from a
+model dir's ``model_configs.yml``) sets the global config before any
+module is built; ``--int8_serving [--int8_activations
+[--int8_static_activations]]`` serves int8 (inference entries only; a QAT
+model dir's clips drive the int8 grid), as the JAX CLI does.
+
 Flags of features the port lacks raise ``NotImplementedError`` when set:
-QAT and int8 serving, ``--include`` plug-ins, multi-host initialization,
-the XLA compilation cache, ``enable_xla: true``, NaN checks and any
-``distribution_strategy`` but one device.  The ``predict``, ``train``, ``eval``, ``sequence_evaluator``
-and ``validation`` entries are ported (the recipes' ``trainer`` is
+``--include`` plug-ins, multi-host initialization, the XLA compilation
+cache, ``enable_xla: true``, NaN checks and any ``distribution_strategy``
+but one device.  The ``predict``, ``train``, ``eval``,
+``sequence_evaluator`` and ``validation`` entries are ported (the recipes' ``trainer`` is
 ``train`` by its class name); the trainer refuses the features it lacks
 itself (``exps/trainer.py``).
 """
@@ -21,9 +27,14 @@ itself (``exps/trainer.py``).
 import logging
 import sys
 
+import yaml
+
 import neurst_tpu_torch  # noqa: F401 - fills the registries
 from neurst_tpu_torch.data.datasets.dataset import build_dataset
 from neurst_tpu_torch.exps.base_experiment import build_exp
+from neurst_tpu_torch.exps.trainer import Trainer
+from neurst_tpu_torch.layers.quantization.quant_layers import (
+    get_global_config, global_init, quant_enabled, set_int8_serving)
 from neurst_tpu_torch.models.model import resolve_device
 from neurst_tpu_torch.tasks.task import build_task
 from neurst_tpu_torch.utils import flags_core
@@ -32,6 +43,7 @@ from neurst_tpu_torch.utils.configurable import (
     strip_training_only_model_flags)
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
 from neurst_tpu_torch.utils.hparams_sets import get_hyper_parameters
+from neurst_tpu_torch.utils.registry import get_registered_class
 
 __all__ = ["FLAG_LIST", "parse_and_merge", "run_experiment", "cli_main"]
 
@@ -54,17 +66,23 @@ FLAG_LIST = [
          help="Kept for recipe compatibility: XLA compilation is not "
               "ported (true raises)."),
     Flag("enable_quant", dtype=Flag.TYPE.BOOLEAN, default=False,
-         help="Quantization-aware training (not ported)."),
+         help="Whether to enable quantization-aware training."),
     Flag("quant_params", dtype=Flag.TYPE.STRING, default=None,
-         help="A dict of parameters for quantization (not ported)."),
+         help="A dict of parameters for quantization."),
     Flag("int8_serving", dtype=Flag.TYPE.BOOLEAN, default=False,
-         help="Serve with int8-stored dense kernels (not ported)."),
+         help="Serve with int8-stored dense kernels (absmax per output "
+              "channel of the float32 checkpoint, or a QAT checkpoint's "
+              "learned clips); inference entries only."),
     Flag("int8_activations", dtype=Flag.TYPE.BOOLEAN, default=False,
-         help="int8 activations with --int8_serving (not ported)."),
+         help="With --int8_serving: also quantize dense inputs per token "
+              "and run int8 x int8 -> int32 products."),
     Flag("int8_static_activations", dtype=Flag.TYPE.BOOLEAN, default=False,
-         help="Static int8 activation scales (not ported)."),
+         help="With --int8_activations: per-tensor activation scales, "
+              "calibrated at predict start on the model's own "
+              "hypotheses (a QAT checkpoint's FFN clip where it has one)."),
     Flag("int8_calibration_batches", dtype=Flag.TYPE.INTEGER, default=4,
-         help="Batches that calibrate static int8 scales (not ported)."),
+         help="Number of leading batches used to calibrate the static "
+              "int8 activation scales."),
     Flag("include", dtype=Flag.TYPE.STRING, default=None, multiple=True,
          help="Plug-in files with custom @register components (not "
               "ported)."),
@@ -88,9 +106,7 @@ FLAG_LIST = [
 ]
 
 # flags of features the port does not have, and the value that means off
-_UNPORTED = {"enable_quant": False, "quant_params": None,
-             "int8_serving": False, "int8_activations": False,
-             "int8_static_activations": False, "include": None,
+_UNPORTED = {"include": None,
              "distributed_init": None, "worker_hosts": None,
              "task_index": None, "compilation_cache_dir": None,
              "enable_check_numerics": None, "enable_xla": (None, False)}
@@ -133,6 +149,35 @@ def parse_and_merge(argv):
     return flags_core.parse_flags(FLAG_LIST, argv, existing=merged)
 
 
+def _set_quantization(args):
+    """The global quantization config, before any module is built: QAT
+    from ``enable_quant`` / ``quant_params``; int8 serving (refused for a
+    trainer entry) with a QAT config turned off first, its bits kept for
+    the int8 grid.  Without ``int8_serving`` it is turned off (the JAX
+    CLI leaves an earlier call's on in the process)."""
+    qp = args.get("quant_params")
+    if isinstance(qp, str):
+        qp = yaml.safe_load(qp)
+    global_init(bool(args.get("enable_quant")), **(qp or {}))
+    if not args.get("int8_serving"):
+        set_int8_serving(False)
+        return
+    entry = get_registered_class(args.get("entry.class"), "entry")
+    if isinstance(entry, type) and issubclass(entry, Trainer):
+        raise ValueError("--int8_serving is inference-only")
+    qat_bits = 8
+    if quant_enabled():
+        qat_bits = int(get_global_config().get("quant_bits") or 8)
+        logging.info("int8_serving of a QAT checkpoint: learned clip "
+                     "ranges drive the int8 scales (quant_bits=%d); "
+                     "activation fake-quant is dropped", qat_bits)
+        global_init(False)
+    set_int8_serving(True, qat_bits=qat_bits,
+                     activations=bool(args.get("int8_activations")),
+                     static_activation_scales=bool(
+                         args.get("int8_static_activations")))
+
+
 def run_experiment(args):
     on = sorted(k for k, off in _UNPORTED.items()
                 if args.get(k) not in (off if isinstance(off, tuple)
@@ -145,6 +190,7 @@ def run_experiment(args):
         raise NotImplementedError(f"distribution_strategy {strategy} is not "
                                   f"ported (one device only)")
     device = resolve_device(args.get("device"))
+    _set_quantization(args)
     task = build_task(args)
     custom_dataset = build_dataset(args) if args.get("dataset.class") \
         else None

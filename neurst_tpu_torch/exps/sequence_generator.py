@@ -22,6 +22,12 @@ Several model dirs (``--model_dir a,b,c``) decode as one ensemble
 members' probabilities mix with ``ensemble_weights`` (of the entry or of
 the search's params; equal by default).
 
+Under ``--int8_static_activations`` the generator first calibrates the
+static activation scales on the first ``--int8_calibration_batches``
+batches: it decodes each (dynamic int8 activations), teacher-forces the
+model's own top hypotheses while every dense records its input absmax,
+and writes ``act_scale = absmax / 127`` (as the JAX generator does).
+
 Not ported: tensor-parallel decode raises ``NotImplementedError``.
 """
 
@@ -30,10 +36,14 @@ import logging
 import time
 
 import numpy as np
+import torch
 
 from neurst_tpu_torch.data.datasets.mixed_train_dataset import \
     MultipleDataset
 from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
+from neurst_tpu_torch.layers.quantization.quant_layers import (
+    int8_static_act_enabled, recording_act_absmax, set_int8_calibration,
+    write_calibrated_act_scales)
 from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
 from neurst_tpu_torch.models.ensemble_model import \
     EncoderDecoderEnsembleModel
@@ -148,6 +158,42 @@ class SequenceGenerator(BaseExperiment):
                     "weighted": weighted}, f, indent=2)
         return {"datasets": results, "weighted": weighted}
 
+    def _calibrate_int8_static(self, model, search, batch_iter):
+        """Self-calibration of the static int8 activation scales: decode
+        each of the first ``int8_calibration_batches`` batches, then
+        teacher-force BOS + its top hypotheses (but the last position)
+        while recording every dense's input absmax; the maxima over the
+        batches give ``act_scale = absmax / 127``."""
+        n = int(self._args.get("int8_calibration_batches") or 4)
+        agg, count = {}, 0
+        set_int8_calibration(True)
+        try:
+            for batch in batch_iter():
+                model_inp = {k: v for k, v in batch.items()
+                             if isinstance(v, np.ndarray)
+                             and v.dtype != object}
+                hyp = search(model_inp)[0].cpu().numpy()
+                bos = np.asarray(model_inp["trg_input"]).reshape(-1)
+                top = hyp[::max(hyp.shape[0] // bos.shape[0], 1)]
+                trg_input = np.concatenate(
+                    [bos[:, None], top[:, :-1]], axis=1).astype(np.int32)
+                with torch.no_grad(), recording_act_absmax(model) as found:
+                    model(dict(model_inp, trg_input=trg_input))
+                for path, amax in found.items():
+                    agg[path] = max(agg.get(path, amax), amax)
+                count += 1
+                if count >= n:
+                    break
+        finally:
+            set_int8_calibration(False)
+        if not count:
+            logging.warning("int8 static calibration saw no batches; act "
+                            "scales keep their init values")
+            return
+        logging.info("Calibrated static int8 activation scales on %d "
+                     "batches", count)
+        write_calibrated_act_scales(model, agg)
+
     def run(self):
         if (self._args.get("decode_tensor_parallel") or 1) > 1:
             raise NotImplementedError("tensor-parallel decode is not ported")
@@ -162,6 +208,8 @@ class SequenceGenerator(BaseExperiment):
         search.prepare()
         batch_iter = task.create_batch_iterator(
             self._custom_dataset, ModeKeys.INFER, args)
+        if int8_static_act_enabled() and model is self._model:
+            self._calibrate_int8_static(model, search, batch_iter)
         hypo_decode = task.get_data_postprocess_fn(DataStatus.PROJECTED)
 
         hypotheses, scores = [], []

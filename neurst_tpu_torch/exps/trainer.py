@@ -22,10 +22,13 @@ Both continue at step N + 1 (the JAX package reads its schedule at
 without a port sidecar raises (``pretrain_model`` starts from the
 parameters alone).
 
+With ``enable_quant`` (QAT; the layers were built under ``run_exp``'s
+``global_init``) the step adds ``clip_l2_penalty`` of the clips to the
+loss, once a step.
+
 Not ported, and refused when set: ``checkpoint_format: orbax``, tensor
-and pipeline parallelism, ``gradient_remat``, ``pruning_schedule``,
-quantization-aware training and a ``distribution_strategy`` other than
-one device.  ``enable_profiler`` traces a window of steps with
+and pipeline parallelism, ``gradient_remat``, ``pruning_schedule`` and
+a ``distribution_strategy`` other than one device.  ``enable_profiler`` traces a window of steps with
 ``torch.profiler`` (``training/summary.py``).
 """
 
@@ -39,6 +42,7 @@ import torch
 
 from neurst_tpu_torch.criterions.criterion import build_criterion
 from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
+from neurst_tpu_torch.layers.quantization.quant_layers import clip_l2_penalty
 from neurst_tpu_torch.optimizers.master_weights import (cast_params_bf16,
                                                          with_bf16_params)
 from neurst_tpu_torch.optimizers.optimizers import (build_optimizer,
@@ -68,7 +72,6 @@ _UNPORTED = {"checkpoint_format": (None, "npz"),
              "pipeline_parallel": (None, 1),
              "gradient_remat": (None, False),
              "pruning_schedule.class": (None, ""),
-             "enable_quant": (None, False),
              "distribution_strategy": (None, "", "none", "one_device",
                                        "onedevice")}
 
@@ -274,9 +277,17 @@ class Trainer(BaseExperiment):
                                opt_state=opt_state)
             logging.info("Restored optimizer state (step %d)", step)
         update_cycle = int(args.get("update_cycle") or 1)
+        extra_loss_fn = None
+        if args.get("enable_quant"):
+            # the layers quantize themselves (built under run_exp's
+            # global_init); the step adds the L2 term on their clips
+            extra_loss_fn = clip_l2_penalty
+            logging.info("Quantization-aware training enabled (learned "
+                         "clip-max fake quantization)")
         train_step = make_train_step(model, criterion, tx,
                                      update_cycle=update_cycle,
-                                     lr_schedule=lr_schedule)
+                                     lr_schedule=lr_schedule,
+                                     extra_loss_fn=extra_loss_fn)
 
         train_steps = int(args.get("train_steps") or 10_000_000)
         save_every = int(args.get("save_checkpoint_steps") or 1000)

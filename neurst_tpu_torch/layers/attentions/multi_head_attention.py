@@ -2,9 +2,11 @@
 ``neurst_tpu/layers/attentions/multi_head_attention.py``).
 
 Fused projections: ``qkv_transform`` (self) and ``q_transform`` /
-``kv_transform`` (cross) are single ``nn.Linear``s whose outputs split
-as [..., n_proj, heads, head_dim], matching the flax kernels
-[D, n_proj, N, H].  Logits and softmax run in float32 whatever the
+``kv_transform`` (cross) are single denses whose outputs split as [...,
+n_proj, heads, head_dim], matching the flax kernels [D, n_proj, N, H];
+each dense is ``quant_layers.dense_general``'s (an ``nn.Linear``, or
+under QAT or int8 serving the quantized dense with one clip or scale
+set per JAX module).  Logits and softmax run in float32 whatever the
 compute dtype; training in bf16 keeps only the bf16 probabilities for
 the backward (``_SoftmaxBf16Residual``), as the JAX module does.
 Attention dropout takes the site's key (``dropout_key``): the dense path
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from neurst_tpu_torch.layers.common_layers import apply_dropout, linear
+from neurst_tpu_torch.layers.quantization.quant_layers import dense_general
 from neurst_tpu_torch.ops.flash_attention import flash_attention
 
 __all__ = ["MultiHeadAttention", "MultiHeadSelfAttention"]
@@ -61,11 +64,11 @@ class MultiHeadAttention(nn.Module):
         self.attention_dropout_rate = attention_dropout_rate
         self.dtype = dtype
         self._build_projections(num_units)
-        self.output_transform = nn.Linear(num_units, num_units)
+        self.output_transform = dense_general(num_units, num_units)
 
     def _build_projections(self, num_units):
-        self.q_transform = nn.Linear(num_units, num_units)
-        self.kv_transform = nn.Linear(num_units, 2 * num_units)
+        self.q_transform = dense_general(num_units, num_units)
+        self.kv_transform = dense_general(num_units, 2 * num_units)
 
     def _proj(self, layer, x, n_proj):
         """-> [B, L, n_proj, N, H] in the compute dtype."""
@@ -133,7 +136,7 @@ class MultiHeadSelfAttention(MultiHeadAttention):
     """Self-attention with a fused qkv projection and the static cache."""
 
     def _build_projections(self, num_units):
-        self.qkv_transform = nn.Linear(num_units, 3 * num_units)
+        self.qkv_transform = dense_general(num_units, 3 * num_units)
 
     def _attend_indirect(self, q, k, v, bias, beam_anc):
         """Decode-step attention reading the cache through the beam

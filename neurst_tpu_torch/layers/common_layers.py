@@ -21,6 +21,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from neurst_tpu_torch.layers.quantization.quant_layers import (
+    dense_general, int8_serving_enabled, quant_enabled)
 from neurst_tpu_torch.ops.fused_dropout import dropout, quantized_site
 from neurst_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_available
 
@@ -65,8 +67,13 @@ def apply_dropout(x, rate: float, is_training: bool, key=None):
     return dropout(x, rate, key, quantized_site(x.shape))
 
 
-def linear(layer: nn.Linear, x, dtype):
-    """``layer`` applied in the compute dtype (weights cast at use)."""
+def linear(layer: nn.Module, x, dtype):
+    """``layer`` applied in the compute dtype (weights cast at use); a
+    quantized dense (``QuantDense``, ``Int8Dense``) computes its own
+    ``dense``."""
+    dense = getattr(layer, "dense", None)
+    if dense is not None:
+        return dense(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -92,9 +99,10 @@ class LayerNorm(nn.Module):
 class TransformerFFN(nn.Module):
     """dense1 -> activation -> dropout -> dense2.  Where the JAX
     package's gate says so (``ops/fused_ffn.fused_ffn_available``: relu,
-    training at enough rows) the fused FFN kernels run it, else the plain
-    composite; both take the same parameters and the same dropout
-    site."""
+    training at enough rows, and neither QAT nor int8 serving) the fused
+    FFN kernels run it, else the plain composite; both take the same
+    parameters and the same dropout site.  Under QAT dense1 applies (and
+    quantizes) the activation itself."""
 
     def __init__(self, input_size: int, filter_size: int, output_size: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -104,19 +112,31 @@ class TransformerFFN(nn.Module):
         self._activate = activation_by_name(activation)
         self.dropout_rate = dropout_rate
         self.dtype = dtype
-        self.dense1 = nn.Linear(input_size, filter_size)
-        self.dense2 = nn.Linear(filter_size, output_size)
+        self._quant = quant_enabled()
+        self._plain = not self._quant and not int8_serving_enabled()
+        self.dense1 = dense_general(input_size, filter_size,
+                                    activation=activation)
+        self.dense2 = dense_general(filter_size, output_size)
+
+    def fuses(self, rows: int, is_training: bool, rate: float) -> bool:
+        """Whether the fused FFN kernels run this layer at ``rows`` rows
+        and dropout ``rate``: the JAX package's gate, and neither QAT nor
+        int8 serving."""
+        return self._plain and fused_ffn_available(
+            self.dense1.in_features, self.dense1.out_features,
+            self.activation, rows, is_training, rate)
 
     def forward(self, x, is_training: bool = False, dropout_key=None):
         rate = self.dropout_rate if is_training else 0.0
         rows = x.numel() // x.shape[-1]
-        if fused_ffn_available(x.shape[-1], self.dense1.out_features,
-                               self.activation, rows, is_training, rate):
+        if self.fuses(rows, is_training, rate):
             return fused_ffn(x.to(self.dtype), self.dense1.weight,
                              self.dense1.bias, self.dense2.weight,
                              self.dense2.bias, rate,
                              dropout_key if rate else None)
-        h = self._activate(linear(self.dense1, x, self.dtype))
+        h = linear(self.dense1, x, self.dtype)
+        if not self._quant:
+            h = self._activate(h)
         h = apply_dropout(h, self.dropout_rate, is_training, dropout_key)
         return linear(self.dense2, h, self.dtype)
 
@@ -161,7 +181,9 @@ class WordEmbedding(nn.Module):
     projection ``attend`` (+ ``bias`` [V] when the softmax is shared).
     ``timing='sinusoids'`` scales by sqrt(D) and adds the signal;
     ``timing='emb'`` adds rows of a learned table ``position_weights``
-    [max_positions, D] (unscaled), as the JAX module does."""
+    [max_positions, D] (unscaled), as the JAX module does.  Under int8
+    serving the table is ``weights_q`` (int8) with ``weights_scale``
+    [V]."""
 
     def __init__(self, vocab_size: int, embedding_dim: int,
                  share_softmax_weights: bool = False, use_bias: bool = True,
@@ -172,7 +194,19 @@ class WordEmbedding(nn.Module):
         self.embedding_dim = embedding_dim
         self.timing = timing
         self.dtype = dtype
-        self.weights = nn.Parameter(torch.empty(vocab_size, embedding_dim))
+        self.int8 = int8_serving_enabled()
+        if self.int8:
+            # int8 serving: an int8 table with a float32 scale per row
+            # (``int8ify_flat_params`` fills both), read by the lookup
+            # and by ``attend``
+            self.weights_q = nn.Parameter(
+                torch.empty(vocab_size, embedding_dim, dtype=torch.int8),
+                requires_grad=False)
+            self.weights_scale = nn.Parameter(torch.empty(vocab_size),
+                                              requires_grad=False)
+        else:
+            self.weights = nn.Parameter(torch.empty(vocab_size,
+                                                    embedding_dim))
         if share_softmax_weights and use_bias:
             self.bias = nn.Parameter(torch.zeros(vocab_size))
         else:
@@ -185,7 +219,11 @@ class WordEmbedding(nn.Module):
         """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D].
         A ``time`` tensor [B] (a speculative decode's per-row times) puts
         row b's tokens at positions time[b] + [0, L)."""
-        emb = self.weights[ids].to(self.dtype)
+        if self.int8:
+            emb = (self.weights_q[ids].float()
+                   * self.weights_scale[ids][..., None]).to(self.dtype)
+        else:
+            emb = self.weights[ids].to(self.dtype)
         if self.timing is None:
             return emb
         squeeze = ids.dim() == 1
@@ -219,8 +257,12 @@ class WordEmbedding(nn.Module):
         """[..., D] -> float32 logits [..., V] through the tied table.
         Products of compute-dtype values accumulate in float32, as the
         JAX ``preferred_element_type=float32`` dot does."""
-        w = self.weights.to(features.dtype)
+        table = self.weights_q if self.int8 else self.weights
+        w = table.to(features.dtype)
         logits = torch.matmul(features.float(), w.float().t())
+        if self.int8:
+            # the per-row scale lands on the logits' vocabulary axis
+            logits = logits * self.weights_scale.float()
         if self.bias is not None:
             logits = logits + self.bias.float()
         return logits

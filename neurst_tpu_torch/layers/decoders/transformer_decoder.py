@@ -8,7 +8,9 @@ with self keys/values [B, max_decode_len, N, H] (static shape, written
 in place at each step) and memory keys/values [B, src_len, N, H]
 (precomputed once).  A decoder without cross-attention (GPT-2's,
 ``with_cross_attention=False``, as the JAX decoder's switch) has no
-``cross_attention`` blocks and no "memory" entries.
+``cross_attention`` blocks and no "memory" entries.  With
+``moe_num_experts`` > 1 every ``moe_layer_frequency``-th layer has an MoE
+FFN, as in the encoder.
 """
 
 import torch
@@ -16,7 +18,8 @@ from torch import nn
 
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.common_layers import LayerNorm
-from neurst_tpu_torch.layers.transformer_layers import TransformerDecoderLayer
+from neurst_tpu_torch.layers.transformer_layers import (
+    TransformerDecoderLayer, moe_layer_kwargs)
 from neurst_tpu_torch.utils.rng import SIDE_DECODER, at_site
 
 __all__ = ["TransformerDecoder"]
@@ -33,7 +36,11 @@ class TransformerDecoder(nn.Module):
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
                  with_cross_attention: bool = True,
-                 dtype=torch.float32, side: int = SIDE_DECODER):
+                 dtype=torch.float32, side: int = SIDE_DECODER,
+                 moe_num_experts: int = 0, moe_layer_frequency: int = 2,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_coef: float = 0.01,
+                 moe_router_jitter: float = 0.01):
         super().__init__()
         self.num_layers = num_layers
         self.with_cross_attention = with_cross_attention
@@ -49,7 +56,10 @@ class TransformerDecoder(nn.Module):
                 ffn_activation, post_normalize, layer_postprocess_epsilon,
                 attention_dropout_rate, ffn_dropout_rate,
                 layer_postprocess_dropout_rate, dtype,
-                with_cross_attention=with_cross_attention))
+                with_cross_attention=with_cross_attention,
+                **moe_layer_kwargs(i, moe_num_experts, moe_layer_frequency,
+                                   moe_top_k, moe_capacity_factor,
+                                   moe_aux_loss_coef, moe_router_jitter)))
         if not post_normalize:
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)

@@ -1,15 +1,18 @@
 """Transformer encoder stack (counterpart of
 ``neurst_tpu/layers/encoders/transformer_encoder.py``, the per-layer
 layout).  Layers are registered as ``layer_<i>`` so parameter names
-match the JAX package's; a scan-stacked checkpoint is unstacked by
-``utils/param_bridge``."""
+match the JAX package's; a scan-stacked checkpoint (the MoE block scan's
+too) is unstacked by ``utils/param_bridge``.  With ``moe_num_experts`` >
+1 every ``moe_layer_frequency``-th layer (1, 3, 5, ... at 2) has an MoE
+FFN."""
 
 import torch
 from torch import nn
 
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.common_layers import LayerNorm
-from neurst_tpu_torch.layers.transformer_layers import TransformerEncoderLayer
+from neurst_tpu_torch.layers.transformer_layers import (
+    TransformerEncoderLayer, moe_layer_kwargs)
 from neurst_tpu_torch.utils.rng import SIDE_ENCODER, at_site
 
 __all__ = ["TransformerEncoder"]
@@ -26,7 +29,11 @@ class TransformerEncoder(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32, side: int = SIDE_ENCODER):
+                 dtype=torch.float32, side: int = SIDE_ENCODER,
+                 moe_num_experts: int = 0, moe_layer_frequency: int = 2,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_coef: float = 0.01,
+                 moe_router_jitter: float = 0.01):
         super().__init__()
         self.num_layers = num_layers
         self.side = side
@@ -38,7 +45,10 @@ class TransformerEncoder(nn.Module):
                 hidden_size, num_attention_heads, filter_size,
                 ffn_activation, post_normalize, layer_postprocess_epsilon,
                 attention_dropout_rate, ffn_dropout_rate,
-                layer_postprocess_dropout_rate, dtype))
+                layer_postprocess_dropout_rate, dtype,
+                **moe_layer_kwargs(i, moe_num_experts, moe_layer_frequency,
+                                   moe_top_k, moe_capacity_factor,
+                                   moe_aux_loss_coef, moe_router_jitter)))
         if not post_normalize:
             self.output_ln = LayerNorm(hidden_size,
                                        layer_postprocess_epsilon, dtype)

@@ -33,6 +33,8 @@ import torch
 
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.layer_utils import NEG_INF
+from neurst_tpu_torch.layers.quantization.quant_layers import \
+    int8_static_act_enabled
 from neurst_tpu_torch.layers.search.beam_search import _length_penalty
 from neurst_tpu_torch.layers.search.sampling import (filter_log_probs,
                                                      masked_step_log_probs)
@@ -481,6 +483,13 @@ class SpeculativeDecode(SequenceSearch):
         from neurst_tpu_torch.tasks.task import build_task
         from neurst_tpu_torch.utils.configurable import (
             ModelConfigs, strip_training_only_model_flags)
+        if int8_static_act_enabled():
+            # the draft restores outside the generator's calibration:
+            # uncalibrated scales would serve garbage proposals
+            raise NotImplementedError(
+                "--int8_static_activations is not supported with "
+                "speculative decoding (the draft model is never "
+                "calibrated); use dynamic --int8_activations")
         cfg = ModelConfigs.load(draft_dir)
         cfg["model.params"] = strip_training_only_model_flags(
             cfg.get("model.params"))

@@ -1,7 +1,8 @@
 """Transformer encoder/decoder blocks (counterpart of
 ``neurst_tpu/layers/transformer_layers.py``): pre-norm (LN -> sublayer
 -> dropout -> residual) or post-norm (sublayer -> dropout -> residual
--> LN).
+-> LN).  With ``moe_num_experts`` > 1 the FFN sublayer is
+``layers/moe.MoeFFN``.
 
 Every dropout site of a layer has its own stream: the layer's key
 (stream ``side << 16 | layer << 4``, set by the stack) plus the site's
@@ -14,13 +15,28 @@ from neurst_tpu_torch.layers.attentions.multi_head_attention import (
     MultiHeadAttention, MultiHeadSelfAttention)
 from neurst_tpu_torch.layers.common_layers import (LayerNorm, TransformerFFN,
                                                    apply_dropout)
+from neurst_tpu_torch.layers.moe import MoeFFN
 from neurst_tpu_torch.utils.rng import at_site
 
-__all__ = ["TransformerEncoderLayer", "TransformerDecoderLayer"]
+__all__ = ["TransformerEncoderLayer", "TransformerDecoderLayer",
+           "moe_layer_kwargs"]
 
 # dropout sites of a layer, in a fixed order
 SELF_ATTENTION, SELF_ATTENTION_OUT, CROSS_ATTENTION, CROSS_ATTENTION_OUT, \
     FFN, FFN_OUT = range(6)
+
+
+def moe_layer_kwargs(i, num_experts, frequency, top_k, capacity_factor,
+                     aux_loss_coef, router_jitter):
+    """Layer i's MoE arguments: an MoE FFN in every ``frequency``-th
+    layer ((i + 1) % frequency == 0) when there is more than one expert,
+    else none."""
+    if int(num_experts or 0) <= 1 or (i + 1) % max(1, int(frequency)):
+        return {}
+    return dict(moe_num_experts=num_experts, moe_top_k=top_k,
+                moe_capacity_factor=capacity_factor,
+                moe_aux_loss_coef=aux_loss_coef,
+                moe_router_jitter=router_jitter)
 
 
 class _LayerCommon(nn.Module):
@@ -33,7 +49,10 @@ class _LayerCommon(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, moe_num_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_coef: float = 0.01,
+                 moe_router_jitter: float = 0.01):
         super().__init__()
         self.post_normalize = post_normalize
         self.layer_postprocess_dropout_rate = layer_postprocess_dropout_rate
@@ -42,9 +61,20 @@ class _LayerCommon(nn.Module):
             dtype=dtype)
         self.self_attention_ln = LayerNorm(
             hidden_size, layer_postprocess_epsilon, dtype)
-        self.ffn = TransformerFFN(hidden_size, filter_size, hidden_size,
-                                  activation=ffn_activation,
-                                  dropout_rate=ffn_dropout_rate, dtype=dtype)
+        if int(moe_num_experts) > 1:
+            self.ffn = MoeFFN(
+                hidden_size, int(moe_num_experts), filter_size, hidden_size,
+                top_k=int(moe_top_k),
+                capacity_factor=float(moe_capacity_factor),
+                aux_loss_coef=float(moe_aux_loss_coef),
+                router_jitter=float(moe_router_jitter),
+                activation=ffn_activation, dropout_rate=ffn_dropout_rate,
+                dtype=dtype)
+        else:
+            self.ffn = TransformerFFN(hidden_size, filter_size, hidden_size,
+                                      activation=ffn_activation,
+                                      dropout_rate=ffn_dropout_rate,
+                                      dtype=dtype)
         self.ffn_ln = LayerNorm(hidden_size, layer_postprocess_epsilon, dtype)
 
     def _prepost(self, ln, x, sublayer, is_training=False, key=None):
@@ -80,12 +110,13 @@ class TransformerDecoderLayer(_LayerCommon):
                  attention_dropout_rate: float = 0.0,
                  ffn_dropout_rate: float = 0.0,
                  layer_postprocess_dropout_rate: float = 0.0,
-                 dtype=torch.float32, with_cross_attention: bool = True):
+                 dtype=torch.float32, with_cross_attention: bool = True,
+                 **moe):
         super().__init__(hidden_size, num_attention_heads, filter_size,
                          ffn_activation, post_normalize,
                          layer_postprocess_epsilon, attention_dropout_rate,
                          ffn_dropout_rate, layer_postprocess_dropout_rate,
-                         dtype)
+                         dtype, **moe)
         self.with_cross_attention = with_cross_attention
         if with_cross_attention:
             self.cross_attention = MultiHeadAttention(

@@ -31,6 +31,9 @@ from neurst_tpu_torch.layers.decoders.transformer_decoder import \
 from neurst_tpu_torch.layers.encoders.transformer_encoder import \
     TransformerEncoder
 from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
+from neurst_tpu_torch.layers.moe import collect_aux_losses
+from neurst_tpu_torch.layers.quantization.quant_layers import (
+    dense_general, int8_serving_enabled, quant_enabled)
 from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
 from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
 from neurst_tpu_torch.utils.flags_core import Flag
@@ -44,6 +47,8 @@ _LAYOUT_IGNORED = {
     "scan_layers", "pipeline_stages", "pipeline_microbatches",
     "ring_attention_axis", "moe_layer_frequency", "moe_top_k",
     "moe_capacity_factor", "moe_aux_loss_coef", "moe_router_jitter"}
+# (the MoE settings are taken by the transformer stacks; a stack without
+# MoE, LightConv's, ignores them, and refuses moe_num_experts > 0)
 
 
 def encdec_flags(prefix):
@@ -90,13 +95,34 @@ def encdec_flags(prefix):
                    help=f"The JAX package's {prefix} {name} setting.")
               for name, dtype in (
                   ("pipeline_stages", Flag.TYPE.INTEGER),
-                  ("pipeline_microbatches", Flag.TYPE.INTEGER),
-                  ("moe_num_experts", Flag.TYPE.INTEGER),
-                  ("moe_layer_frequency", Flag.TYPE.INTEGER),
-                  ("moe_top_k", Flag.TYPE.INTEGER),
-                  ("moe_capacity_factor", Flag.TYPE.FLOAT),
-                  ("moe_aux_loss_coef", Flag.TYPE.FLOAT),
-                  ("moe_router_jitter", Flag.TYPE.FLOAT))]
+                  ("pipeline_microbatches", Flag.TYPE.INTEGER))]
+    flags += [
+        Flag(f"{prefix}.moe_num_experts", dtype=Flag.TYPE.INTEGER,
+             default=None,
+             help=f"Mixture-of-experts {prefix} FFN: the number of experts "
+                  "(0/1 = dense FFN); the Switch load-balancing loss is "
+                  "added to the training objective."),
+        Flag(f"{prefix}.moe_layer_frequency", dtype=Flag.TYPE.INTEGER,
+             default=None,
+             help=f"Every this-many-th {prefix} layer uses the MoE FFN "
+                  "(Switch-style default 2: layers 1,3,5,...)."),
+        Flag(f"{prefix}.moe_top_k", dtype=Flag.TYPE.INTEGER, default=None,
+             help="Experts per token: 1 = Switch router, 2 = GShard top-2 "
+                  "(renormalized gates)."),
+        Flag(f"{prefix}.moe_capacity_factor", dtype=Flag.TYPE.FLOAT,
+             default=None,
+             help="Per-expert token capacity = ceil(T * top_k * this / "
+                  "num_experts); overflow tokens fall through the "
+                  "residual (default 1.25)."),
+        Flag(f"{prefix}.moe_aux_loss_coef", dtype=Flag.TYPE.FLOAT,
+             default=None,
+             help="Coefficient of the Switch load-balancing auxiliary loss "
+                  "(default 0.01)."),
+        Flag(f"{prefix}.moe_router_jitter", dtype=Flag.TYPE.FLOAT,
+             default=None,
+             help="Multiplicative router-logit jitter during training "
+                  "(Switch default 0.01; 0 disables; drawn from the "
+                  "port's Philox stream).")]
     return flags
 
 
@@ -196,7 +222,8 @@ class EncoderDecoderModel(BaseModel):
                 max_positions=max_positions, dtype=self.dtype)
         if not self.tied_softmax:
             # the JAX module's ``output_linear``: a dense without bias
-            self.output_linear = torch.nn.Linear(
+            # (quantized under QAT or int8 serving)
+            self.output_linear = dense_general(
                 trg_dim, self.trg_meta["vocab_size"], bias=False)
         self._has_dropout = any(
             float(args.get(f"{side}.{rate}") or 0.0) > 0.0
@@ -313,13 +340,15 @@ class EncoderDecoderModel(BaseModel):
 
     def call_train(self, inputs, want_prelogits=False, dropout_key=None):
         """Training forward -> (model_out, aux_loss).  The auxiliary loss
-        (model-internal losses such as MoE load balancing) is a float32
-        zero here: the ported models sow none.  ``dropout_key`` seeds
-        every dropout site; a model with dropout > 0 raises without
-        one."""
-        out = self(inputs, is_training=True, return_prelogits=want_prelogits,
-                   dropout_key=dropout_key)
-        return out, torch.zeros((), dtype=torch.float32, device=self.device)
+        is the sum of the model-internal losses of the forward (the MoE
+        layers' load balancing; a float32 zero without them), as the JAX
+        model sums its "losses" collection.  ``dropout_key`` seeds every
+        dropout site; a model with dropout > 0 raises without one."""
+        with collect_aux_losses(self) as aux:
+            out = self(inputs, is_training=True,
+                       return_prelogits=want_prelogits,
+                       dropout_key=dropout_key)
+        return out, aux.total(self.device)
 
     def supports_fused_softmax_ce(self) -> bool:
         """Whether the train step may ask for prelogits and fuse the
@@ -328,7 +357,11 @@ class EncoderDecoderModel(BaseModel):
         [V, D] float32 accumulator of at most 80 MiB), so both packages
         take the same path, and a dim the CUDA kernels are built for.  An
         untied model trains through its logits and the composite
-        label-smoothed cross-entropy."""
+        label-smoothed cross-entropy; so does a model under QAT or int8
+        serving (the fused path would skip their quantization), as in the
+        JAX package."""
+        if quant_enabled() or int8_serving_enabled():
+            return False
         v = self.trg_meta["vocab_size"]
         d = self.trg_modality.embedding_dim
         return (self.tied_softmax and v % 128 == 0 and d % 128 == 0

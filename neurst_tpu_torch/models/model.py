@@ -85,7 +85,8 @@ class BaseModel(nn.Module):
         initializers: ``glorot_uniform`` for the attention projections,
         ``lecun_normal`` for the other dense and conv kernels,
         ``normal(D^-0.5)`` for embedding and learned position tables,
-        ones and zeros for LayerNorm, zeros for biases; a module with
+        ones and zeros for LayerNorm, zeros for biases, the QAT clips
+        from the quantization config; a module with
         parameters of another kind draws them in its
         ``init_own_params(generator)``.  Values are drawn on the CPU from
         ``generator`` (a framework cannot match another's random bits;
@@ -102,8 +103,20 @@ class BaseModel(nn.Module):
                     draw = (_glorot_uniform if id(module) in glorot
                             else lecun_normal)
                     module.weight.copy_(draw(module.weight.shape, generator))
+                    if callable(getattr(module, "init_extra_params", None)):
+                        module.init_extra_params()  # QAT clips
                 elif isinstance(module, LayerNorm):
                     module.scale.fill_(1.0)
+                elif isinstance(module, WordEmbedding) and module.int8:
+                    # int8 serving placeholders (the JAX init's zeros and
+                    # ones); a checkpoint fills them
+                    module.weights_q.zero_()
+                    module.weights_scale.fill_(1.0)
+                    for name, table in own.items():
+                        if name == "position_weights":
+                            table.copy_(torch.randn(
+                                table.shape, generator=generator)
+                                * module.embedding_dim ** -0.5)
                 elif isinstance(module, WordEmbedding):
                     for table in own.values():
                         if table is not module.bias:

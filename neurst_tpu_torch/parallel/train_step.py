@@ -54,13 +54,17 @@ def _grad(loss, leaves):
 
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
-                    lr_schedule: Optional[Callable] = None):
+                    lr_schedule: Optional[Callable] = None,
+                    extra_loss_fn: Optional[Callable] = None):
     """Builds ``train_step(state, batch, rng=None) -> (state, metrics)``
     with the metrics loss, aux_loss, grad_norm (of the gradients before
     clipping) and, with a schedule, lr (at the step's count).  The
     returned function carries ``compute_grads(params, batch, rng=None) ->
     (loss, aux, grads)``, the step's forward and backward without the
-    update, with ``rng`` as the step's (already folded) dropout key."""
+    update, with ``rng`` as the step's (already folded) dropout key.
+    ``extra_loss_fn(params)`` adds a regularizer of the parameters (QAT's
+    ``clip_l2_penalty``) to the loss, once a step, also under
+    accumulation."""
 
     # the fused projection + cross-entropy path: the model hands back
     # prelogits and the [B, T, V] logits are never formed
@@ -76,6 +80,8 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         if update_cycle == 1:
             out, aux = model.call_train(batch, want_prelogits, rng)
             loss = criterion.reduce_loss(batch, out) + aux
+            if extra_loss_fn is not None:
+                loss = loss + extra_loss_fn(params)
             grads = _grad(loss, leaves)
             return loss.detach(), aux.detach(), dict(zip(names, grads))
 
@@ -94,12 +100,24 @@ def make_train_step(model, criterion, tx: GradientTransformation,
             micro_aux = aux * micro_denom.detach()
             grads = _grad(micro_loss + micro_aux, leaves)
             torch._foreach_add_(acc, [g.float() for g in grads])
-            loss_sum = loss_sum + micro_loss.detach()
+            # the loss reported includes the auxiliary term, as in JAX
+            loss_sum = loss_sum + (micro_loss + micro_aux).detach()
             denom = denom + micro_denom.detach()
             aux_sum = aux_sum + micro_aux.detach()
         inv = 1.0 / denom.clamp_min(1e-8)
-        return (loss_sum * inv, aux_sum * inv,
-                dict(zip(names, torch._foreach_mul(acc, inv))))
+        loss = loss_sum * inv
+        grads = torch._foreach_mul(acc, inv)
+        if extra_loss_fn is not None:
+            # a regularizer of the parameters alone: once, not per micro,
+            # into the gradients of the parameters it reads
+            extra = extra_loss_fn(params)
+            loss = loss + extra.detach()
+            pairs = [(g, e) for g, e in zip(grads, torch.autograd.grad(
+                extra, leaves, allow_unused=True)) if e is not None]
+            if pairs:
+                torch._foreach_add_([g for g, _ in pairs],
+                                    [e.float() for _, e in pairs])
+        return loss, aux_sum * inv, dict(zip(names, grads))
 
     def train_step(state: TrainState, batch, rng=None):
         if rng is not None:

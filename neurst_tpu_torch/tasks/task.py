@@ -10,6 +10,8 @@ the task's vocabulary metas) and ``get_eval_metric``.
 
 from typing import Callable, Optional
 
+from neurst_tpu_torch.layers.quantization.quant_layers import (
+    get_global_config, quant_enabled)
 from neurst_tpu_torch.utils.compat import DataStatus
 from neurst_tpu_torch.utils.flags_core import COMMON_DATA_ARGS
 from neurst_tpu_torch.utils.registry import setup_registry
@@ -37,11 +39,19 @@ class Task(object):
 
     def model_configs(self, model) -> dict:
         """Everything needed to rebuild the task and the model: the
-        ``model_configs.yml`` a trainer writes and both packages read."""
-        return {"task.class": type(self).__name__,
-                "task.params": self.get_config(),
-                "model.class": type(model).__name__,
-                "model.params": dict(model.args)}
+        ``model_configs.yml`` a trainer writes and both packages read,
+        with the quantization config under QAT (``enable_quant``,
+        ``quant_params``), so predict rebuilds the QAT layers."""
+        cfg = {"task.class": type(self).__name__,
+               "task.params": self.get_config(),
+               "model.class": type(model).__name__,
+               "model.params": dict(model.args)}
+        if quant_enabled():
+            qcfg = get_global_config()
+            qcfg.pop("enable_quant", None)
+            cfg["enable_quant"] = True
+            cfg["quant_params"] = qcfg
+        return cfg
 
     def build_model(self, args, name=None, **kwargs):
         raise NotImplementedError

@@ -167,32 +167,19 @@ def latest_checkpoint(model_dir: Optional[str]) -> Optional[str]:
     return _ckpt_path(model_dir, step)
 
 
-def _unstack_scan_layers(flat: Dict[str, np.ndarray]):
-    """``<stack>/layers/layer/REST`` [L, ...] -> ``<stack>/layer_<i>/REST``
-    (the JAX package's scan-stacked checkpoints, per layer)."""
-    out = {}
-    for name, value in flat.items():
-        m = re.match(r"^(.*)/layers/layer/(.*)$", name)
-        if m is None:
-            out[name] = value
-            continue
-        for i, layer_value in enumerate(np.asarray(value)):
-            out[f"{m.group(1)}/layer_{i}/{m.group(2)}"] = layer_value
-    return out
-
-
 def restore_into(model: torch.nn.Module, flat: Dict[str, np.ndarray],
                  name_pattern: Optional[str] = None):
     """Name-based partial restore into ``model``'s parameters, in place:
     every parameter whose JAX flat name matches ``name_pattern`` (all
     without one) and is in ``flat`` with its shape is filled (in the
-    parameter's dtype).  Scan-stacked checkpoints are read per layer.
-    Returns (restored, missing): JAX flat names filled, and those matched
+    parameter's dtype).  Scan-stacked checkpoints (the MoE block scan's
+    too) are read per layer.  Returns (restored, missing): JAX flat names filled, and those matched
     but left as they were."""
     from neurst_tpu_torch.utils.param_bridge import (flat_to_state_dict,
-                                                     state_dict_to_flat)
+                                                     state_dict_to_flat,
+                                                     unstack_scan_layers)
     pattern = re.compile(name_pattern) if name_pattern else None
-    source = _unstack_scan_layers(flat)
+    source = unstack_scan_layers(flat)
     target = state_dict_to_flat(model)
     restored, missing = [], []
     for name, current in target.items():

@@ -31,7 +31,15 @@ follows:
   conv kernels ``[k, in / groups, out]`` -> ``[out, in / groups, k]``
   (wav2vec 2.0's feature convolutions and grouped ``pos_conv``);
 * the scan-stacked layout ``<stack>/layers/layer/...`` (a leading
-  layer axis) is unstacked into ``<stack>/layer_<i>/...``;
+  layer axis) is unstacked into ``<stack>/layer_<i>/...``, and so is the
+  MoE block scan ``<stack>/layers/block_layer_<j>/...`` (block b holds
+  layer b * f + j);
+* the MoE layers' ``router_kernel`` [H, E] and stacked expert weights
+  ``expert_dense{1,2}_{kernel,bias}`` [E, ...] keep the JAX layouts;
+* QAT's ``kernel_clip_max`` / ``output_clip_max`` scalars are taken as
+  they are; int8 serving's ``kernel_q`` (int8, kept int8) has its
+  kernel's layout and a fused projection's ``kernel_scale`` [n, N, H]
+  becomes [n * N * H];
 * bfloat16 arrays (also raw ``|V2`` bytes) become float32, exactly.
 
 It raises on any name it does not consume and on any port parameter it
@@ -54,21 +62,47 @@ import torch
 from neurst_tpu_torch.utils.checkpoints import bf16_bytes_to_float32
 
 __all__ = ["flat_to_state_dict", "load_flat_params", "state_dict_to_flat",
-           "to_jax_name"]
+           "to_jax_name", "unstack_scan_layers"]
 
 _SCAN_RE = re.compile(r"^(.*)/layers/layer/(.*)$")
+_BLOCK_RE = re.compile(r"^(.*)/layers/block_layer_(\d+)/(.*)$")
 _FUSED_PROJ = ("qkv_transform", "q_transform", "kv_transform")
+# the dense kernels' leaves: the float kernel and the int8 serving one
+_KERNELS = ("kernel", "kernel_q")
 
 
-def _unstack_scan_layers(flat: Dict[str, np.ndarray]):
+def _contiguous(a):
+    """A C-contiguous copy of ``a`` of the same shape (a 0-d scalar, a
+    QAT clip, stays 0-d)."""
+    return np.ascontiguousarray(a).reshape(np.shape(a))
+
+
+def unstack_scan_layers(flat: Dict[str, np.ndarray]):
+    """The per-layer names of the scan layouts: ``<stack>/layers/layer/``
+    [L, ...] and the MoE block scan ``<stack>/layers/block_layer_<j>/``
+    [L / f, ...], whose block b holds layers b * f + j (f the number of
+    block layers under the stack)."""
+    block_size = {}
+    for name in flat:
+        m = _BLOCK_RE.match(name)
+        if m is not None:
+            block_size[m.group(1)] = max(block_size.get(m.group(1), 0),
+                                         int(m.group(2)) + 1)
     out = {}
     for name, value in flat.items():
         m = _SCAN_RE.match(name)
-        if m is None:
-            out[name] = value
+        if m is not None:
+            for i, layer_value in enumerate(np.asarray(value)):
+                out[f"{m.group(1)}/layer_{i}/{m.group(2)}"] = layer_value
             continue
-        for i, layer_value in enumerate(np.asarray(value)):
-            out[f"{m.group(1)}/layer_{i}/{m.group(2)}"] = layer_value
+        m = _BLOCK_RE.match(name)
+        if m is not None:
+            f, j = block_size[m.group(1)], int(m.group(2))
+            for b, layer_value in enumerate(np.asarray(value)):
+                out[f"{m.group(1)}/layer_{b * f + j}/{m.group(3)}"] = \
+                    layer_value
+            continue
+        out[name] = value
     return out
 
 
@@ -76,7 +110,7 @@ def _to_torch_layout(name: str, a: np.ndarray):
     """(torch name, array in the port's layout) for one flax leaf."""
     parts = name.split("/")
     module, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
-    if leaf == "kernel":
+    if leaf in _KERNELS:
         if module in _FUSED_PROJ:
             a = a.reshape(a.shape[0], -1).T
         elif module == "output_transform":
@@ -90,8 +124,9 @@ def _to_torch_layout(name: str, a: np.ndarray):
         else:
             raise ValueError(f"{name}: no port layout for a kernel of "
                              f"shape {a.shape}")
-        leaf = "weight"
-    elif leaf == "bias" and module in _FUSED_PROJ:
+        if leaf == "kernel":
+            leaf = "weight"
+    elif leaf in ("bias", "kernel_scale") and module in _FUSED_PROJ:
         a = a.reshape(-1)
     return ".".join(parts[:-1] + [leaf]), a
 
@@ -103,8 +138,10 @@ def flat_to_state_dict(flat: Dict[str, np.ndarray], model: torch.nn.Module
     parameters left unfilled."""
     target = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     state, unknown = {}, []
-    for name, value in _unstack_scan_layers(flat).items():
-        a = bf16_bytes_to_float32(np.asarray(value)).astype(np.float32)
+    for name, value in unstack_scan_layers(flat).items():
+        a = np.asarray(value)
+        a = a if a.dtype == np.int8 else \
+            bf16_bytes_to_float32(a).astype(np.float32)
         torch_name, a = _to_torch_layout(name, a)
         if torch_name not in target:
             unknown.append(name)
@@ -112,7 +149,7 @@ def flat_to_state_dict(flat: Dict[str, np.ndarray], model: torch.nn.Module
         if tuple(a.shape) != target[torch_name]:
             raise ValueError(f"{name}: shape {a.shape} does not fit "
                              f"{torch_name} {target[torch_name]}")
-        state[torch_name] = torch.from_numpy(np.ascontiguousarray(a))
+        state[torch_name] = torch.from_numpy(_contiguous(a))
     if unknown:
         raise KeyError(f"parameters the port does not have: "
                        f"{sorted(unknown)}")
@@ -137,7 +174,7 @@ def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
     owner, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
     if owner in _FUSED_PROJ or owner == "output_transform":
         heads, head_dim = attention.num_heads, attention.head_dim
-    if leaf == "weight":
+    if leaf in ("weight", "kernel_q"):
         if owner in _FUSED_PROJ:
             a = a.T.reshape(a.shape[1], -1, heads, head_dim)
         elif owner == "output_transform":
@@ -151,10 +188,11 @@ def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
         else:
             raise ValueError(f"{name}: no flax layout for a weight of "
                              f"shape {a.shape}")
-        leaf = "kernel"
-    elif leaf == "bias" and owner in _FUSED_PROJ:
+        if leaf == "weight":
+            leaf = "kernel"
+    elif leaf in ("bias", "kernel_scale") and owner in _FUSED_PROJ:
         a = a.reshape(-1, heads, head_dim)
-    return "/".join(parts[:-1] + [leaf]), np.ascontiguousarray(a)
+    return "/".join(parts[:-1] + [leaf]), _contiguous(a)
 
 
 def state_dict_to_flat(model: torch.nn.Module,
@@ -170,8 +208,10 @@ def state_dict_to_flat(model: torch.nn.Module,
     for name, p in tensors.items():
         owner = model.get_submodule(name.rsplit(".", 2)[0]) \
             if name.count(".") >= 2 else model
+        p = p.detach()
         jax_name, a = _to_jax_layout(
-            name, p.detach().float().cpu().numpy(), owner)
+            name, (p.float() if p.is_floating_point() else p).cpu().numpy(),
+            owner)
         flat[jax_name] = a
     return flat
 

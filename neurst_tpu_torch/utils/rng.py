@@ -18,7 +18,7 @@ from typing import List, NamedTuple, Optional
 
 __all__ = ["DropoutKey", "make_key", "fold_in", "split", "at_site",
            "site_words", "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER",
-           "SIDE_ASR_DECODER", "SIDE_BERT"]
+           "SIDE_ASR_DECODER", "SIDE_BERT", "SIDE_ROUTER"]
 
 _MASK32 = 0xFFFFFFFF
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -32,6 +32,10 @@ _FOLD, _SPLIT = 0xF01D0000, 0x5B170000
 # translation decoder's, and so has a BERT trunk (CTNMT runs one beside
 # its own encoder)
 SIDE_ENCODER, SIDE_DECODER, SIDE_ASR_DECODER, SIDE_BERT = 1, 2, 3, 4
+# an MoE layer's router jitter draws from its FFN site's stream with
+# SIDE_ROUTER << 24 added (sides fill bits 16-23), so its noise is no
+# dropout mask of any layer
+SIDE_ROUTER = 5
 
 
 def _mulhilo(m: int, c):

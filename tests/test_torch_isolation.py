@@ -3,14 +3,20 @@ it, and each subpackage of the predict path on its own) loads no JAX and
 nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
 neither; the converters and the pretrained trunks' modules import no
 TensorFlow either; an entry point without ``device=`` on a host without
-CUDA raises, the predict, cascade and simuleval CLIs included (the
-host-only converter CLI runs without one); ``setup.py``
-ships every kernel source and header; and ``chip_smoke.py`` fails without
-a card.
-Each check runs in a fresh interpreter so this process's own JAX
-imports cannot hide a leak.
+CUDA raises, the predict, cascade and simuleval CLIs and the QAT, int8
+and MoE entries included (the host-only converter CLI runs without one);
+``setup.py`` ships every kernel source and header and the quantization
+subpackage; and ``chip_smoke.py`` fails without a card.
+
+Each check runs in an interpreter of its own, so that this process's own
+JAX imports cannot hide a leak; to keep that cheap, one parent
+interpreter that has imported torch (and neither JAX nor ``neurst_tpu``)
+forks a child per check (``CHILD_RUNNER``), and a module-scoped fixture
+collects every child's result once.  A child reports its exit code, its
+output and the JAX, ``neurst_tpu`` and TensorFlow modules it loaded.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -22,79 +28,109 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "neurst_tpu_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|neurst_tpu)\b",
                        re.MULTILINE)
+JAX_ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu")
+
+# The parent: imports torch, then runs each check (a JSON list on stdin)
+# in a forked child, a few at a time.  A check is {"id", "kind", ...}:
+# "import" imports ``modules`` (and every module under ``walk``); "module"
+# runs ``module`` as __main__ with ``argv``; "path" runs the script at
+# ``path`` as __main__; "code" executes ``code``; each in ``cwd`` if
+# given.  A child writes {"rc", "leaked", "count"} and its stdout and
+# stderr into the work dir; the parent prints the results as JSON.
+CHILD_RUNNER = r"""
+import json, os, sys
+import torch  # noqa: F401 - loaded once, before the forks
+work = sys.argv[1]
+checks = json.load(sys.stdin)
+ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu", "tensorflow")
 
 
-def _run(code, env_extra=None, cwd=REPO, timeout=120):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", **(env_extra or {}))
-    env.pop("PYTHONPATH", None)
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=timeout)
+def child(check):
+    out = os.open(os.path.join(work, check["id"] + ".out"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    err = os.open(os.path.join(work, check["id"] + ".err"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(out, 1)
+    os.dup2(err, 2)
+    sys.stdout = os.fdopen(1, "w", buffering=1)
+    sys.stderr = os.fdopen(2, "w", buffering=1)
+    rc, count = 0, 0
+    try:
+        if check.get("cwd"):
+            os.chdir(check["cwd"])
+        kind = check["kind"]
+        if kind == "import":
+            import importlib, pkgutil
+            names = list(check.get("modules") or [])
+            if check.get("walk"):
+                pkg = importlib.import_module(check["walk"])
+                names += [m.name for m in pkgutil.walk_packages(
+                    pkg.__path__, pkg.__name__ + ".")]
+            for name in names:
+                importlib.import_module(name)
+            count = len(names)
+        else:
+            import runpy
+            if kind == "module":
+                sys.argv = [check["module"]] + check["argv"]
+                runpy.run_module(check["module"], run_name="__main__",
+                                 alter_sys=True)
+            elif kind == "path":
+                sys.argv = [check["path"]]
+                runpy.run_path(check["path"], run_name="__main__")
+            else:
+                exec(compile(check["code"], "<check>", "exec"),
+                     {"__name__": "__main__"})
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (0 if e.code is None
+                                                     else 1)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        rc = 1
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ROOTS)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    with open(os.path.join(work, check["id"] + ".json"), "w") as f:
+        json.dump({"rc": rc, "leaked": leaked, "count": count}, f)
+    os._exit(0)
 
 
-def test_importing_every_module_loads_no_jax_or_neurst_tpu():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import neurst_tpu_torch\n"
-        "for m in pkgutil.walk_packages(neurst_tpu_torch.__path__,\n"
-        "                               'neurst_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    proc = _run(code)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+running, pending = {}, list(checks)
+while pending or running:
+    while pending and len(running) < 4:
+        check = pending.pop(0)
+        pid = os.fork()
+        if pid == 0:
+            child(check)
+        running[pid] = check
+    pid, _ = os.wait()
+    running.pop(pid, None)
+results = {}
+for check in checks:
+    path = os.path.join(work, check["id"])
+    try:
+        with open(path + ".json") as f:
+            res = json.load(f)
+    except OSError:
+        res = {"rc": -1, "leaked": [], "count": 0}
+    for stream in ("out", "err"):
+        with open(path + "." + stream) as f:
+            res[stream] = f.read()
+    results[check["id"]] = res
+print(json.dumps(results))
+"""
 
-
-@pytest.mark.parametrize("subpackage", ["cli", "data", "tasks", "metrics",
-                                        "exps", "training"])
-def test_predict_subpackages_load_no_jax_or_neurst_tpu(subpackage):
-    code = (
-        "import importlib, pkgutil, sys\n"
-        f"pkg = importlib.import_module('neurst_tpu_torch.{subpackage}')\n"
-        "names = [m.name for m in pkgutil.walk_packages(\n"
-        "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "for name in names:\n"
-        "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
-        "print('MODULES', len(names), 'LEAKED', bad)\n"
-        "sys.exit(1 if bad or not names else 0)\n")
-    proc = _run(code)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-
-
-def test_predict_cli_without_device_raises_on_a_cuda_less_host():
-    proc = subprocess.run(
-        [sys.executable, "-m", "neurst_tpu_torch.cli.run_exp", "--entry",
-         "predict"], cwd=REPO, capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode != 0
-    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
-
-
-@pytest.mark.parametrize("module", [
+SUBPACKAGES = ["cli", "data", "tasks", "metrics", "exps", "training"]
+MULTI_TASK_MODULES = [
     "neurst_tpu_torch.models.multi_task_speech_transformer",
     "neurst_tpu_torch.models.ensemble_model",
     "neurst_tpu_torch.criterions.joint_criterion",
     "neurst_tpu_torch.data.datasets.mixed_speech_text_dataset",
     "neurst_tpu_torch.cli.cascade_st", "neurst_tpu_torch.cli.text_metric",
     "neurst_tpu_torch.cli.inspect_checkpoint",
-    "neurst_tpu_torch.cli.view_registry"])
-def test_multi_task_ensemble_and_cascade_modules_load_no_jax(module):
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    proc = _run(code)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-
-
-@pytest.mark.parametrize("module", [
+    "neurst_tpu_torch.cli.view_registry"]
+WAITK_MODULES = [
     "neurst_tpu_torch.models.waitk_transformer",
     "neurst_tpu_torch.tasks.waitk_translation",
     "neurst_tpu_torch.models.light_convolution_model",
@@ -104,19 +140,7 @@ def test_multi_task_ensemble_and_cascade_modules_load_no_jax(module):
     "neurst_tpu_torch.layers.search.sampling",
     "neurst_tpu_torch.utils.simuleval_agents.simul_trans_text_agent",
     "neurst_tpu_torch.utils.simuleval_agents.online_client",
-    "neurst_tpu_torch.cli.simuleval_cli"])
-def test_wait_k_lightconv_and_sampling_modules_load_no_jax(module):
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    proc = _run(code)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-
-
+    "neurst_tpu_torch.cli.simuleval_cli"]
 PRETRAINED_MODULES = [
     "neurst_tpu_torch.cli.convert_checkpoint",
     "neurst_tpu_torch.utils.converters",
@@ -136,21 +160,187 @@ PRETRAINED_MODULES = [
     "neurst_tpu_torch.data.text.huggingface_tokenizer",
     "neurst_tpu_torch.data.data_pipelines.bert_data_pipeline",
     "neurst_tpu_torch.data.data_pipelines.gpt2_data_pipeline"]
+QUANT_MOE_MODULES = [
+    "neurst_tpu_torch.layers.quantization",
+    "neurst_tpu_torch.layers.quantization.quant_layers",
+    "neurst_tpu_torch.layers.moe",
+    "neurst_tpu_torch.layers.transformer_layers",
+    "neurst_tpu_torch.utils.param_policy",
+    "neurst_tpu_torch.parallel.train_step"]
+EXAMPLES = os.path.join(REPO, "tests", "examples")
+QUANT_PARAMS = "{quant_bits: 8, quant_weight_clip_max: 1.0}"
+# the QAT, int8 and MoE entries, each without --device
+NO_DEVICE_ENTRIES = {
+    "qat_train": ["--entry", "train", "--config_paths",
+                  os.path.join(EXAMPLES, "example_train_seq2seq.yml"),
+                  "--enable_quant", "--quant_params", QUANT_PARAMS],
+    "moe_train": ["--entry", "train", "--config_paths",
+                  os.path.join(EXAMPLES, "example_train_moe.yml")],
+    "int8_predict": ["--entry", "predict", "--config_paths",
+                     os.path.join(EXAMPLES, "example_predict_seq2seq.yml"),
+                     "--int8_serving", "--int8_activations",
+                     "--int8_static_activations"]}
+
+BUILD_MODEL_CODE = (
+    "import neurst_tpu_torch, torch\n"
+    "from neurst_tpu_torch.models.speech_transformer import "
+    "SpeechTransformer\n"
+    "assert not torch.cuda.is_available()\n"
+    "cfg = SpeechTransformer.build_model_args_by_name("
+    "'speech_transformer_toy')\n"
+    "try:\n"
+    "    neurst_tpu_torch.build_model(cfg, trg_meta={'vocab_size': 8,"
+    " 'eos_id': 1})\n"
+    "except RuntimeError as e:\n"
+    "    print('RAISED', e)\n"
+    "else:\n"
+    "    raise SystemExit('built a model on the CPU unasked')\n")
+
+
+def _checks(tmp):
+    """Every child check, by id."""
+    checks = [{"id": "every_module", "kind": "import",
+               "walk": "neurst_tpu_torch", "modules": ["chip_smoke"]}]
+    checks += [{"id": f"subpackage_{name}", "kind": "import",
+                "walk": f"neurst_tpu_torch.{name}"} for name in SUBPACKAGES]
+    for module in (MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
+                   + QUANT_MOE_MODULES):
+        checks.append({"id": f"module_{module}", "kind": "import",
+                       "modules": [module]})
+    run_exp = "neurst_tpu_torch.cli.run_exp"
+    checks.append({"id": "predict_cli", "kind": "module", "module": run_exp,
+                   "argv": ["--entry", "predict"]})
+    for name, argv in NO_DEVICE_ENTRIES.items():
+        checks.append({"id": f"entry_{name}", "kind": "module",
+                       "module": run_exp, "argv": argv})
+    fixture = os.path.join(REPO, "tests", "fixtures", "reference_goldens",
+                           "tf_ckpt")
+    checks.append({"id": "convert_checkpoint", "kind": "module",
+                   "module": "neurst_tpu_torch.cli.convert_checkpoint",
+                   "argv": ["--converter", "neurst_transformer",
+                            "--from_path", fixture, "--to_path",
+                            os.path.join(tmp, "converted"),
+                            "--num_heads", "2"]})
+    simul_dir = os.path.join(tmp, "simul")
+    os.makedirs(simul_dir)
+    with open(os.path.join(simul_dir, "model_configs.yml"), "w") as f:
+        vocab = {"vocab_path": os.path.join(EXAMPLES, "vocab.txt")}
+        json.dump({"task.class": "waitk_translation", "task.params": {
+            "src_data_pipeline.class": "TextDataPipeline",
+            "src_data_pipeline.params": vocab,
+            "trg_data_pipeline.class": "TextDataPipeline",
+            "trg_data_pipeline.params": vocab},
+            "model.class": "waitk_transformer", "model.params": {}}, f)
+    src = os.path.join(tmp, "src.txt")
+    with open(src, "w") as f:
+        f.write("tok1 tok2\n")
+    checks.append({"id": "simuleval_cli", "kind": "module",
+                   "module": "neurst_tpu_torch.cli.simuleval_cli",
+                   "argv": ["--model_dir", simul_dir, "--src_file", src]})
+    checks.append({"id": "cascade_st", "kind": "module",
+                   "module": "neurst_tpu_torch.cli.cascade_st",
+                   "argv": ["--asr_model_dir", tmp, "--mt_model_dir", tmp,
+                            "--dataset", "audio_tfrecord", "--data_path",
+                            os.path.join(tmp, "none.tfrecords")]})
+    checks.append({"id": "build_model", "kind": "code",
+                   "code": BUILD_MODEL_CODE})
+    checks.append({"id": "chip_smoke", "kind": "path",
+                   "path": os.path.join(REPO, "chip_smoke.py")})
+    alone = os.path.join(tmp, "alone")
+    os.makedirs(alone)
+    with open(os.path.join(REPO, "chip_smoke.py")) as f, \
+            open(os.path.join(alone, "chip_smoke.py"), "w") as g:
+        g.write(f.read())
+    checks.append({"id": "chip_smoke_alone", "kind": "path",
+                   "path": os.path.join(alone, "chip_smoke.py"),
+                   "cwd": alone})
+    return checks
+
+
+@pytest.fixture(scope="module")
+def children(tmp_path_factory):
+    """Runs every check once; {id: {"rc", "leaked", "count", "out",
+    "err"}}, and the checks' temporary dir under "tmp"."""
+    tmp = str(tmp_path_factory.mktemp("isolation"))
+    work = os.path.join(tmp, "work")
+    os.makedirs(work)
+    checks = _checks(tmp)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", CHILD_RUNNER, work],
+                          input=json.dumps(checks), cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(results) == sorted(c["id"] for c in checks)
+    results["tmp"] = tmp
+    return results
+
+
+def _no_jax(res, roots=JAX_ROOTS):
+    bad = [m for m in res["leaked"] if m.split(".")[0] in roots]
+    assert res["rc"] == 0 and not bad, (res["leaked"], res["err"][-4000:])
+
+
+def test_the_parent_has_torch_and_no_jax():
+    """The forking parent imports torch and nothing of JAX or
+    ``neurst_tpu``, so no child inherits either."""
+    assert "import torch" in CHILD_RUNNER
+    assert not FORBIDDEN.search(CHILD_RUNNER)
+
+
+def test_importing_every_module_loads_no_jax_or_neurst_tpu(children):
+    res = children["every_module"]
+    _no_jax(res)
+    assert res["count"] > 100
+
+
+@pytest.mark.parametrize("subpackage", SUBPACKAGES)
+def test_predict_subpackages_load_no_jax_or_neurst_tpu(children,
+                                                       subpackage):
+    res = children[f"subpackage_{subpackage}"]
+    _no_jax(res)
+    assert res["count"] > 0
+
+
+def test_predict_cli_without_device_raises_on_a_cuda_less_host(children):
+    res = children["predict_cli"]
+    assert res["rc"] != 0
+    assert "no CUDA device" in res["err"], res["err"][-2000:]
+
+
+@pytest.mark.parametrize("entry", list(NO_DEVICE_ENTRIES))
+def test_qat_int8_and_moe_entries_without_device_raise(children, entry):
+    """``--enable_quant --quant_params``, the MoE config and the three
+    int8 flags parse, and the entry asks for the card."""
+    res = children[f"entry_{entry}"]
+    assert res["rc"] != 0
+    assert "no CUDA device" in res["err"], res["err"][-2000:]
+    assert "not ported" not in res["err"]
+
+
+@pytest.mark.parametrize("module", MULTI_TASK_MODULES)
+def test_multi_task_ensemble_and_cascade_modules_load_no_jax(children,
+                                                             module):
+    _no_jax(children[f"module_{module}"])
+
+
+@pytest.mark.parametrize("module", WAITK_MODULES)
+def test_wait_k_lightconv_and_sampling_modules_load_no_jax(children, module):
+    _no_jax(children[f"module_{module}"])
 
 
 @pytest.mark.parametrize("module", PRETRAINED_MODULES)
-def test_pretrained_trunk_modules_load_no_jax_or_tensorflow(module):
+def test_pretrained_trunk_modules_load_no_jax_or_tensorflow(children,
+                                                           module):
     """The converters, the pretrained models and their task and data
     modules import neither JAX nor ``neurst_tpu`` nor TensorFlow."""
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'neurst_tpu', 'tensorflow'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    proc = _run(code)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    _no_jax(children[f"module_{module}"], JAX_ROOTS + ("tensorflow",))
+
+
+@pytest.mark.parametrize("module", QUANT_MOE_MODULES)
+def test_quantization_and_moe_modules_load_no_jax(children, module):
+    _no_jax(children[f"module_{module}"])
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -167,54 +357,27 @@ def test_converters_never_mention_tensorflow_imports(path):
     assert "tensorflow as tf" not in text, path
 
 
-def test_convert_checkpoint_cli_runs_without_a_card(tmp_path):
+def test_convert_checkpoint_cli_runs_without_a_card(children):
     """The converter CLI is host-only: it converts on a CUDA-less host
     without ``--device``."""
-    fixture = os.path.join(REPO, "tests", "fixtures", "reference_goldens",
-                           "tf_ckpt")
-    proc = subprocess.run(
-        [sys.executable, "-m", "neurst_tpu_torch.cli.convert_checkpoint",
-         "--converter", "neurst_transformer", "--from_path", fixture,
-         "--to_path", str(tmp_path / "out"), "--num_heads", "2"], cwd=REPO,
-        capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert (tmp_path / "out" / "ckpt-0.npz").exists()
+    res = children["convert_checkpoint"]
+    assert res["rc"] == 0, res["err"][-2000:]
+    assert os.path.exists(os.path.join(children["tmp"], "converted",
+                                       "ckpt-0.npz"))
 
 
-def test_simuleval_cli_without_device_raises_on_a_cuda_less_host(tmp_path):
+def test_simuleval_cli_without_device_raises_on_a_cuda_less_host(children):
     """The model dir is read first (its configs), then the device is
     resolved: without CUDA and without ``--device cpu`` it raises."""
-    import json
-    with open(tmp_path / "model_configs.yml", "w") as f:
-        vocab = {"vocab_path": os.path.join(REPO, "tests", "examples",
-                                            "vocab.txt")}
-        json.dump({"task.class": "waitk_translation", "task.params": {
-            "src_data_pipeline.class": "TextDataPipeline",
-            "src_data_pipeline.params": vocab,
-            "trg_data_pipeline.class": "TextDataPipeline",
-            "trg_data_pipeline.params": vocab},
-            "model.class": "waitk_transformer", "model.params": {}}, f)
-    src = tmp_path / "src.txt"
-    src.write_text("tok1 tok2\n")
-    proc = subprocess.run(
-        [sys.executable, "-m", "neurst_tpu_torch.cli.simuleval_cli",
-         "--model_dir", str(tmp_path), "--src_file", str(src)], cwd=REPO,
-        capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode != 0
-    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+    res = children["simuleval_cli"]
+    assert res["rc"] != 0
+    assert "no CUDA device" in res["err"], res["err"][-2000:]
 
 
-def test_cascade_st_without_device_raises_on_a_cuda_less_host(tmp_path):
-    proc = subprocess.run(
-        [sys.executable, "-m", "neurst_tpu_torch.cli.cascade_st",
-         "--asr_model_dir", str(tmp_path), "--mt_model_dir", str(tmp_path),
-         "--dataset", "audio_tfrecord", "--data_path",
-         str(tmp_path / "none.tfrecords")], cwd=REPO, capture_output=True,
-        text=True, timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    assert proc.returncode != 0
-    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+def test_cascade_st_without_device_raises_on_a_cuda_less_host(children):
+    res = children["cascade_st"]
+    assert res["rc"] != 0
+    assert "no CUDA device" in res["err"], res["err"][-2000:]
 
 
 def test_setup_ships_every_kernel_source_and_header():
@@ -232,6 +395,17 @@ def test_setup_ships_every_kernel_source_and_header():
                    for g in globs["neurst_tpu_torch"]), name
 
 
+def test_setup_ships_the_quantization_subpackage():
+    from setuptools import find_packages
+    with open(os.path.join(REPO, "setup.py")) as f:
+        text = f.read()
+    include = re.search(r"find_packages\(include=(\[[^\]]*\])", text)
+    packages = find_packages(where=REPO,
+                             include=eval(include.group(1)))  # noqa: S307
+    assert "neurst_tpu_torch.layers.quantization" in packages
+    assert "neurst_tpu_torch.layers" in packages
+
+
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(root, f) for root, _, files in os.walk(PACKAGE)
      for f in files if f.endswith(".py")]
@@ -246,41 +420,21 @@ def test_sources_import_no_jax_or_neurst_tpu(path):
     assert not found, f"{path} imports {found}"
 
 
-def test_build_model_without_device_raises_on_a_cuda_less_host():
-    code = (
-        "import neurst_tpu_torch, torch\n"
-        "from neurst_tpu_torch.models.speech_transformer import "
-        "SpeechTransformer\n"
-        "assert not torch.cuda.is_available()\n"
-        "cfg = SpeechTransformer.build_model_args_by_name("
-        "'speech_transformer_toy')\n"
-        "try:\n"
-        "    neurst_tpu_torch.build_model(cfg, trg_meta={'vocab_size': 8,"
-        " 'eos_id': 1})\n"
-        "except RuntimeError as e:\n"
-        "    print('RAISED', e)\n"
-        "else:\n"
-        "    raise SystemExit('built a model on the CPU unasked')\n")
-    proc = _run(code)
-    assert proc.returncode == 0 and "RAISED" in proc.stdout, \
-        proc.stdout + proc.stderr
+def test_build_model_without_device_raises_on_a_cuda_less_host(children):
+    res = children["build_model"]
+    assert res["rc"] == 0 and "RAISED" in res["out"], \
+        res["out"] + res["err"]
 
 
-def test_chip_smoke_fails_without_a_card():
-    proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
-        text=True, timeout=120)
-    assert proc.returncode != 0
-    assert '"ok": true' not in proc.stdout
+def test_chip_smoke_fails_without_a_card(children):
+    res = children["chip_smoke"]
+    assert res["rc"] != 0
+    assert '"ok": true' not in res["out"]
 
 
-def test_chip_smoke_alone_fails(tmp_path):
+def test_chip_smoke_alone_fails(children):
     """Without the rest of the repository the script cannot pass: here
     it stops at the device check, on a card at the package import."""
-    import shutil
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
-    proc = _run("import runpy; runpy.run_path('chip_smoke.py', "
-                "run_name='__main__')", cwd=str(tmp_path))
-    assert proc.returncode != 0
-    assert '"ok": true' not in proc.stdout
+    res = children["chip_smoke_alone"]
+    assert res["rc"] != 0
+    assert '"ok": true' not in res["out"]

@@ -326,8 +326,7 @@ def test_cli_refuses_what_the_port_lacks(workdir):
     _, model_dir, cfg_path, _, _ = workdir
     base = ["--config_paths", cfg_path, "--model_dir", model_dir,
             "--device", "cpu"]
-    for extra in (["--int8_serving"], ["--enable_quant"],
-                  ["--distributed_init"], ["--include", "plugin.py"]):
+    for extra in (["--distributed_init"], ["--include", "plugin.py"]):
         with pytest.raises(NotImplementedError):
             port_run_exp.cli_main(base + extra)
     # speculative decode is ported: without a draft it asks for one

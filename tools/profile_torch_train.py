@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 tools/profile_torch_train.py [--model M] [--seed N] [--steps N]
-        [--dropout R]
+        [--dropout R] [--quant] [--shape B,L]
 
 Builds a training cell that ``chip_smoke.py`` drives: by default the
 speech slice (speech_transformer_s, encoder flash attention, bf16 with
@@ -16,7 +16,11 @@ says otherwise); with ``--model multi_task_speech_transformer`` the
 joint ASR + ST step of ``chip_smoke.py``'s multitask_train phase (the
 same speech model with a transcript decoder, 40 x 3000 frames, both
 targets 120, the joint criterion, dropout 0.1 unless ``--dropout`` says
-otherwise).  It
+otherwise).  ``--quant`` trains the speech slice or ``transformer_base``
+under QAT with ``examples/quality/mt_synth_qat.yml``'s quant params (the
+step adds the clips' L2 term); ``--shape B,L`` sets transformer_base's
+batch (default bench.py's 256,128; 256,16 is about one 4096-token
+micro-batch of ``mt_synth_base.yml``).  It
 runs two warm-up steps, then profiles whole steps with
 ``torch.profiler``.  For each step it prints one JSON line: wall time
 (host clock, synchronised), device kernel time (the sum of the CUDA
@@ -60,6 +64,10 @@ def main(argv=None):
     parser.add_argument("--model", default="speech_transformer_s",
                         choices=("speech_transformer_s", "transformer_base",
                                  "multi_task_speech_transformer"))
+    parser.add_argument("--quant", action="store_true",
+                        help="quantization-aware training")
+    parser.add_argument("--shape", default=None,
+                        help="transformer_base batch B,L")
     parser.add_argument("--dropout", type=float, default=None,
                         help="rate of every dropout site (default: 0 for "
                              "the speech slice, whose recipe has 0.1; 0.1 "
@@ -72,13 +80,24 @@ def main(argv=None):
     from neurst_tpu_torch.utils.rng import make_key
 
     rng = np.random.RandomState(args.seed + 5)
+    qp = None
+    if args.quant:
+        from neurst_tpu_torch.layers.quantization.quant_layers import \
+            global_init
+        if args.model == "multi_task_speech_transformer":
+            raise SystemExit("--quant profiles the speech slice or "
+                             "transformer_base")
+        qp = chip_smoke._qat_quant_params()
+        global_init(True, **qp)
     if args.model == "transformer_base":
         t = chip_smoke.NMT_TRAIN
+        shape = [int(v) for v in args.shape.split(",")] if args.shape \
+            else [t["batch"], t["length"]]
         dropout = 0.1 if args.dropout is None else args.dropout
-        _, _, _, state, step = chip_smoke.build_nmt_train(args.seed,
-                                                          dropout=dropout)
-        batches = [chip_smoke.nmt_batch(rng, "cuda", t["batch"], t["length"],
-                                        t["vocab"], t["vocab"])
+        _, _, _, state, step = chip_smoke.build_nmt_train(
+            args.seed, dropout=dropout, quant_params=qp)
+        batches = [chip_smoke.nmt_batch(rng, "cuda", *shape, t["vocab"],
+                                        t["vocab"])
                    for _ in range(2 + args.steps)]
     elif args.model == "multi_task_speech_transformer":
         t = chip_smoke.TRAIN
@@ -93,8 +112,8 @@ def main(argv=None):
     else:
         t = chip_smoke.TRAIN
         dropout = args.dropout or 0.0
-        _, _, _, state, step = chip_smoke.build_train(args.seed,
-                                                      dropout=dropout)
+        _, _, _, state, step = chip_smoke.build_train(
+            args.seed, dropout=dropout, quant_params=qp)
         batches = [chip_smoke.train_batch(rng, "cuda", t["batch"],
                                           t["frames"], t["min_src"],
                                           t["trg_len"], t["min_trg"])
@@ -106,7 +125,7 @@ def main(argv=None):
         (state, _), row = _profile(lambda: step(state, batch, key), top=40,
                                    own=OWN_KERNELS)
         print(json.dumps(dict(step=i, model=args.model, dropout=dropout,
-                              **row)), flush=True)
+                              quant=args.quant, **row)), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
