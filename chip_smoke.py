@@ -274,6 +274,34 @@ exits non-zero):
                dev lines); the GShard top-2 overlay as a bare step beside
                them; then rows 4-5, 8 and 9-10 against their plain
                versions at the shapes this path gave them.
+   dispatch -- the host time a call of the flash forward's and the fused
+               FFN forward's wrappers (custom ops since slice 13) at
+               shapes whose device work is a few us, beside its device
+               time.
+   export_speech -- the export entry (``run_exp --entry export``) on the
+               predict phase's ``speech_transformer_s`` dir at the
+               slice's shapes (16 x 1024 frames, beam 4, 64 steps): the
+               encode program holds 12 flash custom-op nodes; reloaded
+               with ``load_exported`` in a process of its own, its
+               hypotheses on 3 requests equal the eager ``BeamSearch``'s
+               on the card; export seconds, artifact bytes, request ms
+               against eager.
+   remat_step -- train_dropout's step with and without
+               ``gradient_remat``: the first batch's loss bitwise equal,
+               gradients within the bf16 backward tolerance, the forward
+               kernels launched twice a step; step ms and peak memory.
+   pruning_trainer / prune_tune -- examples/weight_pruning/
+               training_args.yml as it is through ``run_exp --entry
+               train`` on the text trainer's corpus and
+               ``transformer_base`` (begin / end / frequency cut to 2 / 10
+               / 4 for 12 steps): every step's launches against the
+               unpruned configuration, the checkpoint's zeros at the
+               schedule's target in every pruned variable and the
+               excluded ones dense, a mask-refresh step's ms against a
+               plain one; then 6 steps of the PruneTune plug-in
+               (``--entry partial_tune --include``) with the dense slots
+               bitwise frozen, and ``mask_predict`` on the tuned dir equal
+               to ``predict`` on the general one.
 9. train reference check -- the same weights in float32, 2 x 256 frames
                and target 16, dropout 0 and then 0.1: one step on the
                card and one on the CPU (plain versions) give the same
@@ -1972,7 +2000,7 @@ def reference_check_phase(seed):
 
 
 def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
-                quant_params=None):
+                quant_params=None, remat=False):
     """The training slice through the entry points the JAX trainer uses:
     ``build_model`` with weights from ``seed`` in the JAX flat layout
     (through ``param_bridge``), the recipe's noam schedule and Adam,
@@ -1982,7 +2010,8 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
     rate of all six dropout sites (the recipe's is 0.1).  With
     ``quant_params`` (QAT, whose global config the caller has set) the
     clips start at the config's values and the step adds
-    ``clip_l2_penalty``, as the trainer does."""
+    ``clip_l2_penalty``, as the trainer does.  ``remat`` is the
+    trainer's ``gradient_remat``."""
     import neurst_tpu_torch
     from neurst_tpu_torch.layers.quantization.quant_layers import \
         clip_l2_penalty
@@ -2022,7 +2051,8 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
     state = TrainState.create(dict(model.named_parameters()), tx)
     step = make_train_step(
         model, criterion, tx, lr_schedule=lr,
-        extra_loss_fn=None if quant_params is None else clip_l2_penalty)
+        extra_loss_fn=None if quant_params is None else clip_l2_penalty,
+        remat=remat)
     return model, criterion, tx, state, step
 
 
@@ -2568,12 +2598,13 @@ def trainer_config(path, records, pipeline, task=None, model=None,
     return path
 
 
-def run_trainer(argv, task_cls=None, inspect=None):
+def run_trainer(argv, task_cls=None, inspect=None, time_steps=False):
     """``run_exp.cli_main(argv)`` in-process with the launch counts set to
     0 before and read after, the task's (``SpeechToText`` by default)
     TRAIN iterator wrapped to time each ``next()`` and record each
     batch's shape, each train step's launches recorded with its batch's
-    shape, ``Trainer._save`` and ``SeqGenerationValidator.validate``
+    shape (and with ``time_steps`` its ms, the card synchronized before
+    and after), ``Trainer._save`` and ``SeqGenerationValidator.validate``
     timed, each batch's text token counts (and a wait-k batch's lagging,
     and ``inspect(batch)`` where given), and the log lines kept.  Returns
     the trainer's final state and what it measured."""
@@ -2656,14 +2687,20 @@ def run_trainer(argv, task_cls=None, inspect=None):
         step = originals[trainer_mod, "make_train_step"](*a, **kw)
 
         def run_step(state, batch, rng=None):
+            if time_steps:
+                _sync()
+            start = time.perf_counter()
             before = launch_counts()
             out = step(state, batch, rng)
             after = launch_counts()
+            if time_steps:
+                _sync()
             seen["steps"].append({
                 "src": list(batch.get("src", batch["trg"]).shape),
                 "trg": list(batch["trg"].shape),
                 "launches": {k: after[k] - before[k] for k in after},
-                "loss": out[1]["loss"]})
+                "loss": out[1]["loss"],
+                "ms": (time.perf_counter() - start) * 1e3})
             return out
         run_step.compute_grads = step.compute_grads
         return run_step
@@ -7983,6 +8020,448 @@ class QatWorker(object):
             self.proc.kill()
             self.proc.wait()
 
+# Slice 13.  pruning_trainer: examples/weight_pruning/training_args.yml as
+# it is (polynomial decay to 0.8, every variable but LayerNorms, biases
+# and the modalities) on the text train entry's corpus and model
+# (``NMT_TRAINER``: transformer_base, V 32768 a side, 32768-token
+# buckets, bf16 + f32 master, dropout 0.1), its begin / end / frequency
+# (10000 / 80000 / 100) cut to 2 / 10 / 4 so that 12 steps refresh the
+# masks three times and end at the final sparsity; prune_tune, 6 steps of
+# the PruneTune plug-in (``--include``) from that dir with float32 stored
+# params (a bf16 copy would round the dense slots), then ``mask_predict``
+# against the general dir's ``predict``.
+PRUNING = dict(recipe=os.path.join("examples", "weight_pruning",
+                                   "training_args.yml"),
+               steps=12, begin=2, end=10, frequency=4, tune_steps=6,
+               dev_lines=32, predict_batch=32,
+               search={"beam_size": 4, "length_penalty": 0.6,
+                       "maximum_decode_length": 40})
+PLUGINS = os.path.join("neurst_tpu_torch", "contrib", "prune_tune")
+
+
+def _zero_shares(flat):
+    return {name: float((np.asarray(w) == 0).mean())
+            for name, w in flat.items()}
+
+
+def pruning_phases(seed, device="cuda"):
+    """pruning_trainer and prune_tune (``PRUNING``) under
+    ``build/prune_smoke/``, removed after.  Returns their launch counts by
+    path."""
+    import yaml
+
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.sparsity import (build_pruning_schedule,
+                                           make_variable_filter)
+    from neurst_tpu_torch.tasks.translation import Translation
+    from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
+                                                    restore_checkpoint_params)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "prune_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t, p = NMT_TRAINER, PRUNING
+    try:
+        rng = np.random.RandomState(seed + 130)
+        words, pipelines = {}, {}
+        for side, language in (("src", "en"), ("trg", "de")):
+            vocab = os.path.join(root, f"vocab.{side}")
+            words[side] = write_word_vocab(vocab, rng, t["vocab"] - 3)
+            pipelines[side] = {"vocab_path": vocab, "language": language}
+        train = write_parallel(os.path.join(root, "train"), rng,
+                               words["src"], words["trg"], t["pairs"],
+                               t["min_tokens"], t["max_tokens"])
+        dev = write_parallel(os.path.join(root, "dev"), rng, words["src"],
+                             words["trg"], p["dev_lines"], t["min_tokens"],
+                             t["max_tokens"])
+        with open(os.path.join(here, p["recipe"])) as f:
+            entry = yaml.safe_load(f)["entry.params"]
+        entry["pruning_schedule.params"] = dict(
+            entry["pruning_schedule.params"], begin_pruning_step=p["begin"],
+            end_pruning_step=p["end"], pruning_frequency=p["frequency"])
+        general = os.path.join(root, "general")
+        cfg = nmt_config(os.path.join(root, "prune.json"), pipelines,
+                         ("parallel_text", _parallel(train)),
+                         train_steps=p["steps"], summary_steps=2,
+                         save_checkpoint_steps=p["steps"], **entry)
+        _reset_peak(device)
+        _, seen = run_trainer(["--config_paths", cfg, "--model_dir", general,
+                               "--device", device], Translation,
+                              time_steps=True)
+        _train_path_checks(seen, p["steps"], "pruning_trainer")
+        by_shape = _step_launch_checks(seen, seen["model"])
+        schedule = build_pruning_schedule(entry)
+        refresh = [i for i in range(p["steps"]) if schedule.should_prune(i)]
+        target = float(schedule.target_sparsity(refresh[-1]))
+        pruned = make_variable_filter(entry.get("pruning_variable_pattern"),
+                                      entry.get("nopruning_variable_pattern"))
+        flat = restore_checkpoint_params(latest_checkpoint(general))
+        shares = _zero_shares(flat)
+        # the quantile's index rounds (2 / n); weights tied at the
+        # threshold are pruned with it, as in JAX (``|w| > threshold``
+        # keeps), which may add a few more zeros
+        off = {n: z for n, z in shares.items() if pruned(n)
+               and not target - 2.0 / flat[n].size <= z <= target + 1e-4}
+        dense = {n: z for n, z in shares.items() if not pruned(n)
+                 and z >= 0.5}
+        plain = [s["ms"] for i, s in enumerate(seen["steps"])
+                 if i and i not in refresh]
+        row = dict(_trainer_numbers(seen, _peak_bytes(device)),
+                   phase="pruning_trainer", model=t["hparams_set"],
+                   dtype="bfloat16", recipe=p["recipe"],
+                   schedule=entry["pruning_schedule.params"],
+                   refresh_steps=[i + 1 for i in refresh],
+                   target_sparsity=target,
+                   pruned_variables=sum(map(pruned, flat)),
+                   dense_variables=sum(not pruned(n) for n in flat),
+                   zero_share_pruned=[min(shares[n] for n in flat
+                                          if pruned(n)),
+                                      max(shares[n] for n in flat
+                                          if pruned(n))],
+                   zero_share_dense_max=max(shares[n] for n in flat
+                                            if not pruned(n)),
+                   refresh_step_ms=[seen["steps"][i]["ms"] for i in refresh],
+                   plain_step_ms_median=float(np.median(plain)),
+                   step_ms=[s["ms"] for s in seen["steps"]],
+                   step_shapes=[[s["src"], s["trg"]] for s in seen["steps"]],
+                   launches_per_step_by_shape=by_shape)
+        emit(row)
+        if off or dense or len(refresh) != 3:
+            raise AssertionError(f"pruning_trainer: sparsity off target "
+                                 f"{off}, excluded variables sparse {dense}, "
+                                 f"refreshes {refresh}")
+        counts = {"pruning_trainer": seen["launches"]}
+
+        tuned = os.path.join(root, "tuned")
+        cfg = nmt_config(os.path.join(root, "tune.json"), pipelines,
+                         ("parallel_text", _parallel(train)),
+                         train_steps=p["tune_steps"], summary_steps=2,
+                         save_checkpoint_steps=p["tune_steps"],
+                         bf16_params=False, mask_dir=general)
+        _reset_peak(device)
+        _, seen = run_trainer(
+            ["--entry", "partial_tune", "--include",
+             os.path.join(here, PLUGINS, "partial_trainer.py"),
+             "--config_paths", cfg, "--model_dir", tuned, "--pretrain_model",
+             general, "--device", device], Translation)
+        _train_path_checks(seen, p["tune_steps"], "prune_tune")
+        by_shape = _step_launch_checks(seen, seen["model"])
+        counts["prune_tune"] = seen["launches"]
+        after = restore_checkpoint_params(latest_checkpoint(tuned))
+        changed, moved, slots = [], 0, 0
+        for name, w in flat.items():
+            keep = w != 0
+            if not np.array_equal(after[name][keep], w[keep]):
+                changed.append(name)
+            moved += int((after[name][~keep] != 0).sum())
+            slots += int((~keep).sum())
+        predict = os.path.join(root, "predict.json")
+        with open(predict, "w") as f:
+            json.dump({"dataset.class": "ParallelTextDataset",
+                       "dataset.params": _parallel(dev),
+                       "batch_size": p["predict_batch"],
+                       "search_method.class": "beam_search",
+                       "search_method.params": p["search"]}, f)
+        start = time.perf_counter()
+        general_hyps = run_exp.cli_main(
+            ["--entry", "predict", "--config_paths", predict, "--model_dir",
+             general, "--device", device])["hypotheses"]
+        predict_s = time.perf_counter() - start
+        start = time.perf_counter()
+        masked_hyps = run_exp.cli_main(
+            ["--entry", "mask_predict", "--include",
+             "neurst_tpu_torch.contrib.prune_tune.mask_sequence_generator",
+             "--mask_from_ckpt", general, "--config_paths", predict,
+             "--model_dir", tuned, "--device", device])["hypotheses"]
+        mask_predict_s = time.perf_counter() - start
+        row = dict(_trainer_numbers(seen, _peak_bytes(device)),
+                   phase="prune_tune", model=t["hparams_set"],
+                   dtype="bfloat16", bf16_params=False,
+                   tunable_slots=slots, tunable_slots_moved=moved / slots,
+                   dense_slots_changed=changed,
+                   launches_per_step_by_shape=by_shape,
+                   mask_predict_equals_general_predict=masked_hyps
+                   == general_hyps, predict_lines=len(general_hyps),
+                   predict_s=predict_s, mask_predict_s=mask_predict_s)
+        emit(row)
+        if changed or not row["mask_predict_equals_general_predict"] \
+                or len(general_hyps) != p["dev_lines"] or not moved:
+            raise AssertionError(f"prune_tune phase failed: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# export_speech: the export entry on st_decode_s_flash's model and
+# requests (speech_transformer_s, bf16 at rest, encoder flash, 16 x 1024
+# frames, beam 4, 64 steps), the programs reloaded in a process of their
+# own that imports ``neurst_tpu_torch.exps.export`` alone
+EXPORT = dict(requests=3)
+EXPORT_SERVE = r"""
+import json, sys, time
+import numpy as np
+import torch
+from neurst_tpu_torch.exps.export import load_exported
+from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+path, inputs, out = sys.argv[1:4]
+start = time.perf_counter()
+gen = load_exported(path, "cuda")
+load_s = time.perf_counter() - start
+with np.load(inputs) as data:
+    requests = [{"src": data[f"src_{i}"], "src_length": data[f"len_{i}"]}
+                for i in range(int(data["n"]))]
+gen(requests[0])
+torch.cuda.synchronize()
+reset_launch_counts()
+hyps, scores, ms, per_request = [], [], [], []
+for r in requests:
+    before = launch_counts()["flash_attention_fwd"]
+    start = time.perf_counter()
+    h, s = gen(r)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - start) * 1e3)
+    per_request.append(launch_counts()["flash_attention_fwd"] - before)
+    hyps.append(h.cpu().numpy())
+    scores.append(s.float().cpu().numpy())
+np.savez(out, hyps=np.stack(hyps), scores=np.stack(scores))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "neurst_tpu"))
+print(json.dumps({"request_ms": ms, "load_s": load_s,
+                  "launches": launch_counts(),
+                  "flash_per_request": per_request, "leaked": leaked}))
+"""
+
+
+def export_speech_phase(seed):
+    """The export entry through ``run_exp`` on the predict phase's model
+    dir (written again under ``build/export_smoke/``, removed after):
+    export seconds, the artifact's bytes, 12 flash custom-op nodes in the
+    encode program; the reloaded programs' hypotheses and scores on the
+    slice's requests equal the eager ``BeamSearch``'s on the card, and
+    the request ms of both.  Returns the launch counts of the reloaded
+    programs' requests."""
+    import torch
+
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.exps.base_experiment import BaseExperiment
+    from neurst_tpu_torch.exps.export import ENCODE_FILE
+    from neurst_tpu_torch.layers.search.sequence_search import \
+        build_search_layer
+    from neurst_tpu_torch.tasks.task import build_task
+    from neurst_tpu_torch.utils.configurable import ModelConfigs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "export_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    search = {"beam_size": SLICE["beam"],
+              "maximum_decode_length": SLICE["max_decode"],
+              "extra_decode_length": SLICE["max_decode"],
+              "minimum_decode_length": SLICE["max_decode"] - 1}
+    b, frames = SLICE["batch"], SLICE["frames"]
+    try:
+        model_dir = write_predict_dir(seed, root)["model_dir"]
+        path = os.path.join(root, "export")
+        start = time.perf_counter()
+        run_exp.cli_main(["--entry", "export", "--model_dir", model_dir,
+                          "--export_path", path, "--export_batch_size",
+                          str(b), "--export_src_length", str(frames),
+                          "--search_method.params", json.dumps(search),
+                          "--device", "cuda"])
+        export_s = time.perf_counter() - start
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        program = torch.export.load(os.path.join(path, ENCODE_FILE))
+        flash_nodes = sum(
+            1 for n in program.graph.nodes if n.op == "call_function"
+            and "neurst_tpu_torch.flash_attention_fwd" in str(n.target))
+        del program
+        rng = np.random.RandomState(seed + 131)
+        requests = [{"src": rng.randn(b, frames, SLICE["feature_dim"],
+                                      1).astype(np.float32),
+                     "src_length": rng.randint(SLICE["min_src"], frames + 1,
+                                               size=b).astype(np.int32)}
+                    for _ in range(EXPORT["requests"])]
+        inputs = os.path.join(root, "requests.npz")
+        np.savez(inputs, n=len(requests), **{
+            f"{k}_{i}": r[key] for i, r in enumerate(requests)
+            for k, key in (("src", "src"), ("len", "src_length"))})
+        out = os.path.join(root, "served.npz")
+        proc = subprocess.run([sys.executable, "-c", EXPORT_SERVE, path,
+                               inputs, out], cwd=here, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"export_speech: the reloaded programs "
+                                 f"failed: {proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(out) as data:
+            hyps, scores = data["hyps"], data["scores"]
+
+        cfg = ModelConfigs.load(model_dir)
+        model = build_task(cfg).build_model(cfg, device="cuda")
+        BaseExperiment(model=model, model_dir=model_dir).restore_params()
+        beam = build_search_layer({"search_method.class": "beam_search",
+                                   "search_method.params": search})
+        beam.set_model(model)
+        torch_inputs = [{k: torch.from_numpy(v).cuda() for k, v in r.items()}
+                        for r in requests]
+        beam(torch_inputs[0])
+        eager_ms, equal_hyps, equal_scores, score_diff = [], [], [], []
+        for i, r in enumerate(torch_inputs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            h, s = beam(r)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - start) * 1e3)
+            equal_hyps.append(bool(np.array_equal(h.cpu().numpy(),
+                                                  hyps[i])))
+            s = s.float().cpu().numpy()
+            equal_scores.append(bool(np.array_equal(s, scores[i])))
+            score_diff.append(float(np.abs(s - scores[i]).max()))
+        row = {"phase": "export_speech", "model": PREDICT["model"],
+               "dtype": "bfloat16", "batch": b, "frames": frames,
+               "search": search, "export_s": export_s,
+               "artifact_bytes": sum(files.values()), "files": files,
+               "flash_custom_op_nodes": flash_nodes,
+               "expected_flash_nodes": model.encoder.num_layers,
+               "served_request_ms": served["request_ms"],
+               "eager_request_ms": eager_ms,
+               "served_load_s": served["load_s"],
+               "served_flash_per_request": served["flash_per_request"],
+               "served_leaked_modules": served["leaked"],
+               "hypotheses_equal_eager": equal_hyps,
+               "scores_equal_eager": equal_scores,
+               "score_max_abs_diff": score_diff}
+        emit(row)
+        if not (flash_nodes == model.encoder.num_layers and all(equal_hyps)
+                and served["flash_per_request"] == [flash_nodes]
+                * len(requests) and not served["leaked"]):
+            raise AssertionError(f"export_speech phase failed: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = dict(served["launches"])
+    return counts
+
+
+def remat_step_phase(seed, train_dropout_row):
+    """train_dropout's step (``speech_transformer_s``, 40 x 3000 frames,
+    bf16 + f32 master, dropout 0.1, its batches and key) with and without
+    ``gradient_remat``: the first batch's loss bitwise equal and its
+    gradients within the bf16 backward tolerance (relative L2); launches
+    a step with the forward kernels counted twice (and the mask kernel's
+    forward sites); step ms and peak memory of both.  Returns the remat
+    steps' launch counts."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+
+    key = make_key(seed + 7)
+    rng = np.random.RandomState(seed + 3)
+    batches = [train_batch(rng, "cuda", TRAIN["batch"], TRAIN["frames"],
+                           TRAIN["min_src"], TRAIN["trg_len"],
+                           TRAIN["min_trg"])
+               for _ in range(TRAIN["warmup"] + TRAIN["steps"])]
+    runs, first = {}, {}
+    for remat in (False, True):
+        model, _, _, state, step = build_train(seed, dropout=DROPOUT_RATE,
+                                               remat=remat)
+        expected = expected_launches(
+            model, TRAIN["batch"] * TRAIN["frames"] // 4,
+            TRAIN["batch"] * TRAIN["trg_len"], True)
+        if remat:
+            for name in ("flash_attention_fwd", "fused_ffn_fwd",
+                         "fused_linear_xent_fwd"):
+                expected[name] *= 2
+            expected["fused_dropout"] = expected["fused_dropout"] * 3 // 2
+        loss, _, grads = step.compute_grads(state.params, batches[0],
+                                            fold_in(key, 0))
+        first[remat] = (loss, {n: g.float() for n, g in grads.items()})
+        del grads
+        for batch in batches[:TRAIN["warmup"]]:
+            state, _ = step(state, batch, key)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, totals = [], {}
+        for batch in batches[TRAIN["warmup"]:]:
+            reset_launch_counts()
+            start = time.perf_counter()
+            state, _ = step(state, batch, key)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            counts = launch_counts()
+            if counts != expected:
+                raise AssertionError(f"remat={remat}: launches in a step "
+                                     f"{counts}, expected {expected}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        runs[remat] = {"step_ms": step_ms,
+                       "step_ms_median": float(np.median(step_ms)),
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated(),
+                       "launches_per_step": expected, "totals": totals}
+        del model, state, step
+        torch.cuda.empty_cache()
+    errs = {n: float(torch.linalg.vector_norm(g - first[False][1][n])
+                     / torch.linalg.vector_norm(first[False][1][n])
+                     .clamp_min(1e-30))
+            for n, g in first[True][1].items()}
+    worst = max(errs, key=errs.get)
+    row = {"phase": "remat_step", "model": TRAIN["model"],
+           "dtype": "bfloat16", "dropout": DROPOUT_RATE,
+           "batch": TRAIN["batch"], "frames": TRAIN["frames"],
+           "loss": [float(first[False][0]), float(first[True][0])],
+           "loss_equal": bool(torch.equal(first[False][0], first[True][0])),
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst": worst,
+           "grads_bitwise_equal": sum(v == 0.0 for v in errs.values()),
+           "grads": len(errs), "plain": runs[False], "remat": runs[True],
+           "train_dropout_step_ms_median":
+           train_dropout_row["step_ms_median"]}
+    emit(row)
+    if not row["loss_equal"] or errs[worst] > BWD_TOL["bfloat16"]:
+        raise AssertionError(f"remat_step phase failed: {row}")
+    return runs[True]["totals"]
+
+
+def dispatch_phase(seed):
+    """The host cost of a call of the flash forward's and the fused FFN
+    forward's wrappers (through their custom ops): wall time a call of
+    200 calls back to back at shapes whose device work is a few us
+    (decode [16, 256, 4, 64], FFN [64, 256] x 1024), beside the device
+    time of one call (``time_ms``)."""
+    import torch
+
+    from neurst_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from neurst_tpu_torch.ops.fused_ffn import fused_ffn_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 132)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = (randn(16, 256, 4, 64) for _ in range(3))
+    lengths = torch.full((16,), 256, dtype=torch.int32, device="cuda")
+    x, w1, w2 = randn(64, 256), randn(1024, 256), randn(256, 1024)
+    b1 = randn(1024, dtype=torch.float32)
+    b2 = randn(256, dtype=torch.float32)
+    calls = {"flash_attention_fwd": lambda: flash_attention_fwd(q, k, v,
+                                                                lengths),
+             "fused_ffn_fwd": lambda: fused_ffn_fwd(x, w1, b1, w2, b2)}
+    row = {"phase": "dispatch", "calls": 200}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        row[name] = {"wall_us_a_call": (time.perf_counter() - start)
+                     / 200 * 1e6, "device_us_a_call": time_ms(fn) * 1e3}
+    emit(row)
+    return row
+
 
 def qat_worker_main(seed, t0):
     """The worker's side: the card's checks, then ``qat_phases``, then
@@ -8073,14 +8552,18 @@ def main(argv=None):
     softmax_rows = softmax_xent_kernel_phase(args.seed)
     dropout_rows = dropout_kernel_phase(args.seed)
     ffn_rows = ffn_kernel_phase(args.seed)
+    dispatch_phase(args.seed)
     model, inputs, decode_counts = slice_phase(args.seed)
     encoder_cross_check_phase(model, inputs)
     del model
     predict_counts, spec_speech_counts = predict_phase(args.seed)
+    export_counts = export_speech_phase(args.seed)
     train_counts, _ = train_phase(args.seed)
     train_dropout_counts, train_dropout_row = train_phase(args.seed,
                                                           dropout=True)
     by_path = {"train": train_counts, "train_dropout": train_dropout_counts,
+               "remat_step": remat_step_phase(args.seed, train_dropout_row),
+               "export_speech": export_counts,
                "trainer": trainer_phase(args.seed, train_dropout_row),
                "train_base": nmt_train_phase(args.seed, bf16_params=False),
                "train_base_bf16": nmt_train_phase(args.seed,
@@ -8089,6 +8572,7 @@ def main(argv=None):
                "spec_speech": spec_speech_counts}
     (by_path["nmt_trainer"], by_path["nmt_predict"],
      by_path["spec_text"]) = nmt_phases(args.seed)
+    by_path.update(pruning_phases(args.seed))
     # QAT's host-bound steps in a worker beside stages that time nothing
     # on the card: the audio prep's CLIs, slice 10's checkpoint
     # conversions and the float32 card-vs-CPU checks

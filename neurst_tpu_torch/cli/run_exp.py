@@ -1,6 +1,6 @@
 """The main CLI of the port:
 ``python -m neurst_tpu_torch.cli.run_exp --entry
-predict|train|eval|sequence_evaluator|validation ...``
+predict|train|eval|sequence_evaluator|validation|export ...``
 (counterpart of ``neurst_tpu/cli/run_exp.py``).
 
 Config precedence as in the JAX package: command line > ``config_paths``
@@ -15,16 +15,25 @@ module is built; ``--int8_serving [--int8_activations
 [--int8_static_activations]]`` serves int8 (inference entries only; a QAT
 model dir's clips drive the int8 grid), as the JAX CLI does.
 
+``--include`` takes plug-in files or module names (a file inside this
+package is imported by its module name, so a plug-in is registered once
+however it is named); they are imported before the flags are parsed, so
+their entries and flags are known (the PruneTune plug-ins,
+``neurst_tpu_torch/contrib/prune_tune/``, come in this way).
+
 Flags of features the port lacks raise ``NotImplementedError`` when set:
-``--include`` plug-ins, multi-host initialization, the XLA compilation
-cache, ``enable_xla: true``, NaN checks and any ``distribution_strategy``
-but one device.  The ``predict``, ``train``, ``eval``,
-``sequence_evaluator`` and ``validation`` entries are ported (the recipes' ``trainer`` is
-``train`` by its class name); the trainer refuses the features it lacks
-itself (``exps/trainer.py``).
+multi-host initialization, the XLA compilation cache, ``enable_xla:
+true``, NaN checks and any ``distribution_strategy`` but one device.  The
+``predict``, ``train``, ``eval``, ``sequence_evaluator``, ``validation``
+and ``export`` entries are ported (the recipes' ``trainer`` is ``train``
+by its class name); the trainer refuses the features it lacks itself
+(``exps/trainer.py``).
 """
 
+import importlib
+import importlib.util
 import logging
+import os
 import sys
 
 import yaml
@@ -84,8 +93,8 @@ FLAG_LIST = [
          help="Number of leading batches used to calibrate the static "
               "int8 activation scales."),
     Flag("include", dtype=Flag.TYPE.STRING, default=None, multiple=True,
-         help="Plug-in files with custom @register components (not "
-              "ported)."),
+         help="Plug-in files or module names with custom @register "
+              "components, imported before the flags are parsed."),
     Flag("seed", dtype=Flag.TYPE.INTEGER, default=0,
          help="The global random seed."),
     Flag("distributed_init", dtype=Flag.TYPE.BOOLEAN, default=None,
@@ -106,8 +115,7 @@ FLAG_LIST = [
 ]
 
 # flags of features the port does not have, and the value that means off
-_UNPORTED = {"include": None,
-             "distributed_init": None, "worker_hosts": None,
+_UNPORTED = {"distributed_init": None, "worker_hosts": None,
              "task_index": None, "compilation_cache_dir": None,
              "enable_check_numerics": None, "enable_xla": (None, False)}
 # the strategies that mean one device, which is what the port runs
@@ -127,9 +135,47 @@ def _format_hparams(predefined: dict) -> dict:
     return out
 
 
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _load_includes(paths):
+    """Imports user plug-in files or modules so their @register calls
+    run.  A file that lies in an importable package under this package's
+    root is imported by its module name, and a file is loaded once
+    however often it is named."""
+    for path in flatten_string_list(paths):
+        if not os.path.exists(path):
+            importlib.import_module(path)
+            logging.info("Imported plug-in module %s", path)
+            continue
+        full = os.path.realpath(path)
+        rel = os.path.relpath(full, _PACKAGE_ROOT)
+        parts = rel[:-len(".py")].split(os.sep)
+        if not rel.startswith("..") and rel.endswith(".py") and all(
+                os.path.exists(os.path.join(_PACKAGE_ROOT, *parts[:i],
+                                            "__init__.py"))
+                for i in range(1, len(parts))):
+            importlib.import_module(".".join(parts))
+        else:
+            name = "neurst_tpu_torch_userdef_" + "".join(
+                c if c.isalnum() else "_" for c in full)
+            if name not in sys.modules:
+                spec = importlib.util.spec_from_file_location(name, full)
+                module = importlib.util.module_from_spec(spec)
+                sys.modules[name] = module
+                try:
+                    spec.loader.exec_module(module)
+                except BaseException:
+                    del sys.modules[name]
+                    raise
+        logging.info("Imported plug-in file %s", path)
+
+
 def parse_and_merge(argv):
-    """Resolves the full configuration from argv."""
+    """Resolves the full configuration from argv (plug-ins first)."""
     argv_dict, _ = flags_core.get_argv_dict(argv)
+    _load_includes(argv_dict.get("include"))
     cfg_files = load_from_config_path(
         flatten_string_list(argv_dict.get("config_paths")))
     model_dir = argv_dict.get("model_dir") or cfg_files.get("model_dir")
@@ -219,7 +265,7 @@ def cli_main(argv=None):
     args = parse_and_merge(argv)
     if not args.get("entry.class"):
         raise ValueError("--entry must be specified (predict, train, eval, "
-                         "sequence_evaluator or validation).")
+                         "sequence_evaluator, validation or export).")
     flags_core.verbose_flags(args)
     return run_experiment(args)
 

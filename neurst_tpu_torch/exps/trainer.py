@@ -3,8 +3,9 @@
 
 ``Trainer.run`` builds the criterion, restores the newest checkpoint of
 the model dir (or a name-filtered ``pretrain_model``), builds the
-optimizer chain (clip -> optimizer(lr schedule) -> freeze / rate
-schedule -> bf16 params with an f32 master, in that order), writes
+optimizer chain (clip -> optimizer(lr schedule) -> pruning -> freeze
+-> rate schedule -> ``_wrap_tx`` -> bf16 params with an f32 master, in
+that order), writes
 ``model_configs.yml``, and trains for ``train_steps`` over the task's
 TRAIN batches: ``update_cycle`` micro-batches a step, a dropout key
 folded with the step, a log (and TensorBoard scalars) every
@@ -24,11 +25,18 @@ parameters alone).
 
 With ``enable_quant`` (QAT; the layers were built under ``run_exp``'s
 ``global_init``) the step adds ``clip_l2_penalty`` of the clips to the
-loss, once a step.
+loss, once a step.  ``pruning_schedule`` adds magnitude pruning
+(``sparsity/pruning_optimizer.py``) over the variables that
+``pruning_variable_pattern`` / ``nopruning_variable_pattern`` select by
+the JAX package's flat names; its masks and count ride in the sidecar.
+``gradient_remat`` recomputes the forward in the backward
+(``torch.utils.checkpoint`` over the whole forward, as the JAX step
+wraps it in ``jax.checkpoint``).  ``_wrap_tx`` is a hook for entries
+that subclass the trainer (the PruneTune plug-in masks updates there).
 
 Not ported, and refused when set: ``checkpoint_format: orbax``, tensor
-and pipeline parallelism, ``gradient_remat``, ``pruning_schedule`` and
-a ``distribution_strategy`` other than one device.  ``enable_profiler`` traces a window of steps with
+and pipeline parallelism and a ``distribution_strategy`` other than one
+device.  ``enable_profiler`` traces a window of steps with
 ``torch.profiler`` (``training/summary.py``).
 """
 
@@ -53,6 +61,10 @@ from neurst_tpu_torch.optimizers.rate_schedule_optimizer import \
 from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
     build_lr_schedule
 from neurst_tpu_torch.parallel import TrainState, make_train_step
+from neurst_tpu_torch.sparsity.pruning_optimizer import (make_variable_filter,
+                                                         prune_gradients)
+from neurst_tpu_torch.sparsity.pruning_schedule import \
+    build_pruning_schedule
 from neurst_tpu_torch.training.summary import (SummaryWriterWrapper,
                                                TrainingProfiler)
 from neurst_tpu_torch.training.validator import build_validator
@@ -70,8 +82,6 @@ __all__ = ["Trainer", "split_microbatches"]
 _UNPORTED = {"checkpoint_format": (None, "npz"),
              "num_model_partitions": (None, 1),
              "pipeline_parallel": (None, 1),
-             "gradient_remat": (None, False),
-             "pruning_schedule.class": (None, ""),
              "distribution_strategy": (None, "", "none", "one_device",
                                        "onedevice")}
 
@@ -134,7 +144,9 @@ class Trainer(BaseExperiment):
             Flag("experimental_frozen_variables", dtype=Flag.TYPE.STRING,
                  default=None, help="Another name of freeze_variables."),
             Flag("gradient_remat", dtype=Flag.TYPE.BOOLEAN, default=None,
-                 help="Rematerialization (not ported)."),
+                 help="Recompute the whole forward pass in the backward "
+                      "(torch.utils.checkpoint), as the JAX step's "
+                      "jax.checkpoint does."),
             Flag("enable_tensorboard", dtype=Flag.TYPE.BOOLEAN,
                  default=True,
                  help="Write TensorBoard scalars under model_dir/train."),
@@ -144,7 +156,14 @@ class Trainer(BaseExperiment):
             ModuleFlag("validator", "validator",
                        help="Inline validator run every eval_steps."),
             ModuleFlag("pruning_schedule", "pruning_schedule",
-                       help="Weight pruning (not ported)."),
+                       help="The weight pruning schedule (enables "
+                            "magnitude pruning when set)."),
+            Flag("pruning_variable_pattern", dtype=Flag.TYPE.STRING,
+                 default=None,
+                 help="Regex of variables included in pruning."),
+            Flag("nopruning_variable_pattern", dtype=Flag.TYPE.STRING,
+                 default=None,
+                 help="Regex of variables excluded from pruning."),
             Flag("rate_scheduled_pattern", dtype=Flag.TYPE.STRING,
                  default=None,
                  help="Regex of variables with rate-scheduled updates "
@@ -213,6 +232,14 @@ class Trainer(BaseExperiment):
         tx = create_optax_chain(optimizer, lr,
                                 clip_value=args.get("clip_value"),
                                 clip_norm=args.get("clip_norm"))
+        if args.get("pruning_schedule.class"):
+            tx = prune_gradients(
+                tx, build_pruning_schedule(args),
+                make_variable_filter(args.get("pruning_variable_pattern"),
+                                     args.get("nopruning_variable_pattern")),
+                name_of=to_jax_name)
+            logging.info("Enabled magnitude pruning: %s",
+                         args["pruning_schedule.class"])
         frozen = (args.get("freeze_variables")
                   or args.get("experimental_frozen_variables"))
         if frozen:
@@ -234,9 +261,11 @@ class Trainer(BaseExperiment):
                 name_of=to_jax_name)
             logging.info("Rate-scheduled updates for pattern '%s'",
                          args["rate_scheduled_pattern"])
+        tx = self._wrap_tx(tx)
         if args.get("bf16_params"):
-            # outermost: the freeze and rate masks act on the master's
-            # updates inside it, so a frozen weight's master stays put
+            # outermost: the pruning, freeze and rate masks act on the
+            # master's updates inside it, so a frozen weight's master stays
+            # put
             tx = with_bf16_params(tx)
             logging.info("bf16 stored params + f32 master enabled")
         return tx
@@ -287,7 +316,8 @@ class Trainer(BaseExperiment):
         train_step = make_train_step(model, criterion, tx,
                                      update_cycle=update_cycle,
                                      lr_schedule=lr_schedule,
-                                     extra_loss_fn=extra_loss_fn)
+                                     extra_loss_fn=extra_loss_fn,
+                                     remat=bool(args.get("gradient_remat")))
 
         train_steps = int(args.get("train_steps") or 10_000_000)
         save_every = int(args.get("save_checkpoint_steps") or 1000)
@@ -377,6 +407,11 @@ class Trainer(BaseExperiment):
         logging.info("Training finished at step %d (last loss: %s)", step,
                      last_loss)
         return state
+
+    def _wrap_tx(self, tx):
+        """Subclass hook: wraps the chain inside the bf16 master (the
+        PruneTune plug-in masks updates here)."""
+        return tx
 
     @staticmethod
     def _params_for_save(state, args):

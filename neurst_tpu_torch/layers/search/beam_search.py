@@ -10,6 +10,16 @@ The JAX loop's ``prefix_decode_chunk`` and ``decode_unroll`` are devices
 of ``lax.while_loop`` and exact either way; they are accepted and
 ignored here.  The early-exit test reads one flag from the device per
 step.
+
+``beam_step(decode_steps, state, time)`` is one step of the same search
+as a function of tensors only, for ``torch.export`` (``exps/export.py``):
+the state (``initial_beam_state``) holds the ids, the cache, finished
+flags, scores, lengths and the predicted ids; ``time`` is a [B * beam]
+tensor.  The decoder writes through its per-row-time path, the self
+cache is reordered by a gather each step (no ancestor matrix), and the
+t = 0 and minimum-length rules are ``torch.where``s of ``time``.  Either
+way of reading the cache is exact; ``beam_search_result`` picks the
+hypotheses from the final state.
 """
 
 from typing import Callable
@@ -22,7 +32,8 @@ from neurst_tpu_torch.layers.search.sequence_search import (
     SequenceSearch, register_search_layer)
 from neurst_tpu_torch.utils.flags_core import Flag
 
-__all__ = ["sequence_beam_search", "BeamSearch"]
+__all__ = ["sequence_beam_search", "BeamSearch", "initial_beam_state",
+           "beam_step", "beam_search_result"]
 
 
 def _length_penalty(lengths, alpha):
@@ -156,6 +167,100 @@ def sequence_beam_search(symbols_to_logits_fn: Callable,
     gather_idx = (top_idx + (torch.arange(batch_size, device=device)
                              * beam_size)[:, None]).reshape(-1)
     return predicted[gather_idx], top_scores.reshape(-1)
+
+
+def initial_beam_state(generation_initializer: dict, beam_size: int,
+                       maximum_decode_length: int) -> dict:
+    """The state ``beam_step`` starts from: ids [B * beam] (the decoder
+    input), the cache tiled to [B * beam] (the beam-shared subtrees stay
+    [B]), finished (bool), scores (float32 accumulated log-probs),
+    lengths (int64) and predicted ids [B * beam, maximum_decode_length]
+    (int64)."""
+    decoder_input = generation_initializer["decoder_input"]
+    device = decoder_input.device
+    bb = decoder_input.shape[0] * beam_size
+    return {
+        "ids": layer_utils.stack_beam_size(decoder_input.long(), beam_size),
+        "cache": layer_utils.stack_beam_size_selective(
+            generation_initializer["decoder_internal_cache"], beam_size),
+        "finished": torch.zeros(bb, dtype=torch.bool, device=device),
+        "scores": torch.zeros(bb, dtype=torch.float32, device=device),
+        "lengths": torch.zeros(bb, dtype=torch.long, device=device),
+        "predicted": torch.zeros((bb, maximum_decode_length),
+                                 dtype=torch.long, device=device)}
+
+
+def beam_step(decode_steps: Callable, state: dict, time: torch.Tensor, *,
+              beam_size: int, eos_id: int, unk_id=None,
+              length_penalty: float = 0.6,
+              minimum_decode_length: int = 0) -> dict:
+    """One step of ``sequence_beam_search`` on tensors only.
+
+    decode_steps(ids [N, 1], cache, times [N]) -> (logits [N, 1, V],
+    cache) is the model's per-row-time decode (the cache's self buffers
+    are written in place); ``time`` [N] holds the step (every row the
+    same).  ``unk_id`` None allows UNK.  Returns the next state."""
+    ids, finished = state["ids"], state["finished"]
+    device = ids.device
+    bb = ids.shape[0]
+    batch_size = bb // beam_size
+    logits, new_cache = decode_steps(ids[:, None], state["cache"], time)
+    log_probs = torch.log_softmax(logits[:, 0].float(), dim=-1)
+    vocab_size = log_probs.shape[-1]
+    vocab = torch.arange(vocab_size, device=device)
+    eos_onehot = vocab == eos_id
+
+    finished_bias = torch.where(eos_onehot, 0.0, NEG_INF)[None, :]
+    log_probs = torch.where(finished[:, None], finished_bias, log_probs)
+    if unk_id is not None:
+        log_probs = log_probs + torch.where(
+            vocab == unk_id, NEG_INF, 0.0)[None, :]
+    if minimum_decode_length > 0:
+        early = (time < minimum_decode_length - 1)[:, None]
+        log_probs = torch.where(
+            early, log_probs + torch.where(eos_onehot, NEG_INF,
+                                           0.0)[None, :], log_probs)
+
+    cum = log_probs + state["scores"][:, None]
+    next_length = state["lengths"] + 1 - finished.long()
+    scores = cum * _length_penalty(next_length, length_penalty)[:, None]
+    # all beams are identical at t = 0: draw from beam 0 only
+    rows = torch.arange(bb, device=device)
+    first_step_mask = ((time == 0) & (rows % beam_size > 0))[:, None]
+    scores = torch.where(first_step_mask,
+                         torch.full_like(scores, NEG_INF * 2.0), scores)
+
+    _, top_idx = torch.topk(
+        scores.reshape(batch_size, beam_size * vocab_size), beam_size,
+        dim=-1)
+    top_idx = top_idx.reshape(-1)
+    word_ids = top_idx % vocab_size
+    beam_ids = top_idx // vocab_size + (rows // beam_size) * beam_size
+    predicted = state["predicted"].index_select(0, beam_ids).scatter(
+        1, time[:, None].long(), word_ids[:, None])
+    return {
+        "ids": word_ids,
+        "cache": layer_utils.gather_beams_selective(new_cache, beam_ids),
+        "finished": word_ids == eos_id,
+        "scores": cum.reshape(-1)[beam_ids * vocab_size + word_ids],
+        "lengths": next_length.index_select(0, beam_ids),
+        "predicted": predicted}
+
+
+def beam_search_result(state: dict, beam_size: int, top_k: int = 1,
+                       length_penalty: float = 0.6):
+    """(hypotheses int64 [B * top_k, max_len], scores float32
+    [B * top_k]) of a final ``beam_step`` state, as
+    ``sequence_beam_search`` returns them."""
+    bb = state["scores"].shape[0]
+    batch_size = bb // beam_size
+    scores = (state["scores"] * _length_penalty(state["lengths"],
+                                                length_penalty)
+              ).reshape(batch_size, beam_size)
+    top_scores, top_idx = torch.topk(scores, top_k, dim=-1)
+    gather_idx = (top_idx + (torch.arange(batch_size, device=scores.device)
+                             * beam_size)[:, None]).reshape(-1)
+    return state["predicted"][gather_idx], top_scores.reshape(-1)
 
 
 @register_search_layer("beam_search")

@@ -22,6 +22,18 @@ cp.async and ldmatrix staging reads them); for CPU tensors it computes
 the plain version, the same math in PyTorch, which the CPU tests hold
 against the JAX functions.  There is no fallback from a CUDA tensor to
 the plain version.
+
+The forward is the operator ``neurst_tpu_torch::flash_attention_fwd``
+(``torch.library``: the kernel's launch for CUDA tensors, the plain
+version for CPU tensors, and a fake implementation that gives the shapes
+of o and lse), which ``flash_attention_fwd`` and the autograd function
+call: ``torch.export`` keeps it as one node of a program (a ctypes
+launch reads ``data_ptr``, which a traced tensor does not have), and a
+loaded program launches the kernel through it on the card.  It is
+defined with ``Library.define`` / ``impl`` rather than
+``torch.library.custom_op``, whose Python layer added 50-70 us of host
+time a call beside an NVIDIA H100 80GB HBM3 at 700 W
+(``chip_smoke.dispatch_phase``).
 """
 
 import ctypes
@@ -33,7 +45,7 @@ import torch
 
 from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
                                                 threshold_and_scale)
-from neurst_tpu_torch.utils.rng import site_words
+from neurst_tpu_torch.utils.rng import DropoutKey, site_words
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_bwd",
@@ -103,8 +115,11 @@ def flash_attention_reference(q, k, v, lengths=None, causal: bool = False,
 
     q [B, Tq, N, H], k/v [B, Tk, N, H], lengths [B] valid key counts.
     Returns (o [B, Tq, N, H] in q's dtype, lse [B, N, Tq] float32)."""
-    lengths = _full_lengths(q, k, lengths)
-    drop = _drop_consts(dropout_rate, dropout_key)
+    return _fwd_plain(q, k, v, _full_lengths(q, k, lengths), causal,
+                      _drop_consts(dropout_rate, dropout_key))
+
+
+def _fwd_plain(q, k, v, lengths, causal, drop):
     s, mask = _scores(q, k, lengths, causal)
     m = s.amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
@@ -248,21 +263,46 @@ def _launch(q, k, v, lengths, causal, drop):
     return o, lse
 
 
+_LIB = torch.library.Library("neurst_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+            "Tensor lengths, bool causal, int threshold, float inv_keep, "
+            "int[] key) -> (Tensor, Tensor)")
+
+
+def _fwd_cpu(q, k, v, lengths, causal, threshold, inv_keep, key):
+    return _fwd_plain(q, k, v, lengths, causal, (
+        threshold, inv_keep, DropoutKey(*key) if threshold else None))
+
+
+def _fwd_cuda(q, k, v, lengths, causal, threshold, inv_keep, key):
+    _check_cuda_inputs(q, k, v, lengths)
+    return _launch(q, k, v, lengths, causal, (
+        threshold, inv_keep, DropoutKey(*key) if threshold else None))
+
+
+_LIB.impl("flash_attention_fwd", _fwd_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("neurst_tpu_torch::flash_attention_fwd")
+def _fwd_fake(q, k, v, lengths, causal, threshold, inv_keep, key):
+    b, t_q, n, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, n, t_q), dtype=torch.float32))
+
+
 def flash_attention_fwd(q, k, v, lengths=None, causal: bool = False,
                         dropout_rate: float = 0.0, dropout_key=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B, Tq, N, H], lse [B, N, Tq] float32).
+    """(o [B, Tq, N, H], lse [B, N, Tq] float32), through its operator.
 
     CUDA tensors run the kernel (or raise); CPU tensors run
     ``flash_attention_reference``.  Scaling by H^-1/2 is applied inside:
     callers must not pre-scale q."""
-    lengths = _full_lengths(q, k, lengths)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, lengths, causal,
-                                         dropout_rate, dropout_key)
-    drop = _drop_consts(dropout_rate, dropout_key)
-    _check_cuda_inputs(q, k, v, lengths)
-    return _launch(q, k, v, lengths, causal, drop)
+    threshold, inv_keep, key = _drop_consts(dropout_rate, dropout_key)
+    return torch.ops.neurst_tpu_torch.flash_attention_fwd(
+        q, k, v, _full_lengths(q, k, lengths), bool(causal), int(threshold),
+        float(inv_keep), list(site_words(key)))
 
 
 flash_attention_fwd.launches = 0

@@ -29,6 +29,13 @@ tensors take the plain versions, which the CPU tests hold against the
 JAX Pallas kernels in interpret mode.  ``fused_ffn_available`` is the
 JAX package's gate (``ops/kernel_gates.py`` holds a copy of its
 thresholds) restricted to the dims the kernels are built for.
+
+The forward is the operator ``neurst_tpu_torch::fused_ffn_fwd``
+(``torch.library``: the launches for CUDA tensors, the plain version for
+CPU tensors, a fake implementation of its shapes; without
+``save_hidden`` its hidden output is an empty tensor), so
+``torch.export`` keeps it as one node where the inference gate picks the
+fused forward.
 """
 
 import ctypes
@@ -41,7 +48,7 @@ from neurst_tpu_torch.ops._plan import (SMS, aligned16, chunk_splits,
 from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
                                                 threshold_and_scale)
 from neurst_tpu_torch.ops.kernel_gates import fused_ffn_min_rows
-from neurst_tpu_torch.utils.rng import site_words
+from neurst_tpu_torch.utils.rng import DropoutKey, site_words
 
 __all__ = ["fused_ffn", "fused_ffn_fwd", "fused_ffn_bwd",
            "fused_ffn_available", "DIMS"]
@@ -195,12 +202,17 @@ def fwd_launches(rows: int, filter_size: int, dim: int, dtype) -> int:
 def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
                   dropout_key=None, save_hidden: bool = False):
     """(y [R, D], hd [R, F] or None) for x2 [R, D], w1 [F, D], w2 [D, F]
-    of one dtype and float32 biases.  CUDA tensors run the forward
-    kernel, and the sum of its filter splits where it has them (or
-    raise); CPU tensors run the plain version."""
-    drop = _drop(dropout_rate, dropout_key)
-    if x2.device.type == "cpu":
-        return _fwd_plain(x2, w1, b1, w2, b2, drop, save_hidden)
+    of one dtype and float32 biases, through its operator.  CUDA tensors
+    run the forward kernel, and the sum of its filter splits where it has
+    them (or raise); CPU tensors run the plain version."""
+    threshold, scale, key = _drop(dropout_rate, dropout_key)
+    y, hd = torch.ops.neurst_tpu_torch.fused_ffn_fwd(
+        x2, w1, b1, w2, b2, int(threshold), float(scale),
+        list(site_words(key)), bool(save_hidden))
+    return y, (hd if save_hidden else None)
+
+
+def _launch_fwd(x2, w1, b1, w2, b2, drop, save_hidden):
     _check_cuda_inputs(x2, w1, w2, b1, b2)
     if b1.dtype != torch.float32 or b2.dtype != torch.float32:
         raise TypeError("fused_ffn: biases must be float32")
@@ -231,6 +243,31 @@ def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
 
 fused_ffn_fwd.launches = 0
 fused_ffn_fwd.kernel_name = "fused_ffn_fwd"
+
+
+_LIB = torch.library.Library("neurst_tpu_torch", "FRAGMENT")
+_LIB.define("fused_ffn_fwd(Tensor x2, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor b2, int threshold, float scale, int[] key, "
+            "bool save_hidden) -> (Tensor, Tensor)")
+
+
+def _op_impl(run):
+    def impl(x2, w1, b1, w2, b2, threshold, scale, key, save_hidden):
+        y, hd = run(x2, w1, b1, w2, b2, (
+            threshold, scale, DropoutKey(*key) if threshold else None),
+            save_hidden)
+        return y, (x2.new_empty(0) if hd is None else hd)
+    return impl
+
+
+_LIB.impl("fused_ffn_fwd", _op_impl(_fwd_plain), "CPU")
+_LIB.impl("fused_ffn_fwd", _op_impl(_launch_fwd), "CUDA")
+
+
+@torch.library.register_fake("neurst_tpu_torch::fused_ffn_fwd")
+def _fwd_fake(x2, w1, b1, w2, b2, threshold, scale, key, save_hidden):
+    hidden = (x2.shape[0], w1.shape[0]) if save_hidden else (0,)
+    return x2.new_empty(x2.shape), x2.new_empty(hidden)
 
 
 def dw_splits(rows: int, filter_size: int, dim: int, dtype) -> int:

@@ -16,6 +16,16 @@ Dropout: ``train_step(state, batch, rng)`` takes a
 splits its ``jax.random`` key.  The same (rng, step) gives the same masks.
 ``rng=None`` is accepted only by a model without dropout (the model
 raises otherwise).
+
+``remat=True`` (the trainer's ``gradient_remat``) runs the whole forward
+(the model's ``call_train`` and the criterion's reduction, one
+micro-batch at a time) under ``torch.utils.checkpoint`` (non-reentrant),
+as the JAX step wraps its forward in ``jax.checkpoint``: only the inputs
+are kept, and the backward recomputes the forward, kernels included.  As
+one segment, the recompute holds every activation again before the
+backward starts, so a step's peak memory does not drop.
+Dropout masks are a function of (key, site, element), so the recompute
+draws the same ones.
 """
 
 import dataclasses
@@ -23,6 +33,7 @@ import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from neurst_tpu_torch.optimizers.optimizers import (GradientTransformation,
                                                      apply_updates,
@@ -55,7 +66,8 @@ def _grad(loss, leaves):
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
                     lr_schedule: Optional[Callable] = None,
-                    extra_loss_fn: Optional[Callable] = None):
+                    extra_loss_fn: Optional[Callable] = None,
+                    remat: bool = False):
     """Builds ``train_step(state, batch, rng=None) -> (state, metrics)``
     with the metrics loss, aux_loss, grad_norm (of the gradients before
     clipping) and, with a schedule, lr (at the step's count).  The
@@ -64,7 +76,7 @@ def make_train_step(model, criterion, tx: GradientTransformation,
     update, with ``rng`` as the step's (already folded) dropout key.
     ``extra_loss_fn(params)`` adds a regularizer of the parameters (QAT's
     ``clip_l2_penalty``) to the loss, once a step, also under
-    accumulation."""
+    accumulation.  ``remat`` recomputes the forward in the backward."""
 
     # the fused projection + cross-entropy path: the model hands back
     # prelogits and the [B, T, V] logits are never formed
@@ -74,12 +86,31 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         and getattr(criterion, "supports_prelogits", False)
         and model.supports_fused_softmax_ce())
 
+    def plain_forward(batch, rng):
+        out, aux = model.call_train(batch, want_prelogits, rng)
+        return criterion.reduce_loss(batch, out) + aux, aux
+
+    def plain_forward_terms(batch, rng):
+        out, aux = model.call_train(batch, want_prelogits, rng)
+        loss_sum, denom = criterion.reduce_loss_terms(batch, out)
+        return loss_sum, denom, aux
+
+    def forward(batch, rng):
+        if remat:  # keep the inputs only; the backward recomputes
+            return checkpoint(plain_forward, batch, rng, use_reentrant=False)
+        return plain_forward(batch, rng)
+
+    def forward_terms(batch, rng):
+        if remat:
+            return checkpoint(plain_forward_terms, batch, rng,
+                              use_reentrant=False)
+        return plain_forward_terms(batch, rng)
+
     def compute_grads(params, batch, rng=None):
         names = list(params)
         leaves = [params[n] for n in names]
         if update_cycle == 1:
-            out, aux = model.call_train(batch, want_prelogits, rng)
-            loss = criterion.reduce_loss(batch, out) + aux
+            loss, aux = forward(batch, rng)
             if extra_loss_fn is not None:
                 loss = loss + extra_loss_fn(params)
             grads = _grad(loss, leaves)
@@ -94,8 +125,7 @@ def make_train_step(model, criterion, tx: GradientTransformation,
                                                                 update_cycle)
         for i in range(update_cycle):
             micro = {k: v[i] for k, v in batch.items()}
-            out, aux = model.call_train(micro, want_prelogits, keys[i])
-            micro_loss, micro_denom = criterion.reduce_loss_terms(micro, out)
+            micro_loss, micro_denom, aux = forward_terms(micro, keys[i])
             # the auxiliary loss weighs by the micro-batch's token count
             micro_aux = aux * micro_denom.detach()
             grads = _grad(micro_loss + micro_aux, leaves)

@@ -62,7 +62,7 @@ import torch
 from neurst_tpu_torch.utils.checkpoints import bf16_bytes_to_float32
 
 __all__ = ["flat_to_state_dict", "load_flat_params", "state_dict_to_flat",
-           "to_jax_name", "unstack_scan_layers"]
+           "to_jax_name", "to_torch_layout", "unstack_scan_layers"]
 
 _SCAN_RE = re.compile(r"^(.*)/layers/layer/(.*)$")
 _BLOCK_RE = re.compile(r"^(.*)/layers/block_layer_(\d+)/(.*)$")
@@ -129,6 +129,14 @@ def _to_torch_layout(name: str, a: np.ndarray):
     elif leaf in ("bias", "kernel_scale") and module in _FUSED_PROJ:
         a = a.reshape(-1)
     return ".".join(parts[:-1] + [leaf]), a
+
+
+def to_torch_layout(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``neurst_tpu`` flat arrays (any subset, e.g. per-parameter masks)
+    -> {port name: array in the port's layout}, unchecked against a
+    model."""
+    return dict(_to_torch_layout(name, np.asarray(value))
+                for name, value in unstack_scan_layers(flat).items())
 
 
 def flat_to_state_dict(flat: Dict[str, np.ndarray], model: torch.nn.Module

@@ -3,10 +3,11 @@ it, and each subpackage of the predict path on its own) loads no JAX and
 nothing of ``neurst_tpu``; its sources and ``chip_smoke.py`` import
 neither; the converters and the pretrained trunks' modules import no
 TensorFlow either; an entry point without ``device=`` on a host without
-CUDA raises, the predict, cascade and simuleval CLIs and the QAT, int8
-and MoE entries included (the host-only converter CLI runs without one);
-``setup.py`` ships every kernel source and header and the quantization
-subpackage; and ``chip_smoke.py`` fails without a card.
+CUDA raises, the predict, cascade and simuleval CLIs and the QAT, int8,
+MoE, pruning and export entries included (the host-only converter CLI
+runs without one); ``setup.py`` ships every kernel source and header and
+the quantization, sparsity and plug-in (``contrib``) subpackages; and
+``chip_smoke.py`` fails without a card.
 
 Each check runs in an interpreter of its own, so that this process's own
 JAX imports cannot hide a leak; to keep that cheap, one parent
@@ -167,6 +168,15 @@ QUANT_MOE_MODULES = [
     "neurst_tpu_torch.layers.transformer_layers",
     "neurst_tpu_torch.utils.param_policy",
     "neurst_tpu_torch.parallel.train_step"]
+SLICE13_MODULES = [
+    "neurst_tpu_torch.sparsity",
+    "neurst_tpu_torch.sparsity.pruning_schedule",
+    "neurst_tpu_torch.sparsity.pruning_optimizer",
+    "neurst_tpu_torch.exps.export",
+    "neurst_tpu_torch.contrib",
+    "neurst_tpu_torch.contrib.prune_tune",
+    "neurst_tpu_torch.contrib.prune_tune.partial_trainer",
+    "neurst_tpu_torch.contrib.prune_tune.mask_sequence_generator"]
 EXAMPLES = os.path.join(REPO, "tests", "examples")
 QUANT_PARAMS = "{quant_bits: 8, quant_weight_clip_max: 1.0}"
 # the QAT, int8 and MoE entries, each without --device
@@ -179,7 +189,17 @@ NO_DEVICE_ENTRIES = {
     "int8_predict": ["--entry", "predict", "--config_paths",
                      os.path.join(EXAMPLES, "example_predict_seq2seq.yml"),
                      "--int8_serving", "--int8_activations",
-                     "--int8_static_activations"]}
+                     "--int8_static_activations"],
+    "prune_train": ["--entry", "train", "--config_paths",
+                    os.path.join(EXAMPLES, "example_train_seq2seq.yml"),
+                    "--pruning_schedule.class", "polynomial_decay",
+                    "--gradient_remat", "true"],
+    "partial_tune": ["--entry", "partial_tune", "--include",
+                     "neurst_tpu_torch.contrib.prune_tune.partial_trainer",
+                     "--config_paths",
+                     os.path.join(EXAMPLES, "example_train_seq2seq.yml")],
+    "export": ["--entry", "export", "--config_paths",
+               os.path.join(EXAMPLES, "example_predict_seq2seq.yml")]}
 
 BUILD_MODEL_CODE = (
     "import neurst_tpu_torch, torch\n"
@@ -204,7 +224,7 @@ def _checks(tmp):
     checks += [{"id": f"subpackage_{name}", "kind": "import",
                 "walk": f"neurst_tpu_torch.{name}"} for name in SUBPACKAGES]
     for module in (MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
-                   + QUANT_MOE_MODULES):
+                   + QUANT_MOE_MODULES + SLICE13_MODULES):
         checks.append({"id": f"module_{module}", "kind": "import",
                        "modules": [module]})
     run_exp = "neurst_tpu_torch.cli.run_exp"
@@ -311,8 +331,9 @@ def test_predict_cli_without_device_raises_on_a_cuda_less_host(children):
 
 @pytest.mark.parametrize("entry", list(NO_DEVICE_ENTRIES))
 def test_qat_int8_and_moe_entries_without_device_raise(children, entry):
-    """``--enable_quant --quant_params``, the MoE config and the three
-    int8 flags parse, and the entry asks for the card."""
+    """``--enable_quant --quant_params``, the MoE config, the three int8
+    flags, the pruning and remat flags, a plug-in entry and the export
+    entry parse, and the entry asks for the card."""
     res = children[f"entry_{entry}"]
     assert res["rc"] != 0
     assert "no CUDA device" in res["err"], res["err"][-2000:]
@@ -340,6 +361,11 @@ def test_pretrained_trunk_modules_load_no_jax_or_tensorflow(children,
 
 @pytest.mark.parametrize("module", QUANT_MOE_MODULES)
 def test_quantization_and_moe_modules_load_no_jax(children, module):
+    _no_jax(children[f"module_{module}"])
+
+
+@pytest.mark.parametrize("module", SLICE13_MODULES)
+def test_pruning_export_and_plugin_modules_load_no_jax(children, module):
     _no_jax(children[f"module_{module}"])
 
 
@@ -404,6 +430,18 @@ def test_setup_ships_the_quantization_subpackage():
                              include=eval(include.group(1)))  # noqa: S307
     assert "neurst_tpu_torch.layers.quantization" in packages
     assert "neurst_tpu_torch.layers" in packages
+
+
+def test_setup_ships_the_sparsity_and_plugin_subpackages():
+    from setuptools import find_packages
+    with open(os.path.join(REPO, "setup.py")) as f:
+        text = f.read()
+    include = re.search(r"find_packages\(include=(\[[^\]]*\])", text)
+    packages = find_packages(where=REPO,
+                             include=eval(include.group(1)))  # noqa: S307
+    for name in ("neurst_tpu_torch.sparsity", "neurst_tpu_torch.contrib",
+                 "neurst_tpu_torch.contrib.prune_tune"):
+        assert name in packages, name
 
 
 @pytest.mark.parametrize("path", sorted(

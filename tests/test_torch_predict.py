@@ -326,9 +326,12 @@ def test_cli_refuses_what_the_port_lacks(workdir):
     _, model_dir, cfg_path, _, _ = workdir
     base = ["--config_paths", cfg_path, "--model_dir", model_dir,
             "--device", "cpu"]
-    for extra in (["--distributed_init"], ["--include", "plugin.py"]):
-        with pytest.raises(NotImplementedError):
-            port_run_exp.cli_main(base + extra)
+    with pytest.raises(NotImplementedError):
+        port_run_exp.cli_main(base + ["--distributed_init"])
+    # --include is ported: a plug-in that is neither a file nor a module
+    # raises as the import does
+    with pytest.raises(ModuleNotFoundError):
+        port_run_exp.cli_main(base + ["--include", "plugin.py"])
     # speculative decode is ported: without a draft it asks for one
     with pytest.raises(ValueError, match="draft_model_dir"):
         port_run_exp.cli_main(base + ["--search_method", "speculative"])

@@ -499,11 +499,10 @@ def test_seq_generation_validation_matches_jax_predict(runs, monkeypatch):
     ["examples/quality/mt_synth_base.yml"]])
 def test_recipe_configs_resolve_as_in_jax(configs):
     """The recipes' text configs resolve to the same flags in both
-    packages, but for the port's ``device`` flag and the trainer's flags
-    of features the port lacks or names apart: it declares
-    ``experimental_frozen_variables`` as a flag of its own (an alias of
-    ``freeze_variables`` in JAX) and no pruning patterns (it refuses
-    pruning)."""
+    packages, but for the port's ``device`` flag and the trainer's flag
+    the port names apart: it declares ``experimental_frozen_variables``
+    as a flag of its own (an alias of ``freeze_variables`` in JAX).  The
+    pruning patterns are flags of both trainers."""
     argv = ["--config_paths", ",".join(os.path.join(REPO, c)
                                        for c in configs)]
     ours = port_run_exp.parse_and_merge(argv)
@@ -512,9 +511,6 @@ def test_recipe_configs_resolve_as_in_jax(configs):
     if ours.get("entry.class") == "trainer":
         assert ours["entry.params"].pop(
             "experimental_frozen_variables") is None
-        for key in ("pruning_variable_pattern",
-                    "nopruning_variable_pattern"):
-            assert theirs["entry.params"].pop(key) is None
     assert ours == theirs
 
 

@@ -14,7 +14,9 @@ named phases there and runs their ``chip_smoke.py`` kernel phases:
 ``flash_bwd_kernel_phase`` and ``flash_dropout_kernel_phase``;
 ``dropout`` runs ``dropout_kernel_phase``; ``ffn`` runs
 ``ffn_kernel_phase``; ``xent`` runs ``xent_kernel_phase`` (the fused
-linear xent).  Every case checks the kernel against its plain
+linear xent); ``dispatch`` runs ``dispatch_phase`` (the host time a call
+of the flash and fused-FFN forward wrappers); ``slice`` runs
+``slice_phase`` (the speech decode requests).  Every case checks the kernel against its plain
 version on the same inputs and times kernel, plain version, library call
 (or composite) and bound.  Give the roots as parent, change, change,
 parent to compare two commits on one card.  Each phase row is printed as
@@ -41,6 +43,8 @@ PHASES = {
     "dropout": (["fused_dropout"], ["dropout_kernel_phase"]),
     "ffn": (["fused_ffn"], ["ffn_kernel_phase"]),
     "xent": (["fused_linear_xent"], ["xent_kernel_phase"]),
+    "dispatch": (["flash_attention_fwd", "fused_ffn"], ["dispatch_phase"]),
+    "slice": (["flash_attention_fwd"], ["slice_phase"]),
 }
 
 
@@ -95,7 +99,7 @@ def main(argv=None):
                 continue
             row = json.loads(line)
             print(json.dumps({"run": i, "root": root, **row}), flush=True)
-            if row.get("dtype") == "bfloat16":
+            if row.get("dtype") == "bfloat16" and "kernel" in row:
                 key = f"{row['kernel']} {row['case']}"
                 if row["kernel"] != "fused_dropout":  # always rate 0.1
                     key += f" rate {row.get('dropout', row.get('rate', 0.0))}"
