@@ -327,6 +327,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -2000,13 +2001,14 @@ def reference_check_phase(seed):
 
 
 def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
-                quant_params=None, remat=False):
+                quant_params=None, remat=False, mesh=None):
     """The training slice through the entry points the JAX trainer uses:
     ``build_model`` with weights from ``seed`` in the JAX flat layout
     (through ``param_bridge``), the recipe's noam schedule and Adam,
     and, for a bf16 model, bf16 stored params with an f32 master (the
     trainer's default for a bf16 model); the label-smoothed criterion,
-    ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
+    ``TrainState.create`` and ``make_train_step`` (over ``mesh``, a
+    data-parallel ``parallel.mesh.Mesh``, where given).  ``dropout`` is the
     rate of all six dropout sites (the recipe's is 0.1).  With
     ``quant_params`` (QAT, whose global config the caller has set) the
     clips start at the config's values and the step adds
@@ -2040,6 +2042,9 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
     if quant_params is not None:
         flat.update(_qat_clips(model, quant_params))
     load_flat_params(model, flat)
+    if mesh is not None:
+        from neurst_tpu_torch.parallel.sharding import apply_mesh
+        apply_mesh(model, mesh)
     lr = neurst_tpu_torch.build_lr_schedule(cfg)
     tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr)
     if dtype == "bfloat16":
@@ -2052,7 +2057,7 @@ def build_train(seed, device="cuda", dtype="bfloat16", dropout=0.0,
     step = make_train_step(
         model, criterion, tx, lr_schedule=lr,
         extra_loss_fn=None if quant_params is None else clip_l2_penalty,
-        remat=remat)
+        remat=remat, mesh=mesh)
     return model, criterion, tx, state, step
 
 
@@ -2325,7 +2330,7 @@ def train_phase(seed, dropout=False):
 
 def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
                     dropout=DROPOUT_RATE, model_name=None, src_vocab=None,
-                    trg_vocab=None, quant_params=None):
+                    trg_vocab=None, quant_params=None, mesh=None, flat=None):
     """The NMT training cell through the entry points the JAX trainer
     uses: ``build_model("transformer")`` with weights from ``seed`` in
     the JAX flat layout (through ``param_bridge``), the hparams set's
@@ -2334,7 +2339,10 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
     ``with_bf16_params`` variant), the label-smoothed criterion,
     ``TrainState.create`` and ``make_train_step``.  ``dropout`` is the
     rate of all six dropout sites (the hparams set's is 0.1).
-    ``quant_params``: QAT, as ``build_train`` takes it."""
+    ``quant_params``: QAT, as ``build_train`` takes it.  ``mesh`` (a
+    ``parallel.mesh.Mesh``) puts the model on it and reduces the step
+    over it, as the trainer does.  ``flat``: the seeded weights, drawn
+    already (``transformer_flat_params`` of the same configuration)."""
     import neurst_tpu_torch
     from neurst_tpu_torch.layers.quantization.quant_layers import \
         clip_l2_penalty
@@ -2362,13 +2370,20 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
     model = neurst_tpu_torch.build_model(
         cfg, src_meta=meta(src_vocab), trg_meta=meta(trg_vocab),
         device=device)
-    flat = transformer_flat_params(cfg, src_vocab, trg_vocab, seed)
+    if flat is None:
+        flat = transformer_flat_params(cfg, src_vocab, trg_vocab, seed)
     if quant_params is not None:
         flat.update(_qat_clips(model, quant_params))
     load_flat_params(model, flat)
+    norm_fn = None
+    if mesh is not None:
+        from neurst_tpu_torch.parallel.sharding import (apply_mesh,
+                                                        make_norm_fn)
+        norm_fn = make_norm_fn(apply_mesh(model, mesh), mesh)
     lr = neurst_tpu_torch.build_lr_schedule(cfg)
     tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr,
-                            clip_norm=NMT_TRAIN["clip_norm"])
+                            clip_norm=NMT_TRAIN["clip_norm"],
+                            norm_fn=norm_fn)
     if bf16_params:
         cast_params_bf16(model)
         tx = with_bf16_params(tx)
@@ -2379,7 +2394,8 @@ def build_nmt_train(seed, device="cuda", dtype="bfloat16", bf16_params=True,
     state = TrainState.create(dict(model.named_parameters()), tx)
     step = make_train_step(
         model, criterion, tx, lr_schedule=lr,
-        extra_loss_fn=None if quant_params is None else clip_l2_penalty)
+        extra_loss_fn=None if quant_params is None else clip_l2_penalty,
+        mesh=mesh, norm_fn=norm_fn)
     return model, criterion, tx, state, step
 
 
@@ -3038,7 +3054,8 @@ NMT_TRAINER = dict(hparams_set="transformer_base", vocab=32768, pairs=4000,
                    summary=2, records_steps=6, dev_lines=64,
                    predict_lines=128, predict_batch=64, check_words=60,
                    check_pairs=24, check_max_tokens=12, check_steps=2,
-                   check_dim=64, quality_steps=300, quality_summary=10,
+                   check_dim=64, quality_steps=300,
+                   base_quality_steps=150, quality_summary=10,
                    quality_dev_lines=128)
 NMT_TASK = {"batch_by_tokens": True, "batch_size": 32768, "max_src_len": 128,
             "max_trg_len": 128, "pad_length_multiple": 8}
@@ -3506,7 +3523,8 @@ def nmt_phases(seed, device="cuda"):
                                            device)
         if device == "cuda":
             nmt_reference_check(seed, root)
-        quality = mt_quality_phase(root, device)
+        quality = mt_quality_phase(
+            root, device, steps=NMT_TRAINER["base_quality_steps"])
         spec_counts = spec_text_phase(seed, root, quality["model_dir"],
                                       quality["dev"], device)
     finally:
@@ -3528,7 +3546,7 @@ def nmt_phases(seed, device="cuda"):
 # tst-COMMON.  Also a LibriSpeech-shaped tarball of 32 FLAC files of 1-4
 # s through create_records, and device_logfbank on 64 train segments
 # against their records' host features.
-AUDIO_PREP = dict(rate=16000, train_talks=16, talk_s=60.0, min_seg_s=1.0,
+AUDIO_PREP = dict(rate=16000, train_talks=10, talk_s=60.0, min_seg_s=1.0,
                   max_seg_s=10.0, dev_segments=32, test_segments=64,
                   lexicon=2000, min_words=5, max_words=40, flac_files=32,
                   flac_min_s=1.0, flac_max_s=4.0, flac_block=4096, nfilt=80,
@@ -7973,8 +7991,8 @@ class QatWorker(object):
     started once the kernels are built and joined after the audio prep's
     host stages, slice 10's conversions and the float32 card-vs-CPU
     checks: QAT's 300 host-bound steps run beside work that times
-    nothing on the card, so no timed card phase shares the card with
-    them (qat_train's step time is read beside that load).
+    nothing on the card but the parallel phase's ranks, whose times are
+    no scaling figure (qat_train's step time is read beside that load).
     ``join`` prints the worker's lines as it printed them (their ``t_s``
     on this script's clock), fails if the worker failed, and returns its
     launch counts (qat_train's, qat_predict's); the worker is stopped if
@@ -8463,6 +8481,673 @@ def dispatch_phase(seed):
     return row
 
 
+# The parallel stack (slice 14): one launch of PARALLEL["world"] ranks on
+# the one card, gloo between them (NCCL takes one rank a card), each rank
+# a process of this script (``--parallel_rank``); then a one-rank NCCL
+# group in this process over the collectives.  The ranks share the card,
+# so their step times are no scaling figure.
+PARALLEL = dict(world=2, nmt_steps=2, trainer_steps=4, trainer_pairs=1000,
+                ring_batch=4, pp_batch=8, pp_frames=1024, pp_trg_len=60,
+                microbatches=4, decode_requests=1)
+# float32 across ranks against one rank: sums in other orders (loss and
+# grad norm relative; each gradient by its relative L2 error); bf16 by the
+# loss; the ring encoder's output max abs and its gradients' relative L2
+# (a LayerNorm scale's gradient sums 32768 positions' products in another
+# order: 8.4e-4 measured on the H100)
+PARALLEL_TOL = {"loss": 1e-4, "grad": 5e-3, "bf16_loss": 2e-2,
+                "ring_out": 1e-3, "ring_grad": 2e-3}
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def _grad_errs(grads, ref):
+    """The worst relative L2 error of ``grads`` (whole tensors, by name)
+    against ``ref``."""
+    return max((_rel_l2(grads[n].cpu(), ref[n]), n) for n in ref)
+
+
+def _whole_grads(model, grads, mesh):
+    from neurst_tpu_torch.parallel.mesh import params_shardings
+    from neurst_tpu_torch.parallel.sharding import gather_tensors
+    return {n: g.cpu() for n, g in gather_tensors(
+        grads, params_shardings(model, mesh) if mesh.shape["model"] > 1
+        else {}, mesh).items()}
+
+
+def _rows_of(batch, mesh):
+    from neurst_tpu_torch.parallel.utils import data_slice
+    rows = next(iter(batch.values())).shape[0]
+    sl = data_slice(rows, mesh)
+    return {k: v[sl] for k, v in batch.items()}
+
+
+def parallel_nmt_steps(seed, rank):
+    """transformer_base bare steps at bench.py's train cell ([256, 128],
+    V 32768 a side) over dp 2 (dropout 0.1) and tp 2 (dropout 0):
+    float32 against the one-rank float32 step (rank 0 computes it), bf16
+    by the loss against the same step's, and each bf16 step's launches of
+    rows 4/5/8/9/10 against ``expected_launches`` at the rank's rows and
+    against the one-rank counts."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+
+    from neurst_tpu_torch.models.transformer import Transformer
+
+    t = NMT_TRAIN
+    key = make_key(seed + 9)
+    batch = nmt_batch(np.random.RandomState(seed + 10), "cuda", t["batch"],
+                      t["length"], t["vocab"], t["vocab"])
+    # one draw of the seeded weights for the five builds
+    flat = transformer_flat_params(
+        Transformer.build_model_args_by_name(t["model"]), t["vocab"],
+        t["vocab"], seed)
+    out = {}
+    for mode, dropout in (("dp", DROPOUT_RATE), ("tp", 0.0)):
+        drop_key = fold_in(key, 0) if dropout else None
+        refs = {}
+        if rank == 0:
+            # one float32 step: the bf16 runs are held to its loss
+            model, _, _, state, step = build_nmt_train(
+                seed, "cuda", "float32", False, dropout, flat=flat)
+            loss, _, grads = step.compute_grads(state.params, batch,
+                                                drop_key)
+            refs["float32"] = (float(loss), {n: g.cpu() for n, g in
+                                             grads.items()})
+            refs["bfloat16"] = (float(loss), None)
+            rows = t["batch"] * t["length"]
+            # which kernels one rank's step launches (in either dtype)
+            refs["launches"] = expected_launches(model, rows, rows,
+                                                 bool(dropout))
+            del model, state, step, grads
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        mesh = make_mesh(model_parallel=2 if mode == "tp" else 1)
+        local = _rows_of(batch, mesh)
+        row = {}
+        for dtype in ("float32", "bfloat16"):
+            model, _, _, state, step = build_nmt_train(
+                seed, "cuda", dtype, dtype == "bfloat16", dropout,
+                mesh=mesh, flat=flat)
+            rows = local["trg"].shape[0] * t["length"]
+            expected = expected_launches(model, rows, rows, bool(dropout))
+            loss, _, grads = step.compute_grads(state.params, local,
+                                                drop_key)
+            whole = _whole_grads(model, grads, mesh)
+            del grads
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            step_ms = []
+            # the float32 model is the check; bf16 is timed and counted
+            steps = PARALLEL["nmt_steps"] if dtype == "bfloat16" else 0
+            metrics = {"grad_norm": float("nan")}
+            for _ in range(steps):
+                start = time.perf_counter()
+                state, metrics = step(state, local, key)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - start) * 1e3)
+            counts = launch_counts()
+            per_step = {k: v // max(steps, 1) for k, v in counts.items()}
+            row[dtype] = {"loss": float(loss), "step_ms": step_ms,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "launches_per_step": per_step,
+                          "expected_launches_per_step": expected,
+                          "counts": counts}
+            if rank == 0:
+                ref_loss, ref_grads = refs[dtype]
+                row[dtype]["ref_loss"] = ref_loss
+                loss_err = abs(float(loss) - ref_loss) / abs(ref_loss)
+                tol = PARALLEL_TOL["loss" if dtype == "float32"
+                                   else "bf16_loss"]
+                if not loss_err <= tol:
+                    raise AssertionError(f"{mode} {dtype} loss {loss} vs one "
+                                         f"rank {ref_loss}")
+                if ref_grads is not None:
+                    err, worst = _grad_errs(whole, ref_grads)
+                    row[dtype]["grad_rel_l2"] = [err, worst]
+                    if not err <= PARALLEL_TOL["grad"]:
+                        raise AssertionError(f"{mode} gradient {worst}: "
+                                             f"{err}")
+                single = refs["launches"]
+                row[dtype]["one_rank_launches_per_step"] = single
+                rows_4_5_8_9_10 = ("fused_linear_xent_fwd",
+                                   "fused_linear_xent_bwd", "fused_dropout",
+                                   "fused_ffn_fwd", "fused_ffn_bwd")
+                for name in rows_4_5_8_9_10 if steps else ():
+                    if bool(single[name]) != bool(per_step[name]):
+                        raise AssertionError(
+                            f"{mode} {name}: {per_step[name]} a step, one "
+                            f"rank {single[name]}")
+            if steps and per_step != expected:
+                raise AssertionError(f"{mode} {dtype} launches {per_step}, "
+                                     f"expected {expected}")
+            del model, state, step, whole
+            torch.cuda.empty_cache()
+        out[mode] = row
+    return out
+
+
+def parallel_speech_dp(seed, rank):
+    """dp 2 of the MuST-C recipe's step (speech_transformer_s with flash
+    attention and dropout 0.1 at every site) at the train phase's batch,
+    float32: each rank draws its rows' masks of the one-rank step, rows
+    1-3 and 8-10 at a nonzero element offset on rank 1, so the loss and
+    every gradient are held to the one-rank step's (rank 0 computes it),
+    and each rank's launches to ``expected_launches`` at its rows."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+
+    key = fold_in(make_key(seed + 7), 0)
+    batch = train_batch(np.random.RandomState(seed + 3), "cuda",
+                        TRAIN["batch"], TRAIN["frames"], TRAIN["min_src"],
+                        TRAIN["trg_len"], TRAIN["min_trg"])
+    ref = None
+    if rank == 0:
+        model, _, _, state, step = build_train(seed, dtype="float32",
+                                               dropout=DROPOUT_RATE)
+        loss, _, grads = step.compute_grads(state.params, batch, key)
+        ref = (float(loss), {n: g.cpu() for n, g in grads.items()})
+        del model, state, step, grads
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = make_mesh()
+    model, _, _, state, step = build_train(seed, dtype="float32",
+                                           dropout=DROPOUT_RATE, mesh=mesh)
+    local = _rows_of(batch, mesh)
+    rows = local["src"].shape[0]
+    expected = expected_launches(model, rows * TRAIN["frames"] // 4,
+                                 rows * TRAIN["trg_len"], True)
+    step.compute_grads(state.params, local, key)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    loss, _, grads = step.compute_grads(state.params, local, key)
+    torch.cuda.synchronize()
+    row = {"step_ms": (time.perf_counter() - start) * 1e3, "rows": rows,
+           "loss": float(loss), "launches": launch_counts(),
+           "expected_launches": expected}
+    whole = _whole_grads(model, grads, mesh)
+    del grads
+    if row["launches"] != expected:
+        raise AssertionError(f"speech dp2 launches {row['launches']}, "
+                             f"expected {expected}")
+    if rank == 0:
+        loss_err = abs(row["loss"] - ref[0]) / abs(ref[0])
+        err, worst = _grad_errs(whole, ref[1])
+        row.update(ref_loss=ref[0], loss_rel_err=loss_err,
+                   grad_rel_l2=[err, worst])
+        if not (loss_err <= PARALLEL_TOL["loss"]
+                and err <= PARALLEL_TOL["grad"]):
+            raise AssertionError(f"speech dp2: loss {row['loss']} vs "
+                                 f"{ref[0]}, gradient {worst} {err}")
+    del model, state, step, whole
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_trainer(root, rank):
+    """``--entry train`` over dp 2 on nmt_trainer's corpus shape
+    (transformer_base, V 32768, token buckets of NMT_TASK) for
+    ``PARALLEL["trainer_steps"]`` steps: finite losses, rank 0's
+    checkpoint, launches of the step kernels."""
+    from neurst_tpu_torch.tasks.translation import Translation
+    cfg = os.path.join(root, "trainer.json")
+    model_dir = os.path.join(root, "model_dp2")
+    start = time.perf_counter()
+    _, seen = run_trainer(["--config_paths", cfg, "--model_dir", model_dir,
+                           "--device", "cuda:0"], Translation)
+    wall = time.perf_counter() - start
+    losses = [float(m) for m in re.findall(r"\| loss ([0-9.eE+-]+)",
+                                           "\n".join(seen["messages"]))]
+    if len(seen["steps"]) != PARALLEL["trainer_steps"] or not losses \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"dp2 trainer: {len(seen['steps'])} steps, "
+                             f"losses {losses}")
+    if rank == 0 and not os.path.exists(os.path.join(
+            model_dir, f"ckpt-{PARALLEL['trainer_steps']}.npz")):
+        raise AssertionError("dp2 trainer: rank 0 wrote no checkpoint")
+    return {"wall_s": wall, "losses": losses, "rows": seen["rows"],
+            "launches": seen["launches"]}
+
+
+def _speech_model(seed, dtype, **overrides):
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
+    from neurst_tpu_torch.utils.param_bridge import load_flat_params
+    cfg = SpeechTransformer.build_model_args_by_name(TRAIN["model"])
+    params = dict(cfg["model.params"], dtype=dtype, **overrides)
+    for side in ("encoder", "decoder"):
+        for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                     "layer_postprocess_dropout_rate"):
+            params[f"{side}.{rate}"] = 0.0
+    model = neurst_tpu_torch.build_model(
+        dict(cfg, **{"model.params": params}),
+        src_meta={"audio_feature_dim": TRAIN["feature_dim"],
+                  "audio_feature_channels": 1},
+        trg_meta={"vocab_size": TRAIN["vocab"], "eos_id": 1, "bos_id": 2,
+                  "unk_id": 3}, device="cuda")
+    load_flat_params(model, speech_transformer_flat_params(
+        cfg, TRAIN["vocab"], TRAIN["feature_dim"], seed))
+    return model, cfg
+
+
+def parallel_ring(seed, rank):
+    """ring 2 over speech_transformer_s's encoder at st_long_audio's 4 x
+    8192 frames (T 2048, 1024 a rank; each rank feeds 2 utterances),
+    float32: the output and, forward + backward, the encoder's gradients
+    (summed over the ranks) against the dense one-rank encoder."""
+    import torch
+
+    from neurst_tpu_torch.parallel import collectives
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.parallel.sharding import apply_mesh
+
+    rng = np.random.RandomState(seed + 60)
+    b, frames = LONG_AUDIO["batch"], LONG_AUDIO["frames"]
+    inputs = {"src": torch.from_numpy(rng.randn(
+        b, frames, TRAIN["feature_dim"], 1).astype(np.float32)).cuda(),
+        "src_length": torch.tensor(LONG_AUDIO["lengths"],
+                                   dtype=torch.int32).cuda()}
+    cot = torch.from_numpy(rng.randn(b, frames // 4, 256).astype(
+        np.float32)).cuda()
+
+    def run(model, inp, cotan):
+        enc, padding = model.encode(inp)
+        loss = (enc * cotan * (1.0 - padding)[..., None]).sum()
+        grads = torch.autograd.grad(loss, [p for _, p in
+                                           model.named_parameters()],
+                                    allow_unused=True)
+        return enc.detach(), padding, {
+            n: (torch.zeros_like(p) if g is None else g)
+            for (n, p), g in zip(model.named_parameters(), grads)}
+
+    ref = None
+    if rank == 0:
+        model, _ = _speech_model(seed, "float32")
+        enc, padding, grads = run(model, inputs, cot)
+        ref = (enc.cpu(), padding.cpu(), {n: g.cpu() for n, g in
+                                          grads.items() if "encoder" in n})
+        del model, grads
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    model, _ = _speech_model(seed, "float32",
+                             **{"encoder.enable_ring_attention": True})
+    mesh = make_mesh()
+    apply_mesh(model, mesh)
+    local = _rows_of(inputs, mesh)
+    local_cot = _rows_of({"c": cot}, mesh)["c"]
+    with torch.no_grad():
+        model.encode(local)
+    torch.cuda.synchronize()
+    fwd_ms, step_ms = [], []
+    for _ in range(2):
+        start = time.perf_counter()
+        with torch.no_grad():
+            model.encode(local)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - start) * 1e3)
+    start = time.perf_counter()
+    enc, padding, grads = run(model, local, local_cot)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - start) * 1e3)
+    group = mesh.group("data")
+    enc_all = collectives.all_gather(enc, 0, group).cpu()
+    enc_grads = {n: collectives.all_reduce(g.contiguous(), group).cpu()
+                 for n, g in grads.items() if "encoder" in n}
+    row = {"fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms,
+           "t_local": frames // 4 // PARALLEL["world"]}
+    if rank == 0:
+        ref_enc, ref_pad, ref_grads = ref
+        valid = (1.0 - ref_pad)[..., None]
+        out_err = float(((enc_all - ref_enc) * valid).abs().max())
+        err, worst = _grad_errs(enc_grads, ref_grads)
+        row.update(out_max_abs=out_err, grad_rel_l2=[err, worst])
+        if not (out_err <= PARALLEL_TOL["ring_out"]
+                and err <= PARALLEL_TOL["ring_grad"]):
+            raise AssertionError(f"ring encoder: output {out_err}, "
+                                 f"gradient {worst} {err}")
+    del model, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_pipeline(seed, rank):
+    """pp 2 (M 4) of speech_transformer_s with dense attention, float32,
+    against the sequential step on one rank (rank 0): the loss and every
+    gradient; each rank's launches and step ms."""
+    import torch
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel import make_train_step
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.parallel.sharding import apply_mesh, gather_tensors
+
+    t = PARALLEL
+    batch = train_batch(np.random.RandomState(seed + 61), "cuda",
+                        t["pp_batch"], t["pp_frames"], t["pp_frames"] // 2,
+                        t["pp_trg_len"], t["pp_trg_len"] // 2)
+    criterion = neurst_tpu_torch.build_criterion({
+        "criterion.class": "label_smoothed_cross_entropy",
+        "criterion.params": {"label_smoothing": TRAIN["label_smoothing"]}})
+
+    def grads_of(model, mesh, placement=None):
+        step = make_train_step(
+            model, criterion, None, mesh=mesh,
+            stage_local=frozenset(getattr(placement, "owners", ())))
+        loss, _, grads = step.compute_grads(dict(model.named_parameters()),
+                                            batch)
+        return float(loss), grads
+
+    ref = None
+    if rank == 0:
+        model, _ = _speech_model(seed, "float32")
+        loss, grads = grads_of(model, None)
+        ref = (loss, {n: g.cpu() for n, g in grads.items()})
+        del model, grads
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    pipe = {f"{side}.{k}": v for side in ("encoder", "decoder")
+            for k, v in (("pipeline_stages", 2),
+                         ("pipeline_microbatches", t["microbatches"]))}
+    model, _ = _speech_model(seed, "float32", **pipe)
+    total = sum(p.numel() for p in model.parameters())
+    mesh = make_mesh(pipeline_parallel=2)
+    placement = apply_mesh(model, mesh)
+    grads_of(model, mesh, placement)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    loss, grads = grads_of(model, mesh, placement)
+    torch.cuda.synchronize()
+    row = {"step_ms": (time.perf_counter() - start) * 1e3,
+           "launches": launch_counts(), "loss": loss,
+           "held_params": [sum(p.numel() for p in model.parameters()),
+                           total]}
+    grads = {n: g.cpu() for n, g in
+             gather_tensors(grads, placement, mesh).items()}
+    if rank == 0:
+        loss_err = abs(loss - ref[0]) / abs(ref[0])
+        err, worst = _grad_errs(grads, ref[1])
+        row.update(ref_loss=ref[0], grad_rel_l2=[err, worst])
+        if not (loss_err <= PARALLEL_TOL["loss"]
+                and err <= PARALLEL_TOL["grad"]):
+            raise AssertionError(f"pipeline: loss {loss} vs {ref[0]}, "
+                                 f"gradient {worst} {err}")
+    # the last stage alone runs the fused projection + xent, and each
+    # stage holds its own layers only
+    if bool(row["launches"]["fused_linear_xent_fwd"]) != (rank == 1):
+        raise AssertionError(f"pipeline: rank {rank} launched the fused "
+                             f"xent {row['launches']} times")
+    if not row["held_params"][0] < row["held_params"][1]:
+        raise AssertionError(f"pipeline: rank {rank} holds "
+                             f"{row['held_params']} parameters")
+    del model, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_decode(seed, rank):
+    """dp 2 and tp 2 beam-4 decode of st_decode_s_flash's requests (16 x
+    1024 frames), float32, hypotheses equal to the one-rank decode."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel import collectives
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.parallel.sharding import apply_mesh
+
+    model, search, request = build_slice(seed, dtype="float32")
+    requests = [request() for _ in range(PARALLEL["decode_requests"])]
+    with torch.no_grad():
+        refs = [search(r)[0].cpu() for r in requests]
+    del model, search
+    out = {}
+    for mode in ("dp", "tp"):
+        model, search, _ = build_slice(seed, dtype="float32")
+        mesh = make_mesh(model_parallel=2 if mode == "tp" else 1)
+        apply_mesh(model, mesh)
+        reset_launch_counts()
+        ms, same = [], []
+        for req, ref in zip(requests, refs):
+            local = _rows_of(req, mesh)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with torch.no_grad():
+                hyp = search(local)[0].cpu()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+            parts = collectives.all_gather_object(hyp.tolist(),
+                                                  mesh.group("data"))
+            rows = [r for part in parts for r in part]
+            same.append(rows == ref.tolist())
+        out[mode] = {"ms": ms, "hypotheses_equal": same,
+                     "launches": launch_counts()}
+        if not all(same):
+            raise AssertionError(f"{mode} decode hypotheses differ from one "
+                                 f"rank's")
+        del model, search
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe():
+    """Which gloo collectives take CUDA tensors here: each of
+    ``collectives.GLOO_CUDA_OPS`` must (the others go through host
+    memory)."""
+    import torch
+    import torch.distributed as dist
+
+    from neurst_tpu_torch.parallel import collectives
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    dist.broadcast(x, 0)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    torch.cuda.synchronize()
+    return {"native_on_cuda": sorted(collectives.GLOO_CUDA_OPS),
+            "all_reduce": float(x[0])}
+
+
+def parallel_rank_main(rank, port, root, seed):
+    """One rank of the parallel phase (a process of this script)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = PARALLEL["world"]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from neurst_tpu_torch.parallel.cluster import distributed_initialize
+    distributed_initialize(device="cuda:0")
+    if dist.get_backend() != "gloo":
+        raise AssertionError("two ranks on one card must take gloo")
+    out = {"rank": rank, "gloo": gloo_cuda_probe()}
+    for name, fn in (("nmt", lambda: parallel_nmt_steps(seed, rank)),
+                     ("speech_dp", lambda: parallel_speech_dp(seed, rank)),
+                     ("ring", lambda: parallel_ring(seed, rank)),
+                     ("pipeline", lambda: parallel_pipeline(seed, rank)),
+                     ("decode", lambda: parallel_decode(seed, rank)),
+                     ("trainer", lambda: parallel_trainer(root, rank))):
+        start = time.perf_counter()
+        out[name] = fn()
+        out[name + "_s"] = time.perf_counter() - start
+        print(json.dumps({name: out[name], "s": out[name + "_s"]}),
+              flush=True)
+        dist.barrier()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_one_rank_phase():
+    """A one-rank NCCL group in this process: every op of
+    ``parallel/collectives.py`` through NCCL on the card, against its
+    one-rank value."""
+    import torch
+    import torch.distributed as dist
+
+    from neurst_tpu_torch.parallel import collectives as c
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        x = torch.randn(3, 8, device="cuda", requires_grad=True)
+        checks = {
+            "all_reduce": c.all_reduce(x.detach().clone(), group),
+            "all_gather": c.all_gather(x.detach(), 0, group),
+            "broadcast": c.broadcast(x.detach().clone(), 0, group),
+            "all_reduce_tensors": c.all_reduce_tensors(
+                [x.detach().clone()], group)[0]}
+        for name, fn in (("reduce_from", c.reduce_from),
+                         ("copy_to", c.copy_to)):
+            y = fn(x, group)
+            (g,) = torch.autograd.grad(y.sum(), [x])
+            checks[name] = y.detach()
+            checks[name + "_grad"] = g - 1.0 + x.detach()
+        for name, fn in (("gather_from", c.gather_from),
+                         ("gather_sum_from", c.gather_sum_from),
+                         ("scatter_to", c.scatter_to)):
+            y = fn(x, 0, group)
+            (g,) = torch.autograd.grad(y.sum(), [x])
+            checks[name] = y.detach()
+            checks[name + "_grad"] = g - 1.0 + x.detach()
+        y = c.broadcast_from(x, 0, group)
+        (g,) = torch.autograd.grad(y.sum(), [x])
+        checks["broadcast_from"] = y.detach()
+        checks["broadcast_from_grad"] = g - 1.0 + x.detach()
+        torch.cuda.synchronize()
+        errs = {k: float((v - x.detach()).abs().max())
+                for k, v in checks.items()}
+        objects = c.all_gather_object({"rank": 0}, group)
+        if max(errs.values()) != 0.0 or objects != [{"rank": 0}]:
+            raise AssertionError(f"one-rank NCCL collectives: {errs}")
+        emit({"phase": "parallel_nccl", "backend": dist.get_backend(),
+              "ops": sorted(errs), "max_abs_err": max(errs.values())})
+    finally:
+        dist.destroy_process_group()
+
+
+class ParallelRanks(object):
+    """The parallel phase's ``PARALLEL["world"]`` ranks (processes of this
+    script, ``--parallel_rank``), started beside the audio prep's host
+    stages and the QAT worker, as the QAT worker is: their times hold that
+    load (and each other's work), so they are no scaling figure.  ``join``
+    waits for them, fails if a rank failed (with the tail of its log),
+    emits the ``parallel`` row, runs
+    the one-rank NCCL group in this process and returns {path: rank 0's
+    launch counts} for the kernels' rows; ``stop`` kills ranks still
+    running."""
+
+    def __init__(self, seed):
+        t = PARALLEL
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.started = time.perf_counter()
+        self.root = os.path.join(here, "build", "parallel_smoke")
+        shutil.rmtree(self.root, ignore_errors=True)
+        os.makedirs(self.root)
+        rng = np.random.RandomState(seed + 95)
+        pipelines, words = {}, {}
+        for side, language in (("src", "en"), ("trg", "de")):
+            vocab = os.path.join(self.root, f"vocab.{side}")
+            words[side] = write_word_vocab(vocab, rng,
+                                           NMT_TRAINER["vocab"] - 3)
+            pipelines[side] = {"vocab_path": vocab, "language": language}
+        train = write_parallel(os.path.join(self.root, "train"), rng,
+                               words["src"], words["trg"], t["trainer_pairs"],
+                               NMT_TRAINER["min_tokens"],
+                               NMT_TRAINER["max_tokens"])
+        nmt_config(os.path.join(self.root, "trainer.json"), pipelines,
+                   ("parallel_text", _parallel(train)),
+                   train_steps=t["trainer_steps"], summary_steps=1,
+                   save_checkpoint_steps=t["trainer_steps"],
+                   enable_tensorboard=False)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.procs = []
+        for rank in range(t["world"]):
+            with open(os.path.join(self.root, f"rank{rank}.log"), "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--seed",
+                     str(seed), "--parallel_rank", str(rank),
+                     "--parallel_port", str(port), "--parallel_root",
+                     self.root], stdout=log, stderr=subprocess.STDOUT,
+                    cwd=here))
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def join(self):
+        import torch
+
+        waited = time.perf_counter()
+        failed = []
+        try:
+            for rank, proc in enumerate(self.procs):
+                if proc.wait(timeout=900) != 0:
+                    failed.append(rank)
+                    break
+        finally:
+            self.stop()
+        if failed:
+            log = os.path.join(self.root, f"rank{failed[0]}.log")
+            with open(log) as f:
+                raise AssertionError(f"parallel rank {failed[0]} failed:\n"
+                                     f"{f.read()[-6000:]}")
+        ranks = []
+        for rank in range(len(self.procs)):
+            with open(os.path.join(self.root, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        emit({"phase": "parallel", "world": len(self.procs),
+              "backend": "gloo",
+              "note": "the ranks share one card, beside the audio prep and "
+                      "the QAT worker: their times are no scaling figure",
+              "wall_s": time.perf_counter() - self.started,
+              "waited_s": time.perf_counter() - waited, "ranks": ranks})
+        shutil.rmtree(self.root, ignore_errors=True)
+        nccl_one_rank_phase()
+        torch.cuda.synchronize()
+        r0 = ranks[0]
+        # the pipeline's stages launch different kernels (the last alone
+        # runs the fused xent): both ranks' counts
+        pp2 = {k: sum(r["pipeline"]["launches"][k] for r in ranks)
+               for k in r0["pipeline"]["launches"]}
+        return {"parallel_dp2_base": r0["nmt"]["dp"]["bfloat16"]["counts"],
+                "parallel_tp2_base": r0["nmt"]["tp"]["bfloat16"]["counts"],
+                "parallel_dp2_speech": r0["speech_dp"]["launches"],
+                "parallel_trainer": r0["trainer"]["launches"],
+                "parallel_pp2": pp2,
+                "parallel_decode_tp2": r0["decode"]["tp"]["launches"]}
+
+
+def parallel_phase(seed):
+    """The parallel stack's paths alone: ``ParallelRanks`` started and
+    joined."""
+    ranks = ParallelRanks(seed)
+    try:
+        return ranks.join()
+    finally:
+        ranks.stop()
+
+
 def qat_worker_main(seed, t0):
     """The worker's side: the card's checks, then ``qat_phases``, then
     one line of its launch counts."""
@@ -8534,9 +9219,17 @@ def main(argv=None):
                              "starts this itself, beside the audio prep)")
     parser.add_argument("--t0", type=float, default=None,
                         help="the starting script's clock (--qat_worker)")
+    parser.add_argument("--parallel_rank", type=int, default=None,
+                        help="run one rank of the parallel phase (the "
+                             "whole script starts its ranks itself)")
+    parser.add_argument("--parallel_port", type=int, default=None)
+    parser.add_argument("--parallel_root", default=None)
     args = parser.parse_args(argv)
     if args.qat_worker:
         return qat_worker_main(args.seed, args.t0)
+    if args.parallel_rank is not None:
+        return parallel_rank_main(args.parallel_rank, args.parallel_port,
+                                  args.parallel_root, args.seed)
     device_phase()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8577,6 +9270,9 @@ def main(argv=None):
     # on the card: the audio prep's CLIs, slice 10's checkpoint
     # conversions and the float32 card-vs-CPU checks
     worker, prepared = QatWorker(args.seed), {}
+    # the parallel phase's ranks beside the same host stages
+    torch.cuda.empty_cache()
+    parallel = ParallelRanks(args.seed)
 
     def beside_worker():
         prepared["pretrained"] = pretrained_convert(args.seed)
@@ -8588,11 +9284,14 @@ def main(argv=None):
         qat_reference_check(args.seed)
         moe_reference_check(args.seed)
         worker.join()
+        # before the audio prep's card stages time anything
+        by_path.update(parallel.join())
     try:
         by_path["prep_train"], by_path["prep_predict"] = audio_prep_phases(
             args.seed, after_cpu=beside_worker)
     finally:
         worker.stop()
+        parallel.stop()
     by_path.update(multitask_phases(args.seed, train_dropout_row))
     by_path.update(waitk_phases(args.seed))
     by_path.update(pretrained_phases(args.seed,

@@ -21,9 +21,18 @@ however it is named); they are imported before the flags are parsed, so
 their entries and flags are known (the PruneTune plug-ins,
 ``neurst_tpu_torch/contrib/prune_tune/``, come in this way).
 
+Processes: one per GPU.  Under torchrun (``WORLD_SIZE`` > 1) the process
+group is formed from its environment; ``--distributed_init`` forms it
+from ``--worker_hosts`` / ``--task_index`` (or ``WORKER_HOSTS`` /
+``TASK_ID``), with ``LOCAL_WORLD_SIZE`` processes a host
+(``parallel/cluster.py``).  Each process runs on ``cuda:LOCAL_RANK``
+unless ``--device`` says otherwise.  ``distribution_strategy`` is
+accepted as the JAX CLI accepts it: the process group replaces it.  The
+pipeline flags (``*.pipeline_stages`` / ``*.pipeline_microbatches``) shape
+the training step only: other entries build the model without them.
+
 Flags of features the port lacks raise ``NotImplementedError`` when set:
-multi-host initialization, the XLA compilation cache, ``enable_xla:
-true``, NaN checks and any ``distribution_strategy`` but one device.  The
+the XLA compilation cache, ``enable_xla: true`` and NaN checks.  The
 ``predict``, ``train``, ``eval``, ``sequence_evaluator``, ``validation``
 and ``export`` entries are ported (the recipes' ``trainer`` is ``train``
 by its class name); the trainer refuses the features it lacks itself
@@ -45,6 +54,7 @@ from neurst_tpu_torch.exps.trainer import Trainer
 from neurst_tpu_torch.layers.quantization.quant_layers import (
     get_global_config, global_init, quant_enabled, set_int8_serving)
 from neurst_tpu_torch.models.model import resolve_device
+from neurst_tpu_torch.parallel.cluster import distributed_initialize
 from neurst_tpu_torch.tasks.task import build_task
 from neurst_tpu_torch.utils import flags_core
 from neurst_tpu_torch.utils.configurable import (
@@ -65,8 +75,8 @@ FLAG_LIST = [
     Flag("model_dir", dtype=Flag.TYPE.STRING, default=None,
          help="The path for saving/loading checkpoints."),
     Flag("distribution_strategy", dtype=Flag.TYPE.STRING, default=None,
-         help="Kept for recipe compatibility: none or one_device (any "
-              "other strategy raises)."),
+         help="Kept for recipe compatibility (the process group replaces "
+              "it: one process per GPU)."),
     Flag("dtype", dtype=Flag.TYPE.STRING, default=None,
          help="The computation dtype (bfloat16/float32)."),
     Flag("enable_check_numerics", dtype=Flag.TYPE.BOOLEAN, default=None,
@@ -98,13 +108,15 @@ FLAG_LIST = [
     Flag("seed", dtype=Flag.TYPE.INTEGER, default=0,
          help="The global random seed."),
     Flag("distributed_init", dtype=Flag.TYPE.BOOLEAN, default=None,
-         help="Multi-host initialization (not ported)."),
+         help="Form the process group from --worker_hosts/--task_index "
+              "(or WORKER_HOSTS/TASK_ID) before anything is built."),
     Flag("compilation_cache_dir", dtype=Flag.TYPE.STRING, default=None,
          help="The JAX package's XLA compilation cache (not ported)."),
     Flag("worker_hosts", dtype=Flag.TYPE.STRING, default=None,
-         help="Comma-separated worker addresses (not ported)."),
+         help="Comma-separated worker addresses; the first is the "
+              "coordinator (port 8476 by default)."),
     Flag("task_index", dtype=Flag.TYPE.INTEGER, default=None,
-         help="This process's index into worker_hosts (not ported)."),
+         help="This host's index into worker_hosts."),
     Flag("device", dtype=Flag.TYPE.STRING, default=None,
          help="The torch device to run on ('cpu' runs the plain versions "
               "of the kernels); the current CUDA device by default."),
@@ -115,11 +127,8 @@ FLAG_LIST = [
 ]
 
 # flags of features the port does not have, and the value that means off
-_UNPORTED = {"distributed_init": None, "worker_hosts": None,
-             "task_index": None, "compilation_cache_dir": None,
+_UNPORTED = {"compilation_cache_dir": None,
              "enable_check_numerics": None, "enable_xla": (None, False)}
-# the strategies that mean one device, which is what the port runs
-_ONE_DEVICE_STRATEGIES = (None, "", "none", "one_device", "onedevice")
 
 
 def _format_hparams(predefined: dict) -> dict:
@@ -230,20 +239,25 @@ def run_experiment(args):
                                        else (off,)))
     if on:
         raise NotImplementedError(f"not ported: --{', --'.join(on)}")
-    strategy = args.get("distribution_strategy")
-    if (strategy.lower() if isinstance(strategy, str) else strategy) \
-            not in _ONE_DEVICE_STRATEGIES:
-        raise NotImplementedError(f"distribution_strategy {strategy} is not "
-                                  f"ported (one device only)")
     device = resolve_device(args.get("device"))
+    if args.get("distributed_init") \
+            or int(os.environ.get("WORLD_SIZE") or 1) > 1:
+        # --distributed_init, or torchrun's environment
+        device = distributed_initialize(
+            args.get("worker_hosts"), args.get("task_index"),
+            device if args.get("device") else None)
     _set_quantization(args)
+    entry_cls = get_registered_class(args.get("entry.class"), "entry")
+    is_train = isinstance(entry_cls, type) and issubclass(entry_cls, Trainer)
     task = build_task(args)
     custom_dataset = build_dataset(args) if args.get("dataset.class") \
         else None
     model = None
     if args.get("model.class"):
-        model_params = strip_training_only_model_flags(
-            args.get("model.params"))
+        model_params = dict(args.get("model.params") or {})
+        if not is_train:
+            # the pipeline shapes the training step only
+            model_params = strip_training_only_model_flags(model_params)
         if args.get("dtype"):
             model_params["dtype"] = args["dtype"]
         model = task.build_model({"model.class": args["model.class"],

@@ -22,6 +22,7 @@ from neurst_tpu_torch.exps.base_experiment import register_exp
 from neurst_tpu_torch.exps.trainer import Trainer
 from neurst_tpu_torch.optimizers.optimizers import (GradientTransformation,
                                                      chain)
+from neurst_tpu_torch.parallel.sharding import shard_tensors
 from neurst_tpu_torch.utils import checkpoints as ckpt_lib
 from neurst_tpu_torch.utils.flags_core import Flag
 from neurst_tpu_torch.utils.param_bridge import to_torch_layout
@@ -84,4 +85,10 @@ class PartialTrainer(Trainer):
         return super().run()
 
     def _wrap_tx(self, tx):
-        return chain(tx, partial_mask_transform(self._partial_masks))
+        # this rank's parts of the masks (its shards, its stage's layers)
+        parts = shard_tensors(
+            {name: torch.from_numpy(m)
+             for name, m in self._partial_masks.items()},
+            self._specs, self._mesh)
+        return chain(tx, partial_mask_transform(
+            {name: t.numpy() for name, t in parts.items()}))

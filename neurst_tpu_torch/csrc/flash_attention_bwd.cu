@@ -843,7 +843,8 @@ Args make_args(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* lengths, int batch, int n_heads, int t_q,
                int t_k, const long long* strides, int causal,
-               const unsigned* dropout, float inv_keep, void* stream) {
+               const unsigned* dropout, unsigned long long group,
+               float inv_keep, void* stream) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta),
               static_cast<const int*>(lengths), batch, n_heads, t_q, t_k,
@@ -852,7 +853,8 @@ Args make_args(const void* q, const void* k, const void* v,
               Strides{strides[6], strides[7], strides[8]},
               Strides{strides[9], strides[10], strides[11]}, causal != 0,
               dropout[0], inv_keep,
-              DropoutSite{dropout[1], dropout[2], dropout[3], dropout[4]},
+              DropoutSite{dropout[1], dropout[2], dropout[3], dropout[4],
+                          group},
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -861,7 +863,8 @@ Args make_args(const void* q, const void* k, const void* v,
 // Both entry points return the cudaError_t of the launch (0 on success).
 // `strides` holds 12 element strides: (b, t, n) of q, k, v and dO, in
 // that order.  `dropout` holds 5 words: the threshold (0 = no dropout)
-// and the site (k0, k1, stream, micro); inv_keep = 1 / (1 - rate).
+// and the site (k0, k1, stream, micro); `group` is the site's first
+// element group; inv_keep = 1 / (1 - rate).
 // dtype: 0 = float32, 1 = bfloat16 (16-byte aligned views; q, k, v, dO
 // and the outputs share it).
 extern "C" int neurst_flash_attention_dq(
@@ -869,10 +872,11 @@ extern "C" int neurst_flash_attention_dq(
     const void* lse, const void* delta, const void* lengths, void* dq,
     int batch, int n_heads, int t_q, int t_k, int head_dim,
     const long long* strides, int causal, int dtype,
-    const unsigned* dropout, float inv_keep, void* stream) {
+    const unsigned* dropout, unsigned long long group, float inv_keep,
+    void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, lengths, batch,
                            n_heads, t_q, t_k, strides, causal, dropout,
-                           inv_keep, stream);
+                           group, inv_keep, stream);
   if (bad_args(a, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
@@ -892,10 +896,11 @@ extern "C" int neurst_flash_attention_dkv(
     const void* lse, const void* delta, const void* lengths, void* dk,
     void* dv, int batch, int n_heads, int t_q, int t_k, int head_dim,
     const long long* strides, int causal, int dtype,
-    const unsigned* dropout, float inv_keep, void* stream) {
+    const unsigned* dropout, unsigned long long group, float inv_keep,
+    void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, lengths, batch,
                            n_heads, t_q, t_k, strides, causal, dropout,
-                           inv_keep, stream);
+                           group, inv_keep, stream);
   if (bad_args(a, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;

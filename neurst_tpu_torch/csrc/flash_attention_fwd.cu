@@ -428,7 +428,7 @@ cudaError_t launch_f32(const Args& a) {
 // Returns the cudaError_t of the launch (0 on success).  Strides are in
 // elements.  dtype: 0 = float32, 1 = bfloat16 (16-byte aligned views).
 // threshold 0 = no dropout; else the dropout site (k0, k1, stream_id,
-// micro) and the scale inv_keep = 1 / (1 - rate).
+// micro, the first element group) and the scale inv_keep = 1 / (1 - rate).
 extern "C" int neurst_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths,
     void* o, void* lse, int batch, int n_heads, int t_q, int t_k,
@@ -436,12 +436,13 @@ extern "C" int neurst_flash_attention_fwd(
     long long k_sb, long long k_st, long long k_sn, long long v_sb,
     long long v_st, long long v_sn, int causal, int dtype,
     unsigned threshold, float inv_keep, unsigned k0, unsigned k1,
-    unsigned stream_id, unsigned micro, void* stream) {
+    unsigned stream_id, unsigned micro, unsigned long long group,
+    void* stream) {
   const Args a{q, k, v, static_cast<const int*>(lengths), o,
                static_cast<float*>(lse), batch, n_heads, t_q, t_k,
                Strides{q_sb, q_st, q_sn}, Strides{k_sb, k_st, k_sn},
                Strides{v_sb, v_st, v_sn}, threshold, inv_keep,
-               DropoutSite{k0, k1, stream_id, micro},
+               DropoutSite{k0, k1, stream_id, micro, group},
                static_cast<cudaStream_t>(stream)};
   if (head_dim != kHeadDim || batch <= 0 || n_heads <= 0 || t_q <= 0 ||
       t_k <= 0 || batch * n_heads > 65535 || (dtype != 0 && dtype != 1) ||

@@ -207,16 +207,18 @@ cudaError_t launch(const void* x, void* y, long long n, unsigned threshold,
 
 // Returns the cudaError_t of the launch (0 on success).  x and y hold n
 // contiguous elements of one dtype: 0 = float32, 1 = bfloat16; y is
-// 16-byte aligned, x at least element-aligned.
+// 16-byte aligned, x at least element-aligned.  `group` is the first
+// element group of the site (x's element 0 is element 4 * group).
 extern "C" int neurst_fused_dropout(const void* x, void* y, long long n,
                                     unsigned threshold, float scale,
                                     unsigned k0, unsigned k1,
                                     unsigned stream_id, unsigned micro,
-                                    int dtype, void* stream) {
+                                    unsigned long long group, int dtype,
+                                    void* stream) {
   if (n <= 0 || (dtype != 0 && dtype != 1) ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const neurst::DropoutSite site{k0, k1, stream_id, micro};
+  const neurst::DropoutSite site{k0, k1, stream_id, micro, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0

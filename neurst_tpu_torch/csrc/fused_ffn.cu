@@ -1473,7 +1473,8 @@ bool bad_args(int rows, int filter, int dim, int dtype) {
 // Every entry point returns the cudaError_t of its launch (0 on success).
 // dtype: 0 = float32, 1 = bfloat16.  `hd` may be null (inference).
 // threshold 0 = no dropout; otherwise the FFN site (k0, k1, stream_id,
-// micro) and scale = 1 / (1 - realized rate).  `splits` filter splits
+// micro, the hidden's first element group) and scale = 1 / (1 - realized
+// rate).  `splits` filter splits
 // (bf16 only; float32 takes 1): above 1 the kernel writes S float32
 // partials [S, R, D] to `partials` and neurst_ffn_fwd_sum forms y.
 extern "C" int neurst_ffn_fwd(const void* x, const void* w1, const void* b1,
@@ -1482,12 +1483,13 @@ extern "C" int neurst_ffn_fwd(const void* x, const void* w1, const void* b1,
                               int filter, int dim, int splits,
                               unsigned threshold, float scale, unsigned k0,
                               unsigned k1, unsigned stream_id,
-                              unsigned micro, int dtype, void* stream) {
+                              unsigned micro, unsigned long long group,
+                              int dtype, void* stream) {
   if (bad_args(rows, filter, dim, dtype) || splits <= 0 ||
       splits > filter / kDxChunk || (dtype == 0 && splits != 1) ||
       (splits > 1 && partials == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const neurst::DropoutSite site{k0, k1, stream_id, micro};
+  const neurst::DropoutSite site{k0, k1, stream_id, micro, group};
   const float* b1f = static_cast<const float*>(b1);
   const float* b2f = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

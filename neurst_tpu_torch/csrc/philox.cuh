@@ -18,9 +18,12 @@
 
 namespace neurst {
 
-// the dropout site: key words, stream (layer x site) and micro-batch
+// the dropout site: key words, stream (layer x site) and micro-batch,
+// and the first element group of the tensor (a shard's rows start at
+// element 4 * group of the single-rank tensor; 0 unsharded)
 struct DropoutSite {
   unsigned k0, k1, stream, micro;
+  unsigned long long group;
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
@@ -38,9 +41,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
   return c;
 }
 
-// the four words of element group g (elements 4g .. 4g + 3)
+// the four words of element group g (elements 4g .. 4g + 3) of the
+// site's tensor
 __device__ __forceinline__ uint4 dropout_words(unsigned long long g,
                                                const DropoutSite& s) {
+  g += s.group;
   return philox4x32_10(
       make_uint4(static_cast<unsigned>(g), static_cast<unsigned>(g >> 32),
                  s.stream, s.micro),

@@ -28,7 +28,15 @@ batches: it decodes each (dynamic int8 activations), teacher-forces the
 model's own top hypotheses while every dense records its input absmax,
 and writes ``act_scale = absmax / 127`` (as the JAX generator does).
 
-Not ported: tensor-parallel decode raises ``NotImplementedError``.
+Over several ranks (one process per GPU, every rank reading the same
+batches): ``decode_data_parallel`` (on by default) shards each batch's
+rows over the "data" axis where they divide it and replicates the batch
+where they do not (the JAX package's ``_dp_put`` rule);
+``decode_tensor_parallel N`` shards the model's heads, mlp and vocabulary
+over N "model" ranks (the beam cache holds the local heads), and with
+``--decode_data_parallel false`` the mesh is tensor-parallel only.  The
+hypotheses are gathered in order, and rank 0 alone writes the output
+file and the metric.
 """
 
 import json
@@ -47,6 +55,11 @@ from neurst_tpu_torch.layers.quantization.quant_layers import (
 from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
 from neurst_tpu_torch.models.ensemble_model import \
     EncoderDecoderEnsembleModel
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.parallel.mesh import make_mesh
+from neurst_tpu_torch.parallel.sharding import apply_mesh
+from neurst_tpu_torch.parallel.utils import (data_slice, process_count,
+                                             process_index)
 from neurst_tpu_torch.tasks.task import build_task
 from neurst_tpu_torch.utils.compat import DataStatus, ModeKeys
 from neurst_tpu_torch.utils.configurable import (
@@ -100,12 +113,15 @@ class SequenceGenerator(BaseExperiment):
                       "model_dir)."),
             Flag("decode_data_parallel", dtype=Flag.TYPE.BOOLEAN,
                  default=None,
-                 help="Shard decode batches over all devices (one device "
-                      "here)."),
+                 help="Shard decode batches over all ranks (on by "
+                      "default with more than one; false keeps every "
+                      "batch whole)."),
             Flag("decode_tensor_parallel", dtype=Flag.TYPE.INTEGER,
                  default=None,
-                 help="Shard the model's parameters over this many devices "
-                      "during decode (not ported)."),
+                 help="Shard the model's parameters (heads, mlp and "
+                      "vocabulary) over this many ranks during decode; "
+                      "composes with data parallelism (mesh = dp x tp "
+                      "over all ranks)."),
         ]
 
     def _maybe_build_ensemble(self):
@@ -194,15 +210,52 @@ class SequenceGenerator(BaseExperiment):
                      "batches", count)
         write_calibrated_act_scales(model, agg)
 
+    def _decode_mesh(self, model):
+        """The decode mesh over every rank (None on one rank), with the
+        model put on it once."""
+        if process_count() == 1:
+            return None
+        mesh = getattr(model, "decode_mesh", None)
+        if mesh is not None:
+            return mesh
+        tp = int(self._args.get("decode_tensor_parallel") or 1)
+        if tp > 1 and not isinstance(self._model, type(model)):
+            raise NotImplementedError("tensor-parallel decode of an "
+                                      "ensemble is not supported")
+        if self._args.get("decode_data_parallel") is False:
+            if tp == 1:
+                return None  # every rank decodes every batch whole
+            # tensor-parallel only: the world is the model group
+            mesh = make_mesh(data_parallel=1, model_parallel=tp)
+        else:
+            mesh = make_mesh(model_parallel=tp)
+        apply_mesh(model, mesh)
+        logging.info("Decode over %d-way data x %d-way tensor parallelism",
+                     mesh.shape["data"], mesh.shape["model"])
+        model.decode_mesh = mesh
+        return mesh
+
+    @staticmethod
+    def _shard_rows(mesh, model_inp):
+        """(this rank's rows of the batch, whether they are a shard): the
+        rows where they divide the "data" axis, else the whole batch."""
+        if mesh is None or mesh.shape["data"] == 1:
+            return model_inp, False
+        rows = next(v.shape[0] for v in model_inp.values() if v.ndim)
+        if rows % mesh.shape["data"]:
+            return model_inp, False
+        sl = data_slice(rows, mesh)
+        return {k: v[sl] if v.ndim and v.shape[0] == rows else v
+                for k, v in model_inp.items()}, True
+
     def run(self):
-        if (self._args.get("decode_tensor_parallel") or 1) > 1:
-            raise NotImplementedError("tensor-parallel decode is not ported")
         if isinstance(self._custom_dataset, MultipleDataset):
             return self._run_multiple()
         task, args = self._task, self._args
         model = self._maybe_build_ensemble()
         if model is None:
             model = self.restore_params()
+        mesh = self._decode_mesh(model)
         search = build_search_layer(args)
         search.set_model(model)
         search.prepare()
@@ -226,20 +279,28 @@ class SequenceGenerator(BaseExperiment):
                 break
             model_inp = {k: v for k, v in batch.items()
                          if isinstance(v, np.ndarray) and v.dtype != object}
+            rows = next(v.shape[0] for v in model_inp.values() if v.ndim)
+            model_inp, sharded = self._shard_rows(mesh, model_inp)
             hyp, score = search(model_inp)
             hyp, score = hyp.cpu().numpy(), score.cpu().numpy()
             t2 = time.perf_counter()
             timing["decode_s"] += t2 - t1
             if timing["first_batch_s"] is None:
                 timing["first_batch_s"] = t2 - start
+            local = next(v.shape[0] for v in model_inp.values() if v.ndim)
+            top_k = hyp.shape[0] // local
+            tops = [(hyp[i * top_k].tolist(), float(score[i * top_k]))
+                    for i in range(local)]
+            if sharded:
+                # every data rank's rows, in order
+                tops = [t for part in collectives.all_gather_object(
+                    tops, mesh.group("data")) for t in part]
             mask = batch.get("sample_mask")
-            bsz = mask.shape[0] if mask is not None else hyp.shape[0]
-            top_k = hyp.shape[0] // bsz
-            for i in range(bsz):
+            for i in range(rows):
                 if mask is not None and mask[i] == 0:
                     continue
-                hypotheses.append(hypo_decode(hyp[i * top_k].tolist()))
-                scores.append(float(score[i * top_k]))
+                hypotheses.append(hypo_decode(tops[i][0]))
+                scores.append(tops[i][1])
             timing["detok_metric_s"] += time.perf_counter() - t2
         elapsed = time.perf_counter() - start
         n_samples = len(hypotheses)
@@ -247,7 +308,8 @@ class SequenceGenerator(BaseExperiment):
                      n_samples, elapsed, n_samples / max(elapsed, 1e-6))
 
         t0 = time.perf_counter()
-        if args.get("output_file"):
+        rank0 = process_index() == 0
+        if args.get("output_file") and rank0:
             with open(args["output_file"], "w", encoding="utf-8") as f:
                 for h in hypotheses:
                     f.write(h + "\n")
@@ -261,7 +323,7 @@ class SequenceGenerator(BaseExperiment):
             metric_result = task.get_eval_metric(args)(hypotheses, targets)
             logging.info("Evaluation result: %s", metric_result)
             results.update(metric_result)
-            if args.get("save_metric"):
+            if args.get("save_metric") and rank0:
                 with open(args["save_metric"], "w") as f:
                     json.dump(results, f, indent=2)
         timing["detok_metric_s"] += time.perf_counter() - t0

@@ -1,5 +1,5 @@
 """The training entry (the port's counterpart of
-``neurst_tpu/exps/trainer.py``), on one device.
+``neurst_tpu/exps/trainer.py``), on one rank or over a mesh of ranks.
 
 ``Trainer.run`` builds the criterion, restores the newest checkpoint of
 the model dir (or a name-filtered ``pretrain_model``), builds the
@@ -34,13 +34,39 @@ the JAX package's flat names; its masks and count ride in the sidecar.
 wraps it in ``jax.checkpoint``).  ``_wrap_tx`` is a hook for entries
 that subclass the trainer (the PruneTune plug-in masks updates there).
 
-Not ported, and refused when set: ``checkpoint_format: orbax``, tensor
-and pipeline parallelism and a ``distribution_strategy`` other than one
-device.  ``enable_profiler`` traces a window of steps with
-``torch.profiler`` (``training/summary.py``).
+Parallelism (one process per GPU, ``parallel/``): the ranks form a
+("data", "stage", "model") mesh with ``pipeline_parallel`` stages and
+``num_model_partitions`` model ranks; data parallelism is always on over
+the rest, as in the JAX trainer.  Each data rank batches its own shard of
+the data (``shard_id`` / ``total_shards``) at ``batch_size``, so the
+global batch is data ranks x batch size, as a JAX process with one
+device batches it (ROADMAP R16); its first stage and model rank reads the
+batch and hands it to the others of its data coordinate.  Bucket batch
+sizes are multiples of lcm(max(8, dp x update_cycle), the pipeline's
+micro-batches).  The step reduces the loss and gradients over "data" and
+"stage" (``parallel/train_step.py``); ``clip_norm`` and the logged norm
+are global.  A pipeline stage holds its own layers and their optimizer
+moments only (``parallel.apply_mesh``).  Checkpoints gather the model's
+shards and stages and are written, with the logs' TensorBoard scalars
+and ``model_configs.yml``, by rank 0 only; a restore cuts every rank's
+part of the parameters and of the optimizer's state.  An inline
+validator runs on the model group of rank 0 (rank 0 alone without tensor
+parallelism; the group decodes together through the tensor-parallel
+layers), with every pipeline layer gathered to every rank and each ring
+encoder over one rank for the while; rank 0 scores, keeps the best
+checkpoints and broadcasts the early stop.  Magnitude pruning takes each
+variable's threshold from the whole variable.  A data error raises on a
+mesh of several ranks instead of retrying, and a rank whose shard yields
+no batch in an epoch stops every rank.  ``distribution_strategy`` is
+accepted and ignored: the process group replaces it.
+
+Not ported, and refused when set: ``checkpoint_format: orbax``.
+``enable_profiler`` traces a window of steps with ``torch.profiler``
+(``training/summary.py``).
 """
 
 import logging
+import math
 import os
 import re
 import time
@@ -61,6 +87,12 @@ from neurst_tpu_torch.optimizers.rate_schedule_optimizer import \
 from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
     build_lr_schedule
 from neurst_tpu_torch.parallel import TrainState, make_train_step
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.parallel.mesh import make_mesh
+from neurst_tpu_torch.parallel.sharding import (apply_mesh, gather_tensors,
+                                                make_norm_fn, shard_tensors,
+                                                whole_model)
+from neurst_tpu_torch.parallel.utils import process_index
 from neurst_tpu_torch.sparsity.pruning_optimizer import (make_variable_filter,
                                                          prune_gradients)
 from neurst_tpu_torch.sparsity.pruning_schedule import \
@@ -79,11 +111,7 @@ from neurst_tpu_torch.utils.rng import make_key
 __all__ = ["Trainer", "split_microbatches"]
 
 # flags of features the port does not have, and the values that mean off
-_UNPORTED = {"checkpoint_format": (None, "npz"),
-             "num_model_partitions": (None, 1),
-             "pipeline_parallel": (None, 1),
-             "distribution_strategy": (None, "", "none", "one_device",
-                                       "onedevice")}
+_UNPORTED = {"checkpoint_format": (None, "npz")}
 
 
 @register_exp("train")
@@ -130,12 +158,15 @@ class Trainer(BaseExperiment):
                  help="Regex pattern(s) selecting variables to restore "
                       "from each pretrain_model."),
             Flag("num_model_partitions", dtype=Flag.TYPE.INTEGER, default=1,
-                 help="Tensor-parallel size (not ported: 1 only)."),
+                 help="Tensor-parallel size: heads, mlp and vocabulary "
+                      "sharded over this many ranks."),
             Flag("pipeline_parallel", dtype=Flag.TYPE.INTEGER, default=1,
-                 help="Pipeline-parallel size (not ported: 1 only)."),
+                 help="Pipeline-parallel size: the ranks of the mesh's "
+                      "'stage' axis (the model's pipeline_stages > 1)."),
             Flag("distribution_strategy", dtype=Flag.TYPE.STRING,
                  default=None,
-                 help="Kept for recipe compatibility: one device only."),
+                 help="Kept for recipe compatibility (the process group "
+                      "replaces it)."),
             Flag("dtype", dtype=Flag.TYPE.STRING, default=None,
                  help="Computation dtype override for training."),
             Flag("freeze_variables", dtype=Flag.TYPE.STRING,
@@ -224,20 +255,22 @@ class Trainer(BaseExperiment):
                 f"model dir with pretrain_model: {path}")
         return restored["step"] or 0, path, None
 
-    def _build_tx(self, args, model, lr_schedule):
+    def _build_tx(self, args, model, lr_schedule, norm_fn=None,
+                  gather=None):
         optimizer = build_optimizer(args)
         lr = lr_schedule if lr_schedule is not None else (
             (args.get("optimizer.params") or {}).get("learning_rate")
             or 1e-3)
         tx = create_optax_chain(optimizer, lr,
                                 clip_value=args.get("clip_value"),
-                                clip_norm=args.get("clip_norm"))
+                                clip_norm=args.get("clip_norm"),
+                                norm_fn=norm_fn)
         if args.get("pruning_schedule.class"):
             tx = prune_gradients(
                 tx, build_pruning_schedule(args),
                 make_variable_filter(args.get("pruning_variable_pattern"),
                                      args.get("nopruning_variable_pattern")),
-                name_of=to_jax_name)
+                name_of=to_jax_name, gather=gather)
             logging.info("Enabled magnitude pruning: %s",
                          args["pruning_schedule.class"])
         frozen = (args.get("freeze_variables")
@@ -288,20 +321,32 @@ class Trainer(BaseExperiment):
         # a restored optimizer carries its own count (ROADMAP R6)
         compat.register_initial_step(0 if opt_flat is not None
                                      else init_step)
+        # the mesh: every rank holds the whole restored model, then keeps
+        # its shards
+        mesh = self._mesh = make_mesh(
+            model_parallel=int(args.get("num_model_partitions") or 1),
+            pipeline_parallel=int(args.get("pipeline_parallel") or 1))
+        specs = self._specs = apply_mesh(model, mesh)
+        self._rank0 = process_index() == 0
+        dp = mesh.shape["data"]
+        norm_fn = make_norm_fn(specs, mesh)
         lr_schedule = build_lr_schedule(args) \
             if args.get("lr_schedule.class") else None
-        tx = self._build_tx(args, model, lr_schedule)
+        tx = self._build_tx(
+            args, model, lr_schedule, norm_fn,
+            gather=lambda name, part: gather_tensors({name: part}, specs,
+                                                     mesh)[name])
         if args.get("bf16_params"):
             cast_params_bf16(model)
-        if model_dir:
+        if model_dir and self._rank0:
             ModelConfigs.dump(task.model_configs(model), model_dir)
 
         state = TrainState.create(dict(model.named_parameters()), tx)
         if opt_flat is not None:
             # the master comes back exactly; the live bf16 params, read
             # from the checkpoint of that master, are already bf16(master)
-            opt_state, step = ckpt_lib.load_opt_state(state.opt_state,
-                                                      opt_flat)
+            opt_state, step = ckpt_lib.load_opt_state(
+                state.opt_state, self._shard_opt_flat(opt_flat))
             state = TrainState(step=step, params=state.params,
                                opt_state=opt_state)
             logging.info("Restored optimizer state (step %d)", step)
@@ -317,25 +362,49 @@ class Trainer(BaseExperiment):
                                      update_cycle=update_cycle,
                                      lr_schedule=lr_schedule,
                                      extra_loss_fn=extra_loss_fn,
-                                     remat=bool(args.get("gradient_remat")))
+                                     remat=bool(args.get("gradient_remat")),
+                                     mesh=mesh, norm_fn=norm_fn,
+                                     stage_local=frozenset(specs.owners))
 
         train_steps = int(args.get("train_steps") or 10_000_000)
         save_every = int(args.get("save_checkpoint_steps") or 1000)
         log_every = int(args.get("summary_steps") or 200)
         writer = SummaryWriterWrapper(
             os.path.join(model_dir, "train") if model_dir else None,
-            enabled=bool(args.get("enable_tensorboard", True)))
+            enabled=bool(args.get("enable_tensorboard", True))
+            and self._rank0)
         profiler = TrainingProfiler(model_dir,
                                     bool(args.get("enable_profiler")),
                                     model.device)
         validator = None
         if args.get("validator.class"):
-            validator = build_validator(args).build(task, model, model_dir)
+            # every rank keeps the schedule; rank 0 alone keeps the best
+            # checkpoints
+            validator = build_validator(args)
+            if self._validates():
+                validator.build(task, model,
+                                model_dir if self._rank0 else None)
             logging.info("Inline validator: %s", args["validator.class"])
-        # bucket batch sizes must divide the micro-batch count
-        batch_args = dict(args, batch_size_multiple=max(8, update_cycle))
+        # bucket batch sizes must divide dp x the micro-batch count and
+        # the pipeline's micro-batches
+        multiple = max(8, dp * update_cycle)
+        mp_cfg = dict(args.get("model.params") or {})
+        for side in ("encoder", "decoder"):
+            stages = int(mp_cfg.get(f"{side}.pipeline_stages") or 1)
+            if stages > 1:
+                micro = int(mp_cfg.get(f"{side}.pipeline_microbatches")
+                            or stages)
+                multiple = multiple * micro // math.gcd(multiple, micro)
+        batch_args = dict(args, batch_size_multiple=multiple)
         batch_iter_fn = task.create_batch_iterator(
-            self._custom_dataset, compat.ModeKeys.TRAIN, batch_args)
+            self._custom_dataset, compat.ModeKeys.TRAIN, batch_args,
+            num_replicas_in_sync=dp, shard_id=mesh.coords["data"],
+            total_shards=dp)
+        if mesh.size > 1:
+            epochs = _mesh_batches(batch_iter_fn, mesh, update_cycle,
+                                   device=model.device)
+        else:
+            epochs = None
         step_key = make_key(seed + 1)
         device = model.device
 
@@ -347,7 +416,8 @@ class Trainer(BaseExperiment):
         try:
             while step < train_steps:
                 epoch_batches = 0
-                for batch in _resilient_batches(batch_iter_fn):
+                for batch in (_resilient_batches(batch_iter_fn)
+                              if epochs is None else epochs):
                     host_batch = batch
                     if update_cycle > 1:
                         host_batch = split_microbatches(batch, update_cycle)
@@ -388,14 +458,17 @@ class Trainer(BaseExperiment):
                         window_tokens = window_samples = 0
                     if step % save_every == 0 and model_dir:
                         self._save(model_dir, step, state, model, args)
-                    if validator is not None and validator.should_eval(step):
-                        if validator.validate(step, state_dict_to_flat(model)):
+                    if validator is not None \
+                            and validator.should_eval(step):
+                        stop = self._validate(validator, step, model)
+                        if stop:
                             logging.info("Early stop at step %d.", step)
                             train_steps = step
                     if step >= train_steps:
                         break
-                if epoch_batches == 0:
-                    logging.warning("Empty dataset epoch; stopping.")
+                if epoch_batches == 0 or epochs is not None:
+                    if epoch_batches == 0:
+                        logging.warning("Empty dataset epoch; stopping.")
                     break
         finally:
             profiler.close()
@@ -407,6 +480,30 @@ class Trainer(BaseExperiment):
         logging.info("Training finished at step %d (last loss: %s)", step,
                      last_loss)
         return state
+
+    def _validates(self) -> bool:
+        """Whether this rank runs the inline validator: those of rank 0's
+        model group (rank 0 alone without tensor parallelism)."""
+        coords = self._mesh.coords
+        return coords["data"] == 0 and coords["stage"] == 0
+
+    def _validate(self, validator, step, model) -> bool:
+        """Validates the live weights (every rank calls it); returns rank
+        0's early stop.  Every rank takes part in gathering the weights
+        (rank 0's savers keep them whole) and every pipeline layer;
+        rank 0's model group decodes, each ring encoder over one rank."""
+        mesh, specs = self._mesh, self._specs
+        live = gather_tensors(dict(model.named_parameters()), specs, mesh)
+        flat = state_dict_to_flat(model, live) if self._rank0 else None
+        del live
+        stop = False
+        with whole_model(model, specs, mesh):
+            if self._validates():
+                stop = validator.validate(step, flat)
+        if mesh.size > 1:
+            stop = collectives.broadcast_object(
+                stop, 0, torch.distributed.group.WORLD)
+        return stop
 
     def _wrap_tx(self, tx):
         """Subclass hook: wraps the chain inside the bf16 master (the
@@ -421,12 +518,90 @@ class Trainer(BaseExperiment):
         return state.params
 
     def _save(self, model_dir, step, state, model, args):
+        """Rank 0 writes the checkpoint; under tensor or pipeline
+        parallelism every rank first takes part in gathering the shards
+        and the stages."""
+        mesh, specs = self._mesh, self._specs
+        params = self._params_for_save(state, args)
+        opt_state = state.opt_state
+        if mesh.shape["model"] > 1 or specs.owners:
+            params = gather_tensors(params, specs, mesh)
+            opt_state = _map_named_tensors(
+                opt_state, lambda name, t: gather_tensors(
+                    {name: t}, specs, mesh)[name])
+        if not self._rank0:
+            return
         ckpt_lib.save_checkpoint(
-            model_dir, step,
-            state_dict_to_flat(model, self._params_for_save(state, args)),
+            model_dir, step, state_dict_to_flat(model, params),
             max_to_keep=args.get("checkpoints_max_to_keep") or 8,
-            opt_state=ckpt_lib.opt_state_to_flat(state.opt_state,
-                                                 state.step))
+            opt_state=ckpt_lib.opt_state_to_flat(opt_state, state.step))
+
+    def _shard_opt_flat(self, flat):
+        """This rank's parts of a sidecar's moments (named by their
+        parameters' names, the last part of their keys)."""
+        specs = self._specs
+        if self._mesh.shape["model"] == 1 and not specs.owners:
+            return flat
+        out = {}
+        for key, value in flat.items():
+            name = key.rsplit("/", 1)[-1]
+            if specs.get(name) is not None or name in specs.owners:
+                value = shard_tensors({name: torch.from_numpy(
+                    np.asarray(value))}, self._specs,
+                    self._mesh)[name].numpy()
+            out[key] = value
+        return out
+
+
+def _map_named_tensors(node, fn, name=None):
+    """An optimizer state with every tensor leaf replaced by ``fn(name,
+    leaf)``, ``name`` the last dict key above the leaf (the parameter's
+    name for a moment)."""
+    if isinstance(node, dict):
+        return {k: _map_named_tensors(v, fn, k) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_map_named_tensors(v, fn, name) for v in node)
+    if isinstance(node, torch.Tensor):
+        return fn(name, node)
+    return node
+
+
+def _mesh_batches(batch_iter_fn, mesh, update_cycle, device):
+    """The batches of a mesh of ranks, epoch after epoch: the first stage
+    and model rank of each data coordinate reads its shard and hands each
+    batch to the other ranks of that coordinate; before each step the
+    ranks agree that every data rank has a batch, and all stop together
+    when one has none (an epoch of its shard gave no batch).  A data
+    error raises: one rank skipping a batch would desynchronize the
+    steps."""
+    leader = mesh.coords["stage"] == 0 and mesh.coords["model"] == 0
+    world = torch.distributed.group.WORLD
+
+    def local():
+        while True:
+            n = 0
+            for batch in batch_iter_fn():
+                if update_cycle > 1 and split_microbatches(
+                        batch, update_cycle) is None:
+                    continue
+                n += 1
+                yield batch
+            if n == 0:
+                return
+
+    it = local() if leader else None
+    while True:
+        batch = next(it, None) if leader else None
+        batch = collectives.broadcast_object(batch, 0,
+                                             mesh.group("replica"))
+        flag = collectives.all_reduce(
+            torch.tensor([0 if batch is None else 1], device=device), world,
+            torch.distributed.ReduceOp.MIN)
+        if int(flag.item()) == 0:
+            if batch is None:
+                logging.warning("Empty dataset epoch; stopping.")
+            return
+        yield batch
 
 
 def _resilient_batches(batch_iter_fn):

@@ -20,14 +20,28 @@ step allocates no new cache.  Under beam search the rows never move:
 ``_attend_indirect`` reads position j of row q from beam row
 ``beam_anc[b, q, j]``, selected with a gather (the JAX module selects
 the same dot products with a one-hot).
+
+Tensor parallelism (``parallel.apply_mesh`` sets ``tp_group`` and cuts
+the projections to this rank's heads): the q/k/v projections are
+column-parallel (their input goes through ``collectives.copy_to``), the
+attention runs on the local heads (the flash kernels included), and the
+output projection is row-parallel: its partial sums are all-reduced
+(``reduce_from``) before its bias is added once.  Attention dropout then
+folds the rank's model coordinate into the site's key.  With ``ring``
+(a ring group and the global key lengths) the self-attention runs as
+``ops/ring_attention.py`` over the time shards, without dropout.
 """
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from neurst_tpu_torch.layers.common_layers import apply_dropout, linear
 from neurst_tpu_torch.layers.quantization.quant_layers import dense_general
 from neurst_tpu_torch.ops.flash_attention import flash_attention
+from neurst_tpu_torch.ops.ring_attention import ring_self_attention
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.utils.rng import at_shard
 
 __all__ = ["MultiHeadAttention", "MultiHeadSelfAttention"]
 
@@ -63,6 +77,9 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = num_units // num_heads
         self.attention_dropout_rate = attention_dropout_rate
         self.dtype = dtype
+        # tensor parallelism (parallel.apply_mesh): the model group, this
+        # rank's place in it and the group's size
+        self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
         self._build_projections(num_units)
         self.output_transform = dense_general(num_units, num_units)
 
@@ -71,14 +88,26 @@ class MultiHeadAttention(nn.Module):
         self.kv_transform = dense_general(num_units, 2 * num_units)
 
     def _proj(self, layer, x, n_proj):
-        """-> [B, L, n_proj, N, H] in the compute dtype."""
-        y = linear(layer, x, self.dtype)
+        """-> [B, L, n_proj, N, H] in the compute dtype (N the local
+        heads)."""
+        y = linear(layer, collectives.copy_to(x, self.tp_group), self.dtype)
         return y.view(*y.shape[:-1], n_proj, self.num_heads, self.head_dim)
 
     def _output(self, out):
         """[B, F, N, H] -> output_transform -> [B, F, D]."""
-        return linear(self.output_transform, out.reshape(*out.shape[:2], -1),
-                      self.dtype)
+        out = out.reshape(*out.shape[:2], -1)
+        if self.tp_group is None:
+            return linear(self.output_transform, out, self.dtype)
+        layer = self.output_transform
+        y = collectives.reduce_from(F.linear(
+            out.to(self.dtype), layer.weight.to(self.dtype)), self.tp_group)
+        return y + layer.bias.to(self.dtype)
+
+    def _site(self, dropout_key):
+        """The attention dropout key of this rank's heads."""
+        if self.tp_size > 1:
+            return at_shard(dropout_key, self.tp_rank)
+        return dropout_key
 
     def _attend(self, q, k, v, bias, is_training=False, dropout_key=None):
         """q [B, F, N, H], k/v [B, T, N, H], bias broadcastable to
@@ -92,7 +121,7 @@ class MultiHeadAttention(nn.Module):
         else:
             weights = torch.softmax(logits, dim=-1).to(self.dtype)
         weights = apply_dropout(weights, self.attention_dropout_rate,
-                                is_training, dropout_key)
+                                is_training, self._site(dropout_key))
         out = torch.einsum("bnft,btnh->bfnh", weights, v.to(self.dtype))
         return self._output(out)
 
@@ -102,7 +131,7 @@ class MultiHeadAttention(nn.Module):
         rate = self.attention_dropout_rate if is_training else 0.0
         return self._output(flash_attention(
             q, k, v, lengths, causal=causal, dropout_rate=rate,
-            dropout_key=dropout_key if rate else None))
+            dropout_key=self._site(dropout_key) if rate else None))
 
     def compute_kv(self, memory):
         """Projects memory to (k, v), each [B, T, N, H]."""
@@ -157,7 +186,7 @@ class MultiHeadSelfAttention(MultiHeadAttention):
 
     def forward(self, query, bias=None, cache=None, decode_step=None,
                 flash_lengths=None, flash_causal=False, beam_anc=None,
-                is_training=False, dropout_key=None):
+                is_training=False, dropout_key=None, ring=None):
         """Self-attention over ``query`` [B, F, D] -> [B, F, D].
 
         With ``flash_lengths`` (no cache) the flash kernels compute it
@@ -169,6 +198,10 @@ class MultiHeadSelfAttention(MultiHeadAttention):
         and no ``beam_anc`` is read."""
         qkv = self._proj(self.qkv_transform, query, 3)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is None and ring is not None:
+            group, lengths = ring
+            return self._output(ring_self_attention(
+                q, k, v, group, lengths, causal=flash_causal))
         if cache is None and flash_lengths is not None:
             return self._flash(q, k, v, flash_lengths, flash_causal,
                                is_training, dropout_key)

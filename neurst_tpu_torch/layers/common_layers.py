@@ -13,6 +13,15 @@ the flax modules thread their 'dropout' rng; ``apply_dropout`` is the
 port of ``neurst_tpu``'s, on the mask kernel of ``ops/fused_dropout.py``.
 Modules are built without drawing random numbers; their
 weights come from ``utils/param_bridge`` or the model's ``init_params``.
+
+Tensor parallelism (``parallel.apply_mesh`` sets ``tp_group``): the FFN
+runs on this rank's filter columns (dense1 column-parallel, dense2
+row-parallel: the partial sums are all-reduced and dense2's bias added
+once, after), the fused kernels included; its hidden dropout folds the
+rank's model coordinate into the site's key.  A word embedding holds
+this rank's rows of the vocabulary: a lookup takes the rows it holds and
+all-reduces, and the tied softmax (``attend``, ``full_weights``) reads
+the table gathered whole.
 """
 
 import math
@@ -25,6 +34,8 @@ from neurst_tpu_torch.layers.quantization.quant_layers import (
     dense_general, int8_serving_enabled, quant_enabled)
 from neurst_tpu_torch.ops.fused_dropout import dropout, quantized_site
 from neurst_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_available
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.utils.rng import at_shard
 
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
            "sinusoidal_position_signal", "sinusoidal_position_signal_at",
@@ -64,7 +75,7 @@ def apply_dropout(x, rate: float, is_training: bool, key=None):
     if key is None:
         raise ValueError(f"dropout rate {rate} in training needs a dropout "
                          f"key (utils.rng.DropoutKey)")
-    return dropout(x, rate, key, quantized_site(x.shape))
+    return dropout(x, rate, key, quantized_site(x.shape, key.shards))
 
 
 def linear(layer: nn.Module, x, dtype):
@@ -117,6 +128,8 @@ class TransformerFFN(nn.Module):
         self.dense1 = dense_general(input_size, filter_size,
                                     activation=activation)
         self.dense2 = dense_general(filter_size, output_size)
+        # tensor parallelism (parallel.apply_mesh)
+        self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
 
     def fuses(self, rows: int, is_training: bool, rate: float) -> bool:
         """Whether the fused FFN kernels run this layer at ``rows`` rows
@@ -127,6 +140,8 @@ class TransformerFFN(nn.Module):
             self.activation, rows, is_training, rate)
 
     def forward(self, x, is_training: bool = False, dropout_key=None):
+        if self.tp_group is not None:
+            return self._forward_tp(x, is_training, dropout_key)
         rate = self.dropout_rate if is_training else 0.0
         rows = x.numel() // x.shape[-1]
         if self.fuses(rows, is_training, rate):
@@ -139,6 +154,23 @@ class TransformerFFN(nn.Module):
             h = self._activate(h)
         h = apply_dropout(h, self.dropout_rate, is_training, dropout_key)
         return linear(self.dense2, h, self.dtype)
+
+    def _forward_tp(self, x, is_training, dropout_key):
+        """The FFN on this rank's filter columns; dense2's bias is added
+        after the all-reduce of the partial sums."""
+        x = collectives.copy_to(x, self.tp_group)
+        key = at_shard(dropout_key, self.tp_rank)
+        rate = self.dropout_rate if is_training else 0.0
+        b2 = self.dense2.bias
+        if self.fuses(x.numel() // x.shape[-1], is_training, rate):
+            y = fused_ffn(x.to(self.dtype), self.dense1.weight,
+                          self.dense1.bias, self.dense2.weight,
+                          torch.zeros_like(b2), rate, key if rate else None)
+        else:
+            h = self._activate(linear(self.dense1, x, self.dtype))
+            h = apply_dropout(h, self.dropout_rate, is_training, key)
+            y = F.linear(h.to(self.dtype), self.dense2.weight.to(self.dtype))
+        return collectives.reduce_from(y, self.tp_group) + b2.to(self.dtype)
 
 
 def sinusoidal_position_signal(length: int, channels: int, start: int = 0,
@@ -214,6 +246,23 @@ class WordEmbedding(nn.Module):
         if timing == "emb":
             self.position_weights = nn.Parameter(
                 torch.empty(max_positions, embedding_dim))
+        # vocabulary parallelism (parallel.apply_mesh): this rank holds
+        # rows [vocab_start, vocab_start + weights.shape[0])
+        self.tp_group, self.vocab_start = None, 0
+
+    def full_weights(self):
+        """The whole [V, D] table (gathered over the model group under
+        tensor parallelism; the backward keeps this rank's rows)."""
+        return collectives.gather_from(self.weights, 0, self.tp_group)
+
+    def _lookup(self, ids):
+        if self.tp_group is None:
+            return self.weights[ids].to(self.dtype)
+        local = ids - self.vocab_start
+        held = (local >= 0) & (local < self.weights.shape[0])
+        emb = self.weights[torch.where(held, local, 0)] \
+            * held[..., None].to(self.weights.dtype)
+        return collectives.reduce_from(emb, self.tp_group).to(self.dtype)
 
     def forward(self, ids, time=None):
         """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D].
@@ -223,7 +272,7 @@ class WordEmbedding(nn.Module):
             emb = (self.weights_q[ids].float()
                    * self.weights_scale[ids][..., None]).to(self.dtype)
         else:
-            emb = self.weights[ids].to(self.dtype)
+            emb = self._lookup(ids)
         if self.timing is None:
             return emb
         squeeze = ids.dim() == 1
@@ -257,7 +306,7 @@ class WordEmbedding(nn.Module):
         """[..., D] -> float32 logits [..., V] through the tied table.
         Products of compute-dtype values accumulate in float32, as the
         JAX ``preferred_element_type=float32`` dot does."""
-        table = self.weights_q if self.int8 else self.weights
+        table = self.weights_q if self.int8 else self.full_weights()
         w = table.to(features.dtype)
         logits = torch.matmul(features.float(), w.float().t())
         if self.int8:

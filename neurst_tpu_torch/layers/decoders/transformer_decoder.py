@@ -11,6 +11,13 @@ in place at each step) and memory keys/values [B, src_len, N, H]
 ``cross_attention`` blocks and no "memory" entries.  With
 ``moe_num_experts`` > 1 every ``moe_layer_frequency``-th layer has an MoE
 FFN, as in the encoder.
+
+``pipeline_stages`` > 1 runs the layers as a GPipe pipeline in training
+(``layers/pipeline.py``) over the mesh's "stage" group (``stage_group``):
+each stage's layers cross-attend to their micro-batch of the memory, and
+the output is the last stage's (zeros on the other stages).  Under tensor
+parallelism ``num_heads`` is this rank's (the cache holds the local
+heads).
 """
 
 import torch
@@ -18,6 +25,8 @@ from torch import nn
 
 from neurst_tpu_torch.layers import layer_utils
 from neurst_tpu_torch.layers.common_layers import LayerNorm
+from neurst_tpu_torch.layers.pipeline import (DECODER_TAG, check_pipeline,
+                                              gpipe)
 from neurst_tpu_torch.layers.transformer_layers import (
     TransformerDecoderLayer, moe_layer_kwargs)
 from neurst_tpu_torch.utils.rng import SIDE_DECODER, at_site
@@ -40,9 +49,15 @@ class TransformerDecoder(nn.Module):
                  moe_num_experts: int = 0, moe_layer_frequency: int = 2,
                  moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
                  moe_aux_loss_coef: float = 0.01,
-                 moe_router_jitter: float = 0.01):
+                 moe_router_jitter: float = 0.01,
+                 pipeline_stages: int = 1, pipeline_microbatches: int = 0):
         super().__init__()
         self.num_layers = num_layers
+        self.pipeline_stages = int(pipeline_stages or 1)
+        self.pipeline_microbatches = int(pipeline_microbatches or 0)
+        check_pipeline(self.pipeline_stages, moe_num_experts,
+                       bool(enable_flash_attention), encoder=False)
+        self.stage_group = None  # set by parallel.apply_mesh
         self.with_cross_attention = with_cross_attention
         self.side = side
         self.num_heads = num_attention_heads
@@ -159,16 +174,25 @@ class TransformerDecoder(nn.Module):
                     memory_bias = memory_bias + self._lagging_bias(
                         inputs.shape[1], memory_padding.shape[1],
                         decode_step, decode_lagging, inputs.device)
-        x = inputs
-        for i, layer in enumerate(self._layers()):
-            x = layer(x, self_attention_bias=self_bias, memory=memory,
-                      memory_bias=memory_bias,
-                      cache=None if cache is None else cache[f"layer_{i}"],
-                      decode_step=decode_step, self_flash_causal=use_flash,
-                      cross_flash_lengths=cross_flash_lengths,
-                      beam_anc=beam_anc, is_training=is_training,
-                      dropout_key=at_site(dropout_key,
-                                          self.side << 16 | i << 4))
+        def run(x, lo, hi, args, key):
+            for i in range(lo, hi):
+                x = getattr(self, f"layer_{i}")(
+                    x, self_attention_bias=self_bias,
+                    memory=args["memory"], memory_bias=args["memory_bias"],
+                    cache=None if cache is None else cache[f"layer_{i}"],
+                    decode_step=decode_step, self_flash_causal=use_flash,
+                    cross_flash_lengths=cross_flash_lengths,
+                    beam_anc=beam_anc, is_training=is_training,
+                    dropout_key=at_site(key, self.side << 16 | i << 4))
+            return x
+
+        args = {"memory": memory, "memory_bias": memory_bias}
+        if self.pipeline_stages > 1 and is_training and cache is None:
+            x = gpipe(self, run, inputs, args, self.num_layers,
+                      self.pipeline_stages, self.pipeline_microbatches,
+                      self.stage_group, DECODER_TAG, dropout_key)
+        else:
+            x = run(inputs, 0, self.num_layers, args, dropout_key)
         if not self.post_normalize:
             x = self.output_ln(x)
         return x, cache

@@ -87,13 +87,17 @@ class _LayerCommon(nn.Module):
 class TransformerEncoderLayer(_LayerCommon):
 
     def forward(self, x, attention_bias=None, flash_lengths=None,
-                flash_causal=False, is_training=False, dropout_key=None):
+                flash_causal=False, is_training=False, dropout_key=None,
+                ring=None):
+        """``ring`` (a ring group and the global key lengths) runs the
+        self-attention over the time shards of ``x``."""
         x = self._prepost(
             self.self_attention_ln, x,
             lambda y: self.self_attention(
                 y, bias=attention_bias, flash_lengths=flash_lengths,
                 flash_causal=flash_causal, is_training=is_training,
-                dropout_key=at_site(dropout_key, SELF_ATTENTION)),
+                dropout_key=at_site(dropout_key, SELF_ATTENTION),
+                ring=ring),
             is_training, at_site(dropout_key, SELF_ATTENTION_OUT))
         return self._prepost(
             self.ffn_ln, x,

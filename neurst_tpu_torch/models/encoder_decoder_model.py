@@ -36,13 +36,16 @@ from neurst_tpu_torch.layers.quantization.quant_layers import (
     dense_general, int8_serving_enabled, quant_enabled)
 from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
 from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
+from neurst_tpu_torch.parallel import collectives
 from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["EncoderDecoderModel", "encdec_flags"]
 
-# config keys that only matter to the JAX layouts: the port runs the
-# per-layer stack (param_bridge unstacks scanned checkpoints); options
-# whose switch is off need no support
+# config keys that only matter to the JAX layouts, or to stacks that have
+# the feature: the port runs the per-layer stack (param_bridge unstacks
+# scanned and pipelined checkpoints); the transformer stacks take the
+# pipeline and ring settings, a stack without them (LightConv's) ignores
+# them; options whose switch is off need no support
 _LAYOUT_IGNORED = {
     "scan_layers", "pipeline_stages", "pipeline_microbatches",
     "ring_attention_axis", "moe_layer_frequency", "moe_top_k",
@@ -307,7 +310,8 @@ class EncoderDecoderModel(BaseModel):
             is_training, dropout_key,
             decode_lagging=self.decode_lagging_of(inputs))
         if return_prelogits:
-            return {"prelogits": dec_out, "softmax_w": modality.weights,
+            return {"prelogits": dec_out,
+                    "softmax_w": modality.full_weights(),
                     "softmax_bias": modality.bias}
         return self.output_logits(dec_out)
 
@@ -322,7 +326,11 @@ class EncoderDecoderModel(BaseModel):
         JAX module's ``output_logits``."""
         if self.tied_softmax:
             return self.trg_modality.attend(dec_out)
-        return linear(self.output_linear, dec_out, self.dtype).float()
+        group = getattr(self, "tp_group", None)
+        logits = linear(self.output_linear,
+                        collectives.copy_to(dec_out, group), self.dtype)
+        # a vocabulary-parallel projection: this rank's columns, gathered
+        return collectives.gather_from(logits, -1, group).float()
 
     def teacher_force(self, decoder, modality, trg_input, enc, src_padding,
                       is_training=False, dropout_key=None,

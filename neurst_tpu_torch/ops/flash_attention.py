@@ -45,7 +45,8 @@ import torch
 
 from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
                                                 threshold_and_scale)
-from neurst_tpu_torch.utils.rng import DropoutKey, site_words
+from neurst_tpu_torch.utils.rng import (DropoutKey, group_base, key_words,
+                                        site_words)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_bwd",
@@ -77,6 +78,13 @@ def _keep(q, k, drop):
     b, t_q, n, _ = q.shape
     return dropout_keep_mask((b, n, t_q, k.shape[1]), key, threshold,
                              q.device)
+
+
+def _group(q, k, drop):
+    """The site's first element group, of its B x N x Tq x Tk
+    elements."""
+    b, t_q, n, _ = q.shape
+    return group_base(drop[2], b * n * t_q * k.shape[1]) if drop[0] else 0
 
 
 def _scaled(p, keep, inv_keep):
@@ -236,7 +244,7 @@ def _kernel():
                    + [ctypes.c_longlong] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float] + [ctypes.c_uint32] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_ulonglong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -255,7 +263,7 @@ def _launch(q, k, v, lengths, causal, drop):
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
              int(causal), _DTYPE_CODES[q.dtype], drop[0], drop[1],
-             *site_words(drop[2]), stream)
+             *site_words(drop[2]), _group(q, k, drop), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
                            f"error {err}")
@@ -302,7 +310,7 @@ def flash_attention_fwd(q, k, v, lengths=None, causal: bool = False,
     threshold, inv_keep, key = _drop_consts(dropout_rate, dropout_key)
     return torch.ops.neurst_tpu_torch.flash_attention_fwd(
         q, k, v, _full_lengths(q, k, lengths), bool(causal), int(threshold),
-        float(inv_keep), list(site_words(key)))
+        float(inv_keep), list(key_words(key)))
 
 
 flash_attention_fwd.launches = 0
@@ -318,7 +326,8 @@ def _bwd_kernel(name):
     n_out = 1 if name == "dq" else 2
     fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -335,7 +344,8 @@ def _launch_bwd(name, outs, q, k, v, do, lse, delta, lengths, causal,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
         *(x.data_ptr() for x in outs), b, n, t_q, k.shape[1], h, strides,
-        int(causal), _DTYPE_CODES[q.dtype], dropout, drop[1], stream)
+        int(causal), _DTYPE_CODES[q.dtype], dropout, _group(q, k, drop),
+        drop[1], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_{name} launch failed: CUDA "
                            f"error {err}")

@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from neurst_tpu_torch.utils.rng import philox4x32_10, site_words
+from neurst_tpu_torch.utils.rng import group_base, philox4x32_10, site_words
 
 __all__ = ["dropout", "fused_dropout_apply", "dropout_reference",
            "dropout_words", "dropout_keep_mask", "threshold_and_scale",
@@ -46,10 +46,12 @@ QUANTIZED_MIN_SIZE = 1 << 16
 QUANTIZED_LANES = 128
 
 
-def quantized_site(shape) -> bool:
+def quantized_site(shape, shards: int = 1) -> bool:
     """Whether a dropout site of this shape takes the 1/256 rate (the
-    sites the TPU path sends through its mask kernel)."""
-    size = 1
+    sites the TPU path sends through its mask kernel), judged by the
+    single-rank tensor of which this one is one of ``shards`` row
+    shards."""
+    size = int(shards)
     for s in shape:
         size *= int(s)
     return size >= QUANTIZED_MIN_SIZE and int(shape[-1]) % \
@@ -72,11 +74,12 @@ def threshold_and_scale(rate: float, quantized: bool):
     return min(int(round(rate * 4294967296.0)), _MASK32), 1.0 / (1.0 - rate)
 
 
-def dropout_words(n: int, key, device=None):
+def dropout_words(n: int, key, device=None, group: int = 0):
     """int64 [n]: the 32-bit mask word of elements 0 .. n - 1 of a site
-    (``key`` a ``utils.rng.DropoutKey``)."""
+    (``key`` a ``utils.rng.DropoutKey``) whose first element group is
+    ``group``."""
     groups = (int(n) + 3) // 4
-    g = torch.arange(groups, dtype=torch.int64, device=device)
+    g = torch.arange(groups, dtype=torch.int64, device=device) + int(group)
     words = philox4x32_10(g & _MASK32, g >> 32, key.stream, key.micro,
                           key.k0, key.k1)
     return torch.stack(words, dim=1).reshape(-1)[:n]
@@ -84,13 +87,16 @@ def dropout_words(n: int, key, device=None):
 
 def dropout_keep_mask(shape, key, threshold: int, device=None):
     """bool mask of the given shape, element i (row-major) kept when its
-    word is at least ``threshold``."""
+    word is at least ``threshold``; the key's batch-row offset moves the
+    elements by that many leading rows (a shard draws its rows' masks of
+    the single-rank tensor)."""
     n = 1
     for s in shape:
         n *= int(s)
+    group = group_base(key, n)
     if threshold == 0:
         return torch.ones(tuple(shape), dtype=torch.bool, device=device)
-    return (dropout_words(n, key, device) >= threshold).reshape(
+    return (dropout_words(n, key, device, group) >= threshold).reshape(
         tuple(shape))
 
 
@@ -108,7 +114,8 @@ def _kernel():
     fn = load("fused_dropout").neurst_fused_dropout
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong,
                                             ctypes.c_uint32, ctypes.c_float]
-                   + [ctypes.c_uint32] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_uint32] * 4
+                   + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,7 +134,7 @@ def fused_dropout_apply(x, key, threshold: int, scale: float):
     y = torch.empty_like(x)
     err = _kernel()(x.data_ptr(), y.data_ptr(), x.numel(), int(threshold),
                     float(scale), *site_words(key),
-                    _DTYPE_CODES[x.dtype],
+                    group_base(key, x.numel()), _DTYPE_CODES[x.dtype],
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_dropout launch failed: CUDA error {err}")

@@ -48,7 +48,8 @@ from neurst_tpu_torch.ops._plan import (SMS, aligned16, chunk_splits,
 from neurst_tpu_torch.ops.fused_dropout import (dropout_keep_mask,
                                                 threshold_and_scale)
 from neurst_tpu_torch.ops.kernel_gates import fused_ffn_min_rows
-from neurst_tpu_torch.utils.rng import DropoutKey, site_words
+from neurst_tpu_torch.utils.rng import (DropoutKey, group_base, key_words,
+                                        site_words)
 
 __all__ = ["fused_ffn", "fused_ffn_fwd", "fused_ffn_bwd",
            "fused_ffn_available", "DIMS"]
@@ -161,7 +162,8 @@ def _kernel(name):
     ptr, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint32)
     fn.argtypes = {
-        "fwd": [ptr] * 8 + [i32] * 4 + [u32, f32] + [u32] * 4 + [i32, ptr],
+        "fwd": [ptr] * 8 + [i32] * 4 + [u32, f32] + [u32] * 4
+        + [ctypes.c_ulonglong, i32, ptr],
         "fwd_sum": [ptr] * 3 + [i32] * 3 + [ptr],
         "dx": [ptr] * 7 + [i32] * 4 + [f32, i32, ptr],
         "dw": [ptr] * 6 + [i32] * 4 + [f32, i32, ptr],
@@ -208,7 +210,7 @@ def fused_ffn_fwd(x2, w1, b1, w2, b2, dropout_rate: float = 0.0,
     threshold, scale, key = _drop(dropout_rate, dropout_key)
     y, hd = torch.ops.neurst_tpu_torch.fused_ffn_fwd(
         x2, w1, b1, w2, b2, int(threshold), float(scale),
-        list(site_words(key)), bool(save_hidden))
+        list(key_words(key)), bool(save_hidden))
     return y, (hd if save_hidden else None)
 
 
@@ -231,6 +233,7 @@ def _launch_fwd(x2, w1, b1, w2, b2, drop, save_hidden):
         b2.data_ptr(), y.data_ptr(), 0 if hd is None else hd.data_ptr(),
         0 if partials is None else partials.data_ptr(), rows, filter_size,
         dim, splits, threshold, scale, *site_words(key),
+        group_base(key, rows * filter_size),
         _DTYPE_CODES[x2.dtype], stream))
     fused_ffn_fwd.launches += 1
     if partials is not None:

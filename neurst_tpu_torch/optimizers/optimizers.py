@@ -91,11 +91,16 @@ def clip(max_delta: float) -> GradientTransformation:
     return _stateless(fn)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, norm_fn=None
+                        ) -> GradientTransformation:
     """Scales the updates by max_norm / ||updates|| when the global norm
-    reaches max_norm (without a host sync)."""
+    reaches max_norm (without a host sync).  ``norm_fn`` replaces
+    ``global_norm`` (the norm over every rank's shards under tensor
+    parallelism)."""
+    norm_fn = norm_fn or global_norm
+
     def fn(updates, params):
-        g_norm = global_norm(updates)
+        g_norm = norm_fn(updates)
         factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                              max_norm / g_norm)
         return _rebuild(updates, torch._foreach_mul(list(updates.values()),
@@ -368,14 +373,16 @@ class SGD(Optimizer):
 def create_optax_chain(optimizer: Optimizer,
                        lr: Union[float, Callable],
                        clip_value: Optional[float] = None,
-                       clip_norm: Optional[float] = None
+                       clip_norm: Optional[float] = None,
+                       norm_fn: Optional[Callable] = None
                        ) -> GradientTransformation:
     """clip by value -> clip by global norm -> optimizer(lr), as the JAX
-    package's chain of the same name."""
+    package's chain of the same name; ``norm_fn`` is the clip's norm
+    (``global_norm`` by default)."""
     parts = []
     if clip_value:
         parts.append(clip(clip_value))
     if clip_norm:
-        parts.append(clip_by_global_norm(clip_norm))
+        parts.append(clip_by_global_norm(clip_norm, norm_fn))
     parts.append(optimizer.make(lr))
     return chain(*parts) if len(parts) > 1 else parts[0]

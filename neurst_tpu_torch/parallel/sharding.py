@@ -1,0 +1,333 @@
+"""Puts a model on a mesh: tensor-parallel shards, pipeline and ring
+groups, and the gathers and slices that carry whole tensors (checkpoints,
+optimizer sidecars) to and from the shards.
+
+``apply_mesh(model, mesh)`` (the port's counterpart of the JAX trainer's
+``params_shardings`` + ``device_put``) hands the "stage" group to every
+pipelined stack, the ring axis's group to every ring-attention encoder
+and, with a "model" axis, cuts each parameter that ``params_shardings``
+shards to this rank's part and tells its module (the attention layers
+their local heads, the FFNs their filter columns, the word embeddings
+their vocabulary rows, an untied softmax its columns).  Over a "stage"
+axis of several ranks each layer of a pipelined stack stays on the ranks
+of the stage that runs it (the others hold an empty tensor in its place,
+and so do its optimizer moments), as the JAX package shards its
+``[S, P, ...]`` stacks over "stage"; the embeddings, the output layer
+norms and every stack that is not pipelined stay on every stage.  It
+returns a ``Placement``: the shard specs by parameter name and the
+layers' stages.
+
+``gather_tensors`` rebuilds whole tensors from the shards and the stages
+(every rank takes part; checkpoints are written from rank 0 under the
+single-rank names, which the JAX package reads), and ``shard_tensors``
+cuts whole tensors (a restored checkpoint, a moment of the optimizer
+sidecar) to this rank's part.  ``whole_model`` gives every rank every
+layer and whole sequences for an inference forward (the trainer's
+validator).  ``make_norm_fn`` is the global gradient norm over the shards
+and the stages.
+"""
+
+import contextlib
+import logging
+from typing import Dict, Optional
+
+import torch
+
+from neurst_tpu_torch.layers.attentions.multi_head_attention import \
+    MultiHeadAttention
+from neurst_tpu_torch.layers.common_layers import (TransformerFFN,
+                                                   WordEmbedding)
+from neurst_tpu_torch.layers.decoders.transformer_decoder import \
+    TransformerDecoder
+from neurst_tpu_torch.layers.encoders.transformer_encoder import \
+    TransformerEncoder
+from neurst_tpu_torch.optimizers.optimizers import global_norm
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.parallel.mesh import ShardSpec, params_shardings
+
+__all__ = ["Placement", "apply_mesh", "take_shard", "join_shards",
+           "gather_tensors", "shard_tensors", "whole_model", "make_norm_fn",
+           "pipelined"]
+
+
+class Placement(dict):
+    """{parameter name: ShardSpec or None} of the tensor-parallel shards,
+    and ``owners``: {name: (stage coordinate, shape on its stage)} of the
+    pipelined stacks' layers, each held by the ranks of its stage
+    alone."""
+
+    def __init__(self, specs, owners=None):
+        super().__init__(specs)
+        self.owners = dict(owners or {})
+
+
+def _blocked(shape, spec: ShardSpec):
+    d = spec.dim
+    return shape[:d] + [spec.blocks, shape[d] // spec.blocks] + shape[d + 1:]
+
+
+def take_shard(t: torch.Tensor, spec: Optional[ShardSpec], coord: int,
+               n: int) -> torch.Tensor:
+    """Part ``coord`` of ``n`` of a whole tensor under ``spec``."""
+    if spec is None or n == 1:
+        return t
+    shape = list(t.shape)
+    per = shape[spec.dim] // spec.blocks // n
+    v = t.reshape(_blocked(shape, spec)).narrow(spec.dim + 1, coord * per,
+                                                per)
+    shape[spec.dim] = spec.blocks * per
+    return v.reshape(shape).contiguous()
+
+
+def join_shards(parts, spec: ShardSpec) -> torch.Tensor:
+    """The whole tensor of its parts (in rank order) under ``spec``."""
+    blocked = [p.reshape(_blocked(list(p.shape), spec)) for p in parts]
+    whole = torch.cat(blocked, dim=spec.dim + 1)
+    shape = list(parts[0].shape)
+    shape[spec.dim] *= len(parts)
+    return whole.reshape(shape)
+
+
+def _model_axis(mesh):
+    return (mesh.group("model"), mesh.coords["model"], mesh.shape["model"])
+
+
+def _owners(specs) -> dict:
+    return getattr(specs, "owners", {})
+
+
+def _from_stage(t: torch.Tensor, name: str, specs, mesh) -> torch.Tensor:
+    """A pipeline layer's tensor from the ranks of its stage (every rank
+    of the stage group gets it); any other tensor as it is."""
+    owner = _owners(specs).get(name)
+    if owner is None:
+        return t
+    stage, shape = owner
+    buf = t.detach().contiguous() if mesh.coords["stage"] == stage \
+        else t.new_empty(shape)
+    return collectives.broadcast(buf, stage, mesh.group("stage"))
+
+
+def gather_tensors(tensors: Dict[str, torch.Tensor], specs, mesh
+                   ) -> Dict[str, torch.Tensor]:
+    """Whole tensors of {name: local tensor} (every rank calls it with the
+    same names; each gets the whole)."""
+    group, _, n = _model_axis(mesh)
+    out = {}
+    for name, t in tensors.items():
+        t = _from_stage(t, name, specs, mesh)
+        spec = specs.get(name)
+        if spec is None or n == 1:
+            out[name] = t
+            continue
+        parts = collectives.all_gather(t.detach().contiguous()[None], 0,
+                                       group)
+        out[name] = join_shards(list(parts), spec)
+    return out
+
+
+def shard_tensors(tensors: Dict[str, torch.Tensor], specs, mesh
+                  ) -> Dict[str, torch.Tensor]:
+    """This rank's parts of {name: whole tensor} (an empty tensor for a
+    pipeline layer of another stage)."""
+    _, coord, n = _model_axis(mesh)
+    owners = _owners(specs)
+    out = {}
+    for name, t in tensors.items():
+        if name in owners and owners[name][0] != mesh.coords["stage"]:
+            out[name] = t.new_empty(0)
+        else:
+            out[name] = take_shard(t, specs.get(name), coord, n)
+    return out
+
+
+@contextlib.contextmanager
+def whole_model(model: torch.nn.Module, specs, mesh):
+    """While the block runs, every rank holds every pipeline layer (of
+    its model shard) and each ring encoder runs over its rank alone: an
+    inference forward (the trainer's validator) runs every layer over
+    whole sequences.  The placement comes back after it (every rank
+    enters)."""
+    owners = _owners(specs)
+    params = dict(model.named_parameters())
+    held = {name: params[name].data for name in owners}
+    rings = [m for m in model.modules() if isinstance(m, TransformerEncoder)]
+    groups = [m.ring_group for m in rings]
+    try:
+        with torch.no_grad():
+            for name in owners:
+                params[name].data = _from_stage(held[name], name, specs,
+                                                mesh)
+        for m in rings:
+            m.ring_group = None
+        yield
+    finally:
+        for name, t in held.items():
+            params[name].data = t
+        for m, group in zip(rings, groups):
+            m.ring_group = group
+
+
+def make_norm_fn(specs, mesh):
+    """The global norm of a {name: gradient} tree whose sharded entries
+    are this rank's parts and whose pipeline layers are its stage's:
+    their squares are summed over the model group and the stage group,
+    the replicated entries counted once (None on a mesh with neither)."""
+    group, _, n = _model_axis(mesh)
+    owners = _owners(specs)
+    if n == 1 and not owners:
+        return None
+
+    def norm_fn(tree):
+        # squares of [stage-shared, stage-local] x [replicated, sharded]
+        device = next(iter(tree.values())).device
+        sq = torch.zeros((2, 2), dtype=torch.float32, device=device)
+        for local in (0, 1):
+            for sharded in (0, 1):
+                part = [g for k, g in tree.items()
+                        if (k in owners) == local
+                        and (specs.get(k) is not None) == sharded]
+                if part:
+                    sq[local, sharded] = global_norm(
+                        dict(enumerate(part))) ** 2
+        model_sum = collectives.all_reduce(sq[:, 1].clone(), group)
+        stage_sum = collectives.all_reduce(
+            (model_sum[1] + sq[1, 0]).clone(), mesh.group("stage")
+            if owners else None)
+        return torch.sqrt(stage_sum + model_sum[0] + sq[0, 0])
+
+    return norm_fn
+
+
+def pipelined(model) -> bool:
+    """Whether a stack of ``model`` runs as a pipeline in training."""
+    return any(getattr(m, "pipeline_stages", 1) > 1
+               for m in model.modules()
+               if isinstance(m, (TransformerEncoder, TransformerDecoder)))
+
+
+def _set_linear(layer, rows: Optional[int] = None,
+                cols: Optional[int] = None):
+    if rows is not None:
+        layer.out_features = rows
+    if cols is not None:
+        layer.in_features = cols
+
+
+def _stage_layers(model, mesh) -> Dict[str, int]:
+    """{parameter name: stage coordinate} of the pipelined stacks' layers
+    over a "stage" axis of several ranks (rank g runs layers
+    [g L / G, (g + 1) L / G))."""
+    stages = mesh.shape["stage"]
+    out = {}
+    if stages == 1:
+        return out
+    for prefix, module in model.named_modules():
+        if not isinstance(module, (TransformerEncoder, TransformerDecoder)) \
+                or module.pipeline_stages == 1:
+            continue
+        for i in range(module.num_layers):
+            layer = getattr(module, f"layer_{i}")
+            for name, _ in layer.named_parameters():
+                out[f"{prefix}.layer_{i}.{name}".lstrip(".")] = \
+                    i * stages // module.num_layers
+    return out
+
+
+def apply_mesh(model: torch.nn.Module, mesh) -> Placement:
+    """Puts ``model`` (whole, on its device) on ``mesh``; returns the
+    shard specs by parameter name (None: replicated) and the pipeline
+    layers' stages."""
+    stage = mesh.group("stage")
+    for module in model.modules():
+        if isinstance(module, (TransformerEncoder, TransformerDecoder)):
+            module.stage_group = stage
+        if isinstance(module, TransformerEncoder) \
+                and module.enable_ring_attention:
+            axis = module.ring_attention_axis
+            if axis not in mesh.groups:
+                raise ValueError(f"ring_attention_axis {axis!r} is not a "
+                                 f"mesh axis {tuple(mesh.groups)}")
+            module.ring_group = mesh.group(axis)
+    if mesh.shape["stage"] > 1 and not pipelined(model):
+        raise ValueError(
+            f"pipeline_parallel {mesh.shape['stage']} needs a stack with "
+            f"pipeline_stages > 1 (encoder/decoder.pipeline_stages)")
+    specs = params_shardings(model, mesh)
+    _cut_model_axis(model, specs, mesh)
+    params = dict(model.named_parameters())
+    owners = {}
+    with torch.no_grad():
+        for name, stage in _stage_layers(model, mesh).items():
+            p = params[name]
+            owners[name] = (stage, tuple(p.shape))
+            if stage != mesh.coords["stage"]:
+                p.data = p.data.new_empty(0)
+    if owners:
+        logging.info("Pipeline: stage %d holds %d of the %d layer "
+                     "parameters", mesh.coords["stage"],
+                     sum(s == mesh.coords["stage"]
+                         for s, _ in owners.values()), len(owners))
+    return Placement(specs, owners)
+
+
+def _cut_model_axis(model, specs, mesh):
+    """Cuts the parameters that ``specs`` shards to this rank's parts and
+    tells their modules."""
+    group, coord, n = _model_axis(mesh)
+    if n == 1:
+        return
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            spec = specs[name]
+            if spec is not None:
+                p.data = take_shard(p.data, spec, coord, n)
+    names = {id(m): name for name, m in model.named_modules()}
+
+    def sharded(module, leaf):
+        prefix = names[id(module)]
+        return specs.get(f"{prefix}.{leaf}" if prefix else leaf) is not None
+
+    tp = dict(tp_group=group, tp_rank=coord, tp_size=n)
+    for module in model.modules():
+        if isinstance(module, MultiHeadAttention):
+            projections = [c for c in module.children()
+                           if c is not module.output_transform]
+            if not sharded(module.output_transform, "weight"):
+                continue
+            if any(not hasattr(c, "weight") or c.weight.dtype == torch.int8
+                   for c in projections):
+                raise NotImplementedError(
+                    "tensor parallelism with quantized attention "
+                    "projections is not supported")
+            module.__dict__.update(tp)
+            module.num_heads //= n
+            for c in projections:
+                _set_linear(c, rows=c.weight.shape[0])
+            _set_linear(module.output_transform,
+                        cols=module.output_transform.weight.shape[1])
+        elif isinstance(module, TransformerFFN):
+            if not sharded(module.dense1, "weight"):
+                continue
+            if not module._plain:
+                raise NotImplementedError(
+                    "tensor parallelism with a quantized FFN is not "
+                    "supported")
+            module.__dict__.update(tp)
+            _set_linear(module.dense1, rows=module.dense1.weight.shape[0])
+            _set_linear(module.dense2, cols=module.dense2.weight.shape[1])
+        elif isinstance(module, WordEmbedding):
+            if not sharded(module, "weights"):
+                continue
+            module.tp_group = group
+            module.vocab_start = coord * module.weights.shape[0]
+    for module in model.modules():
+        if isinstance(module, TransformerDecoder) and module.num_layers:
+            # the decode cache holds the layers' (local) heads
+            module.num_heads = module.layer_0.self_attention.num_heads
+    if "output_linear.weight" in specs \
+            and specs["output_linear.weight"] is not None:
+        model.tp_group = group
+    logging.info("Tensor parallelism: %d of %d parameters sharded over %d "
+                 "ranks", sum(s is not None for s in specs.values()),
+                 len(specs), n)

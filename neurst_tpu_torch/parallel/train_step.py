@@ -1,5 +1,5 @@
 """The train and eval steps (counterpart of
-``neurst_tpu/parallel/train_step.py``), on one device.
+``neurst_tpu/parallel/train_step.py``), on one rank or over a mesh.
 
 ``TrainState.params`` holds the model's own parameters
 (``dict(model.named_parameters())``): the step computes their gradients
@@ -26,6 +26,22 @@ one segment, the recompute holds every activation again before the
 backward starts, so a step's peak memory does not drop.
 Dropout masks are a function of (key, site, element), so the recompute
 draws the same ones.
+
+Over a mesh (``mesh`` with more than one rank on "data" or "stage") every
+micro-batch's raw loss sum and token count are kept apart, as under
+accumulation: the gradients of the sums are summed over the "stage" axis
+and then over "data", and divided by the token count summed the same
+way, so the loss and gradients are those of one rank on the global
+batch.  Under pipelining only the last stage runs the criterion (the
+others hold zeros in place of the model's output, whose backward still
+reaches their pipeline sends), and only the parameters that every stage
+holds are summed over "stage": a pipeline layer (``stage_local``, the
+names ``parallel.apply_mesh`` gives one stage) has its whole gradient on
+its own stage.  A rank's dropout key carries its rows' offset in the
+global micro-batch (``at_row``), so its masks are those of the
+single-rank step.  Tensor-parallel ranks compute the same loss and need
+no reduction of it; ``norm_fn`` is the gradient norm over their shards
+and stages.
 """
 
 import dataclasses
@@ -38,7 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from neurst_tpu_torch.optimizers.optimizers import (GradientTransformation,
                                                      apply_updates,
                                                      global_norm)
-from neurst_tpu_torch.utils.rng import fold_in, split
+from neurst_tpu_torch.parallel import collectives
+from neurst_tpu_torch.utils.rng import at_row, fold_in, split
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step"]
 
@@ -63,11 +80,21 @@ def _grad(loss, leaves):
             for p, g in zip(leaves, grads)]
 
 
+def _zero_through(out):
+    """A zero that depends on every tensor of a model output that needs a
+    gradient, so the backward runs through them."""
+    tensors = out.values() if isinstance(out, dict) else [out]
+    return sum(t.sum() * 0 for t in tensors
+               if torch.is_tensor(t) and t.requires_grad)
+
+
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
                     lr_schedule: Optional[Callable] = None,
                     extra_loss_fn: Optional[Callable] = None,
-                    remat: bool = False):
+                    remat: bool = False, mesh=None,
+                    norm_fn: Optional[Callable] = None,
+                    stage_local=frozenset()):
     """Builds ``train_step(state, batch, rng=None) -> (state, metrics)``
     with the metrics loss, aux_loss, grad_norm (of the gradients before
     clipping) and, with a schedule, lr (at the step's count).  The
@@ -76,7 +103,18 @@ def make_train_step(model, criterion, tx: GradientTransformation,
     update, with ``rng`` as the step's (already folded) dropout key.
     ``extra_loss_fn(params)`` adds a regularizer of the parameters (QAT's
     ``clip_l2_penalty``) to the loss, once a step, also under
-    accumulation.  ``remat`` recomputes the forward in the backward."""
+    accumulation.  ``remat`` recomputes the forward in the backward.
+    ``mesh`` (``parallel.mesh.Mesh``) reduces the step over its "data" and
+    "stage" axes; ``norm_fn`` replaces ``global_norm`` for the metric;
+    ``stage_local`` names the parameters that one pipeline stage holds."""
+    norm_fn = norm_fn or global_norm
+    distributed = mesh is not None and (mesh.shape["data"] > 1
+                                        or mesh.shape["stage"] > 1)
+    if not distributed:
+        mesh = None
+    # only the last pipeline stage holds the model's output
+    last_stage = mesh is None \
+        or mesh.coords["stage"] == mesh.shape["stage"] - 1
 
     # the fused projection + cross-entropy path: the model hands back
     # prelogits and the [B, T, V] logits are never formed
@@ -92,6 +130,8 @@ def make_train_step(model, criterion, tx: GradientTransformation,
 
     def plain_forward_terms(batch, rng):
         out, aux = model.call_train(batch, want_prelogits, rng)
+        if not last_stage:
+            return _zero_through(out), aux * 0, aux * 0
         loss_sum, denom = criterion.reduce_loss_terms(batch, out)
         return loss_sum, denom, aux
 
@@ -106,37 +146,49 @@ def make_train_step(model, criterion, tx: GradientTransformation,
                               use_reentrant=False)
         return plain_forward_terms(batch, rng)
 
-    def compute_grads(params, batch, rng=None):
+    def accumulate(params, batch, rng):
+        """The raw loss sums, token counts and gradients of every
+        micro-batch (one without accumulation), summed over the mesh's
+        "stage" and "data" axes, then normalized once by the token count.
+        Sums run in float32 even when the params (hence the grads) are
+        bf16, so small micro-batch contributions are not rounded away
+        before the f32 master sees them."""
         names = list(params)
         leaves = [params[n] for n in names]
+        data, data_coord = 1, 0
+        if mesh is not None:
+            data, data_coord = mesh.shape["data"], mesh.coords["data"]
         if update_cycle == 1:
-            loss, aux = forward(batch, rng)
-            if extra_loss_fn is not None:
-                loss = loss + extra_loss_fn(params)
-            grads = _grad(loss, leaves)
-            return loss.detach(), aux.detach(), dict(zip(names, grads))
-
-        # accumulate in float32 even when the params (hence the grads)
-        # are bf16, so small micro-batch contributions are not rounded
-        # away before the f32 master sees them
+            micros, keys = [batch], [rng]
+        else:
+            micros = [{k: v[i] for k, v in batch.items()}
+                      for i in range(update_cycle)]
+            keys = [None] * update_cycle if rng is None \
+                else split(rng, update_cycle)
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-        loss_sum = denom = aux_sum = 0.0
-        keys = [None] * update_cycle if rng is None else split(rng,
-                                                                update_cycle)
-        for i in range(update_cycle):
-            micro = {k: v[i] for k, v in batch.items()}
-            micro_loss, micro_denom, aux = forward_terms(micro, keys[i])
-            # the auxiliary loss weighs by the micro-batch's token count
+        stats = torch.zeros(3, dtype=torch.float32,
+                            device=leaves[0].device)
+        for micro, key in zip(micros, keys):
+            rows = next(v.shape[0] for v in micro.values() if len(v.shape))
+            micro_loss, micro_denom, aux = forward_terms(
+                micro, at_row(key, data_coord * rows, rows, data))
+            # the auxiliary loss weighs by the micro-batch's token count,
+            # and the loss reported includes it, as in JAX
             micro_aux = aux * micro_denom.detach()
-            grads = _grad(micro_loss + micro_aux, leaves)
+            total = micro_loss + micro_aux
+            grads = _grad(total, leaves)
             torch._foreach_add_(acc, [g.float() for g in grads])
-            # the loss reported includes the auxiliary term, as in JAX
-            loss_sum = loss_sum + (micro_loss + micro_aux).detach()
-            denom = denom + micro_denom.detach()
-            aux_sum = aux_sum + micro_aux.detach()
-        inv = 1.0 / denom.clamp_min(1e-8)
-        loss = loss_sum * inv
+            stats += torch.stack([total.detach(), micro_denom.detach(),
+                                  micro_aux.detach()])
+        if mesh is not None:
+            collectives.wait_pending()
+            shared = [a for n, a in zip(names, acc) if n not in stage_local]
+            collectives.all_reduce_tensors(shared + [stats],
+                                           mesh.group("stage"))
+            collectives.all_reduce_tensors(acc + [stats], mesh.group("data"))
+        inv = 1.0 / stats[1].clamp_min(1e-8)
         grads = torch._foreach_mul(acc, inv)
+        loss = stats[0] * inv
         if extra_loss_fn is not None:
             # a regularizer of the parameters alone: once, not per micro,
             # into the gradients of the parameters it reads
@@ -147,7 +199,18 @@ def make_train_step(model, criterion, tx: GradientTransformation,
             if pairs:
                 torch._foreach_add_([g for g, _ in pairs],
                                     [e.float() for _, e in pairs])
-        return loss, aux_sum * inv, dict(zip(names, grads))
+        return loss, stats[2] * inv, dict(zip(names, grads))
+
+    def compute_grads(params, batch, rng=None):
+        if update_cycle > 1 or distributed:
+            return accumulate(params, batch, rng)
+        names = list(params)
+        leaves = [params[n] for n in names]
+        loss, aux = forward(batch, rng)
+        if extra_loss_fn is not None:
+            loss = loss + extra_loss_fn(params)
+        grads = _grad(loss, leaves)
+        return loss.detach(), aux.detach(), dict(zip(names, grads))
 
     def train_step(state: TrainState, batch, rng=None):
         if rng is not None:
@@ -156,7 +219,7 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
         metrics = {"loss": loss, "aux_loss": aux,
-                   "grad_norm": global_norm(grads)}
+                   "grad_norm": norm_fn(grads)}
         if lr_schedule is not None:
             metrics["lr"] = lr_schedule(state.step)
         return TrainState(step=state.step + 1, params=state.params,

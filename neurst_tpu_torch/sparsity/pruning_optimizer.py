@@ -8,7 +8,10 @@ fresh optimizer, whatever the trainer's initial step).  Each update runs
 when ``schedule.should_prune(step)``, and emits
 ``mask * (params + update) - params``, so pruned weights land on exactly
 zero and stay there between refreshes.  The state (inner, masks, step)
-saves by name in the trainer's optimizer sidecar.
+saves by name in the trainer's optimizer sidecar.  Over a mesh the
+threshold is the whole variable's: ``gather`` rebuilds it from the
+rank's part (a tensor-parallel shard, or a pipeline layer held by another
+stage), and each rank masks its own part.
 
 The threshold is the JAX package's ``jnp.quantile(|w|, sparsity)``
 (linear interpolation), computed here from one sort:
@@ -73,23 +76,30 @@ def magnitude_threshold(weight: torch.Tensor, sparsity) -> torch.Tensor:
                        torch.full_like(threshold, float("nan")), threshold)
 
 
-def magnitude_mask(weight: torch.Tensor, sparsity) -> torch.Tensor:
+def magnitude_mask(weight: torch.Tensor, sparsity, whole=None
+                   ) -> torch.Tensor:
     """Keep-mask (weight's dtype) pruning the smallest-|w| ``sparsity``
-    fraction: |w| > threshold."""
-    return (weight.detach().abs() > magnitude_threshold(weight, sparsity)
-            ).to(weight.dtype)
+    fraction: |w| > threshold, the threshold of ``whole`` (the variable
+    of which ``weight`` is a part; ``weight`` itself by default)."""
+    threshold = magnitude_threshold(weight if whole is None else whole,
+                                    sparsity)
+    return (weight.detach().abs() > threshold).to(weight.dtype)
 
 
 def prune_gradients(inner: GradientTransformation,
                     schedule: PruningSchedule,
                     variable_filter: Optional[Callable[[str], bool]] = None,
-                    name_of: Optional[Callable[[str], str]] = None
+                    name_of: Optional[Callable[[str], str]] = None,
+                    gather: Optional[Callable] = None
                     ) -> GradientTransformation:
     """Wraps ``inner``; ``variable_filter(name_of(name))`` selects the
     parameters that are pruned (all by default; ``name_of`` maps a port
-    name to the JAX package's flat name in the trainer)."""
+    name to the JAX package's flat name in the trainer); ``gather(name,
+    part)`` gives the whole variable of this rank's part (every rank calls
+    it for every pruned name; the part itself by default)."""
     variable_filter = variable_filter or (lambda name: True)
     name_of = name_of or (lambda name: name)
+    gather = gather or (lambda name, part: part)
 
     def init(params):
         masks = {n: torch.ones_like(p, dtype=torch.float32
@@ -111,7 +121,8 @@ def prune_gradients(inner: GradientTransformation,
                 p = params[name].detach()
                 new = p + updates[name].to(p.dtype)
                 if refresh:
-                    mask.copy_(magnitude_mask(new, sparsity))
+                    mask.copy_(magnitude_mask(new, sparsity,
+                                              gather(name, new)))
                 out[name] = new * mask.to(p.dtype) - p
         state["step"] = step + 1
         return out, state

@@ -31,7 +31,9 @@ follows:
   conv kernels ``[k, in / groups, out]`` -> ``[out, in / groups, k]``
   (wav2vec 2.0's feature convolutions and grouped ``pos_conv``);
 * the scan-stacked layout ``<stack>/layers/layer/...`` (a leading
-  layer axis) is unstacked into ``<stack>/layer_<i>/...``, and so is the
+  layer axis) is unstacked into ``<stack>/layer_<i>/...``, and so are the
+  pipeline's ``<stack>/layers/pipeline/stages/layers/layer/...`` (leading
+  [stages, layers a stage]: stage s, layer j is layer s * P + j) and the
   MoE block scan ``<stack>/layers/block_layer_<j>/...`` (block b holds
   layer b * f + j);
 * the MoE layers' ``router_kernel`` [H, E] and stacked expert weights
@@ -64,6 +66,7 @@ from neurst_tpu_torch.utils.checkpoints import bf16_bytes_to_float32
 __all__ = ["flat_to_state_dict", "load_flat_params", "state_dict_to_flat",
            "to_jax_name", "to_torch_layout", "unstack_scan_layers"]
 
+_PIPE_RE = re.compile(r"^(.*)/layers/pipeline/stages/layers/layer/(.*)$")
 _SCAN_RE = re.compile(r"^(.*)/layers/layer/(.*)$")
 _BLOCK_RE = re.compile(r"^(.*)/layers/block_layer_(\d+)/(.*)$")
 _FUSED_PROJ = ("qkv_transform", "q_transform", "kv_transform")
@@ -78,10 +81,12 @@ def _contiguous(a):
 
 
 def unstack_scan_layers(flat: Dict[str, np.ndarray]):
-    """The per-layer names of the scan layouts: ``<stack>/layers/layer/``
-    [L, ...] and the MoE block scan ``<stack>/layers/block_layer_<j>/``
-    [L / f, ...], whose block b holds layers b * f + j (f the number of
-    block layers under the stack)."""
+    """The per-layer names of the scan layouts: the pipeline's
+    ``<stack>/layers/pipeline/stages/layers/layer/`` [S, P, ...], whose
+    stage s holds layers s * P + j, ``<stack>/layers/layer/`` [L, ...]
+    and the MoE block scan ``<stack>/layers/block_layer_<j>/`` [L / f,
+    ...], whose block b holds layers b * f + j (f the number of block
+    layers under the stack)."""
     block_size = {}
     for name in flat:
         m = _BLOCK_RE.match(name)
@@ -90,6 +95,13 @@ def unstack_scan_layers(flat: Dict[str, np.ndarray]):
                                          int(m.group(2)) + 1)
     out = {}
     for name, value in flat.items():
+        m = _PIPE_RE.match(name)
+        if m is not None:
+            value = np.asarray(value)
+            for i, layer_value in enumerate(
+                    value.reshape((-1,) + value.shape[2:])):
+                out[f"{m.group(1)}/layer_{i}/{m.group(2)}"] = layer_value
+            continue
         m = _SCAN_RE.match(name)
         if m is not None:
             for i, layer_value in enumerate(np.asarray(value)):
@@ -181,7 +193,9 @@ def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
     parts = name.split(".")
     owner, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
     if owner in _FUSED_PROJ or owner == "output_transform":
-        heads, head_dim = attention.num_heads, attention.head_dim
+        # whole tensors of a tensor-parallel layer: all its ranks' heads
+        heads = attention.num_heads * getattr(attention, "tp_size", 1)
+        head_dim = attention.head_dim
     if leaf in ("weight", "kernel_q"):
         if owner in _FUSED_PROJ:
             a = a.T.reshape(a.shape[1], -1, heads, head_dim)

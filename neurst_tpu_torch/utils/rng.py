@@ -17,7 +17,8 @@ hardware generator; nothing depends on them.
 from typing import List, NamedTuple, Optional
 
 __all__ = ["DropoutKey", "make_key", "fold_in", "split", "at_site",
-           "site_words", "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER",
+           "site_words", "key_words", "group_base", "at_row", "at_shard",
+           "philox4x32_10", "SIDE_ENCODER", "SIDE_DECODER",
            "SIDE_ASR_DECODER", "SIDE_BERT", "SIDE_ROUTER"]
 
 _MASK32 = 0xFFFFFFFF
@@ -69,6 +70,16 @@ class DropoutKey(NamedTuple):
     k1: int
     stream: int = 0
     micro: int = 0
+    # the batch row of the single-rank batch that the tensor's first row
+    # is (a data-parallel rank's or a pipeline micro-batch's offset), how
+    # many such shards the single-rank batch has (a site's rate is
+    # quantized by the size of the single-rank tensor), and how many batch
+    # rows the shard holds: element i of a site's tensor of n elements
+    # draws the mask of element row x n / rows + i, so a shard draws its
+    # rows' masks whatever the site's layout ([B, ...] or [B x T, ...])
+    row: int = 0
+    shards: int = 1
+    rows: int = 0
 
 
 def make_key(seed: int) -> DropoutKey:
@@ -90,14 +101,64 @@ def fold_in(key: DropoutKey, n: int) -> DropoutKey:
 
 def split(key: DropoutKey, n: int) -> List[DropoutKey]:
     """``n`` distinct keys, the i-th with ``micro = i``."""
-    return [DropoutKey(*_derive(key, i, _SPLIT), stream=key.stream, micro=i)
+    return [key._replace(**dict(zip(("k0", "k1"), _derive(key, i, _SPLIT))),
+                         micro=i)
             for i in range(int(n))]
 
 
 def site_words(key: Optional[DropoutKey]):
     """(k0, k1, stream, micro), the words a kernel takes for its site;
     zeros without a key (no dropout)."""
-    return (0, 0, 0, 0) if key is None else tuple(key)
+    return (0, 0, 0, 0) if key is None else tuple(key)[:4]
+
+
+def key_words(key: Optional[DropoutKey]):
+    """(k0, k1, stream, micro, row, shards, rows) of a key, zeros without
+    one (the ``int[] key`` argument of the port's custom operators)."""
+    return (0, 0, 0, 0, 0, 1, 0) if key is None else tuple(key)
+
+
+def group_base(key: Optional[DropoutKey], numel: int) -> int:
+    """The first element group (4 elements) of a site whose tensor holds
+    ``numel`` elements: ``key.row x numel / key.rows / 4``, the one place
+    where the key's batch-row offset becomes an element offset.  Raises
+    when the tensor's elements do not split evenly into its batch rows, or
+    the offset is not a multiple of 4 (the kernels draw 4 elements' words
+    at once)."""
+    if key is None or not key.row:
+        return 0
+    per_row, rest = divmod(int(numel), int(key.rows))
+    base = int(key.row) * per_row
+    if rest or base % 4:
+        raise ValueError(f"dropout row offset {key.row} of a site of "
+                         f"{numel} elements in {key.rows} batch rows is "
+                         f"not a whole multiple of 4 elements")
+    return base // 4
+
+
+def at_row(key: Optional[DropoutKey], offset: int, rows: int,
+           shards: int = 1) -> Optional[DropoutKey]:
+    """``key`` moved ``offset`` batch rows on, for tensors of ``rows``
+    batch rows that are one of ``shards`` equal row shards of their
+    sites' (None stays None, and the one shard at offset 0 is the key
+    itself)."""
+    if key is None or (not offset and shards == 1):
+        return key
+    return key._replace(row=key.row + int(offset), rows=int(rows),
+                        shards=key.shards * int(shards))
+
+
+def at_shard(key: Optional[DropoutKey], coord: int, field: int = 0
+             ) -> Optional[DropoutKey]:
+    """``key`` with a shard coordinate folded into its micro-batch word
+    (bits 20-25 for field 0, a tensor-parallel rank; bits 26-31 for field
+    1, a ring rank), so ranks that hold other parts of a tensor draw
+    independent masks (None stays None)."""
+    if key is None:
+        return None
+    return key._replace(micro=(key.micro + ((int(coord) + 1)
+                                            << (20 + 6 * field)))
+                        & _MASK32)
 
 
 def at_site(key: Optional[DropoutKey], stream: int

@@ -177,6 +177,15 @@ SLICE13_MODULES = [
     "neurst_tpu_torch.contrib.prune_tune",
     "neurst_tpu_torch.contrib.prune_tune.partial_trainer",
     "neurst_tpu_torch.contrib.prune_tune.mask_sequence_generator"]
+PARALLEL_MODULES = [
+    "neurst_tpu_torch.parallel",
+    "neurst_tpu_torch.parallel.cluster",
+    "neurst_tpu_torch.parallel.mesh",
+    "neurst_tpu_torch.parallel.utils",
+    "neurst_tpu_torch.parallel.collectives",
+    "neurst_tpu_torch.parallel.sharding",
+    "neurst_tpu_torch.layers.pipeline",
+    "neurst_tpu_torch.ops.ring_attention"]
 EXAMPLES = os.path.join(REPO, "tests", "examples")
 QUANT_PARAMS = "{quant_bits: 8, quant_weight_clip_max: 1.0}"
 # the QAT, int8 and MoE entries, each without --device
@@ -199,7 +208,11 @@ NO_DEVICE_ENTRIES = {
                      "--config_paths",
                      os.path.join(EXAMPLES, "example_train_seq2seq.yml")],
     "export": ["--entry", "export", "--config_paths",
-               os.path.join(EXAMPLES, "example_predict_seq2seq.yml")]}
+               os.path.join(EXAMPLES, "example_predict_seq2seq.yml")],
+    "parallel_train": ["--entry", "train", "--config_paths",
+                       os.path.join(EXAMPLES, "example_train_seq2seq.yml"),
+                       "--num_model_partitions", "2",
+                       "--distribution_strategy", "mirrored"]}
 
 BUILD_MODEL_CODE = (
     "import neurst_tpu_torch, torch\n"
@@ -224,7 +237,8 @@ def _checks(tmp):
     checks += [{"id": f"subpackage_{name}", "kind": "import",
                 "walk": f"neurst_tpu_torch.{name}"} for name in SUBPACKAGES]
     for module in (MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
-                   + QUANT_MOE_MODULES + SLICE13_MODULES):
+                   + QUANT_MOE_MODULES + SLICE13_MODULES
+                   + PARALLEL_MODULES):
         checks.append({"id": f"module_{module}", "kind": "import",
                        "modules": [module]})
     run_exp = "neurst_tpu_torch.cli.run_exp"
@@ -430,6 +444,26 @@ def test_setup_ships_the_quantization_subpackage():
                              include=eval(include.group(1)))  # noqa: S307
     assert "neurst_tpu_torch.layers.quantization" in packages
     assert "neurst_tpu_torch.layers" in packages
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_load_no_jax(children, module):
+    _no_jax(children[f"module_{module}"])
+
+
+def test_setup_ships_the_parallel_modules():
+    from setuptools import find_packages
+    with open(os.path.join(REPO, "setup.py")) as f:
+        text = f.read()
+    include = re.search(r"find_packages\(include=(\[[^\]]*\])", text)
+    packages = find_packages(where=REPO,
+                             include=eval(include.group(1)))  # noqa: S307
+    assert "neurst_tpu_torch.parallel" in packages
+    for module in PARALLEL_MODULES[1:]:
+        package, name = module.rsplit(".", 1)
+        assert package in packages, module
+        assert os.path.exists(os.path.join(
+            REPO, *package.split("."), name + ".py")), module
 
 
 def test_setup_ships_the_sparsity_and_plugin_subpackages():

@@ -326,8 +326,11 @@ def test_cli_refuses_what_the_port_lacks(workdir):
     _, model_dir, cfg_path, _, _ = workdir
     base = ["--config_paths", cfg_path, "--model_dir", model_dir,
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
-        port_run_exp.cli_main(base + ["--distributed_init"])
+    # --distributed_init is ported (slice 14): an ambiguous cluster spec
+    # raises as the JAX package's resolve_cluster does
+    with pytest.raises(ValueError, match="task_index"):
+        port_run_exp.cli_main(base + ["--distributed_init",
+                                      "--worker_hosts", "a:1,b:2"])
     # --include is ported: a plug-in that is neither a file nor a module
     # raises as the import does
     with pytest.raises(ModuleNotFoundError):
@@ -340,7 +343,7 @@ def test_cli_refuses_what_the_port_lacks(workdir):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--distribution_strategy", "mirrored"], "distribution_strategy"),
+    (["--compilation_cache_dir", "xla_cache"], "compilation_cache_dir"),
     (["--enable_xla"], "enable_xla"),
     (["--search_method.params", '{"padded_decode": false}'],
      "padded_decode")])

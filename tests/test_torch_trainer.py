@@ -437,10 +437,21 @@ def test_jax_optstate_without_port_sidecar_raises(runs):
     ["--distribution_strategy", "horovod"],
     ["--distribution_strategy", "mirrored"]])
 def test_refused_trainer_flags(runs, flag):
-    d = os.path.join(runs["root"], "refused")
-    with pytest.raises(NotImplementedError):
-        _port_train(["--config_paths", runs["cfgs"][1], "--model_dir", d,
-                     *flag])
+    """``checkpoint_format: orbax`` is refused.  The parallel flags are the
+    mesh's since slice 14: one process cannot hold tp 2 or pp 2 (the JAX
+    package's assertion of ``make_mesh``), and a ``distribution_strategy``
+    is accepted and ignored (the process group replaces it)."""
+    d = os.path.join(runs["root"], "refused", "_".join(flag))
+    argv = ["--config_paths", runs["cfgs"][1], "--model_dir", d, *flag]
+    if flag[0] == "--checkpoint_format":
+        with pytest.raises(NotImplementedError):
+            _port_train(argv)
+    elif flag[0] == "--distribution_strategy":
+        _port_train(argv + ["--train_steps", "1"])
+        assert os.path.exists(os.path.join(d, "ckpt-1.npz"))
+    else:
+        with pytest.raises(AssertionError, match="not divisible by"):
+            _port_train(argv)
 
 
 def test_cli_subprocess_writes_the_model_dir(runs):
