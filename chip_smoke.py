@@ -37,9 +37,9 @@ exits non-zero):
                hypotheses and scores agree.
    predict  -- the predict CLI (``neurst_tpu_torch.cli.run_exp``)
                in-process over a model dir, vocabulary, BPE codes and an
-               ``audio_tfrecord`` file of 64 utterances written from the
+               ``audio_tfrecord`` file of 32 utterances written from the
                seed, with the MuST-C recipe's prediction config (beam 4,
-               length penalty -1, max 150, BLEU) and batch_size 16: 64
+               length penalty -1, max 150, BLEU) and batch_size 16: 32
                samples, 12 flash launches a batch, hypotheses equal to
                ``BeamSearch`` called directly; samples/s, the wall split,
                first-batch latency, peak memory; then float32 CLI runs on
@@ -171,8 +171,8 @@ exits non-zero):
                drawing wait_k from [3, 5, 7, 9] a batch,
                ``waitk_transformer`` at transformer_base's widths with a
                monotonic flash encoder, dropout 0.1, bf16 + f32 master,
-               25,000-token buckets, max 128 / 128, 12 steps and a
-               checkpoint at 12: the laggings drawn, every step's
+               25,000-token buckets, max 128 / 128, 6 steps and a
+               checkpoint at 6: the laggings drawn, every step's
                launches against ``expected_launches``, window tokens/s,
                and one batch's float32 loss with the flash encoder against
                the dense one); waitk_simuleval, ``simuleval_cli`` offline
@@ -274,6 +274,13 @@ exits non-zero):
                dev lines); the GShard top-2 overlay as a bare step beside
                them; then rows 4-5, 8 and 9-10 against their plain
                versions at the shapes this path gave them.
+   orbax    -- the moe trainer writes ``--checkpoint_format orbax`` and
+               moe_predict reads its ``ckpt-12.orbax``; the dir resumed
+               for 2 steps, ``ckpt-14.orbax`` read back bitwise equal to
+               the trainer's float32 master; the JAX package's checkpoint
+               in ``tests/fixtures/orbax_jax`` read bitwise, and the C++
+               zstd decoder's seconds on its frames repeated to a
+               ``transformer_base`` checkpoint's bytes.
    dispatch -- the host time a call of the flash forward's and the fused
                FFN forward's wrappers (custom ops since slice 13) at
                shapes whose device work is a few us, beside its device
@@ -285,7 +292,18 @@ exits non-zero):
                with ``load_exported`` in a process of its own, its
                hypotheses on 3 requests equal the eager ``BeamSearch``'s
                on the card; export seconds, artifact bytes, request ms
-               against eager.
+               against eager.  export_sampling / export_speculative:
+               ``top_sampling`` (under its seed) and greedy
+               ``speculative_decode`` (the n-gram draft) exported and
+               loaded on the card, each request's tokens equal to the
+               eager search's, the speculative rows to plain greedy's.
+   parallel -- 2 ranks of this script on the card (gloo), beside the audio
+               prep: dp 2 and tp 2 transformer_base steps, dp 2 of the
+               speech step, ring attention, the pipeline, decode, the
+               train entry, and expert parallelism (``parallel_ep``: the
+               Switch overlay with 4 of its 8 experts a rank, a float32
+               step held to one rank's, bf16 steps timed and their
+               launches counted); then a one-rank NCCL group.
    remat_step -- train_dropout's step with and without
                ``gradient_remat``: the first batch's loss bitwise equal,
                gradients within the bf16 backward tolerance, the forward
@@ -409,10 +427,10 @@ NMT_TRAIN = dict(model="transformer_base", batch=256, length=128,
                  check_trg_vocab=256)
 # the predict CLI as the MuST-C recipe runs it on tst-COMMON
 # (examples/speech_transformer/must-c/st_prediction_args.yml: beam 4,
-# length penalty -1, at most 150 tokens, BLEU) with batch_size 16: 64
+# length penalty -1, at most 150 tokens, BLEU) with batch_size 16: 32
 # utterances of 300-3000 frames (1-30 s), translations of 5-60 words; the
 # float32 card-vs-CPU check decodes 4 utterances of 300-600 frames
-PREDICT = dict(model="speech_transformer_s", utterances=64, batch=16,
+PREDICT = dict(model="speech_transformer_s", utterances=32, batch=16,
                min_frames=300, max_frames=3000, min_words=5, max_words=60,
                feature_dim=80, vocab=8192, check_utterances=4,
                check_max_frames=600)
@@ -1781,7 +1799,7 @@ def write_predict_dir(seed, root):
     ``save_checkpoint``, and ``model_configs.yml`` as JSON text), a
     vocabulary of 8189 subword units (8192 with the pipeline's three
     control tokens) with BPE codes over them, ``audio_tfrecord`` files of
-    fbank-like features with raw translations (the 64 utterances, and
+    fbank-like features with raw translations (the 32 utterances, and
     the 4 short ones of the card-vs-CPU check), and the recipe's
     prediction config as JSON.  The pipeline adds the Moses tokenizer
     where sacremoses imports."""
@@ -3055,7 +3073,7 @@ NMT_TRAINER = dict(hparams_set="transformer_base", vocab=32768, pairs=4000,
                    predict_lines=128, predict_batch=64, check_words=60,
                    check_pairs=24, check_max_tokens=12, check_steps=2,
                    check_dim=64, quality_steps=300,
-                   base_quality_steps=150, quality_summary=10,
+                   base_quality_steps=100, quality_summary=10,
                    quality_dev_lines=128)
 NMT_TASK = {"batch_by_tokens": True, "batch_size": 32768, "max_src_len": 128,
             "max_trg_len": 128, "pad_length_multiple": 8}
@@ -4166,7 +4184,7 @@ MULTITASK = dict(hparams_set="speech_transformer_s", triples=80,
                  min_frames=2782, max_frames=3000, min_tokens=90,
                  max_tokens=120, steps=12, save_every=6, summary=2,
                  bare_warmup=2, bare_steps=5, bare_split=2,
-                 predict_triples=32, predict_min_frames=300,
+                 predict_triples=16, predict_min_frames=300,
                  predict_max_frames=3000, predict_min_tokens=10,
                  predict_max_tokens=60, cascade_steps=6, check_triples=8,
                  check_max_frames=64, check_steps=2, check_max_decode=16)
@@ -4757,9 +4775,9 @@ def multitask_phases(seed, train_dropout_row, device="cuda"):
 # beam search and with top-k sampling.
 WAITK = dict(recipe=os.path.join("examples", "simultaneous_translation",
                                  "waitk_training_args.yml"),
-             words=2000, pairs=40000, bpe_pairs=4000, min_tokens=5,
+             words=2000, pairs=20000, bpe_pairs=4000, min_tokens=5,
              max_tokens=127, bpe_symbols=2000, vocab_multiple=128,
-             steps=12, summary=2,
+             steps=6, summary=2,
              simul_sentences=16, simul_min_words=20, simul_max_words=60,
              online_sentences=8, wait_k=3, max_decode_len=64,
              predict_sentences=64, predict_batch=32, beam=4,
@@ -5880,7 +5898,7 @@ def _restored_count(seen):
 CTNMT = dict(recipe_dir=os.path.join("examples", "ctnmt", "example_configs"),
              src_vocab=BERT_BASE["vocab"], trg_vocab=16384, pairs=3000,
              min_tokens=10, max_tokens=100, steps=30, summary=5,
-             predict_lines=64, mode_steps=1, check_batch=2, check_length=16,
+             predict_lines=32, mode_steps=1, check_batch=2, check_length=16,
              model_params={})
 CTNMT_PREDICT = {"beam_size": 8, "length_penalty": 0.6,
                  "extra_decode_length": 50, "maximum_decode_length": 200}
@@ -7735,13 +7753,17 @@ def int8_serve_phase(seed, device="cuda"):
     return speech_counts, text_counts
 
 
-def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16"):
+def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16",
+                    mesh=None, dropout=None):
     """bench.py's MoE cell: ``transformer_base`` in bf16 with the hparams
     set's dropout 0.1, its Adam and noam with clip norm 1, bf16 params
     with an f32 master, and, with ``overlay`` (an examples/moe yml), the
     overlay's ``moe_*`` fields; weights from the port's initializers
     seeded with ``seed``.  ``dtype`` "float32": float32 compute and
-    params (the card-vs-CPU check)."""
+    params (the card-vs-CPU check).  ``mesh``: the model put on a
+    data-parallel mesh (the experts split over its ranks) and the step
+    reduced over it; ``dropout``: every site's rate instead of the
+    hparams set's."""
     import torch
     import yaml
 
@@ -7754,6 +7776,11 @@ def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16"):
 
     cfg = Transformer.build_model_args_by_name(MOE["model"])
     params = dict(cfg["model.params"], dtype=dtype)
+    if dropout is not None:
+        for side in ("encoder", "decoder"):
+            for rate in ("attention_dropout_rate", "ffn_dropout_rate",
+                         "layer_postprocess_dropout_rate"):
+                params[f"{side}.{rate}"] = dropout
     if overlay:
         here = os.path.dirname(os.path.abspath(__file__))
         with open(os.path.join(here, overlay)) as f:
@@ -7764,9 +7791,16 @@ def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16"):
     model = neurst_tpu_torch.build_model(cfg, src_meta=meta, trg_meta=meta,
                                          device=device)
     model.init_params(torch.Generator().manual_seed(seed))
+    norm_fn = None
+    if mesh is not None:
+        from neurst_tpu_torch.parallel.sharding import (apply_mesh,
+                                                        make_norm_fn)
+        model.placement = apply_mesh(model, mesh)
+        norm_fn = make_norm_fn(model.placement, mesh)
     lr = neurst_tpu_torch.build_lr_schedule(cfg)
     tx = create_optax_chain(neurst_tpu_torch.build_optimizer(cfg), lr,
-                            clip_norm=NMT_TRAIN["clip_norm"])
+                            clip_norm=NMT_TRAIN["clip_norm"],
+                            norm_fn=norm_fn)
     if dtype == "bfloat16":
         cast_params_bf16(model)
         tx = with_bf16_params(tx)
@@ -7775,7 +7809,8 @@ def build_moe_train(seed, overlay=None, device="cuda", dtype="bfloat16"):
         "criterion.params": {"label_smoothing":
                              NMT_TRAIN["label_smoothing"]}})
     state = TrainState.create(dict(model.named_parameters()), tx)
-    step = make_train_step(model, criterion, tx, lr_schedule=lr)
+    step = make_train_step(model, criterion, tx, lr_schedule=lr, mesh=mesh,
+                           norm_fn=norm_fn)
     return model, criterion, tx, state, step
 
 
@@ -7931,11 +7966,13 @@ def _moe_trainer_config(root, overlay, steps, name):
 
 
 def moe_trainer_phases(seed, device="cuda"):
-    """moe_trainer: the Switch overlay through ``--entry train`` (12
-    steps on the mt_synth corpus, every step's launches against
-    ``expected_launches``), moe_predict: ``--entry predict`` from its dir
-    on dev's first 128 lines (beam 4, max 20, BLEU).  Under
-    ``build/moe_smoke/``.  Returns the launch counts of the two runs."""
+    """moe_trainer: the Switch overlay through ``--entry train
+    --checkpoint_format orbax`` (12 steps on the mt_synth corpus, every
+    step's launches against ``expected_launches``), moe_predict:
+    ``--entry predict`` from its dir on dev's first 128 lines (beam 4,
+    max 20, BLEU), then ``orbax_phase`` on the dir.  Under
+    ``build/moe_smoke/``.  Returns the launch counts of the three
+    runs."""
     from neurst_tpu_torch.tasks.translation import Translation
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "moe_smoke")
@@ -7949,7 +7986,8 @@ def moe_trainer_phases(seed, device="cuda"):
         model_dir = os.path.join(root, name)
         _, seen = run_trainer(["--config_paths", _moe_trainer_config(
             root, overlay, steps, name), "--model_dir", model_dir,
-            "--device", device], Translation)
+            "--checkpoint_format", "orbax", "--device", device],
+            Translation)
         _train_path_checks(seen, steps, name)
         by_shape = _step_launch_checks(seen, seen["model"]) \
             if device == "cuda" else None
@@ -7981,9 +8019,98 @@ def moe_trainer_phases(seed, device="cuda"):
               "BLEU": result["BLEU"],
               "samples_per_s": result["samples_per_sec"],
               "wall_s": wall, "launches": counts["moe_predict"]})
+        counts["orbax_resume"] = orbax_phase(root, model_dir, steps, device)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return counts
+
+
+ORBAX = dict(resume_steps=2,
+             fixture=os.path.join("tests", "fixtures", "orbax_jax"))
+
+
+def orbax_phase(root, model_dir, steps, device="cuda"):
+    """``--checkpoint_format orbax`` on the card: the moe trainer's dir
+    (``ckpt-<steps>.orbax``, each rank's OCDBT store and the root
+    manifest, the port's optimizer sidecar beside it) resumed for 2 more
+    steps through ``--entry train``, the new checkpoint read back bitwise
+    equal to the trainer's float32 master.  Then the JAX package's
+    checkpoint committed in ``tests/fixtures/orbax_jax`` (zstd-compressed
+    chunks) read bitwise against its ``flat.npz``, and the C++ zstd
+    decoder's seconds on its frames repeated to the float32 bytes of a
+    ``transformer_base`` checkpoint.  The resumed run's steps and launches
+    are checked as the trainer's (``_train_path_checks``,
+    ``_step_launch_checks``).  Returns its launch counts."""
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.tasks.translation import Translation
+    from neurst_tpu_torch.utils import checkpoints as ckpt_lib
+    from neurst_tpu_torch.utils import ocdbt, zstd
+    from neurst_tpu_torch.utils.param_bridge import state_dict_to_flat
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    end = steps + ORBAX["resume_steps"]
+    state, seen = run_trainer([
+        "--config_paths", _moe_trainer_config(root, MOE["switch"], end,
+                                              "orbax"),
+        "--model_dir", model_dir, "--checkpoint_format", "orbax",
+        "--save_checkpoint_steps", "1000", "--device", device], Translation)
+    _train_path_checks(seen, end, "orbax_resume")
+    by_shape = _step_launch_checks(seen, seen["model"]) \
+        if device == "cuda" else None
+    resumed = any(f"Restored optimizer state (step {steps})" in m
+                  for m in seen["messages"])
+    master = state.opt_state["master"] \
+        if "master" in state.opt_state else state.params
+    want = state_dict_to_flat(seen["model"], master)
+    path = os.path.join(model_dir, f"ckpt-{end}.orbax")
+    start = time.perf_counter()
+    got = ckpt_lib.restore_checkpoint_params(path)
+    read_s = time.perf_counter() - start
+    bitwise = sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+    files = sorted(os.listdir(model_dir))
+    # the JAX package's checkpoint, and the zstd decoder on its frames
+    fixture = os.path.join(here, ORBAX["fixture"])
+    ours = ckpt_lib.restore_checkpoint_params(
+        os.path.join(fixture, "ckpt-7.orbax"))
+    with np.load(os.path.join(fixture, "flat.npz")) as data:
+        fixture_bitwise = sorted(ours) == sorted(data.files) and all(
+            np.array_equal(ours[k], data[k]) for k in data.files)
+    store = ocdbt.OcdbtReader(os.path.join(fixture, "ckpt-7.orbax"))
+    frames = [store.get(k) for k in store.keys()]
+    frames = b"".join(f for f in frames if f[:4] == b"\x28\xb5\x2f\xfd")
+    plain = len(zstd.decompress(frames))
+    cfg = Transformer.build_model_args_by_name("transformer_base")
+    meta = {"vocab_size": NMT_TRAIN["vocab"], "eos_id": 1}
+    base = neurst_tpu_torch.build_model(cfg, src_meta=meta, trg_meta=meta,
+                                        device="meta")
+    base_bytes = 4 * sum(p.numel() for p in base.parameters())
+    reps = -(-base_bytes // plain)
+    buffer = frames * reps
+    start = time.perf_counter()
+    decoded = len(zstd.decompress(buffer))
+    zstd_s = time.perf_counter() - start
+    row = {"phase": "orbax", "overlay": MOE["switch"],
+           "resumed_from_step": steps if resumed else None, "steps": end,
+           "save_s": seen["save_s"],
+           "checkpoint_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                   for d, _, fs in os.walk(path)
+                                   for f in fs),
+           "read_s": read_s, "read_bitwise": bitwise, "files": files,
+           "jax_fixture_bitwise": fixture_bitwise,
+           "zstd": {"frames_bytes": len(buffer), "decoded_bytes": decoded,
+                    "transformer_base_bytes": base_bytes,
+                    "seconds": zstd_s,
+                    "decoded_mb_per_s": decoded / zstd_s / 1e6},
+           "launches_per_step_by_shape": by_shape,
+           "launches": seen["launches"]}
+    emit(row)
+    if not (bitwise and resumed and fixture_bitwise
+            and f"ckpt-{end}.torch_optstate.npz" in files
+            and f"ckpt-{steps}.orbax" in files and decoded == plain * reps):
+        raise AssertionError(f"orbax phase: {row}")
+    return seen["launches"]
 
 
 class QatWorker(object):
@@ -8356,9 +8483,94 @@ def export_speech_phase(seed):
                 and served["flash_per_request"] == [flash_nodes]
                 * len(requests) and not served["leaked"]):
             raise AssertionError(f"export_speech phase failed: {row}")
+        counts = {"export_speech": dict(served["launches"])}
+        counts.update(export_search_phases(model, model_dir, root,
+                                           requests, torch_inputs))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    counts = dict(served["launches"])
+    return counts
+
+
+EXPORT_SEARCHES = {
+    "export_sampling": ("top_sampling", {"top_k": 8, "top_p": 0.9,
+                                         "temperature": 1.2, "seed": 5}),
+    "export_speculative": ("speculative_decode", {
+        "draft_method": "ngram", "speculative_k": 4})}
+
+
+def export_search_phases(model, model_dir, root, requests, torch_inputs):
+    """``top_sampling`` and ``speculative_decode`` (the n-gram draft)
+    exported from the speech model dir and loaded on the card: each
+    request's tokens equal the eager search's on the card (sampling under
+    its seed), and the speculative rows equal plain greedy decoding's up
+    to the first EOS.  Returns the loaded programs' launch counts by
+    path."""
+    import torch
+
+    from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.exps.export import load_exported
+    from neurst_tpu_torch.layers.search.sequence_search import \
+        build_search_layer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    b, frames = SLICE["batch"], SLICE["frames"]
+    length = {"maximum_decode_length": SLICE["max_decode"],
+              "extra_decode_length": SLICE["max_decode"]}
+    greedy = build_search_layer({
+        "search_method.class": "beam_search",
+        "search_method.params": dict(length, beam_size=1)})
+    greedy.set_model(model)
+    eos = model.generation_meta["eos_id"]
+
+    def until_eos(rows):
+        return [r[:r.index(eos) + 1] if eos in r else r for r in rows]
+
+    counts = {}
+    for name, (method, params) in EXPORT_SEARCHES.items():
+        params = dict(params, **length)
+        path = os.path.join(root, name)
+        start = time.perf_counter()
+        run_exp.cli_main(["--entry", "export", "--model_dir", model_dir,
+                          "--export_path", path, "--export_batch_size",
+                          str(b), "--export_src_length", str(frames),
+                          "--search_method", method,
+                          "--search_method.params", json.dumps(params),
+                          "--device", "cuda"])
+        export_s = time.perf_counter() - start
+        gen = load_exported(path, "cuda")
+        eager = build_search_layer({"search_method.class": method,
+                                    "search_method.params": params})
+        eager.set_model(model)
+        eager.prepare()
+        gen(requests[0])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        served_ms, eager_ms, equal, greedy_equal = [], [], [], []
+        for r, tr in zip(requests[:1], torch_inputs[:1]):
+            start = time.perf_counter()
+            hyp, _ = gen(r)
+            torch.cuda.synchronize()
+            served_ms.append((time.perf_counter() - start) * 1e3)
+            if len(served_ms) == 1:
+                counts[name] = launch_counts()
+            start = time.perf_counter()
+            want, _ = eager(tr)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - start) * 1e3)
+            equal.append(bool(torch.equal(hyp.cpu(), want.cpu())))
+            if method == "speculative_decode":
+                plain, _ = greedy(tr)
+                greedy_equal.append(until_eos(hyp.cpu().tolist())
+                                    == until_eos(plain.cpu().tolist()))
+        row = {"phase": name, "search": method, "params": params,
+               "export_s": export_s, "served_request_ms": served_ms,
+               "eager_request_ms": eager_ms, "tokens_equal_eager": equal,
+               "rows_equal_plain_greedy": greedy_equal,
+               "launches": counts[name]}
+        emit(row)
+        if not all(equal) or not all(greedy_equal) \
+                or not counts[name]["flash_attention_fwd"]:
+            raise AssertionError(f"{name}: {row}")
     return counts
 
 
@@ -8939,6 +9151,114 @@ def parallel_decode(seed, rank):
     return out
 
 
+# expert parallelism in the ranks: the Switch overlay (8 experts, top-1,
+# every 2nd FFN) over dp 2, 4 experts a rank; float32 held against one
+# rank (loss and aux: relative error; gradients: relative L2)
+EP = dict(check_batch=32, check_length=64, batch=256, length=128, warmup=1,
+          steps=2)
+EP_TOL = {"loss": 1e-5, "grad": 1e-4}
+EP_KERNELS = ("fused_linear_xent_fwd", "fused_linear_xent_bwd",
+              "fused_dropout", "fused_ffn_fwd", "fused_ffn_bwd")
+
+
+def parallel_ep(seed, rank):
+    """Expert parallelism of ``MOE["switch"]`` over ``transformer_base``
+    on the 2 ranks (gloo on one card: the dispatch and combine
+    all-to-alls are all-gathers): a float32 step without dropout (the
+    router's jitter on: each rank draws its rows' noise of the one-rank
+    batch) held to the one-rank step on the global [32, 64] batch (rank 0
+    computes it;
+    loss and aux loss ``EP_TOL["loss"]`` relative, every gradient, the
+    experts' gathered whole, ``EP_TOL["grad"]`` relative L2), then bf16
+    steps with the hparams set's dropout 0.1 at [256, 128] (128 rows a
+    rank: the fused FFN's gate takes its 16,384 rows): their times and
+    each rank's launches of rows 4 / 5 / 8 / 9 / 10 a step, every one of
+    them launched."""
+    import torch
+
+    from neurst_tpu_torch.layers.moe import MoeFFN
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.parallel.sharding import gather_tensors
+    from neurst_tpu_torch.utils.rng import fold_in, make_key
+
+    e = EP
+    jitter_key = fold_in(make_key(seed + 144), 0)
+    batch = nmt_batch(np.random.RandomState(seed + 141), "cuda",
+                      e["check_batch"], e["check_length"], MOE["vocab"],
+                      MOE["vocab"])
+    out = {}
+    ref = None
+    if rank == 0:
+        model, _, _, state, step = build_moe_train(
+            seed, MOE["switch"], "cuda", "float32", dropout=0.0)
+        loss, aux, grads = step.compute_grads(state.params, batch,
+                                              jitter_key)
+        ref = (float(loss), float(aux), {n: g.cpu() for n, g in
+                                         grads.items()})
+        del model, state, step, grads
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = make_mesh()
+    local = _rows_of(batch, mesh)
+    model, _, _, state, step = build_moe_train(
+        seed, MOE["switch"], "cuda", "float32", mesh=mesh, dropout=0.0)
+    experts = [m for m in model.modules() if isinstance(m, MoeFFN)]
+    held = experts[0].expert_dense1_kernel.shape[0]
+    loss, aux, grads = step.compute_grads(state.params, local, jitter_key)
+    whole = {n: g.cpu() for n, g in gather_tensors(
+        grads, model.placement, mesh).items()}
+    out["float32"] = {"loss": float(loss), "aux_loss": float(aux),
+                      "experts_held": held,
+                      "experts": experts[0].num_experts,
+                      "moe_layers": len(experts)}
+    if rank == 0:
+        ref_loss, ref_aux, ref_grads = ref
+        err, worst = _grad_errs(whole, ref_grads)
+        row = out["float32"]
+        row.update(ref_loss=ref_loss, ref_aux=ref_aux,
+                   loss_rel_err=abs(float(loss) - ref_loss) / abs(ref_loss),
+                   aux_rel_err=abs(float(aux) - ref_aux) / abs(ref_aux),
+                   grad_rel_l2=[err, worst], tol=EP_TOL)
+        print(json.dumps({"ep_float32": row}), flush=True)
+        if not (row["loss_rel_err"] <= EP_TOL["loss"]
+                and row["aux_rel_err"] <= EP_TOL["loss"]
+                and err <= EP_TOL["grad"] and held * 2 == row["experts"]):
+            raise AssertionError(f"expert parallelism float32: {row}")
+    del model, state, step, grads, whole
+    torch.cuda.empty_cache()
+    model, _, _, state, step = build_moe_train(seed, MOE["switch"], "cuda",
+                                               "bfloat16", mesh=mesh)
+    rng = np.random.RandomState(seed + 142)
+    batches = [_rows_of(nmt_batch(rng, "cuda", e["batch"], e["length"],
+                                  MOE["vocab"], MOE["vocab"]), mesh)
+               for _ in range(e["warmup"] + e["steps"])]
+    key = make_key(seed + 143)
+    step_ms, losses = [], []
+    for i, b in enumerate(batches):
+        if i == e["warmup"]:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        start = time.perf_counter()
+        state, metrics = step(state, b, key)
+        torch.cuda.synchronize()
+        if i >= e["warmup"]:
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    per_step = {k: counts[k] // e["steps"] for k in EP_KERNELS}
+    out["bfloat16"] = {"batch": [e["batch"], e["length"]],
+                       "rows_a_rank": e["batch"] // mesh.shape["data"],
+                       "step_ms": step_ms, "losses": losses,
+                       "launches_per_step": per_step}
+    out["launches"] = counts
+    if not (all(per_step.values()) and all(map(math.isfinite, losses))):
+        raise AssertionError(f"expert parallelism bf16: {out['bfloat16']}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def gloo_cuda_probe():
     """Which gloo collectives take CUDA tensors here: each of
     ``collectives.GLOO_CUDA_OPS`` must (the others go through host
@@ -8978,6 +9298,7 @@ def parallel_rank_main(rank, port, root, seed):
                      ("ring", lambda: parallel_ring(seed, rank)),
                      ("pipeline", lambda: parallel_pipeline(seed, rank)),
                      ("decode", lambda: parallel_decode(seed, rank)),
+                     ("ep", lambda: parallel_ep(seed, rank)),
                      ("trainer", lambda: parallel_trainer(root, rank))):
         start = time.perf_counter()
         out[name] = fn()
@@ -9014,7 +9335,7 @@ def nccl_one_rank_phase():
             "all_reduce_tensors": c.all_reduce_tensors(
                 [x.detach().clone()], group)[0]}
         for name, fn in (("reduce_from", c.reduce_from),
-                         ("copy_to", c.copy_to)):
+                         ("copy_to", c.copy_to), ("sum_over", c.sum_over)):
             y = fn(x, group)
             (g,) = torch.autograd.grad(y.sum(), [x])
             checks[name] = y.detach()
@@ -9030,6 +9351,15 @@ def nccl_one_rank_phase():
         (g,) = torch.autograd.grad(y.sum(), [x])
         checks["broadcast_from"] = y.detach()
         checks["broadcast_from_grad"] = g - 1.0 + x.detach()
+        # the MoE dispatch's all_to_all_single, forward and the reverse
+        # all-to-all of its backward, in both of its dtypes
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.detach()[None].to(dtype).requires_grad_()
+            y = c.all_to_all(xd, 0, 1, group)
+            (g,) = torch.autograd.grad(y.float().sum(), [xd])
+            key = f"all_to_all_{str(dtype)[6:]}"
+            checks[key] = (y.detach() - xd.detach()).float()[0] + x.detach()
+            checks[key + "_grad"] = g.float()[0] - 1.0 + x.detach()
         torch.cuda.synchronize()
         errs = {k: float((v - x.detach()).abs().max())
                 for k, v in checks.items()}
@@ -9135,7 +9465,8 @@ class ParallelRanks(object):
                 "parallel_dp2_speech": r0["speech_dp"]["launches"],
                 "parallel_trainer": r0["trainer"]["launches"],
                 "parallel_pp2": pp2,
-                "parallel_decode_tp2": r0["decode"]["tp"]["launches"]}
+                "parallel_decode_tp2": r0["decode"]["tp"]["launches"],
+                "parallel_ep2_moe": r0["ep"]["launches"]}
 
 
 def parallel_phase(seed):
@@ -9256,7 +9587,7 @@ def main(argv=None):
                                                           dropout=True)
     by_path = {"train": train_counts, "train_dropout": train_dropout_counts,
                "remat_step": remat_step_phase(args.seed, train_dropout_row),
-               "export_speech": export_counts,
+               **export_counts,
                "trainer": trainer_phase(args.seed, train_dropout_row),
                "train_base": nmt_train_phase(args.seed, bf16_params=False),
                "train_base_bf16": nmt_train_phase(args.seed,

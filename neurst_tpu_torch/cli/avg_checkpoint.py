@@ -4,7 +4,7 @@
     python -m neurst_tpu_torch.cli.avg_checkpoint --model_dir D \\
         [--last_n 5] --output_dir OUT
     python -m neurst_tpu_torch.cli.avg_checkpoint --checkpoint_paths \\
-        D/ckpt-6.npz D/ckpt-12.npz --output_dir OUT
+        D/ckpt-6.npz D/ckpt-12.orbax --output_dir OUT
 
 writes the element-wise mean as ``OUT/ckpt-<newest step>.npz`` and copies
 the model dir's ``model_configs.yml`` beside it, so the predict entry
@@ -17,6 +17,7 @@ import os
 import shutil
 
 from neurst_tpu_torch.utils.checkpoints import (average_checkpoints,
+                                                checkpoint_path,
                                                 list_checkpoints,
                                                 save_checkpoint)
 from neurst_tpu_torch.utils.configurable import MODEL_CONFIG_YAML_FILENAME
@@ -26,7 +27,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description="Average checkpoints.")
     p.add_argument("--checkpoint_paths", nargs="+", default=None,
-                   help="Explicit .npz checkpoint paths to average.")
+                   help="Explicit .npz / .orbax checkpoint paths to "
+                        "average.")
     p.add_argument("--model_dir", default=None,
                    help="Average the latest N checkpoints in this dir.")
     p.add_argument("--last_n", type=int, default=5,
@@ -39,7 +41,7 @@ def main(argv=None):
     if not paths:
         if not args.model_dir:
             raise ValueError("Provide --checkpoint_paths or --model_dir")
-        paths = [os.path.join(args.model_dir, f"ckpt-{s}.npz")
+        paths = [checkpoint_path(args.model_dir, s)
                  for s in list_checkpoints(args.model_dir)[-args.last_n:]]
     logging.info("Averaging %d checkpoints: %s", len(paths), paths)
     step = max(int(os.path.basename(p).split("-")[1].split(".")[0])

@@ -1,7 +1,7 @@
 """Lists a checkpoint's parameters: name, shape, dtype and norm (the
 port's copy of ``neurst_tpu/cli/inspect_checkpoint.py``; host-only).
-Takes a ``.npz`` checkpoint or a model dir (its newest checkpoint); the
-port reads no ``.orbax`` checkpoint.
+Takes a ``.npz`` checkpoint, a ``.orbax`` directory or a model dir (its
+newest checkpoint of either format).
 
 Usage:
     python -m neurst_tpu_torch.cli.inspect_checkpoint CKPT_OR_DIR \\
@@ -20,7 +20,8 @@ from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Inspect a checkpoint.")
-    p.add_argument("checkpoint", help="Path to a .npz checkpoint or dir.")
+    p.add_argument("checkpoint",
+                   help="Path to a .npz / .orbax checkpoint or dir.")
     p.add_argument("--pattern", default=None,
                    help="Only show names matching this regex.")
     p.add_argument("--values", action="store_true",
@@ -28,11 +29,10 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     path = args.checkpoint
-    if os.path.isdir(path):
+    if os.path.isdir(path) and not path.rstrip("/").endswith(".orbax"):
         path = latest_checkpoint(path)
         if path is None:
-            raise FileNotFoundError(f"no .npz checkpoint in "
-                                    f"{args.checkpoint}")
+            raise FileNotFoundError(f"no checkpoint in {args.checkpoint}")
     flat = restore_checkpoint_params(path)
     pat = re.compile(args.pattern) if args.pattern else None
     total = 0

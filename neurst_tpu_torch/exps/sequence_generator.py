@@ -33,7 +33,10 @@ batches): ``decode_data_parallel`` (on by default) shards each batch's
 rows over the "data" axis where they divide it and replicates the batch
 where they do not (the JAX package's ``_dp_put`` rule);
 ``decode_tensor_parallel N`` shards the model's heads, mlp and vocabulary
-over N "model" ranks (the beam cache holds the local heads), and with
+over N "model" ranks (the beam cache holds the local heads); MoE experts
+are split over the "data" ranks when their count divides it, each decode
+step dispatching to them (a rank whose search ends first serves its
+experts until every rank's has, ``layers.moe.drain_experts``); and with
 ``--decode_data_parallel false`` the mesh is tensor-parallel only.  The
 hypotheses are gathered in order, and rank 0 alone writes the output
 file and the metric.
@@ -52,6 +55,7 @@ from neurst_tpu_torch.exps.base_experiment import BaseExperiment, register_exp
 from neurst_tpu_torch.layers.quantization.quant_layers import (
     int8_static_act_enabled, recording_act_absmax, set_int8_calibration,
     write_calibrated_act_scales)
+from neurst_tpu_torch.layers.moe import drain_experts
 from neurst_tpu_torch.layers.search.sequence_search import build_search_layer
 from neurst_tpu_torch.models.ensemble_model import \
     EncoderDecoderEnsembleModel
@@ -282,6 +286,10 @@ class SequenceGenerator(BaseExperiment):
             rows = next(v.shape[0] for v in model_inp.values() if v.ndim)
             model_inp, sharded = self._shard_rows(mesh, model_inp)
             hyp, score = search(model_inp)
+            if mesh is not None:
+                # experts sharded over "data" serve the other ranks'
+                # decode steps until every rank's search has ended
+                drain_experts(model)
             hyp, score = hyp.cpu().numpy(), score.cpu().numpy()
             t2 = time.perf_counter()
             timing["decode_s"] += t2 - t1

@@ -60,7 +60,14 @@ mesh of several ranks instead of retrying, and a rank whose shard yields
 no batch in an epoch stops every rank.  ``distribution_strategy`` is
 accepted and ignored: the process group replaces it.
 
-Not ported, and refused when set: ``checkpoint_format: orbax``.
+``checkpoint_format: orbax`` saves the parameters as ``ckpt-N.orbax``
+directories (``utils/orbax_checkpoints``: every rank writes the
+hyperslabs its shards are, in the JAX layout, and rank 0 the root
+manifest over them) with the port's optimizer sidecar beside them; a
+resume reads the newest checkpoint of either format.  A JAX dir whose
+newest checkpoint has only the JAX package's ``ckpt-N.optstate.orbax``
+resumes from it where its Adam / AdamW state (counts and moments) maps
+onto the port's optimizer state, and raises otherwise.
 ``enable_profiler`` traces a window of steps with ``torch.profiler``
 (``training/summary.py``).
 """
@@ -89,7 +96,9 @@ from neurst_tpu_torch.optimizers.schedules.lr_schedules import \
 from neurst_tpu_torch.parallel import TrainState, make_train_step
 from neurst_tpu_torch.parallel import collectives
 from neurst_tpu_torch.parallel.mesh import make_mesh
-from neurst_tpu_torch.parallel.sharding import (apply_mesh, gather_tensors,
+from neurst_tpu_torch.parallel.sharding import (apply_mesh,
+                                                checkpoint_leaves,
+                                                data_sharded, gather_tensors,
                                                 make_norm_fn, shard_tensors,
                                                 whole_model)
 from neurst_tpu_torch.parallel.utils import process_index
@@ -101,17 +110,16 @@ from neurst_tpu_torch.training.summary import (SummaryWriterWrapper,
                                                TrainingProfiler)
 from neurst_tpu_torch.training.validator import build_validator
 from neurst_tpu_torch.utils import checkpoints as ckpt_lib
+from neurst_tpu_torch.utils import orbax_checkpoints as orbax_lib
 from neurst_tpu_torch.utils import compat
 from neurst_tpu_torch.utils.configurable import ModelConfigs
 from neurst_tpu_torch.utils.flags_core import Flag, ModuleFlag
-from neurst_tpu_torch.utils.param_bridge import (state_dict_to_flat,
+from neurst_tpu_torch.utils.param_bridge import (flat_to_state_dict,
+                                                 state_dict_to_flat,
                                                  to_jax_name)
 from neurst_tpu_torch.utils.rng import make_key
 
 __all__ = ["Trainer", "split_microbatches"]
-
-# flags of features the port does not have, and the values that mean off
-_UNPORTED = {"checkpoint_format": (None, "npz")}
 
 
 @register_exp("train")
@@ -136,7 +144,10 @@ class Trainer(BaseExperiment):
             Flag("checkpoints_max_to_keep", dtype=Flag.TYPE.INTEGER,
                  default=8, help="The maximum checkpoints to keep."),
             Flag("checkpoint_format", dtype=Flag.TYPE.STRING,
-                 default="npz", help="npz (orbax is not ported)."),
+                 default="npz", choices=["npz", "orbax"],
+                 help="npz = name-keyed, gathered to rank 0 "
+                      "(reference-compatible tooling); orbax = sharded "
+                      "(OCDBT + zarr), each rank writing its shards."),
             Flag("update_cycle", dtype=Flag.TYPE.INTEGER, default=1,
                  help="Accumulate gradients over N micro-batches."),
             Flag("bf16_params", dtype=Flag.TYPE.BOOLEAN, default=None,
@@ -206,18 +217,6 @@ class Trainer(BaseExperiment):
                       "many steps."),
         ]
 
-    @staticmethod
-    def _refuse_unported(args):
-        on = []
-        for key, off in _UNPORTED.items():
-            value = args.get(key)
-            if (value.lower() if isinstance(value, str) else value) \
-                    not in off:
-                on.append(f"{key}={value}")
-        if on:
-            raise NotImplementedError(
-                f"trainer features not ported: {', '.join(on)}")
-
     def _restore(self, model, args):
         """The newest checkpoint of the model dir into ``model``, else the
         pretrain models.  Returns (step, path or None, sidecar mapping or
@@ -244,7 +243,12 @@ class Trainer(BaseExperiment):
         if os.path.exists(sidecar):
             with np.load(sidecar) as data:
                 return restored["step"] or 0, path, dict(data)
-        jax_sidecar = path[:-len(".npz")] + ckpt_lib.JAX_SIDECAR_SUFFIX
+        jax_orbax = path[:-len(".orbax")] + ".optstate.orbax"
+        if orbax_lib.is_orbax_checkpoint(path) and os.path.isdir(jax_orbax):
+            # the JAX package's optax state, where it maps onto ours
+            self._jax_opt_state = jax_orbax
+            return restored["step"] or 0, path, None
+        jax_sidecar = os.path.splitext(path)[0] + ckpt_lib.JAX_SIDECAR_SUFFIX
         if os.path.exists(jax_sidecar):
             raise ValueError(
                 f"{jax_sidecar} is the JAX package's optimizer state (flax "
@@ -306,7 +310,7 @@ class Trainer(BaseExperiment):
     def run(self):
         args = self._args
         task, model, model_dir = self._task, self._model, self._model_dir
-        self._refuse_unported(args)
+        self._jax_opt_state = None
         if args.get("bf16_params") is None:
             args["bf16_params"] = str(
                 model.args.get("dtype") or "").startswith("bf")
@@ -316,11 +320,15 @@ class Trainer(BaseExperiment):
         logging.info("Model has %.2fM parameters", sum(
             p.numel() for p in model.parameters()) / 1e6)
         init_step, _, opt_flat = self._restore(model, args)
+        jax_opt = None
+        if self._jax_opt_state is not None:
+            # read while every rank holds the whole model
+            jax_opt = _jax_opt_state_entries(self._jax_opt_state, model)
         if args.get("initial_global_step") is not None:
             init_step = args["initial_global_step"]
         # a restored optimizer carries its own count (ROADMAP R6)
-        compat.register_initial_step(0 if opt_flat is not None
-                                     else init_step)
+        compat.register_initial_step(
+            0 if opt_flat is not None or jax_opt is not None else init_step)
         # the mesh: every rank holds the whole restored model, then keeps
         # its shards
         mesh = self._mesh = make_mesh(
@@ -342,6 +350,10 @@ class Trainer(BaseExperiment):
             ModelConfigs.dump(task.model_configs(model), model_dir)
 
         state = TrainState.create(dict(model.named_parameters()), tx)
+        if jax_opt is not None:
+            opt_flat = _jax_opt_state_flat(
+                jax_opt, set(ckpt_lib.opt_state_to_flat(state.opt_state, 0)),
+                init_step)
         if opt_flat is not None:
             # the master comes back exactly; the live bf16 params, read
             # from the checkpoint of that master, are already bf16(master)
@@ -524,23 +536,46 @@ class Trainer(BaseExperiment):
         mesh, specs = self._mesh, self._specs
         params = self._params_for_save(state, args)
         opt_state = state.opt_state
-        if mesh.shape["model"] > 1 or specs.owners:
+        orbax = args.get("checkpoint_format") == "orbax"
+        if self._split() and not orbax:
             params = gather_tensors(params, specs, mesh)
+        if self._split():
             opt_state = _map_named_tensors(
                 opt_state, lambda name, t: gather_tensors(
                     {name: t}, specs, mesh)[name])
+        keep = args.get("checkpoints_max_to_keep") or 8
+        if orbax:
+            # every rank writes its own hyperslabs of the parameters
+            leaves = checkpoint_leaves(model, params, specs, mesh)
+            world = torch.distributed.get_world_size() \
+                if mesh.size > 1 else 1
+            path = orbax_lib.save_checkpoint_orbax(
+                model_dir, step, None, max_to_keep=keep, leaves=leaves,
+                rank=process_index(), world=world,
+                barrier=torch.distributed.barrier if world > 1 else None)
+            if self._rank0:
+                ckpt_lib.save_opt_sidecar(
+                    path, ckpt_lib.opt_state_to_flat(opt_state, state.step))
+            return
         if not self._rank0:
             return
         ckpt_lib.save_checkpoint(
             model_dir, step, state_dict_to_flat(model, params),
-            max_to_keep=args.get("checkpoints_max_to_keep") or 8,
+            max_to_keep=keep,
             opt_state=ckpt_lib.opt_state_to_flat(opt_state, state.step))
+
+    def _split(self) -> bool:
+        """Whether a parameter is split over ranks (model shards, pipeline
+        stages or experts over "data")."""
+        specs = self._specs
+        return self._mesh.shape["model"] > 1 or bool(specs.owners) \
+            or bool(data_sharded(specs))
 
     def _shard_opt_flat(self, flat):
         """This rank's parts of a sidecar's moments (named by their
         parameters' names, the last part of their keys)."""
         specs = self._specs
-        if self._mesh.shape["model"] == 1 and not specs.owners:
+        if not self._split():
             return flat
         out = {}
         for key, value in flat.items():
@@ -551,6 +586,51 @@ class Trainer(BaseExperiment):
                     self._mesh)[name].numpy()
             out[key] = value
         return out
+
+
+def _jax_opt_state_entries(path, model):
+    """The leaves of the JAX package's optax state in
+    ``ckpt-N.optstate.orbax`` as (key path, tail, value): a per-parameter
+    leaf (a moment) has its parameter's port name as the tail and the
+    port's layout (``param_bridge``), any other leaf its last key."""
+    jax_names = set(state_dict_to_flat(model))
+    groups, out = {}, []
+    for keys, value in orbax_lib.read_tree(path).items():
+        for j in range(len(keys)):
+            if "/".join(keys[j:]) in jax_names:
+                groups.setdefault(keys[:j], {})["/".join(keys[j:])] = value
+                break
+        else:
+            out.append((keys[:-1], keys[-1], value))
+    for prefix, moments in groups.items():
+        for name, value in flat_to_state_dict(moments, model).items():
+            out.append((prefix, name, value.numpy()))
+    logging.info("Read the JAX optimizer state of %s (%d leaves)", path,
+                 len(out))
+    return out
+
+
+def _jax_opt_state_flat(entries, port_keys, step):
+    """The port's sidecar mapping of ``_jax_opt_state_entries``: each
+    leaf under the key of the port's state (``port_keys``) that its key
+    path names, where an optax chain of one live member (``scale_by_adam``
+    beside the constant learning rate's empty state) is one level in the
+    port's state; the train state's step is the checkpoint's, and so is
+    a count of the port's that JAX keeps no state for (the learning-rate
+    scale's, which JAX leaves empty for a constant rate).  A leaf that
+    names no key of the port's keeps its own, and ``load_opt_state``
+    raises on it (another optimizer)."""
+    flat = {"step": np.asarray(step, np.int64)}
+    for prefix, tail, value in entries:
+        digits = [i for i, k in enumerate(prefix) if k.isdigit()]
+        candidates = [prefix] + [prefix[:i] + prefix[i + 1:]
+                                 for i in digits]
+        keys = ["/".join(("opt_state",) + c + (tail,)) for c in candidates]
+        flat[next((k for k in keys if k in port_keys), keys[0])] = value
+    for key in port_keys - set(flat):
+        if key.endswith("/count"):
+            flat[key] = np.asarray(step, np.int32)
+    return flat
 
 
 def _map_named_tensors(node, fn, name=None):

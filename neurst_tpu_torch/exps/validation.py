@@ -1,12 +1,12 @@
 """The validation sidecar entry ``validation`` (the port's copy of
 ``neurst_tpu/exps/validation.py``): a process beside the trainer that
 polls ``model_dir`` every ``waiting_interval`` seconds, restores each new
-``ckpt-N.npz`` in step order into the model (retrying a checkpoint that
-does not read yet, skipping one rotated away) and runs the validator on
-it; it ends when the validator asks for an early stop or when no new
-checkpoint came for ``maximum_waiting_time`` seconds.  The trainer and
-the sidecar share only the directory.  Checkpoints of the JAX package's
-``orbax`` format are not read (the port reads npz only)."""
+``ckpt-N.npz`` (or ``ckpt-N.orbax`` directory, the sharded format) in
+step order into the model (retrying a checkpoint that does not read yet,
+skipping one rotated away) and runs the validator on it; it ends when the
+validator asks for an early stop or when no new checkpoint came for
+``maximum_waiting_time`` seconds.  The trainer and the sidecar share only
+the directory."""
 
 import logging
 import os
@@ -75,8 +75,10 @@ class Validation(BaseExperiment):
             idle_since = time.time()
             for step in sorted(steps):
                 seen.add(step)
-                flat = _read(os.path.join(self._model_dir,
-                                          f"ckpt-{step}.npz"))
+                # a sharded-format trainer's checkpoint is a ckpt-N.orbax
+                # directory
+                flat = _read(ckpt_lib.checkpoint_path(self._model_dir,
+                                                      step))
                 if flat is None:
                     continue
                 ckpt_lib.restore_into(self._model, flat)

@@ -7,9 +7,13 @@ definition of the target distribution), ``max_steps = max(min(enc_maxlen
 early exit once every sample has finished.
 
 Draws come from an explicit ``torch.Generator`` on the logits' device
-(``TopSampling`` seeds one from its ``seed`` flag).  They cannot be the
-JAX package's threefry draws; ``top_k=1`` (without a nucleus filter) is
-the argmax in both and draws nothing.  The flags
+(``TopSampling`` seeds one from its ``seed`` flag): a step draws Exp(1)
+noise q [N, V] and takes ``argmax(p / q)``, an exact draw from p and the
+token ``torch.multinomial(p, 1)`` picks from the same generator.
+``sampling_update`` is the one step body, of the eager loop and of the
+exported step (``sampling_step``).  The draws cannot be the JAX
+package's threefry draws; ``top_k=1`` (without a nucleus filter) is the
+argmax in both and draws nothing.  The flags
 ``prefix_decode_chunk`` and ``decode_unroll`` (devices of the JAX while
 loop, exact either way) are accepted and ignored.
 """
@@ -25,7 +29,8 @@ from neurst_tpu_torch.layers.search.sequence_search import (
 from neurst_tpu_torch.utils.flags_core import Flag
 
 __all__ = ["masked_step_log_probs", "filter_log_probs", "sequence_sampling",
-           "TopSampling"]
+           "TopSampling", "sampling_step", "sampling_update",
+           "exponential_draws"]
 
 
 def masked_step_log_probs(logits, emit_index, eos_id, unk_id, temperature,
@@ -112,29 +117,71 @@ def sequence_sampling(symbols_to_logits_fn: Callable,
         generation_initializer, extra_decode_length, maximum_decode_length,
         minimum_decode_length)
 
-    finished = torch.zeros(bb, dtype=torch.bool, device=device)
-    log_probs_acc = torch.zeros(bb, dtype=torch.float32, device=device)
-    predicted = torch.zeros((bb, maximum_decode_length), dtype=torch.long,
-                            device=device)
+    state = {"ids": input_ids, "cache": cache,
+             "finished": torch.zeros(bb, dtype=torch.bool, device=device),
+             "scores": torch.zeros(bb, dtype=torch.float32, device=device),
+             "predicted": torch.zeros((bb, maximum_decode_length),
+                                      dtype=torch.long, device=device)}
     time = 0
-    while time < max_steps and not bool(finished.all()):
-        logits, cache = symbols_to_logits_fn(input_ids, cache, time)
-        log_probs = masked_step_log_probs(logits, time, eos_id, unk_id,
-                                          temperature, minimum_decode_length)
-        if greedy:
-            sampled = log_probs.argmax(dim=-1)
-        else:
-            filtered = filter_log_probs(log_probs, top_k, top_p)
-            sampled = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
-                                        generator=generator)[:, 0]
-        sampled = torch.where(finished, eos_id, sampled)
-        step_lp = log_probs.gather(1, sampled[:, None])[:, 0]
-        log_probs_acc = log_probs_acc + torch.where(finished, 0.0, step_lp)
-        predicted[:, time] = sampled
-        finished = finished | (sampled == eos_id)
-        input_ids = sampled
+    while time < max_steps and not bool(state["finished"].all()):
+        logits, cache = symbols_to_logits_fn(state["ids"], state["cache"],
+                                             time)
+        draws = None if greedy else exponential_draws(logits.shape,
+                                                      generator, device)
+        state = sampling_update(
+            state, logits, cache, torch.full((bb,), time, device=device),
+            draws, eos_id=eos_id, unk_id=unk_id, top_k=top_k, top_p=top_p,
+            temperature=temperature,
+            minimum_decode_length=minimum_decode_length)
         time += 1
-    return predicted, log_probs_acc
+    return state["predicted"], state["scores"]
+
+
+def exponential_draws(shape, generator, device) -> torch.Tensor:
+    """The float32 Exp(1) draws [N, V] of a sampling step: the draws that
+    one ``torch.multinomial(p, 1, generator=generator)`` of probabilities
+    [N, V] takes from its generator, whose pick ``argmax(p / q)`` (ATen's
+    one-sample path) ``sampling_update`` takes too."""
+    return torch.empty(shape, dtype=torch.float32,
+                       device=device).exponential_(1, generator=generator)
+
+
+def sampling_update(state: dict, logits: torch.Tensor, cache,
+                    time: torch.Tensor, draws, *, eos_id: int, unk_id=None,
+                    top_k: int = 0, top_p: float = 1.0,
+                    temperature: float = 1.0,
+                    minimum_decode_length: int = 0) -> dict:
+    """The state after a step of ``sequence_sampling`` (ids, cache,
+    finished, scores, predicted) from the step's logits [N, V] and
+    ``cache``: ``time`` [N] the step, ``draws`` [N, V] its
+    ``exponential_draws`` (unused for the argmax of ``top_k`` 1)."""
+    finished = state["finished"]
+    log_probs = masked_step_log_probs(logits, time, eos_id, unk_id,
+                                      temperature, minimum_decode_length)
+    if top_k == 1 and (not top_p or top_p >= 1.0):
+        sampled = log_probs.argmax(dim=-1)
+    else:
+        probs = torch.softmax(filter_log_probs(log_probs, top_k, top_p),
+                              dim=-1)
+        sampled = (probs / draws).argmax(dim=-1)
+    sampled = torch.where(finished, eos_id, sampled)
+    step_lp = log_probs.gather(1, sampled[:, None])[:, 0]
+    return dict(state, ids=sampled, cache=cache,
+                finished=finished | (sampled == eos_id),
+                scores=state["scores"] + torch.where(finished, 0.0, step_lp),
+                predicted=state["predicted"].scatter(
+                    1, time[:, None].long(), sampled[:, None]))
+
+
+def sampling_step(decode_steps: Callable, state: dict, time: torch.Tensor,
+                  draws: torch.Tensor, **search) -> dict:
+    """One step of ``sequence_sampling`` on tensors only (the exported
+    sampling step): ``state`` as ``beam_search.initial_beam_state`` gives
+    it at beam ``num_samples``, ``decode_steps(ids [N, 1], cache, times
+    [N])`` the model's per-row-time decode, ``search`` the keywords of
+    ``sampling_update``.  Returns the next state."""
+    logits, cache = decode_steps(state["ids"][:, None], state["cache"], time)
+    return sampling_update(state, logits[:, 0], cache, time, draws, **search)
 
 
 @register_search_layer("top_sampling", "sampling")

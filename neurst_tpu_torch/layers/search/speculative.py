@@ -27,6 +27,7 @@ As in the JAX package, the ``SpeculativeDecode`` layer decodes greedily
 ``speculative_beam_search`` is reached only by calling it.
 """
 
+import functools
 import logging
 
 import torch
@@ -42,8 +43,11 @@ from neurst_tpu_torch.layers.search.sequence_search import (
     SequenceSearch, register_search_layer)
 from neurst_tpu_torch.utils.flags_core import Flag
 
-__all__ = ["make_ngram_draft", "speculative_greedy_decode",
-           "speculative_beam_search", "SpeculativeDecode"]
+__all__ = ["make_ngram_draft", "ngram_steps", "speculative_greedy_decode",
+           "initial_speculative_state", "speculative_greedy_step",
+           "speculative_sampling_step",
+           "speculative_result", "speculative_beam_search",
+           "SpeculativeDecode"]
 
 
 def make_ngram_draft(batch, buffer_len, vocab_size, ngram=3, prefix=None,
@@ -59,9 +63,6 @@ def make_ngram_draft(batch, buffer_len, vocab_size, ngram=3, prefix=None,
     [B, 1, V] x 1e4, cache), initializer): the draft "cache" is the token
     buffer [B, P + ``buffer_len``], written in place at P + times, which
     must cover ``maximum_decode_length + k``."""
-    n = int(ngram)
-    if n < 2:
-        raise ValueError(f"ngram draft needs ngram >= 2, got {n}")
     if prefix is not None:
         device = prefix.device
     gen = torch.full((batch, buffer_len), -1, dtype=torch.long,
@@ -69,10 +70,23 @@ def make_ngram_draft(batch, buffer_len, vocab_size, ngram=3, prefix=None,
     p_len = 0 if prefix is None else prefix.shape[1]
     init_buf = gen if prefix is None \
         else torch.cat([prefix.long(), gen], dim=1)
-    n_windows = p_len + buffer_len - (n - 1)
+    steps_fn = ngram_steps(batch, p_len + buffer_len, p_len, vocab_size,
+                           ngram, device)
+    return steps_fn, {"decoder_internal_cache": {"buffer": init_buf}}
+
+
+def ngram_steps(batch, total_len, prefix_len, vocab_size, ngram=3,
+                device=None):
+    """``make_ngram_draft``'s steps_fn over a token buffer [B, total_len]
+    whose first ``prefix_len`` positions hold the lookup prefix."""
+    n = int(ngram)
+    if n < 2:
+        raise ValueError(f"ngram draft needs ngram >= 2, got {n}")
+    p_len = prefix_len
+    n_windows = total_len - (n - 1)
     if n_windows < 1:
-        raise ValueError(f"buffer ({p_len + buffer_len}) shorter than the "
-                         f"ngram window ({n})")
+        raise ValueError(f"buffer ({total_len}) shorter than the ngram "
+                         f"window ({n})")
     rows = torch.arange(batch, device=device)
     offs = torch.arange(n - 1, device=device) - (n - 2)
     starts = torch.arange(n_windows, device=device)[None, :]
@@ -100,7 +114,172 @@ def make_ngram_draft(batch, buffer_len, vocab_size, ngram=3, prefix=None,
             proposal, vocab_size).float() * 1e4
         return logits[:, None, :], {"buffer": buf}
 
-    return steps_fn, {"decoder_internal_cache": {"buffer": init_buf}}
+    return steps_fn
+
+
+def initial_speculative_state(target_init, draft_init, k: int,
+                              max_steps, maximum_decode_length: int):
+    """The state ``speculative_greedy_step`` starts from: the last token
+    (the decoder input), times, finished flags, summed log-probs, the
+    predicted ids [B, maximum_decode_length + k], the step limit [B] and
+    both caches."""
+    last = target_init["decoder_input"].long()
+    batch, device = last.shape[0], last.device
+    limit = torch.as_tensor(max_steps, device=device).expand(batch)
+    return {"last": last,
+            "times": torch.zeros(batch, dtype=torch.long, device=device),
+            "finished": limit <= 0,
+            "log_probs": torch.zeros(batch, dtype=torch.float32,
+                                     device=device),
+            "predicted": torch.zeros((batch, maximum_decode_length + k),
+                                     dtype=torch.long, device=device),
+            "limit": limit.clone(),
+            "target_cache": target_init["decoder_internal_cache"],
+            "draft_cache": draft_init["decoder_internal_cache"]}
+
+
+def speculative_greedy_step(target_steps_fn, draft_steps_fn, state: dict,
+                            *, k: int, eos_id: int, unk_id=None,
+                            minimum_decode_length: int = 0) -> dict:
+    """One greedy pass of ``speculative_greedy_decode`` on tensors only
+    (the exported speculative step): the draft proposes k tokens a row,
+    the target verifies them in one k-token pass, and the longest
+    agreeing prefix commits with the target's own next token.  Returns
+    the next state."""
+    last, times = state["last"], state["times"]
+    slot = torch.arange(k, device=last.device)[None, :]
+
+    def masked(logits, emit_index):
+        return masked_step_log_probs(logits, emit_index, eos_id, unk_id,
+                                     1.0, minimum_decode_length)
+
+    draft_cache = state["draft_cache"]
+    last_d, d_tokens = last, []
+    for j in range(k):
+        logits_d, draft_cache = draft_steps_fn(last_d[:, None], draft_cache,
+                                               times + j)
+        last_d = masked(logits_d[:, 0], times + j).argmax(dim=-1)
+        d_tokens.append(last_d)
+    d = torch.stack(d_tokens, dim=1)
+    logits_t, target_cache = target_steps_fn(
+        torch.cat([last[:, None], d[:, :k - 1]], dim=1),
+        state["target_cache"], times)
+    lp_t = masked(logits_t, times[:, None] + slot)
+    g = lp_t.argmax(dim=-1)
+    # the longest agreeing prefix n, then n + 1 tokens (capped at k): the
+    # accepted drafts and the target's correction
+    n = (d == g).long().cumprod(dim=1).sum(dim=1)
+    return _commit(state, g, lp_t, (n + 1).clamp_max(k), eos_id,
+                   target_cache, draft_cache)
+
+
+def speculative_sampling_step(target_steps_fn, draft_steps_fn, state: dict,
+                              *, k: int, eos_id: int, generator, unk_id=None,
+                              minimum_decode_length: int = 0,
+                              temperature: float = 1.0, top_k: int = 0,
+                              top_p: float = 1.0) -> dict:
+    """One sampling pass of ``speculative_greedy_decode``: k drafts drawn
+    from the draft's filtered distribution q, accepted with probability
+    min(1, p / q) against the target's p, the first rejected slot
+    resampled from norm(max(p - q, 0)); draws from ``generator``.
+    Returns the next state."""
+    last, times = state["last"], state["times"]
+    device = last.device
+    slot = torch.arange(k, device=device)[None, :]
+    rows = torch.arange(last.shape[0], device=device)
+
+    def masked(logits, emit_index):
+        return masked_step_log_probs(logits, emit_index, eos_id, unk_id,
+                                     temperature, minimum_decode_length)
+
+    def filtered(lp):
+        """The distribution plain sampling draws from."""
+        return torch.log_softmax(filter_log_probs(lp, top_k, top_p), dim=-1)
+
+    def draw(log_probs):
+        return torch.multinomial(torch.exp(log_probs), 1,
+                                 generator=generator)[:, 0]
+
+    # draft: k tokens, one step at a time
+    draft_cache = state["draft_cache"]
+    last_d, d_tokens, q_rows = last, [], []
+    for j in range(k):
+        logits_d, draft_cache = draft_steps_fn(last_d[:, None], draft_cache,
+                                               times + j)
+        q_rows.append(filtered(masked(logits_d[:, 0], times + j)))
+        last_d = draw(q_rows[-1])
+        d_tokens.append(last_d)
+    d = torch.stack(d_tokens, dim=1)
+
+    # target: all k in one multi-token pass
+    logits_t, target_cache = target_steps_fn(
+        torch.cat([last[:, None], d[:, :k - 1]], dim=1),
+        state["target_cache"], times)
+    lp_t = masked(logits_t, times[:, None] + slot)
+    plp = filtered(lp_t)
+    qlp = torch.stack(q_rows, dim=1)
+    p_at_d = plp.gather(2, d[..., None])[..., 0]
+    q_at_d = qlp.gather(2, d[..., None])[..., 0]
+    u = torch.rand(p_at_d.shape, generator=generator,
+                   device=device).clamp_min(1e-20)
+    accept = torch.log(u) < (p_at_d - q_at_d)
+    n = accept.long().cumprod(dim=1).sum(dim=1)
+    # the residual at the first rejected slot; a row with n == k never
+    # uses its correction
+    reject = n.clamp_max(k - 1)
+    plp_r, qlp_r = plp[rows, reject], qlp[rows, reject]
+    residual = (torch.exp(plp_r) - torch.exp(qlp_r)).clamp_min(0.0)
+    total = residual.sum(dim=-1, keepdim=True)
+    # p ~= q leaves (almost) no rejection mass: fall back to p
+    res_lp = torch.where(
+        total > 0.0, torch.log(residual.clamp_min(1e-38)
+                               / total.clamp_min(1e-38)), plp_r)
+    correction = draw(res_lp)
+    g = torch.where(slot == n[:, None], correction[:, None], d)
+    return _commit(state, g, lp_t, (n + 1).clamp_max(k), eos_id,
+                   target_cache, draft_cache)
+
+
+def _commit(state: dict, g, lp_t, m, eos_id: int, target_cache,
+            draft_cache) -> dict:
+    """The state after a pass that commits the first ``m`` [B] tokens of
+    its window ``g`` [B, k] (their target log-probs in ``lp_t`` [B, k,
+    V]): an EOS inside the window ends it (inclusive), the step limit
+    caps it, and finished rows commit nothing."""
+    last, times, finished = state["last"], state["times"], state["finished"]
+    k = g.shape[1]
+    slot = torch.arange(k, device=g.device)[None, :]
+    rows = torch.arange(g.shape[0], device=g.device)[:, None]
+    is_eos = (g == eos_id) & (slot < m[:, None])
+    first_eos = torch.where(is_eos, slot, k).min(dim=1).values
+    hit_eos = first_eos < k
+    m = torch.where(hit_eos, first_eos + 1, m)
+    m = torch.minimum(m, (state["limit"] - times).clamp_min(0))
+    m = torch.where(finished, 0, m)
+    predicted = state["predicted"].clone()
+    predicted[rows, times[:, None] + slot] = g
+    step_lp = lp_t.gather(2, g[..., None])[..., 0]
+    return dict(
+        state, last=torch.where(
+            m > 0, g.gather(1, (m - 1).clamp_min(0)[:, None])[:, 0], last),
+        times=times + m,
+        finished=finished | (hit_eos & (m > 0))
+        | (times + m >= state["limit"]),
+        log_probs=state["log_probs"] + torch.where(
+            slot < m[:, None], step_lp, 0.0).sum(dim=1),
+        predicted=predicted, target_cache=target_cache,
+        draft_cache=draft_cache)
+
+
+def speculative_result(state: dict, eos_id: int,
+                       maximum_decode_length: int):
+    """(ids int64 [B, maximum_decode_length], scores) of a final state:
+    EOS beyond each row's length, as the plain searches force it."""
+    predicted, times = state["predicted"], state["times"]
+    positions = torch.arange(predicted.shape[1], device=predicted.device)
+    ids = torch.where(positions[None, :] < times[:, None], predicted,
+                      eos_id)[:, :maximum_decode_length]
+    return ids, state["log_probs"]
 
 
 def speculative_greedy_decode(target_steps_fn, target_init,
@@ -138,116 +317,29 @@ def speculative_greedy_decode(target_steps_fn, target_init,
         raise ValueError("speculative sampling needs a torch.Generator")
     eos_id = int(target_init["eos_id"])
     unk_id = None if enable_unk else target_init.get("unk_id")
-    last = target_init["decoder_input"].long()
-    device = last.device
-    batch = last.shape[0]
     max_steps = layer_utils.max_decode_steps(
         target_init, extra_decode_length, maximum_decode_length,
         minimum_decode_length)
 
-    def masked(logits, emit_index):
-        return masked_step_log_probs(
-            logits, emit_index, eos_id, unk_id,
-            temperature if sampling else 1.0, minimum_decode_length)
-
-    def filtered(lp):
-        """The distribution plain sampling draws from."""
-        return torch.log_softmax(filter_log_probs(lp, top_k, top_p), dim=-1)
-
-    def draw(log_probs):
-        return torch.multinomial(torch.exp(log_probs), 1,
-                                 generator=generator)[:, 0]
-
-    slot = torch.arange(k, device=device)[None, :]
-    rows = torch.arange(batch, device=device)[:, None]
-    times = torch.zeros(batch, dtype=torch.long, device=device)
-    finished = torch.full((batch,), max_steps <= 0, dtype=torch.bool,
-                          device=device)
-    log_probs = torch.zeros(batch, dtype=torch.float32, device=device)
-    # k longer than the output: a pass writes its whole k-window at the
-    # row's time; the tail is overwritten or cleaned at the end
-    predicted = torch.zeros((batch, maximum_decode_length + k),
-                            dtype=torch.long, device=device)
-    target_cache = target_init["decoder_internal_cache"]
-    draft_cache = draft_init["decoder_internal_cache"]
+    if sampling:
+        step = functools.partial(
+            speculative_sampling_step, generator=generator,
+            temperature=temperature, top_k=top_k, top_p=top_p)
+    else:
+        step = speculative_greedy_step
+    state = initial_speculative_state(target_init, draft_init, k, max_steps,
+                                      maximum_decode_length)
     passes = 0
-    while not bool(finished.all()):
-        # draft: k tokens, one step at a time
-        last_d, d_tokens, q_rows = last, [], []
-        for j in range(k):
-            logits_d, draft_cache = draft_steps_fn(last_d[:, None],
-                                                   draft_cache, times + j)
-            lp_d = masked(logits_d[:, 0], times + j)
-            if sampling:
-                q_rows.append(filtered(lp_d))
-                last_d = draw(q_rows[-1])
-            else:
-                last_d = lp_d.argmax(dim=-1)
-            d_tokens.append(last_d)
-        d = torch.stack(d_tokens, dim=1)
-
-        # target: all k in one multi-token pass
-        logits_t, target_cache = target_steps_fn(
-            torch.cat([last[:, None], d[:, :k - 1]], dim=1), target_cache,
-            times)
-        lp_t = masked(logits_t, times[:, None] + slot)
-        if sampling:
-            plp = filtered(lp_t)
-            qlp = torch.stack(q_rows, dim=1)
-            p_at_d = plp.gather(2, d[..., None])[..., 0]
-            q_at_d = qlp.gather(2, d[..., None])[..., 0]
-            u = torch.rand(p_at_d.shape, generator=generator,
-                           device=device).clamp_min(1e-20)
-            accept = torch.log(u) < (p_at_d - q_at_d)
-            n = accept.long().cumprod(dim=1).sum(dim=1)
-            # the residual at the first rejected slot; a row with n == k
-            # never uses its correction
-            reject = n.clamp_max(k - 1)
-            plp_r = plp[rows[:, 0], reject]
-            qlp_r = qlp[rows[:, 0], reject]
-            residual = (torch.exp(plp_r) - torch.exp(qlp_r)).clamp_min(0.0)
-            total = residual.sum(dim=-1, keepdim=True)
-            # p ~= q leaves (almost) no rejection mass: fall back to p
-            res_lp = torch.where(
-                total > 0.0, torch.log(residual.clamp_min(1e-38)
-                                       / total.clamp_min(1e-38)), plp_r)
-            correction = draw(res_lp)
-            g_commit = torch.where(slot == n[:, None], correction[:, None],
-                                   d)
-        else:
-            g = lp_t.argmax(dim=-1)
-            # the longest agreeing prefix n, then n + 1 tokens (capped at
-            # k): the accepted drafts and the target's correction
-            n = (d == g).long().cumprod(dim=1).sum(dim=1)
-            g_commit = g
-        m = (n + 1).clamp_max(k)
-
-        # an EOS inside the committed window ends it (inclusive)
-        is_eos = (g_commit == eos_id) & (slot < m[:, None])
-        first_eos = torch.where(is_eos, slot, k).min(dim=1).values
-        hit_eos = first_eos < k
-        m = torch.where(hit_eos, first_eos + 1, m)
-        # the length cap; finished rows commit nothing
-        m = torch.minimum(m, (max_steps - times).clamp_min(0))
-        m = torch.where(finished, 0, m)
-        finished = finished | (hit_eos & (m > 0)) | (times + m >= max_steps)
-
-        predicted[rows, times[:, None] + slot] = g_commit
-        step_lp = lp_t.gather(2, g_commit[..., None])[..., 0]
-        log_probs = log_probs + torch.where(slot < m[:, None], step_lp,
-                                            0.0).sum(dim=1)
-        last = torch.where(
-            m > 0, g_commit.gather(1, (m - 1).clamp_min(0)[:, None])[:, 0],
-            last)
-        times = times + m
+    while not bool(state["finished"].all()):
+        state = step(target_steps_fn, draft_steps_fn, state, k=k,
+                     eos_id=eos_id, unk_id=unk_id,
+                     minimum_decode_length=minimum_decode_length)
         passes += 1
-    # EOS beyond each row's length, as the plain searches force it
-    positions = torch.arange(maximum_decode_length + k, device=device)
-    predicted = torch.where(positions[None, :] < times[:, None], predicted,
-                            eos_id)[:, :maximum_decode_length]
+    predicted, log_probs = speculative_result(state, eos_id,
+                                              maximum_decode_length)
     if return_stats:
         return predicted, log_probs, {"target_passes": passes,
-                                      "tokens_emitted": times}
+                                      "tokens_emitted": state["times"]}
     return predicted, log_probs
 
 

@@ -454,12 +454,18 @@ class EncoderDecoderModel(BaseModel):
         enc, src_padding = self.encode(inputs)
         cache = self.init_cache(enc, src_padding, decode_padded_length)
         batch = enc.shape[0]
-        src_len = (1.0 - src_padding).sum(dim=1)
+        src_len = (1.0 - src_padding).sum(dim=1).max()
+        mesh = getattr(self, "decode_mesh", None)
+        if mesh is not None and mesh.shape["data"] > 1:
+            # a data-parallel decode's step limit is the whole batch's
+            src_len = collectives.all_reduce(
+                src_len.reshape(1), mesh.group("data"),
+                torch.distributed.ReduceOp.MAX)[0]
         return {
             "decoder_input": torch.full((batch,), self.bos_id,
                                         dtype=torch.long, device=enc.device),
             "decoder_internal_cache": cache,
-            "encoder_inputs_maxlen": int(src_len.max().item()),
+            "encoder_inputs_maxlen": int(src_len.item()),
             "eos_id": self.generation_meta["eos_id"],
             "unk_id": self.generation_meta.get("unk_id"),
         }

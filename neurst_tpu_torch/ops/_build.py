@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on
 its own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root
 (listed in ``.gitignore``); each ``csrc/<name>.cpp`` (host code: the
-record reader's crc32c, the FLAC decoder) likewise with the host C++
+record reader's crc32c, the FLAC decoder, the zstd decoder) likewise with the host C++
 compiler (``$CXX``, else ``c++``).  The library's file name carries a hash of
 its source and of every ``csrc/*.cuh`` header the source includes
 (``#include "..."``, followed transitively), so an edited source or
@@ -46,7 +46,8 @@ KERNEL_SOURCES = {
 }
 # host library name -> source file under csrc/
 HOST_SOURCES = {"crc32c": "crc32c.cpp",
-                "flac_decoder": "flac_decoder.cpp"}
+                "flac_decoder": "flac_decoder.cpp",
+                "zstd_decompress": "zstd_decompress.cpp"}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

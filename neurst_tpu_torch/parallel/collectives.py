@@ -30,6 +30,15 @@ Autograd.  Where a gradient crosses a rank the op is a
 * ``broadcast_from`` copies a tensor from ``src`` and, in the backward,
   sums every rank's gradient into ``src`` (the pipeline's encoder output
   feeds every stage's cross-attention);
+* ``sum_over`` all-reduces in the forward and in the backward: every
+  rank computes the same function of the sum and the step sums the
+  ranks' gradients (the MoE balance loss over the data group);
+* ``all_to_all`` splits a dim into one block a rank, sends block j to
+  rank j and concatenates the blocks it receives along another dim; its
+  backward is the reverse all-to-all (the MoE dispatch and combine over
+  the experts' ranks).  NCCL runs ``all_to_all_single``; gloo, which has
+  no all-to-all on CUDA tensors, runs an all-gather (``GLOO_CUDA_OPS``)
+  and keeps the blocks addressed to the rank;
 * ``send_to`` / ``recv_from`` move an activation to the next pipeline
   stage; the backward of a receive sends the gradient back and the
   backward of a send receives it.  Sends never block (``isend``, waited
@@ -47,7 +56,7 @@ __all__ = ["choose_backend", "GLOO_CUDA_OPS", "group_size", "group_rank",
            "gather_from", "gather_sum_from", "scatter_to", "broadcast_from",
            "send_to", "recv_from", "isend", "recv", "wait_pending",
            "all_gather_object", "batch_rotate", "all_reduce_tensors",
-           "broadcast_object"]
+           "broadcast_object", "sum_over", "all_to_all"]
 
 # the gloo ops that take CUDA tensors (ProcessGroupGloo's CUDA works);
 # the others are staged through host memory
@@ -226,6 +235,65 @@ class _BroadcastFrom(torch.autograd.Function):
         if group_rank(group) != src:
             total = torch.zeros_like(total)
         return total, None, None
+
+
+class _SumOver(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group
+                ) -> torch.Tensor:
+    n = group_size(group)
+    blocks = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    if dist.get_backend(group) == "nccl":
+        got = torch.empty_like(blocks)
+        dist.all_to_all_single(got, blocks, group=group)
+    else:
+        # gloo: every rank's blocks, of which this rank keeps its own (a
+        # copy of bytes: bf16 travels as float16 words)
+        wire = blocks.view(torch.float16) \
+            if blocks.dtype == torch.bfloat16 else blocks
+        parts = [torch.empty_like(wire) for _ in range(n)]
+        dist.all_gather(parts, wire, group=group)
+        rank = group_rank(group)
+        got = torch.stack([p[rank] for p in parts]).view(blocks.dtype)
+    # got[i]: rank i's block for this rank
+    return torch.cat(got.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.args = (split_dim, concat_dim, group)
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group = ctx.args
+        return _all_to_all(g, concat_dim, split_dim, group), None, None, None
+
+
+def sum_over(x, group):
+    """All-reduce (sum) forward and backward."""
+    return x if group is None else _SumOver.apply(x, group)
+
+
+def all_to_all(x, split_dim: int, concat_dim: int, group):
+    """``x`` split along ``split_dim`` into one block a rank, block j sent
+    to group rank j; the blocks received from ranks 0..n-1 concatenated
+    along ``concat_dim``.  Every rank's ``x`` has one shape.  The backward
+    is the reverse all-to-all."""
+    return x if group is None else _AllToAll.apply(x, split_dim, concat_dim,
+                                                   group)
 
 
 def reduce_from(x, group):

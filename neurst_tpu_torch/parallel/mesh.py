@@ -21,9 +21,11 @@ warning, as in the JAX package.
 
 The port shards the biases of the column-parallel projections with their
 kernels (qkv / q / kv and the FFN's dense1); the JAX package keeps them
-replicated and XLA slices them where they are used.  MoE experts stay
-replicated under data parallelism (the JAX package maps "expert" to
-"data"): the results are the same, only the memory layout differs.
+replicated and XLA slices them where they are used.  MoE experts are
+split over "data" along their expert axis, as the JAX package maps
+"expert" to "data" (their filter axis stays whole over "model", where the
+JAX spec splits it too: each model rank holds its data rank's experts
+whole).
 """
 
 import logging
@@ -155,6 +157,8 @@ class ShardSpec(NamedTuple):
 # the port's sharded parameters by their last two name parts: (dim,
 # logical axis, blocks) in the port's layout
 _FUSED_BLOCKS = {"qkv_transform": 3, "q_transform": 1, "kv_transform": 2}
+_EXPERT_LEAVES = ("expert_dense1_kernel", "expert_dense1_bias",
+                  "expert_dense2_kernel", "expert_dense2_bias")
 
 
 def _port_rule(name: str):
@@ -169,6 +173,8 @@ def _port_rule(name: str):
         return 0, "mlp", 1
     if owner == "dense2" and leaf == "weight" and "ffn" in parts[:-2]:
         return 1, "mlp", 1
+    if leaf in _EXPERT_LEAVES:
+        return 0, "expert", 1
     if owner.endswith("symbol_modality") and leaf == "weights":
         return 0, "vocab", 1
     if owner == "output_linear" and leaf == "weight":

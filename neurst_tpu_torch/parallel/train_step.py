@@ -37,7 +37,9 @@ others hold zeros in place of the model's output, whose backward still
 reaches their pipeline sends), and only the parameters that every stage
 holds are summed over "stage": a pipeline layer (``stage_local``, the
 names ``parallel.apply_mesh`` gives one stage) has its whole gradient on
-its own stage.  A rank's dropout key carries its rows' offset in the
+its own stage.  The experts that a rank holds alone over "data"
+(the MoE layers with an ``ep_group``) are not summed over "data": the all-to-all's backward
+has already summed every rank's tokens into them.  A rank's dropout key carries its rows' offset in the
 global micro-batch (``at_row``), so its masks are those of the
 single-rank step.  Tensor-parallel ranks compute the same loss and need
 no reduction of it; ``norm_fn`` is the gradient norm over their shards
@@ -112,6 +114,11 @@ def make_train_step(model, criterion, tx: GradientTransformation,
                                         or mesh.shape["stage"] > 1)
     if not distributed:
         mesh = None
+    # the experts a rank holds alone over "data" (parallel.apply_mesh)
+    data_local = frozenset(
+        f"{prefix}.{leaf}" for prefix, m in model.named_modules()
+        if getattr(m, "ep_group", None) is not None
+        for leaf, _ in m.named_parameters() if leaf.startswith("expert_"))
     # only the last pipeline stage holds the model's output
     last_stage = mesh is None \
         or mesh.coords["stage"] == mesh.shape["stage"] - 1
@@ -185,7 +192,9 @@ def make_train_step(model, criterion, tx: GradientTransformation,
             shared = [a for n, a in zip(names, acc) if n not in stage_local]
             collectives.all_reduce_tensors(shared + [stats],
                                            mesh.group("stage"))
-            collectives.all_reduce_tensors(acc + [stats], mesh.group("data"))
+            over_data = [a for n, a in zip(names, acc) if n not in data_local]
+            collectives.all_reduce_tensors(over_data + [stats],
+                                           mesh.group("data"))
         inv = 1.0 / stats[1].clamp_min(1e-8)
         grads = torch._foreach_mul(acc, inv)
         loss = stats[0] * inv

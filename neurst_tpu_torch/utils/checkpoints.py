@@ -1,5 +1,7 @@
 """The JAX package's name-keyed checkpoints (the port's copy of
-``neurst_tpu/utils/checkpoints.py``, npz format).
+``neurst_tpu/utils/checkpoints.py``, npz format; ``ckpt-<step>.orbax``
+directories, the sharded format, are read transparently through
+``utils/orbax_checkpoints``, as in the JAX package).
 
 A checkpoint is a flat ``{path/to/param: ndarray}`` mapping in the JAX
 package's names and layouts (``utils/param_bridge``) stored as
@@ -31,6 +33,7 @@ __all__ = ["flatten_params", "unflatten_params",
            "save_checkpoint", "list_checkpoints", "latest_checkpoint",
            "restore_into", "average_checkpoints", "opt_state_to_flat",
            "load_opt_state", "sidecar_path", "JAX_SIDECAR_SUFFIX",
+           "checkpoint_path", "save_opt_sidecar",
            "NameBasedCheckpointManager", "KeepBestCheckpointSaver",
            "AverageCheckpointSaver"]
 
@@ -75,7 +78,17 @@ def bf16_bytes_to_float32(a: np.ndarray) -> np.ndarray:
 
 
 def restore_checkpoint_params(path: str) -> Dict[str, np.ndarray]:
-    """The flat name -> array mapping of a ``.npz`` checkpoint."""
+    """The flat name -> array mapping of a ``.npz`` checkpoint, of a
+    ``.orbax`` directory (read host-side and flattened, so every npz tool
+    works on both) or of a model dir's newest checkpoint."""
+    from neurst_tpu_torch.utils import orbax_checkpoints as orbax_lib
+    if orbax_lib.is_orbax_checkpoint(path):
+        return flatten_params(orbax_lib.restore_checkpoint_orbax(path))
+    if os.path.isdir(path):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"No checkpoint found in {path}")
+        return restore_checkpoint_params(found)
     with np.load(path) as data:
         return {k: bf16_bytes_to_float32(data[k]) for k in data.files}
 
@@ -100,8 +113,14 @@ def _write_meta(model_dir, meta: dict):
 
 
 def sidecar_path(path: str) -> str:
-    """The port's optimizer sidecar beside checkpoint ``path``."""
-    return path[:-len(".npz")] + SIDECAR_SUFFIX
+    """The port's optimizer sidecar beside checkpoint ``path`` (``.npz``
+    or ``.orbax``)."""
+    return os.path.splitext(path)[0] + SIDECAR_SUFFIX
+
+
+def save_opt_sidecar(path: str, opt_state: Dict[str, np.ndarray]):
+    """The port's optimizer sidecar of checkpoint ``path``."""
+    _savez(sidecar_path(path), opt_state)
 
 
 def _savez(path: str, flat: Dict[str, np.ndarray]):
@@ -153,18 +172,31 @@ def list_checkpoints(model_dir: str) -> List[int]:
     return sorted(steps)
 
 
+def checkpoint_path(model_dir: str, step: int) -> str:
+    """The checkpoint of ``step``: ``ckpt-<step>.npz``, else its
+    ``.orbax`` directory where only that exists."""
+    path = _ckpt_path(model_dir, step)
+    orbax = path[:-len(".npz")] + ".orbax"
+    return orbax if not os.path.exists(path) and os.path.isdir(orbax) \
+        else path
+
+
 def latest_checkpoint(model_dir: Optional[str]) -> Optional[str]:
-    """The path of the newest ``.npz`` checkpoint in ``model_dir``, or
-    None."""
+    """The path of the newest checkpoint in ``model_dir`` (``.npz``, or a
+    ``.orbax`` directory in a sharded-format dir), or None."""
     if model_dir is None or not os.path.isdir(model_dir):
         return None
     step = _read_meta(model_dir).get("latest")
     if step is None:
         steps = list_checkpoints(model_dir)
         step = steps[-1] if steps else None
-    if step is None or not os.path.exists(_ckpt_path(model_dir, step)):
-        return None
-    return _ckpt_path(model_dir, step)
+    if step is not None:
+        path = checkpoint_path(model_dir, step)
+        if os.path.exists(path):
+            return path
+    from neurst_tpu_torch.utils.orbax_checkpoints import \
+        latest_orbax_checkpoint
+    return latest_orbax_checkpoint(model_dir)
 
 
 def restore_into(model: torch.nn.Module, flat: Dict[str, np.ndarray],
@@ -308,7 +340,7 @@ class NameBasedCheckpointManager(object):
             return None
         restored, missing = restore_into(model,
                                          restore_checkpoint_params(path))
-        return {"step": hack_global_step(path[:-len(".npz")]),
+        return {"step": hack_global_step(os.path.splitext(path)[0]),
                 "path": path, "restored": restored, "missing": missing}
 
 

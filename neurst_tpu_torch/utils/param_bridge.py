@@ -64,7 +64,8 @@ import torch
 from neurst_tpu_torch.utils.checkpoints import bf16_bytes_to_float32
 
 __all__ = ["flat_to_state_dict", "load_flat_params", "state_dict_to_flat",
-           "to_jax_name", "to_torch_layout", "unstack_scan_layers"]
+           "jax_layout", "to_jax_name", "to_torch_layout",
+           "unstack_scan_layers"]
 
 _PIPE_RE = re.compile(r"^(.*)/layers/pipeline/stages/layers/layer/(.*)$")
 _SCAN_RE = re.compile(r"^(.*)/layers/layer/(.*)$")
@@ -186,15 +187,19 @@ def load_flat_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):
     return model
 
 
-def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
-    """(flax name, array in flax's layout) for one port parameter, the
-    inverse of ``_to_torch_layout``; ``attention`` is the module two
-    levels up (the attention layer of a projection)."""
+def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module,
+                   shard: bool = False):
+    """(flax name, array in flax's layout, a view where the layout allows)
+    for one port parameter, the inverse of ``_to_torch_layout``;
+    ``attention`` is the module two levels up (the attention layer of a
+    projection).  ``shard``: ``a`` is this rank's tensor-parallel part."""
     parts = name.split(".")
     owner, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
     if owner in _FUSED_PROJ or owner == "output_transform":
-        # whole tensors of a tensor-parallel layer: all its ranks' heads
-        heads = attention.num_heads * getattr(attention, "tp_size", 1)
+        # a whole tensor of a tensor-parallel layer holds all its ranks'
+        # heads, a rank's part its own
+        heads = attention.num_heads * (
+            1 if shard else getattr(attention, "tp_size", 1))
         head_dim = attention.head_dim
     if leaf in ("weight", "kernel_q"):
         if owner in _FUSED_PROJ:
@@ -214,28 +219,44 @@ def _to_jax_layout(name: str, a: np.ndarray, attention: torch.nn.Module):
             leaf = "kernel"
     elif leaf in ("bias", "kernel_scale") and owner in _FUSED_PROJ:
         a = a.reshape(-1, heads, head_dim)
-    return "/".join(parts[:-1] + [leaf]), _contiguous(a)
+    return "/".join(parts[:-1] + [leaf]), a
+
+
+def _layout_owner(model: torch.nn.Module, name: str) -> torch.nn.Module:
+    return model.get_submodule(name.rsplit(".", 2)[0]) \
+        if name.count(".") >= 2 else model
 
 
 def state_dict_to_flat(model: torch.nn.Module,
-                       tensors: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> Dict[str, np.ndarray]:
+                       tensors: Optional[Dict[str, torch.Tensor]] = None,
+                       shards: bool = False) -> Dict[str, np.ndarray]:
     """``model``'s parameters (or ``tensors``, named as they are, e.g.
     the float32 master of bf16 params) -> ``neurst_tpu`` flat params
     (float32 numpy arrays, per-layer names), the inverse of
-    ``flat_to_state_dict``."""
+    ``flat_to_state_dict``.  ``shards``: the tensors are this rank's
+    tensor-parallel parts, each carried to the part of the JAX-layout
+    array that it is."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     flat = {}
     for name, p in tensors.items():
-        owner = model.get_submodule(name.rsplit(".", 2)[0]) \
-            if name.count(".") >= 2 else model
         p = p.detach()
         jax_name, a = _to_jax_layout(
             name, (p.float() if p.is_floating_point() else p).cpu().numpy(),
-            owner)
-        flat[jax_name] = a
+            _layout_owner(model, name), shards)
+        flat[jax_name] = _contiguous(a)
     return flat
+
+
+def jax_layout(model: torch.nn.Module, name: str, shape,
+               shard: bool = False):
+    """(flax name, shape in flax's layout) of port parameter ``name`` of
+    ``shape`` (``shard`` as in ``state_dict_to_flat``), without its
+    data."""
+    jax_name, a = _to_jax_layout(
+        name, np.broadcast_to(np.float32(0), tuple(shape)),
+        _layout_owner(model, name), shard)
+    return jax_name, tuple(a.shape)
 
 
 def to_jax_name(name: str) -> str:

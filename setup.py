@@ -11,7 +11,8 @@ setup(
                                     "neurst_tpu_torch", "neurst_tpu_torch.*"]),
     # the PyTorch/CUDA port builds its kernels from these sources and the
     # headers they include (philox.cuh), and its host libraries (crc32c,
-    # the FLAC decoder) from csrc/*.cpp
+    # the FLAC decoder, the zstd decoder of the orbax format) from
+    # csrc/*.cpp
     package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
                                        "csrc/*.cpp"]},
     python_requires=">=3.10",

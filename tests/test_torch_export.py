@@ -11,7 +11,12 @@ the JAX package's live search up to the first EOS (R3) with scores
 within 1e-4.  The static beam step equals the eager search after every
 number of steps; raw audio equals ``device_logfbank`` followed by the
 feature export; the custom ops are one node each in an exported program
-and survive ``save`` / ``load``; another search method raises.
+and survive ``save`` / ``load``.  ``top_sampling`` exports (text, speech;
+top-k / nucleus / temperature with 2 samples, and the argmax) give the
+eager search's tokens and scores under its seed; ``speculative_decode``
+exports (the n-gram draft, a draft model) give the eager speculative
+search's output, which is plain greedy decoding's; speculative sampling
+raises.
 """
 
 import json
@@ -36,7 +41,8 @@ from neurst_tpu.utils import checkpoints as jax_ckpt  # noqa: E402
 import neurst_tpu_torch  # noqa: E402,F401
 from neurst_tpu_torch.exps.base_experiment import (BaseExperiment,  # noqa
                                                    build_exp)
-from neurst_tpu_torch.exps.export import ENCODE_FILE  # noqa: E402
+from neurst_tpu_torch.exps.export import (ENCODE_FILE,  # noqa: E402
+                                          load_exported)
 from neurst_tpu_torch.layers.quantization.quant_layers import \
     set_int8_serving  # noqa: E402
 from neurst_tpu_torch.layers.search.beam_search import (  # noqa: E402
@@ -384,14 +390,95 @@ def test_custom_ops_are_one_node_each_through_save_and_load(tmp_path):
         _np(y), _np(fused_ffn_fwd(*args[4:])[0]))
 
 
-@pytest.mark.parametrize("method", ["top_sampling", "speculative"])
-def test_export_refuses_other_search_methods(exports, method):
+def _export_search(exports, kind, search, name, draft=False):
+    """The ``kind`` export of ``search`` ({search_method.class, .params}),
+    loaded here, and the eager search on the same model and inputs."""
+    task_cfg, model_cfg, model_dir, batch, src_len, extra, inputs = \
+        exports["kinds"][kind]
+    search = json.loads(json.dumps(search))
+    if draft:
+        search["search_method.params"]["draft_model_dir"] = model_dir
+    task = build_task(task_cfg)
+    model = task.build_model(model_cfg, device="cpu")
+    path = os.path.join(exports["root"], name)
+    entry = build_exp({"entry.class": "export", "entry.params": dict(
+        search, export_path=path, export_batch_size=batch,
+        export_src_length=src_len, **extra)},
+        task=task, model=model, model_dir=model_dir)
+    assert entry.run() == path
+    loaded = load_exported(path, "cpu")(inputs)
+    _, model = _port(task_cfg, model_cfg, model_dir)
+    eager = build_search_layer(search)
+    eager.set_model(model)
+    eager.prepare()
+    want = eager({k: torch.from_numpy(v) for k, v in inputs.items()})
+    return loaded, want, model, inputs
+
+
+SAMPLING = {"search_method.class": "top_sampling",
+            "search_method.params": {
+                "top_k": 6, "top_p": 0.95, "temperature": 1.3,
+                "num_samples": 2, "seed": 11,
+                "maximum_decode_length": MAX_LEN,
+                "extra_decode_length": MAX_LEN}}
+
+
+@pytest.mark.parametrize("kind,top_k", [("text", 6), ("speech", 6),
+                                        ("text", 1)])
+def test_exported_sampling_equals_eager_under_its_seed(exports, kind,
+                                                       top_k):
+    """The step takes the draws that ``torch.multinomial`` takes from the
+    seeded generator: the loaded search gives the eager ``top_sampling``'s
+    tokens and scores (``top_k`` 1: the argmax, no draws)."""
+    search = json.loads(json.dumps(SAMPLING))
+    search["search_method.params"]["top_k"] = top_k
+    (hyp, scores), (want, want_scores), _, _ = _export_search(
+        exports, kind, search, f"sampling_{kind}_{top_k}")
+    np.testing.assert_array_equal(_np(hyp), _np(want))
+    np.testing.assert_array_equal(_np(scores), _np(want_scores))
+    if top_k > 1:  # the draws matter
+        assert len({tuple(r) for r in _np(hyp).tolist()}) > 1
+
+
+SPECULATIVE = {"search_method.class": "speculative_decode",
+               "search_method.params": {
+                   "draft_method": "ngram", "speculative_k": 3,
+                   "maximum_decode_length": MAX_LEN,
+                   "extra_decode_length": MAX_LEN}}
+
+
+@pytest.mark.parametrize("kind,draft", [("text", "ngram"),
+                                        ("text", "model"),
+                                        ("speech", "ngram")])
+def test_exported_speculative_equals_plain_greedy(exports, kind, draft):
+    """The exported draft (n-gram lookup, or a draft model: here the
+    target's own weights) and k-token verification step decode as the
+    eager speculative search, whose output is plain greedy decoding's."""
+    search = json.loads(json.dumps(SPECULATIVE))
+    search["search_method.params"]["draft_method"] = draft
+    (hyp, scores), (want, want_scores), model, inputs = _export_search(
+        exports, kind, search, f"speculative_{kind}_{draft}",
+        draft=draft == "model")
+    np.testing.assert_array_equal(_np(hyp), _np(want))
+    np.testing.assert_array_equal(_np(scores), _np(want_scores))
+    greedy = build_search_layer({
+        "search_method.class": "beam_search", "search_method.params": {
+            "beam_size": 1, "maximum_decode_length": MAX_LEN,
+            "extra_decode_length": MAX_LEN, "length_penalty": -1}})
+    greedy.set_model(model)
+    plain, _ = greedy({k: torch.from_numpy(v) for k, v in inputs.items()})
+    eos = model.generation_meta["eos_id"]
+    assert _until_eos(hyp, eos) == _until_eos(plain, eos)
+
+
+def test_export_refuses_speculative_sampling(exports):
     task_cfg, model_cfg, model_dir = exports["kinds"]["text"][:3]
     task = build_task(task_cfg)
     model = task.build_model(model_cfg, device="cpu")
-    entry = build_exp({"entry.class": "export", "entry.params": {
-        "search_method.class": method,
-        "export_path": os.path.join(exports["root"], "refused")}},
+    search = json.loads(json.dumps(SPECULATIVE))
+    search["search_method.params"]["sampling"] = True
+    entry = build_exp({"entry.class": "export", "entry.params": dict(
+        search, export_path=os.path.join(exports["root"], "refused"))},
         task=task, model=model, model_dir=model_dir)
-    with pytest.raises(ValueError, match="beam_search only"):
+    with pytest.raises(ValueError, match="speculative sampling"):
         entry.run()

@@ -5,7 +5,10 @@ neither; the converters and the pretrained trunks' modules import no
 TensorFlow either; an entry point without ``device=`` on a host without
 CUDA raises, the predict, cascade and simuleval CLIs and the QAT, int8,
 MoE, pruning and export entries included (the host-only converter CLI
-runs without one); ``setup.py`` ships every kernel source and header and
+runs without one); the orbax format's modules (zstd, OCDBT, zarr) and
+the port's sources import neither orbax, tensorstore, zstandard nor
+ml_dtypes, and a checkpoint round trip loads none of them; ``setup.py``
+ships every kernel source and header (the zstd decoder's too) and
 the quantization, sparsity and plug-in (``contrib``) subpackages; and
 ``chip_smoke.py`` fails without a card.
 
@@ -30,6 +33,11 @@ PACKAGE = os.path.join(REPO, "neurst_tpu_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|neurst_tpu)\b",
                        re.MULTILINE)
 JAX_ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu")
+# the orbax format's own libraries, which the port's reader replaces
+ORBAX_ROOTS = ("orbax", "tensorstore", "zstandard", "ml_dtypes")
+ORBAX_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(orbax|tensorstore|zstandard|ml_dtypes|optax)\b",
+    re.MULTILINE)
 
 # The parent: imports torch, then runs each check (a JSON list on stdin)
 # in a forked child, a few at a time.  A check is {"id", "kind", ...}:
@@ -43,7 +51,8 @@ import json, os, sys
 import torch  # noqa: F401 - loaded once, before the forks
 work = sys.argv[1]
 checks = json.load(sys.stdin)
-ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu", "tensorflow")
+ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu", "tensorflow", "orbax",
+         "tensorstore", "zstandard", "ml_dtypes")
 
 
 def child(check):
@@ -186,6 +195,13 @@ PARALLEL_MODULES = [
     "neurst_tpu_torch.parallel.sharding",
     "neurst_tpu_torch.layers.pipeline",
     "neurst_tpu_torch.ops.ring_attention"]
+ORBAX_MODULES = [
+    "neurst_tpu_torch.utils.zstd",
+    "neurst_tpu_torch.utils.ocdbt",
+    "neurst_tpu_torch.utils.zarr",
+    "neurst_tpu_torch.utils.orbax_checkpoints",
+    "neurst_tpu_torch.utils.checkpoints",
+    "neurst_tpu_torch.layers.search.speculative"]
 EXAMPLES = os.path.join(REPO, "tests", "examples")
 QUANT_PARAMS = "{quant_bits: 8, quant_weight_clip_max: 1.0}"
 # the QAT, int8 and MoE entries, each without --device
@@ -238,9 +254,19 @@ def _checks(tmp):
                 "walk": f"neurst_tpu_torch.{name}"} for name in SUBPACKAGES]
     for module in (MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
                    + QUANT_MOE_MODULES + SLICE13_MODULES
-                   + PARALLEL_MODULES):
+                   + PARALLEL_MODULES + ORBAX_MODULES):
         checks.append({"id": f"module_{module}", "kind": "import",
                        "modules": [module]})
+    # the orbax reader on a checkpoint it wrote: no orbax, tensorstore,
+    # zstandard or ml_dtypes loaded on the way
+    checks.append({"id": "orbax_round_trip", "kind": "code", "code": (
+        "import numpy as np\n"
+        "from neurst_tpu_torch.utils import orbax_checkpoints as o\n"
+        f"path = o.save_checkpoint_orbax({os.path.join(tmp, 'orbax')!r}, "
+        "1, {'a': {'w': np.arange(6, dtype=np.float32).reshape(2, 3)}})\n"
+        "tree = o.restore_checkpoint_orbax(path)\n"
+        "assert np.array_equal(tree['a']['w'], np.arange(6).reshape(2, 3))\n"
+        "print('READ', path)\n")})
     run_exp = "neurst_tpu_torch.cli.run_exp"
     checks.append({"id": "predict_cli", "kind": "module", "module": run_exp,
                    "argv": ["--entry", "predict"]})
@@ -451,6 +477,25 @@ def test_parallel_modules_load_no_jax(children, module):
     _no_jax(children[f"module_{module}"])
 
 
+@pytest.mark.parametrize("module", ORBAX_MODULES)
+def test_orbax_modules_load_no_orbax_tensorstore_or_zstandard(children,
+                                                               module):
+    """The orbax format's modules (zstd, OCDBT, zarr, the checkpoint
+    functions) and the speculative search load neither JAX nor orbax,
+    tensorstore, zstandard or ml_dtypes."""
+    _no_jax(children[f"module_{module}"], JAX_ROOTS + ORBAX_ROOTS)
+
+
+def test_orbax_round_trip_loads_no_orbax_libraries(children):
+    res = children["orbax_round_trip"]
+    _no_jax(res, JAX_ROOTS + ORBAX_ROOTS)
+    assert "READ" in res["out"]
+
+
+def test_every_module_loads_no_orbax_libraries(children):
+    _no_jax(children["every_module"], JAX_ROOTS + ORBAX_ROOTS)
+
+
 def test_setup_ships_the_parallel_modules():
     from setuptools import find_packages
     with open(os.path.join(REPO, "setup.py")) as f:
@@ -488,7 +533,8 @@ def test_setup_ships_the_sparsity_and_plugin_subpackages():
     ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_or_neurst_tpu(path):
     with open(path) as f:
-        found = FORBIDDEN.findall(f.read())
+        text = f.read()
+    found = FORBIDDEN.findall(text) + ORBAX_FORBIDDEN.findall(text)
     assert not found, f"{path} imports {found}"
 
 

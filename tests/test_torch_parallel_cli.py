@@ -41,7 +41,7 @@ jax = pytest.importorskip("jax")
 
 import port_test_support  # noqa: E402,F401  (one torch thread per worker)
 from port_test_support import JAX_CLI_SIDE, REPO  # noqa: E402
-from torch_parallel_worker import _free_port  # noqa: E402
+from torch_parallel_worker import _free_port, wait_all  # noqa: E402
 
 STEPS = 2
 PREDICT = ["--entry", "predict", "--config_paths",
@@ -111,18 +111,10 @@ def _start(argv, log, env):
                                 stderr=subprocess.STDOUT)
 
 
-def _wait(procs, timeout=400):
-    for proc, log in procs:
-        try:
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            rc = "timeout"
-        if rc != 0:
-            for p, _ in procs:
-                if p.poll() is None:
-                    p.kill()
-            with open(log) as f:
-                raise RuntimeError(f"{log} failed ({rc}):\n{f.read()[-5000:]}")
+def _wait(procs, timeout=180):
+    """Every process of a group; the first to fail (or the limit) fails
+    the group at once."""
+    wait_all([p for p, _ in procs], [log for _, log in procs], timeout)
 
 
 def _jax_side(root, name, ops, devices):
@@ -229,7 +221,7 @@ def runs(tmp_path_factory):
                     run_exp.cli_main(argv[:6] + argv[8:]
                                      + ["--device", "cpu"])
             out[f"{name}{ranks}"] = model_dir
-    _wait(jax_procs + [jax_pipe])
+    _wait(jax_procs + [jax_pipe], timeout=300)
     with open(os.path.join(root, "jax_dp0.losses")) as f:
         out["jax_losses"] = json.load(f)
     port_pipe = os.path.join(root, "port_pipe.hyp")

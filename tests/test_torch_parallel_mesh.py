@@ -181,8 +181,9 @@ def _model_pair(name, overrides=None):
     ids=["transformer_base", "speech_transformer_s", "switch_moe"])
 def test_params_shardings_match_jax(name, overrides):
     jm, pm = _model_pair(name, overrides)
+    # 2 data x 2 model devices: the experts split over "data"
     mesh_ref = jax_mesh.make_mesh(model_parallel=2,
-                                  devices=jax.devices()[:2])
+                                  devices=jax.devices()[:4])
     shapes = jax.eval_shape(lambda: jm._module.init(
         {"params": jax.random.PRNGKey(0)}, **jm.example_inputs()))
     from flax import linen as nn
@@ -190,7 +191,7 @@ def test_params_shardings_match_jax(name, overrides):
     ref = flatten_params(jax_mesh.params_shardings(
         mesh_ref, jm.params_spec(), shapes))
     jshapes = {k: tuple(v.shape) for k, v in flatten_params(shapes).items()}
-    mesh = Mesh({"data": 1, "stage": 1, "model": 2},
+    mesh = Mesh({"data": 2, "stage": 1, "model": 2},
                 {"data": 0, "stage": 0, "model": 0},
                 {"data": None, "stage": None, "model": None})
     got = params_shardings(pm, mesh)
@@ -203,9 +204,11 @@ def test_params_shardings_match_jax(name, overrides):
             len(jshapes[jname]) - len(ref[jname].spec))
         want = _expected_port_spec(jname, axes, jshapes[jname],
                                    pshapes[port_name])
-        if "expert" in jname:
-            # experts stay replicated in the port (JAX: expert -> data)
-            assert spec is None, jname
+        if "/expert_dense" in jname:
+            # the expert axis over "data", as JAX's; the port keeps the
+            # filter axis whole over "model", where JAX splits it
+            assert axes[0] == "data", jname
+            assert spec == ShardSpec(0, "data", 1), jname
             continue
         if want != spec:
             differs.append(jname)

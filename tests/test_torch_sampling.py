@@ -177,3 +177,19 @@ def test_sampling_without_a_generator_raises_unless_greedy():
     ids, _ = sampling.sequence_sampling(s2l, init, None, top_k=1,
                                         maximum_decode_length=2)
     assert ids.tolist() == [[0, 0], [0, 0]]
+
+
+@pytest.mark.parametrize("top_k, top_p", [(0, 1.0), (5, 0.9)])
+def test_exponential_draws_pick_the_multinomial_token(top_k, top_p):
+    """A step's ``argmax(p / q)`` over ``exponential_draws`` picks the
+    token that ``torch.multinomial(p, 1)`` picks from the same seeded
+    generator, so the seeded samples are those of a multinomial draw."""
+    logits = torch.from_numpy(np.random.RandomState(3).randn(64, V)
+                              .astype(np.float32) * 3.0)
+    lp = sampling.masked_step_log_probs(logits, 0, 1, 3, 1.0, 0)
+    probs = torch.softmax(sampling.filter_log_probs(lp, top_k, top_p), -1)
+    want = torch.multinomial(probs, 1,
+                             generator=torch.Generator().manual_seed(5))
+    draws = sampling.exponential_draws(
+        probs.shape, torch.Generator().manual_seed(5), "cpu")
+    assert torch.equal((probs / draws).argmax(dim=-1), want[:, 0])

@@ -22,7 +22,7 @@ port's hypotheses and its trainer resumes from that dir; ``pretrain_model``
 patterns restore the same names as JAX; R6 (after a resume with an
 optimizer sidecar JAX reads its schedule at 2k + 1, the port at k + 1;
 without one both at k + 1); a JAX ``.optstate`` without a port sidecar
-and every refused trainer flag raise; the CLI writes the documented files.
+and the mesh flags one process cannot hold raise; the CLI writes the documented files.
 """
 
 import json
@@ -432,21 +432,17 @@ def test_jax_optstate_without_port_sidecar_raises(runs):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint_format", "orbax"], ["--num_model_partitions", "2"],
-    ["--pipeline_parallel", "2"], ["--checkpoint_format", "ORBAX"],
+    ["--num_model_partitions", "2"], ["--pipeline_parallel", "2"],
     ["--distribution_strategy", "horovod"],
     ["--distribution_strategy", "mirrored"]])
 def test_refused_trainer_flags(runs, flag):
-    """``checkpoint_format: orbax`` is refused.  The parallel flags are the
-    mesh's since slice 14: one process cannot hold tp 2 or pp 2 (the JAX
-    package's assertion of ``make_mesh``), and a ``distribution_strategy``
-    is accepted and ignored (the process group replaces it)."""
+    """The parallel flags are the mesh's since slice 14: one process
+    cannot hold tp 2 or pp 2 (the JAX package's assertion of
+    ``make_mesh``), and a ``distribution_strategy`` is accepted and
+    ignored (the process group replaces it)."""
     d = os.path.join(runs["root"], "refused", "_".join(flag))
     argv = ["--config_paths", runs["cfgs"][1], "--model_dir", d, *flag]
-    if flag[0] == "--checkpoint_format":
-        with pytest.raises(NotImplementedError):
-            _port_train(argv)
-    elif flag[0] == "--distribution_strategy":
+    if flag[0] == "--distribution_strategy":
         _port_train(argv + ["--train_steps", "1"])
         assert os.path.exists(os.path.join(d, "ckpt-1.npz"))
     else:
