@@ -9259,6 +9259,423 @@ def parallel_ep(seed, rank):
     return out
 
 
+# slice 16 in the ranks: QAT (transformer_base under mt_synth_qat.yml's
+# quant params), int8 serving (the slice's speech_transformer_s requests
+# in the three modes) and an ensemble of two speech_transformer_s members
+# under tensor parallelism 2, float32 held to one rank on the same card;
+# QAT's bf16 steps with dropout 0.1 timed
+QTP = dict(check_batch=32, check_length=64, batch=64, length=128, warmup=1,
+           steps=2, requests=1, site_rows=4096, site_dim=512,
+           site_filter=2048)
+# float32 tp 2 against one rank: the QAT loss and each clip's gradient
+# (relative), the QuantDense sites' outputs and gradients (relative L2;
+# an output may round to the next level of its grid where the two
+# products round apart, in at most QAT_FLIP_SHARE of its elements); a
+# rank's share of the bytes of the parameters tp 2 splits
+QTP_TOL = {"loss": 1e-5, "clip_grad": 1e-4, "site": 1e-5,
+           "split_bytes": 0.55}
+# the kernels whose launches each tp 2 path holds to one rank's (rows 1,
+# 4, 5, 8) and the ones it must not launch (rows 9-10: the fused FFN's
+# gate is off under QAT and int8 serving, as in the JAX package)
+QTP_ROWS = ("flash_attention_fwd", "fused_linear_xent_fwd",
+            "fused_linear_xent_bwd", "fused_dropout")
+QTP_OFF = ("fused_ffn_fwd", "fused_ffn_bwd")
+
+
+def _tp_launch_check(counts, one_rank, what):
+    """Rows 1, 4, 5 and 8 launched as on one rank, rows 9-10 not at
+    all."""
+    differ = {k: (counts.get(k, 0), one_rank.get(k, 0)) for k in QTP_ROWS
+              if counts.get(k, 0) != one_rank.get(k, 0)}
+    on = {k: counts[k] for k in QTP_OFF if counts.get(k)}
+    if differ or on:
+        raise AssertionError(f"{what} launches (tp 2, one rank) {differ}, "
+                             f"fused FFN {on}")
+
+
+def qat_tp_site_check(seed, rank, mesh, device="cuda"):
+    """A column-parallel (dense1, relu) and a row-parallel (dense2)
+    ``QuantDense`` of transformer_base's FFN at ``QTP["site_rows"]`` rows,
+    cut to the rank's shard and told their form as ``apply_mesh`` does,
+    against the whole dense on the same card (float32; the clips at the
+    99th percentile of |w| and of |output|, so that both take a gradient
+    from the data): the output (gathered for the column form) off by one
+    level in at most ``QAT_FLIP_SHARE`` of its elements, dx, dW and db
+    within ``QTP_TOL["site"]`` relative L2, and both clips' gradients
+    within ``QTP_TOL["clip_grad"]`` (a clip's gradient sums the
+    gradients of every clipped element, here in two halves and a sum:
+    7.4e-5 apart at 64 x 128 on the CPU)."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    from neurst_tpu_torch.parallel import collectives
+    from neurst_tpu_torch.parallel.mesh import ShardSpec
+    from neurst_tpu_torch.parallel.sharding import _set_dense, take_shard
+    q = QTP
+    group, coord, n = (mesh.group("model"), mesh.coords["model"],
+                       mesh.shape["model"])
+    rng = np.random.RandomState(seed + 151)
+    rows_out = []
+    for name, d_in, d_out, act, row in (
+            ("dense1", q["site_dim"], q["site_filter"], "relu", False),
+            ("dense2", q["site_filter"], q["site_dim"], None, True)):
+        w = (rng.randn(d_out, d_in) * d_in ** -0.5).astype(np.float32)
+        b = (0.1 * rng.randn(d_out)).astype(np.float32)
+        x = rng.randn(q["site_rows"], d_in).astype(np.float32)
+        g = rng.randn(q["site_rows"], d_out).astype(np.float32)
+        pre = x @ w.T + b
+        if act:
+            pre = np.maximum(pre, 0.0)
+        clips = (float(np.quantile(np.abs(w), 0.99)),
+                 float(np.quantile(np.abs(pre), 0.99)))
+        out = {}
+        for where in ("whole", "tp"):
+            dense = ql.QuantDense(d_in, d_out, activation=act).to(device)
+            with torch.no_grad():
+                dense.weight.copy_(torch.from_numpy(w))
+                dense.bias.copy_(torch.from_numpy(b))
+                dense.kernel_clip_max.fill_(clips[0])
+                dense.output_clip_max.fill_(clips[1])
+            xx = torch.from_numpy(x).to(device).requires_grad_()
+            gg = torch.from_numpy(g).to(device)
+            inp = xx
+            if where == "tp":
+                spec = ShardSpec(1 if row else 0, "model", 1)
+                with torch.no_grad():
+                    dense.weight.data = take_shard(dense.weight.data, spec,
+                                                   coord, n)
+                    if not row:
+                        dense.bias.data = take_shard(dense.bias.data, spec,
+                                                     coord, n)
+                _set_dense(dense, group, row)
+                if row:
+                    inp = take_shard(xx, ShardSpec(1, "model", 1), coord,
+                                     n)
+                else:
+                    inp = collectives.copy_to(xx, group)
+                    gg = take_shard(gg, ShardSpec(1, "model", 1), coord, n)
+            params = [xx, dense.weight, dense.bias, dense.kernel_clip_max,
+                      dense.output_clip_max]
+            y = dense.dense(inp, torch.float32)
+            grads = torch.autograd.grad((y * gg).sum(), params)
+            if where == "tp":
+                # the whole output, dx, dW and db of the rank's parts
+                y = collectives.all_gather(y.detach(), 1, None if row
+                                           else group)
+                grads = list(grads)
+                if row:
+                    grads[0] = collectives.all_reduce(grads[0].clone(),
+                                                      group)
+                for i in (1, 2):
+                    if i == 1 or not row:
+                        grads[i] = collectives.all_gather(
+                            grads[i], 1 if (row and i == 1) else 0, group)
+            out[where] = (y.detach(), [t.detach() for t in grads])
+            del dense
+        y_tp, g_tp = out["tp"]
+        y_one, g_one = out["whole"]
+        level = clips[1] / (255.0 if act == "relu" else 127.0)
+        diff = (y_tp - y_one).abs()
+        flips = diff > 1e-5 * float(y_one.abs().max())
+        errs = {k: _rel_l2(a, b_) for k, a, b_ in zip(
+            ("dx", "dw", "db", "dkernel_clip", "doutput_clip"), g_tp, g_one)}
+        rows_out.append({
+            "site": name, "form": "row" if row else "column",
+            "rows": q["site_rows"], "in": d_in, "out": d_out,
+            "flip_share": float(flips.float().mean()),
+            "max_flip_levels": float(diff.max()) / level,
+            "grad_rel_l2_err": errs,
+            "clip_grads": [float(t) for t in g_tp[3:]]})
+        r = rows_out[-1]
+        tol = {k: QTP_TOL["clip_grad" if "clip" in k else "site"]
+               for k in errs}
+        if not (r["flip_share"] <= QAT_FLIP_SHARE
+                and r["max_flip_levels"] <= 1.01
+                and all(errs[k] <= tol[k] for k in errs)
+                and all(math.isfinite(c) and c != 0.0
+                        for c in r["clip_grads"])):
+            raise AssertionError(f"QuantDense tp 2 on rank {rank}: {r}")
+    return rows_out
+
+
+def parallel_qat_tp(seed, rank, device="cuda"):
+    """QAT under tensor parallelism 2: transformer_base under
+    mt_synth_qat.yml's quant params, a float32 step at [32, 64] without
+    dropout against one rank's (rank 0 computes it): the loss within
+    ``QTP_TOL["loss"]`` and every clip's gradient within
+    ``QTP_TOL["clip_grad"]`` relative (the other gradients' worst relative
+    L2 printed: a deep QAT model is discontinuous); the two FFN sites
+    (``qat_tp_site_check``); then bf16 steps with dropout 0.1 at
+    [64, 128]: ms a step and each rank's launches a step against one
+    rank's step."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        global_init
+    from neurst_tpu_torch.models.transformer import Transformer
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.utils.rng import make_key
+
+    q, vocab = QTP, NMT_TRAIN["vocab"]
+    qp = _qat_quant_params()
+    flat = transformer_flat_params(
+        Transformer.build_model_args_by_name(NMT_TRAIN["model"]), vocab,
+        vocab, seed)
+    batch = nmt_batch(np.random.RandomState(seed + 150), device,
+                      q["check_batch"], q["check_length"], vocab, vocab)
+    rng = np.random.RandomState(seed + 152)
+    timed = [nmt_batch(rng, device, q["batch"], q["length"], vocab, vocab)
+             for _ in range(q["warmup"] + q["steps"])]
+    key = make_key(seed + 153)
+    out = {"quant_params": qp}
+    global_init(True, **qp)
+    try:
+        ref = None
+        if rank == 0:
+            model, _, _, state, step = build_nmt_train(
+                seed, device, "float32", False, 0.0, quant_params=qp,
+                flat=dict(flat))
+            loss, _, grads = step.compute_grads(state.params, batch)
+            ref = (float(loss), {n: g.cpu() for n, g in grads.items()})
+            del model, state, step, grads
+            # one rank's bf16 step: the launches a step the ranks match
+            model, _, _, state, step = build_nmt_train(
+                seed, device, "bfloat16", True, DROPOUT_RATE,
+                quant_params=qp, flat=dict(flat))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            state, _ = step(state, timed[0], key)
+            torch.cuda.synchronize()
+            ref_launches = launch_counts()
+            del model, state, step
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        mesh = make_mesh(model_parallel=2)
+        model, _, _, state, step = build_nmt_train(
+            seed, device, "float32", False, 0.0, quant_params=qp, mesh=mesh,
+            flat=dict(flat))
+        loss, _, grads = step.compute_grads(state.params, batch)
+        whole = _whole_grads(model, grads, mesh)
+        del model, state, step, grads
+        torch.cuda.empty_cache()
+        row = {"batch": [q["check_batch"], q["check_length"]],
+               "loss": float(loss)}
+        if rank == 0:
+            ref_loss, ref_grads = ref
+            clips = sorted(n for n in ref_grads if n.endswith("_clip_max"))
+            clip_errs = {n: abs(float(whole[n]) - float(ref_grads[n]))
+                         / max(abs(float(ref_grads[n])), 1e-30)
+                         for n in clips}
+            worst_clip = max(clip_errs, key=clip_errs.get)
+            others = {n: g for n, g in ref_grads.items() if n not in clips}
+            row.update(ref_loss=ref_loss,
+                       loss_rel_err=abs(float(loss) - ref_loss)
+                       / abs(ref_loss), clips=len(clips),
+                       clip_grad_max_rel_err=[clip_errs[worst_clip],
+                                              worst_clip],
+                       grad_rel_l2=list(_grad_errs(whole, others)),
+                       tol=QTP_TOL)
+            print(json.dumps({"qat_tp_float32": row}), flush=True)
+            if not (row["loss_rel_err"] <= QTP_TOL["loss"] and clips
+                    and clip_errs[worst_clip] <= QTP_TOL["clip_grad"]):
+                raise AssertionError(f"QAT tp 2 float32: {row}")
+        out["float32"] = row
+        del whole
+        out["sites"] = qat_tp_site_check(seed, rank, mesh, device)
+        model, _, _, state, step = build_nmt_train(
+            seed, device, "bfloat16", True, DROPOUT_RATE, quant_params=qp,
+            mesh=mesh, flat=dict(flat))
+        step_ms, losses = [], []
+        for i, b in enumerate(timed):
+            if i == q["warmup"]:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            start = time.perf_counter()
+            state, metrics = step(state, b, key)
+            torch.cuda.synchronize()
+            if i >= q["warmup"]:
+                step_ms.append((time.perf_counter() - start) * 1e3)
+                losses.append(float(metrics["loss"]))
+        counts = launch_counts()
+        per_step = {k: v // q["steps"] for k, v in counts.items()}
+        out["bfloat16"] = {"batch": [q["batch"], q["length"]],
+                           "dropout": DROPOUT_RATE, "step_ms": step_ms,
+                           "losses": losses, "launches_per_step": per_step}
+        out["launches"] = counts
+        # (no kernel launches on the CPU rehearsal)
+        if not ((per_step["fused_dropout"] or device != "cuda")
+                and all(map(math.isfinite, losses))):
+            raise AssertionError(f"QAT tp 2 bf16: {out['bfloat16']}")
+        if rank == 0:
+            out["bfloat16"]["one_rank_launches_per_step"] = ref_launches
+            _tp_launch_check(per_step, ref_launches, "QAT tp 2 bf16 step")
+        del model, state, step
+        torch.cuda.empty_cache()
+    finally:
+        global_init(False)
+    return out
+
+
+def _place_tp(model):
+    """``model`` placed by the predict entry's tensor-parallel decode
+    (``SequenceGenerator._decode_mesh`` with ``--decode_tensor_parallel
+    2``); returns the rows of a request this rank decodes
+    (``_shard_rows``: two ranks at tp 2 hold one data rank, so both decode
+    every row)."""
+    from neurst_tpu_torch.exps.sequence_generator import SequenceGenerator
+    gen = SequenceGenerator({"decode_tensor_parallel": 2})
+    mesh = gen._decode_mesh(model)
+    if mesh.shape["model"] != 2:
+        raise AssertionError(f"tp 2 decode mesh {mesh}")
+    return lambda request: gen._shard_rows(mesh, request)[0]
+
+
+def _decode_counted(search, requests):
+    """(hypotheses, ms a request, launch counts) of one decode of each of
+    ``requests``, with no warm-up (the ranks' processes decoded the
+    slice's requests before, in ``parallel_decode``)."""
+    import torch
+
+    from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    outs, ms = [], []
+    for request in requests:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs.append(search(request)[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+    return torch.cat(outs).cpu(), ms, launch_counts()
+
+
+def parallel_int8_tp(seed, rank, device="cuda"):
+    """int8 serving under tensor parallelism 2: the slice's
+    speech_transformer_s requests (float32 compute) in each int8 mode
+    against one rank on the card (rank 0 decodes them): every hypothesis
+    equal; the static mode calibrated on the first request teacher-forced
+    from BOS, on the ranks as on one rank; ms a request; each rank's
+    weight bytes (``torch.cuda.memory_allocated`` after the load and the
+    placement) against one rank's, the parameters tp 2 splits at most
+    ``QTP_TOL["split_bytes"]`` of their one-rank bytes; flash launches as
+    one rank's, rows 9-10 none."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        calibrate_int8_act_scales
+    from neurst_tpu_torch.parallel.mesh import Mesh, params_shardings
+
+    out = {}
+    # the parameters a 2-way "model" axis splits (names and shapes only)
+    split_mesh = Mesh({"data": 1, "stage": 1, "model": 2},
+                      {"data": 0, "stage": 0, "model": 0},
+                      {"data": None, "stage": None, "model": None})
+    try:
+        for mode in INT8_MODES:
+            _set_int8(mode)
+            ref = None
+            for where in ("one_rank", "tp") if rank == 0 else ("tp",):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                model, search, request = build_slice(seed, device, "float32")
+                whole = {n: p.numel() * p.element_size()
+                         for n, p in model.named_parameters()}
+                split = {n for n, spec in params_shardings(
+                    model, split_mesh).items() if spec is not None}
+                rows = (lambda r: r) if where == "one_rank" \
+                    else _place_tp(model)
+                torch.cuda.synchronize()
+                loaded = torch.cuda.memory_allocated() - before
+                local = {n: p.numel() * p.element_size()
+                         for n, p in model.named_parameters()}
+                requests = [rows(request()) for _ in range(QTP["requests"])]
+                if mode == "int8_static":
+                    calibrate_int8_act_scales(model, [dict(
+                        requests[0], trg_input=torch.full(
+                            (requests[0]["src"].shape[0], 8), model.bos_id,
+                            device=device))])
+                hyps, ms, counts = _decode_counted(search, requests)
+                row = {"request_ms": ms, "launches": counts,
+                       "weight_bytes": loaded,
+                       "param_bytes": sum(local.values())}
+                if where == "one_rank":
+                    ref = dict(row, hyps=hyps)
+                else:
+                    share = sum(local[n] for n in split) / sum(
+                        whole[n] for n in split)
+                    row.update(split_params=len(split),
+                               split_bytes_share=share)
+                    _no_fused_rows(counts, f"int8 tp 2 {mode}")
+                    if not (split and share <= QTP_TOL["split_bytes"]
+                            and {n for n in split if local[n] < whole[n]}
+                            == split):
+                        raise AssertionError(f"int8 tp 2 {mode}: {row}")
+                    if rank == 0:
+                        row.update(one_rank={k: v for k, v in ref.items()
+                                             if k != "hyps"},
+                                   hypotheses_equal=bool(torch.equal(
+                                       hyps, ref["hyps"])))
+                        _tp_launch_check(counts, ref["launches"],
+                                         f"int8 tp 2 {mode}")
+                        if not row["hypotheses_equal"]:
+                            raise AssertionError(
+                                f"int8 tp 2 {mode}: hypotheses differ from "
+                                f"one rank's")
+                    out[mode] = row
+                del model, search
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+    finally:
+        _quantization_off()
+    return out
+
+
+def parallel_ensemble_tp(seed, rank, device="cuda"):
+    """An ensemble of two speech_transformer_s members (seeds ``seed`` and
+    ``seed + 1``, float32) decoded by the predict entry's tensor-parallel
+    placement (``--decode_tensor_parallel 2``: the members whole on every
+    rank, the rows over a data axis of one): every hypothesis equal to the
+    one-rank ensemble's (rank 0 decodes it), ms a request, flash launches
+    as one rank's."""
+    import torch
+
+    import neurst_tpu_torch
+    from neurst_tpu_torch.models.ensemble_model import \
+        EncoderDecoderEnsembleModel
+
+    members, request = [], None
+    for s in (seed, seed + 1):
+        model, search, req = build_slice(s, device, "float32")
+        members.append(model)
+        request = request or req
+        params = search.args
+    requests = [request() for _ in range(QTP["requests"])]
+    ensemble = EncoderDecoderEnsembleModel(members)
+    search = neurst_tpu_torch.build_search_layer({
+        "search_method.class": "beam_search",
+        "search_method.params": params})
+    search.set_model(ensemble)
+    ref = None
+    if rank == 0:
+        hyps, ms, counts = _decode_counted(search, requests)
+        ref = {"hyps": hyps, "ms": ms, "launches": counts}
+    torch.distributed.barrier()
+    rows = _place_tp(ensemble)
+    hyps, ms, counts = _decode_counted(search, [rows(r) for r in requests])
+    row = {"members": len(members), "request_ms": ms, "launches": counts}
+    _no_fused_rows(counts, "ensemble tp 2")
+    if rank == 0:
+        row.update(one_rank_request_ms=ref["ms"],
+                   hypotheses_equal=bool(torch.equal(hyps, ref["hyps"])))
+        _tp_launch_check(counts, ref["launches"], "ensemble tp 2")
+        if not row["hypotheses_equal"]:
+            raise AssertionError("ensemble tp 2: hypotheses differ from one "
+                                 "rank's")
+    del ensemble, members, search
+    torch.cuda.empty_cache()
+    return row
+
+
 def gloo_cuda_probe():
     """Which gloo collectives take CUDA tensors here: each of
     ``collectives.GLOO_CUDA_OPS`` must (the others go through host
@@ -9299,6 +9716,10 @@ def parallel_rank_main(rank, port, root, seed):
                      ("pipeline", lambda: parallel_pipeline(seed, rank)),
                      ("decode", lambda: parallel_decode(seed, rank)),
                      ("ep", lambda: parallel_ep(seed, rank)),
+                     ("qat_tp", lambda: parallel_qat_tp(seed, rank)),
+                     ("int8_tp", lambda: parallel_int8_tp(seed, rank)),
+                     ("ensemble_tp", lambda: parallel_ensemble_tp(seed,
+                                                                  rank)),
                      ("trainer", lambda: parallel_trainer(root, rank))):
         start = time.perf_counter()
         out[name] = fn()
@@ -9466,7 +9887,19 @@ class ParallelRanks(object):
                 "parallel_trainer": r0["trainer"]["launches"],
                 "parallel_pp2": pp2,
                 "parallel_decode_tp2": r0["decode"]["tp"]["launches"],
-                "parallel_ep2_moe": r0["ep"]["launches"]}
+                "parallel_ep2_moe": r0["ep"]["launches"],
+                "parallel_qat_tp2": r0["qat_tp"]["launches"],
+                "parallel_int8_tp2": _sum_counts(
+                    r0["int8_tp"][m]["launches"] for m in INT8_MODES),
+                "parallel_ensemble_tp2": r0["ensemble_tp"]["launches"]}
+
+
+def _sum_counts(counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def parallel_phase(seed):

@@ -31,8 +31,13 @@ accepted as the JAX CLI accepts it: the process group replaces it.  The
 pipeline flags (``*.pipeline_stages`` / ``*.pipeline_microbatches``) shape
 the training step only: other entries build the model without them.
 
-Flags of features the port lacks raise ``NotImplementedError`` when set:
-the XLA compilation cache, ``enable_xla: true`` and NaN checks.  The
+Flags of the JAX package's compiler: ``enable_xla`` is accepted as the
+JAX CLI accepts it (everything there is XLA; the port runs eagerly, so
+it changes nothing), and ``compilation_cache_dir`` is accepted and
+logged (the port compiles no XLA programs to cache).
+``enable_check_numerics`` (``jax_debug_nans`` in the JAX package) makes
+the train step raise ``FloatingPointError`` at the first step whose loss
+or gradients hold a NaN.  The
 ``predict``, ``train``, ``eval``, ``sequence_evaluator``, ``validation``
 and ``export`` entries are ported (the recipes' ``trainer`` is ``train``
 by its class name); the trainer refuses the features it lacks itself
@@ -80,10 +85,11 @@ FLAG_LIST = [
     Flag("dtype", dtype=Flag.TYPE.STRING, default=None,
          help="The computation dtype (bfloat16/float32)."),
     Flag("enable_check_numerics", dtype=Flag.TYPE.BOOLEAN, default=None,
-         help="NaN checking (not ported)."),
+         help="Raise FloatingPointError at the first train step whose "
+              "loss or gradients hold a NaN."),
     Flag("enable_xla", dtype=Flag.TYPE.BOOLEAN, default=None,
-         help="Kept for recipe compatibility: XLA compilation is not "
-              "ported (true raises)."),
+         help="Kept for recipe compatibility (no effect: the port runs "
+              "eagerly)."),
     Flag("enable_quant", dtype=Flag.TYPE.BOOLEAN, default=False,
          help="Whether to enable quantization-aware training."),
     Flag("quant_params", dtype=Flag.TYPE.STRING, default=None,
@@ -111,7 +117,8 @@ FLAG_LIST = [
          help="Form the process group from --worker_hosts/--task_index "
               "(or WORKER_HOSTS/TASK_ID) before anything is built."),
     Flag("compilation_cache_dir", dtype=Flag.TYPE.STRING, default=None,
-         help="The JAX package's XLA compilation cache (not ported)."),
+         help="The JAX package's XLA compilation cache (accepted and "
+              "logged: the port compiles no XLA programs)."),
     Flag("worker_hosts", dtype=Flag.TYPE.STRING, default=None,
          help="Comma-separated worker addresses; the first is the "
               "coordinator (port 8476 by default)."),
@@ -125,11 +132,6 @@ FLAG_LIST = [
     ModuleFlag("model", "model", help="The model."),
     ModuleFlag("dataset", "dataset", help="The dataset."),
 ]
-
-# flags of features the port does not have, and the value that means off
-_UNPORTED = {"compilation_cache_dir": None,
-             "enable_check_numerics": None, "enable_xla": (None, False)}
-
 
 def _format_hparams(predefined: dict) -> dict:
     """hparams-set dict -> top-level config (model.* kept, the rest
@@ -234,11 +236,10 @@ def _set_quantization(args):
 
 
 def run_experiment(args):
-    on = sorted(k for k, off in _UNPORTED.items()
-                if args.get(k) not in (off if isinstance(off, tuple)
-                                       else (off,)))
-    if on:
-        raise NotImplementedError(f"not ported: --{', --'.join(on)}")
+    if args.get("compilation_cache_dir"):
+        logging.info("compilation_cache_dir %s: the port compiles no XLA "
+                     "programs and keeps no compilation cache",
+                     args["compilation_cache_dir"])
     device = resolve_device(args.get("device"))
     if args.get("distributed_init") \
             or int(os.environ.get("WORLD_SIZE") or 1) > 1:

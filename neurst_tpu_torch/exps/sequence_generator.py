@@ -33,7 +33,10 @@ batches): ``decode_data_parallel`` (on by default) shards each batch's
 rows over the "data" axis where they divide it and replicates the batch
 where they do not (the JAX package's ``_dp_put`` rule);
 ``decode_tensor_parallel N`` shards the model's heads, mlp and vocabulary
-over N "model" ranks (the beam cache holds the local heads); MoE experts
+over N "model" ranks (the beam cache holds the local heads; int8 and
+QAT layers included); an ensemble keeps every member whole on every rank
+and splits the batches over the "data" axis of the same mesh (two ranks
+at tp 2 both decode every batch whole, as in the JAX package); MoE experts
 are split over the "data" ranks when their count divides it, each decode
 step dispatching to them (a rank whose search ends first serves its
 experts until every rank's has, ``layers.moe.drain_experts``); and with
@@ -223,9 +226,6 @@ class SequenceGenerator(BaseExperiment):
         if mesh is not None:
             return mesh
         tp = int(self._args.get("decode_tensor_parallel") or 1)
-        if tp > 1 and not isinstance(self._model, type(model)):
-            raise NotImplementedError("tensor-parallel decode of an "
-                                      "ensemble is not supported")
         if self._args.get("decode_data_parallel") is False:
             if tp == 1:
                 return None  # every rank decodes every batch whole
@@ -233,9 +233,16 @@ class SequenceGenerator(BaseExperiment):
             mesh = make_mesh(data_parallel=1, model_parallel=tp)
         else:
             mesh = make_mesh(model_parallel=tp)
-        apply_mesh(model, mesh)
-        logging.info("Decode over %d-way data x %d-way tensor parallelism",
-                     mesh.shape["data"], mesh.shape["model"])
+        if isinstance(model, EncoderDecoderEnsembleModel):
+            # the members stay whole on every rank: only the batches are
+            # split, over "data"
+            logging.info("Ensemble decode over %d-way data parallelism "
+                         "(members replicated)", mesh.shape["data"])
+        else:
+            apply_mesh(model, mesh)
+            logging.info("Decode over %d-way data x %d-way tensor "
+                         "parallelism", mesh.shape["data"],
+                         mesh.shape["model"])
         model.decode_mesh = mesh
         return mesh
 
@@ -286,7 +293,7 @@ class SequenceGenerator(BaseExperiment):
             rows = next(v.shape[0] for v in model_inp.values() if v.ndim)
             model_inp, sharded = self._shard_rows(mesh, model_inp)
             hyp, score = search(model_inp)
-            if mesh is not None:
+            if mesh is not None and model is self._model:
                 # experts sharded over "data" serve the other ranks'
                 # decode steps until every rank's search has ended
                 drain_experts(model)

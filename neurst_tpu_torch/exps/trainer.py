@@ -29,6 +29,8 @@ loss, once a step.  ``pruning_schedule`` adds magnitude pruning
 (``sparsity/pruning_optimizer.py``) over the variables that
 ``pruning_variable_pattern`` / ``nopruning_variable_pattern`` select by
 the JAX package's flat names; its masks and count ride in the sidecar.
+``enable_check_numerics`` raises ``FloatingPointError`` at the first step
+whose loss or gradients hold a NaN, before its update.
 ``gradient_remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint`` over the whole forward, as the JAX step
 wraps it in ``jax.checkpoint``).  ``_wrap_tx`` is a hook for entries
@@ -376,7 +378,9 @@ class Trainer(BaseExperiment):
                                      extra_loss_fn=extra_loss_fn,
                                      remat=bool(args.get("gradient_remat")),
                                      mesh=mesh, norm_fn=norm_fn,
-                                     stage_local=frozenset(specs.owners))
+                                     stage_local=frozenset(specs.owners),
+                                     check_numerics=bool(
+                                         args.get("enable_check_numerics")))
 
         train_steps = int(args.get("train_steps") or 10_000_000)
         save_every = int(args.get("save_checkpoint_steps") or 1000)

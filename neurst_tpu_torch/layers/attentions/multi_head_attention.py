@@ -26,17 +26,19 @@ the projections to this rank's heads): the q/k/v projections are
 column-parallel (their input goes through ``collectives.copy_to``), the
 attention runs on the local heads (the flash kernels included), and the
 output projection is row-parallel: its partial sums are all-reduced
-(``reduce_from``) before its bias is added once.  Attention dropout then
-folds the rank's model coordinate into the site's key.  With ``ring``
+(``reduce_from``) before its bias is added once (``common_layers.
+row_linear``; a quantized projection runs its own row-parallel form, its
+fake quant or int8 scales included).  Attention dropout then folds the
+rank's model coordinate into the site's key.  With ``ring``
 (a ring group and the global key lengths) the self-attention runs as
 ``ops/ring_attention.py`` over the time shards, without dropout.
 """
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
-from neurst_tpu_torch.layers.common_layers import apply_dropout, linear
+from neurst_tpu_torch.layers.common_layers import (apply_dropout, linear,
+                                                   row_linear)
 from neurst_tpu_torch.layers.quantization.quant_layers import dense_general
 from neurst_tpu_torch.ops.flash_attention import flash_attention
 from neurst_tpu_torch.ops.ring_attention import ring_self_attention
@@ -96,12 +98,8 @@ class MultiHeadAttention(nn.Module):
     def _output(self, out):
         """[B, F, N, H] -> output_transform -> [B, F, D]."""
         out = out.reshape(*out.shape[:2], -1)
-        if self.tp_group is None:
-            return linear(self.output_transform, out, self.dtype)
-        layer = self.output_transform
-        y = collectives.reduce_from(F.linear(
-            out.to(self.dtype), layer.weight.to(self.dtype)), self.tp_group)
-        return y + layer.bias.to(self.dtype)
+        return row_linear(self.output_transform, out, self.dtype,
+                          self.tp_group)
 
     def _site(self, dropout_key):
         """The attention dropout key of this rank's heads."""

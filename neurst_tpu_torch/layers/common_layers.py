@@ -18,10 +18,13 @@ Tensor parallelism (``parallel.apply_mesh`` sets ``tp_group``): the FFN
 runs on this rank's filter columns (dense1 column-parallel, dense2
 row-parallel: the partial sums are all-reduced and dense2's bias added
 once, after), the fused kernels included; its hidden dropout folds the
-rank's model coordinate into the site's key.  A word embedding holds
-this rank's rows of the vocabulary: a lookup takes the rows it holds and
-all-reduces, and the tied softmax (``attend``, ``full_weights``) reads
-the table gathered whole.
+rank's model coordinate into the site's key.  Under QAT and int8 serving
+dense1 runs its own quantized dense on its columns and dense2 its
+row-parallel form (``quant_layers``).  A word embedding holds this rank's
+rows of the vocabulary (of the int8 table and its scales too): a lookup
+takes the rows it holds and all-reduces, and the tied softmax
+(``attend``, ``full_weights``) reads the table gathered whole, or, int8,
+gathers this rank's columns of the logits.
 """
 
 import math
@@ -39,7 +42,7 @@ from neurst_tpu_torch.utils.rng import at_shard
 
 __all__ = ["LayerNorm", "TransformerFFN", "WordEmbedding",
            "sinusoidal_position_signal", "sinusoidal_position_signal_at",
-           "linear", "apply_dropout",
+           "linear", "row_linear", "apply_dropout",
            "activation_by_name"]
 
 _ACTIVATIONS = {
@@ -87,6 +90,18 @@ def linear(layer: nn.Module, x, dtype):
         return dense(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_linear(layer: nn.Module, x, dtype, group):
+    """A row-parallel ``layer`` on this rank's input features (``group``
+    the model group, None on one rank): the partial products are
+    all-reduced and the bias added once, after.  A quantized dense
+    reduces its own (``apply_mesh`` told it its form)."""
+    if group is None or getattr(layer, "dense", None) is not None:
+        return linear(layer, x, dtype)
+    y = collectives.reduce_from(
+        F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -157,20 +172,23 @@ class TransformerFFN(nn.Module):
 
     def _forward_tp(self, x, is_training, dropout_key):
         """The FFN on this rank's filter columns; dense2's bias is added
-        after the all-reduce of the partial sums."""
+        after the all-reduce of the partial sums (under QAT and int8
+        serving dense2 reduces its own)."""
         x = collectives.copy_to(x, self.tp_group)
         key = at_shard(dropout_key, self.tp_rank)
         rate = self.dropout_rate if is_training else 0.0
-        b2 = self.dense2.bias
         if self.fuses(x.numel() // x.shape[-1], is_training, rate):
+            b2 = self.dense2.bias
             y = fused_ffn(x.to(self.dtype), self.dense1.weight,
                           self.dense1.bias, self.dense2.weight,
                           torch.zeros_like(b2), rate, key if rate else None)
-        else:
-            h = self._activate(linear(self.dense1, x, self.dtype))
-            h = apply_dropout(h, self.dropout_rate, is_training, key)
-            y = F.linear(h.to(self.dtype), self.dense2.weight.to(self.dtype))
-        return collectives.reduce_from(y, self.tp_group) + b2.to(self.dtype)
+            return collectives.reduce_from(y, self.tp_group) \
+                + b2.to(self.dtype)
+        h = linear(self.dense1, x, self.dtype)
+        if not self._quant:
+            h = self._activate(h)
+        h = apply_dropout(h, self.dropout_rate, is_training, key)
+        return row_linear(self.dense2, h, self.dtype, self.tp_group)
 
 
 def sinusoidal_position_signal(length: int, channels: int, start: int = 0,
@@ -255,24 +273,34 @@ class WordEmbedding(nn.Module):
         tensor parallelism; the backward keeps this rank's rows)."""
         return collectives.gather_from(self.weights, 0, self.tp_group)
 
+    def _rows(self, ids):
+        """The float rows of ``ids`` (the int8 table's dequantized in
+        float32), before the cast to the compute dtype."""
+        if self.int8:
+            return self.weights_q[ids].float() \
+                * self.weights_scale[ids][..., None]
+        return self.weights[ids]
+
     def _lookup(self, ids):
         if self.tp_group is None:
-            return self.weights[ids].to(self.dtype)
+            return self._rows(ids).to(self.dtype)
+        # this rank's rows of the vocabulary; the others' are summed in
         local = ids - self.vocab_start
-        held = (local >= 0) & (local < self.weights.shape[0])
-        emb = self.weights[torch.where(held, local, 0)] \
-            * held[..., None].to(self.weights.dtype)
+        held = (local >= 0) & (local < self.vocab_held)
+        emb = self._rows(torch.where(held, local, 0))
+        emb = emb * held[..., None].to(emb.dtype)
         return collectives.reduce_from(emb, self.tp_group).to(self.dtype)
+
+    @property
+    def vocab_held(self) -> int:
+        """The vocabulary rows this rank holds."""
+        return (self.weights_q if self.int8 else self.weights).shape[0]
 
     def forward(self, ids, time=None):
         """ids [B, L] (or [B] with a scalar ``time``) -> [B, L, D] / [B, D].
         A ``time`` tensor [B] (a speculative decode's per-row times) puts
         row b's tokens at positions time[b] + [0, L)."""
-        if self.int8:
-            emb = (self.weights_q[ids].float()
-                   * self.weights_scale[ids][..., None]).to(self.dtype)
-        else:
-            emb = self._lookup(ids)
+        emb = self._lookup(ids)
         if self.timing is None:
             return emb
         squeeze = ids.dim() == 1
@@ -310,8 +338,10 @@ class WordEmbedding(nn.Module):
         w = table.to(features.dtype)
         logits = torch.matmul(features.float(), w.float().t())
         if self.int8:
-            # the per-row scale lands on the logits' vocabulary axis
-            logits = logits * self.weights_scale.float()
+            # the per-row scale lands on the logits' vocabulary axis; under
+            # tensor parallelism this rank's columns are gathered
+            logits = collectives.all_gather(
+                logits * self.weights_scale.float(), -1, self.tp_group)
         if self.bias is not None:
             logits = logits + self.bias.float()
         return logits

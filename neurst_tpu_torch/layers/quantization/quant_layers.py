@@ -38,8 +38,11 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
+
+from neurst_tpu_torch.parallel import collectives
 
 __all__ = ["global_init", "get_global_config", "quant_enabled",
            "fake_quant_minmax",
@@ -199,7 +202,16 @@ class QuantDense(nn.Linear):
     product in the compute dtype, bias, its own ``activation``, output
     fake-quant.  ``weight`` / ``bias`` as ``nn.Linear``'s, plus the
     scalars ``kernel_clip_max`` and ``output_clip_max`` (none for a
-    softmax output, whose range is fixed)."""
+    softmax output, whose range is fixed).
+
+    Under tensor parallelism (``parallel.apply_mesh`` sets ``tp_group``
+    and ``row_parallel``) the weight is this rank's shard and the clips
+    are whole on every rank: a clip read by this rank's part of the
+    kernel or of the output goes through ``collectives.copy_to``, so its
+    gradient is summed over the model group.  A column-parallel site
+    computes its own output columns; a row-parallel one reduces its
+    partial product over the group and then adds the bias, activates and
+    fake-quantizes the whole output, whose clip then needs no sum."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, activation=None):
@@ -208,6 +220,7 @@ class QuantDense(nn.Linear):
         self.kernel_clip_max = nn.Parameter(torch.empty(()))
         self.output_clip_max = None if activation == "softmax" \
             else nn.Parameter(torch.empty(()))
+        self.tp_group, self.row_parallel = None, False
 
     def init_extra_params(self):
         """The clips' initial values from the global config."""
@@ -218,17 +231,23 @@ class QuantDense(nn.Linear):
 
     def quantized_kernel(self):
         """The weight fake-quantized on its learned symmetric grid."""
-        return _weight_quant(self.weight, self.kernel_clip_max)
+        return _weight_quant(self.weight, collectives.copy_to(
+            self.kernel_clip_max, self.tp_group))
 
     def quantize_output(self, y):
         """The output fake quant of the activated product ``y``."""
         kind = self.activation if self.activation in ("relu", "softmax") \
             else "act"
-        return _act_quant(y, self.output_clip_max, kind)
+        clip = self.output_clip_max
+        if clip is not None and not self.row_parallel:
+            clip = collectives.copy_to(clip, self.tp_group)
+        return _act_quant(y, clip, kind)
 
     def dense(self, x, dtype):
         from neurst_tpu_torch.layers.common_layers import activation_by_name
         y = F.linear(x.to(dtype), self.quantized_kernel().to(dtype))
+        if self.row_parallel:
+            y = collectives.reduce_from(y, self.tp_group)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         if self.activation and self.activation != "linear":
@@ -307,7 +326,17 @@ class Int8Dense(nn.Module):
     from ``int8ify_flat_params``; the init values are placeholders.
     ``act_scale_from_clip``: the ``act_scale`` came from a QAT clip
     (``utils/param_policy.restore_inference_params`` sets it), and
-    calibration leaves it as it is."""
+    calibration leaves it as it is.
+
+    Under tensor parallelism (``parallel.apply_mesh`` sets ``tp_group``
+    and ``row_parallel``) a column-parallel site holds its output
+    channels' rows of ``kernel_q``, ``kernel_scale`` and ``bias`` and
+    computes as one rank does.  A row-parallel site holds its input
+    columns of ``kernel_q``: the per-token absmax of the dynamic mode
+    (and the calibration's) is the max over the model group, the int32
+    accumulator (or the weight-only partial product, in float32) is
+    summed over the group, and the scales and the bias act on the sum,
+    so an int8 x int8 site gives one rank's output bit for bit."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
@@ -324,6 +353,7 @@ class Int8Dense(nn.Module):
             if _INT8_SERVING["static_act"] else None
         self.act_scale_from_clip = False
         self.act_absmax = None
+        self.tp_group, self.row_parallel = None, False
 
     def init_own_params(self, generator=None):
         with torch.no_grad():
@@ -334,33 +364,41 @@ class Int8Dense(nn.Module):
             if self.act_scale is not None:
                 self.act_scale.fill_(1.0)
 
+    def _over_rows(self, t, op=dist.ReduceOp.SUM):
+        """``t`` reduced over the model group at a row-parallel site (in
+        place), else as it is."""
+        if not self.row_parallel:
+            return t
+        return collectives.all_reduce(t, self.tp_group, op)
+
+    def _token_absmax(self, x32):
+        """The absmax of each token's whole input [..., 1]."""
+        return self._over_rows(x32.abs().amax(dim=-1, keepdim=True),
+                               dist.ReduceOp.MAX)
+
     def dense(self, x, dtype):
         scale = self.kernel_scale.float()
         if _INT8_SERVING["activations"]:
             x32 = x.float()
             static = self.act_scale is not None
             if static and _INT8_SERVING["calibrate"]:
+                amax = self._token_absmax(x32)
                 if _INT8_SERVING["record"]:
-                    amax = x32.abs().max()
-                    self.act_absmax = amax if self.act_absmax is None \
-                        else torch.maximum(self.act_absmax, amax)
+                    top = amax.max()
+                    self.act_absmax = top if self.act_absmax is None \
+                        else torch.maximum(self.act_absmax, top)
                 static = False
-            if static:
-                s = self.act_scale.float().clamp_min(1e-9)
-                x_q = torch.clamp(torch.round(x32 / s), -127, 127).to(
-                    torch.int8)
-                acc = int8_matmul(x_q, self.kernel_q)
-                y = (acc.float() * s * scale).to(dtype)
             else:
-                s_x = _div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(
-                    1e-9), 127.0)
-                x_q = torch.clamp(torch.round(x32 / s_x), -127, 127).to(
-                    torch.int8)
-                acc = int8_matmul(x_q, self.kernel_q)
-                y = (acc.float() * s_x * scale).to(dtype)
+                amax = None if static else self._token_absmax(x32)
+            s = self.act_scale.float().clamp_min(1e-9) if static \
+                else _div(amax.clamp_min(1e-9), 127.0)
+            x_q = torch.clamp(torch.round(x32 / s), -127, 127).to(
+                torch.int8)
+            acc = self._over_rows(int8_matmul(x_q, self.kernel_q))
+            y = (acc.float() * s * scale).to(dtype)
         else:
-            y = F.linear(x.to(dtype), self.kernel_q.to(dtype))
-            y = (y.float() * scale).to(dtype)
+            y = F.linear(x.to(dtype), self.kernel_q.to(dtype)).float()
+            y = (self._over_rows(y) * scale).to(dtype)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y

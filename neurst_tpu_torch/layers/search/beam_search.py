@@ -296,20 +296,13 @@ class BeamSearch(SequenceSearch):
                       "ancestor-index matrix instead of reordering it "
                       "every step (exact)."),
             Flag("padded_decode", dtype=Flag.TYPE.BOOLEAN, default=True,
-                 help="Decode into a static-shape cache (the only mode; "
-                      "false raises)."),
+                 help="Kept for recipe compatibility: decode always runs "
+                      "into a static-shape cache."),
             Flag("ensemble_weights", dtype=Flag.TYPE.STRING, default=None,
                  help="Comma-separated model weights for ensemble decode "
                       "(the predict entry reads them where --model_dir "
                       "names several dirs)."),
         ]
-
-    def __init__(self, args=None):
-        super().__init__(args)
-        if self.args.get("padded_decode") is not None \
-                and not self.args["padded_decode"]:
-            raise NotImplementedError("padded_decode: false is not ported "
-                                      "(decode is static-shape only)")
 
     def __call__(self, inputs: dict):
         a = self.args

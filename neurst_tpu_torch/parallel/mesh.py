@@ -20,7 +20,9 @@ dimension does not divide its axis the parameter is replicated, with a
 warning, as in the JAX package.
 
 The port shards the biases of the column-parallel projections with their
-kernels (qkv / q / kv and the FFN's dense1); the JAX package keeps them
+kernels (qkv / q / kv and the FFN's dense1), and so are the int8
+per-channel ``kernel_scale`` of every column-parallel site and the int8
+embedding's per-row ``weights_scale``; the JAX package keeps them
 replicated and XLA slices them where they are used.  MoE experts are
 split over "data" along their expert axis, as the JAX package maps
 "expert" to "data" (their filter axis stays whole over "model", where the
@@ -155,8 +157,15 @@ class ShardSpec(NamedTuple):
 
 
 # the port's sharded parameters by their last two name parts: (dim,
-# logical axis, blocks) in the port's layout
+# logical axis, blocks) in the port's layout.  A quantized dense shards
+# its int8 kernel as the float one; a column-parallel site (the q / kv /
+# qkv projections, the FFN's dense1, the untied softmax) also shards its
+# per-output-channel scale and its bias with the kernel's blocks, and a
+# row-parallel one (output_transform, the FFN's dense2) keeps them whole;
+# the clips and the static activation scales are replicated.
 _FUSED_BLOCKS = {"qkv_transform": 3, "q_transform": 1, "kv_transform": 2}
+_KERNELS = ("weight", "kernel_q")
+_COLUMN_LEAVES = _KERNELS + ("bias", "kernel_scale")
 _EXPERT_LEAVES = ("expert_dense1_kernel", "expert_dense1_bias",
                   "expert_dense2_kernel", "expert_dense2_bias")
 
@@ -164,20 +173,22 @@ _EXPERT_LEAVES = ("expert_dense1_kernel", "expert_dense1_bias",
 def _port_rule(name: str):
     parts = name.split(".")
     owner, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
-    if owner in _FUSED_BLOCKS and leaf in ("weight", "bias"):
+    ffn = "ffn" in parts[:-2]
+    if owner in _FUSED_BLOCKS and leaf in _COLUMN_LEAVES:
         return 0, "heads", _FUSED_BLOCKS[owner]
-    if owner == "output_transform" and leaf == "weight":
+    if owner == "output_transform" and leaf in _KERNELS:
         return 1, "heads", 1
-    if owner == "dense1" and leaf in ("weight", "bias") \
-            and "ffn" in parts[:-2]:
+    if owner == "dense1" and ffn and leaf in _COLUMN_LEAVES:
         return 0, "mlp", 1
-    if owner == "dense2" and leaf == "weight" and "ffn" in parts[:-2]:
+    if owner == "dense2" and ffn and leaf in _KERNELS:
         return 1, "mlp", 1
     if leaf in _EXPERT_LEAVES:
         return 0, "expert", 1
-    if owner.endswith("symbol_modality") and leaf == "weights":
+    if owner.endswith("symbol_modality") \
+            and leaf in ("weights", "weights_q", "weights_scale"):
         return 0, "vocab", 1
-    if owner == "output_linear" and leaf == "weight":
+    if owner == "output_linear" and leaf in ("weight", "kernel_q",
+                                             "kernel_scale"):
         return 0, "vocab", 1
     return None
 

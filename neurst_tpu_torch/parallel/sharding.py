@@ -10,7 +10,8 @@ by the data ranks its experts are cut to the rank's E / dp and the layer
 dispatches over the group) and, with a "model" axis, cuts each parameter that ``params_shardings``
 shards to this rank's part and tells its module (the attention layers
 their local heads, the FFNs their filter columns, the word embeddings
-their vocabulary rows, an untied softmax its columns).  Over a "stage"
+their vocabulary rows, an untied softmax its columns, and each quantized
+dense of these the model group and whether it is row-parallel).  Over a "stage"
 axis of several ranks each layer of a pipelined stack stays on the ranks
 of the stage that runs it (the others hold an empty tensor in its place,
 and so do its optimizer moments), as the JAX package shards its
@@ -47,6 +48,8 @@ from neurst_tpu_torch.layers.decoders.transformer_decoder import \
 from neurst_tpu_torch.layers.encoders.transformer_encoder import \
     TransformerEncoder
 from neurst_tpu_torch.layers.moe import MoeFFN
+from neurst_tpu_torch.layers.quantization.quant_layers import (Int8Dense,
+                                                              QuantDense)
 from neurst_tpu_torch.optimizers.optimizers import global_norm
 from neurst_tpu_torch.parallel import collectives
 from neurst_tpu_torch.parallel.mesh import ShardSpec, params_shardings
@@ -293,12 +296,14 @@ def pipelined(model) -> bool:
                if isinstance(m, (TransformerEncoder, TransformerDecoder)))
 
 
-def _set_linear(layer, rows: Optional[int] = None,
-                cols: Optional[int] = None):
-    if rows is not None:
-        layer.out_features = rows
-    if cols is not None:
-        layer.in_features = cols
+def _set_dense(layer, group, row: bool):
+    """Tells a dense cut to this rank's output rows (column-parallel) or
+    input columns (``row``) its local features, and a quantized dense
+    also the model group and its form."""
+    kernel = layer.kernel_q if isinstance(layer, Int8Dense) else layer.weight
+    layer.out_features, layer.in_features = kernel.shape
+    if isinstance(layer, (QuantDense, Int8Dense)):
+        layer.tp_group, layer.row_parallel = group, row
 
 
 def _stage_layers(model, mesh) -> Dict[str, int]:
@@ -405,46 +410,39 @@ def _cut_model_axis(model, specs, mesh):
         prefix = names[id(module)]
         return specs.get(f"{prefix}.{leaf}" if prefix else leaf) is not None
 
+    def kernel_sharded(layer):
+        return sharded(layer, "kernel_q" if isinstance(layer, Int8Dense)
+                       else "weight")
+
     tp = dict(tp_group=group, tp_rank=coord, tp_size=n)
     for module in model.modules():
         if isinstance(module, MultiHeadAttention):
-            projections = [c for c in module.children()
-                           if c is not module.output_transform]
-            if not sharded(module.output_transform, "weight"):
+            if not kernel_sharded(module.output_transform):
                 continue
-            if any(not hasattr(c, "weight") or c.weight.dtype == torch.int8
-                   for c in projections):
-                raise NotImplementedError(
-                    "tensor parallelism with quantized attention "
-                    "projections is not supported")
             module.__dict__.update(tp)
             module.num_heads //= n
-            for c in projections:
-                _set_linear(c, rows=c.weight.shape[0])
-            _set_linear(module.output_transform,
-                        cols=module.output_transform.weight.shape[1])
+            for c in module.children():
+                _set_dense(c, group, row=c is module.output_transform)
         elif isinstance(module, TransformerFFN):
-            if not sharded(module.dense1, "weight"):
+            if not kernel_sharded(module.dense1):
                 continue
-            if not module._plain:
-                raise NotImplementedError(
-                    "tensor parallelism with a quantized FFN is not "
-                    "supported")
             module.__dict__.update(tp)
-            _set_linear(module.dense1, rows=module.dense1.weight.shape[0])
-            _set_linear(module.dense2, cols=module.dense2.weight.shape[1])
+            _set_dense(module.dense1, group, row=False)
+            _set_dense(module.dense2, group, row=True)
         elif isinstance(module, WordEmbedding):
-            if not sharded(module, "weights"):
+            if not sharded(module, "weights_q" if module.int8
+                           else "weights"):
                 continue
             module.tp_group = group
-            module.vocab_start = coord * module.weights.shape[0]
+            module.vocab_start = coord * module.vocab_held
     for module in model.modules():
         if isinstance(module, TransformerDecoder) and module.num_layers:
             # the decode cache holds the layers' (local) heads
             module.num_heads = module.layer_0.self_attention.num_heads
-    if "output_linear.weight" in specs \
-            and specs["output_linear.weight"] is not None:
+    output = getattr(model, "output_linear", None)
+    if output is not None and kernel_sharded(output):
         model.tp_group = group
+        _set_dense(output, group, row=False)
     logging.info("Tensor parallelism: %d of %d parameters sharded over %d "
                  "ranks", sum(_axis_of(s) == "model"
                               for s in specs.values()),

@@ -90,13 +90,25 @@ def _zero_through(out):
                if torch.is_tensor(t) and t.requires_grad)
 
 
+def _check_nan(step, loss, grads):
+    """Raises ``FloatingPointError`` naming the loss or the first gradient
+    that holds a NaN."""
+    named = [("loss", loss)] + sorted(grads.items())
+    flags = torch.stack([t.isnan().any() for _, t in named]).tolist()
+    if any(flags):
+        name = named[flags.index(True)][0]
+        raise FloatingPointError(
+            f"NaN in the {'loss' if name == 'loss' else 'gradient of ' + name}"
+            f" at step {step} (enable_check_numerics)")
+
+
 def make_train_step(model, criterion, tx: GradientTransformation,
                     update_cycle: int = 1,
                     lr_schedule: Optional[Callable] = None,
                     extra_loss_fn: Optional[Callable] = None,
                     remat: bool = False, mesh=None,
                     norm_fn: Optional[Callable] = None,
-                    stage_local=frozenset()):
+                    stage_local=frozenset(), check_numerics: bool = False):
     """Builds ``train_step(state, batch, rng=None) -> (state, metrics)``
     with the metrics loss, aux_loss, grad_norm (of the gradients before
     clipping) and, with a schedule, lr (at the step's count).  The
@@ -108,7 +120,10 @@ def make_train_step(model, criterion, tx: GradientTransformation,
     accumulation.  ``remat`` recomputes the forward in the backward.
     ``mesh`` (``parallel.mesh.Mesh``) reduces the step over its "data" and
     "stage" axes; ``norm_fn`` replaces ``global_norm`` for the metric;
-    ``stage_local`` names the parameters that one pipeline stage holds."""
+    ``stage_local`` names the parameters that one pipeline stage holds.
+    ``check_numerics`` (the CLI's ``enable_check_numerics``) raises
+    ``FloatingPointError`` before the update of a step whose loss or
+    gradients hold a NaN."""
     norm_fn = norm_fn or global_norm
     distributed = mesh is not None and (mesh.shape["data"] > 1
                                         or mesh.shape["stage"] > 1)
@@ -225,6 +240,8 @@ def make_train_step(model, criterion, tx: GradientTransformation,
         if rng is not None:
             rng = fold_in(rng, state.step)
         loss, aux, grads = compute_grads(state.params, batch, rng)
+        if check_numerics:
+            _check_nan(state.step, loss, grads)
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
         metrics = {"loss": loss, "aux_loss": aux,

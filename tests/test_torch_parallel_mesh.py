@@ -7,13 +7,15 @@ flags and checkpoint layout.
   ``LOCAL_WORLD_SIZE`` / ``LOCAL_RANK``;
 * ``make_mesh``'s arithmetic and assertions; ``LOGICAL_AXIS_RULES`` and
   ``logical_to_mesh_spec``;
-* ``params_shardings`` for ``transformer_base``, ``speech_transformer_s``
-  and a Switch MoE transformer against the JAX ``params_shardings`` of
+* ``params_shardings`` for ``transformer_base``, ``speech_transformer_s``,
+  a Switch MoE transformer and ``transformer_64_2e_2d_4h`` under QAT and
+  under int8 serving against the JAX ``params_shardings`` of
   ``model.params_spec()`` on a 2-way "model" axis, name by name, in the
   port's layout (the fused projections and transposed kernels move the
   sharded dimension); where the port differs on purpose (the
-  column-parallel biases sharded with their kernels, the experts
-  replicated) the test says so;
+  column-parallel biases and int8 scales sharded with their kernels, the
+  int8 embedding's row scales with its table, the experts' filter axis
+  whole) the test says so;
 * ``put_batch`` and the backend rule;
 * repair 1: ``unstack_scan_layers`` reads the JAX pipeline layout
   ``<stack>/layers/pipeline/stages/layers/layer/`` [S, P, ...] as the JAX
@@ -153,10 +155,25 @@ def _expected_port_spec(jax_name, jax_axes, shape, port_shape):
         return ShardSpec(0, "model", shape[1])
     if owner == "output_transform":
         return ShardSpec(1, "model", 1)
-    if len(shape) == 2 and parts[-1] == "kernel":
+    if len(shape) == 2 and parts[-1] in ("kernel", "kernel_q"):
         return ShardSpec(1 - dim, "model", 1)
     assert len(port_shape) == len(shape)
     return ShardSpec(dim, "model", 1)
+
+
+# the leaves the port shards with their kernel (or table) where the JAX
+# spec keeps them whole: column-parallel biases and int8 scales
+_KEPT_WHOLE_IN_JAX = {"bias": ("kernel", "kernel_q"),
+                      "kernel_scale": ("kernel_q",),
+                      "weights_scale": ("weights_q",)}
+# quantization overlays: the two packages' global configs while the
+# models are built (QAT at its default clips; int8 serving with static
+# activation scales, so that every int8 leaf is there)
+QUANT_OVERLAYS = {
+    None: None,
+    "qat": lambda lib: lib.global_init(True),
+    "int8": lambda lib: lib.set_int8_serving(
+        True, activations=True, static_activation_scales=True)}
 
 
 def _model_pair(name, overrides=None):
@@ -171,15 +188,40 @@ def _model_pair(name, overrides=None):
     return jm, pm
 
 
-@pytest.mark.parametrize("name,overrides", [
-    ("transformer_base", None),
-    ("speech_transformer_s", None),
+@pytest.mark.parametrize("name,overrides,quant", [
+    ("transformer_base", None, None),
+    ("speech_transformer_s", None, None),
     ("transformer_toy", {"encoder.moe_num_experts": 4,
                          "decoder.moe_num_experts": 4,
                          "modality.dim": 16, "encoder.hidden_size": 16,
-                         "decoder.hidden_size": 16})],
-    ids=["transformer_base", "speech_transformer_s", "switch_moe"])
-def test_params_shardings_match_jax(name, overrides):
+                         "decoder.hidden_size": 16}, None),
+    ("transformer_64_2e_2d_4h",
+     {"modality.share_embedding_and_softmax_weights": False}, "qat"),
+    ("transformer_64_2e_2d_4h", None, "int8")],
+    ids=["transformer_base", "speech_transformer_s", "switch_moe", "qat",
+         "int8"])
+def test_params_shardings_match_jax(name, overrides, quant):
+    """The port's shard specs of each parameter against the JAX
+    package's ``params_shardings`` of the same tree; under QAT (untied
+    softmax: every dense site quantized) and int8 serving the quantized
+    leaves shard as the plain ones (``kernel_q`` as the kernel,
+    ``weights_q`` as the table) and the clips and ``act_scale``s stay
+    replicated."""
+    from neurst_tpu.layers.quantization import quant_layers as jql
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    overlay = QUANT_OVERLAYS[quant]
+    try:
+        if overlay is not None:
+            overlay(jql)
+            overlay(ql)
+        _check_params_shardings(name, overrides)
+    finally:
+        for lib in (jql, ql):
+            lib.global_init(False)
+            lib.set_int8_serving(False)
+
+
+def _check_params_shardings(name, overrides):
     jm, pm = _model_pair(name, overrides)
     # 2 data x 2 model devices: the experts split over "data"
     mesh_ref = jax_mesh.make_mesh(model_parallel=2,
@@ -212,16 +254,31 @@ def test_params_shardings_match_jax(name, overrides):
             continue
         if want != spec:
             differs.append(jname)
-            # the one difference on purpose: a column-parallel bias
-            # sharded with its kernel
-            kernel = jname[:-len("bias")] + "kernel"
-            assert jname.endswith("/bias") and want is None, jname
+            # the difference on purpose: a column-parallel bias, or an
+            # int8 scale, sharded with its kernel (or table)
+            base, leaf = jname.rsplit("/", 1)
+            assert leaf in _KEPT_WHOLE_IN_JAX and want is None, jname
+            kernel = next(f"{base}/{k}" for k in _KEPT_WHOLE_IN_JAX[leaf]
+                          if f"{base}/{k}" in ref)
+            port_kernel = next(n for n in pshapes if to_jax_name(n) == kernel)
             assert spec == _expected_port_spec(
                 kernel, tuple(ref[kernel].spec), jshapes[kernel],
-                pshapes[port_name[:-len("bias")] + "weight"]), jname
-    assert all(n.endswith(("qkv_transform/bias", "q_transform/bias",
-                           "kv_transform/bias", "dense1/bias"))
-               for n in differs)
+                pshapes[port_kernel]), jname
+    column = ("qkv_transform", "q_transform", "kv_transform", "dense1",
+              "output_linear")
+    assert all(n.endswith(tuple(f"{c}/{leaf}" for c in column
+                                for leaf in ("bias", "kernel_scale"))
+                          + ("symbol_modality/weights_scale",))
+               for n in differs), differs
+    if any(n.endswith("kernel_q") for n in ref):
+        assert any(n.endswith("/weights_scale") for n in differs)
+    # every int8 kernel and table is split, every clip and activation
+    # scale whole
+    for port_name, spec in got.items():
+        if port_name.endswith(("kernel_q", "weights_q")):
+            assert spec is not None, port_name
+        if port_name.endswith(("_clip_max", "act_scale")):
+            assert spec is None, port_name
 
 
 def test_params_shardings_replicates_what_does_not_divide(caplog):

@@ -345,16 +345,75 @@ def test_cli_refuses_what_the_port_lacks(workdir):
 @pytest.mark.parametrize("extra, match", [
     (["--compilation_cache_dir", "xla_cache"], "compilation_cache_dir"),
     (["--enable_xla"], "enable_xla"),
-    (["--search_method.params", '{"padded_decode": false}'],
-     "padded_decode")])
+    (["--search_method.params", json.dumps(dict(
+        PREDICT["entry.params"]["search_method.params"],
+        padded_decode=False))], "padded_decode")])
 def test_cli_refuses_flag_values_the_port_does_not_honour(workdir, extra,
-                                                          match):
-    """Flags kept for the recipes' sake parse as in the JAX package, but a
-    value that asks for behaviour the port lacks raises."""
+                                                          match, caplog):
+    """Flags kept for the recipes' sake parse as in the JAX package and
+    change nothing the port computes (the test keeps its name from when
+    these values raised): ``enable_xla: true`` (everything is XLA there,
+    the port runs eagerly), ``padded_decode: false`` (decode is
+    static-shape either way) and ``compilation_cache_dir`` (logged: the
+    port compiles no XLA programs) give the run without them."""
+    import logging
     _, model_dir, cfg_path, _, _ = workdir
-    with pytest.raises(NotImplementedError, match=match):
-        port_run_exp.cli_main(["--config_paths", cfg_path, "--model_dir",
-                               model_dir, "--device", "cpu"] + extra)
+    base = ["--config_paths", cfg_path, "--model_dir", model_dir,
+            "--device", "cpu"]
+    args = port_run_exp.parse_and_merge(base + extra)
+    ref = jax_run_exp.parse_and_merge(base[:-2] + extra)
+    if match == "padded_decode":
+        for parsed in (args, ref):
+            assert parsed["entry.params"]["search_method.params"][
+                match] is False
+    else:
+        assert args[match] == ref[match] not in (None, False)
+    caplog.set_level(logging.INFO)
+    got = port_run_exp.cli_main(base + extra)
+    assert ("keeps no compilation cache" in caplog.text) \
+        == (match == "compilation_cache_dir")
+    want = port_run_exp.cli_main(base)
+    assert got["hypotheses"] == want["hypotheses"]
+    assert got["scores"] == want["scores"]
+
+
+def test_enable_check_numerics_raises_at_a_nan_step(tmp_path):
+    """``--enable_check_numerics`` (``jax_debug_nans`` in the JAX package):
+    a model dir whose checkpoint holds a NaN weight trains into a NaN
+    loss, and the train entry raises ``FloatingPointError`` at its first
+    step, before the update and the checkpoint; without the flag the step
+    runs."""
+    import torch
+    import yaml
+
+    from neurst_tpu_torch.tasks.task import build_task
+    from neurst_tpu_torch.utils import checkpoints as ckpt_lib
+    from neurst_tpu_torch.utils.param_bridge import state_dict_to_flat
+    recipe = os.path.join(os.path.dirname(__file__), "examples",
+                          "example_train_seq2seq.yml")
+    with open(recipe) as f:
+        cfg = yaml.safe_load(f)
+    model = build_task(cfg).build_model(cfg, device="cpu")
+    model.init_params(torch.Generator().manual_seed(0))
+    flat = state_dict_to_flat(model)
+    name = "encoder/layer_0/ffn/dense1/kernel"
+    flat[name] = flat[name].copy()
+    flat[name][0, 0] = np.nan
+    argv = ["--entry", "train", "--config_paths", recipe, "--device", "cpu",
+            "--train_steps", "1", "--summary_steps", "1",
+            "--save_checkpoint_steps", "1", "--enable_tensorboard", "false"]
+    for flag, raises in ((["--enable_check_numerics"], True), ([], False)):
+        model_dir = str(tmp_path / str(raises))
+        ckpt_lib.save_checkpoint(model_dir, 0, flat)
+        run = ["--model_dir", model_dir] + argv + flag
+        if raises:
+            with pytest.raises(FloatingPointError, match="NaN in the loss "
+                               "at step 0"):
+                port_run_exp.cli_main(run)
+            assert ckpt_lib.list_checkpoints(model_dir) == [0]
+        else:
+            port_run_exp.cli_main(run)
+            assert ckpt_lib.list_checkpoints(model_dir) == [0, 1]
 
 
 def test_restore_inference_params_matches_the_checkpoint(workdir):

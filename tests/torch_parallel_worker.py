@@ -13,6 +13,7 @@ limit (240 s) fails; a rank that runs past 220 seconds dumps its stack
 and exits.
 """
 
+import contextlib
 import os
 import pickle
 import socket
@@ -115,12 +116,37 @@ def _full_flat(model, tensors, specs, mesh):
     return state_dict_to_flat(model, gather_tensors(tensors, specs, mesh))
 
 
+@contextlib.contextmanager
+def _quantized(sc):
+    """QAT (``sc["quant"]``, the global config) or int8 serving
+    (``sc["int8"]``, the keyword arguments of ``set_int8_serving``) on
+    while the scenario builds and runs its model; both off after."""
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    if sc.get("quant"):
+        ql.global_init(True, **sc["quant"])
+    if sc.get("int8") is not None:
+        ql.set_int8_serving(True, **sc["int8"])
+    try:
+        yield
+    finally:
+        ql.global_init(False)
+        ql.set_int8_serving(False)
+
+
 def run_step(sc, data):
     """Gradients of the first batch, then ``steps`` Adam steps, on the
-    scenario's mesh."""
+    scenario's mesh (under QAT with ``sc["quant"]``: the clips' L2 term
+    added once a step)."""
+    with _quantized(sc):
+        return _run_step(sc, data)
+
+
+def _run_step(sc, data):
     import torch
 
     import neurst_tpu_torch
+    from neurst_tpu_torch.layers.quantization.quant_layers import \
+        clip_l2_penalty
     from neurst_tpu_torch.optimizers.optimizers import create_optax_chain
     from neurst_tpu_torch.parallel import TrainState, make_train_step
     from neurst_tpu_torch.parallel.mesh import make_mesh
@@ -146,7 +172,9 @@ def run_step(sc, data):
     uc = sc.get("update_cycle", 1)
     step = make_train_step(model, crit, tx, update_cycle=uc, mesh=mesh,
                            norm_fn=norm_fn,
-                           stage_local=frozenset(specs.owners))
+                           stage_local=frozenset(specs.owners),
+                           extra_loss_fn=clip_l2_penalty
+                           if sc.get("quant") else None)
     state = TrainState.create(dict(model.named_parameters()), tx)
     key = make_key(7) if sc.get("dropout") else None
     batches = [_local_batch(_batch_of(data, name), mesh, uc)
@@ -290,8 +318,80 @@ def run_a2a(sc, data):
     return {"out": out.detach().numpy(), "grad": x.grad.numpy()}
 
 
+def run_int8_dense(sc, data):
+    """A row-parallel ``Int8Dense`` over the world (its input columns and
+    the kernel's cut to the rank's) in each int8 mode: its output, and
+    the input absmax the static mode's calibration records."""
+    import torch
+
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    from neurst_tpu_torch.parallel import collectives
+    from neurst_tpu_torch.parallel.mesh import ShardSpec
+    from neurst_tpu_torch.parallel.sharding import _set_dense, take_shard
+    group = torch.distributed.group.WORLD
+    n, r = collectives.group_size(group), collectives.group_rank(group)
+    inp = data[sc["inputs"]]
+    spec = ShardSpec(1, "model", 1)
+    x = take_shard(torch.tensor(inp["x"]), ShardSpec(2, "model", 1), r, n)
+    out = {}
+    for mode, kwargs in sc["modes"].items():
+        with _quantized({"int8": kwargs}):
+            dense = ql.Int8Dense(*inp["kernel_q"].shape[::-1])
+            with torch.no_grad():
+                for name in ("kernel_q", "kernel_scale", "bias"):
+                    getattr(dense, name).copy_(torch.tensor(inp[name]))
+                if dense.act_scale is not None:
+                    dense.act_scale.fill_(float(inp["act_scale"]))
+                dense.kernel_q.data = take_shard(dense.kernel_q.data, spec,
+                                                 r, n)
+            _set_dense(dense, group, row=True)
+            out[mode] = dense(x).numpy()
+            if dense.act_scale is not None:
+                ql.set_int8_calibration(True)
+                with ql.recording_act_absmax(dense) as found:
+                    dense(x)
+                ql.set_int8_calibration(False)
+                out["absmax"] = found[""]
+    return out
+
+
+def run_int8_calibration(sc, data):
+    """Static int8 calibration of the scenario's model on its mesh (every
+    rank runs the whole batches): the act scales by JAX name, and the
+    local shapes of every ``kernel_q``."""
+    import neurst_tpu_torch
+    from neurst_tpu_torch.layers.quantization import quant_layers as ql
+    from neurst_tpu_torch.parallel.mesh import make_mesh
+    from neurst_tpu_torch.parallel.sharding import apply_mesh
+    from neurst_tpu_torch.utils.param_bridge import state_dict_to_flat
+    from neurst_tpu_torch.utils.param_policy import restore_inference_params
+    with _quantized({"int8": {"activations": True,
+                              "static_activation_scales": True}}):
+        model = neurst_tpu_torch.build_model(
+            sc["cfg"], src_meta=data["meta"], trg_meta=data["meta"],
+            device="cpu")
+        restore_inference_params(model, dict(data[sc["params"]]))
+        apply_mesh(model, make_mesh(model_parallel=sc["tp"]))
+        ql.calibrate_int8_act_scales(model, [
+            _batch_of(data, name) for name in sc["batches"]])
+        params = dict(model.named_parameters())
+        return {"scales": state_dict_to_flat(model, {
+            n: p for n, p in params.items() if n.endswith("act_scale")}),
+            "shapes": {n: tuple(p.shape) for n, p in params.items()
+                       if n.endswith("kernel_q")}}
+
+
+def run_cli(sc, data):
+    """``run_exp`` with ``sc["argv"]`` on the CPU over the world's ranks:
+    the hypotheses and scores it returns."""
+    from neurst_tpu_torch.cli import run_exp
+    res = run_exp.cli_main(list(sc["argv"]) + ["--device", "cpu"])
+    return {"hypotheses": res["hypotheses"], "scores": res["scores"]}
+
+
 SCENARIOS = {"step": run_step, "ring": run_ring, "decode": run_decode,
-             "a2a": run_a2a, "orbax": run_orbax}
+             "a2a": run_a2a, "orbax": run_orbax, "int8_dense": run_int8_dense,
+             "int8_calibration": run_int8_calibration, "cli": run_cli}
 
 
 def main(argv):
