@@ -11,6 +11,14 @@ exits non-zero):
 
 1. device   -- requires CUDA; the card's name and power limit.
 2. build    -- compiles every kernel from ``neurst_tpu_torch/csrc``.
+   text_tools -- the port's own Moses (en and the MuST-C targets de, es,
+               fr, it, nl, pt, ro, ru: punctuation normalization,
+               tokenization, detokenization), SacreBLEU and chrF, and
+               SentencePiece (the five ``tests/fixtures/spm`` models:
+               encode, decode) against ``tests/fixtures/text_goldens``
+               (sacremoses 0.1.1, sacrebleu 2.6.0 and the ``tokenizers``
+               SentencePiece), exactly; lines equal, lines compared and
+               seconds of each part.
 3. kernel   -- each kernel against its plain version on the card, in f32
                and bf16, at its path's shape and at a ragged shape; times
                of the kernel, the plain version, one PyTorch library call
@@ -38,7 +46,8 @@ exits non-zero):
    predict  -- the predict CLI (``neurst_tpu_torch.cli.run_exp``)
                in-process over a model dir, vocabulary, BPE codes and an
                ``audio_tfrecord`` file of 32 utterances written from the
-               seed, with the MuST-C recipe's prediction config (beam 4,
+               seed (the pipeline: Moses + BPE, as st_training_args.yml's),
+               with the MuST-C recipe's prediction config (beam 4,
                length penalty -1, max 150, BLEU) and batch_size 16: 32
                samples, 12 flash launches a batch, hypotheses equal to
                ``BeamSearch`` called directly; samples/s, the wall split,
@@ -130,9 +139,13 @@ exits non-zero):
                the tarball against their records' features (< 2e-3 on
                every channel with a filter; the empty channel 0), frame
                lengths equal, padding 0; its device ms against the host
-               extractor's.  prep_project, learn_bpe (8000 symbols),
+               extractor's.  prep_project, process_text (moses,
+               --normalize_punctuation) on the punctuated transcripts,
+               learn_bpe (8000 symbols) on the tokenized text,
                process_text (bpe) and the triple records projected by
-               ``MultiTaskSpeechTranslation`` (no Moses).  prep_train,
+               ``MultiTaskSpeechTranslation`` with Moses and BPE (the ASR
+               side lowercased and stripped of punctuation first, as
+               03-preprocess.sh's pipelines say).  prep_train,
                ``run_exp --entry train`` with st_training_args.yml's task
                flags on the triple records (6 steps, a checkpoint at 6;
                every step's launches against ``expected_launches``);
@@ -487,6 +500,77 @@ def build_phase():
     emit({"phase": "build", "seconds": round(time.perf_counter() - start, 2),
           "compiled": {k: round(v, 2) for k, v in compiled.items()},
           "ptxas": ptxas})
+
+
+TEXT_GOLDENS = os.path.join("tests", "fixtures", "text_goldens",
+                            "goldens.json")
+SPM_FIXTURES = os.path.join("tests", "fixtures", "spm")
+
+
+def text_tools_phase():
+    """The port's own Moses, SacreBLEU / chrF and SentencePiece against
+    the goldens that sacremoses, sacrebleu and the ``tokenizers``
+    SentencePiece wrote (``tests/tools/make_text_goldens.py``), exactly:
+    each part's lines equal, lines compared and seconds."""
+    from neurst_tpu_torch.data.text.moses import (moses_detokenize,
+                                                  moses_tokenize)
+    from neurst_tpu_torch.data.text.moses_normalize import \
+        normalize_punctuation
+    from neurst_tpu_torch.data.text.spm import SentencePieceProcessor
+    from neurst_tpu_torch.metrics import sacrebleu_port
+    from neurst_tpu_torch.utils.sentencepiece_model import read_model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, TEXT_GOLDENS), encoding="utf-8") as f:
+        goldens = json.load(f)
+    parts = {}
+
+    def part(name, pairs):
+        start = time.perf_counter()
+        pairs = list(pairs)
+        parts[name] = {"equal": sum(got() == want for got, want in pairs),
+                       "compared": len(pairs),
+                       "seconds": time.perf_counter() - start}
+
+    for lang, g in goldens["moses"].items():
+        part(f"moses_normalize_{lang}", (
+            (lambda s=s: normalize_punctuation(s, lang), want)
+            for s, want in zip(g["lines"], g["normalized"])))
+        part(f"moses_tokenize_{lang}", (
+            (lambda s=s: " ".join(moses_tokenize(s, lang,
+                                                 escape=False).split()),
+             want) for s, want in zip(g["normalized"], g["tokenized"])))
+        part(f"moses_detokenize_{lang}", (
+            (lambda t=t: moses_detokenize(t.split(), lang), want)
+            for t, want in zip(g["tokenized"], g["detokenized"])))
+    for name, g in goldens["sacrebleu"].items():
+        hyps, refs = g["hypotheses"], g["references"]
+        tok = "zh" if g["language"] == "zh" else "13a"
+        part(f"sacrebleu_{name}", [
+            (lambda: sacrebleu_port.corpus_bleu(hyps, refs, tokenize=tok),
+             g["bleu"]),
+            (lambda: sacrebleu_port.corpus_bleu(hyps, refs, lowercase=True),
+             g["uncased_bleu"]),
+            (lambda: sacrebleu_port.corpus_chrf(hyps, refs), g["chrf"])])
+    for name, g in goldens["spm"].items():
+        sp = SentencePieceProcessor(read_model(
+            os.path.join(here, SPM_FIXTURES, f"{name}.model")))
+        part(f"spm_encode_{name}", (
+            (lambda s=s: sp.encode_as_pieces(s), want)
+            for s, want in zip(g["lines"], g["pieces"])))
+        part(f"spm_decode_{name}", (
+            (lambda p=p: sp.decode_pieces(p), want)
+            for p, want in zip(g["pieces"], g["decoded"])))
+    failed = sorted(k for k, v in parts.items()
+                    if v["equal"] != v["compared"] or not v["compared"])
+    row = {"phase": "text_tools", "parts": parts,
+           "lines_equal": sum(v["equal"] for v in parts.values()),
+           "lines_compared": sum(v["compared"] for v in parts.values()),
+           "seconds": sum(v["seconds"] for v in parts.values()),
+           "failed": failed}
+    emit(row)
+    if failed:
+        raise AssertionError(f"text_tools phase failed: {failed}")
 
 
 # spin-kernel cycles per second of host time to cover (above the H100's
@@ -1801,16 +1885,15 @@ def write_predict_dir(seed, root):
     control tokens) with BPE codes over them, ``audio_tfrecord`` files of
     fbank-like features with raw translations (the 32 utterances, and
     the 4 short ones of the card-vs-CPU check), and the recipe's
-    prediction config as JSON.  The pipeline adds the Moses tokenizer
-    where sacremoses imports."""
+    prediction config as JSON.  The pipeline tokenizes with Moses, as
+    st_training_args.yml's does (the port's own Moses)."""
     from neurst_tpu_torch.data.recordio import RecordWriter, build_example
-    from neurst_tpu_torch.data.text.moses import HAS_SACREMOSES
     from neurst_tpu_torch.models.speech_transformer import SpeechTransformer
     from neurst_tpu_torch.utils.checkpoints import save_checkpoint
 
     rng = np.random.RandomState(seed + 70)
     pipeline = write_vocab(rng, root)
-    pipeline["tokenizer"] = "moses" if HAS_SACREMOSES else None
+    pipeline["tokenizer"] = "moses"
 
     cfg = SpeechTransformer.build_model_args_by_name(PREDICT["model"])
     params = dict(cfg["model.params"], dtype="bfloat16")
@@ -1827,7 +1910,7 @@ def write_predict_dir(seed, root):
                    "model.class": "SpeechTransformer",
                    "model.params": params}, f, indent=1)
 
-    out = {"model_dir": model_dir, "moses": HAS_SACREMOSES}
+    out = {"model_dir": model_dir}
     for name, n, max_frames in (
             ("main", PREDICT["utterances"], PREDICT["max_frames"]),
             ("check", PREDICT["check_utterances"],
@@ -1938,8 +2021,7 @@ def predict_phase(seed):
         shutil.rmtree(root, ignore_errors=True)
     flash = counts["flash_attention_fwd"]
     row = {"phase": "predict", "model": PREDICT["model"], "dtype": "bfloat16",
-           "tokenizer": "moses + bpe" if paths["moses"]
-           else "bpe (sacremoses missing: no Moses)",
+           "tokenizer": "moses + bpe",
            "samples": result["samples"], "output_lines": len(lines),
            "batches": batches, "batch_size": PREDICT["batch"],
            "flash_fwd_launches": flash,
@@ -3057,7 +3139,8 @@ def trainer_reference_check(root, rng, words, pipeline):
 # with bf16 params and an f32 master, label smoothing 0.1, the hparams
 # set's Adam and noam; a seeded corpus of 4000 pairs of 5-127 tokens (EOS
 # included) over a 32768-word vocabulary a side, with no tokenizer (the
-# card has no sacremoses).  Run A: 12 steps, a log every 2, a checkpoint
+# words are random lower-case letters, which Moses leaves as they are).
+# Run A: 12 steps, a log every 2, a checkpoint
 # every 6, the inline ``seq_generation_validator`` at step 12 on 64 dev
 # lines with examples/translation/validation_args.yml's search; run B: 6
 # steps of the same corpus from ``parallel_tfrecord`` records.  Then the
@@ -3555,10 +3638,12 @@ def nmt_phases(seed, device="cuda"):
 # 03-preprocess.sh) through the port's CLIs on a seeded MuST-C-shaped
 # corpus: 16 talks of 60 s of 16 kHz int16 audio cut into segments of
 # 1-10 s for train, 32 dev and 64 tst-COMMON segments, sentences of 5-40
-# words from a lexicon of 2000 words a side; fbank with nfilt 80; train
-# records from 1 and from 2 processors over 8 shards; joint BPE of 8000
-# symbols; the triple records' text projected by TranscriptDataPipeline
-# without Moses (the card has no sacremoses).  Then the ST recipe's train
+# words from a lexicon of 2000 words a side, punctuated (``_punctuate``);
+# fbank with nfilt 80; train records from 1 and from 2 processors over 8
+# shards; joint BPE of 8000 symbols over the Moses-tokenized text
+# (process_text --tokenizer moses --normalize_punctuation, as
+# 03-preprocess.sh runs it); the triple records' text projected by
+# TranscriptDataPipeline with Moses and BPE.  Then the ST recipe's train
 # entry (st_training_args.yml's task flags) for 6 steps on the triple
 # records and its predict entry (st_prediction_args.yml's form) on
 # tst-COMMON.  Also a LibriSpeech-shaped tarball of 32 FLAC files of 1-4
@@ -3669,6 +3754,21 @@ def _cut_talk(rng, seconds, lo, hi, limit):
     return segs
 
 
+def _punctuate(words):
+    """A transcript's punctuation, from its words alone (no draws): the
+    first word capitalized, a comma after the third word of a long line,
+    a quoted word, a possessive, and a final period or question mark."""
+    words = list(words)
+    words[0] = words[0].capitalize()
+    if len(words) > 8:
+        words[2] += ","
+    if len(words) > 12:
+        words[5] = f'"{words[5]}"'
+    if len(words) % 3 == 0:
+        words[-2] += "'s"
+    return " ".join(words) + ("?" if len(words) % 2 else ".")
+
+
 def write_mustc_corpus(root, rng, cfg=AUDIO_PREP):
     """``MUSTC_v1.0_en-<lang>.tar.gz`` under ``root`` in MuST-C's layout
     (``en-<lang>/data/<split>/wav/*.wav``, ``txt/<split>.yaml``,
@@ -3683,8 +3783,8 @@ def write_mustc_corpus(root, rng, cfg=AUDIO_PREP):
 
     def sentence(side):
         n = rng.randint(cfg["min_words"], cfg["max_words"] + 1)
-        return " ".join(lexicon[side][i] for i in rng.randint(
-            len(lexicon[side]), size=n))
+        return _punctuate([lexicon[side][i] for i in rng.randint(
+            len(lexicon[side]), size=n)])
 
     path = os.path.join(root, f"MUSTC_v1.0_en-{lang}.tar.gz")
     splits = {}
@@ -3983,28 +4083,39 @@ def device_fbank_phase(root, tarball, train_dir, device="cuda",
 
 
 def prep_project_phase(root, cfg=AUDIO_PREP):
-    """Stage 03: joint BPE over the train transcripts, the BPE text, and
-    the triple records whose two text sides ``MultiTaskSpeechTranslation``
-    projects.  Returns the codes and vocabulary paths."""
+    """Stage 03 as 03-preprocess.sh runs it: the train transcripts
+    punctuation-normalized and Moses-tokenized (``process_text --tokenizer
+    moses --normalize_punctuation``), joint BPE over the tokenized text,
+    the BPE text, and the triple records whose two text sides
+    ``MultiTaskSpeechTranslation`` projects with Moses and BPE.  Returns
+    the codes and vocabulary paths."""
     lang = cfg["trg_lang"]
     ts = os.path.join(root, "transcripts")
     codes = os.path.join(ts, "codes.bpe")
     vocab = {side: os.path.join(ts, f"vocab.{side}") for side in ("en", lang)}
+    moses_s = run_clis([("process_text", [
+        "--tokenizer", "moses", "--language", side,
+        "--normalize_punctuation", "--input", f"{ts}/train.{side}.txt",
+        "--output", f"{ts}/train.{side}.tok.txt"]) for side in ("en", lang)])
+    with open(f"{ts}/train.en.txt") as f, \
+            open(f"{ts}/train.en.tok.txt") as g:
+        raw, tok = f.read().splitlines(), g.read().splitlines()
     bpe_s = run_clis([("learn_bpe", [
-        "--input", f"{ts}/train.en.txt", f"{ts}/train.{lang}.txt",
+        "--input", f"{ts}/train.en.tok.txt", f"{ts}/train.{lang}.tok.txt",
         "--symbols", str(cfg["bpe_symbols"]), "--output", codes,
         "--write_vocabulary", vocab["en"], vocab[lang]])])
     with open(codes) as f:
         merges = sum(1 for line in f if not line.startswith("#version"))
     text_s = run_clis([("process_text", [
         "--tokenizer", "bpe", "--subtokenizer_codes", codes, "--input",
-        f"{ts}/train.{side}.txt", "--output", f"{ts}/train.{side}.bpe.txt"])
-        for side in ("en", lang)])
+        f"{ts}/train.{side}.tok.txt", "--output",
+        f"{ts}/train.{side}.tok.bpe.txt"]) for side in ("en", lang)])
 
     def pipeline(side, clean):
         return {"remove_punctuation": clean, "lowercase": clean,
-                "language": side, "subtokenizer": "bpe",
-                "subtokenizer_codes": codes, "vocab_path": vocab[side]}
+                "language": side, "tokenizer": "moses",
+                "subtokenizer": "bpe", "subtokenizer_codes": codes,
+                "vocab_path": vocab[side]}
     task = {"transcript_data_pipeline.class": "TranscriptDataPipeline",
             "transcript_data_pipeline.params": pipeline("en", True),
             "translation_data_pipeline.class": "TranscriptDataPipeline",
@@ -4026,14 +4137,17 @@ def prep_project_phase(root, cfg=AUDIO_PREP):
     for side, p in vocab.items():
         with open(p) as f:
             vocab_size[side] = sum(1 for _ in f)
+    moses_lines = sum(a != b for a, b in zip(raw, tok))
     row = {"phase": "prep_project", "bpe_symbols": cfg["bpe_symbols"],
            "merges_learned": merges, "vocab_size": vocab_size,
+           "moses_s": moses_s, "moses_lines": len(tok),
+           "moses_lines_changed": moses_lines,
            "learn_bpe_s": bpe_s, "process_text_s": text_s,
            "create_records_s": records_s, "records": len(examples),
            "records_mb": nbytes / 1e6, "ids_projected": projected}
     emit(row)
-    if not (projected and examples and merges > 0
-            and min(vocab_size.values()) > 0):
+    if not (projected and examples and merges > 0 and moses_lines > 0
+            and len(tok) == len(raw) and min(vocab_size.values()) > 0):
         raise AssertionError(f"prep_project phase failed: {row}")
     return codes, vocab[lang], out
 
@@ -4047,8 +4161,9 @@ def prep_train_phase(root, codes, vocab, records, device="cuda",
     import torch
 
     pipeline = {"remove_punctuation": False, "lowercase": False,
-                "language": cfg["trg_lang"], "subtokenizer": "bpe",
-                "subtokenizer_codes": codes, "vocab_path": vocab}
+                "language": cfg["trg_lang"], "tokenizer": "moses",
+                "subtokenizer": "bpe", "subtokenizer_codes": codes,
+                "vocab_path": vocab}
     model_dir = os.path.join(root, "model")
     path = trainer_config(
         os.path.join(root, "st_train.json"), records, pipeline,
@@ -9999,6 +10114,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
+    text_tools_phase()
     fwd_rows = flash_fwd_kernel_phase(args.seed)
     bwd_rows = flash_bwd_kernel_phase(args.seed)
     flash_drop_rows = flash_dropout_kernel_phase(args.seed)
@@ -10111,6 +10227,7 @@ def main(argv=None):
         summary.append(_summary_row(name, row, sum(counts.values()), counts,
                                     extra))
     emit({"kernels": summary})
+    emit({"phase": "total", "seconds": time.perf_counter() - _START})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

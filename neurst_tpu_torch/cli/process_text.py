@@ -1,13 +1,15 @@
 """Text (de)tokenization CLI (the port's copy of
 ``neurst_tpu/cli/process_text.py``): ``--tokenizer`` moses / bpe /
 character / jieba / ..., line by line from ``--input`` (else stdin) to
-``--output`` (else stdout).  Moses and ``--normalize_punctuation`` need
-``sacremoses``."""
+``--output`` (else stdout).  Moses and ``--normalize_punctuation`` are
+the port's own (``data/text/moses.py``, ``data/text/moses_normalize.py``)."""
 
 import argparse
+import re
 import sys
 
 import neurst_tpu_torch  # noqa: F401
+from neurst_tpu_torch.data.text.moses_normalize import normalize_punctuation
 from neurst_tpu_torch.data.text.tokenizer import build_tokenizer_by_name
 
 
@@ -31,14 +33,10 @@ def main(argv=None):
 
     normalize = None
     if args.normalize_punctuation:
-        import re
-
-        import sacremoses
-        norm = sacremoses.MosesPunctNormalizer(lang=args.language)
         nonprint = re.compile(r"[\x00-\x08\x0b-\x1f\x7f-\x9f]")
 
         def normalize(s):
-            return nonprint.sub("", norm.normalize(s))
+            return nonprint.sub("", normalize_punctuation(s, args.language))
 
     tok = build_tokenizer_by_name(args.tokenizer, language=args.language)
     if args.subtokenizer_codes:

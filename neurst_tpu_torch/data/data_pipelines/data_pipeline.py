@@ -4,6 +4,7 @@
 
 import re
 
+from neurst_tpu_torch.data.text.moses_normalize import normalize_punctuation
 from neurst_tpu_torch.utils.registry import setup_registry
 
 __all__ = ["DataPipeline", "build_data_pipeline", "register_data_pipeline",
@@ -11,25 +12,18 @@ __all__ = ["DataPipeline", "build_data_pipeline", "register_data_pipeline",
 
 _PUNC_PATTERN = re.compile(
     r"[,\.\!\(\);:、\?\-\+=\"/><《》\[\]，。：；「」【】{}`@#\$%\^&\*]")
-_PUNC_NORMALIZERS = {}
 
 
 def lowercase_and_remove_punctuations(language, text, lowercase=True,
                                       remove_punctuation=True):
     """Normalizes transcripts before tokenization: optional lowercase,
-    Moses punctuation normalization (non-CJK), apostrophe re-joining,
-    optional punctuation stripping, whitespace collapse."""
+    Moses punctuation normalization (non-CJK; the port's own normalizer),
+    apostrophe re-joining, optional punctuation stripping, whitespace
+    collapse."""
     if lowercase:
         text = text.lower()
     if language not in ("zh", "ja"):
-        try:
-            if language not in _PUNC_NORMALIZERS:
-                from sacremoses import MosesPunctNormalizer
-                _PUNC_NORMALIZERS[language] = MosesPunctNormalizer(
-                    lang=language)
-            text = _PUNC_NORMALIZERS[language].normalize(text)
-        except ImportError:
-            pass  # best-effort when sacremoses is absent
+        text = normalize_punctuation(text, language)
         for suf in ("s", "ve", "m", "t", "re"):
             text = text.replace(f"' {suf} ", f"'{suf} ")
     if remove_punctuation:

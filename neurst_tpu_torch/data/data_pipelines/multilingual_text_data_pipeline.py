@@ -4,10 +4,9 @@ one tokenizer and vocabulary shared by every language, with a ``<lang>``
 tag token a language (``Vocab.get_unique`` of it, appended to the
 vocabulary unless present) exposed as ``meta["lang2id"]``.  ``encode``
 appends EOS (which is also the pad); ``decode`` drops a leading BOS or
-tag and stops at the first EOS.  The default tokenizer is ``spm``, which
-needs ``sentencepiece``: the port registers no such tokenizer, so
-building it raises ``LookupError``; pass ``tokenizer: null`` for text
-that is already split.
+tag and stops at the first EOS.  The default tokenizer is ``spm`` (the
+port's own SentencePiece, ``data/text/spm.py``) over ``spm_model``; pass
+``tokenizer: null`` for text that is already split.
 """
 
 import yaml

@@ -1,8 +1,10 @@
-"""Tokenized corpus BLEU (the port's copy of ``BLEU`` in
-``neurst_tpu/metrics/bleu.py``): mteval-v13a-style tokenization,
-character-level for CJK and Thai, cased and uncased values.  The
-selection variant ``UncasedBLEU`` and the sacrebleu-backed ``SacreBLEU``
-are not ported.
+"""BLEU metrics (the port's copy of ``neurst_tpu/metrics/bleu.py``).
+
+* ``BLEU``: tokenized corpus BLEU, mteval-v13a-style tokenization,
+  character-level for CJK and Thai, cased and uncased values.
+* ``UncasedBLEU``: the same values, the case-insensitive one primary.
+* ``SacreBLEU``: detokenized BLEU, its lowercased value and chrF through
+  the port's own sacrebleu (``metrics/sacrebleu_port.py``).
 """
 
 import math
@@ -10,10 +12,12 @@ import re
 from collections import Counter
 from typing import List
 
+from neurst_tpu_torch.metrics import sacrebleu_port
 from neurst_tpu_torch.metrics.metric import Metric, register_metric
 from neurst_tpu_torch.utils.flags_core import Flag
 
-__all__ = ["BLEU", "corpus_bleu", "bleu_tokenize"]
+__all__ = ["BLEU", "UncasedBLEU", "SacreBLEU", "corpus_bleu",
+           "bleu_tokenize"]
 
 
 def _is_cjk(ch):
@@ -126,3 +130,40 @@ class BLEU(Metric):
         ref_lc = [[[t.lower() for t in r] for r in rs] for rs in ref_tok]
         uncased = corpus_bleu(hyp_lc, ref_lc)
         return {"BLEU": cased, "UncasedBLEU": uncased}
+
+
+@register_metric("uncased_bleu")
+class UncasedBLEU(BLEU):
+    def __init__(self, args=None, language="en"):
+        super().__init__(args, language)
+        self._flag = "UncasedBLEU"
+
+
+@register_metric("sacre_bleu", "sacrebleu")
+class SacreBLEU(Metric):
+    """Detokenized BLEU (sacrebleu's defaults: ``13a``, or ``zh`` for
+    Chinese; Japanese takes ``13a`` too, as the JAX metric does where
+    MeCab is missing), its lowercased value and chrF."""
+
+    def __init__(self, args=None, language="en"):
+        super().__init__(args)
+        self._language = self._args.get("language") or language
+        self._flag = "SacreBLEU"
+
+    @staticmethod
+    def class_or_method_args():
+        return [Flag("language", dtype=Flag.TYPE.STRING, default="en",
+                     help="The target language.")]
+
+    def call(self, hypothesis, groundtruth) -> dict:
+        refs = groundtruth
+        if refs and isinstance(refs[0], (list, tuple)):
+            ref_streams = [list(r) for r in zip(*refs)]
+        else:
+            ref_streams = [list(refs)]
+        tokenize = "zh" if self._language == "zh" else "13a"
+        return {"SacreBLEU": sacrebleu_port.corpus_bleu(
+                    hypothesis, ref_streams, tokenize=tokenize),
+                "UncasedSacreBLEU": sacrebleu_port.corpus_bleu(
+                    hypothesis, ref_streams, lowercase=True),
+                "ChrF": sacrebleu_port.corpus_chrf(hypothesis, ref_streams)}

@@ -34,7 +34,8 @@ from neurst_tpu_torch.layers.layer_utils import input_length_to_padding
 from neurst_tpu_torch.layers.moe import collect_aux_losses
 from neurst_tpu_torch.layers.quantization.quant_layers import (
     dense_general, int8_serving_enabled, quant_enabled)
-from neurst_tpu_torch.models.model import BaseModel, dtype_by_name
+from neurst_tpu_torch.models.model import (BaseModel, dtype_by_name,
+                                           register_model)
 from neurst_tpu_torch.ops.fused_ce import fused_linear_ce_available
 from neurst_tpu_torch.parallel import collectives
 from neurst_tpu_torch.utils.flags_core import Flag
@@ -148,6 +149,7 @@ def _stack_kwargs(stack_cls, args: Dict[str, Any], prefix: str) -> dict:
     return out
 
 
+@register_model("seq2seq", "encoder_decoder_model")
 class EncoderDecoderModel(BaseModel):
 
     # whether the source is token ids (a word embedding); the speech

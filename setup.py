@@ -13,8 +13,12 @@ setup(
     # headers they include (philox.cuh), and its host libraries (crc32c,
     # the FLAC decoder, the zstd decoder of the orbax format) from
     # csrc/*.cpp
-    package_data={"neurst_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                       "csrc/*.cpp"]},
+    # and its Moses tokenizer reads its data files (nonbreaking prefixes,
+    # Perl Unicode Properties ranges)
+    package_data={"neurst_tpu_torch": [
+        "csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp",
+        "data/text/moses_data/NOTICE", "data/text/moses_data/*.txt",
+        "data/text/moses_data/nonbreaking_prefixes/*"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml",

@@ -8,7 +8,9 @@ every record shard.  The augmented-LibriSpeech zip of that file goes
 through stages 02-03 (fbank records in 2 shards, joint BPE, the projected
 ASR/ST triples); a MuST-C tarball from ``chip_smoke.write_mustc_corpus``
 (three splits) through stages 02-03 of ``must-c/0[23]-*.sh`` (2
-processors over 4 shards, ``--extraction``, no Moses).  The port's
+processors over 4 shards, ``--extraction``, Moses with punctuation
+normalization before the joint BPE, and in the triple records'
+pipelines).  The port's
 stage-03 records then feed ``run_exp --entry train --device cpu`` (2
 steps, ``speech_transformer_toy``) and ``--entry predict --device cpu``,
 through ``chip_smoke``'s ``prep_train_phase`` / ``prep_predict_phase``.
@@ -23,6 +25,7 @@ import importlib
 import io
 import json
 import os
+import sys
 import zipfile
 
 import numpy as np
@@ -225,15 +228,21 @@ def _mustc_stages(pkg, tarball, data, splits):
             "--output_range_end", "1", "--dataset", "MuSTC", "--extraction",
             split, *common, *fbank, "--output_template", os.path.join(
                 data, "devtest", f"{split}.en-de.tfrecords-%5.5d-of-%5.5d")])
+    for side in ("en", "de"):
+        _cli(pkg, "process_text").main([
+            "--tokenizer", "moses", "--language", side,
+            "--normalize_punctuation", "--input", f"{ts}/train.{side}.txt",
+            "--output", f"{ts}/train.{side}.tok.txt"])
     _cli(pkg, "learn_bpe").main([
-        "--input", f"{ts}/train.en.txt", f"{ts}/train.de.txt", "--symbols",
-        str(MUSTC["bpe_symbols"]), "--output", f"{ts}/codes.bpe",
-        "--write_vocabulary", f"{ts}/vocab.en", f"{ts}/vocab.de"])
+        "--input", f"{ts}/train.en.tok.txt", f"{ts}/train.de.tok.txt",
+        "--symbols", str(MUSTC["bpe_symbols"]), "--output",
+        f"{ts}/codes.bpe", "--write_vocabulary", f"{ts}/vocab.en",
+        f"{ts}/vocab.de"])
     for side in ("en", "de"):
         _cli(pkg, "process_text").main([
             "--tokenizer", "bpe", "--subtokenizer_codes", f"{ts}/codes.bpe",
-            "--input", f"{ts}/train.{side}.txt",
-            "--output", f"{ts}/train.{side}.bpe.txt"])
+            "--input", f"{ts}/train.{side}.tok.txt",
+            "--output", f"{ts}/train.{side}.tok.bpe.txt"])
     for module, args in chip_smoke._shard_calls(
             ["--dataset", "AudioTripleTFRecordDataset", "--feature_key",
              "audio", "--transcript_key", "transcript", "--translation_key",
@@ -247,7 +256,7 @@ def _mustc_stages(pkg, tarball, data, splits):
 
 def _pipeline(ts, side, clean):
     return {"remove_punctuation": clean, "lowercase": clean,
-            "language": side, "subtokenizer": "bpe",
+            "language": side, "tokenizer": "moses", "subtokenizer": "bpe",
             "subtokenizer_codes": f"{ts}/codes.bpe",
             "vocab_path": f"{ts}/vocab.{side}"}
 
@@ -452,25 +461,53 @@ def test_generate_vocab_matches(tmp_path):
         "c", "a", "<unused0>", "<unused1>"]
 
 
-def test_process_text_matches(tmp_path):
-    pytest.importorskip("sacremoses")
-    src = tmp_path / "in.txt"
-    src.write_text("Hello, world! It's 2026.\nA second line.\n")
-    outs = {}
-    for pkg in PACKAGES:
-        tok, detok = tmp_path / f"tok.{pkg}", tmp_path / f"detok.{pkg}"
-        _cli(pkg, "process_text").main([
-            "--tokenizer", "moses", "--language", "en",
-            "--normalize_punctuation", "--input", str(src),
-            "--output", str(tok)])
-        _cli(pkg, "process_text").main([
-            "--tokenizer", "moses", "--language", "en", "--detokenize",
-            "--input", str(tok), "--output", str(detok)])
-        outs[pkg] = (tok.read_text(), detok.read_text())
-    assert outs["neurst_tpu"] == outs["neurst_tpu_torch"]
-    assert " ," in outs["neurst_tpu_torch"][0]
-    assert outs["neurst_tpu_torch"][1].splitlines()[0] \
-        == "Hello, world! It's 2026."
+# a line a MuST-C language with its quotes, apostrophes, numbers and
+# spaces (non-breaking ones too), for the recipe's ``process_text``
+PROCESS_TEXT_LINES = {
+    "en": "Hello, world! It's 2026. \"Quoted\" -- a well-known (test)...",
+    "de": "„Hallo“, sagte er – es ist 3,5\u00a0% größer, z.B. Nr. 5!",
+    "es": "¿Qué tal? ¡Hola! Son 1.000 \u00abpesos\u00bb, Sr. García.",
+    "fr": "L'homme a dit\u00a0: \u00ab\u00a0Non\u00a0!\u00a0\u00bb "
+          "C'est 3,5\u00a0%.",
+    "it": "Dell'anno scorso, l'uomo disse: \"Sì\"... è così.",
+    "nl": "'t Is z'n boek, dhr. De Vries — 1.000 euro.",
+    "pt": "A ação \u201cnão\u201d custa 3,5\u00a0%, Sr. Silva.",
+    "ro": "Dl. Popescu n-a spus: \u201eștiință\u201d într-un an.",
+    "ru": "Он сказал: \u00abПривет\u00bb, т.е. 3,5\u00a0% — много.",
+}
+
+
+def test_process_text_matches(tmp_path, monkeypatch):
+    """``process_text --tokenizer moses --normalize_punctuation``, then
+    ``--detokenize``, in every MuST-C language: the port's CLI, where
+    sacremoses cannot be imported, writes the JAX CLI's bytes."""
+    sacremoses = pytest.importorskip("sacremoses")
+    english = None
+    for lang, line in PROCESS_TEXT_LINES.items():
+        src = tmp_path / f"in.{lang}"
+        src.write_text("Hello, world! It's 2026.\nA second line.\n" + line
+                       + "\n" + line.upper() + "\n")
+        outs = {}
+        for pkg in PACKAGES:
+            if pkg == "neurst_tpu_torch":
+                monkeypatch.setitem(sys.modules, "sacremoses", None)
+            tok = tmp_path / f"tok.{lang}.{pkg}"
+            detok = tmp_path / f"detok.{lang}.{pkg}"
+            _cli(pkg, "process_text").main([
+                "--tokenizer", "moses", "--language", lang,
+                "--normalize_punctuation", "--input", str(src),
+                "--output", str(tok)])
+            _cli(pkg, "process_text").main([
+                "--tokenizer", "moses", "--language", lang, "--detokenize",
+                "--input", str(tok), "--output", str(detok)])
+            outs[pkg] = (tok.read_text(), detok.read_text())
+        monkeypatch.setitem(sys.modules, "sacremoses", sacremoses)
+        assert outs["neurst_tpu"] == outs["neurst_tpu_torch"], lang
+        assert outs["neurst_tpu_torch"][0] != src.read_text()
+        assert " ," in outs["neurst_tpu_torch"][0]
+        english = english or outs["neurst_tpu_torch"]
+    # English's apostrophe rules give its contraction back
+    assert english[1].splitlines()[0] == "Hello, world! It's 2026."
 
 
 def test_view_records_and_audio_analysis_match(tmp_path):

@@ -7,7 +7,12 @@ CUDA raises, the predict, cascade and simuleval CLIs and the QAT, int8,
 MoE, pruning and export entries included (the host-only converter CLI
 runs without one); the orbax format's modules (zstd, OCDBT, zarr) and
 the port's sources import neither orbax, tensorstore, zstandard nor
-ml_dtypes, and a checkpoint round trip loads none of them; ``setup.py``
+ml_dtypes, and a checkpoint round trip loads none of them; no module
+of the port, and not ``chip_smoke.py``, imports sacremoses, sacrebleu,
+sentencepiece, regex or protobuf at module level, and where those
+cannot be imported the port's Moses, punctuation normalizer, SacreBLEU
+and SentencePiece give what they give beside them (the committed
+goldens those packages wrote, and this process's outputs); ``setup.py``
 ships every kernel source and header (the zstd decoder's too) and
 the quantization, sparsity and plug-in (``contrib``) subpackages; and
 ``chip_smoke.py`` fails without a card.
@@ -52,7 +57,8 @@ import torch  # noqa: F401 - loaded once, before the forks
 work = sys.argv[1]
 checks = json.load(sys.stdin)
 ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu", "tensorflow", "orbax",
-         "tensorstore", "zstandard", "ml_dtypes")
+         "tensorstore", "zstandard", "ml_dtypes", "sacremoses", "sacrebleu",
+         "sentencepiece", "regex", "google")
 
 
 def child(check):
@@ -202,6 +208,25 @@ ORBAX_MODULES = [
     "neurst_tpu_torch.utils.orbax_checkpoints",
     "neurst_tpu_torch.utils.checkpoints",
     "neurst_tpu_torch.layers.search.speculative"]
+# the text packages the port's own Moses, SacreBLEU and SentencePiece
+# replace (protobuf is ``google.protobuf``; other ``google`` namespace
+# packages may load)
+TEXT_PACKAGES = ("sacremoses", "sacrebleu", "sentencepiece", "regex",
+                 "google.protobuf")
+TEXT_FORBIDDEN = re.compile(
+    r"^(import|from)\s+(sacremoses|sacrebleu|sentencepiece|regex|"
+    r"google\.protobuf|google)\b", re.MULTILINE)
+# the text tools where their packages cannot be imported: the
+# text_tools phase against the goldens, then outputs printed as JSON
+TEXT_BLOCKED_CODE = (
+    "import json, sys\n"
+    "for name in ('sacremoses', 'sacrebleu', 'sentencepiece', 'regex',\n"
+    "             'google.protobuf'):\n"
+    "    sys.modules[name] = None\n"
+    "import chip_smoke\n"
+    "chip_smoke.text_tools_phase()\n"
+    "from test_torch_isolation import text_outputs\n"
+    "print('TEXT', json.dumps(text_outputs()))\n")
 EXAMPLES = os.path.join(REPO, "tests", "examples")
 QUANT_PARAMS = "{quant_bits: 8, quant_weight_clip_max: 1.0}"
 # the QAT, int8 and MoE entries, each without --device
@@ -304,6 +329,9 @@ def _checks(tmp):
                             os.path.join(tmp, "none.tfrecords")]})
     checks.append({"id": "build_model", "kind": "code",
                    "code": BUILD_MODEL_CODE})
+    checks.append({"id": "text_blocked", "kind": "code",
+                   "code": "import sys\nsys.path.insert(0, %r)\n" % (
+                       os.path.join(REPO, "tests")) + TEXT_BLOCKED_CODE})
     checks.append({"id": "chip_smoke", "kind": "path",
                    "path": os.path.join(REPO, "chip_smoke.py")})
     alone = os.path.join(tmp, "alone")
@@ -556,3 +584,101 @@ def test_chip_smoke_alone_fails(children):
     res = children["chip_smoke_alone"]
     assert res["rc"] != 0
     assert '"ok": true' not in res["out"]
+
+
+def text_outputs():
+    """The port's text tools on a few lines of each MuST-C language and
+    the spm fixtures: the registered Moses tokenizer with every option,
+    the transcript normalizer, SacreBLEU / chrF, spm pieces and decodes.
+    (Imports only the port: it runs in the children too.)"""
+    import json as _json
+
+    from neurst_tpu_torch.data.data_pipelines.data_pipeline import \
+        lowercase_and_remove_punctuations
+    from neurst_tpu_torch.data.text.tokenizer import build_tokenizer
+    from neurst_tpu_torch.metrics.metric import build_metric
+    with open(os.path.join(REPO, "tests", "fixtures", "text_goldens",
+                           "goldens.json"), encoding="utf-8") as f:
+        goldens = _json.load(f)
+    out = {}
+    for lang, g in goldens["moses"].items():
+        lines = g["lines"][:6]
+        for agg in (False, True):
+            for esc in (False, True):
+                tok = build_tokenizer({"tokenizer.class": "moses",
+                                       "tokenizer.params": {
+                                           "language": lang,
+                                           "aggressive_dash_splits": agg,
+                                           "escape": esc,
+                                           "glossaries": ["e-mail"]}})
+                out[f"moses_{lang}_{agg}_{esc}"] = [
+                    (tok.tokenize(s, return_str=True),
+                     tok.detokenize(tok.tokenize(s))) for s in lines]
+        out[f"transcript_{lang}"] = [
+            lowercase_and_remove_punctuations(lang, s) for s in lines]
+    for name, g in goldens["sacrebleu"].items():
+        refs = [list(r) for r in zip(*g["references"])]
+        for cls in ("sacre_bleu", "uncased_bleu"):
+            metric = build_metric({"metric.class": cls, "metric.params": {
+                "language": g["language"]}})
+            out[f"{cls}_{name}"] = metric(g["hypotheses"], refs)
+    for name, g in goldens["spm"].items():
+        tok = build_tokenizer({"tokenizer.class": "spm"})
+        tok.init_subtokenizer(os.path.join(REPO, "tests", "fixtures", "spm",
+                                           f"{name}.model"))
+        out[f"spm_{name}"] = [(tok.tokenize(s, return_str=True),
+                               tok.detokenize(tok.tokenize(s)))
+                              for s in g["lines"][:20]]
+    return out
+
+
+def test_setup_ships_the_moses_data():
+    import ast
+    import fnmatch
+    with open(os.path.join(REPO, "setup.py")) as f:
+        tree = ast.parse(f.read())
+    globs = next(ast.literal_eval(kw.value) for node in ast.walk(tree)
+                 if isinstance(node, ast.Call)
+                 for kw in node.keywords if kw.arg == "package_data")
+    data = os.path.join(PACKAGE, "data", "text", "moses_data")
+    files = [os.path.relpath(os.path.join(root, f), PACKAGE)
+             for root, _, names in os.walk(data) for f in names]
+    assert len(files) > 38
+    for name in files:
+        assert any(fnmatch.fnmatch(name, g)
+                   for g in globs["neurst_tpu_torch"]), name
+
+
+def test_every_module_imports_no_text_package(children):
+    res = children["every_module"]
+    bad = [m for m in res["leaked"] for p in TEXT_PACKAGES
+           if m == p or m.startswith(p + ".")]
+    assert res["rc"] == 0 and not bad, bad
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(root, f) for root, _, files in os.walk(PACKAGE)
+     for f in files if f.endswith(".py")]
+    + [os.path.join(REPO, "chip_smoke.py")]),
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_text_package_at_module_level(path):
+    with open(path) as f:
+        found = TEXT_FORBIDDEN.findall(f.read())
+    assert not found, f"{path} imports {found}"
+
+
+def test_text_tools_without_their_packages(children):
+    """Where sacremoses, sacrebleu, sentencepiece, regex and protobuf
+    cannot be imported, the text_tools phase passes on the goldens and
+    the outputs equal this process's, where they can."""
+    import json as _json
+    res = children["text_blocked"]
+    assert res["rc"] == 0, res["err"][-3000:]
+    rows = [line for line in res["out"].splitlines()
+            if line.startswith('{"phase": "text_tools"')]
+    row = _json.loads(rows[-1])
+    assert row["lines_equal"] == row["lines_compared"] > 2000
+    printed = next(line for line in res["out"].splitlines()
+                   if line.startswith("TEXT "))
+    assert _json.loads(printed[5:]) == _json.loads(_json.dumps(
+        text_outputs()))

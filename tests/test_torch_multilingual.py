@@ -121,10 +121,16 @@ def test_pipeline_meta_encode_decode_match_jax(reverse):
 
 
 def test_spm_tokenizer_is_not_available():
-    """The default tokenizer (spm) needs sentencepiece, which the port
-    does not register: building it raises."""
-    with pytest.raises(LookupError, match="spm"):
-        MultilingualTextDataPipeline(vocab_path=VOCAB, languages=["en"])
+    """The default tokenizer (spm) needs the ``sentencepiece`` package in
+    the JAX package, which this host lacks: building the JAX pipeline
+    raises.  The port's spm is its own: the pipeline builds, and asks for
+    a model before it tokenizes (``tests/test_torch_spm.py`` encodes with
+    one)."""
+    with pytest.raises(ImportError, match="sentencepiece"):
+        JaxPipeline(vocab_path=VOCAB, languages=["en"])
+    pipe = MultilingualTextDataPipeline(vocab_path=VOCAB, languages=["en"])
+    with pytest.raises(ValueError, match="spm model not initialized"):
+        pipe.encode("tok1 tok2")
 
 
 # ------------------------------ the dataset --------------------------- #
