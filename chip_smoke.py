@@ -17,8 +17,13 @@ exits non-zero):
                SentencePiece (the five ``tests/fixtures/spm`` models:
                encode, decode) against ``tests/fixtures/text_goldens``
                (sacremoses 0.1.1, sacrebleu 2.6.0 and the ``tokenizers``
-               SentencePiece), exactly; lines equal, lines compared and
-               seconds of each part.
+               SentencePiece), and its own jieba (1,000 seeded lines and
+               100 with glossaries) and WordPiece (BERT cased, uncased)
+               and byte-level BPE (GPT-2, RoBERTa) on the
+               ``tests/fixtures/hf`` directories (500 lines each: tokens,
+               ids, detokenized text) against jieba 0.42.1's and
+               ``AutoTokenizer``'s goldens, exactly; lines equal, lines
+               compared and seconds of each part.
 3. kernel   -- each kernel against its plain version on the card, in f32
                and bf16, at its path's shape and at a ragged shape; times
                of the kernel, the plain version, one PyTorch library call
@@ -225,7 +230,11 @@ exits non-zero):
                rate_schedule.yml (bert_as_encoder) and
                asy_distillation.yml (the KD criterion, a KD term > 0), and
                a float32 loss on the card against the CPU; gpt2_lm,
-               ``gpt2_117m`` from the converted GPT-2 on 256-1024-token
+               ``gpt2_117m`` from the converted GPT-2 through the ``gpt2``
+               data pipeline (byte-level BPE from a 50,257-entry GPT-2
+               tokenizer directory written from the seed; the pipeline
+               after ``model_configs.yml`` keeps it and <|endoftext|> as
+               eos; the host's BPE seconds) on 256-1024-token
                sequences (8192-token buckets, dropout 0.1): 20 steps, eval
                (PPL), predict (16 prompts continued 64 tokens by beam 4 and
                by top_sampling), float32 logits on the card against the
@@ -505,13 +514,18 @@ def build_phase():
 TEXT_GOLDENS = os.path.join("tests", "fixtures", "text_goldens",
                             "goldens.json")
 SPM_FIXTURES = os.path.join("tests", "fixtures", "spm")
+TOKENIZER_GOLDENS = os.path.join("tests", "fixtures", "text_goldens",
+                                 "tokenizer_goldens.json")
+HF_FIXTURES = os.path.join("tests", "fixtures", "hf")
 
 
 def text_tools_phase():
     """The port's own Moses, SacreBLEU / chrF and SentencePiece against
     the goldens that sacremoses, sacrebleu and the ``tokenizers``
-    SentencePiece wrote (``tests/tools/make_text_goldens.py``), exactly:
-    each part's lines equal, lines compared and seconds."""
+    SentencePiece wrote (``tests/tools/make_text_goldens.py``), and its
+    own jieba, WordPiece and byte-level BPE against those that jieba and
+    ``AutoTokenizer`` wrote (``tests/tools/make_tokenizer_goldens.py``),
+    exactly: each part's lines equal, lines compared and seconds."""
     from neurst_tpu_torch.data.text.moses import (moses_detokenize,
                                                   moses_tokenize)
     from neurst_tpu_torch.data.text.moses_normalize import \
@@ -561,16 +575,52 @@ def text_tools_phase():
         part(f"spm_decode_{name}", (
             (lambda p=p: sp.decode_pieces(p), want)
             for p, want in zip(g["pieces"], g["decoded"])))
+    jieba_load_s = tokenizer_parts(here, part)
     failed = sorted(k for k, v in parts.items()
                     if v["equal"] != v["compared"] or not v["compared"])
     row = {"phase": "text_tools", "parts": parts,
            "lines_equal": sum(v["equal"] for v in parts.values()),
            "lines_compared": sum(v["compared"] for v in parts.values()),
            "seconds": sum(v["seconds"] for v in parts.values()),
-           "failed": failed}
+           "jieba_load_s": jieba_load_s, "failed": failed}
     emit(row)
     if failed:
         raise AssertionError(f"text_tools phase failed: {failed}")
+
+
+def tokenizer_parts(here, part):
+    """``text_tools``' jieba and HuggingFace parts: ``jieba_cut`` (the
+    seeded lines, then the glossary lines with the glossaries added) and
+    each WordPiece / byte-level BPE fixture's tokens, ids and
+    detokenized text, from its ``tokenizer.json`` directory and from its
+    slow files.  Returns the seconds jieba's dictionary took to load."""
+    from neurst_tpu_torch.data.text.hf_tokenizer_files import \
+        load_tokenizer_dir
+    from neurst_tpu_torch.data.text.jieba_segment import JiebaSegmenter
+
+    with open(os.path.join(here, TOKENIZER_GOLDENS), encoding="utf-8") as f:
+        goldens = json.load(f)
+    g = goldens["jieba"]
+    start = time.perf_counter()
+    plain = JiebaSegmenter()
+    glossary = JiebaSegmenter(g["glossaries"])
+    load_s = time.perf_counter() - start
+    part("jieba_cut", [(lambda s=s: list(plain.cut(s)), want)
+                       for s, want in zip(g["lines"], g["cut"])]
+         + [(lambda s=s: list(glossary.cut(s)), want)
+            for s, want in zip(g["glossary_lines"], g["glossary_cut"])])
+    for name, g in goldens["hf"].items():
+        pairs = []
+        for kind in ("fast", "slow"):
+            tok = load_tokenizer_dir(os.path.join(
+                here, HF_FIXTURES, f"{g['fixture']}_{kind}"))
+            pairs += [(lambda s=s, t=t, tok=tok: (
+                tok.tokenize(s), tok.convert_tokens_to_ids(t),
+                tok.convert_tokens_to_string(t)), (t, i, d))
+                for s, t, i, d in zip(g["lines"], g["tokens"], g["ids"],
+                                      g["detokenized"])]
+        part(name, pairs)
+    return load_s
 
 
 # spin-kernel cycles per second of host time to cover (above the H100's
@@ -6227,26 +6277,77 @@ def ctnmt_phases(seed, root, bert_pt, device="cuda"):
 
 
 # GPT-2 117M language modelling (``--hparams_set gpt2_117m``) from the
-# converted GPT-2: TextDataPipeline over a seeded 50,257-entry vocabulary
-# whose last entry is its eos (where GPT-2 has <|endoftext|>);
-# 256-1024-token sequences in 8192-token buckets, the hparams set's
-# dropout 0.1
+# converted GPT-2 through the ``gpt2`` data pipeline, as GPT-2 users run
+# it: byte-level BPE from a GPT-2 tokenizer directory of 50,257 entries
+# (<|endoftext|> at 50,256, the eos, pad and bos) that the phase writes
+# from its seeded corpus of ``corpus_words`` words; 256-1024-token
+# sequences in 8192-token buckets, the hparams set's dropout 0.1
 GPT2_LM = dict(hparams_set="gpt2_117m", vocab=GPT2_117M["vocab"],
-               train_lines=300, heldout_lines=32, min_tokens=256,
-               max_tokens=1024, batch_tokens=8192, steps=20, summary=5,
-               prompts=16, min_prompt=16, max_prompt=64, continuation=64,
-               check_prompt=32)
+               corpus_words=4096, train_lines=300, heldout_lines=32,
+               min_tokens=256, max_tokens=1024, batch_tokens=8192, steps=20,
+               summary=5, prompts=16, min_prompt=16, max_prompt=64,
+               continuation=64, check_prompt=32)
 GPT2_CHECK_TOL = 1e-3
+EOT = "<|endoftext|>"
 
 
 def write_mono(path, rng, words, n, min_tokens, max_tokens):
     """``n`` lines of random words, each ``min_tokens``-``max_tokens``
-    tokens with its EOS."""
+    tokens with its EOS: a one-letter word (one token of a byte-level
+    BPE), then ``words``."""
     with open(path, "w") as f:
         for length in rng.randint(min_tokens, max_tokens + 1, size=n):
-            f.write(" ".join(words[i] for i in rng.randint(
-                len(words), size=int(length) - 1)) + "\n")
+            f.write(" ".join([chr(ord("a") + int(rng.randint(26)))] + [
+                words[i] for i in rng.randint(len(words),
+                                              size=int(length) - 2)]) + "\n")
     return path
+
+
+def write_gpt2_tokenizer(path, rng, size, n_words):
+    """A GPT-2 tokenizer directory (``vocab.json``, ``merges.txt``,
+    ``tokenizer_config.json``, ``special_tokens_map.json``, as the slow
+    GPT-2 class saves them, but ``vocab.json`` in id order as OpenAI's
+    ``encoder.json``) of ``size`` entries: the 256 byte characters, the
+    merges and <|endoftext|> last.  The merges spell out each of
+    ``n_words`` seeded words after a space (``Ġ``), prefix by prefix, so
+    that BPE makes each of them one token after a space; more seeded
+    words pad them to the size.  Returns the words."""
+    from neurst_tpu_torch.data.text.byte_level_bpe import bytes_to_unicode
+    os.makedirs(path, exist_ok=True)
+    base = [bytes_to_unicode()[b] for b in range(256)]
+    tokens, merges = set(base), []
+
+    def spell(word):
+        for k in range(1, len(word)):
+            if len(merges) == size - len(base) - 1:
+                return
+            if word[:k + 1] not in tokens:
+                tokens.add(word[:k + 1])
+                merges.append((word[:k], word[k]))
+    words = set()
+    while len(words) < n_words:
+        words.add(_random_word(rng, 2, 9))
+    words = sorted(words)
+    for word in words:
+        spell("\u0120" + word)
+    while len(merges) < size - len(base) - 1:
+        spell("\u0120" + _random_word(rng, 3, 10))
+    vocab = base + [a + b for a, b in merges] + [EOT]
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    special = {"bos_token": EOT, "eos_token": EOT, "unk_token": EOT}
+    with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
+        json.dump(special, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(dict(special, tokenizer_class="GPT2Tokenizer",
+                       add_prefix_space=False, added_tokens_decoder={
+                           str(size - 1): {
+                               "content": EOT, "lstrip": False,
+                               "normalized": True, "rstrip": False,
+                               "single_word": False, "special": True}}), f)
+    return words
 
 
 def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
@@ -6259,22 +6360,22 @@ def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
 
     from neurst_tpu_torch import build_model
     from neurst_tpu_torch.cli import run_exp
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
     from neurst_tpu_torch.models.gpt2 import GPT2
     from neurst_tpu_torch.ops import launch_counts, reset_launch_counts
     from neurst_tpu_torch.tasks.language_model import LanguageModel
     from neurst_tpu_torch.utils.checkpoints import (latest_checkpoint,
                                                     restore_checkpoint_params)
+    from neurst_tpu_torch.utils.configurable import ModelConfigs
     from neurst_tpu_torch.utils.param_bridge import load_flat_params
 
     g = GPT2_LM
     start = time.perf_counter()
     rng = np.random.RandomState(seed + 120)
-    vocab = os.path.join(root, "gpt2_vocab.txt")
-    # the pipeline appends <UNK>, <SEQ_BEG> and <SEQ_END>: the eos is the
-    # last id, as GPT-2's <|endoftext|> (binding that string through
-    # ``eos_id`` does not survive into model_configs.yml: ROADMAP R12)
-    words = write_word_vocab(vocab, rng, g["vocab"] - 3)
-    pipeline = {"vocab_path": vocab}
+    tok_dir = os.path.join(root, "gpt2_tokenizer")
+    words = write_gpt2_tokenizer(tok_dir, rng, g["vocab"], g["corpus_words"])
+    pipeline = {"vocab_path": os.path.join(tok_dir, "vocab.json"),
+                "tokenizer_name": tok_dir}
     train = write_mono(os.path.join(root, "lm_train.txt"), rng, words,
                        g["train_lines"], g["min_tokens"], g["max_tokens"])
     heldout = write_mono(os.path.join(root, "lm_heldout.txt"), rng, words,
@@ -6282,12 +6383,31 @@ def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
                          g["max_tokens"])
     prompts = write_mono(os.path.join(root, "lm_prompts.txt"), rng, words,
                          g["prompts"], g["min_prompt"], g["max_prompt"])
+    # the host's BPE on every line, as the pipeline encodes them (a fresh
+    # pipeline, so no piece is cached)
+    bpe = time.perf_counter()
+    encoder = build_data_pipeline({"data_pipeline.class": "gpt2",
+                                   "data_pipeline.params": pipeline})
+    bpe_build_s = time.perf_counter() - bpe
+    bpe_tokens = 0
+    for path in (train, heldout, prompts):
+        with open(path) as f:
+            for line in f:
+                ids = encoder.encode(line)
+                if not g["min_tokens"] <= len(ids) <= g["max_tokens"] and \
+                        path != prompts:
+                    raise AssertionError(f"gpt2 pipeline: {len(ids)} tokens")
+                bpe_tokens += len(ids)
+    bpe_s = time.perf_counter() - bpe
+    if encoder.meta["eos_id"] != g["vocab"] - 1 or \
+            encoder.meta["vocab_size"] != g["vocab"]:
+        raise AssertionError(f"gpt2 pipeline meta {encoder.meta}")
     write_s = time.perf_counter() - start
     cfg = os.path.join(root, "lm.json")
     with open(cfg, "w") as f:
         json.dump({
             "task.class": "lm",
-            "task.params": {"data_pipeline.class": "TextDataPipeline",
+            "task.params": {"data_pipeline.class": "gpt2",
                             "data_pipeline.params": pipeline,
                             "batch_by_tokens": True,
                             "batch_size": g["batch_tokens"],
@@ -6321,6 +6441,22 @@ def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
                      restored=restored[0], launches_per_step=per_step)
     del model, seen
     launches = {"gpt2_trainer": launch_counts()}
+    # eval and predict rebuild the pipeline from model_configs.yml: the
+    # tokenizer dir survives, and the eos is <|endoftext|>'s id
+    saved = ModelConfigs.load(model_dir)["task.params"]
+    rebuilt = build_data_pipeline({
+        "data_pipeline.class": saved["data_pipeline.class"],
+        "data_pipeline.params": saved["data_pipeline.params"]})
+    round_trip = {"class": saved["data_pipeline.class"],
+                  "tokenizer_name": saved["data_pipeline.params"].get(
+                      "tokenizer_name") == tok_dir,
+                  "eos_id": rebuilt.meta["eos_id"],
+                  "eot_id": rebuilt.vocab.map_token_to_id(EOT)}
+    if round_trip["class"] != "GPT2DataPipeline" or not \
+            round_trip["tokenizer_name"] or round_trip["eos_id"] != \
+            round_trip["eot_id"] or rebuilt.meta != encoder.meta:
+        raise AssertionError(f"gpt2 pipeline after model_configs.yml: "
+                             f"{round_trip}")
 
     evaluated = run_exp.cli_main([
         "--entry", "eval", "--model_dir", model_dir, "--dataset.class",
@@ -6367,6 +6503,10 @@ def gpt2_lm_phases(seed, root, gpt2_dir, device="cuda"):
     rel = _rel_err(logits[device], logits["cpu"])
     emit({"phase": "gpt2_lm", "hparams_set": g["hparams_set"], "dtype":
           "bfloat16", "dropout": 0.1, "write_inputs_s": write_s,
+          "data_pipeline": round_trip,
+          "host_bpe": {"pipeline_build_s": bpe_build_s, "encode_s": bpe_s,
+                       "tokens": bpe_tokens,
+                       "tokens_per_s": bpe_tokens / bpe_s},
           "lines": [g["train_lines"], g["heldout_lines"], g["prompts"]],
           "tokens_a_line": [g["min_tokens"], g["max_tokens"]],
           "train": train_row, "eval": {"PPL": evaluated["PPL"],

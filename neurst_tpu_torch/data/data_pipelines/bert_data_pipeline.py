@@ -1,8 +1,10 @@
 """The BERT data pipeline (the port's copy of
 ``neurst_tpu/data/data_pipelines/bert_data_pipeline.py``): WordPiece
 tokens through the HuggingFace tokenizer (``tokenizer_name``: a local
-path; it needs ``transformers``), the [CLS]/[SEP]/[UNK]/[PAD]/[MASK]
-specials, and ``encode`` wrapping the ids as [CLS] ... [SEP].
+BERT tokenizer directory, read by the port's own WordPiece, with no
+``transformers``; without it the text is taken as tokenized), the
+[CLS]/[SEP]/[UNK]/[PAD]/[MASK] specials, and ``encode`` wrapping the
+ids as [CLS] ... [SEP].
 """
 
 from neurst_tpu_torch.data.data_pipelines.data_pipeline import (

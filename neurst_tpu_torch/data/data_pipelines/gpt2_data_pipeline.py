@@ -1,8 +1,9 @@
 """The GPT-2 data pipeline (the port's copy of
 ``neurst_tpu/data/data_pipelines/gpt2_data_pipeline.py``): byte-level BPE
-through the HuggingFace tokenizer (``tokenizer_name``: a local path; it
-needs ``transformers``), the OpenAI ``encoder.json`` vocabulary, and
-``<|endoftext|>`` as eos, pad and bos.
+through the HuggingFace tokenizer (``tokenizer_name``: a local GPT-2
+tokenizer directory, read by the port's own byte-level BPE, with no
+``transformers``), the OpenAI ``encoder.json`` / ``vocab.json``
+vocabulary, and ``<|endoftext|>`` as eos, pad and bos.
 """
 
 from neurst_tpu_torch.data.data_pipelines.data_pipeline import (

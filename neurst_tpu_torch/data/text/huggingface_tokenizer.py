@@ -1,11 +1,13 @@
-"""The HuggingFace tokenizer wrapper (the port's copy of
-``neurst_tpu/data/text/huggingface_tokenizer.py``).  It needs the
-``transformers`` package, which it imports when the tokenizer is
-initialized, and raises ``ImportError`` without.  ``codes`` goes to
-``AutoTokenizer.from_pretrained`` as it is, as in the JAX wrapper: a
-local path is read from disk, a hub model name is fetched from the
-HuggingFace hub (give a local path where there is no network)."""
+"""The HuggingFace tokenizer (the port's copy of
+``neurst_tpu/data/text/huggingface_tokenizer.py``) over the port's own
+WordPiece and byte-level BPE (``hf_tokenizer_files``), so it needs no
+``transformers`` or ``tokenizers`` package.  ``codes`` is a local
+tokenizer directory (BERT, GPT-2 or RoBERTa, as ``tokenizer.json`` or as
+the slow files), read as ``AutoTokenizer.from_pretrained`` reads it into
+the fast tokenizer; a hub model name is not fetched, and raises
+``ValueError``."""
 
+from neurst_tpu_torch.data.text.hf_tokenizer_files import load_tokenizer_dir
 from neurst_tpu_torch.data.text.tokenizer import Tokenizer, register_tokenizer
 
 __all__ = ["HuggingFaceTokenizer"]
@@ -19,13 +21,8 @@ class HuggingFaceTokenizer(Tokenizer):
         self._tok = None
 
     def init_subtokenizer(self, codes):
-        """``codes`` is a HuggingFace model name or local path."""
-        try:
-            from transformers import AutoTokenizer
-        except ImportError as e:
-            raise ImportError("transformers is required for the "
-                              "huggingface tokenizer") from e
-        self._tok = AutoTokenizer.from_pretrained(codes)
+        """``codes`` is the path of a local tokenizer directory."""
+        self._tok = load_tokenizer_dir(codes)
 
     def tokenize(self, text, return_str=False):
         if self._tok is None:

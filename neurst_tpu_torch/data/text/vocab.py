@@ -2,8 +2,8 @@
 ``neurst_tpu/data/text/vocab.py``).
 
 One token per line (a trailing frequency column is dropped), or a GPT-2
-style ``.json`` mapping; a quoted single token is unquoted, so NeurST
-vocabulary files load unchanged.
+style ``.json`` mapping {token: id}, read in id order; a quoted single
+token is unquoted, so NeurST vocabulary files load unchanged.
 """
 
 import json
@@ -11,6 +11,18 @@ import random
 from typing import List, Optional, Union
 
 __all__ = ["Vocab", "PaddingMode"]
+
+
+def _json_tokens(mapping, path):
+    """The tokens of a {token: id} vocabulary in id order (the JAX
+    package takes the file's key order, which is not the id order of a
+    ``vocab.json`` that a tokenizer's ``save_pretrained`` sorted by key:
+    ROADMAP R17)."""
+    tokens = sorted(mapping, key=mapping.get)
+    if [mapping[t] for t in tokens] != list(range(len(tokens))):
+        raise ValueError(f"{path}: the ids of a .json vocabulary must be "
+                         "0 to its size - 1")
+    return tokens
 
 
 class PaddingMode(object):
@@ -59,7 +71,7 @@ class Vocab(object):
         if vocab_path is not None:
             with open(vocab_path, "r", encoding="utf-8") as f:
                 if vocab_path.endswith(".json"):  # GPT-2 style vocab
-                    tokens = list(json.load(f).keys())
+                    tokens = _json_tokens(json.load(f), vocab_path)
                     skip_empty = False
                 else:
                     tokens = [line.rstrip("\n") for line in f]

@@ -14,11 +14,13 @@ setup(
     # the FLAC decoder, the zstd decoder of the orbax format) from
     # csrc/*.cpp
     # and its Moses tokenizer reads its data files (nonbreaking prefixes,
-    # Perl Unicode Properties ranges)
+    # Perl Unicode Properties ranges), its jieba segmenter jieba's
+    # dictionary and HMM tables
     package_data={"neurst_tpu_torch": [
         "csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp",
         "data/text/moses_data/NOTICE", "data/text/moses_data/*.txt",
-        "data/text/moses_data/nonbreaking_prefixes/*"]},
+        "data/text/moses_data/nonbreaking_prefixes/*",
+        "data/text/jieba_data/NOTICE", "data/text/jieba_data/*.gz"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml",

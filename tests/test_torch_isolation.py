@@ -9,13 +9,15 @@ runs without one); the orbax format's modules (zstd, OCDBT, zarr) and
 the port's sources import neither orbax, tensorstore, zstandard nor
 ml_dtypes, and a checkpoint round trip loads none of them; no module
 of the port, and not ``chip_smoke.py``, imports sacremoses, sacrebleu,
-sentencepiece, regex or protobuf at module level, and where those
-cannot be imported the port's Moses, punctuation normalizer, SacreBLEU
-and SentencePiece give what they give beside them (the committed
-goldens those packages wrote, and this process's outputs); ``setup.py``
-ships every kernel source and header (the zstd decoder's too) and
-the quantization, sparsity and plug-in (``contrib``) subpackages; and
-``chip_smoke.py`` fails without a card.
+sentencepiece, regex or protobuf at module level, nor jieba,
+transformers or tokenizers anywhere, and where those cannot be imported
+the port's Moses, punctuation normalizer, SacreBLEU, SentencePiece,
+jieba, WordPiece and byte-level BPE give what they give beside them (the
+committed goldens those packages wrote, and this process's outputs);
+``setup.py`` ships every kernel source and header (the zstd decoder's
+too), the Moses and jieba data and the quantization, sparsity and
+plug-in (``contrib``) subpackages; and ``chip_smoke.py`` fails without a
+card.
 
 Each check runs in an interpreter of its own, so that this process's own
 JAX imports cannot hide a leak; to keep that cheap, one parent
@@ -58,7 +60,8 @@ work = sys.argv[1]
 checks = json.load(sys.stdin)
 ROOTS = ("jax", "jaxlib", "flax", "neurst_tpu", "tensorflow", "orbax",
          "tensorstore", "zstandard", "ml_dtypes", "sacremoses", "sacrebleu",
-         "sentencepiece", "regex", "google")
+         "sentencepiece", "regex", "google", "jieba", "transformers",
+         "tokenizers")
 
 
 def child(check):
@@ -176,6 +179,18 @@ PRETRAINED_MODULES = [
     "neurst_tpu_torch.data.text.huggingface_tokenizer",
     "neurst_tpu_torch.data.data_pipelines.bert_data_pipeline",
     "neurst_tpu_torch.data.data_pipelines.gpt2_data_pipeline"]
+# the packages the port's own jieba, WordPiece and byte-level BPE replace
+HF_ROOTS = ("jieba", "transformers", "tokenizers")
+TOKENIZER_MODULES = [
+    "neurst_tpu_torch.data.text.jieba_segment",
+    "neurst_tpu_torch.data.text.jieba_tokenizer",
+    "neurst_tpu_torch.data.text.hf_unicode_tables",
+    "neurst_tpu_torch.data.text.wordpiece",
+    "neurst_tpu_torch.data.text.byte_level_bpe",
+    "neurst_tpu_torch.data.text.hf_tokenizer_files",
+    "neurst_tpu_torch.data.text.huggingface_tokenizer",
+    "neurst_tpu_torch.data.data_pipelines.bert_data_pipeline",
+    "neurst_tpu_torch.data.data_pipelines.gpt2_data_pipeline"]
 QUANT_MOE_MODULES = [
     "neurst_tpu_torch.layers.quantization",
     "neurst_tpu_torch.layers.quantization.quant_layers",
@@ -208,20 +223,26 @@ ORBAX_MODULES = [
     "neurst_tpu_torch.utils.orbax_checkpoints",
     "neurst_tpu_torch.utils.checkpoints",
     "neurst_tpu_torch.layers.search.speculative"]
-# the text packages the port's own Moses, SacreBLEU and SentencePiece
-# replace (protobuf is ``google.protobuf``; other ``google`` namespace
-# packages may load)
+# the text packages the port's own Moses, SacreBLEU, SentencePiece,
+# jieba, WordPiece and byte-level BPE replace (protobuf is
+# ``google.protobuf``; other ``google`` namespace packages may load)
 TEXT_PACKAGES = ("sacremoses", "sacrebleu", "sentencepiece", "regex",
-                 "google.protobuf")
+                 "google.protobuf", "jieba", "transformers", "tokenizers")
 TEXT_FORBIDDEN = re.compile(
     r"^(import|from)\s+(sacremoses|sacrebleu|sentencepiece|regex|"
-    r"google\.protobuf|google)\b", re.MULTILINE)
+    r"google\.protobuf|google|jieba|transformers|tokenizers)\b",
+    re.MULTILINE)
+# jieba, transformers and tokenizers are imported nowhere, not even
+# inside a function
+HF_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jieba|transformers|"
+                          r"tokenizers)\b", re.MULTILINE)
 # the text tools where their packages cannot be imported: the
 # text_tools phase against the goldens, then outputs printed as JSON
 TEXT_BLOCKED_CODE = (
     "import json, sys\n"
     "for name in ('sacremoses', 'sacrebleu', 'sentencepiece', 'regex',\n"
-    "             'google.protobuf'):\n"
+    "             'google.protobuf', 'jieba', 'transformers',\n"
+    "             'tokenizers'):\n"
     "    sys.modules[name] = None\n"
     "import chip_smoke\n"
     "chip_smoke.text_tools_phase()\n"
@@ -277,9 +298,10 @@ def _checks(tmp):
                "walk": "neurst_tpu_torch", "modules": ["chip_smoke"]}]
     checks += [{"id": f"subpackage_{name}", "kind": "import",
                 "walk": f"neurst_tpu_torch.{name}"} for name in SUBPACKAGES]
-    for module in (MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
-                   + QUANT_MOE_MODULES + SLICE13_MODULES
-                   + PARALLEL_MODULES + ORBAX_MODULES):
+    for module in dict.fromkeys(
+            MULTI_TASK_MODULES + WAITK_MODULES + PRETRAINED_MODULES
+            + QUANT_MOE_MODULES + SLICE13_MODULES + PARALLEL_MODULES
+            + ORBAX_MODULES + TOKENIZER_MODULES):
         checks.append({"id": f"module_{module}", "kind": "import",
                        "modules": [module]})
     # the orbax reader on a checkpoint it wrote: no orbax, tensorstore,
@@ -423,8 +445,11 @@ def test_wait_k_lightconv_and_sampling_modules_load_no_jax(children, module):
 def test_pretrained_trunk_modules_load_no_jax_or_tensorflow(children,
                                                            module):
     """The converters, the pretrained models and their task and data
-    modules import neither JAX nor ``neurst_tpu`` nor TensorFlow."""
-    _no_jax(children[f"module_{module}"], JAX_ROOTS + ("tensorflow",))
+    modules import neither JAX nor ``neurst_tpu`` nor TensorFlow, nor
+    (the HuggingFace tokenizer and the BERT and GPT-2 pipelines among
+    them) ``transformers``, ``tokenizers`` or jieba."""
+    _no_jax(children[f"module_{module}"],
+            JAX_ROOTS + ("tensorflow",) + HF_ROOTS)
 
 
 @pytest.mark.parametrize("module", QUANT_MOE_MODULES)
@@ -629,6 +654,52 @@ def text_outputs():
         out[f"spm_{name}"] = [(tok.tokenize(s, return_str=True),
                                tok.detokenize(tok.tokenize(s)))
                               for s in g["lines"][:20]]
+    out.update(tokenizer_outputs())
+    return out
+
+
+def tokenizer_outputs():
+    """The registered ``jieba`` (with and without glossaries) and
+    ``huggingface`` tokenizers on golden lines, each fixture from its
+    ``tokenizer.json`` directory and from its slow files, and the
+    ``bert`` and ``gpt2`` pipelines' ids and decodes.  (Imports only the
+    port: it runs in the children too.)"""
+    import json as _json
+
+    from neurst_tpu_torch.data.data_pipelines import build_data_pipeline
+    from neurst_tpu_torch.data.text.tokenizer import build_tokenizer
+    with open(os.path.join(REPO, "tests", "fixtures", "text_goldens",
+                           "tokenizer_goldens.json"), encoding="utf-8") as f:
+        goldens = _json.load(f)
+    out = {}
+    g = goldens["jieba"]
+    for glossaries, lines in ((None, g["lines"][:60]),
+                              (g["glossaries"], g["glossary_lines"])):
+        tok = build_tokenizer({"tokenizer.class": "jieba",
+                               "tokenizer.params": {
+                                   "glossaries": glossaries}})
+        out[f"jieba_{bool(glossaries)}"] = [
+            (tok.tokenize(s), tok.detokenize(tok.tokenize(s)))
+            for s in lines]
+    fixtures = os.path.join(REPO, "tests", "fixtures", "hf")
+    for part, g in goldens["hf"].items():
+        for kind in ("fast", "slow"):
+            tok = build_tokenizer("huggingface")
+            tok.init_subtokenizer(os.path.join(
+                fixtures, f"{g['fixture']}_{kind}"))
+            out[f"hf_{part}_{kind}"] = [
+                (tok.tokenize(s), tok.detokenize(tok.tokenize(
+                    s, return_str=True))) for s in g["lines"][:60]]
+    for cls, fixture, vocab, part in (
+            ("bert", "bert_uncased_fast", "vocab.txt", "wordpiece_uncased"),
+            ("gpt2", "gpt2_fast", "vocab.json", "gpt2_bpe")):
+        path = os.path.join(fixtures, fixture)
+        pipeline = build_data_pipeline({
+            "data_pipeline.class": cls, "data_pipeline.params": {
+                "vocab_path": os.path.join(path, vocab),
+                "tokenizer_name": path}})
+        ids = [pipeline.encode(s) for s in goldens["hf"][part]["lines"][:30]]
+        out[f"pipeline_{cls}"] = [(i, pipeline.decode(i)) for i in ids]
     return out
 
 
@@ -678,7 +749,58 @@ def test_text_tools_without_their_packages(children):
             if line.startswith('{"phase": "text_tools"')]
     row = _json.loads(rows[-1])
     assert row["lines_equal"] == row["lines_compared"] > 2000
-    printed = next(line for line in res["out"].splitlines()
-                   if line.startswith("TEXT "))
-    assert _json.loads(printed[5:]) == _json.loads(_json.dumps(
-        text_outputs()))
+    for name in ("jieba_cut", "wordpiece_cased", "wordpiece_uncased",
+                 "gpt2_bpe", "roberta_bpe"):
+        part = row["parts"][name]
+        assert part["equal"] == part["compared"] >= 500, name
+    printed = _json.loads(next(line for line in res["out"].splitlines()
+                               if line.startswith("TEXT "))[5:])
+    assert printed == _json.loads(_json.dumps(text_outputs()))
+    with open(os.path.join(REPO, "tests", "fixtures", "text_goldens",
+                           "tokenizer_goldens.json"), encoding="utf-8") as f:
+        goldens = _json.load(f)
+    g = goldens["jieba"]
+    assert [t for t, _ in printed["jieba_False"]] == [
+        [w for w in cut if w.strip()] for cut in g["cut"][:60]]
+    assert [t for t, _ in printed["jieba_True"]] == [
+        [w for w in cut if w.strip()] for cut in g["glossary_cut"]]
+    for part, g in goldens["hf"].items():
+        for kind in ("fast", "slow"):
+            assert [t for t, _ in printed[f"hf_{part}_{kind}"]] == \
+                g["tokens"][:60], (part, kind)
+
+
+def test_tokenizer_modules_load_none_of_their_packages(children):
+    """The port's jieba, WordPiece, byte-level BPE, their tables and
+    readers, the ``huggingface`` tokenizer and the BERT and GPT-2
+    pipelines load neither JAX nor jieba, ``transformers`` or
+    ``tokenizers``."""
+    for module in TOKENIZER_MODULES:
+        _no_jax(children[f"module_{module}"], JAX_ROOTS + HF_ROOTS)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(root, f) for root, _, files in os.walk(PACKAGE)
+     for f in files if f.endswith(".py")]
+    + [os.path.join(REPO, "chip_smoke.py")]),
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_jieba_or_huggingface_package_anywhere(path):
+    with open(path) as f:
+        found = HF_FORBIDDEN.findall(f.read())
+    assert not found, f"{path} imports {found}"
+
+
+def test_setup_ships_the_jieba_data():
+    import ast
+    import fnmatch
+    with open(os.path.join(REPO, "setup.py")) as f:
+        tree = ast.parse(f.read())
+    globs = next(ast.literal_eval(kw.value) for node in ast.walk(tree)
+                 if isinstance(node, ast.Call)
+                 for kw in node.keywords if kw.arg == "package_data")
+    data = os.path.join(PACKAGE, "data", "text", "jieba_data")
+    files = sorted(os.listdir(data))
+    assert files == ["NOTICE", "dict.txt.gz", "hmm.json.gz"]
+    for name in files:
+        assert any(fnmatch.fnmatch(f"data/text/jieba_data/{name}", g)
+                   for g in globs["neurst_tpu_torch"]), name
